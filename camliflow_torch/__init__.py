@@ -2,14 +2,16 @@
 
 The port of `camliflow_tpu` (the JAX reference, which stays beside it). It
 mirrors that package's layout and its channel-last conventions (points
-`[B, N, 3]`, features `[B, N, C]`, indices int32):
+`[B, N, 3]`, features `[B, N, C]`, image maps NHWC, indices int32):
 
-- ``ops``      geometry, IDS, and the kernel modules (knn, fps, interp,
-               corr3d), each a CUDA kernel plus its plain PyTorch version
+- ``ops``      geometry, IDS, image and correlation ops, and the kernel
+               modules (knn, fps, interp, corr3d, update2d), each a CUDA
+               kernel plus its plain PyTorch version
 - ``csrc``     the CUDA sources and their nvcc/ctypes build
-- ``nn``       dense/norm/act blocks and point convolutions
-- ``models``   CamLiRAFT-L (eval) and the model registry
+- ``nn``       dense/norm/act blocks, point convolutions, ResNet, CLFM
+- ``models``   CamLiRAFT and CamLiRAFT-L (eval) and the model registry
 - ``runtime``  the things-protocol evaluator and the JAX weight bridge
+- ``data``     the FlyingThings3D eval reader
 - ``eval.py``  the eval entry point
 
 It imports no JAX.

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The kernels (`*.cu` beside this file) have a plain C interface. At first use
-they are compiled by `nvcc` for Hopper (`sm_90a`) into one shared library
-under `build/camliflow_torch/` at the repository root and loaded with
-`ctypes`. The library's name carries a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is reused.
+each source is compiled by its own `nvcc` for Hopper (`sm_90a`), all of them
+at once, and the objects are linked into one shared library under
+`build/camliflow_torch/` at the repository root, loaded with `ctypes`. The
+library's name carries a hash of the sources and flags, so an edited source
+is rebuilt and an unchanged one is reused.
 
     python -m camliflow_torch.csrc.build     # build now, print ptxas info
 """
@@ -24,9 +25,9 @@ CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "camliflow_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # no multiply-add contraction: distances must round exactly as the
-    # plain PyTorch versions do
+    # plain PyTorch versions do (the conv kernels write theirs explicitly)
     "-fmad=false",
     "-Xptxas", "-v",
 ]
@@ -39,6 +40,8 @@ SIGNATURES = {
     "camli_fps": [_P, _P, _I, _I, _I, _P],
     "camli_interp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "camli_corr3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "camli_motion_encoder_2d": [_P] * 15 + [_I] * 9 + [_P],
+    "camli_gru_flowhead_2d": [_P] * 21 + [_I] * 7 + [_P],
 }
 
 
@@ -68,16 +71,32 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    objects, procs = [], []
+    for src in sources():  # one nvcc per source, all started together
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    try:
+        log = "".join(proc.communicate()[0] for proc in procs)
+        if any(proc.returncode != 0 for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                               *map(str, objects)], capture_output=True, text=True,
+                              check=False)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     tmp.replace(lib)  # atomic: a concurrent loader sees all or nothing
-    return lib, seconds, log
+    return lib, time.perf_counter() - start, log
 
 
 @functools.cache

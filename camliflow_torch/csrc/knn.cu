@@ -3,7 +3,9 @@
 // Replaces camliflow_tpu/ops/pallas_knn.py::k_nearest_neighbor_pallas.
 // On the CamLiRAFT-L path it serves the encoder KNN ([2,4096] <- [2,8192]
 // and [2,2048] <- [2,4096], k=16), the cost-pyramid pooling (k=3) and the
-// update neighbours ([1,2048] <- [1,2048], k=32).
+// update neighbours ([1,2048] <- [1,2048], k=32); on the flagship's also
+// the 2048 -> 8192 upsample (k=3) and CLFM's pixel-grid cache ([2,8160]
+// <- [2,2048], k=1), whose 2-D points the wrapper gives a zero z.
 //
 // Bound: about 8 flops per query-candidate pair and no device-memory traffic
 // beyond reading the points once per block, so the kernel is bound by the

@@ -1,1 +1,1 @@
-"""Model families ported so far: CamLiRAFT-L."""
+"""Model families ported so far: CamLiRAFT (eval) and CamLiRAFT-L (eval)."""

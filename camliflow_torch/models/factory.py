@@ -1,13 +1,16 @@
 """Model registry: the port's counterpart of camliflow_tpu/models/factory.py's
-lookup. Only CamLiRAFT-L is ported so far."""
+lookup. Ported so far: CamLiRAFT and CamLiRAFT-L."""
 
 from __future__ import annotations
 
 from torch import nn
 
-from . import camliraft_l
+from . import camliraft, camliraft_l
 
-_REGISTRY: dict[str, type[nn.Module]] = {"camliraft_l": camliraft_l.CamLiRAFTL}
+_REGISTRY: dict[str, type[nn.Module]] = {
+    "camliraft": camliraft.CamLiRAFT,
+    "camliraft_l": camliraft_l.CamLiRAFTL,
+}
 
 
 def model_factory(cfgs) -> type[nn.Module]:

@@ -3,7 +3,7 @@
 PyTorch counterpart of camliflow_tpu/nn/layers.py. A 1x1 conv on channel-last
 data is a Linear over the last axis. Module and parameter names follow the
 reference PyTorch state_dict (`convs.<i>.conv_fn`, `convs.<i>.norm_fn`), so
-`tools/port_checkpoint.py::our_path_to_torch` names every key.
+`runtime/names.py::our_path_to_torch` names every key.
 """
 
 from __future__ import annotations
@@ -89,3 +89,18 @@ class MLP(nn.Module):
         for conv in self.convs:
             x = conv(x)
         return x
+
+
+class Conv2dNormAct(nn.Module):
+    """KxK conv (symmetric padding, bias) + act on NCHW data. Only the form
+    without a norm is ported (the ResNet align conv)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
+                 act: str | None = "leaky_relu"):
+        super().__init__()
+        self.conv_fn = nn.Conv2d(in_channels, out_channels, kernel_size,
+                                 padding=(kernel_size - 1) // 2)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_act(self.conv_fn(x), self.act)

@@ -1,0 +1,76 @@
+"""RAFT all-pairs correlation pyramid and its windowed bilinear lookup.
+
+PyTorch counterpart of camliflow_tpu/ops/correlation.py
+(`all_pairs_correlation_pyramid`, `corr_lookup_2d`) on the exact path: the
+volume stays f32 (the TPU's bf16 hi/lo split storage, which rebuilds f32 to
+~2^-18, is a workaround of its matrix unit and is not ported). Plain
+PyTorch; the JAX lookup is not a Pallas kernel either. NHWC.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def all_pairs_correlation_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                                  num_levels: int = 4) -> list[torch.Tensor]:
+    """fmap1, fmap2 [B, H, W, C] -> levels [B*H*W, H/2^i, W/2^i, 1] (f32):
+    an f32 matmul scaled by 1/sqrt(C), then 2x2 average pools that drop an
+    odd trailing row or column."""
+    batch, height, width, dim = fmap1.shape
+    f1 = fmap1.reshape(batch, height * width, dim).float()
+    f2 = fmap2.reshape(batch, height * width, dim).float()
+    corr = torch.matmul(f1, f2.transpose(1, 2))
+    corr = corr / torch.sqrt(torch.tensor(dim, dtype=torch.float32, device=corr.device))
+    corr = corr.reshape(batch * height * width, height, width, 1)
+    pyramid = [corr]
+    for _ in range(num_levels - 1):
+        rows, h, w, _ = corr.shape
+        h2, w2 = h // 2, w // 2
+        corr = corr[:, : h2 * 2, : w2 * 2, 0].reshape(rows, h2, 2, w2, 2)
+        corr = corr.mean(dim=(2, 4))[..., None]
+        pyramid.append(corr)
+    return pyramid
+
+
+def corr_lookup_2d(pyramid: list[torch.Tensor], coords: torch.Tensor,
+                   radius: int = 4) -> torch.Tensor:
+    """Bilinear (2r+1)^2 window lookup into every level.
+
+    coords [B, H, W, 2] are frame-2 pixel coordinates (grid + flow), halved
+    per level. Window tap (i, j) samples (x - r + i, y - r + j) and lands in
+    channel i*(2r+1) + j: the x offset is the major index (the reference's
+    channel order). Taps outside [0, dim) contribute zero, and coordinates
+    are clamped to [-(r+1), dim+r], beyond which every tap is outside.
+    Returns [B, H, W, levels*(2r+1)^2].
+    """
+    batch, height, width, _ = coords.shape
+    r = radius
+    span, patch = 2 * r + 1, 2 * r + 2
+    rows = batch * height * width
+    flat_coords = coords.reshape(rows, 2).float()
+    offsets = torch.arange(patch, device=coords.device)
+    out = []
+    for i, level in enumerate(pyramid):
+        level_h, level_w = level.shape[1:3]
+        c = flat_coords / (2.0**i)
+        cx = torch.clamp(c[:, 0], -(r + 1.0), level_w + r)
+        cy = torch.clamp(c[:, 1], -(r + 1.0), level_h + r)
+        x0, y0 = torch.floor(cx), torch.floor(cy)
+        fx = (cx - x0)[:, None, None]
+        fy = (cy - y0)[:, None, None]
+        xs = (x0 - r).long()[:, None] + offsets  # [rows, P]
+        ys = (y0 - r).long()[:, None] + offsets
+        valid = ((xs >= 0) & (xs < level_w))[:, :, None] & ((ys >= 0) & (ys < level_h))[:, None, :]
+        index = ys.clamp(0, level_h - 1)[:, None, :] * level_w + xs.clamp(0, level_w - 1)[:, :, None]
+        patches = torch.gather(level.reshape(rows, level_h * level_w), 1,
+                               index.reshape(rows, patch * patch))
+        patches = patches.reshape(rows, patch, patch) * valid  # [rows, x, y]
+        blended = (
+            (1.0 - fx) * (1.0 - fy) * patches[:, :-1, :-1]
+            + (1.0 - fx) * fy * patches[:, :-1, 1:]
+            + fx * (1.0 - fy) * patches[:, 1:, :-1]
+            + fx * fy * patches[:, 1:, 1:]
+        )
+        out.append(blended.reshape(batch, height, width, span * span))
+    return torch.cat(out, dim=-1)

@@ -69,3 +69,20 @@ def paral2persp(xyz: torch.Tensor, persp: dict, paral: dict) -> torch.Tensor:
     dst_x = (src_x - cx) * dst_z / f
     dst_y = (src_y - cy) * dst_z / f
     return torch.stack([dst_x, dst_y, dst_z], dim=-1)
+
+
+def project_pc2image(pc: torch.Tensor, camera_info: dict) -> torch.Tensor:
+    """Project [B, N, 3] points to [B, N, 2] image coordinates (x, y)."""
+    pc_x, pc_y, pc_z = pc[..., 0], pc[..., 1], pc[..., 2]
+    cx = _expand(camera_info["cx"], pc_x)
+    cy = _expand(camera_info["cy"], pc_x)
+    if camera_info["projection_mode"] == "perspective":
+        f = _expand(camera_info["f"], pc_x)
+        image_x = cx + (f / pc_z) * pc_x
+        image_y = cy + (f / pc_z) * pc_y
+    elif camera_info["projection_mode"] == "parallel":
+        image_x = pc_x + cx
+        image_y = pc_y + cy
+    else:
+        raise NotImplementedError(camera_info["projection_mode"])
+    return torch.stack([image_x, image_y], dim=-1)

@@ -10,6 +10,7 @@ query-candidate pairs; see the source for the design note.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
 from .geometry import knn_from_dists, squared_distance
@@ -27,14 +28,20 @@ def k_nearest_neighbor_plain(
 def k_nearest_neighbor(
     input_xyz: torch.Tensor, query_xyz: torch.Tensor, k: int
 ) -> torch.Tensor:
-    """[B, M, 3] points, [B, N, 3] queries -> [B, N, k] int32 indices.
+    """[B, M, D] points, [B, N, D] queries, D = 3 or 2 -> [B, N, k] int32
+    indices.
 
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel. 2-D points
+    (CLFM's projected uv) reach the kernel with a zero third coordinate,
+    which adds an exact 0*0 to every distance and changes no rounding."""
     if _cuda.on_cpu(input_xyz, query_xyz):
         return k_nearest_neighbor_plain(input_xyz, query_xyz, k)
     name = "k_nearest_neighbor"
     _cuda.check(name, torch.float32, input_xyz=input_xyz, query_xyz=query_xyz)
-    batch, m = input_xyz.shape[:2]
+    batch, m, dim = input_xyz.shape
+    if dim == 2:
+        input_xyz = F.pad(input_xyz, (0, 1))
+        query_xyz = F.pad(query_xyz, (0, 1))
     _cuda.check_shape(name, "input_xyz", input_xyz, (batch, m, 3))
     _cuda.check_shape(name, "query_xyz", query_xyz, (batch, None, 3))
     if not 1 <= k <= min(MAX_K, m):

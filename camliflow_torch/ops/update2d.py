@@ -1,0 +1,221 @@
+"""The 2D update chain: CUDA kernels, plain versions, wrappers.
+
+Replaces camliflow_tpu/ops/pallas_update2d.py::motion_encoder_2d_pallas and
+::gru_flowhead_2d_pallas with `csrc/update2d.cu` (see the source's note for
+the design and the bound). Both compute the exact path in f32.
+
+The modules' weights are repacked once per request, outside the refinement
+loop, by `prepare_motion_encoder_params` / `prepare_gru_flowhead_params`:
+each conv becomes a `PackedConv`, its HWIO kernel flattened to
+[kh*kw*Cin, Cout] (row (ky*kw + kx)*Cin + ci) and zero-padded to the
+kernel's tiles. The plain versions take the same packed weights and run an
+`F.conv2d` chain. Maps are NHWC at every public function.
+
+    motion_encoder_2d(flow, corr, me)          -> motion [B, H, W, 126 + 2]
+    gru_flowhead_2d(h, x2d, motion, gf)        -> (h' [B, H, W, 128],
+                                                   delta [B, H, W, 2])
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import _cuda
+
+K_ALIGN = 16  # the kernel's reduction chunk
+N_ALIGN = 64  # the kernel's output-channel tile
+
+
+class PackedConv(NamedTuple):
+    weight: torch.Tensor  # [K_pad, N_pad]: HWIO flattened, zero-padded
+    bias: torch.Tensor  # [N_pad]
+    kh: int
+    kw: int
+    cin: int
+    cout: int
+
+    def oihw(self) -> torch.Tensor:
+        k = self.kh * self.kw * self.cin
+        w = self.weight[:k, : self.cout].reshape(self.kh, self.kw, self.cin, self.cout)
+        return w.permute(3, 2, 0, 1)
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def pack_convs(*convs: nn.Conv2d) -> PackedConv:
+    """One packed conv from Conv2d modules sharing their input: their output
+    channels are stacked in order (the GRU's z and r)."""
+    weight = torch.cat([c.weight for c in convs], dim=0).detach().float()
+    bias = torch.cat([c.bias for c in convs], dim=0).detach().float()
+    cout, cin, kh, kw = weight.shape
+    k = kh * kw * cin
+    flat = weight.permute(2, 3, 1, 0).reshape(k, cout)
+    packed = weight.new_zeros(_round_up(k, K_ALIGN), _round_up(cout, N_ALIGN))
+    packed[:k, :cout] = flat
+    padded_bias = bias.new_zeros(packed.shape[1])
+    padded_bias[:cout] = bias
+    return PackedConv(packed, padded_bias, kh, kw, cin, cout)
+
+
+def conv_plain(x: torch.Tensor, conv: PackedConv) -> torch.Tensor:
+    """NHWC 'same' convolution with bias from a packed conv."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), conv.oihw(), conv.bias[: conv.cout],
+                   padding=((conv.kh - 1) // 2, (conv.kw - 1) // 2))
+    return out.permute(0, 2, 3, 1)
+
+
+# --- MotionEncoder2D (kernel #9) -----------------------------------------
+
+
+def prepare_motion_encoder_params(encoder: nn.Module) -> dict:
+    """Packed convs of a `models.raft.MotionEncoder2D`; conv_f1 stays a
+    plain (weight, bias) pair: it runs outside the kernel."""
+    params = {name: pack_convs(getattr(encoder, name))
+              for name in ("conv_c1", "conv_c2", "conv_f2", "conv")}
+    params["conv_f1"] = (encoder.conv_f1.weight.detach().float(),
+                         encoder.conv_f1.bias.detach().float())
+    return params
+
+
+def _conv_f1(flow: torch.Tensor, params: dict) -> torch.Tensor:
+    """conv_f1 (7x7, bias, ReLU) as one F.conv2d -> NHWC contiguous."""
+    weight, bias = params["conv_f1"]
+    out = F.relu(F.conv2d(flow.permute(0, 3, 1, 2), weight, bias, padding=3))
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def motion_encoder_2d_plain(flow: torch.Tensor, corr: torch.Tensor, params: dict):
+    ff = _conv_f1(flow, params)
+    cf = F.relu(conv_plain(corr, params["conv_c1"]))
+    cf = F.relu(conv_plain(cf, params["conv_c2"]))
+    ff = F.relu(conv_plain(ff, params["conv_f2"]))
+    out = torch.nan_to_num(F.relu(conv_plain(torch.cat([cf, ff], dim=-1), params["conv"])))
+    return torch.cat([out, flow], dim=-1)
+
+
+def _check_params(name: str, params: dict, device: torch.device) -> None:
+    for key, value in params.items():
+        tensors = value[:2]
+        for t in tensors:
+            if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"{name}: params[{key!r}] must be contiguous f32 on "
+                                 f"{device}; prepare them on the inputs' device")
+
+
+def motion_encoder_2d(flow: torch.Tensor, corr: torch.Tensor, params: dict):
+    """flow [B, H, W, 2], corr [B, H, W, C] -> [B, H, W, 126 + 2] (the merge
+    conv's output, then the flow). CPU tensors take the plain version; CUDA
+    tensors the kernel, after conv_f1 as one F.conv2d."""
+    if _cuda.on_cpu(flow, corr):
+        return motion_encoder_2d_plain(flow, corr, params)
+    name = "motion_encoder_2d"
+    _cuda.check(name, torch.float32, flow=flow, corr=corr)
+    batch, height, width = flow.shape[:3]
+    _cuda.check_shape(name, "flow", flow, (batch, height, width, 2))
+    c1, c2, f2, merge = (params[k] for k in ("conv_c1", "conv_c2", "conv_f2", "conv"))
+    _cuda.check_shape(name, "corr", corr, (batch, height, width, c1.cin))
+    _check_params(name, params, flow.device)
+    ff1 = _conv_f1(flow, params)
+    if (c2.cin, f2.cin, merge.cin) != (c1.cout, ff1.shape[-1], c2.cout + f2.cout):
+        raise ValueError(f"{name}: the packed convs do not chain")
+    new = lambda c: flow.new_empty(batch, height, width, c)  # noqa: E731
+    cf1, cf, ff, out = new(c1.cout), new(c2.cout), new(f2.cout), new(merge.cout + 2)
+    from ..csrc.build import launch
+
+    launch("camli_motion_encoder_2d", flow.data_ptr(), ff1.data_ptr(), corr.data_ptr(),
+           c1.weight.data_ptr(), c1.bias.data_ptr(), c2.weight.data_ptr(),
+           c2.bias.data_ptr(), f2.weight.data_ptr(), f2.bias.data_ptr(),
+           merge.weight.data_ptr(), merge.bias.data_ptr(), cf1.data_ptr(),
+           cf.data_ptr(), ff.data_ptr(), out.data_ptr(), batch, height, width,
+           c1.cin, c1.cout, c2.cout, ff1.shape[-1], f2.cout, merge.cout)
+    motion_encoder_2d.launches += 1
+    return out
+
+
+motion_encoder_2d.launches = 0
+
+
+# --- GRU2D + FlowHead2D (kernel #8) --------------------------------------
+
+
+def prepare_gru_params(gru: nn.Module) -> dict:
+    """Packed convs of a `models.raft.GRU2D`: per direction, z|r stacked
+    into one conv, and q."""
+    return {
+        "zr1": pack_convs(gru.convz1, gru.convr1), "q1": pack_convs(gru.convq1),
+        "zr2": pack_convs(gru.convz2, gru.convr2), "q2": pack_convs(gru.convq2),
+    }
+
+
+def prepare_flow_head_params(head: nn.Module) -> dict:
+    return {"head1": pack_convs(head.conv1), "head2": pack_convs(head.conv2)}
+
+
+def prepare_gru_flowhead_params(gru: nn.Module, head: nn.Module) -> dict:
+    return {**prepare_gru_params(gru), **prepare_flow_head_params(head)}
+
+
+def gru_2d_plain(h: torch.Tensor, x: torch.Tensor, params: dict) -> torch.Tensor:
+    """Separable ConvGRU (1x5 then 5x1); nan_to_num once at the end."""
+    hidden = h.shape[-1]
+    for zr, q in (("zr1", "q1"), ("zr2", "q2")):
+        gates = torch.sigmoid(conv_plain(torch.cat([h, x], dim=-1), params[zr]))
+        z, r = gates[..., :hidden], gates[..., hidden:]
+        q_new = torch.tanh(conv_plain(torch.cat([r * h, x], dim=-1), params[q]))
+        h = (1.0 - z) * h + z * q_new
+    return torch.nan_to_num(h)
+
+
+def flow_head_2d_plain(h: torch.Tensor, params: dict) -> torch.Tensor:
+    mid = F.relu(conv_plain(h, params["head1"]))
+    return torch.nan_to_num(conv_plain(mid, params["head2"]))
+
+
+def gru_flowhead_2d_plain(h, x2d, motion, params):
+    h = gru_2d_plain(h, torch.cat([x2d, motion], dim=-1), params)
+    return h, flow_head_2d_plain(h, params)
+
+
+def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
+                    params: dict):
+    """h [B, H, W, Ch], x2d [B, H, W, Cx], motion [B, H, W, Cm] ->
+    (h' [B, H, W, Ch], delta [B, H, W, 2]). CPU tensors take the plain
+    version; CUDA tensors the kernel."""
+    if _cuda.on_cpu(h, x2d, motion):
+        return gru_flowhead_2d_plain(h, x2d, motion, params)
+    name = "gru_flowhead_2d"
+    _cuda.check(name, torch.float32, h=h, x2d=x2d, motion=motion)
+    batch, height, width, ch = h.shape
+    _cuda.check_shape(name, "x2d", x2d, (batch, height, width, None))
+    _cuda.check_shape(name, "motion", motion, (batch, height, width, None))
+    _check_params(name, params, h.device)
+    cx, cm = x2d.shape[-1], motion.shape[-1]
+    head1, head2 = params["head1"], params["head2"]
+    for key, (kh, kw) in (("zr1", (1, 5)), ("q1", (1, 5)), ("zr2", (5, 1)), ("q2", (5, 1))):
+        conv = params[key]
+        cout = 2 * ch if key.startswith("zr") else ch
+        if (conv.kh, conv.kw, conv.cin, conv.cout) != (kh, kw, ch + cx + cm, cout):
+            raise ValueError(f"{name}: params[{key!r}] do not fit the inputs")
+    if (head1.cin, head2.cin, head2.cout) != (ch, head1.cout, 2):
+        raise ValueError(f"{name}: the flow head's packed convs do not chain")
+    new = lambda c: h.new_empty(batch, height, width, c)  # noqa: E731
+    z, rh, h1, mid, h_out, delta = new(ch), new(ch), new(ch), new(head1.cout), new(ch), new(2)
+    from ..csrc.build import launch
+
+    launch("camli_gru_flowhead_2d", h.data_ptr(), x2d.data_ptr(), motion.data_ptr(),
+           *(t.data_ptr() for key in ("zr1", "q1", "zr2", "q2", "head1", "head2")
+             for t in params[key][:2]),
+           z.data_ptr(), rh.data_ptr(), h1.data_ptr(), mid.data_ptr(),
+           h_out.data_ptr(), delta.data_ptr(), batch, height, width, ch, cx, cm,
+           head1.cout)
+    gru_flowhead_2d.launches += 1
+    return h_out, delta
+
+
+gru_flowhead_2d.launches = 0

@@ -3,10 +3,13 @@
 The JAX package stores its variables as '/'-joined paths (`params/...`,
 `batch_stats/...`; `camliflow_tpu/runtime/checkpoint.py::tree_to_flat`, and
 the flat `.npz` files it writes). The port's modules carry the reference
-PyTorch state_dict names, so `tools/port_checkpoint.py::our_path_to_torch`
-names each key; the tensors take the inverse of that tool's relayout
-(`convert_tensor`): a Dense kernel [I, O] becomes a Linear weight [O, I], and
-BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var.
+PyTorch state_dict names, so `names.our_path_to_torch` names each key. Each
+tensor takes the inverse of the reference->JAX relayout:
+- a Conv kernel [kh, kw, I, O] becomes a Conv2d weight [O, I, kh, kw];
+- a Dense kernel [I, O] becomes a Linear weight [O, I], or a 1x1 Conv2d
+  weight [O, I, 1, 1] where the port's module is a Conv2d;
+- BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var
+  (the names carry that; the values keep their shape).
 """
 
 from __future__ import annotations
@@ -17,11 +20,29 @@ import numpy as np
 import torch
 from torch import nn
 
+from .names import our_path_to_torch
 
-def state_dict_from_jax(flat: dict[str, np.ndarray], model_name: str) -> dict:
-    """Map every JAX leaf to a state_dict entry; raise if one does not land."""
-    from tools.port_checkpoint import our_path_to_torch
 
+def relayout(array: np.ndarray, target_shape: tuple | None = None) -> np.ndarray:
+    """A JAX kernel in the port's layout; `target_shape` (the port
+    parameter's shape) tells a Dense kernel headed for a 1x1 Conv2d."""
+    if array.ndim == 4:
+        out = array.transpose(3, 2, 0, 1)
+    elif array.ndim == 2:
+        out = array.T
+        if target_shape is not None and len(target_shape) == 4:
+            out = out[:, :, None, None]
+    else:
+        raise ValueError(f"cannot relayout a kernel of shape {array.shape}")
+    if target_shape is not None and tuple(out.shape) != tuple(target_shape):
+        raise ValueError(f"kernel {array.shape} does not fit {tuple(target_shape)}")
+    return out
+
+
+def state_dict_from_jax(flat: dict[str, np.ndarray], model_name: str,
+                        shapes: dict[str, tuple] | None = None) -> dict:
+    """Map every JAX leaf to a state_dict entry; raise if one does not land.
+    `shapes` (state_dict key -> shape) lets 2-D kernels land in 1x1 convs."""
     out = {}
     for path, value in flat.items():
         _, rest = path.split("/", 1)
@@ -32,18 +53,16 @@ def state_dict_from_jax(flat: dict[str, np.ndarray], model_name: str) -> dict:
             raise KeyError(f"JAX leaves collide on state_dict key {key}")
         array = np.asarray(value, dtype=np.float32)
         if path.endswith("/kernel"):
-            if array.ndim != 2:
-                raise ValueError(f"{path}: only Dense kernels are ported, got "
-                                 f"shape {array.shape}")
-            array = array.T
-        out[key] = torch.tensor(array)
+            array = relayout(array, None if shapes is None else shapes.get(key))
+        out[key] = torch.tensor(np.ascontiguousarray(array))
     return out
 
 
 def load_jax_variables(model: nn.Module, flat: dict, model_name: str) -> None:
     """Fill `model` from flat JAX variables. Strict: every JAX leaf must land
     and every parameter and buffer of the model must be filled."""
-    model.load_state_dict(state_dict_from_jax(flat, model_name), strict=True)
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    model.load_state_dict(state_dict_from_jax(flat, model_name, shapes), strict=True)
 
 
 def load_npz(path: str | Path) -> dict[str, np.ndarray]:

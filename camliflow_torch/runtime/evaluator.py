@@ -1,11 +1,13 @@
-"""Evaluation: the `things` protocol for 3D outputs.
+"""Evaluation: the `things` protocol.
 
-PyTorch counterpart of camliflow_tpu/runtime/evaluator.py::run_things for
-models that output `flow_3d`: per-point EPE3d, 5cm and 10cm accuracy (and
-the non-occluded split when the batches carry `occ_mask_3d`), NaN-masked,
-summed on the host in numpy. Batches come from any iterable of dicts in the
-FlyingThings3D sample format (`pcs` [B, N, 6], `intrinsics` [B, 3],
-`flow_3d` [B, N, 3|4], `index`), such as the JAX package's DataLoader.
+PyTorch counterpart of camliflow_tpu/runtime/evaluator.py::run_things:
+per-pixel EPE2d, 1px and Fl over the validity mask for models that output
+`flow_2d`; per-point EPE3d, 5cm and 10cm accuracy (and the non-occluded
+split when the batches carry `occ_mask_3d`) for models that output
+`flow_3d`; NaN-masked, summed on the host in numpy. Batches come from any
+iterable of dicts in the FlyingThings3D sample format (`images`
+[B, H, W, 6], `flow_2d` [B, H, W, 2|3], `pcs` [B, N, 6], `intrinsics`
+[B, 3], `flow_3d` [B, N, 3|4], `index`), such as `data.datasets.batches`.
 """
 
 from __future__ import annotations
@@ -52,12 +54,31 @@ class Evaluator:
         return outputs
 
     def run_things(self, batches) -> dict[str, float]:
-        """eval_things.py protocol, 3D part."""
+        """eval_things.py protocol."""
+        m2d = defaultdict(float)
         m3d = defaultdict(float)
         m3d_noc = defaultdict(float)
         for batch in batches:
             outputs = self.forward(batch)
             for b in range(len(batch["index"])):
+                if "flow_2d" in outputs:
+                    pred = outputs["flow_2d"][b]
+                    target = batch["flow_2d"][b]
+                    if target.shape[-1] > 2:
+                        mask = target[..., 2] > 0
+                        target = target[..., :2]
+                    else:
+                        mask = np.ones(target.shape[:2], bool)
+                    epe = _epe_map(pred, target)
+                    mask = np.logical_and(mask, ~np.isnan(epe))
+                    with np.errstate(divide="ignore", invalid="ignore"):
+                        fl = np.logical_and(epe > 3.0, epe / np.linalg.norm(target, axis=-1) > 0.05)
+                    m2d["counts"] += epe[mask].size
+                    m2d["EPE2d"] += epe[mask].sum()
+                    m2d["1px"] += np.count_nonzero(epe[mask] < 1.0)
+                    m2d["Fl"] += fl[mask].sum()
+                if "flow_3d" not in outputs:
+                    continue
                 pred = outputs["flow_3d"][b]
                 target = batch["flow_3d"][b]
                 if target.shape[-1] > 3:
@@ -80,6 +101,13 @@ class Evaluator:
                     m3d_noc["10cm"] += np.count_nonzero(noc < 0.1)
 
         results = {}
+        if m2d["counts"] > 0:
+            for key in ("EPE2d", "1px", "Fl"):
+                results[key] = m2d[key] / m2d["counts"]
+            logger.info("#### 2D Metrics ####")
+            logger.info("EPE: %.3f", results["EPE2d"])
+            logger.info("1px: %.2f%%", results["1px"] * 100)
+            logger.info("Fl:  %.2f%%", results["Fl"] * 100)
         if m3d["counts"] > 0:
             results["EPE3d"] = m3d["EPE3d"] / m3d["counts"]
             results["5cm"] = m3d["5cm"] / m3d["counts"]

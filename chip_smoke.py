@@ -3,23 +3,30 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, CamLiRAFT-L eval at full width (8192 points per
-cloud, n_samples_list 4096..256, 20 iterations, bs=1, IDS on), in phases:
+Drives the port's two main paths at full width, CamLiRAFT-L eval (8192 points
+per cloud, n_samples_list 4096..256, 20 iterations, bs=1, IDS on) and the
+flagship CamLiRAFT eval (conf/model/camliraft.yaml: ResNet-50 cut at stage 2,
+CLFM at fnet/cnet/corr/motion, 960x540 images padded to 960x544 and 8192
+points, 20 iterations, bs=1, IDS on), in phases:
 
 1. device: requires a CUDA card; prints its name and power limit;
 2. build: compiles the CUDA kernels from camliflow_torch/csrc with nvcc;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it, with times for both;
-4. end to end: random weights from a seeded torch.Generator, synthetic frame
-   pairs made with numpy from a seed (bench.py's recipe plus a target),
-   through the port's Evaluator: 1 warm-up and 3 requests, with every
-   kernel's launch count over that run;
-5. CUDA vs CPU: the same weights and input on the CPU, where the plain
-   versions run.
+3. kernels: each of the six kernels against its plain PyTorch version on the
+   card, at the shapes the main paths give it, with times for both and the
+   least time the card could take (bound);
+4. CamLiRAFT-L end to end and 4b. CamLiRAFT end to end: random weights from
+   a seeded torch.Generator, synthetic inputs made with numpy from a seed
+   (bench.py's recipe plus a target), through the port's Evaluator: 1
+   warm-up and 3 requests, with every kernel's launch count over the 3
+   requests (counters zeroed just before them), then a torch.profiler view:
+   the top kernels, and device time and launches per refinement iteration
+   and once per frame pair (requests at 20 and 10 iterations);
+5. and 5b. CUDA vs CPU: the same weights and input on the CPU, where the
+   plain versions run.
 
-Prints the kernels' JSON line, then, as the last line, the device JSON with
-"ok": true. Exits non-zero, without that line, if any phase fails or there is
-no CUDA card.
+Prints the kernels' JSON line, then the card's name and power limit, then, as
+the last line, the device JSON with "ok": true. Exits non-zero, without that
+line, if any phase fails or there is no CUDA card.
 """
 
 from __future__ import annotations
@@ -35,56 +42,93 @@ import numpy as np
 N_POINTS = 8192
 N_SAMPLES = (4096, 2048, 1024, 512, 256)  # the FPS pyramid levels
 N_ITERS = 20
+IMAGE_H, IMAGE_W = 540, 960
 SEED = 0
 KNN_TOL = 1e-4  # rtol = atol on selected squared distances
 INTERP_TOL = 1e-5  # atol
-FLOW_TOL = 5e-3  # m, max |CUDA - CPU| on flow_3d
-MODEL_CFGS = {  # conf/model/camliraft_l.yaml
+CONV_TOL = 1e-4  # max|kernel - plain| <= CONV_TOL * (1 + max|plain|), f32 both
+FLOW_3D_TOL = 5e-3  # m, max |CUDA - CPU| on flow_3d
+FLOW_2D_TOL = 1e-2  # px, max |CUDA - CPU| on flow_2d
+PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores, op/s
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, B/s
+L_CFGS = {  # conf/model/camliraft_l.yaml
     "name": "camliraft_l",
-    "batch_size": 8,
-    "n_iters_train": 10,
     "n_iters_eval": N_ITERS,
     "fast_inference": "auto",
     "ids": {"enabled": True},
-    "loss": {"gamma": 0.8, "order": "l2-norm"},
+    "n_samples_list": list(N_SAMPLES),
+}
+FLAGSHIP_CFGS = {  # conf/model/camliraft.yaml
+    "name": "camliraft",
+    "backbone": {"depth": 50},
+    "n_iters_eval": N_ITERS,
+    "fast_inference": "auto",
+    "fuse_fnet": True,
+    "fuse_cnet": True,
+    "fuse_corr": True,
+    "fuse_motion": True,
+    "fuse_hidden": False,
     "n_samples_list": list(N_SAMPLES),
 }
 INTRINSICS = (1050.0, 479.5, 269.5)
 
 
-def frame_pair(seed: int, index: int) -> dict:
-    """bench.py's input recipe at bs=1, plus the synthetic target pc2 - pc1."""
-    rng = np.random.RandomState(seed)
+def clouds(rng):
     pc1 = rng.randn(1, N_POINTS, 3).astype(np.float32)
     pc1[..., 2] = np.abs(pc1[..., 2]) * 15.0 + 5.0
     pc2 = pc1 + 0.05 * rng.randn(1, N_POINTS, 3).astype(np.float32)
-    return {
-        "index": np.array([index]),
-        "pcs": np.concatenate([pc1, pc2], axis=-1),
-        "intrinsics": np.tile(np.float32(INTRINSICS), (1, 1)),
-        "flow_3d": pc2 - pc1,
-    }
+    return pc1, pc2
+
+
+def frame_pair(seed: int, index: int, images: bool = False) -> dict:
+    """bench.py's input recipe at bs=1 (images first when the model takes
+    them), plus the synthetic targets pc2 - pc1 and a random 2D flow."""
+    rng = np.random.RandomState(seed)
+    batch = {"index": np.array([index]),
+             "intrinsics": np.tile(np.float32(INTRINSICS), (1, 1))}
+    if images:
+        batch["images"] = rng.randint(0, 255, size=(1, IMAGE_H, IMAGE_W, 6)).astype(np.float32)
+    pc1, pc2 = clouds(rng)
+    batch["pcs"] = np.concatenate([pc1, pc2], axis=-1)
+    batch["flow_3d"] = pc2 - pc1
+    if images:
+        flow = 3.0 * rng.randn(1, IMAGE_H, IMAGE_W, 2).astype(np.float32)
+        batch["flow_2d"] = np.concatenate([flow, np.ones_like(flow[..., :1])], axis=-1)
+    return batch
 
 
 def random_weights(model, seed: int) -> None:
-    """Fill every parameter and BN statistic from one seeded generator:
-    Linear U(+-1/sqrt(fan_in)) as torch initialises it, BN perturbed from
-    (1, 0, 0, 1) so the normalisation does real work."""
+    """Fill every parameter and buffer from one seeded generator: Linear and
+    Conv2d U(+-1/sqrt(fan_in)), fan_in = I*kh*kw, as torch initialises
+    them; every BatchNorm (the backbone's too) perturbed from (1, 0, 0, 1)
+    so that the normalisation does real work."""
     import torch
+    from torch import nn
+
+    from camliflow_torch.nn.layers import BatchNorm
 
     gen = torch.Generator().manual_seed(seed)
+    filled = set()
     with torch.no_grad():
-        for name, t in sorted(model.state_dict().items()):
-            if name.endswith("running_var"):
-                t.copy_(1.0 + 0.5 * torch.rand(t.shape, generator=gen))
-            elif name.endswith(("running_mean", "norm_fn.bias")):
-                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
-            elif name.endswith("norm_fn.weight"):
-                t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=gen))
-            else:  # Linear weight [O, I] or bias [O]: fan_in from the weight
-                w = model.get_parameter(name.rsplit(".", 1)[0] + ".weight")
-                bound = w.shape[1] ** -0.5
-                t.copy_((2 * torch.rand(t.shape, generator=gen) - 1) * bound)
+        for name, module in model.named_modules():
+            if isinstance(module, BatchNorm):
+                module.weight.copy_(1.0 + 0.1 * torch.randn(module.weight.shape, generator=gen))
+                module.bias.copy_(0.1 * torch.randn(module.bias.shape, generator=gen))
+                module.running_mean.copy_(0.1 * torch.randn(module.running_mean.shape,
+                                                            generator=gen))
+                module.running_var.copy_(1.0 + 0.5 * torch.rand(module.running_var.shape,
+                                                                generator=gen))
+            elif isinstance(module, (nn.Linear, nn.Conv2d)):
+                bound = module.weight[0].numel() ** -0.5
+                for t in (module.weight, module.bias):
+                    if t is not None:
+                        t.copy_((2 * torch.rand(t.shape, generator=gen) - 1) * bound)
+            else:
+                continue
+            filled.update(f"{name}.{key}" for key in module.state_dict())
+    missing = set(model.state_dict()) - filled
+    if missing:
+        raise AssertionError(f"random_weights left these unfilled: {sorted(missing)[:5]}")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -103,9 +147,17 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_request(evaluator, batch) -> None:
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the operations
+    over the f32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def profile_request(evaluator, batch, top: int = 15):
     """One request under torch.profiler: the device's busy share of the
-    request's wall time and the kernels that take the most device time."""
+    request's wall time and the kernels that take the most device time.
+    Returns (wall ms, device busy ms, kernel launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,28 +169,51 @@ def profile_request(evaluator, batch) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
     if not busy_us:
         print("  profile: the profiler saw no device time")
-        return
+        return wall_us / 1e3, 0.0, launches
     print(f"  profile: request {wall_us / 1e3:.3f} ms wall, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
-          f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+          f"{launches} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
               f"{100 * e.self_device_time_total / busy_us:5.1f}%  {e.key[:70]}")
+    return wall_us / 1e3, busy_us / 1e3, launches
+
+
+def profile_split(evaluator, batch) -> None:
+    """Where a request's time goes: profiled requests at N and N/2
+    refinement iterations; their difference over N/2 is one iteration's
+    share, the rest is the once-per-frame work."""
+    core = evaluator.model.core
+    full = profile_request(evaluator, batch)
+    core.n_iters = N_ITERS // 2
+    try:
+        half = profile_request(evaluator, batch, top=0)
+    finally:
+        core.n_iters = N_ITERS
+    # device time and launches only: the profiler's own host cost makes the
+    # wall times of two profiled requests no fit for a difference
+    per_iter = [(f - h) / (N_ITERS - N_ITERS // 2) for f, h in zip(full[1:], half[1:])]
+    once = [f - N_ITERS * i for f, i in zip(full[1:], per_iter)]
+    for label, (busy, launches) in (("per refinement iteration", per_iter),
+                                    ("once per frame pair", once)):
+        print(f"  {label}: {busy:.3f} ms device, {launches:.1f} launches")
 
 
 def kernel_parity(device) -> list[dict]:
     """Phase 3: each kernel vs its plain version at the main-path shapes."""
     import torch
+    from torch import nn
 
-    from camliflow_torch.ops import corr3d, fps, interp, knn
+    from camliflow_torch.models.raft import FlowHead2D, GRU2D, MotionEncoder2D
+    from camliflow_torch.ops import corr3d, fps, interp, knn, update2d
     from camliflow_torch.ops.geometry import gather_points, squared_distance
     from camliflow_torch.ops.ids import make_parallel_camera_info, persp2paral
 
     # the main path's clouds: bench inputs in IDS (parallel) coordinates
-    pairs = [frame_pair(SEED + 100, 0)]
-    pcs = torch.as_tensor(pairs[0]["pcs"][0], device=device)
+    pcs = torch.as_tensor(frame_pair(SEED + 100, 0)["pcs"][0], device=device)
     persp = {"sensor_h": 540, "sensor_w": 960, "f": INTRINSICS[0],
              "cx": INTRINSICS[1], "cy": INTRINSICS[2]}
     paral = make_parallel_camera_info(540, 960)
@@ -147,14 +222,17 @@ def kernel_parity(device) -> list[dict]:
     gen = torch.Generator(device=device).manual_seed(SEED)
     results = []
 
-    def record(name, source, replaces, err, ms, plain_ms):
+    def record(name, source, replaces, err, ms, plain_ms, ops, nbytes):
+        bound_ms, bound_by = bound(ops, nbytes)
         results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms})
-        print(f"  {name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms", flush=True)
+                        "replaces": replaces, "launches": 0, "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+        print(f"  {name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
 
-    # FPS [2, 8192] -> 4096: indices identical
+    # FPS [2, 8192] -> 4096: indices identical. Each step updates every
+    # point's distance (8 flops), its running min and the argmax compare.
     n_fps = N_SAMPLES[0]
     got = fps.furthest_point_sampling(both, n_fps)
     ref = fps.furthest_point_sampling_plain(both, n_fps)
@@ -165,15 +243,17 @@ def kernel_parity(device) -> list[dict]:
     record("furthest_point_sampling", "camliflow_torch/csrc/fps.cu",
            "camliflow_tpu/ops/pallas_fps.py:109", 0.0,
            time_ms(lambda: fps.furthest_point_sampling(both, n_fps), 5),
-           time_ms(lambda: fps.furthest_point_sampling_plain(both, n_fps), 2))
+           time_ms(lambda: fps.furthest_point_sampling_plain(both, n_fps), 2),
+           2 * n_fps * N_POINTS * 10, 4 * (2 * N_POINTS * 3 + 2 * n_fps))
 
-    # KNN: each call the main path makes; selected distances must agree
+    # KNN: each call the main paths make; selected distances must agree
     lv = [gather_points(both, got[:, :m]) for m in N_SAMPLES]
     calls = [
         (both, lv[0], 16), (lv[0], lv[1], 16),  # encoder, both frames
         (lv[1][1:], lv[2][1:], 3), (lv[2][1:], lv[3][1:], 3),  # pooling
         (lv[3][1:], lv[4][1:], 3),
         (lv[1][:1], lv[1][:1], 32),  # update neighbours
+        (lv[1][:1], both[:1], 3),  # 2048 -> 8192 upsample
     ]
     knn_err = 0.0
     for support, query, k in calls:
@@ -185,10 +265,25 @@ def kernel_parity(device) -> list[dict]:
             raise AssertionError(f"KNN k={k} {tuple(query.shape)}<-"
                                  f"{tuple(support.shape)}: selected distances differ")
         knn_err = max(knn_err, float((da - db).abs().max()))
+    # the CLFM cache: the 1/8 pixel grid (68 x 120) against both frames'
+    # projected points in 2-D, k=1
+    feat_h, feat_w = -(-IMAGE_H // 8), -(-IMAGE_W // 8)
+    uv = torch.rand(2, N_SAMPLES[1], 2, generator=gen, device=device)
+    uv = (uv * torch.tensor([feat_w - 1.0, feat_h - 1.0], device=device)).contiguous()
+    ys, xs = torch.meshgrid(torch.arange(float(feat_h), device=device),
+                            torch.arange(float(feat_w), device=device), indexing="ij")
+    pixels = torch.stack([xs, ys], -1).reshape(1, -1, 2).expand(2, -1, -1).contiguous()
+    d = squared_distance(pixels, uv)
+    a = knn.k_nearest_neighbor(uv, pixels, 1).long()
+    b = knn.k_nearest_neighbor_plain(uv, pixels, 1).long()
+    if not torch.equal(torch.gather(d, 2, a), torch.gather(d, 2, b)):
+        raise AssertionError("KNN 2-D k=1: selected distances differ")
     record("k_nearest_neighbor", "camliflow_torch/csrc/knn.cu",
            "camliflow_tpu/ops/pallas_knn.py:67", knn_err,
            time_ms(lambda: knn.k_nearest_neighbor(both, lv[0], 16), 20),
-           time_ms(lambda: knn.k_nearest_neighbor_plain(both, lv[0], 16), 3))
+           time_ms(lambda: knn.k_nearest_neighbor_plain(both, lv[0], 16), 3),
+           2 * N_SAMPLES[0] * N_POINTS * 9,  # 8 flops + 1 compare per pair
+           4 * (2 * N_POINTS * 3 + 2 * N_SAMPLES[0] * 3 + 2 * N_SAMPLES[0] * 16))
 
     # interpolation: backwarp [1,2048] <- [1,2048] and upsample [1,8192]
     xyz1, xyz2 = lv[1][:1], lv[1][1:]
@@ -204,10 +299,12 @@ def kernel_parity(device) -> list[dict]:
         if err > INTERP_TOL:
             raise AssertionError(f"interp {tuple(query.shape)}: max |d| {err}")
         interp_err = max(interp_err, err)
+    m = N_SAMPLES[1]
     record("knn_interpolation", "camliflow_torch/csrc/interp.cu",
            "camliflow_tpu/ops/pallas_interp.py:81", interp_err,
            time_ms(lambda: interp.knn_interpolation(warped, neg, xyz2, 3), 50),
-           time_ms(lambda: interp.knn_interpolation_plain(warped, neg, xyz2, 3), 20))
+           time_ms(lambda: interp.knn_interpolation_plain(warped, neg, xyz2, 3), 20),
+           m * m * 9 + m * 3 * (12 + 2 * 3), 4 * (m * 3 * 2 + m * 3 * 2))
 
     # Correlation3D selection + cost: levels 2048..256, k=16
     sizes = N_SAMPLES[1:]
@@ -223,12 +320,96 @@ def kernel_parity(device) -> list[dict]:
     columns = idx.long() + corr3d.level_offsets(sizes, 16, device)
     if not torch.equal(cost, torch.gather(pyramid, 2, columns)):
         raise AssertionError("corr3d: cost is not the pyramid at its own indices")
+    n_sel = m * len(sizes) * 16
     record("correlation3d_knn", "camliflow_torch/csrc/corr3d.cu",
            "camliflow_tpu/ops/pallas_corr3d.py:440", float((da - db).abs().max()),
            time_ms(lambda: corr3d.correlation3d_knn(xyz1, xyz2_warp, pyramid, sizes, 16), 50),
            time_ms(lambda: corr3d.correlation3d_knn_plain(
-               xyz1, xyz2_warp, pyramid, sizes, 16), 20))
+               xyz1, xyz2_warp, pyramid, sizes, 16), 20),
+           m * m * 9,  # one scan of the level-0 candidates serves every level
+           # the points, the selected pyramid entries, indices and costs out
+           4 * (2 * m * 3 + 3 * n_sel))
+
+    # the 2D update chain at the flagship's 1/8 map
+    blocks = nn.ModuleList([MotionEncoder2D(), GRU2D(), FlowHead2D()])
+    random_weights(blocks, SEED + 7)
+    encoder, gru, head = blocks.to(device)
+    shape = (1, feat_h, feat_w)
+    pixels = feat_h * feat_w
+
+    def rand(channels, scale=1.0):
+        return scale * torch.randn(*shape, channels, generator=gen, device=device)
+
+    def size(conv):  # weights and bias as the function reads them, unpadded
+        return conv.kh * conv.kw * conv.cin * conv.cout + conv.cout
+
+    def check(name, got, ref):
+        err = float((got - ref).abs().max())
+        limit = CONV_TOL * (1.0 + float(ref.abs().max()))
+        if not err <= limit:
+            raise AssertionError(f"{name}: max |d| {err} > {limit}")
+        return err
+
+    with torch.inference_mode():
+        flow2d, corr = rand(2, 2.0), rand(324)
+        me = update2d.prepare_motion_encoder_params(encoder)
+        err = check("motion_encoder_2d", update2d.motion_encoder_2d(flow2d, corr, me),
+                    update2d.motion_encoder_2d_plain(flow2d, corr, me))
+        weights = sum(size(p) for k, p in me.items() if k != "conv_f1")
+        macs = 324 * 256 + 9 * 256 * 192 + 9 * 128 * 64 + 9 * 256 * 126
+        record("motion_encoder_2d", "camliflow_torch/csrc/update2d.cu",
+               "camliflow_tpu/ops/pallas_update2d.py:461", err,
+               time_ms(lambda: update2d.motion_encoder_2d(flow2d, corr, me), 20),
+               time_ms(lambda: update2d.motion_encoder_2d_plain(flow2d, corr, me), 20),
+               2 * pixels * macs, 4 * (pixels * (2 + 128 + 324 + 128) + weights))
+
+        h, x2d, motion = torch.tanh(rand(128)), torch.relu(rand(128)), rand(128)
+        gf = update2d.prepare_gru_flowhead_params(gru, head)
+        h_k, d_k = update2d.gru_flowhead_2d(h, x2d, motion, gf)
+        h_p, d_p = update2d.gru_flowhead_2d_plain(h, x2d, motion, gf)
+        err = max(check("gru_flowhead_2d h'", h_k, h_p), check("gru_flowhead_2d delta", d_k, d_p))
+        weights = sum(size(p) for p in gf.values())
+        macs = 2 * 5 * 384 * (256 + 128) + 9 * 128 * 256 + 9 * 256 * 2
+        record("gru_flowhead_2d", "camliflow_torch/csrc/update2d.cu",
+               "camliflow_tpu/ops/pallas_update2d.py:235", err,
+               time_ms(lambda: update2d.gru_flowhead_2d(h, x2d, motion, gf), 20),
+               time_ms(lambda: update2d.gru_flowhead_2d_plain(h, x2d, motion, gf), 20),
+               2 * pixels * macs, 4 * (pixels * (3 * 128 + 128 + 2) + weights))
     return results
+
+
+def drive(name, evaluator, batches, wrappers, card) -> dict:
+    """1 warm-up and 3 requests through the Evaluator; the launch counts of
+    the 3 requests (counters zeroed just before them)."""
+    import torch
+
+    evaluator.run_things(batches[:1])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    evaluator.request_ms.clear()
+    for fn in wrappers.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    metrics = evaluator.run_things(batches[1:])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = 1e3 * seconds / 3
+    requests = ", ".join(f"{t:.3f}" for t in evaluator.request_ms)
+    shown = " | ".join(f"{k} {v:.6f}" for k, v in metrics.items() if k.startswith("EPE"))
+    print(f"  {name}: {shown} | {ms:.3f} ms per frame pair | {1e3 / ms:.3f} "
+          f"frame-pairs/s | requests [{requests}] ms, median "
+          f"{np.median(evaluator.request_ms):.3f} | peak {peak:.1f} MiB | {card}")
+    print(f"  {name} launches over the 3 requests:", launches, flush=True)
+    return launches
+
+
+def check_output(out: dict, key: str, shape: tuple) -> np.ndarray:
+    value = out[key]
+    if value.shape != shape or not np.isfinite(value).all():
+        raise AssertionError(f"bad {key}: shape {value.shape}, finite {np.isfinite(value).all()}")
+    return value
 
 
 def main() -> int:
@@ -240,8 +421,9 @@ def main() -> int:
         return 1
     try:
         from camliflow_torch.csrc import build as kbuild
+        from camliflow_torch.models.camliraft import CamLiRAFT
         from camliflow_torch.models.camliraft_l import CamLiRAFTL
-        from camliflow_torch.ops import corr3d, fps, interp, knn
+        from camliflow_torch.ops import corr3d, fps, interp, knn, update2d
         from camliflow_torch.runtime.evaluator import Evaluator
         from camliflow_torch.utils.torch_setup import setup_torch
     except ImportError as e:
@@ -276,7 +458,9 @@ def main() -> int:
         return 1
 
     # 3. per-kernel parity
-    print("[3/5] kernels vs plain versions at main-path shapes", flush=True)
+    print("[3/5] kernels vs plain versions at main-path shapes (a plain version "
+          "repeats its kernel's arithmetic in PyTorch ops, cuDNN convolutions for "
+          "the 2D chain, and is no yardstick of speed)", flush=True)
     kernels = []
     try:
         kernels = kernel_parity(device)
@@ -284,77 +468,80 @@ def main() -> int:
         traceback.print_exc()
         failures.append("kernels")
 
-    # 4. end to end
-    print(f"[4/5] CamLiRAFT-L eval: {N_POINTS} pts, {N_ITERS} iters, bs=1, IDS on",
-          flush=True)
     wrappers = {"k_nearest_neighbor": knn.k_nearest_neighbor,
                 "furthest_point_sampling": fps.furthest_point_sampling,
                 "knn_interpolation": interp.knn_interpolation,
-                "correlation3d_knn": corr3d.correlation3d_knn}
-    model = CamLiRAFTL(MODEL_CFGS)
-    random_weights(model, SEED)
-    cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
-    evaluator = Evaluator(model, device)
-    batches = [frame_pair(SEED + 1 + i, i) for i in range(4)]
-    out = None
-    try:
-        for fn in wrappers.values():
-            fn.launches = 0
-        evaluator.run_things(batches[:1])  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        evaluator.request_ms.clear()
-        start = time.perf_counter()
-        metrics = evaluator.run_things(batches[1:])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        ms = 1e3 * seconds / 3
-        requests = ", ".join(f"{t:.3f}" for t in evaluator.request_ms)
-        print(f"  EPE3d {metrics['EPE3d']:.6f} m | {ms:.3f} ms per frame pair | "
-              f"{1e3 / ms:.3f} frame-pairs/s | requests [{requests}] ms, median "
-              f"{np.median(evaluator.request_ms):.3f} | peak {peak:.1f} MiB | {card}")
-        print("  launches over warm-up + 3 requests:", launches, flush=True)
-        for entry in kernels:
-            entry["launches"] = launches[entry["name"]]
-        missing = [name for name, n in launches.items() if n == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the main path: {missing}")
-        out = evaluator.forward(batches[0])["flow_3d"]
-        if out.shape != (1, N_POINTS, 3) or not np.isfinite(out).all():
-            raise AssertionError(f"bad output: shape {out.shape}, finite "
-                                 f"{np.isfinite(out).all()}")
-        profile_request(evaluator, batches[1])
-    except Exception:
-        traceback.print_exc()
-        failures.append("end to end")
+                "correlation3d_knn": corr3d.correlation3d_knn,
+                "motion_encoder_2d": update2d.motion_encoder_2d,
+                "gru_flowhead_2d": update2d.gru_flowhead_2d}
+    for label, cls, cfgs, images in (
+        ("CamLiRAFT-L", CamLiRAFTL, L_CFGS, False),
+        ("CamLiRAFT", CamLiRAFT, FLAGSHIP_CFGS, True),
+    ):
+        # 4. end to end
+        print(f"[4/5] {label} eval: {N_POINTS} pts"
+              f"{f', {IMAGE_W}x{IMAGE_H} images' if images else ''}, {N_ITERS} iters, "
+              "bs=1, IDS on", flush=True)
+        model = cls(cfgs)
+        random_weights(model, SEED)
+        cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
+        evaluator = Evaluator(model, device)
+        batches = [frame_pair(SEED + 1 + i, i, images) for i in range(4)]
+        out = None
+        try:
+            launches = drive(label, evaluator, batches, wrappers, card)
+            # CamLiRAFT-L has no 2D branch: the last two kernels are the flagship's
+            required = list(wrappers) if images else list(wrappers)[:4]
+            missing = [k for k in required if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"kernels never launched on the main path: {missing}")
+            if images:
+                for entry in kernels:
+                    entry["launches"] = launches[entry["name"]]
+                per_request = {k: launches[k] / 3 for k in ("motion_encoder_2d", "gru_flowhead_2d")}
+                if any(v != N_ITERS for v in per_request.values()):
+                    raise AssertionError(f"2D update kernels per request: {per_request}, "
+                                         f"expected {N_ITERS}")
+            out = evaluator.forward(batches[0])
+            check_output(out, "flow_3d", (1, N_POINTS, 3))
+            if images:
+                check_output(out, "flow_2d", (1, IMAGE_H, IMAGE_W, 2))
+            profile_split(evaluator, batches[1])
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{label} end to end")
 
-    # 5. CUDA vs CPU
-    print("[5/5] same weights and input on the CPU (plain versions)", flush=True)
-    try:
-        if out is None:
-            raise RuntimeError("no CUDA output to compare")
-        cpu_model = CamLiRAFTL(MODEL_CFGS)
-        cpu_model.load_state_dict(cpu_state)
-        start = time.perf_counter()
-        ref = Evaluator(cpu_model, "cpu").forward(batches[0])["flow_3d"]
-        delta = float(np.abs(out - ref).max())
-        print(f"  max|dflow_3d| {delta:.3e} m (bound {FLOW_TOL}), |flow| up to "
-              f"{np.abs(ref).max():.3f} m, CPU {time.perf_counter() - start:.1f} s")
-        if not delta <= FLOW_TOL:
-            raise AssertionError(f"CUDA vs CPU max |dflow_3d| {delta} > {FLOW_TOL}")
-    except Exception:
-        traceback.print_exc()
-        failures.append("cuda vs cpu")
+        # 5. CUDA vs CPU
+        print(f"[5/5] {label}: same weights and input on the CPU (plain versions)",
+              flush=True)
+        try:
+            if out is None:
+                raise RuntimeError("no CUDA output to compare")
+            cpu_model = cls(cfgs)
+            cpu_model.load_state_dict(cpu_state)
+            start = time.perf_counter()
+            ref = Evaluator(cpu_model, "cpu").forward(batches[0])
+            seconds = time.perf_counter() - start
+            for key, tol, unit in (("flow_3d", FLOW_3D_TOL, "m"), ("flow_2d", FLOW_2D_TOL, "px")):
+                if key not in ref:
+                    continue
+                delta = float(np.abs(out[key] - ref[key]).max())
+                print(f"  max|d{key}| {delta:.3e} {unit} (bound {tol}), |{key}| up to "
+                      f"{np.abs(ref[key]).max():.3f} {unit}")
+                if not delta <= tol:
+                    raise AssertionError(f"CUDA vs CPU max |d{key}| {delta} > {tol}")
+            print(f"  CPU forward {seconds:.1f} s", flush=True)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{label} cuda vs cpu")
 
     print(json.dumps({"kernels": kernels}))
+    print(card)
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 

@@ -382,5 +382,5 @@ def test_fast_inference_key():
         tm.CamLiRAFTL({**small_cfgs(False), "fast_inference": "on"})
     with pytest.raises(ValueError):
         tm.CamLiRAFTL({**small_cfgs(False), "fast_inference": "fast"})
-    with pytest.raises(NotImplementedError, match="camliraft"):
-        model_factory({"name": "camliraft"})
+    with pytest.raises(NotImplementedError, match="raft"):
+        model_factory({"name": "raft"})

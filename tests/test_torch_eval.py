@@ -1,6 +1,7 @@
 """PyTorch port: the eval entry point against the JAX Evaluator, the port's
 independence from JAX, and chip_smoke.py's refusal to run without a card."""
 
+import ast
 import json
 import shutil
 import subprocess
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from camliflow_tpu.models import camliraft as jm_flagship
 from camliflow_tpu.models import camliraft_l as jm
 from camliflow_tpu.runtime.checkpoint import flat_to_tree, save_variables, tree_to_flat
 from camliflow_tpu.runtime.evaluator import Evaluator as JaxEvaluator
@@ -61,7 +63,8 @@ def synthetic(tmp_path_factory):
 
 
 def test_eval_cli_matches_jax_evaluator(synthetic):
-    args = ["protocol=things", "testset=flyingthings3d_subset", "model=camliraft_l"]
+    args = ["protocol=things", "testset=flyingthings3d_subset", "model=camliraft_l",
+            "device=cpu"]
     got = torch_eval.main(args + synthetic)
     cfgs = compose(REPO / "conf", testset="flyingthings3d_subset", model="camliraft_l",
                    base="evaluator.yaml", overrides=synthetic)
@@ -71,12 +74,51 @@ def test_eval_cli_matches_jax_evaluator(synthetic):
         assert abs(got[key] - ref[key]) <= 1e-4, (key, got[key], ref[key])
 
 
+def test_eval_cli_camliraft_matches_jax_evaluator(synthetic):
+    """The flagship through the CLI on the CPU (ResNet-18 backbone to keep
+    the JAX side's compile short): EPE2d, 1px, Fl and the 3D metrics match
+    the JAX Evaluator on the same checkpoint to 1e-4."""
+    root = synthetic[0].split("=", 1)[1]
+    overrides = [o for o in synthetic if not o.startswith("ckpt.path=")]
+    overrides.append("model.backbone.depth=18")
+    cfgs = compose(REPO / "conf", testset="flyingthings3d_subset", model="camliraft",
+                   base="evaluator.yaml", overrides=overrides)
+    rng = np.random.RandomState(1)
+    inputs = {"images": jnp.asarray(rng.randint(0, 255, (1, 128, 192, 6)).astype(np.float32)),
+              "pcs": jnp.asarray(np.concatenate([rng.randn(1, 512, 3) + [0, 0, 10]] * 2, -1)
+                                 .astype(np.float32)),
+              "intrinsics": jnp.asarray([[1050.0, 479.5, 269.5]], jnp.float32)}
+    model = jm_flagship.CamLiRAFT(cfgs=cfgs.model.to_dict(), train_mode=False)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), inputs)
+    ckpt = Path(root) / "camliraft.npz"
+    save_variables(ckpt, variables)
+    overrides.append(f"ckpt.path={ckpt}")
+    got = torch_eval.main(["protocol=things", "testset=flyingthings3d_subset",
+                           "model=camliraft", "device=cpu"] + overrides)
+    cfgs.ckpt.path = str(ckpt)
+    ref = JaxEvaluator(cfgs, batch_size=torch_eval.BATCH_SIZE).run_things()
+    assert {"EPE2d", "1px", "Fl", "EPE3d", "5cm", "10cm"} <= set(got)
+    assert set(got) == set(ref)
+    for key in got:
+        assert abs(got[key] - ref[key]) <= 1e-4, (key, got[key], ref[key])
+
+
 def test_eval_cli_rejects_what_is_not_ported(synthetic):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_eval.main(["protocol=sintel", "model=camliraft_l"])
-    with pytest.raises(NotImplementedError, match="camliraft"):
+    with pytest.raises(NotImplementedError, match="raft"):
         torch_eval.main(["protocol=things", "testset=flyingthings3d_subset",
-                         "model=camliraft"] + synthetic)
+                         "model=raft", "device=cpu"] + synthetic)
+
+
+def test_eval_cli_needs_a_card_unless_told_cpu(synthetic):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    args = ["protocol=things", "testset=flyingthings3d_subset", "model=camliraft_l"]
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        torch_eval.main(args + synthetic)
+    with pytest.raises(ValueError, match="cuda|cpu"):
+        torch_eval.main(args + synthetic + ["device=tpu"])
 
 
 def test_port_never_imports_jax():
@@ -93,6 +135,20 @@ def test_port_never_imports_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 15  # every module was imported
+    # imports inside functions run only when called, so read every source too
+    banned = {"jax", "flax", "optax", "camliflow_tpu", "tools"}
+    sources = sorted((REPO / "camliflow_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    found = []
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{path.name}: {n}" for n in names if n.split(".")[0] in banned]
+    assert len(sources) >= 25 and not found, found
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

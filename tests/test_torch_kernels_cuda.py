@@ -9,16 +9,18 @@ installed:
 (`--noconftest` because tests/conftest.py configures JAX.) Tolerances: KNN
 and corr3d selected squared distances rtol = atol = 1e-4; corr3d costs
 exactly the pyramid at the kernel's own indices; FPS indices identical;
-interpolation atol 1e-5.
+interpolation atol 1e-5; the 2D update kernels max |kernel - plain| <=
+1e-4 * (1 + max |plain|) (f32 on both sides, summation order only).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from camliflow_torch.ops import corr3d, fps, interp, knn
+from camliflow_torch.ops import corr3d, fps, interp, knn, update2d
 from camliflow_torch.ops.geometry import squared_distance
 from camliflow_torch.ops.ids import make_parallel_camera_info, persp2paral
+from camliflow_torch.utils.torch_setup import setup_torch
 
 SEL_TOL = dict(rtol=1e-4, atol=1e-4)
 PERSP = {"sensor_h": 540, "sensor_w": 960, "f": 1050.0, "cx": 479.5, "cy": 269.5}
@@ -28,6 +30,7 @@ PERSP = {"sensor_h": 540, "sensor_w": 960, "f": 1050.0, "cx": 479.5, "cy": 269.5
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    setup_torch()  # the plain versions' convolutions in full f32, not TF32
     return torch.device("cuda")
 
 
@@ -109,3 +112,87 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="descending"):
         corr3d.correlation3d_knn(pts[:1], pts[:1], torch.zeros(1, 512, 768, device=cuda),
                                  (256, 512), 16)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_takes_2d_points(cuda):
+    """CLFM's pixel-grid KNN: 2-D points reach the kernel with z = 0, so the
+    selected distances equal the plain version's exactly."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    uv = (torch.rand(2, 300, 2, generator=gen, device=cuda) * 20).contiguous()
+    ys, xs = torch.meshgrid(torch.arange(12.0, device=cuda), torch.arange(21.0, device=cuda),
+                            indexing="ij")
+    grid = torch.stack([xs, ys], -1).reshape(1, -1, 2).expand(2, -1, -1).contiguous()
+    got = knn.k_nearest_neighbor(uv, grid, 1)
+    ref = knn.k_nearest_neighbor_plain(uv, grid, 1)
+    d = squared_distance(grid, uv)
+    assert torch.equal(torch.gather(d, 2, got.long()), torch.gather(d, 2, ref.long()))
+
+
+def update_blocks(device, seed):
+    from camliflow_torch.models.raft import FlowHead2D, GRU2D, MotionEncoder2D
+
+    torch.manual_seed(seed)
+    return [m.to(device) for m in (MotionEncoder2D(corr_channels=36), GRU2D(), FlowHead2D())]
+
+
+def assert_conv_close(got, ref):
+    """f32 on both sides: the residue is summation order."""
+    err = float((got - ref).abs().max())
+    assert err <= 1e-4 * (1 + float(ref.abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 1, 5)])
+def test_motion_encoder_2d_kernel_matches_plain(cuda, shape):
+    encoder, _, _ = update_blocks(cuda, 30)
+    flow = 2 * torch.randn(*shape, 2, device=cuda)
+    corr = torch.randn(*shape, 36, device=cuda)
+    with torch.inference_mode():
+        params = update2d.prepare_motion_encoder_params(encoder)
+        before = update2d.motion_encoder_2d.launches
+        got = update2d.motion_encoder_2d(flow, corr, params)
+        assert update2d.motion_encoder_2d.launches == before + 1
+        ref = update2d.motion_encoder_2d_plain(flow, corr, params)
+    assert got.shape == (*shape, 128)
+    assert torch.equal(got[..., -2:], flow)
+    assert_conv_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 6, 1)])
+def test_gru_flowhead_2d_kernel_matches_plain(cuda, shape):
+    _, gru, head = update_blocks(cuda, 31)
+    h = torch.tanh(torch.randn(*shape, 128, device=cuda))
+    x2d = torch.relu(torch.randn(*shape, 128, device=cuda))
+    motion = torch.randn(*shape, 128, device=cuda)
+    with torch.inference_mode():
+        params = update2d.prepare_gru_flowhead_params(gru, head)
+        before = update2d.gru_flowhead_2d.launches
+        h_got, d_got = update2d.gru_flowhead_2d(h, x2d, motion, params)
+        assert update2d.gru_flowhead_2d.launches == before + 1
+        h_ref, d_ref = update2d.gru_flowhead_2d_plain(h, x2d, motion, params)
+    assert h_got.shape == (*shape, 128) and d_got.shape == (*shape, 2)
+    assert_conv_close(h_got, h_ref)
+    assert_conv_close(d_got, d_ref)
+
+
+@pytest.mark.cuda
+def test_update2d_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    encoder, gru, head = update_blocks(cuda, 32)
+    flow = torch.randn(1, 6, 8, 2, device=cuda)
+    corr = torch.randn(1, 6, 8, 36, device=cuda)
+    with torch.inference_mode():
+        params = update2d.prepare_motion_encoder_params(encoder)
+        with pytest.raises(ValueError, match="contiguous"):
+            update2d.motion_encoder_2d(flow, corr.transpose(1, 2).contiguous().transpose(1, 2),
+                                       params)
+        with pytest.raises(ValueError, match="shape"):
+            update2d.motion_encoder_2d(flow, corr[..., :30].contiguous(), params)
+        cpu_params = update2d.prepare_motion_encoder_params(encoder.cpu())
+        with pytest.raises(ValueError, match="params"):
+            update2d.motion_encoder_2d(flow, corr, cpu_params)
+        gf = update2d.prepare_gru_flowhead_params(gru, head)
+        h = torch.randn(1, 6, 8, 128, device=cuda)
+        with pytest.raises(ValueError, match="fit"):
+            update2d.gru_flowhead_2d(h, h, h[..., :64].contiguous(), gf)
