@@ -42,6 +42,9 @@ SIGNATURES = {
     "camli_corr3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     "camli_motion_encoder_2d": [_P] * 15 + [_I] * 9 + [_P],
     "camli_gru_flowhead_2d": [_P] * 21 + [_I] * 7 + [_P],
+    "camli_update_2d": [_P] * 29 + [_I] * 13 + [_P],
+    "camli_motion_encoder_3d": [_P] * 17 + [_I] * 13 + [_P],
+    "camli_gru_flowhead_3d": [_P] * 21 + [_I] * 13 + [_P],
 }
 
 

@@ -7,7 +7,8 @@ Composes the same `conf/` tree as eval.py, loads the JAX package's variables
 through the weight bridge, and runs the `things` protocol. It runs on the
 CUDA card unless `device=cpu` is given (there the kernels' plain versions
 run); without a card and without `device=cpu` it raises. Ported so far:
-`protocol=things` with `model=camliraft` or `model=camliraft_l`.
+`protocol=things` with `model=camliraft`, `model=camliraft_l` or
+`model=raft`.
 """
 
 from __future__ import annotations

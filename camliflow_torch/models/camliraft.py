@@ -10,9 +10,11 @@ RAFT update modules; CLFM fuses the two at fnet, cnet, corr and motion
 (hidden off by default).
 
 In the loop, on CUDA tensors, MotionEncoder2D runs as kernel #9 and GRU2D +
-FlowHead2D as kernel #8 (ops/update2d.py), on weights packed once per
-request. GRU2D and FlowHead2D are contiguous only with `fuse_hidden` off;
-with it on they run as the plain modules, as the JAX package falls back.
+FlowHead2D as kernel #8 (ops/update2d.py), MotionEncoder3D as kernel #6 and
+GRU3D + FlowHead3D as kernel #7 (ops/update3d.py), on weights packed once
+per request. The GRUs and flow heads are contiguous only with `fuse_hidden`
+off; with it on they run as the plain modules, as the JAX package falls
+back.
 
 Module names follow the reference state_dict (`core.branch_2d.fnet`,
 `core.branch_3d.correlation`, `core.clfm_corr`, ...), so the weight bridge
@@ -26,8 +28,12 @@ from torch import nn
 
 from ..nn.clfm import CLFM, fusion_interp_cache
 from ..nn.resnet import ResNetEncoder2D
-from ..ops import update2d
-from ..ops.correlation import all_pairs_correlation_pyramid, corr_lookup_2d
+from ..ops import update2d, update3d
+from ..ops.correlation import (
+    all_pairs_correlation_pyramid,
+    corr_lookup_2d,
+    resolve_lookup_storage,
+)
 from ..ops.geometry import backwarp_3d, build_pc_pyramid, gather_points, k_nearest_neighbor
 from ..ops.ids import make_parallel_camera_info, paral2persp, persp2paral, project_pc2image
 from ..ops.image import InputPadder, mesh_grid
@@ -42,7 +48,7 @@ from .camliraft_l import (
     encoder_knn_indices,
     resolve_fast_inference,
 )
-from .raft import ConvexUpsampler2D, FlowHead2D, GRU2D, MotionEncoder2D
+from .raft import Correlation2D, ConvexUpsampler2D, FlowHead2D, GRU2D, MotionEncoder2D
 
 # ImageNet statistics of the mmdet backbone
 _IMAGENET_MEAN = (123.675, 116.280, 103.530)
@@ -51,34 +57,13 @@ CORR_RADIUS = 4
 CORR_LEVELS = 4
 
 
-def resolve_lookup_storage(mode: str) -> None:
-    """The `lookup_storage` config key: `auto` and `split` both mean the
-    exact f32 volume here; the TPU fast path's bf16/int8 storage is not
-    ported."""
-    if mode in ("bf16", "int8"):
-        raise NotImplementedError(
-            f"lookup_storage={mode} (the TPU fast path's volume storage) is not "
-            "ported; see ROADMAP.md Queue 1, 'fast_inference storage'"
-        )
-    if mode not in ("auto", "split"):
-        raise ValueError(f"lookup_storage must be auto|split|bf16|int8, got {mode!r}")
-
-
-class _Correlation2D(nn.Module):
-    """Holds the fnet aligner under the reference's name."""
-
-    def __init__(self):
-        super().__init__()
-        self.fnet_aligner = nn.Linear(128, 256)
-
-
 class Branch2D(nn.Module):
     def __init__(self, backbone_depth: int):
         super().__init__()
         self.fnet = ResNetEncoder2D(depth=backbone_depth)
         self.cnet = ResNetEncoder2D(depth=backbone_depth)
         self.cnet_aligner = nn.Linear(128, 256)
-        self.correlation = _Correlation2D()
+        self.correlation = Correlation2D()
         self.motion_encoder = MotionEncoder2D(corr_channels=CORR_LEVELS * (2 * CORR_RADIUS + 1) ** 2)
         self.gru = GRU2D(hidden_dim=128, input_dim=256)
         self.flow_head = FlowHead2D()
@@ -177,9 +162,13 @@ class CamLiRAFTCore(nn.Module):
             "dw": {name: getattr(b3d, name).precompute_weights(xyz1, knn_indices)
                    for name in ("motion_encoder", "gru", "flow_head")},
             "me_params": update2d.prepare_motion_encoder_params(b2d.motion_encoder),
+            "me3d_params": update3d.prepare_motion_encoder_3d_params(b3d.motion_encoder),
         }
         if not self.fuse["hidden"]:
             consts["gf_params"] = update2d.prepare_gru_flowhead_params(b2d.gru, b2d.flow_head)
+            consts["gf3d_params"] = update3d.prepare_gru_flowhead_3d_params(b3d.gru,
+                                                                           b3d.flow_head)
+            consts["gf3d_dw"] = {**consts["dw"]["gru"], **consts["dw"]["flow_head"]}
         return state, consts
 
     def iterate(self, state, consts):
@@ -200,21 +189,24 @@ class CamLiRAFTCore(nn.Module):
             corr_2d, corr_3d = self.clfm_corr(uv1, corr_2d, corr_3d, cache1)
 
         motion_2d = update2d.motion_encoder_2d(flow_2d, corr_2d, consts["me_params"])
-        motion_3d = b3d.motion_encoder(xyz1, flow_3d, corr_3d, knn_indices, dw["motion_encoder"])
+        motion_3d = update3d.motion_encoder_3d(flow_3d, corr_3d.contiguous(), knn_indices,
+                                               dw["motion_encoder"], consts["me3d_params"])
         if self.fuse["motion"]:
             motion_2d, motion_3d = self.clfm_motion(uv1, motion_2d, motion_3d, cache1)
 
         if self.fuse["hidden"]:
             h_2d = b2d.gru(h_2d, torch.cat([consts["x_2d"], motion_2d], dim=-1))
+            h_3d = b3d.gru(xyz1, h_3d, torch.cat([consts["x_3d"], motion_3d], dim=-1),
+                           knn_indices, dw["gru"])
+            h_2d, h_3d = self.clfm_hidden(uv1, h_2d, h_3d, cache1)
+            delta_2d = b2d.flow_head(h_2d)
+            delta_3d = b3d.flow_head(xyz1, h_3d, knn_indices, dw["flow_head"])
         else:
             h_2d, delta_2d = update2d.gru_flowhead_2d(h_2d, consts["x_2d"], motion_2d,
                                                       consts["gf_params"])
-        h_3d = b3d.gru(xyz1, h_3d, torch.cat([consts["x_3d"], motion_3d], dim=-1),
-                       knn_indices, dw["gru"])
-        if self.fuse["hidden"]:
-            h_2d, h_3d = self.clfm_hidden(uv1, h_2d, h_3d, cache1)
-            delta_2d = b2d.flow_head(h_2d)
-        delta_3d = b3d.flow_head(xyz1, h_3d, knn_indices, dw["flow_head"])
+            h_3d, delta_3d = update3d.gru_flowhead_3d(h_3d, consts["x_3d"],
+                                                      motion_3d.contiguous(), knn_indices,
+                                                      consts["gf3d_dw"], consts["gf3d_params"])
         return {"h_2d": h_2d, "h_3d": h_3d, "flow_2d": flow_2d + delta_2d,
                 "flow_3d": flow_3d + delta_3d}
 

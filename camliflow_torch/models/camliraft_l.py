@@ -7,9 +7,12 @@ iteration's flow is upsampled to the full cloud.
 
 Module names follow the reference PyTorch state_dict (`core.fnet`,
 `core.correlation`, ...), so the weight bridge (runtime/checkpoint.py) names
-every key with tools/port_checkpoint.py. The selections run through the
-kernel wrappers in ops/: FPS and KNN once per frame, KNN interpolation and
-the Correlation3D selection every iteration.
+every key with runtime/names.py. The selections run through the kernel
+wrappers in ops/: FPS and KNN once per frame, KNN interpolation and the
+Correlation3D selection every iteration. In the loop, MotionEncoder3D runs
+as kernel #6 and GRU3D + FlowHead3D as kernel #7 (ops/update3d.py), on MLP
+weights packed once per request; each module's own `forward` is the plain
+chain of ops/update3d.py on its own weights.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from torch import nn
 
 from ..nn.layers import MLP, DenseNormAct
-from ..nn.point_conv import PointConv, PointConvDW, paired_dw_conv
+from ..nn.point_conv import PointConv, PointConvDW
+from ..ops import update3d
 from ..ops.corr3d import correlation3d_knn
 from ..ops.geometry import (
     backwarp_3d,
@@ -133,15 +137,8 @@ class MotionEncoder3D(nn.Module):
         }
 
     def forward(self, xyz, flow, corr, knn_indices, dw):
-        corr_feat = self.conv_c1(xyz, corr, knn_indices=knn_indices,
-                                 weights=dw["conv_c1"])
-        flow_feat = self.conv_f1(xyz, flow, knn_indices=knn_indices,
-                                 weights=dw["conv_f1"])
-        flow_feat = self.conv_f2(xyz, flow_feat, knn_indices=knn_indices,
-                                 weights=dw["conv_f2"])
-        out = self.conv(xyz, torch.cat([corr_feat, flow_feat], dim=-1),
-                        knn_indices=knn_indices, weights=dw["conv"])
-        return torch.cat([out, flow], dim=-1)
+        params = update3d.prepare_motion_encoder_3d_params(self)
+        return update3d.motion_encoder_3d_plain(flow, corr, knn_indices, dw, params)
 
 
 class GRU3D(nn.Module):
@@ -156,7 +153,7 @@ class GRU3D(nn.Module):
 
     def precompute_weights(self, xyz, knn_indices):
         # z and r share (input, knn): their weights are pre-concatenated for
-        # the single-gather paired conv
+        # the one gather of the stacked z|r conv (ops/update3d.py)
         wz, wr, wq = (
             conv.compute_weights(xyz, knn_indices=knn_indices)
             for conv in (self.conv_z, self.conv_r, self.conv_q)
@@ -164,18 +161,8 @@ class GRU3D(nn.Module):
         return {"conv_zr": torch.cat([wz, wr], dim=-1), "conv_q": wq}
 
     def forward(self, xyz, h, x, knn_indices, dw):
-        hx = torch.cat([h, x], dim=-1)
-        z_raw, r_raw = paired_dw_conv(
-            self.conv_z, self.conv_r, xyz, hx, knn_indices=knn_indices,
-            weights=dw["conv_zr"],
-        )
-        z = torch.sigmoid(z_raw)
-        r = torch.sigmoid(r_raw)
-        q = torch.tanh(self.conv_q(
-            xyz, torch.cat([r * h, x], dim=-1), knn_indices=knn_indices,
-            weights=dw["conv_q"],
-        ))
-        return (1.0 - z) * h + z * q
+        params = update3d.prepare_gru_3d_params(self)
+        return update3d.gru_3d_plain(h, x, knn_indices, dw, params)
 
 
 class FlowHead3D(nn.Module):
@@ -196,17 +183,15 @@ class FlowHead3D(nn.Module):
         }
 
     def forward(self, xyz, features, knn_indices, dw):
-        features = self.conv1(xyz, features, knn_indices=knn_indices,
-                              weights=dw["conv1"])
-        features = self.conv2(xyz, features, knn_indices=knn_indices,
-                              weights=dw["conv2"])
-        return self.fc(features)
+        params = update3d.prepare_flow_head_3d_params(self)
+        return update3d.flow_head_3d_plain(features, knn_indices, dw, params)
 
 
 class UpdateBlock3D(nn.Module):
-    """One refinement iteration: backwarp, correlation, motion encoder, GRU,
-    flow head. `precompute` hoists the loop-invariant PointConvDW weights
-    (their inputs, xyz1 and the k=32 neighbours, never change)."""
+    """One refinement iteration: backwarp, correlation, then kernels #6
+    (motion encoder) and #7 (GRU + flow head). `precompute` hoists the
+    loop-invariant PointConvDW weights (their inputs, xyz1 and the k=32
+    neighbours, never change); `pack` the MLP weights of the two kernels."""
 
     def __init__(self, n_levels: int = 4):
         super().__init__()
@@ -222,6 +207,10 @@ class UpdateBlock3D(nn.Module):
             "flow_head": self.flow_head.precompute_weights(xyz1, knn_indices),
         }
 
+    def pack(self):
+        return {"me": update3d.prepare_motion_encoder_3d_params(self.motion_encoder),
+                "gf": update3d.prepare_gru_flowhead_3d_params(self.gru, self.flow_head)}
+
     def forward(self, h, flow, consts):
         xyz1, xyzs2 = consts["xyz1"], consts["xyzs2"]
         knn_indices, dw = consts["knn_indices"], consts["dw"]
@@ -230,11 +219,11 @@ class UpdateBlock3D(nn.Module):
         xyz2_warp_full = backwarp_3d(xyz1, xyzs2[0], flow)
         level_sizes = tuple(x.shape[1] for x in xyzs2)
         corr = self.correlation(xyz1, xyz2_warp_full, level_sizes, consts["pyramid"])
-        motion = self.motion_encoder(xyz1, flow, corr, knn_indices,
-                                     dw["motion_encoder"])
-        h = self.gru(xyz1, h, torch.cat([consts["x"], motion], dim=-1),
-                     knn_indices, dw["gru"])
-        delta = self.flow_head(xyz1, h, knn_indices, dw["flow_head"])
+        packed = consts["packed"]
+        motion = update3d.motion_encoder_3d(flow, corr, knn_indices, dw["motion_encoder"],
+                                            packed["me"])
+        h, delta = update3d.gru_flowhead_3d(h, consts["x"], motion, knn_indices,
+                                            {**dw["gru"], **dw["flow_head"]}, packed["gf"])
         return h, flow + delta
 
 
@@ -287,6 +276,7 @@ class CamLiRAFTLCore(nn.Module):
             "x": x,
             "pyramid": torch.cat(pyramid, dim=-1),  # once, outside the loop
             "dw": self.update.precompute(xyz1, knn_indices),
+            "packed": self.update.pack(),
         }
         flow = torch.zeros_like(xyz1)
         for _ in range(self.n_iters):

@@ -1,15 +1,16 @@
 """Model registry: the port's counterpart of camliflow_tpu/models/factory.py's
-lookup. Ported so far: CamLiRAFT and CamLiRAFT-L."""
+lookup. Ported so far: CamLiRAFT, CamLiRAFT-L and RAFT."""
 
 from __future__ import annotations
 
 from torch import nn
 
-from . import camliraft, camliraft_l
+from . import camliraft, camliraft_l, raft
 
 _REGISTRY: dict[str, type[nn.Module]] = {
     "camliraft": camliraft.CamLiRAFT,
     "camliraft_l": camliraft_l.CamLiRAFTL,
+    "raft": raft.RAFT,
 }
 
 

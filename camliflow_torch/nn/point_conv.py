@@ -86,23 +86,3 @@ class PointConvDW(nn.Module):
         knn_feats = gather_points(self.mlp(features), knn_indices)
         return torch.amax(knn_feats * weights, dim=2)
 
-
-def paired_dw_conv(conv_a: PointConvDW, conv_b: PointConvDW, xyz, features,
-                   knn_indices=None, weights=None):
-    """Two PointConvDWs over the same (input, knn) with one gather: gather
-    the channel-concat of both MLP outputs, multiply by the channel-concat of
-    both weight tensors, max over k, split. Identical to two calls (multiply
-    and max are per channel)."""
-    if conv_a.k != conv_b.k:
-        raise ValueError("paired convs must share k")
-    if weights is None:
-        weights = torch.cat(
-            [c.compute_weights(xyz, knn_indices=knn_indices) for c in (conv_a, conv_b)],
-            dim=-1,
-        )
-    idx = _resolve_knn(xyz, xyz, knn_indices, conv_a.k)
-    fa = conv_a.mlp(features)
-    fb = conv_b.mlp(features)
-    knn_feats = gather_points(torch.cat([fa, fb], dim=-1), idx)
-    out = torch.amax(knn_feats * weights, dim=2)
-    return out[..., : fa.shape[-1]], out[..., fa.shape[-1]:]

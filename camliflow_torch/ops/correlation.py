@@ -12,6 +12,19 @@ from __future__ import annotations
 import torch
 
 
+def resolve_lookup_storage(mode: str) -> None:
+    """The `lookup_storage` config key: `auto` and `split` both mean the
+    exact f32 volume here; the TPU fast path's bf16/int8 storage is not
+    ported."""
+    if mode in ("bf16", "int8"):
+        raise NotImplementedError(
+            f"lookup_storage={mode} (the TPU fast path's volume storage) is not "
+            "ported; see ROADMAP.md Queue 1, 'fast_inference storage'"
+        )
+    if mode not in ("auto", "split"):
+        raise ValueError(f"lookup_storage must be auto|split|bf16|int8, got {mode!r}")
+
+
 def all_pairs_correlation_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
                                   num_levels: int = 4) -> list[torch.Tensor]:
     """fmap1, fmap2 [B, H, W, C] -> levels [B*H*W, H/2^i, W/2^i, 1] (f32):

@@ -1,8 +1,9 @@
 """The 2D update chain: CUDA kernels, plain versions, wrappers.
 
-Replaces camliflow_tpu/ops/pallas_update2d.py::motion_encoder_2d_pallas and
-::gru_flowhead_2d_pallas with `csrc/update2d.cu` (see the source's note for
-the design and the bound). Both compute the exact path in f32.
+Replaces camliflow_tpu/ops/pallas_update2d.py::motion_encoder_2d_pallas,
+::gru_flowhead_2d_pallas and ::update_2d_pallas with `csrc/update2d.cu`
+(see the source's note for the design and the bound). All compute the exact
+path in f32.
 
 The modules' weights are repacked once per request, outside the refinement
 loop, by `prepare_motion_encoder_params` / `prepare_gru_flowhead_params`:
@@ -14,6 +15,9 @@ kernel's tiles. The plain versions take the same packed weights and run an
     motion_encoder_2d(flow, corr, me)          -> motion [B, H, W, 126 + 2]
     gru_flowhead_2d(h, x2d, motion, gf)        -> (h' [B, H, W, 128],
                                                    delta [B, H, W, 2])
+    update_2d(h, x2d, flow, corr, me, gf)      -> the two above in ONE
+                                                  launch (RAFT, no CLFM
+                                                  between them)
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from . import _cuda
 
 K_ALIGN = 16  # the kernel's reduction chunk
 N_ALIGN = 64  # the kernel's output-channel tile
+SM_ID_WORDS = 1024  # the fused kernel's per-SM block counts (kMaxSmIds)
 
 
 class PackedConv(NamedTuple):
@@ -182,6 +187,19 @@ def gru_flowhead_2d_plain(h, x2d, motion, params):
     return h, flow_head_2d_plain(h, params)
 
 
+def _check_gru_flowhead(name: str, params: dict, ch: int, cx: int, cm: int) -> None:
+    """The GRU's packed convs take [h, x2d, motion] (Ch + Cx + Cm channels)
+    and the flow head's chain from Ch to 2."""
+    for key, (kh, kw) in (("zr1", (1, 5)), ("q1", (1, 5)), ("zr2", (5, 1)), ("q2", (5, 1))):
+        conv = params[key]
+        cout = 2 * ch if key.startswith("zr") else ch
+        if (conv.kh, conv.kw, conv.cin, conv.cout) != (kh, kw, ch + cx + cm, cout):
+            raise ValueError(f"{name}: params[{key!r}] do not fit the inputs")
+    head1, head2 = params["head1"], params["head2"]
+    if (head1.cin, head2.cin, head2.cout) != (ch, head1.cout, 2):
+        raise ValueError(f"{name}: the flow head's packed convs do not chain")
+
+
 def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
                     params: dict):
     """h [B, H, W, Ch], x2d [B, H, W, Cx], motion [B, H, W, Cm] ->
@@ -196,14 +214,8 @@ def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
     _cuda.check_shape(name, "motion", motion, (batch, height, width, None))
     _check_params(name, params, h.device)
     cx, cm = x2d.shape[-1], motion.shape[-1]
-    head1, head2 = params["head1"], params["head2"]
-    for key, (kh, kw) in (("zr1", (1, 5)), ("q1", (1, 5)), ("zr2", (5, 1)), ("q2", (5, 1))):
-        conv = params[key]
-        cout = 2 * ch if key.startswith("zr") else ch
-        if (conv.kh, conv.kw, conv.cin, conv.cout) != (kh, kw, ch + cx + cm, cout):
-            raise ValueError(f"{name}: params[{key!r}] do not fit the inputs")
-    if (head1.cin, head2.cin, head2.cout) != (ch, head1.cout, 2):
-        raise ValueError(f"{name}: the flow head's packed convs do not chain")
+    _check_gru_flowhead(name, params, ch, cx, cm)
+    head1 = params["head1"]
     new = lambda c: h.new_empty(batch, height, width, c)  # noqa: E731
     z, rh, h1, mid, h_out, delta = new(ch), new(ch), new(ch), new(head1.cout), new(ch), new(2)
     from ..csrc.build import launch
@@ -219,3 +231,67 @@ def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
 
 
 gru_flowhead_2d.launches = 0
+
+
+# --- the whole RAFT iteration (kernel #10) --------------------------------
+
+
+def prepare_update_2d_params(encoder: nn.Module, gru: nn.Module, head: nn.Module):
+    """(me, gf): the motion encoder's and the GRU + flow head's packings."""
+    return prepare_motion_encoder_params(encoder), prepare_gru_flowhead_params(gru, head)
+
+
+def update_2d_plain(h, x2d, flow, corr, me: dict, gf: dict):
+    motion = motion_encoder_2d_plain(flow, corr, me)
+    return gru_flowhead_2d_plain(h, x2d, motion, gf)
+
+
+def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torch.Tensor,
+              me: dict, gf: dict, grid: int = 0):
+    """h [B, H, W, Ch], x2d [B, H, W, Cx], flow [B, H, W, 2], corr
+    [B, H, W, C] -> (h' [B, H, W, Ch], delta [B, H, W, 2]). CPU tensors take
+    the plain version; CUDA tensors conv_f1 as one F.conv2d, then the fused
+    kernel in one cooperative launch. `grid` > 0 asks for that many blocks
+    instead of the co-resident count (a grid too large is refused, and the
+    wrapper raises)."""
+    if _cuda.on_cpu(h, x2d, flow, corr):
+        return update_2d_plain(h, x2d, flow, corr, me, gf)
+    name = "update_2d"
+    _cuda.check(name, torch.float32, h=h, x2d=x2d, flow=flow, corr=corr)
+    batch, height, width, ch = h.shape
+    for key, t in (("x2d", x2d), ("corr", corr)):
+        _cuda.check_shape(name, key, t, (batch, height, width, None))
+    _cuda.check_shape(name, "flow", flow, (batch, height, width, 2))
+    _check_params(name, me, h.device)
+    _check_params(name, gf, h.device)
+    c1, c2, f2, merge = (me[k] for k in ("conv_c1", "conv_c2", "conv_f2", "conv"))
+    if c1.cin != corr.shape[-1] or (c2.cin, merge.cin) != (c1.cout, c2.cout + f2.cout):
+        raise ValueError(f"{name}: the motion encoder's packed convs do not fit the inputs")
+    cx, cm = x2d.shape[-1], merge.cout + 2
+    _check_gru_flowhead(name, gf, ch, cx, cm)
+    head1 = gf["head1"]
+    ff1 = _conv_f1(flow, me)
+    if f2.cin != ff1.shape[-1]:
+        raise ValueError(f"{name}: conv_f1 does not feed conv_f2")
+    pixels = batch * height * width
+    # one scratch buffer: [max(c1, head1) | c2 | f2 | motion | 3 x Ch] per pixel
+    per_pixel = max(c1.cout, head1.cout) + c2.cout + f2.cout + cm + 3 * ch
+    scratch = h.new_empty(pixels * per_pixel)
+    barrier = torch.empty(1 + SM_ID_WORDS, dtype=torch.int32, device=h.device)
+    h_out, delta = h.new_empty(batch, height, width, ch), h.new_empty(batch, height, width, 2)
+    from ..csrc.build import launch
+
+    launch("camli_update_2d", h.data_ptr(), x2d.data_ptr(), flow.data_ptr(), ff1.data_ptr(),
+           corr.data_ptr(),
+           *(t.data_ptr() for key in ("conv_c1", "conv_c2", "conv_f2", "conv")
+             for t in me[key][:2]),
+           *(t.data_ptr() for key in ("zr1", "q1", "zr2", "q2", "head1", "head2")
+             for t in gf[key][:2]),
+           scratch.data_ptr(), barrier.data_ptr(), h_out.data_ptr(), delta.data_ptr(),
+           batch, height, width, c1.cin, c1.cout, c2.cout, ff1.shape[-1], f2.cout,
+           merge.cout, ch, cx, head1.cout, grid)
+    update_2d.launches += 1
+    return h_out, delta
+
+
+update_2d.launches = 0

@@ -1,0 +1,227 @@
+"""The 3D update chain: CUDA kernels, plain versions, wrappers.
+
+Replaces camliflow_tpu/ops/pallas_update3d.py::motion_encoder_3d_pallas and
+::gru_flowhead_3d_pallas with `csrc/update3d.cu` (see the source's note for
+the design and the bound). Both compute the exact path in f32: the hoisted
+PointConvDW weights stay f32 in their [B, N, k, C] layout (the TPU fast
+path's bf16/int8 storage and k-major relayout are not ported).
+
+Each PointConvDW's MLP (one Linear) is packed once per request by
+`prepare_motion_encoder_3d_params` / `prepare_gru_flowhead_3d_params` into a
+`PackedConv` (1x1, weight [K_pad, N_pad]); z and r stack into one
+[384, 256] matmul, as the JAX packing does. The plain versions run the
+exact chain of models/camliraft_l.py on the same packed weights.
+
+    motion_encoder_3d(flow, corr, knn_idx, dw, me)      -> [B, N, 125 + 3]
+    gru_flowhead_3d(h, x3d, motion, knn_idx, dw, gf)    -> (h' [B, N, 128],
+                                                           delta [B, N, 3])
+
+`dw` holds the hoisted weights by conv name: conv_c1, conv_f1, conv_f2 and
+conv for the motion encoder; conv_zr, conv_q (GRU3D) and conv1, conv2
+(FlowHead3D) for the second.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import _cuda
+from .geometry import gather_points
+from .update2d import K_ALIGN, N_ALIGN, PackedConv, _check_params, _round_up
+
+ME_CONVS = ("conv_c1", "conv_f1", "conv_f2", "conv")
+GF_DW = ("conv_zr", "conv_q", "conv1", "conv2")
+STAGED = 128  # the most gathered channels a kernel stage holds per point
+
+
+def pack_linears(*linears: nn.Linear) -> PackedConv:
+    """One packed 1x1 conv from Linears sharing their input: their output
+    channels are stacked in order (z and r)."""
+    weight = torch.cat([lin.weight for lin in linears], dim=0).detach().float()
+    bias = torch.cat([lin.bias for lin in linears], dim=0).detach().float()
+    cout, cin = weight.shape
+    packed = weight.new_zeros(_round_up(cin, K_ALIGN), _round_up(cout, N_ALIGN))
+    packed[:cin, :cout] = weight.t()
+    padded_bias = bias.new_zeros(packed.shape[1])
+    padded_bias[:cout] = bias
+    return PackedConv(packed, padded_bias, 1, 1, cin, cout)
+
+
+def _mlp(conv: nn.Module) -> nn.Linear:
+    """The Linear of a PointConvDW's one-layer MLP."""
+    return conv.mlp.convs[0].conv_fn
+
+
+def linear_plain(x: torch.Tensor, conv: PackedConv) -> torch.Tensor:
+    return F.linear(x, conv.weight[: conv.cin, : conv.cout].t(), conv.bias[: conv.cout])
+
+
+def _leaky(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=0.1)
+
+
+def dw_max_plain(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
+    """max_j table[idx[:, :, j]] * weights[:, :, j] over the weights' k."""
+    k = weights.shape[2]
+    return torch.amax(gather_points(table, knn_idx[:, :, :k]) * weights, dim=2)
+
+
+def _check_dw(name: str, dw: dict, keys, batch: int, n: int, device) -> list[int]:
+    """The hoisted weights [B, N, k, C]; returns their k."""
+    ks = []
+    for key in keys:
+        w = dw[key]
+        _cuda.check(name, torch.float32, **{key: w})
+        if w.device != device:
+            raise ValueError(f"{name}: dw[{key!r}] lies on {w.device}, not {device}")
+        _cuda.check_shape(name, f"dw[{key!r}]", w, (batch, n, None, None))
+        ks.append(w.shape[2])
+    return ks
+
+
+def _check_idx(name: str, knn_idx: torch.Tensor, batch: int, n: int, k: int, device):
+    _cuda.check(name, torch.int32, knn_idx=knn_idx)
+    if knn_idx.device != device:
+        raise ValueError(f"{name}: knn_idx lies on {knn_idx.device}, not {device}")
+    _cuda.check_shape(name, "knn_idx", knn_idx, (batch, n, None))
+    if knn_idx.shape[2] < k:
+        raise ValueError(f"{name}: knn_idx has {knn_idx.shape[2]} neighbours, the "
+                         f"weights want {k}")
+
+
+# --- MotionEncoder3D (kernel #6) ------------------------------------------
+
+
+def prepare_motion_encoder_3d_params(encoder: nn.Module) -> dict:
+    """Packed MLPs of a `models.camliraft_l.MotionEncoder3D`."""
+    return {name: pack_linears(_mlp(getattr(encoder, name))) for name in ME_CONVS}
+
+
+def motion_encoder_3d_plain(flow, corr, knn_idx, dw: dict, params: dict):
+    corr_feat = dw_max_plain(_leaky(linear_plain(corr, params["conv_c1"])), knn_idx,
+                             dw["conv_c1"])
+    flow_feat = dw_max_plain(_leaky(linear_plain(flow, params["conv_f1"])), knn_idx,
+                             dw["conv_f1"])
+    flow_feat = dw_max_plain(_leaky(linear_plain(flow_feat, params["conv_f2"])), knn_idx,
+                             dw["conv_f2"])
+    out = dw_max_plain(_leaky(linear_plain(torch.cat([corr_feat, flow_feat], dim=-1),
+                                           params["conv"])), knn_idx, dw["conv"])
+    return torch.cat([out, flow], dim=-1)
+
+
+def motion_encoder_3d(flow: torch.Tensor, corr: torch.Tensor, knn_idx: torch.Tensor,
+                      dw: dict, params: dict):
+    """flow [B, N, 3], corr [B, N, C], knn_idx [B, N, >=32] int32 -> [B, N,
+    125 + 3] (the merge conv's output, then the flow). CPU tensors take the
+    plain version; CUDA tensors the kernel."""
+    if _cuda.on_cpu(flow, corr, knn_idx):
+        return motion_encoder_3d_plain(flow, corr, knn_idx, dw, params)
+    name = "motion_encoder_3d"
+    _cuda.check(name, torch.float32, flow=flow, corr=corr)
+    batch, n, c_flow = flow.shape
+    _cuda.check_shape(name, "corr", corr, (batch, n, None))
+    c1, f1, f2, merge = (params[k] for k in ME_CONVS)
+    ks = _check_dw(name, dw, ME_CONVS, batch, n, flow.device)
+    _check_idx(name, knn_idx, batch, n, max(ks), flow.device)
+    _check_params(name, params, flow.device)
+    if ((c1.cin, f1.cin, f2.cin, merge.cin) != (corr.shape[-1], c_flow, f1.cout,
+                                                c1.cout + f2.cout)
+            or [dw[k].shape[3] for k in ME_CONVS] != [p.cout for p in (c1, f1, f2, merge)]):
+        raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
+    if f1.cout > STAGED or f2.cout > STAGED:
+        raise ValueError(f"{name}: a staged gather is wider than {STAGED} channels")
+    scratch = flow.new_empty(batch * n * (2 * c1.cout + f1.cout + f2.cout + merge.cout))
+    out = flow.new_empty(batch, n, merge.cout + c_flow)
+    from ..csrc.build import launch
+
+    launch("camli_motion_encoder_3d", flow.data_ptr(), corr.data_ptr(), knn_idx.data_ptr(),
+           *(dw[k].data_ptr() for k in ME_CONVS),
+           *(t.data_ptr() for k in ME_CONVS for t in params[k][:2]),
+           scratch.data_ptr(), out.data_ptr(), batch, n, knn_idx.shape[2], c_flow,
+           corr.shape[-1], c1.cout, f1.cout, f2.cout, merge.cout, *ks)
+    motion_encoder_3d.launches += 1
+    return out
+
+
+motion_encoder_3d.launches = 0
+
+
+# --- GRU3D + FlowHead3D (kernel #7) ---------------------------------------
+
+
+def prepare_gru_3d_params(gru: nn.Module) -> dict:
+    """Packed MLPs of a `models.camliraft_l.GRU3D`: z|r stacked, and q."""
+    return {"zr": pack_linears(_mlp(gru.conv_z), _mlp(gru.conv_r)),
+            "q": pack_linears(_mlp(gru.conv_q))}
+
+
+def prepare_flow_head_3d_params(head: nn.Module) -> dict:
+    return {"conv1": pack_linears(_mlp(head.conv1)), "conv2": pack_linears(_mlp(head.conv2)),
+            "fc": pack_linears(head.fc)}
+
+
+def prepare_gru_flowhead_3d_params(gru: nn.Module, head: nn.Module) -> dict:
+    return {**prepare_gru_3d_params(gru), **prepare_flow_head_3d_params(head)}
+
+
+def gru_3d_plain(h, x, knn_idx, dw: dict, params: dict):
+    """Point-conv GRU: z and r from one k=4 conv, then q; no nan_to_num."""
+    hidden = h.shape[-1]
+    zr = dw_max_plain(linear_plain(torch.cat([h, x], dim=-1), params["zr"]), knn_idx,
+                      dw["conv_zr"])
+    z, r = torch.sigmoid(zr[..., :hidden]), torch.sigmoid(zr[..., hidden:])
+    q = torch.tanh(dw_max_plain(linear_plain(torch.cat([r * h, x], dim=-1), params["q"]),
+                                knn_idx, dw["conv_q"]))
+    return (1.0 - z) * h + z * q
+
+
+def flow_head_3d_plain(h, knn_idx, dw: dict, params: dict):
+    feat = dw_max_plain(_leaky(linear_plain(h, params["conv1"])), knn_idx, dw["conv1"])
+    feat = dw_max_plain(_leaky(linear_plain(feat, params["conv2"])), knn_idx, dw["conv2"])
+    return linear_plain(feat, params["fc"])
+
+
+def gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw: dict, params: dict):
+    h = gru_3d_plain(h, torch.cat([x3d, motion], dim=-1), knn_idx, dw, params)
+    return h, flow_head_3d_plain(h, knn_idx, dw, params)
+
+
+def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
+                    knn_idx: torch.Tensor, dw: dict, params: dict):
+    """h [B, N, Ch], x3d [B, N, Cx], motion [B, N, Cm], knn_idx [B, N, >=32]
+    int32 -> (h' [B, N, Ch], delta [B, N, 3]). CPU tensors take the plain
+    version; CUDA tensors the kernel."""
+    if _cuda.on_cpu(h, x3d, motion, knn_idx):
+        return gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw, params)
+    name = "gru_flowhead_3d"
+    _cuda.check(name, torch.float32, h=h, x3d=x3d, motion=motion)
+    batch, n, ch = h.shape
+    _cuda.check_shape(name, "x3d", x3d, (batch, n, None))
+    _cuda.check_shape(name, "motion", motion, (batch, n, None))
+    ks = _check_dw(name, dw, GF_DW, batch, n, h.device)
+    _check_idx(name, knn_idx, batch, n, max(ks), h.device)
+    _check_params(name, params, h.device)
+    cx, cm = x3d.shape[-1], motion.shape[-1]
+    zr, q, conv1, conv2, fc = (params[k] for k in ("zr", "q", "conv1", "conv2", "fc"))
+    if ((zr.cin, zr.cout, q.cin, q.cout) != (ch + cx + cm, 2 * ch, ch + cx + cm, ch)
+            or (conv1.cin, conv2.cin, fc.cin) != (ch, conv1.cout, conv2.cout)
+            or [dw[k].shape[3] for k in GF_DW] != [2 * ch, ch, conv1.cout, conv2.cout]):
+        raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
+    if max(ch, conv1.cout, conv2.cout) > STAGED:
+        raise ValueError(f"{name}: a staged gather is wider than {STAGED} channels")
+    scratch = h.new_empty(batch * n * (4 * ch + conv1.cout + conv2.cout))
+    h_out, delta = h.new_empty(batch, n, ch), h.new_empty(batch, n, fc.cout)
+    from ..csrc.build import launch
+
+    launch("camli_gru_flowhead_3d", h.data_ptr(), x3d.data_ptr(), motion.data_ptr(),
+           knn_idx.data_ptr(), *(dw[k].data_ptr() for k in GF_DW),
+           *(t.data_ptr() for k in ("zr", "q", "conv1", "conv2", "fc") for t in params[k][:2]),
+           scratch.data_ptr(), h_out.data_ptr(), delta.data_ptr(), batch, n,
+           knn_idx.shape[2], ch, cx, cm, conv1.cout, conv2.cout, fc.cout, *ks)
+    gru_flowhead_3d.launches += 1
+    return h_out, delta
+
+
+gru_flowhead_3d.launches = 0

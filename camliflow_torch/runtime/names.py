@@ -45,6 +45,16 @@ PREFIX_TABLES = {
         ("core/update/gru/", "core.gru."),
         ("core/update/flow_head/", "core.flow_head."),
     ],
+    "raft": [
+        ("core/fnet/", "core.fnet."),
+        ("core/cnet/", "core.cnet."),
+        ("core/cnet_aligner/", "core.cnet_aligner."),
+        ("core/fnet_aligner/", "core.correlation.fnet_aligner."),
+        ("core/update/motion_encoder/", "core.motion_encoder."),
+        ("core/update/gru/", "core.gru."),
+        ("core/update/flow_head/", "core.flow_head."),
+        ("core/update/convex_upsampler/", "core.convex_upsampler."),
+    ],
 }
 
 # token-level rewrites of the path after the prefix swap

@@ -3,26 +3,29 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width, CamLiRAFT-L eval (8192 points
-per cloud, n_samples_list 4096..256, 20 iterations, bs=1, IDS on) and the
-flagship CamLiRAFT eval (conf/model/camliraft.yaml: ResNet-50 cut at stage 2,
-CLFM at fnet/cnet/corr/motion, 960x540 images padded to 960x544 and 8192
-points, 20 iterations, bs=1, IDS on), in phases:
+Drives the port's three main paths at full width, CamLiRAFT-L eval (8192
+points per cloud, n_samples_list 4096..256, 20 iterations, bs=1, IDS on),
+the flagship CamLiRAFT eval (conf/model/camliraft.yaml: ResNet-50 cut at
+stage 2, CLFM at fnet/cnet/corr/motion, 960x540 images padded to 960x544
+and 8192 points, 20 iterations, bs=1, IDS on) and RAFT eval
+(conf/model/raft.yaml: ResNet-50, the same images, 20 iterations as bench.py
+times it, bs=1), in phases:
 
 1. device: requires a CUDA card; prints its name and power limit;
 2. build: compiles the CUDA kernels from camliflow_torch/csrc with nvcc;
-3. kernels: each of the six kernels against its plain PyTorch version on the
-   card, at the shapes the main paths give it, with times for both and the
-   least time the card could take (bound);
-4. CamLiRAFT-L end to end and 4b. CamLiRAFT end to end: random weights from
-   a seeded torch.Generator, synthetic inputs made with numpy from a seed
-   (bench.py's recipe plus a target), through the port's Evaluator: 1
-   warm-up and 3 requests, with every kernel's launch count over the 3
-   requests (counters zeroed just before them), then a torch.profiler view:
-   the top kernels, and device time and launches per refinement iteration
-   and once per frame pair (requests at 20 and 10 iterations);
-5. and 5b. CUDA vs CPU: the same weights and input on the CPU, where the
-   plain versions run.
+3. kernels: each of the nine kernels against its plain PyTorch version on
+   the card, at the shapes the main paths give it, with times for both and
+   the least time the card could take (bound);
+4. end to end, for each model: random weights from a seeded
+   torch.Generator, synthetic inputs made with numpy from a seed (bench.py's
+   recipe plus a target), through the port's Evaluator: 1 warm-up and 3
+   requests, with every kernel's launch count over the 3 requests (counters
+   zeroed just before them) held to what the path must launch, then a
+   torch.profiler view: the top kernels, and device time and launches per
+   refinement iteration and once per frame pair (requests at 20 and 10
+   iterations);
+5. CUDA vs CPU, for each model: the same weights and input on the CPU, where
+   the plain versions run.
 
 Prints the kernels' JSON line, then the card's name and power limit, then, as
 the last line, the device JSON with "ok": true. Exits non-zero, without that
@@ -69,6 +72,12 @@ FLAGSHIP_CFGS = {  # conf/model/camliraft.yaml
     "fuse_motion": True,
     "fuse_hidden": False,
     "n_samples_list": list(N_SAMPLES),
+}
+RAFT_CFGS = {  # conf/model/raft.yaml, at bench.py's 20 iterations
+    "name": "raft",
+    "backbone": {"depth": 50},
+    "n_iters_eval": N_ITERS,
+    "fast_inference": "auto",
 }
 INTRINSICS = (1050.0, 479.5, 269.5)
 
@@ -207,8 +216,9 @@ def kernel_parity(device) -> list[dict]:
     import torch
     from torch import nn
 
+    from camliflow_torch.models.camliraft_l import FlowHead3D, GRU3D, MotionEncoder3D
     from camliflow_torch.models.raft import FlowHead2D, GRU2D, MotionEncoder2D
-    from camliflow_torch.ops import corr3d, fps, interp, knn, update2d
+    from camliflow_torch.ops import corr3d, fps, interp, knn, update2d, update3d
     from camliflow_torch.ops.geometry import gather_points, squared_distance
     from camliflow_torch.ops.ids import make_parallel_camera_info, persp2paral
 
@@ -375,6 +385,69 @@ def kernel_parity(device) -> list[dict]:
                time_ms(lambda: update2d.gru_flowhead_2d(h, x2d, motion, gf), 20),
                time_ms(lambda: update2d.gru_flowhead_2d_plain(h, x2d, motion, gf), 20),
                2 * pixels * macs, 4 * (pixels * (3 * 128 + 128 + 2) + weights))
+
+        # the whole RAFT iteration, one cooperative launch: #9 then #8
+        h_k, d_k = update2d.update_2d(h, x2d, flow2d, corr, me, gf)
+        h_p, d_p = update2d.update_2d_plain(h, x2d, flow2d, corr, me, gf)
+        err = max(check("update_2d h'", h_k, h_p), check("update_2d delta", d_k, d_p))
+        weights = sum(size(p) for k, p in me.items() if k != "conv_f1")
+        weights += sum(size(p) for p in gf.values())
+        macs = (324 * 256 + 9 * 256 * 192 + 9 * 128 * 64 + 9 * 256 * 126
+                + 2 * 5 * 384 * (256 + 128) + 9 * 128 * 256 + 9 * 256 * 2)
+        record("update_2d", "camliflow_torch/csrc/update2d.cu",
+               "camliflow_tpu/ops/pallas_update2d.py:514", err,
+               time_ms(lambda: update2d.update_2d(h, x2d, flow2d, corr, me, gf), 20),
+               time_ms(lambda: update2d.update_2d_plain(h, x2d, flow2d, corr, me, gf), 20),
+               2 * pixels * macs, 4 * (pixels * (2 * 128 + 2 + 324 + 128 + 2) + weights))
+
+    # the 3D update chain at the loop's 2048 points, k=32 neighbours
+    blocks = nn.ModuleList([MotionEncoder3D(), GRU3D(), FlowHead3D()])
+    random_weights(blocks, SEED + 8)
+    encoder, gru, head = blocks.to(device)
+    n = N_SAMPLES[1]
+    with torch.inference_mode():
+        idx = knn.k_nearest_neighbor(xyz1, xyz1, 32)
+        dw_me = encoder.precompute_weights(xyz1, idx)
+        dw_gf = {**gru.precompute_weights(xyz1, idx), **head.precompute_weights(xyz1, idx)}
+
+        def rand3(channels, scale=1.0):
+            return scale * torch.randn(1, n, channels, generator=gen, device=device)
+
+        def linear_macs(params):
+            return sum(p.cin * p.cout for p in params.values())
+
+        def dw_floats(dw):
+            return sum(w[0, 0].numel() for w in dw.values())
+
+        flow3d, corr3 = rand3(3, 0.05), rand3(128)
+        me3 = update3d.prepare_motion_encoder_3d_params(encoder)
+        motion3 = update3d.motion_encoder_3d(flow3d, corr3, idx, dw_me, me3)
+        err = check("motion_encoder_3d", motion3,
+                    update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw_me, me3))
+        weights = sum(size(p) for p in me3.values())
+        record("motion_encoder_3d", "camliflow_torch/csrc/update3d.cu",
+               "camliflow_tpu/ops/pallas_update3d.py:248", err,
+               time_ms(lambda: update3d.motion_encoder_3d(flow3d, corr3, idx, dw_me, me3), 50),
+               time_ms(lambda: update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw_me, me3),
+                       20),
+               # the MLPs' multiply-adds, a multiply and a max per gathered value
+               2 * n * (linear_macs(me3) + dw_floats(dw_me)),
+               # points, neighbours (int32), the hoisted weights, output
+               4 * (n * (3 + 128 + 32 + 128) + n * dw_floats(dw_me) + weights))
+
+        h3, x3 = torch.tanh(rand3(128)), torch.relu(rand3(128))
+        gf3 = update3d.prepare_gru_flowhead_3d_params(gru, head)
+        h_k, d_k = update3d.gru_flowhead_3d(h3, x3, motion3, idx, dw_gf, gf3)
+        h_p, d_p = update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, dw_gf, gf3)
+        err = max(check("gru_flowhead_3d h'", h_k, h_p), check("gru_flowhead_3d delta", d_k, d_p))
+        weights = sum(size(p) for p in gf3.values())
+        record("gru_flowhead_3d", "camliflow_torch/csrc/update3d.cu",
+               "camliflow_tpu/ops/pallas_update3d.py:372", err,
+               time_ms(lambda: update3d.gru_flowhead_3d(h3, x3, motion3, idx, dw_gf, gf3), 50),
+               time_ms(lambda: update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, dw_gf, gf3),
+                       20),
+               2 * n * (linear_macs(gf3) + dw_floats(dw_gf)),
+               4 * (n * (3 * 128 + 32 + 128 + 3) + n * dw_floats(dw_gf) + weights))
     return results
 
 
@@ -423,7 +496,8 @@ def main() -> int:
         from camliflow_torch.csrc import build as kbuild
         from camliflow_torch.models.camliraft import CamLiRAFT
         from camliflow_torch.models.camliraft_l import CamLiRAFTL
-        from camliflow_torch.ops import corr3d, fps, interp, knn, update2d
+        from camliflow_torch.models.raft import RAFT
+        from camliflow_torch.ops import corr3d, fps, interp, knn, update2d, update3d
         from camliflow_torch.runtime.evaluator import Evaluator
         from camliflow_torch.utils.torch_setup import setup_torch
     except ImportError as e:
@@ -473,15 +547,31 @@ def main() -> int:
                 "knn_interpolation": interp.knn_interpolation,
                 "correlation3d_knn": corr3d.correlation3d_knn,
                 "motion_encoder_2d": update2d.motion_encoder_2d,
-                "gru_flowhead_2d": update2d.gru_flowhead_2d}
-    for label, cls, cfgs, images in (
-        ("CamLiRAFT-L", CamLiRAFTL, L_CFGS, False),
-        ("CamLiRAFT", CamLiRAFT, FLAGSHIP_CFGS, True),
-    ):
+                "gru_flowhead_2d": update2d.gru_flowhead_2d,
+                "update_2d": update2d.update_2d,
+                "motion_encoder_3d": update3d.motion_encoder_3d,
+                "gru_flowhead_3d": update3d.gru_flowhead_3d}
+    point_kernels = list(wrappers)[:4]
+    update_3d = {"motion_encoder_3d": N_ITERS, "gru_flowhead_3d": N_ITERS}
+    # per path: kernels that must launch, and those whose launches per request
+    # are fixed (0: never on this path)
+    paths = (
+        ("CamLiRAFT-L", CamLiRAFTL, L_CFGS, False, point_kernels,
+         {**update_3d, "motion_encoder_2d": 0, "gru_flowhead_2d": 0, "update_2d": 0}),
+        ("CamLiRAFT", CamLiRAFT, FLAGSHIP_CFGS, True, point_kernels,
+         {**update_3d, "motion_encoder_2d": N_ITERS, "gru_flowhead_2d": N_ITERS,
+          "update_2d": 0}),
+        ("RAFT", RAFT, RAFT_CFGS, True, [],
+         {"update_2d": N_ITERS, "motion_encoder_2d": 0, "gru_flowhead_2d": 0,
+          "motion_encoder_3d": 0, "gru_flowhead_3d": 0}),
+    )
+    total = dict.fromkeys(wrappers, 0)
+    for label, cls, cfgs, images, required, per_request in paths:
         # 4. end to end
-        print(f"[4/5] {label} eval: {N_POINTS} pts"
-              f"{f', {IMAGE_W}x{IMAGE_H} images' if images else ''}, {N_ITERS} iters, "
-              "bs=1, IDS on", flush=True)
+        points = "" if cls is RAFT else f"{N_POINTS} pts, "
+        print(f"[4/5] {label} eval: {points}"
+              f"{f'{IMAGE_W}x{IMAGE_H} images, ' if images else ''}{N_ITERS} iters, bs=1"
+              f"{'' if cls is RAFT else ', IDS on'}", flush=True)
         model = cls(cfgs)
         random_weights(model, SEED)
         cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
@@ -490,20 +580,17 @@ def main() -> int:
         out = None
         try:
             launches = drive(label, evaluator, batches, wrappers, card)
-            # CamLiRAFT-L has no 2D branch: the last two kernels are the flagship's
-            required = list(wrappers) if images else list(wrappers)[:4]
+            for key, count in launches.items():
+                total[key] += count
             missing = [k for k in required if launches[k] == 0]
             if missing:
                 raise AssertionError(f"kernels never launched on the main path: {missing}")
-            if images:
-                for entry in kernels:
-                    entry["launches"] = launches[entry["name"]]
-                per_request = {k: launches[k] / 3 for k in ("motion_encoder_2d", "gru_flowhead_2d")}
-                if any(v != N_ITERS for v in per_request.values()):
-                    raise AssertionError(f"2D update kernels per request: {per_request}, "
-                                         f"expected {N_ITERS}")
+            got = {k: launches[k] / 3 for k in per_request}
+            if got != per_request:
+                raise AssertionError(f"launches per request {got}, expected {per_request}")
             out = evaluator.forward(batches[0])
-            check_output(out, "flow_3d", (1, N_POINTS, 3))
+            if cls is not RAFT:
+                check_output(out, "flow_3d", (1, N_POINTS, 3))
             if images:
                 check_output(out, "flow_2d", (1, IMAGE_H, IMAGE_W, 2))
             profile_split(evaluator, batches[1])
@@ -535,6 +622,9 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"{label} cuda vs cpu")
 
+    # each kernel's launches over the three paths' measured requests
+    for entry in kernels:
+        entry["launches"] = total[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     if failures:

@@ -25,6 +25,7 @@ from camliflow_torch.models import camliraft_l as tm
 from camliflow_torch.models.factory import model_factory
 from camliflow_torch.nn import layers as tlayers
 from camliflow_torch.nn import point_conv as tpc
+from camliflow_torch.ops import update3d
 from camliflow_torch.runtime.checkpoint import load_jax_variables, state_dict_from_jax
 from tools.port_checkpoint import translate_suffix
 
@@ -202,15 +203,20 @@ def test_point_conv_dw_and_paired(geometry_consts):
     torch_conv = load_block(tpc.PointConvDW(6, 5, act=None, k=4), variables)
     got = torch_conv(t(xyz), t(feats), knn_indices=t(knn32))
     np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-5, atol=1e-6)
-    # paired: two convs over one gather == two separate calls
+    # paired, as GRU3D's z and r run: one gather of both MLP outputs (stacked
+    # into one packed Linear) times both weights, max over k, split ==
+    # two separate calls
     other = load_block(tpc.PointConvDW(6, 5, act=None, k=4), conv.init(
         jax.random.PRNGKey(4), j(xyz), j(feats), knn_indices=j(knn32)))
-    za, zb = tpc.paired_dw_conv(torch_conv, other, t(xyz), t(feats), knn_indices=t(knn32))
-    np.testing.assert_allclose(za.detach().numpy(), got.detach().numpy(), rtol=0, atol=0)
-    np.testing.assert_allclose(
-        zb.detach().numpy(),
-        other(t(xyz), t(feats), knn_indices=t(knn32)).detach().numpy(), rtol=0, atol=0,
-    )
+    with torch.inference_mode():
+        pair = (torch_conv, other)
+        table = update3d.linear_plain(t(feats), update3d.pack_linears(
+            *(c.mlp.convs[0].conv_fn for c in pair)))
+        weights = torch.cat([c.compute_weights(t(xyz), knn_indices=t(knn32)) for c in pair], -1)
+        both = update3d.dw_max_plain(table, t(knn32), weights)
+        other_ref = other(t(xyz), t(feats), knn_indices=t(knn32))
+    np.testing.assert_allclose(both[..., :5].numpy(), got.detach().numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(both[..., 5:].numpy(), other_ref.numpy(), rtol=1e-6, atol=1e-6)
 
 
 # --- CamLiRAFT-L submodules, through the model bridge ---------------------
@@ -327,6 +333,7 @@ def test_update_block_one_iteration(bridged, update_consts):
                    "knn_indices": t(c["knn_indices"]), "x": t(c["x"]),
                    "pyramid": t(c["pyramid"])}
         tconsts["dw"] = model.core.update.precompute(tconsts["xyz1"], tconsts["knn_indices"])
+        tconsts["packed"] = model.core.update.pack()
         h, flow = model.core.update(t(c["h"]), t(c["flow"]), tconsts)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(flow.numpy(), np.asarray(flow_ref), rtol=1e-4, atol=1e-5)
@@ -382,5 +389,5 @@ def test_fast_inference_key():
         tm.CamLiRAFTL({**small_cfgs(False), "fast_inference": "on"})
     with pytest.raises(ValueError):
         tm.CamLiRAFTL({**small_cfgs(False), "fast_inference": "fast"})
-    with pytest.raises(NotImplementedError, match="raft"):
-        model_factory({"name": "raft"})
+    with pytest.raises(NotImplementedError, match="pwc"):
+        model_factory({"name": "pwc"})

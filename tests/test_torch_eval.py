@@ -16,6 +16,7 @@ import torch
 
 from camliflow_tpu.models import camliraft as jm_flagship
 from camliflow_tpu.models import camliraft_l as jm
+from camliflow_tpu.models import raft as jm_raft
 from camliflow_tpu.runtime.checkpoint import flat_to_tree, save_variables, tree_to_flat
 from camliflow_tpu.runtime.evaluator import Evaluator as JaxEvaluator
 from camliflow_tpu.utils.config import compose
@@ -103,12 +104,37 @@ def test_eval_cli_camliraft_matches_jax_evaluator(synthetic):
         assert abs(got[key] - ref[key]) <= 1e-4, (key, got[key], ref[key])
 
 
+def test_eval_cli_raft_matches_jax_evaluator(synthetic):
+    """RAFT through the CLI on the CPU (ResNet-18 backbone to keep the JAX
+    side's compile short): EPE2d, 1px and Fl match the JAX Evaluator on the
+    same checkpoint to 1e-4."""
+    root = synthetic[0].split("=", 1)[1]
+    overrides = [f"testset.root_dir={root}", "testset.n_points=512", "testset.n_workers=0",
+                 "model.n_iters_eval=2", 'model.fast_inference="off"',
+                 "model.backbone.depth=18"]
+    cfgs = compose(REPO / "conf", testset="flyingthings3d_subset", model="raft",
+                   base="evaluator.yaml", overrides=overrides)
+    images = np.random.RandomState(2).randint(0, 255, (1, 128, 192, 6)).astype(np.float32)
+    model = jm_raft.RAFT(cfgs=cfgs.model.to_dict(), train_mode=False)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), {"images": jnp.asarray(images)})
+    ckpt = Path(root) / "raft.npz"
+    save_variables(ckpt, variables)
+    overrides.append(f"ckpt.path={ckpt}")
+    got = torch_eval.main(["protocol=things", "testset=flyingthings3d_subset", "model=raft",
+                           "device=cpu"] + overrides)
+    cfgs.ckpt.path = str(ckpt)
+    ref = JaxEvaluator(cfgs, batch_size=torch_eval.BATCH_SIZE).run_things()
+    assert set(got) == set(ref) == {"EPE2d", "1px", "Fl"}
+    for key in got:
+        assert abs(got[key] - ref[key]) <= 1e-4, (key, got[key], ref[key])
+
+
 def test_eval_cli_rejects_what_is_not_ported(synthetic):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_eval.main(["protocol=sintel", "model=camliraft_l"])
-    with pytest.raises(NotImplementedError, match="raft"):
+    with pytest.raises(NotImplementedError, match="pwc"):
         torch_eval.main(["protocol=things", "testset=flyingthings3d_subset",
-                         "model=raft", "device=cpu"] + synthetic)
+                         "model=pwc", "device=cpu"] + synthetic)
 
 
 def test_eval_cli_needs_a_card_unless_told_cpu(synthetic):

@@ -9,15 +9,15 @@ installed:
 (`--noconftest` because tests/conftest.py configures JAX.) Tolerances: KNN
 and corr3d selected squared distances rtol = atol = 1e-4; corr3d costs
 exactly the pyramid at the kernel's own indices; FPS indices identical;
-interpolation atol 1e-5; the 2D update kernels max |kernel - plain| <=
-1e-4 * (1 + max |plain|) (f32 on both sides, summation order only).
+interpolation atol 1e-5; the 2D and 3D update kernels max |kernel - plain|
+<= 1e-4 * (1 + max |plain|) (f32 on both sides, summation order only).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from camliflow_torch.ops import corr3d, fps, interp, knn, update2d
+from camliflow_torch.ops import corr3d, fps, interp, knn, update2d, update3d
 from camliflow_torch.ops.geometry import squared_distance
 from camliflow_torch.ops.ids import make_parallel_camera_info, persp2paral
 from camliflow_torch.utils.torch_setup import setup_torch
@@ -196,3 +196,121 @@ def test_update2d_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         h = torch.randn(1, 6, 8, 128, device=cuda)
         with pytest.raises(ValueError, match="fit"):
             update2d.gru_flowhead_2d(h, h, h[..., :64].contiguous(), gf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 6, 1), (1, 5, 13)])
+def test_update_2d_kernel_matches_plain(cuda, shape):
+    """The whole RAFT iteration in one cooperative launch: batch 2, a map
+    one pixel wide, pixel counts that are not a multiple of 64."""
+    encoder, gru, head = update_blocks(cuda, 33)
+    flow = 2 * torch.randn(*shape, 2, device=cuda)
+    corr = torch.randn(*shape, 36, device=cuda)
+    h = torch.tanh(torch.randn(*shape, 128, device=cuda))
+    x2d = torch.relu(torch.randn(*shape, 128, device=cuda))
+    with torch.inference_mode():
+        me, gf = update2d.prepare_update_2d_params(encoder, gru, head)
+        before = update2d.update_2d.launches
+        h_got, d_got = update2d.update_2d(h, x2d, flow, corr, me, gf)
+        assert update2d.update_2d.launches == before + 1
+        h_ref, d_ref = update2d.update_2d_plain(h, x2d, flow, corr, me, gf)
+    assert h_got.shape == (*shape, 128) and d_got.shape == (*shape, 2)
+    assert_conv_close(h_got, h_ref)
+    assert_conv_close(d_got, d_ref)
+
+
+@pytest.mark.cuda
+def test_update_2d_raises_on_what_the_kernel_does_not_take(cuda):
+    encoder, gru, head = update_blocks(cuda, 34)
+    shape = (1, 6, 8)
+    flow = torch.randn(*shape, 2, device=cuda)
+    corr = torch.randn(*shape, 36, device=cuda)
+    h = torch.randn(*shape, 128, device=cuda)
+    with torch.inference_mode():
+        me, gf = update2d.prepare_update_2d_params(encoder, gru, head)
+        with pytest.raises(TypeError):
+            update2d.update_2d(h.double(), h, flow, corr, me, gf)
+        with pytest.raises(ValueError, match="contiguous"):
+            update2d.update_2d(h, h.transpose(1, 2).contiguous().transpose(1, 2), flow, corr,
+                               me, gf)
+        with pytest.raises(ValueError, match="CUDA"):
+            update2d.update_2d(h, h, flow.cpu(), corr, me, gf)
+        with pytest.raises(RuntimeError, match="update_2d: CUDA error"):
+            update2d.update_2d(h, h, flow, corr, me, gf, grid=1 << 20)  # never co-resident
+
+
+def update3d_case(device, seed, batch, n):
+    """Blocks, a cloud, its k=32 neighbours (some repeated) and the hoisted
+    weights."""
+    from camliflow_torch.models.camliraft_l import FlowHead3D, GRU3D, MotionEncoder3D
+
+    torch.manual_seed(seed)
+    blocks = [m.to(device) for m in (MotionEncoder3D(), GRU3D(), FlowHead3D())]
+    xyz = ids_clouds(seed, device, batch, n)
+    idx = knn.k_nearest_neighbor(xyz, xyz, 32)
+    idx[:, ::7, 3] = idx[:, ::7, 0]  # duplicate neighbours
+    encoder, gru, head = blocks
+    dw_me = encoder.precompute_weights(xyz, idx)
+    dw_gf = {**gru.precompute_weights(xyz, idx), **head.precompute_weights(xyz, idx)}
+    return blocks, idx.contiguous(), dw_me, dw_gf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 100), (1, 70)])
+def test_motion_encoder_3d_kernel_matches_plain(cuda, batch, n):
+    with torch.inference_mode():
+        (encoder, _, _), idx, dw, _ = update3d_case(cuda, 35, batch, n)
+        flow = 0.1 * torch.randn(batch, n, 3, device=cuda)
+        corr = torch.randn(batch, n, 128, device=cuda)
+        params = update3d.prepare_motion_encoder_3d_params(encoder)
+        before = update3d.motion_encoder_3d.launches
+        got = update3d.motion_encoder_3d(flow, corr, idx, dw, params)
+        assert update3d.motion_encoder_3d.launches == before + 1
+        ref = update3d.motion_encoder_3d_plain(flow, corr, idx, dw, params)
+    assert got.shape == (batch, n, 128)
+    assert torch.equal(got[..., -3:], flow)
+    assert_conv_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 100), (1, 70)])
+def test_gru_flowhead_3d_kernel_matches_plain(cuda, batch, n):
+    with torch.inference_mode():
+        (_, gru, head), idx, _, dw = update3d_case(cuda, 36, batch, n)
+        h = torch.tanh(torch.randn(batch, n, 128, device=cuda))
+        x3d = torch.relu(torch.randn(batch, n, 128, device=cuda))
+        motion = torch.randn(batch, n, 128, device=cuda)
+        params = update3d.prepare_gru_flowhead_3d_params(gru, head)
+        before = update3d.gru_flowhead_3d.launches
+        h_got, d_got = update3d.gru_flowhead_3d(h, x3d, motion, idx, dw, params)
+        assert update3d.gru_flowhead_3d.launches == before + 1
+        h_ref, d_ref = update3d.gru_flowhead_3d_plain(h, x3d, motion, idx, dw, params)
+    assert h_got.shape == (batch, n, 128) and d_got.shape == (batch, n, 3)
+    assert_conv_close(h_got, h_ref)
+    assert_conv_close(d_got, d_ref)
+
+
+@pytest.mark.cuda
+def test_update3d_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    with torch.inference_mode():
+        (encoder, gru, head), idx, dw_me, dw_gf = update3d_case(cuda, 37, 1, 100)
+        flow = torch.randn(1, 100, 3, device=cuda)
+        corr = torch.randn(1, 100, 128, device=cuda)
+        me = update3d.prepare_motion_encoder_3d_params(encoder)
+        with pytest.raises(TypeError):
+            update3d.motion_encoder_3d(flow.double(), corr, idx, dw_me, me)
+        with pytest.raises(TypeError):
+            update3d.motion_encoder_3d(flow, corr, idx.long(), dw_me, me)
+        with pytest.raises(ValueError, match="contiguous"):
+            update3d.motion_encoder_3d(flow, corr.transpose(1, 2).contiguous().transpose(1, 2),
+                                       idx, dw_me, me)
+        with pytest.raises(ValueError, match="CUDA"):
+            update3d.motion_encoder_3d(flow, corr, idx.cpu(), dw_me, me)
+        h = torch.randn(1, 100, 128, device=cuda)
+        gf = update3d.prepare_gru_flowhead_3d_params(gru, head)
+        with pytest.raises(ValueError, match="CUDA|lies on"):
+            update3d.gru_flowhead_3d(h, h, h, idx, {**dw_gf, "conv_q": dw_gf["conv_q"].cpu()}, gf)
+        with pytest.raises(ValueError, match="fit"):
+            update3d.gru_flowhead_3d(h, h, h[..., :64].contiguous(), idx, dw_gf, gf)
+        with pytest.raises(ValueError, match="neighbours"):
+            update3d.gru_flowhead_3d(h, h, h, idx[..., :16].contiguous(), dw_gf, gf)
