@@ -5,11 +5,12 @@ mirrors that package's layout and its channel-last conventions (points
 `[B, N, 3]`, features `[B, N, C]`, image maps NHWC, indices int32):
 
 - ``ops``      geometry, IDS, image and correlation ops, and the kernel
-               modules (knn, fps, interp, corr3d, update2d), each a CUDA
-               kernel plus its plain PyTorch version
+               modules (knn, fps, interp, corr3d, update2d, update3d,
+               gather, clfm), each CUDA kernels plus their plain PyTorch
+               versions
 - ``csrc``     the CUDA sources and their nvcc/ctypes build
 - ``nn``       dense/norm/act blocks, point convolutions, ResNet, CLFM
-- ``models``   CamLiRAFT and CamLiRAFT-L (eval) and the model registry
+- ``models``   CamLiRAFT, CamLiRAFT-L and RAFT (eval) and the model registry
 - ``runtime``  the things-protocol evaluator and the JAX weight bridge
 - ``data``     the FlyingThings3D eval reader
 - ``eval.py``  the eval entry point

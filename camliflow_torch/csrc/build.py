@@ -45,6 +45,10 @@ SIGNATURES = {
     "camli_update_2d": [_P] * 29 + [_I] * 13 + [_P],
     "camli_motion_encoder_3d": [_P] * 17 + [_I] * 13 + [_P],
     "camli_gru_flowhead_3d": [_P] * 21 + [_I] * 13 + [_P],
+    "camli_dw_max": [_P] * 4 + [_I] * 6 + [_P],
+    "camli_gather_kmajor": [_P] * 3 + [_I] * 5 + [_P],
+    "camli_corr3d_tail": [_P] * 11 + [_I] * 7 + [_P],
+    "camli_clfm": [_P] * 25 + [_I] * 7 + [_P],
 }
 
 

@@ -11,6 +11,10 @@
 //   (z|r and q PointConvDW at k=4 over hx = [h, x3d, motion]) and FlowHead3D
 //   (two PointConvDW at k=32, then fc 64->3), returning (h', delta).
 //   5 launches.
+// camli_dw_max replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg: one
+//   PointConvDW tail (gather, multiply, max over k) as one gather-only
+//   stage, for the flagship's fuse_hidden path, where CLFM sits between
+//   GRU3D and FlowHead3D. 1 launch.
 //
 // A PointConvDW is out[q, c] = max_j table[idx[q, j], c] * w[q, j, c], where
 // table is the conv's MLP (one Linear, leaky ReLU or none) over every point
@@ -67,10 +71,10 @@ struct Stage {
   int points, n;  // B*N, and N (a batch item's points; indices are local)
   // the gather, g[p, c] = max_j table[idx[p, j], c] * dw[p, j, c], c < t_c
   // (k == 0: none)
-  const float* table;  // [points, t_c]
+  const float* table;  // [B * t_n, t_c]
   const float* dw;     // [points, k, t_c]
   const int* idx;      // [points, idx_stride], the first k columns
-  int idx_stride, k, t_c, post;
+  int idx_stride, k, t_c, t_n, post;  // t_n: table rows per batch item
   const float* h;  // ZR: g = r*h is staged; GATE: h' = (1-z) h + z tanh(g)
   const float* z;  // GATE: the update gate
   float* side;     // ZR: z out; GATE: h' out
@@ -97,7 +101,7 @@ __device__ __forceinline__ float dw_max(const Stage& s, int p, int c) {
   const int b = p / s.n;
   const int* nb = s.idx + (size_t)p * s.idx_stride;
   const float* wp = s.dw + (size_t)p * s.k * s.t_c + c;
-  const float* tb = s.table + (size_t)b * s.n * s.t_c + c;
+  const float* tb = s.table + (size_t)b * s.t_n * s.t_c + c;
   float m = __fmul_rn(tb[(size_t)nb[0] * s.t_c], wp[0]);
 #pragma unroll 4
   for (int j = 1; j < s.k; ++j) {
@@ -274,7 +278,7 @@ Stage points(int batch, int n) {
 Stage& gather(Stage& s, const float* table, const float* dw, const int* idx,
               int idx_stride, int k, int t_c) {
   s.table = table, s.dw = dw, s.idx = idx;
-  s.idx_stride = idx_stride, s.k = k, s.t_c = t_c;
+  s.idx_stride = idx_stride, s.k = k, s.t_c = t_c, s.t_n = s.n;
   return s;
 }
 
@@ -385,5 +389,22 @@ extern "C" int camli_gru_flowhead_3d(
   a = points(batch, n);
   gather(a, t_2, dw_2, idx, idx_stride, k_2, c_2);
   mlp(a, w_fc, b_fc, c_out, ACT_NONE, delta, nullptr, c_2).g_slot = 0;
+  return launch(a, nullptr, stream);
+}
+
+// One PointConvDW tail on its own: out[b, q, c] = max_j table[b, idx[b, q, j],
+// c] * dw[b, q, j, c] for m queries against a table of n_table rows, as one
+// gather-only stage. It replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg
+// (whose one-hot selection is a TPU device; here the gather is a load), on
+// the flagship's fuse_hidden path: GRU3D's z|r and q, FlowHead3D's conv1 and
+// conv2, with their MLPs outside, as dw_conv_ohg leaves them. Bound by
+// reading the hoisted weights (m x k x c floats).
+extern "C" int camli_dw_max(const float* table, const float* dw, const int* idx, float* out,
+                            int batch, int n_table, int m, int idx_stride, int k, int c,
+                            cudaStream_t stream) {
+  Stage a = points(batch, m);
+  gather(a, table, dw, idx, idx_stride, k, c);
+  a.t_n = n_table;
+  a.out = out, a.out_stride = c;
   return launch(a, nullptr, stream);
 }

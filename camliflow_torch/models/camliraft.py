@@ -9,12 +9,18 @@ classes; the 2D branch is the ResNet encoder, the all-pairs pyramid and the
 RAFT update modules; CLFM fuses the two at fnet, cnet, corr and motion
 (hidden off by default).
 
-In the loop, on CUDA tensors, MotionEncoder2D runs as kernel #9 and GRU2D +
-FlowHead2D as kernel #8 (ops/update2d.py), MotionEncoder3D as kernel #6 and
-GRU3D + FlowHead3D as kernel #7 (ops/update3d.py), on weights packed once
-per request. The GRUs and flow heads are contiguous only with `fuse_hidden`
-off; with it on they run as the plain modules, as the JAX package falls
-back.
+In the loop, on CUDA tensors, Correlation3D's tail runs as kernel #5
+(ops/corr3d.py), each CLFM call as kernel #11 (ops/clfm.py, on the score
+gate, bilinear taps and weights hoisted once per request), MotionEncoder2D
+as kernel #9 and GRU2D + FlowHead2D as kernel #8 (ops/update2d.py),
+MotionEncoder3D as kernel #6 and GRU3D + FlowHead3D as kernel #7
+(ops/update3d.py), on weights packed once per request. The GRUs and flow
+heads are contiguous only with `fuse_hidden` off; with it on, CLFM sits
+between them, so GRU2D and FlowHead2D run as the plain modules, as the JAX
+package falls back, and GRU3D and FlowHead3D as torch ops around kernel #13,
+their PointConvDW tails (`update3d.gru_3d`, `update3d.flow_head_3d`). The
+point encoders' gathers and the final upsample's run as kernel #12
+(ops/gather.py).
 
 Module names follow the reference state_dict (`core.branch_2d.fnet`,
 `core.branch_3d.correlation`, `core.clfm_corr`, ...), so the weight bridge
@@ -28,13 +34,14 @@ from torch import nn
 
 from ..nn.clfm import CLFM, fusion_interp_cache
 from ..nn.resnet import ResNetEncoder2D
-from ..ops import update2d, update3d
+from ..ops import clfm, corr3d, update2d, update3d
 from ..ops.correlation import (
     all_pairs_correlation_pyramid,
     corr_lookup_2d,
     resolve_lookup_storage,
 )
-from ..ops.geometry import backwarp_3d, build_pc_pyramid, gather_points, k_nearest_neighbor
+from ..ops.gather import gather_points_fast, knn_weighted_sum
+from ..ops.geometry import backwarp_3d, build_pc_pyramid, k_nearest_neighbor
 from ..ops.ids import make_parallel_camera_info, paral2persp, persp2paral, project_pc2image
 from ..ops.image import InputPadder, mesh_grid
 from .camliraft_l import (
@@ -55,6 +62,7 @@ _IMAGENET_MEAN = (123.675, 116.280, 103.530)
 _IMAGENET_STD = (58.395, 57.120, 57.375)
 CORR_RADIUS = 4
 CORR_LEVELS = 4
+IN_LOOP = ("corr", "motion", "hidden")  # the fusions run in every iteration
 
 
 class Branch2D(nn.Module):
@@ -151,7 +159,7 @@ class CamLiRAFTCore(nn.Module):
                  "flow_2d": feat1_2d.new_zeros(batch, feat_h, feat_w, 2),
                  "flow_3d": torch.zeros_like(xyz1)}
         consts = {
-            "xyz1": xyz1, "xyzs2": xyzs2, "uv1": uv1, "cache1": cache1,
+            "xyz1": xyz1, "xyzs2": xyzs2, "cache1": cache1,
             "grid": mesh_grid(batch, feat_h, feat_w, device=pc1.device),
             "x_2d": torch.relu(x_2d).contiguous(), "x_3d": torch.relu(x_3d),
             "pyramid_2d": all_pairs_correlation_pyramid(
@@ -161,10 +169,21 @@ class CamLiRAFTCore(nn.Module):
             "knn_indices": knn_indices,
             "dw": {name: getattr(b3d, name).precompute_weights(xyz1, knn_indices)
                    for name in ("motion_encoder", "gru", "flow_head")},
+            "tail_params": corr3d.prepare_corr3d_tail_params(b3d.correlation),
             "me_params": update2d.prepare_motion_encoder_params(b2d.motion_encoder),
             "me3d_params": update3d.prepare_motion_encoder_3d_params(b3d.motion_encoder),
+            # each in-loop fusion's score gate and packed weights, and the
+            # bilinear taps at uv1 they share
+            "clfm": {point: (clfm.hoist_interp_score(getattr(self, f"clfm_{point}").interp,
+                                                     cache1[1]),
+                             clfm.prepare_clfm_params(getattr(self, f"clfm_{point}")))
+                     for point in IN_LOOP if self.fuse[point]},
+            "taps": clfm.grid_sample_cache(uv1, feat_h, feat_w),
         }
-        if not self.fuse["hidden"]:
+        if self.fuse["hidden"]:
+            consts["gru3d_params"] = update3d.prepare_gru_3d_params(b3d.gru)
+            consts["head3d_params"] = update3d.prepare_flow_head_3d_params(b3d.flow_head)
+        else:
             consts["gf_params"] = update2d.prepare_gru_flowhead_params(b2d.gru, b2d.flow_head)
             consts["gf3d_params"] = update3d.prepare_gru_flowhead_3d_params(b3d.gru,
                                                                            b3d.flow_head)
@@ -175,32 +194,38 @@ class CamLiRAFTCore(nn.Module):
         """One refinement iteration over both branches."""
         b2d, b3d = self.branch_2d, self.branch_3d
         h_2d, h_3d, flow_2d, flow_3d = (state[k] for k in ("h_2d", "h_3d", "flow_2d", "flow_3d"))
-        xyz1, uv1, cache1 = consts["xyz1"], consts["uv1"], consts["cache1"]
+        xyz1, nn_idx = consts["xyz1"], consts["cache1"][0]
         knn_indices, dw = consts["knn_indices"], consts["dw"]
         xyzs2 = consts["xyzs2"]
+
+        def fuse(point, feat_2d, feat_3d):
+            score, params = consts["clfm"][point]
+            return clfm.clfm_fused(feat_2d.contiguous(), feat_3d.contiguous(), score, nn_idx,
+                                   *consts["taps"], params)
 
         # one backwarp at the finest level serves every prefix-nested level
         xyz2_warp_full = backwarp_3d(xyz1, xyzs2[0], flow_3d)
         corr_2d = corr_lookup_2d(consts["pyramid_2d"], consts["grid"] + flow_2d,
                                  radius=CORR_RADIUS)
         corr_3d = b3d.correlation(xyz1, xyz2_warp_full, tuple(x.shape[1] for x in xyzs2),
-                                  consts["pyramid_3d"])
+                                  consts["pyramid_3d"], consts["tail_params"])
         if self.fuse["corr"]:
-            corr_2d, corr_3d = self.clfm_corr(uv1, corr_2d, corr_3d, cache1)
+            corr_2d, corr_3d = fuse("corr", corr_2d, corr_3d)
 
         motion_2d = update2d.motion_encoder_2d(flow_2d, corr_2d, consts["me_params"])
         motion_3d = update3d.motion_encoder_3d(flow_3d, corr_3d.contiguous(), knn_indices,
                                                dw["motion_encoder"], consts["me3d_params"])
         if self.fuse["motion"]:
-            motion_2d, motion_3d = self.clfm_motion(uv1, motion_2d, motion_3d, cache1)
+            motion_2d, motion_3d = fuse("motion", motion_2d, motion_3d)
 
         if self.fuse["hidden"]:
             h_2d = b2d.gru(h_2d, torch.cat([consts["x_2d"], motion_2d], dim=-1))
-            h_3d = b3d.gru(xyz1, h_3d, torch.cat([consts["x_3d"], motion_3d], dim=-1),
-                           knn_indices, dw["gru"])
-            h_2d, h_3d = self.clfm_hidden(uv1, h_2d, h_3d, cache1)
+            h_3d = update3d.gru_3d(h_3d, torch.cat([consts["x_3d"], motion_3d], dim=-1),
+                                   knn_indices, dw["gru"], consts["gru3d_params"])
+            h_2d, h_3d = fuse("hidden", h_2d, h_3d)
             delta_2d = b2d.flow_head(h_2d)
-            delta_3d = b3d.flow_head(xyz1, h_3d, knn_indices, dw["flow_head"])
+            delta_3d = update3d.flow_head_3d(h_3d, knn_indices, dw["flow_head"],
+                                             consts["head3d_params"])
         else:
             h_2d, delta_2d = update2d.gru_flowhead_2d(h_2d, consts["x_2d"], motion_2d,
                                                       consts["gf_params"])
@@ -220,11 +245,11 @@ class CamLiRAFTCore(nn.Module):
         # 2048 -> full cloud: inverse-distance weights of the 3 nearest
         xyz1 = consts["xyz1"]
         up_idx = k_nearest_neighbor(xyz1, pc1, 3)
-        dists = torch.linalg.vector_norm(gather_points(xyz1, up_idx) - pc1[:, :, None, :], dim=-1)
+        dists = torch.linalg.vector_norm(gather_points_fast(xyz1, up_idx) - pc1[:, :, None, :],
+                                         dim=-1)
         weights = 1.0 / torch.clamp(dists, min=1e-8)
         weights = weights / weights.sum(dim=-1, keepdim=True)
-        flow_3d = torch.sum(gather_points(state["flow_3d"], up_idx) * weights[..., None], dim=2)
-        return flow_2d, flow_3d
+        return flow_2d, knn_weighted_sum(state["flow_3d"], up_idx, weights)
 
 
 class CamLiRAFT(nn.Module):

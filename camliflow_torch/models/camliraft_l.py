@@ -8,11 +8,15 @@ iteration's flow is upsampled to the full cloud.
 Module names follow the reference PyTorch state_dict (`core.fnet`,
 `core.correlation`, ...), so the weight bridge (runtime/checkpoint.py) names
 every key with runtime/names.py. The selections run through the kernel
-wrappers in ops/: FPS and KNN once per frame, KNN interpolation and the
-Correlation3D selection every iteration. In the loop, MotionEncoder3D runs
-as kernel #6 and GRU3D + FlowHead3D as kernel #7 (ops/update3d.py), on MLP
-weights packed once per request; each module's own `forward` is the plain
-chain of ops/update3d.py on its own weights.
+wrappers in ops/: FPS and KNN once per frame, the encoders' k-major gathers
+(kernel #12, ops/gather.py), KNN interpolation and Correlation3D every
+iteration (the selection as kernel #4, its tail as kernel #5,
+ops/corr3d.py). In the loop, MotionEncoder3D runs as kernel #6 and GRU3D +
+FlowHead3D as kernel #7 (ops/update3d.py), on weights packed once per
+request. MotionEncoder3D's own `forward` is the plain chain of
+ops/update3d.py on its own weights; GRU3D's and FlowHead3D's run their
+PointConvDW tails through kernel #13 (`update3d.dw_max`), on weights they
+pack themselves unless the caller hands them packed.
 """
 
 from __future__ import annotations
@@ -22,12 +26,10 @@ from torch import nn
 
 from ..nn.layers import MLP, DenseNormAct
 from ..nn.point_conv import PointConv, PointConvDW
-from ..ops import update3d
-from ..ops.corr3d import correlation3d_knn
+from ..ops import corr3d, update3d
 from ..ops.geometry import (
     backwarp_3d,
     build_pc_pyramid,
-    gather_points,
     k_nearest_neighbor,
     knn_interpolation,
 )
@@ -102,20 +104,17 @@ class Correlation3D(nn.Module):
         self.cost_mlp = MLP(4, [out_channels // 4, out_channels // 4], act="relu")
         self.merge = DenseNormAct(n_levels * (out_channels // 4), out_channels)
 
-    def forward(self, xyz1, xyz2_warp_full, level_sizes, pyramid_cat):
+    def forward(self, xyz1, xyz2_warp_full, level_sizes, pyramid_cat, params=None):
         """pyramid_cat: [B, N, sum(level_sizes)], concatenated once outside
-        the refinement loop."""
-        idx, knn_cost = correlation3d_knn(
+        the refinement loop; params: `corr3d.prepare_corr3d_tail_params`
+        of this module (packed here when not given)."""
+        idx, knn_cost = corr3d.correlation3d_knn(
             xyz1, xyz2_warp_full, pyramid_cat, level_sizes, k=self.k
         )  # [B, N, L*k] each
-        knn_xyz2 = gather_points(xyz2_warp_full, idx)  # [B, N, L*k, 3]
-        payload = torch.cat(
-            [knn_xyz2 - xyz1[:, :, None, :], knn_cost[..., None]], dim=-1
-        )
-        cost = self.cost_mlp(payload)  # [B, N, L*k, out/4]
-        batch, n = xyz1.shape[:2]
-        cost = cost.reshape(batch, n, len(level_sizes), self.k, -1).sum(dim=3)
-        return self.merge(cost.reshape(batch, n, -1))
+        if params is None:
+            params = corr3d.prepare_corr3d_tail_params(self)
+        return corr3d.corr3d_tail(xyz1, xyz2_warp_full, idx, knn_cost, params,
+                                  len(level_sizes), self.k)
 
 
 class MotionEncoder3D(nn.Module):
@@ -160,9 +159,10 @@ class GRU3D(nn.Module):
         )
         return {"conv_zr": torch.cat([wz, wr], dim=-1), "conv_q": wq}
 
-    def forward(self, xyz, h, x, knn_indices, dw):
-        params = update3d.prepare_gru_3d_params(self)
-        return update3d.gru_3d_plain(h, x, knn_indices, dw, params)
+    def forward(self, xyz, h, x, knn_indices, dw, params=None):
+        if params is None:
+            params = update3d.prepare_gru_3d_params(self)
+        return update3d.gru_3d(h, x, knn_indices, dw, params)
 
 
 class FlowHead3D(nn.Module):
@@ -182,16 +182,18 @@ class FlowHead3D(nn.Module):
             for name in self.NAMES
         }
 
-    def forward(self, xyz, features, knn_indices, dw):
-        params = update3d.prepare_flow_head_3d_params(self)
-        return update3d.flow_head_3d_plain(features, knn_indices, dw, params)
+    def forward(self, xyz, features, knn_indices, dw, params=None):
+        if params is None:
+            params = update3d.prepare_flow_head_3d_params(self)
+        return update3d.flow_head_3d(features, knn_indices, dw, params)
 
 
 class UpdateBlock3D(nn.Module):
-    """One refinement iteration: backwarp, correlation, then kernels #6
-    (motion encoder) and #7 (GRU + flow head). `precompute` hoists the
-    loop-invariant PointConvDW weights (their inputs, xyz1 and the k=32
-    neighbours, never change); `pack` the MLP weights of the two kernels."""
+    """One refinement iteration: backwarp, correlation (kernels #4 and #5),
+    then kernels #6 (motion encoder) and #7 (GRU + flow head). `precompute`
+    hoists the loop-invariant PointConvDW weights (their inputs, xyz1 and
+    the k=32 neighbours, never change); `pack` the dense weights of #5, #6
+    and #7."""
 
     def __init__(self, n_levels: int = 4):
         super().__init__()
@@ -208,7 +210,8 @@ class UpdateBlock3D(nn.Module):
         }
 
     def pack(self):
-        return {"me": update3d.prepare_motion_encoder_3d_params(self.motion_encoder),
+        return {"tail": corr3d.prepare_corr3d_tail_params(self.correlation),
+                "me": update3d.prepare_motion_encoder_3d_params(self.motion_encoder),
                 "gf": update3d.prepare_gru_flowhead_3d_params(self.gru, self.flow_head)}
 
     def forward(self, h, flow, consts):
@@ -218,8 +221,9 @@ class UpdateBlock3D(nn.Module):
         # finest and backwarp_3d is pointwise in its queries
         xyz2_warp_full = backwarp_3d(xyz1, xyzs2[0], flow)
         level_sizes = tuple(x.shape[1] for x in xyzs2)
-        corr = self.correlation(xyz1, xyz2_warp_full, level_sizes, consts["pyramid"])
         packed = consts["packed"]
+        corr = self.correlation(xyz1, xyz2_warp_full, level_sizes, consts["pyramid"],
+                                packed["tail"])
         motion = update3d.motion_encoder_3d(flow, corr, knn_indices, dw["motion_encoder"],
                                             packed["me"])
         h, delta = update3d.gru_flowhead_3d(h, consts["x"], motion, knn_indices,

@@ -3,10 +3,13 @@
 PyTorch counterpart of camliflow_tpu/nn/point_conv.py (exact path).
 
 PointConv: KNN gather -> relative-xyz weight net MLP(3->[8,16]) ->
-weights^T @ neighbour features -> linear -> norm -> act.
-PointConvDW: depthwise variant, feature MLP * weight_net(dxyz), max over k;
-its geometric weights depend only on the points, so `compute_weights` lets
-a caller hoist them out of a refinement loop.
+weights^T @ neighbour features -> linear -> norm -> act. Both gathers are
+k-major ([B, k, M, C], kernel #12 on a card, ops/gather.py), as the JAX fast
+path gathers; the contraction over k is the same sum either way.
+PointConvDW: depthwise variant, feature MLP * weight_net(dxyz), max over k
+(the tail is kernel #13 on a card, ops/update3d.py::dw_max); its geometric
+weights depend only on the points, so `compute_weights` lets a caller hoist
+them out of a refinement loop.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import update3d
+from ..ops.gather import gather_points_kmajor
 from ..ops.geometry import gather_points, k_nearest_neighbor
 from .layers import MLP, Norm, apply_act
 
@@ -47,12 +52,12 @@ class PointConv(nn.Module):
             sampled_xyz = xyz
         batch, n_samples = sampled_xyz.shape[:2]
         features = torch.cat([xyz.to(features.dtype), features], dim=-1)
-        knn_indices = _resolve_knn(xyz, sampled_xyz, knn_indices, self.k)
-        rel_xyz = gather_points(xyz, knn_indices) - sampled_xyz[:, :, None, :]
-        weights = self.weight_net(rel_xyz)  # [B, M, k, 16]
-        knn_feats = gather_points(features, knn_indices)  # [B, M, k, C+3]
+        knn_indices = _resolve_knn(xyz, sampled_xyz, knn_indices, self.k).contiguous()
+        rel_xyz = gather_points_kmajor(xyz, knn_indices) - sampled_xyz[:, None, :, :]
+        weights = self.weight_net(rel_xyz)  # [B, k, M, 16]
+        knn_feats = gather_points_kmajor(features, knn_indices)  # [B, k, M, C+3]
         # flattened weights-major ([16, C+3] row-major) so checkpoints line up
-        out = torch.einsum("bmkw,bmkc->bmwc", weights, knn_feats)
+        out = torch.einsum("bkmw,bkmc->bmwc", weights, knn_feats)
         out = self.linear(out.reshape(batch, n_samples, -1))
         return apply_act(self.norm_fn(out), self.act)
 
@@ -78,11 +83,10 @@ class PointConvDW(nn.Module):
 
     def forward(self, xyz, features, sampled_xyz=None, knn_indices=None,
                 weights=None):
-        if weights is None:
-            weights = self.compute_weights(xyz, sampled_xyz, knn_indices)
         if sampled_xyz is None:
             sampled_xyz = xyz
-        knn_indices = _resolve_knn(xyz, sampled_xyz, knn_indices, self.k)
-        knn_feats = gather_points(self.mlp(features), knn_indices)
-        return torch.amax(knn_feats * weights, dim=2)
+        knn_indices = _resolve_knn(xyz, sampled_xyz, knn_indices, self.k).contiguous()
+        if weights is None:
+            weights = self.compute_weights(xyz, sampled_xyz, knn_indices)
+        return update3d.dw_max(self.mlp(features), knn_indices, weights)
 

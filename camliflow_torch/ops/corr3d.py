@@ -1,25 +1,37 @@
-"""Correlation3D prefix-level selection with cost extraction: CUDA kernel,
-plain version, wrapper.
+"""Correlation3D: the prefix-level selection with cost extraction, and the
+tail after it. CUDA kernels, plain versions, wrappers.
 
-Replaces camliflow_tpu/ops/pallas_corr3d.py::correlation3d_knn_pallas (exact
-mode, with cost) with `csrc/corr3d.cu`. The frame-2 levels are row-prefixes
-of one FPS order, so one scan per query in ascending index serves every
-level: when it reaches a level's prefix length, the running sorted list is
-that level's k nearest. The kernel is arithmetic-bound on query-candidate
-pairs; see the source for the design note.
+`correlation3d_knn` replaces camliflow_tpu/ops/pallas_corr3d.py::
+correlation3d_knn_pallas (exact mode, with cost) with `csrc/corr3d.cu`. The
+frame-2 levels are row-prefixes of one FPS order, so one scan per query in
+ascending index serves every level: when it reaches a level's prefix length,
+the running sorted list is that level's k nearest. The kernel is
+arithmetic-bound on query-candidate pairs; see the source for the design
+note.
+
+`corr3d_tail` replaces ::corr3d_tail_pallas with `csrc/corr3d_tail.cu`: the
+rel-xyz gather, the 2-layer cost MLP on [rel_xyz, cost], the sum over each
+level's k neighbours and the merge layer, on weights packed once per request
+by `prepare_corr3d_tail_params`. The exact path only: the int8 cost pyramid
+and its scale belong to the fast path, which is not ported.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from . import _cuda
-from .geometry import knn_from_dists, squared_distance
+from .geometry import gather_points, knn_from_dists, squared_distance
 from .knn import MAX_K
 
 MAX_LEVELS = 8  # csrc/corr3d.cu kMaxLevels
+TAIL_MAX_HIDDEN = 32  # csrc/corr3d_tail.cu: one lane per cost-MLP channel
+TAIL_MAX_OUT = 128  # and 4 merge outputs per lane
 
 
 def level_offsets(level_sizes, k: int, device=None) -> torch.Tensor:
@@ -91,3 +103,83 @@ def correlation3d_knn(
 
 
 correlation3d_knn.launches = 0
+
+
+# --- the tail (kernel #5) --------------------------------------------------
+
+
+class TailParams(NamedTuple):
+    """The tail's dense layers, each weight [in, out] f32."""
+
+    w1: torch.Tensor  # [4, C1]: [rel_xyz, cost] -> hidden
+    b1: torch.Tensor
+    w2: torch.Tensor  # [C1, C1]
+    b2: torch.Tensor
+    wm: torch.Tensor  # [L * C1, Cout]: the merge over the level sums
+    bm: torch.Tensor
+
+
+def prepare_corr3d_tail_params(correlation: nn.Module) -> TailParams:
+    """The six dense operands of a `models.camliraft_l.Correlation3D`, packed
+    once per request: its cost MLP and merge carry no norm, so weights and
+    biases describe the tail."""
+    first, second = (conv.conv_fn for conv in correlation.cost_mlp.convs)
+    merge = correlation.merge.conv_fn
+
+    def pair(linear):
+        return (linear.weight.detach().float().t().contiguous(),
+                linear.bias.detach().float().contiguous())
+
+    return TailParams(*pair(first), *pair(second), *pair(merge))
+
+
+def corr3d_tail_plain(xyz1, xyz2_warp, idx, cost, params: TailParams, n_levels: int, k: int):
+    """The tail as torch ops: gather, cost MLP, per-level sum, merge."""
+    rel = gather_points(xyz2_warp, idx) - xyz1[:, :, None, :]  # [B, N, L*k, 3]
+    payload = torch.cat([rel, cost[..., None]], dim=-1)
+    hidden = F.relu(F.linear(payload, params.w1.t(), params.b1))
+    hidden = F.relu(F.linear(hidden, params.w2.t(), params.b2))
+    batch, n = xyz1.shape[:2]
+    levels = hidden.reshape(batch, n, n_levels, k, -1).sum(dim=3)
+    out = F.linear(levels.reshape(batch, n, -1), params.wm.t(), params.bm)
+    return F.leaky_relu(out, negative_slope=0.1)
+
+
+def corr3d_tail(xyz1: torch.Tensor, xyz2_warp: torch.Tensor, idx: torch.Tensor,
+                cost: torch.Tensor, params: TailParams, n_levels: int, k: int) -> torch.Tensor:
+    """xyz1 [B, N, 3], xyz2_warp [B, M, 3], idx [B, N, L*k] int32 and cost
+    [B, N, L*k] (from `correlation3d_knn`) -> [B, N, Cout]. CPU tensors take
+    the plain version; CUDA tensors the kernel."""
+    if _cuda.on_cpu(xyz1, xyz2_warp, idx, cost):
+        return corr3d_tail_plain(xyz1, xyz2_warp, idx, cost, params, n_levels, k)
+    name = "corr3d_tail"
+    _cuda.check(name, torch.float32, xyz1=xyz1, xyz2_warp=xyz2_warp, cost=cost, **params._asdict())
+    _cuda.check(name, torch.int32, idx=idx)
+    batch, n = xyz1.shape[:2]
+    taps = n_levels * k
+    _cuda.check_shape(name, "xyz1", xyz1, (batch, n, 3))
+    _cuda.check_shape(name, "xyz2_warp", xyz2_warp, (batch, None, 3))
+    _cuda.check_shape(name, "idx", idx, (batch, n, taps))
+    _cuda.check_shape(name, "cost", cost, (batch, n, taps))
+    if idx.device != xyz1.device:
+        raise ValueError(f"{name}: all inputs must lie on one CUDA device, got "
+                         f"{xyz1.device} and {idx.device}")
+    c1, c_out = params.w2.shape[0], params.wm.shape[1]
+    shapes = [tuple(t.shape) for t in params]
+    if shapes != [(4, c1), (c1,), (c1, c1), (c1,), (n_levels * c1, c_out), (c_out,)]:
+        raise ValueError(f"{name}: the packed layers {shapes} do not fit {n_levels} levels")
+    if not (1 <= c1 <= TAIL_MAX_HIDDEN and 1 <= c_out <= TAIL_MAX_OUT and 1 <= n_levels <= MAX_LEVELS):
+        raise ValueError(f"{name}: need hidden width <= {TAIL_MAX_HIDDEN}, output width <= "
+                         f"{TAIL_MAX_OUT} and 1..{MAX_LEVELS} levels; got {c1}, {c_out}, "
+                         f"{n_levels}")
+    out = xyz1.new_empty(batch, n, c_out)
+    from ..csrc.build import launch
+
+    launch("camli_corr3d_tail", xyz1.data_ptr(), xyz2_warp.data_ptr(), idx.data_ptr(),
+           cost.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), batch, n,
+           xyz2_warp.shape[1], n_levels, k, c1, c_out)
+    corr3d_tail.launches += 1
+    return out
+
+
+corr3d_tail.launches = 0

@@ -16,6 +16,12 @@ exact chain of models/camliraft_l.py on the same packed weights.
     gru_flowhead_3d(h, x3d, motion, knn_idx, dw, gf)    -> (h' [B, N, 128],
                                                            delta [B, N, 3])
 
+`dw_max` replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg: one
+PointConvDW tail (gather, multiply, max over k) as `camli_dw_max`, without
+the TPU's one-hot selection. `gru_3d` and `flow_head_3d` run GRU3D and
+FlowHead3D as torch ops around it, where CLFM sits between them
+(`fuse_hidden`) and #7 cannot take both.
+
 `dw` holds the hoisted weights by conv name: conv_c1, conv_f1, conv_f2 and
 conv for the motion encoder; conv_zr, conv_q (GRU3D) and conv1, conv2
 (FlowHead3D) for the second.
@@ -166,21 +172,29 @@ def prepare_gru_flowhead_3d_params(gru: nn.Module, head: nn.Module) -> dict:
     return {**prepare_gru_3d_params(gru), **prepare_flow_head_3d_params(head)}
 
 
-def gru_3d_plain(h, x, knn_idx, dw: dict, params: dict):
-    """Point-conv GRU: z and r from one k=4 conv, then q; no nan_to_num."""
+def _gru_3d(h, x, knn_idx, dw: dict, params: dict, tail):
+    """Point-conv GRU: z and r from one k=4 conv, then q; no nan_to_num.
+    `tail` is the PointConvDW tail (gather, multiply, max over k)."""
     hidden = h.shape[-1]
-    zr = dw_max_plain(linear_plain(torch.cat([h, x], dim=-1), params["zr"]), knn_idx,
-                      dw["conv_zr"])
+    zr = tail(linear_plain(torch.cat([h, x], dim=-1), params["zr"]), knn_idx, dw["conv_zr"])
     z, r = torch.sigmoid(zr[..., :hidden]), torch.sigmoid(zr[..., hidden:])
-    q = torch.tanh(dw_max_plain(linear_plain(torch.cat([r * h, x], dim=-1), params["q"]),
-                                knn_idx, dw["conv_q"]))
+    q = torch.tanh(tail(linear_plain(torch.cat([r * h, x], dim=-1), params["q"]), knn_idx,
+                        dw["conv_q"]))
     return (1.0 - z) * h + z * q
 
 
-def flow_head_3d_plain(h, knn_idx, dw: dict, params: dict):
-    feat = dw_max_plain(_leaky(linear_plain(h, params["conv1"])), knn_idx, dw["conv1"])
-    feat = dw_max_plain(_leaky(linear_plain(feat, params["conv2"])), knn_idx, dw["conv2"])
+def _flow_head_3d(h, knn_idx, dw: dict, params: dict, tail):
+    feat = tail(_leaky(linear_plain(h, params["conv1"])), knn_idx, dw["conv1"])
+    feat = tail(_leaky(linear_plain(feat, params["conv2"])), knn_idx, dw["conv2"])
     return linear_plain(feat, params["fc"])
+
+
+def gru_3d_plain(h, x, knn_idx, dw: dict, params: dict):
+    return _gru_3d(h, x, knn_idx, dw, params, dw_max_plain)
+
+
+def flow_head_3d_plain(h, knn_idx, dw: dict, params: dict):
+    return _flow_head_3d(h, knn_idx, dw, params, dw_max_plain)
 
 
 def gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw: dict, params: dict):
@@ -225,3 +239,47 @@ def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
 
 
 gru_flowhead_3d.launches = 0
+
+
+# --- the PointConvDW tail alone (kernel #13) -------------------------------
+
+
+def dw_max(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
+    """table [B, N, C], knn_idx [B, M, >=k] int32, weights [B, M, k, C] ->
+    [B, M, C]: max_j table[idx[:, :, j]] * weights[:, :, j], bit-identical
+    to `dw_max_plain`. CPU tensors take the plain version; CUDA tensors the
+    kernel."""
+    if _cuda.on_cpu(table, knn_idx, weights):
+        return dw_max_plain(table, knn_idx, weights)
+    name = "dw_max"
+    _cuda.check(name, torch.float32, table=table, weights=weights)
+    _cuda.check_shape(name, "table", table, (None, None, None))
+    batch, n_table, channels = table.shape
+    _cuda.check_shape(name, "weights", weights, (batch, None, None, channels))
+    m, k = weights.shape[1:3]
+    _check_idx(name, knn_idx, batch, m, k, table.device)
+    if k < 1:
+        raise ValueError(f"{name}: the weights have no neighbours")
+    out = table.new_empty(batch, m, channels)
+    from ..csrc.build import launch
+
+    launch("camli_dw_max", table.data_ptr(), weights.data_ptr(), knn_idx.data_ptr(),
+           out.data_ptr(), batch, n_table, m, knn_idx.shape[2], k, channels)
+    dw_max.launches += 1
+    return out
+
+
+dw_max.launches = 0
+
+
+def gru_3d(h: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor, dw: dict, params: dict):
+    """GRU3D with each PointConvDW tail through `dw_max`; the MLP Linears
+    (F.linear), the gates and the blend run as torch ops around it. The
+    flagship's fuse_hidden path runs it, where CLFM sits between GRU3D and
+    FlowHead3D."""
+    return _gru_3d(h, x, knn_idx, dw, params, dw_max)
+
+
+def flow_head_3d(h: torch.Tensor, knn_idx: torch.Tensor, dw: dict, params: dict):
+    """FlowHead3D with its two PointConvDW tails through `dw_max`."""
+    return _flow_head_3d(h, knn_idx, dw, params, dw_max)

@@ -9,15 +9,17 @@ installed:
 (`--noconftest` because tests/conftest.py configures JAX.) Tolerances: KNN
 and corr3d selected squared distances rtol = atol = 1e-4; corr3d costs
 exactly the pyramid at the kernel's own indices; FPS indices identical;
-interpolation atol 1e-5; the 2D and 3D update kernels max |kernel - plain|
-<= 1e-4 * (1 + max |plain|) (f32 on both sides, summation order only).
+interpolation atol 1e-5; the 2D and 3D update kernels, the Correlation3D
+tail and CLFM max |kernel - plain| <= 1e-4 * (1 + max |plain|) (f32 on both
+sides, summation order only); the k-major gather, the probe's cases and the
+PointConvDW tail bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from camliflow_torch.ops import corr3d, fps, interp, knn, update2d, update3d
+from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
 from camliflow_torch.ops.geometry import squared_distance
 from camliflow_torch.ops.ids import make_parallel_camera_info, persp2paral
 from camliflow_torch.utils.torch_setup import setup_torch
@@ -314,3 +316,240 @@ def test_update3d_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             update3d.gru_flowhead_3d(h, h, h[..., :64].contiguous(), idx, dw_gf, gf)
         with pytest.raises(ValueError, match="neighbours"):
             update3d.gru_flowhead_3d(h, h, h, idx[..., :16].contiguous(), dw_gf, gf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,channels", [(torch.float32, 3), (torch.float32, 99),
+                                            (torch.float32, 324), (torch.int32, 131),
+                                            (torch.bfloat16, 3), (torch.bfloat16, 99),
+                                            (torch.int8, 5)])
+@pytest.mark.parametrize("k", [1, 16])
+def test_gather_kmajor_kernel_matches_plain(cuda, dtype, channels, k):
+    """Rows of 3, 99 and 324 elements (not 16-byte aligned), batch 2, 77
+    queries (not a multiple of the block), duplicate indices: bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    data = (50 * torch.randn(2, 300, channels, generator=gen, device=cuda)).to(dtype)
+    idx = torch.randint(0, 300, (2, 77, k), generator=gen, device=cuda, dtype=torch.int32)
+    idx[:, ::3, -1] = idx[:, ::3, 0]
+    before = gather.gather_points_kmajor.launches
+    got = gather.gather_points_kmajor(data, idx)
+    assert gather.gather_points_kmajor.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, k, 77, channels)
+    assert torch.equal(got, gather.gather_points_kmajor_plain(data, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,channels,offset", [(torch.bfloat16, 2, 1), (torch.int8, 4, 1),
+                                                   (torch.int8, 8, 2)])
+def test_gather_kmajor_kernel_takes_views_at_any_offset(cuda, dtype, channels, offset):
+    """A contiguous view may start at any element of its storage: rows of 4
+    or 8 bytes at a 1- or 2-byte offset are copied in words that fit the
+    address, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(39)
+    base = (50 * torch.randn(2 * 300 * channels + offset, generator=gen, device=cuda)).to(dtype)
+    data = base[offset:].view(2, 300, channels)
+    assert data.data_ptr() % 4 != 0
+    idx = torch.randint(0, 300, (2, 77, 16), generator=gen, device=cuda, dtype=torch.int32)
+    got = gather.gather_points_kmajor(data, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.gather_points_kmajor_plain(data, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", gather.PROBE_CASES, ids=[c[0] for c in gather.PROBE_CASES])
+def test_probe_gather_cases(cuda, case):
+    """tools/probe_gather_matrix.py's cases through the k-major gather."""
+    data, idx, finish, want = gather.probe_case(case, torch.Generator(device=cuda).manual_seed(41),
+                                                cuda)
+    got = finish(gather.gather_points_kmajor(data, idx))
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
+    data = torch.randn(2, 50, 7, device=cuda)
+    idx = torch.randint(0, 50, (2, 9, 4), device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        gather.gather_points_kmajor(data.double(), idx)
+    with pytest.raises(TypeError):
+        gather.gather_points_kmajor(data, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_points_kmajor(data.transpose(0, 1).contiguous().transpose(0, 1), idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather.gather_points_kmajor(data, idx.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        gather.gather_points_kmajor(data, idx[:1].contiguous())
+
+
+def tail_case(device, seed, batch, n, level_sizes, k, out_channels):
+    """A Correlation3D with random weights and kernel #4's selection."""
+    from camliflow_torch.models.camliraft_l import Correlation3D
+
+    torch.manual_seed(seed)
+    module = Correlation3D(n_levels=len(level_sizes), out_channels=out_channels, k=k).to(device)
+    xyz1 = ids_clouds(seed, device, batch, n)
+    xyz2 = ids_clouds(seed + 1, device, batch, level_sizes[0])
+    pyramid = torch.randn(batch, n, sum(level_sizes), device=device)
+    idx, cost = corr3d.correlation3d_knn(xyz1, xyz2, pyramid, level_sizes, k)
+    return corr3d.prepare_corr3d_tail_params(module), xyz1, xyz2, idx, cost
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,level_sizes,k,out_channels", [
+    (1, 2048, (2048, 1024, 512, 256), 16, 128),  # the main path: 64 KB of merge weights
+    (2, 100, (96, 48, 24), 8, 128),  # the JAX tests' k and levels, batch 2
+    (2, 77, (96, 48, 24), 8, 64),  # a hidden width of 16, N not a multiple of 8
+    (1, 50, (64, 48, 40, 32, 24, 16, 12, 8), 8, 128),  # 8 levels: 128 KB
+])
+def test_corr3d_tail_kernel_matches_plain(cuda, batch, n, level_sizes, k, out_channels):
+    with torch.inference_mode():
+        params, xyz1, xyz2, idx, cost = tail_case(cuda, 42, batch, n, level_sizes, k,
+                                                  out_channels)
+        n_levels = len(level_sizes)
+        before = corr3d.corr3d_tail.launches
+        got = corr3d.corr3d_tail(xyz1, xyz2, idx, cost, params, n_levels, k)
+        torch.cuda.synchronize()
+        assert corr3d.corr3d_tail.launches == before + 1
+        ref = corr3d.corr3d_tail_plain(xyz1, xyz2, idx, cost, params, n_levels, k)
+    assert got.shape == (batch, n, out_channels)
+    assert_conv_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_corr3d_tail_launch_above_48_kb_of_shared_memory(cuda):
+    """The main path's merge weights (4 levels x 32 x 128 f32) are 64 KB of
+    shared memory, above a launch's 48 KB default: the entry point raises
+    the kernel's limit first, so the launch runs, and so does one of 8
+    levels (128 KB)."""
+    with torch.inference_mode():
+        params, xyz1, xyz2, idx, cost = tail_case(cuda, 43, 1, 64, (64, 32, 16, 8), 4, 128)
+        assert params.wm.numel() * 4 == 65536 > 48 * 1024
+        got = corr3d.corr3d_tail(xyz1, xyz2, idx, cost, params, 4, 4)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        huge = params._replace(wm=torch.zeros(8 * 32, 128, device=cuda))
+        corr3d.corr3d_tail(xyz1, xyz2, torch.zeros(1, 64, 32, dtype=torch.int32, device=cuda),
+                           torch.zeros(1, 64, 32, device=cuda), huge, 8, 4)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_corr3d_tail_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    with torch.inference_mode():
+        params, xyz1, xyz2, idx, cost = tail_case(cuda, 44, 1, 64, (64, 32, 16), 4, 128)
+        with pytest.raises(TypeError):
+            corr3d.corr3d_tail(xyz1.double(), xyz2, idx, cost, params, 3, 4)
+        with pytest.raises(TypeError):
+            corr3d.corr3d_tail(xyz1, xyz2, idx.long(), cost, params, 3, 4)
+        with pytest.raises(ValueError, match="contiguous"):
+            corr3d.corr3d_tail(xyz1, xyz2, idx, cost.transpose(1, 2).contiguous().transpose(1, 2),
+                               params, 3, 4)
+        with pytest.raises(ValueError, match="CUDA"):
+            corr3d.corr3d_tail(xyz1, xyz2, idx, cost.cpu(), params, 3, 4)
+        with pytest.raises(ValueError, match="shape"):
+            corr3d.corr3d_tail(xyz1, xyz2, idx, cost, params, 3, 8)
+        with pytest.raises(ValueError, match="do not fit"):
+            corr3d.corr3d_tail(xyz1, xyz2, idx[..., :8].contiguous(), cost[..., :8].contiguous(),
+                               params, 2, 4)
+
+
+def clfm_case(device, seed, batch, height, width, n, c2, c3):
+    """A CLFM with random weights, its hoisted operands and inputs; some
+    points project outside the map, so some taps are weighted 0."""
+    from camliflow_torch.nn.clfm import CLFM, fusion_interp_cache
+
+    torch.manual_seed(seed)
+    module = CLFM(c2, c3).to(device).eval()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feat_2d = torch.randn(batch, height, width, c2, generator=gen, device=device)
+    feat_3d = torch.randn(batch, n, c3, generator=gen, device=device)
+    span = torch.tensor([width + 3.0, height + 3.0], device=device)
+    uv = torch.rand(batch, n, 2, generator=gen, device=device) * span - 1.5
+    cache = fusion_interp_cache(uv, height, width)
+    score = clfm.hoist_interp_score(module.interp, cache[1])
+    tap_idx, tap_w = clfm.grid_sample_cache(uv, height, width)
+    assert (tap_w == 0).any()
+    return (feat_2d, feat_3d, score, cache[0], tap_idx, tap_w), clfm.prepare_clfm_params(module)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,height,width,n,c2,c3", [
+    (1, 68, 120, 2048, 324, 128),  # the flagship's corr call
+    (1, 68, 120, 2048, 128, 128),  # its motion and hidden calls
+    (2, 8, 12, 64, 324, 128),
+    (2, 7, 9, 50, 128, 128),
+])
+def test_clfm_kernel_matches_plain(cuda, batch, height, width, n, c2, c3):
+    with torch.inference_mode():
+        inputs, params = clfm_case(cuda, 45, batch, height, width, n, c2, c3)
+        before = clfm.clfm_fused.launches
+        got_2d, got_3d = clfm.clfm_fused(*inputs, params)
+        again_2d, again_3d = clfm.clfm_fused(*inputs, params)
+        assert clfm.clfm_fused.launches == before + 2
+        ref_2d, ref_3d = clfm.clfm_fused_plain(*inputs, params)
+    assert got_2d.shape == (batch, height, width, c2) and got_3d.shape == (batch, n, c3)
+    assert_conv_close(got_2d, ref_2d)
+    assert_conv_close(got_3d, ref_3d)
+    # no atomics: two runs give the same bits
+    assert torch.equal(got_2d, again_2d) and torch.equal(got_3d, again_3d)
+
+
+@pytest.mark.cuda
+def test_clfm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    with torch.inference_mode():
+        (f2d, f3d, score, nn_idx, tap_idx, tap_w), params = clfm_case(cuda, 46, 1, 6, 8, 30,
+                                                                      128, 128)
+        with pytest.raises(TypeError):
+            clfm.clfm_fused(f2d.double(), f3d, score, nn_idx, tap_idx, tap_w, params)
+        with pytest.raises(TypeError):
+            clfm.clfm_fused(f2d, f3d, score, nn_idx, tap_idx.long(), tap_w, params)
+        with pytest.raises(ValueError, match="contiguous"):
+            clfm.clfm_fused(f2d.transpose(1, 2).contiguous().transpose(1, 2), f3d, score, nn_idx,
+                            tap_idx, tap_w, params)
+        with pytest.raises(ValueError, match="CUDA"):
+            clfm.clfm_fused(f2d, f3d.cpu(), score, nn_idx, tap_idx, tap_w, params)
+        with pytest.raises(ValueError, match="fit"):
+            clfm.clfm_fused(f2d[..., :64].contiguous(), f3d, score, nn_idx, tap_idx, tap_w,
+                            params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,m,n_table,k,channels", [
+    (1, 2048, 2048, 4, 256),  # GRU3D's z|r on the fuse_hidden path
+    (1, 2048, 2048, 32, 64),  # FlowHead3D's conv2
+    (2, 70, 100, 32, 125),  # batch 2, a table longer than the queries
+    (2, 33, 33, 1, 3),
+])
+def test_dw_max_kernel_matches_plain(cuda, batch, m, n_table, k, channels):
+    """Duplicate neighbours and NaN propagate as in torch.amax: bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    table = torch.randn(batch, n_table, channels, generator=gen, device=cuda)
+    table[:, 5, :2] = float("nan")
+    idx = torch.randint(0, n_table, (batch, m, 32), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx[:, ::7, k - 1] = idx[:, ::7, 0]  # duplicate neighbours
+    weights = torch.randn(batch, m, k, channels, generator=gen, device=cuda)
+    before = update3d.dw_max.launches
+    got = update3d.dw_max(table, idx, weights)
+    assert update3d.dw_max.launches == before + 1
+    ref = update3d.dw_max_plain(table, idx, weights)
+    assert got.shape == (batch, m, channels)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+
+
+@pytest.mark.cuda
+def test_dw_max_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    table = torch.randn(1, 40, 16, device=cuda)
+    idx = torch.randint(0, 40, (1, 40, 8), device=cuda, dtype=torch.int32)
+    weights = torch.randn(1, 40, 8, 16, device=cuda)
+    with pytest.raises(TypeError):
+        update3d.dw_max(table.double(), idx, weights)
+    with pytest.raises(TypeError):
+        update3d.dw_max(table, idx.long(), weights)
+    with pytest.raises(ValueError, match="contiguous"):
+        update3d.dw_max(table, idx, weights.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA|lies on"):
+        update3d.dw_max(table, idx.cpu(), weights)
+    with pytest.raises(ValueError, match="neighbours"):
+        update3d.dw_max(table, idx[..., :4].contiguous(), weights)

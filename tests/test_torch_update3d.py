@@ -156,3 +156,62 @@ def test_packing_stacks_z_and_r(gru_flowhead):
                                   tgru.conv_r.mlp.convs[0].conv_fn.bias.detach().numpy())
     f1 = update3d.prepare_motion_encoder_3d_params(tm.MotionEncoder3D())["conv_f1"]
     assert f1.weight.shape == (16, 64) and not f1.weight[3:].any() and not f1.weight[:, 32:].any()
+
+
+# --- the PointConvDW tail alone (kernel #13) -------------------------------
+
+
+@pytest.mark.parametrize("k,channels", [(4, 256), (32, 64)])
+def test_dw_max_plain_matches_flax_tail(cloud, k, channels):
+    """dw_max_plain on the Flax MLP's own output equals the Flax
+    PointConvDW (gather, multiply, max over k) exactly, f32."""
+    from camliflow_tpu.nn.point_conv import PointConvDW
+
+    xyz, knn, c = cloud
+    conv = PointConvDW(channels, act=None, k=k)
+    feats = j(c["h"])
+    variables = conv.init(jax.random.PRNGKey(k), xyz, feats, knn_indices=knn)
+    weights = conv.apply(variables, xyz, knn_indices=knn, method=PointConvDW.compute_weights)
+    ref = conv.apply(variables, xyz, feats, knn_indices=knn, weights=weights)
+    table = conv.apply(variables, feats, method=lambda m, f: m.mlp(f))
+    got = update3d.dw_max_plain(t(table), t(knn), t(weights))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    # the wrapper on CPU tensors is the plain version
+    np.testing.assert_array_equal(update3d.dw_max(t(table), t(knn), t(weights)).numpy(),
+                                  got.numpy())
+
+
+@pytest.mark.parametrize("k,channels", [(4, 256), (16, 125), (32, 64)])
+def test_dw_max_plain_matches_ohg(k, channels):
+    """Against dw_conv_ohg (interpret mode) on bf16-representable inputs: the
+    OHG kernel rounds each product to bf16, so rtol 2^-8."""
+    from camliflow_tpu.ops.pallas_ohg import dw_conv_ohg, pack_dw
+
+    rng = np.random.default_rng(k * 1000 + channels)
+    table = jnp.asarray(rng.standard_normal((2, 256, channels)), jnp.bfloat16)
+    idx = jnp.asarray(rng.integers(0, 256, (2, 128, k)), jnp.int32)
+    weights = jnp.asarray(rng.standard_normal((2, 128, k, channels)), jnp.bfloat16)
+    pack = pack_dw(weights, idx)
+    ref = dw_conv_ohg(table, pack["idx_km"], pack["w_km"], k, interpret=True)
+    got = update3d.dw_max_plain(*(t(np.asarray(a, np.float32)) for a in (table, idx, weights)))
+    assert got.shape == (2, 128, channels)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2.0**-8, atol=0)
+
+
+def test_gru_and_flow_head_forwards_take_packed_params(cloud, gru_flowhead):
+    """GRU3D and FlowHead3D run their tails through `dw_max` (on the CPU its
+    plain version), on weights packed by the caller once per request or by
+    the module itself: the same results either way, and the plain chain's."""
+    xyz, knn, c = cloud
+    _, _, dw, (tgru, thead) = gru_flowhead
+    dw = dw_to_torch(dw)
+    h, x = t(c["h"]), t(np.concatenate([c["x3d"], c["motion"]], -1))
+    with torch.inference_mode():
+        gru_params = update3d.prepare_gru_3d_params(tgru)
+        head_params = update3d.prepare_flow_head_3d_params(thead)
+        h_new = tgru(t(xyz), h, x, t(knn), dw, params=gru_params)
+        assert torch.equal(h_new, tgru(t(xyz), h, x, t(knn), dw))
+        assert torch.equal(h_new, update3d.gru_3d_plain(h, x, t(knn), dw, gru_params))
+        delta = thead(t(xyz), h_new, t(knn), dw, params=head_params)
+        assert torch.equal(delta, thead(t(xyz), h_new, t(knn), dw))
+        assert torch.equal(delta, update3d.flow_head_3d_plain(h_new, t(knn), dw, head_params))
