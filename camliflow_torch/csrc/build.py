@@ -40,8 +40,10 @@ SIGNATURES = {
     "camli_fps": [_P, _P, _I, _I, _I, _P],
     "camli_interp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "camli_corr3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
-    "camli_motion_encoder_2d": [_P] * 15 + [_I] * 9 + [_P],
-    "camli_gru_flowhead_2d": [_P] * 21 + [_I] * 7 + [_P],
+    "camli_motion_encoder_2d": [_P] * 8 + [_I] * 9 + [_P],
+    "camli_gru_2d": [_P] * 8 + [_I] * 6 + [_P],
+    "camli_flow_head_2d": [_P] * 4 + [_I] * 5 + [_P],
+    "camli_gru_flowhead_2d": [_P] * 10 + [_I] * 7 + [_P],
     "camli_update_2d": [_P] * 29 + [_I] * 13 + [_P],
     "camli_motion_encoder_3d": [_P] * 17 + [_I] * 13 + [_P],
     "camli_gru_flowhead_3d": [_P] * 21 + [_I] * 13 + [_P],

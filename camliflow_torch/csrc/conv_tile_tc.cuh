@@ -1,0 +1,412 @@
+// The 3xTF32 tensor-core implicit-GEMM convolution tile of the 2D update
+// chain: update2d.cu's motion encoder (kernel #9), its GRU and flow head
+// (kernel #8) and #8's two halves run on it. conv_tile.cuh's f32 FMA tile
+// stays for the fused RAFT iteration (#10) and CLFM (#11).
+//
+// What it computes is conv_tile.cuh's convolution, with the same features:
+// NHWC inputs read as one virtual channel concat of up to three tensors, the
+// reduction ordered (tap, input channel), zero padding at the borders as a
+// load predicate, and the same epilogues (bias + ReLU, none, the GRU's z and
+// r*h, h' = (1-z)*h + z*tanh(q), nan_to_num, the 2-channel flow tail).
+//
+// Numerics: f32 in, f32 out, on the tensor cores by the 3xTF32 split. Every
+// operand x becomes hi = tf32(x) (cvt.rna, 10 mantissa bits) and
+// lo = tf32(x - hi); a product is lo_a*hi_b + hi_a*lo_b + hi_a*hi_b, the
+// small terms first, accumulated in f32 (lo*lo, ~2^-22 relative, dropped).
+// The weights arrive split once per request (ops/update2d.py::pack_convs,
+// planes [N_pad][K_pad], K-major); the kernel splits the activations.
+//
+// Design, for an operation bound (the chain is ~10^3 operations per byte):
+// mma.sync.aligned.m16n8k8 tf32 from registers, fed from shared memory.
+// - Copies: cp.async 16-byte copies (4 channels; every input's channel
+//   count is a multiple of 4 and its base 16-byte aligned, which the
+//   wrappers check), zero-filled (source size 0) for taps outside the map,
+//   pixels past the end and k past the reduction. A ring of kStages stages,
+//   so chunks k+1 and k+2 are in flight while chunk k is multiplied; one
+//   __syncthreads per chunk.
+// - Layout: each stage holds, per warp-split slice, A as [BM][16] and the
+//   two weight planes as [BN][16] (K-major both). A thread reads 4
+//   consecutive floats of a row with one 128-bit load and uses them for two
+//   k-steps: mma k-index t takes column 4t + 2s and t + 4 column 4t + 2s + 1
+//   in step s. A and B use the same permutation of k, so the sum is the
+//   convolution's; the 16-float rows make each quarter-warp's 128-bit loads
+//   hit 8 distinct 16-byte bank groups (no conflicts).
+// - Tiles: 4 warps a block. 64 pixels x 128 channels (warps of 32 x 64, 2
+//   blocks an SM) for the 256-channel convs, 64 x 64 (warps of 32 x 32, 4
+//   an SM) for the others, so that each conv of the chain at 68 x 120 px
+//   runs 128-384 blocks in one wave. The flow head's last conv (256 -> 2,
+//   3x3) is a narrow variant: 32 pixels x 8 channels a block, the reduction
+//   split over its 4 warps, whose partial sums meet in shared memory in a
+//   fixed order (no float atomics: two runs give the same bits).
+// - wgmma (m64n64k8 tf32, A from registers, B through K-major descriptors
+//   without swizzle) computed the same sums but took longer at every conv
+//   of the chain on an H100, so the tile stays on mma.sync (PERF.md).
+#pragma once
+
+#include "conv_tile.cuh"
+
+namespace {
+
+constexpr int kTcBk = 16;    // reduction floats per warp slice and stage
+constexpr int kStages = 3;   // cp.async ring depth
+
+// --- PTX ------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_address(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// round to tf32 (nearest, ties away from zero), as an f32 bit pattern
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a * b: a 16x8 (rows g, g+8; k t, t+4), b 8x8 (k t, t+4; col g),
+// d 16x8 (rows g, g+8; cols 2t, 2t+1), g = lane / 4, t = lane % 4
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// --- the tile -------------------------------------------------------------
+
+// Warps of (BM / WARPS_M) x (BN / WARPS_N), the reduction split over KSPLIT
+// slices of warps.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT>
+struct TcShape {
+  static constexpr int kWarps = WARPS_M * WARPS_N * KSPLIT;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kMt = BM / WARPS_M / 16;  // m16 tiles per warp
+  static constexpr int kNt = BN / WARPS_N / 8;   // n8 tiles per warp
+  static constexpr int kKStep = KSPLIT * kTcBk;  // reduction per stage
+  static constexpr int kAFloats = KSPLIT * BM * kTcBk;
+  static constexpr int kStageFloats = kAFloats + 2 * KSPLIT * BN * kTcBk;
+  static constexpr int kSmemBytes = kStages * kStageFloats * 4;
+  static constexpr int kRowsPerPass = kThreads / 4;  // A rows one pass of copies covers
+  static_assert(BM % kRowsPerPass == 0, "A copies: whole passes of rows");
+  static_assert(BM % (16 * WARPS_M) == 0 && BN % (8 * WARPS_N) == 0, "warp tiles");
+  // blocks an SM the registers must allow: 4 of the 64 x 64 tile, 2 of the
+  // 64 x 128 one (their shared memory allows as many)
+  static constexpr int kMinBlocks = KSPLIT > 1 ? 1 : (BN == 64 ? 4 : 2);
+};
+
+// The epilogue of one output element: conv_tile.cuh's, unchanged.
+template <int EPI>
+__device__ __forceinline__ void store(const Conv& a, int p, int co, float acc) {
+  if (p >= a.pixels || co >= a.cout) return;
+  float v = acc + a.bias[co];
+  if (EPI == EPI_RELU) {
+    v = v < 0.f ? 0.f : v;
+  } else if (EPI == EPI_ZR) {
+    v = sigmoid(v);
+    if (co < a.half) {
+      a.out[(size_t)p * a.half + co] = v;
+    } else {
+      const size_t at = (size_t)p * a.half + (co - a.half);
+      a.out2[at] = v * a.h[at];
+    }
+    return;
+  } else if (EPI == EPI_GATE) {
+    const size_t at = (size_t)p * a.cout + co;
+    const float zv = a.z[at];
+    v = (1.f - zv) * a.h[at] + zv * tanhf(v);
+  }
+  if (a.nan_fix) v = nan_to_num(v);
+  a.out[(size_t)p * a.out_stride + co] = v;
+}
+
+// The 3xTF32 split of one activation value.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// One block: BM pixels x BN output channels of one convolution. `hi` and
+// `lo` are the weight planes [>= n0 + BN][k_pad]; a.k_total <= k_pad.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI>
+__global__ void __launch_bounds__(TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>::kThreads,
+                                  TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>::kMinBlocks)
+    conv_tc_kernel(const Conv a, const float* __restrict__ hi, const float* __restrict__ lo,
+                   int k_pad) {
+  using S = TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>;
+  constexpr int kRows = BM / S::kRowsPerPass;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int p0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int cin = a.c0 + a.c1 + a.c2;
+  const int hw = a.height * a.width;
+  const int n_chunks = (a.k_total + S::kKStep - 1) / S::kKStep;
+
+  // copy roles: A rows tid/4 + pass * kRowsPerPass, 4 floats at 4 * (tid % 4)
+  // of every slice; the (tap, channel) cursor of each slice advances by
+  // kKStep per stage, without a division
+  const int quad = tid % 4;
+  int row_base[kRows], row_y[kRows], row_x[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int p = p0 + tid / 4 + q * S::kRowsPerPass;
+    const int b = p / hw;
+    const int r = p - b * hw;
+    row_y[q] = p < a.pixels ? r / a.width : -1000000;  // an invalid row
+    row_x[q] = r - (r / a.width) * a.width;
+    row_base[q] = b * hw;
+  }
+  int cur_k[KSPLIT], cur_ci[KSPLIT], cur_tx[KSPLIT], cur_ty[KSPLIT];
+#pragma unroll
+  for (int s = 0; s < KSPLIT; ++s) {
+    cur_k[s] = s * kTcBk + 4 * quad;
+    const int tap = cur_k[s] / cin;
+    cur_ci[s] = cur_k[s] - tap * cin;
+    cur_ty[s] = tap / a.kw;
+    cur_tx[s] = tap - cur_ty[s] * a.kw;
+  }
+  int b_k0 = 0;  // the next stage's first reduction index, for the weights
+
+  auto load_stage = [&](int slot) {
+    float* stage = smem + slot * S::kStageFloats;
+#pragma unroll
+    for (int s = 0; s < KSPLIT; ++s) {
+      const float* src = a.in0;
+      int cs = a.c0, cc = cur_ci[s];
+      if (cc >= a.c0 + a.c1) {
+        src = a.in2, cs = a.c2, cc -= a.c0 + a.c1;
+      } else if (cc >= a.c0) {
+        src = a.in1, cs = a.c1, cc -= a.c0;
+      }
+      const bool k_ok = cur_k[s] < a.k_total;
+      const int dy = cur_ty[s] - (a.kh - 1) / 2;
+      const int dx = cur_tx[s] - (a.kw - 1) / 2;
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int iy = row_y[q] + dy;
+        const int ix = row_x[q] + dx;
+        const bool ok = k_ok && iy >= 0 && iy < a.height && ix >= 0 && ix < a.width;
+        const float* from =
+            ok ? src + ((size_t)row_base[q] + (size_t)iy * a.width + ix) * cs + cc : a.in0;
+        const int row = tid / 4 + q * S::kRowsPerPass;
+        cp_async16(stage + (s * BM + row) * kTcBk + 4 * quad, from, ok ? 16 : 0);
+      }
+      cur_k[s] += S::kKStep;
+      cur_ci[s] += S::kKStep;
+      while (cur_ci[s] >= cin) {
+        cur_ci[s] -= cin;
+        if (++cur_tx[s] == a.kw) cur_tx[s] = 0, ++cur_ty[s];
+      }
+    }
+    // the weights: [plane][slice][BN][16] from the planes' rows n0 + n
+    constexpr int kBCopies = 2 * KSPLIT * BN * 4;
+#pragma unroll
+    for (int i = 0; i < (kBCopies + S::kThreads - 1) / S::kThreads; ++i) {
+      const int idx = i * S::kThreads + tid;
+      if (kBCopies % S::kThreads == 0 || idx < kBCopies) {
+        const int j = idx % 4;
+        const int n = (idx / 4) % BN;
+        const int s = (idx / (4 * BN)) % KSPLIT;
+        const int plane = idx / (4 * BN * KSPLIT);
+        const int k = b_k0 + s * kTcBk + 4 * j;
+        const bool ok = k < k_pad;
+        const float* from = (plane ? lo : hi) + (ok ? (size_t)(n0 + n) * k_pad + k : 0);
+        cp_async16(stage + S::kAFloats + ((plane * KSPLIT + s) * BN + n) * kTcBk + 4 * j, from,
+                   ok ? 16 : 0);
+      }
+    }
+    b_k0 += S::kKStep;
+  };
+
+  // compute roles: warp (slice, wm, wn) multiplies its slice of every stage
+  const int slice = warp / (WARPS_M * WARPS_N);
+  const int wm = warp % (WARPS_M * WARPS_N) / WARPS_N;
+  const int wn = warp % WARPS_N;
+  const int g = lane / 4, t = lane % 4;
+  float acc[S::kMt][S::kNt][4];
+#pragma unroll
+  for (int mi = 0; mi < S::kMt; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < S::kNt; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_chunks) load_stage(s);
+    cp_async_commit();
+  }
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of `chunk` landed
+    __syncthreads();               // everyone's; and chunk - 1 is consumed
+    if (chunk + kStages - 1 < n_chunks) load_stage((chunk + kStages - 1) % kStages);
+    cp_async_commit();
+
+    const float* stage = smem + (chunk % kStages) * S::kStageFloats;
+    const float* As = stage + (slice * BM + wm * (BM / WARPS_M)) * kTcBk;
+    const float* Bh = stage + S::kAFloats + (slice * BN + wn * (BN / WARPS_N)) * kTcBk;
+    const float* Bl = Bh + KSPLIT * BN * kTcBk;
+    float4 av[S::kMt][2], bh[S::kNt], bl[S::kNt];
+#pragma unroll
+    for (int mi = 0; mi < S::kMt; ++mi)
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8)
+        av[mi][h8] =
+            *reinterpret_cast<const float4*>(As + (mi * 16 + h8 * 8 + g) * kTcBk + 4 * t);
+#pragma unroll
+    for (int ni = 0; ni < S::kNt; ++ni) {
+      bh[ni] = *reinterpret_cast<const float4*>(Bh + (ni * 8 + g) * kTcBk + 4 * t);
+      bl[ni] = *reinterpret_cast<const float4*>(Bl + (ni * 8 + g) * kTcBk + 4 * t);
+    }
+#pragma unroll
+    for (int step = 0; step < 2; ++step) {
+      uint32_t a_hi[S::kMt][4], a_lo[S::kMt][4];
+#pragma unroll
+      for (int mi = 0; mi < S::kMt; ++mi) {
+        // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        const float x[4] = {step ? av[mi][0].z : av[mi][0].x, step ? av[mi][1].z : av[mi][1].x,
+                            step ? av[mi][0].w : av[mi][0].y, step ? av[mi][1].w : av[mi][1].y};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) split(x[r], a_hi[mi][r], a_lo[mi][r]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < S::kNt; ++ni) {
+        const uint32_t b_hi[2] = {__float_as_uint(step ? bh[ni].z : bh[ni].x),
+                                  __float_as_uint(step ? bh[ni].w : bh[ni].y)};
+        const uint32_t b_lo[2] = {__float_as_uint(step ? bl[ni].z : bl[ni].x),
+                                  __float_as_uint(step ? bl[ni].w : bl[ni].y)};
+#pragma unroll
+        for (int mi = 0; mi < S::kMt; ++mi) {
+          mma_tf32(acc[mi][ni], a_lo[mi], b_hi);
+          mma_tf32(acc[mi][ni], a_hi[mi], b_lo);
+          mma_tf32(acc[mi][ni], a_hi[mi], b_hi);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (KSPLIT > 1) {
+    // the slices' partial sums meet in slice 0, in slice order
+    __syncthreads();  // every warp is done with the ring; reuse it
+    constexpr int kPer = S::kMt * S::kNt * 4;
+    float* red = smem;
+    const int owner = warp % (WARPS_M * WARPS_N);
+    if (slice > 0) {
+#pragma unroll
+      for (int mi = 0; mi < S::kMt; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < S::kNt; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            red[(((slice - 1) * WARPS_M * WARPS_N + owner) * kPer + (mi * S::kNt + ni) * 4 + c) *
+                    32 +
+                lane] = acc[mi][ni][c];
+    }
+    __syncthreads();
+    if (slice > 0) return;  // slice 0 alone stores
+    for (int s = 1; s < KSPLIT; ++s)
+#pragma unroll
+      for (int mi = 0; mi < S::kMt; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < S::kNt; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[mi][ni][c] +=
+                red[(((s - 1) * WARPS_M * WARPS_N + owner) * kPer + (mi * S::kNt + ni) * 4 + c) *
+                        32 +
+                    lane];
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < S::kMt; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < S::kNt; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = wm * (BM / WARPS_M) + mi * 16 + g + (c / 2) * 8;
+        const int col = wn * (BN / WARPS_N) + ni * 8 + 2 * t + c % 2;
+        store<EPI>(a, p0 + row, n0 + col, acc[mi][ni][c]);
+      }
+  if (a.tail_c > 0 && n0 == 0) {
+    constexpr int kStorers = 32 * WARPS_M * WARPS_N;  // slice 0's threads
+    for (int i = tid; i < BM * a.tail_c; i += kStorers) {
+      const int p = p0 + i / a.tail_c;
+      const int j = i % a.tail_c;
+      if (p < a.pixels) {
+        a.out[(size_t)p * a.out_stride + a.cout + j] = a.tail[(size_t)p * a.tail_c + j];
+      }
+    }
+  }
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI>
+int launch_tc(const Conv& a, const float* hi, const float* lo, int k_pad, int n_tiles,
+              cudaStream_t stream) {
+  using S = TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>;
+  const auto kernel = conv_tc_kernel<BM, BN, WARPS_M, WARPS_N, KSPLIT, EPI>;
+  if (S::kSmemBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((a.pixels + BM - 1) / BM, n_tiles);
+  kernel<<<grid, S::kThreads, S::kSmemBytes, stream>>>(a, hi, lo, k_pad);
+  return (int)cudaGetLastError();
+}
+
+// One convolution as its own launch. The weight planes are [N_pad][K_pad]
+// with N_pad = round_up(cout, 64) and K_pad = round_up(kh*kw*cin, 16), zero
+// past (cout, kh*kw*cin). A conv of at most 8 output channels and no
+// epilogue (the flow head's last) takes the narrow split-reduction variant;
+// one of 256 channels or more the 64 x 128 tile.
+int run_conv_tc(Conv a, const float* hi, const float* lo, int epi, int kh, int kw, int cout,
+                cudaStream_t stream) {
+  a = shaped(a, kh, kw, cout);
+  const int k_pad = round_up(a.k_total, kTcBk);
+  if (cout <= 8 && epi == EPI_NONE) {
+    return launch_tc<32, 8, 1, 1, 4, EPI_NONE>(a, hi, lo, k_pad, 1, stream);
+  }
+  if (cout >= 256 && a.n_pad % 128 == 0) {
+    const int n_tiles = a.n_pad / 128;
+    switch (epi) {
+      case EPI_RELU:
+        return launch_tc<64, 128, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, n_tiles, stream);
+      case EPI_ZR:
+        return launch_tc<64, 128, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, n_tiles, stream);
+      default:
+        break;  // the other epilogues take the 64 x 64 tile
+    }
+  }
+  const int n_tiles = a.n_pad / 64;
+  switch (epi) {
+    case EPI_RELU:
+      return launch_tc<64, 64, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, n_tiles, stream);
+    case EPI_NONE:
+      return launch_tc<64, 64, 2, 2, 1, EPI_NONE>(a, hi, lo, k_pad, n_tiles, stream);
+    case EPI_ZR:
+      return launch_tc<64, 64, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, n_tiles, stream);
+    default:
+      return launch_tc<64, 64, 2, 2, 1, EPI_GATE>(a, hi, lo, k_pad, n_tiles, stream);
+  }
+}
+
+}  // namespace

@@ -1,4 +1,4 @@
-// The 2D update chain: direct-convolution stages of one templated tile.
+// The 2D update chain.
 //
 // camli_motion_encoder_2d replaces
 //   camliflow_tpu/ops/pallas_update2d.py::motion_encoder_2d_pallas:
@@ -7,12 +7,17 @@
 //   appended as the last 2 channels. conv_f1 (7x7, 2->128) runs outside, in
 //   the wrapper, as the JAX wrapper leaves it to XLA. 4 launches.
 // camli_gru_flowhead_2d replaces
-//   camliflow_tpu/ops/pallas_update2d.py::gru_flowhead_2d_pallas:
-//   the separable ConvGRU (1x5 then 5x1; z and r from one conv whose output
-//   stacks both weights, then q) over hx = [h, x2d, motion], nan_to_num of
-//   the new hidden state after both directions (as models/raft.py::GRU2D),
-//   then the flow head 3x3 (128->256) ReLU, 3x3 (256->2), nan_to_num.
-//   6 launches.
+//   camliflow_tpu/ops/pallas_update2d.py::gru_flowhead_2d_pallas: its two
+//   halves in sequence. camli_gru_2d is the separable ConvGRU (1x5 then
+//   5x1; z and r from one conv whose output stacks both weights, then q)
+//   over hx = [h, x2d, motion], nan_to_num of the new hidden state after
+//   both directions (as models/raft.py::GRU2D), 4 launches;
+//   camli_flow_head_2d the flow head 3x3 (128->256) ReLU, 3x3 (256->2),
+//   nan_to_num, 2 launches. With fuse_hidden, CLFM sits between them and
+//   the model calls each half on its own.
+// These run on conv_tile_tc.cuh's 3xTF32 tensor-core tile (see its note for
+// the design and the numerics), on weights packed and split once per
+// request.
 // camli_update_2d replaces
 //   camliflow_tpu/ops/pallas_update2d.py::update_2d_pallas: the whole RAFT
 //   iteration (the motion encoder, then the GRU and the flow head) as ONE
@@ -21,45 +26,34 @@
 //   persistent cooperative kernel (cudaLaunchCooperativeKernel, a grid no
 //   larger than the co-resident block count): 9 stages, [c1 | f2] -> c2 ->
 //   merge (+ flow tail) -> zr1 -> q1 -> zr2 -> q2 -> head1 -> head2, each a
-//   loop of the block over the stage's 64 x 64 tiles, with a grid-wide
-//   barrier between dependent stages. The barrier is written by hand (one
-//   arrival word in global memory whose top bit flips when the last block
-//   arrives, as cooperative_groups does it), which a cooperative launch
-//   makes safe: every block of the grid is resident. Tiles are dealt to the
-//   blocks SM by SM (`spread_rank`), so that a stage with fewer tiles than
-//   blocks spreads over the card. A refused launch returns its error; the
-//   wrapper raises.
+//   loop of the block over the stage's 64 x 64 tiles of conv_tile.cuh, with
+//   a grid-wide barrier between dependent stages. The barrier is written by
+//   hand (one arrival word in global memory whose top bit flips when the
+//   last block arrives, as cooperative_groups does it), which a cooperative
+//   launch makes safe: every block of the grid is resident. Tiles are dealt
+//   to the blocks SM by SM (`spread_rank`), so that a stage with fewer tiles
+//   than blocks spreads over the card. A refused launch returns its error;
+//   the wrapper raises. Its numerics are conv_tile.cuh's: f32 operands, f32
+//   accumulation, every product-sum an explicit __fmaf_rn (the library is
+//   built with -fmad=false, which does not touch explicit fused
+//   multiply-adds).
 //
-// Numerics: f32 operands, f32 accumulation, every product-sum an explicit
-// __fmaf_rn (the library is built with -fmad=false, which does not touch
-// explicit fused multiply-adds). This is the port's exact path; the TPU
-// kernels' bf16 operands belong to its fast path, not ported yet.
+// All three compute the port's exact path; the TPU kernels' bf16 operands
+// belong to its fast path, not ported yet.
 //
 // Bound on the card, at the flagship shape (1 x 68 x 120 = 8160 pixels):
 // the motion encoder is 14.5 GFLOP per call (c1 1.35, c2 7.22, f2 1.20,
 // merge 4.74) and moves ~18 MB (corr 10.6 MB, weights 3.6 MB, output
 // 4.2 MB); the GRU + flow head is 29.0 GFLOP (zr 2 x 8.02, q 2 x 4.01,
 // head 4.81 + 0.08) over ~24 MB. At 67 TFLOP/s of f32 outside the tensor
-// cores that is 0.22 ms and 0.43 ms against ~7 us of memory traffic at
-// 3.35 TB/s: both are bound by operations, and so is the fused iteration
-// (43.5 GFLOP, 0.65 ms).
-//
-// Design, for that bound: implicit GEMM on NHWC f32, the tile of
-// conv_tile.cuh (64 pixels x 64 channels a block, 4x4 a thread, reduction
-// chunks of 16 in shared memory, weights packed once per request). Up to
-// three NHWC inputs are read as one virtual channel concat, so hx,
-// [r*h, x2d, motion] and [cf, ff] are never formed; the epilogues fuse the
-// bias and ReLU or the GRU gates.
+// cores that is 0.22 ms and 0.43 ms, and at 495 TFLOP/s of TF32 with three
+// products per f32 product 0.088 ms and 0.176 ms, against ~7 us of memory
+// traffic at 3.35 TB/s: all are bound by operations, and so is the fused
+// iteration (43.5 GFLOP, 0.65 ms in f32).
 #include "conv_tile.cuh"
+#include "conv_tile_tc.cuh"
 
 namespace {
-
-template <int EPI>
-__global__ void __launch_bounds__(kThreads) conv_kernel(const Conv a) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-  conv_tile<EPI>(a, blockIdx.x * BM, blockIdx.y * BN, As, Bs);
-}
 
 // One stage of the fused iteration: the block with rank `rank` walks tiles
 // rank, rank + grid, ... of `a`, then of `b` when `two` (two independent
@@ -176,26 +170,6 @@ __global__ void __launch_bounds__(kThreads) update2d_kernel(const Update2D u) {
   stage<EPI_NONE>(r, u.head2, u.head2, false, As, Bs);
 }
 
-// One convolution as its own launch.
-int run_conv(Conv a, int epi, int kh, int kw, int cout, cudaStream_t stream) {
-  a = shaped(a, kh, kw, cout);
-  const dim3 grid((a.pixels + BM - 1) / BM, a.n_pad / BN);
-  switch (epi) {
-    case EPI_RELU:
-      conv_kernel<EPI_RELU><<<grid, kThreads, 0, stream>>>(a);
-      break;
-    case EPI_NONE:
-      conv_kernel<EPI_NONE><<<grid, kThreads, 0, stream>>>(a);
-      break;
-    case EPI_ZR:
-      conv_kernel<EPI_ZR><<<grid, kThreads, 0, stream>>>(a);
-      break;
-    default:
-      conv_kernel<EPI_GATE><<<grid, kThreads, 0, stream>>>(a);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 #define CAMLI_TRY(call)         \
@@ -204,61 +178,78 @@ int run_conv(Conv a, int epi, int kh, int kw, int cout, cudaStream_t stream) {
     if (err_ != 0) return err_; \
   } while (0)
 
-extern "C" int camli_motion_encoder_2d(
-    const float* flow, const float* ff1, const float* corr, const float* w_c1,
-    const float* b_c1, const float* w_c2, const float* b_c2, const float* w_f2,
-    const float* b_f2, const float* w_m, const float* b_m, float* cf1, float* cf,
-    float* ff, float* out, int batch, int height, int width, int c_corr,
-    int c_c1, int c_c2, int c_f1, int c_f2, int c_m, cudaStream_t stream) {
+// convs: (hi, lo, bias) of conv_c1, conv_c2, conv_f2, the merge conv;
+// cf1, cf, ff: [pixels, c_c1 | c_c2 | c_f2] scratch
+extern "C" int camli_motion_encoder_2d(const float* flow, const float* ff1, const float* corr,
+                                       const float* const* convs, float* cf1, float* cf,
+                                       float* ff, float* out, int batch, int height, int width,
+                                       int c_corr, int c_c1, int c_c2, int c_f1, int c_f2,
+                                       int c_m, cudaStream_t stream) {
   const int pixels = batch * height * width;
   Conv a = input(pixels, height, width, corr, c_corr);
-  a.w = w_c1, a.bias = b_c1, a.out = cf1;
-  CAMLI_TRY(run_conv(a, EPI_RELU, 1, 1, c_c1, stream));
+  a.bias = convs[2], a.out = cf1;
+  CAMLI_TRY(run_conv_tc(a, convs[0], convs[1], EPI_RELU, 1, 1, c_c1, stream));
   a = input(pixels, height, width, cf1, c_c1);
-  a.w = w_c2, a.bias = b_c2, a.out = cf;
-  CAMLI_TRY(run_conv(a, EPI_RELU, 3, 3, c_c2, stream));
+  a.bias = convs[5], a.out = cf;
+  CAMLI_TRY(run_conv_tc(a, convs[3], convs[4], EPI_RELU, 3, 3, c_c2, stream));
   a = input(pixels, height, width, ff1, c_f1);
-  a.w = w_f2, a.bias = b_f2, a.out = ff;
-  CAMLI_TRY(run_conv(a, EPI_RELU, 3, 3, c_f2, stream));
+  a.bias = convs[8], a.out = ff;
+  CAMLI_TRY(run_conv_tc(a, convs[6], convs[7], EPI_RELU, 3, 3, c_f2, stream));
   a = input(pixels, height, width, cf, c_c2, ff, c_f2);
-  a.w = w_m, a.bias = b_m, a.out = out, a.out_stride = c_m + 2;
+  a.bias = convs[11], a.out = out, a.out_stride = c_m + 2;
   a.tail = flow, a.tail_c = 2, a.nan_fix = 1;
-  return run_conv(a, EPI_RELU, 3, 3, c_m, stream);
+  return run_conv_tc(a, convs[9], convs[10], EPI_RELU, 3, 3, c_m, stream);
 }
 
-extern "C" int camli_gru_flowhead_2d(
-    const float* h, const float* x2d, const float* motion, const float* w_zr1,
-    const float* b_zr1, const float* w_q1, const float* b_q1, const float* w_zr2,
-    const float* b_zr2, const float* w_q2, const float* b_q2, const float* w_h1,
-    const float* b_h1, const float* w_h2, const float* b_h2, float* z, float* rh,
-    float* h1, float* mid, float* h_out, float* delta, int batch, int height,
-    int width, int c_h, int c_x, int c_m, int c_mid, cudaStream_t stream) {
+// convs: (hi, lo, bias) of zr1, q1, zr2, q2; z, rh: [pixels, c_h] scratch
+extern "C" int camli_gru_2d(const float* h, const float* x2d, const float* motion,
+                            const float* const* convs, float* z, float* rh, float* h1,
+                            float* h_out, int batch, int height, int width, int c_h, int c_x,
+                            int c_m, cudaStream_t stream) {
   const int pixels = batch * height * width;
   const float* state = h;
-  const float* w_zr[2] = {w_zr1, w_zr2};
-  const float* b_zr[2] = {b_zr1, b_zr2};
-  const float* w_q[2] = {w_q1, w_q2};
-  const float* b_q[2] = {b_q1, b_q2};
   float* next[2] = {h1, h_out};
   for (int d = 0; d < 2; ++d) {
     const int kh = d == 0 ? 1 : 5;
     const int kw = d == 0 ? 5 : 1;
+    const float* const* zr = convs + 6 * d;
+    const float* const* q = zr + 3;
     Conv a = input(pixels, height, width, state, c_h, x2d, c_x, motion, c_m);
-    a.w = w_zr[d], a.bias = b_zr[d], a.out = z, a.out2 = rh, a.h = state;
+    a.bias = zr[2], a.out = z, a.out2 = rh, a.h = state;
     a.half = c_h;
-    CAMLI_TRY(run_conv(a, EPI_ZR, kh, kw, 2 * c_h, stream));
+    CAMLI_TRY(run_conv_tc(a, zr[0], zr[1], EPI_ZR, kh, kw, 2 * c_h, stream));
     a = input(pixels, height, width, rh, c_h, x2d, c_x, motion, c_m);
-    a.w = w_q[d], a.bias = b_q[d], a.out = next[d], a.h = state, a.z = z;
+    a.bias = q[2], a.out = next[d], a.h = state, a.z = z;
     a.nan_fix = d == 1;  // nan_to_num once, after both directions
-    CAMLI_TRY(run_conv(a, EPI_GATE, kh, kw, c_h, stream));
+    CAMLI_TRY(run_conv_tc(a, q[0], q[1], EPI_GATE, kh, kw, c_h, stream));
     state = next[d];
   }
-  Conv a = input(pixels, height, width, h_out, c_h);
-  a.w = w_h1, a.bias = b_h1, a.out = mid;
-  CAMLI_TRY(run_conv(a, EPI_RELU, 3, 3, c_mid, stream));
+  return 0;
+}
+
+// convs: (hi, lo, bias) of head1, head2; mid: [pixels, c_mid] scratch
+extern "C" int camli_flow_head_2d(const float* h, const float* const* convs, float* mid,
+                                  float* delta, int batch, int height, int width, int c_h,
+                                  int c_mid, cudaStream_t stream) {
+  const int pixels = batch * height * width;
+  Conv a = input(pixels, height, width, h, c_h);
+  a.bias = convs[2], a.out = mid;
+  CAMLI_TRY(run_conv_tc(a, convs[0], convs[1], EPI_RELU, 3, 3, c_mid, stream));
   a = input(pixels, height, width, mid, c_mid);
-  a.w = w_h2, a.bias = b_h2, a.out = delta, a.nan_fix = 1;
-  return run_conv(a, EPI_NONE, 3, 3, 2, stream);
+  a.bias = convs[5], a.out = delta, a.nan_fix = 1;
+  return run_conv_tc(a, convs[3], convs[4], EPI_NONE, 3, 3, 2, stream);
+}
+
+// convs: (hi, lo, bias) of zr1, q1, zr2, q2, head1, head2
+extern "C" int camli_gru_flowhead_2d(const float* h, const float* x2d, const float* motion,
+                                     const float* const* convs, float* z, float* rh, float* h1,
+                                     float* mid, float* h_out, float* delta, int batch,
+                                     int height, int width, int c_h, int c_x, int c_m,
+                                     int c_mid, cudaStream_t stream) {
+  CAMLI_TRY(camli_gru_2d(h, x2d, motion, convs, z, rh, h1, h_out, batch, height, width, c_h,
+                         c_x, c_m, stream));
+  return camli_flow_head_2d(h_out, convs + 12, mid, delta, batch, height, width, c_h, c_mid,
+                            stream);
 }
 
 extern "C" int camli_update_2d(

@@ -16,9 +16,11 @@ as kernel #9 and GRU2D + FlowHead2D as kernel #8 (ops/update2d.py),
 MotionEncoder3D as kernel #6 and GRU3D + FlowHead3D as kernel #7
 (ops/update3d.py), on weights packed once per request. The GRUs and flow
 heads are contiguous only with `fuse_hidden` off; with it on, CLFM sits
-between them, so GRU2D and FlowHead2D run as the plain modules, as the JAX
-package falls back, and GRU3D and FlowHead3D as torch ops around kernel #13,
-their PointConvDW tails (`update3d.gru_3d`, `update3d.flow_head_3d`). The
+between them, so GRU2D and FlowHead2D run as #8's two halves
+(`update2d.gru_2d`, `update2d.flow_head_2d`), where the JAX package falls
+back to the plain modules, and GRU3D and FlowHead3D as torch ops around
+kernel #13, their PointConvDW tails (`update3d.gru_3d`,
+`update3d.flow_head_3d`). The
 point encoders' gathers and the final upsample's run as kernel #12
 (ops/gather.py).
 
@@ -181,6 +183,8 @@ class CamLiRAFTCore(nn.Module):
             "taps": clfm.grid_sample_cache(uv1, feat_h, feat_w),
         }
         if self.fuse["hidden"]:
+            consts["gru2d_params"] = update2d.prepare_gru_params(b2d.gru)
+            consts["head2d_params"] = update2d.prepare_flow_head_params(b2d.flow_head)
             consts["gru3d_params"] = update3d.prepare_gru_3d_params(b3d.gru)
             consts["head3d_params"] = update3d.prepare_flow_head_3d_params(b3d.flow_head)
         else:
@@ -219,11 +223,11 @@ class CamLiRAFTCore(nn.Module):
             motion_2d, motion_3d = fuse("motion", motion_2d, motion_3d)
 
         if self.fuse["hidden"]:
-            h_2d = b2d.gru(h_2d, torch.cat([consts["x_2d"], motion_2d], dim=-1))
+            h_2d = update2d.gru_2d(h_2d, consts["x_2d"], motion_2d, consts["gru2d_params"])
             h_3d = update3d.gru_3d(h_3d, torch.cat([consts["x_3d"], motion_3d], dim=-1),
                                    knn_indices, dw["gru"], consts["gru3d_params"])
             h_2d, h_3d = fuse("hidden", h_2d, h_3d)
-            delta_2d = b2d.flow_head(h_2d)
+            delta_2d = update2d.flow_head_2d(h_2d, consts["head2d_params"])
             delta_3d = update3d.flow_head_3d(h_3d, knn_indices, dw["flow_head"],
                                              consts["head3d_params"])
         else:

@@ -3,25 +3,35 @@
 Replaces camliflow_tpu/ops/pallas_update2d.py::motion_encoder_2d_pallas,
 ::gru_flowhead_2d_pallas and ::update_2d_pallas with `csrc/update2d.cu`
 (see the source's note for the design and the bound). All compute the exact
-path in f32.
+path in f32: the motion encoder, the GRU and the flow head on the 3xTF32
+tensor-core tile of `csrc/conv_tile_tc.cuh`, the fused RAFT iteration on
+the f32 FMA tile of `csrc/conv_tile.cuh`.
 
 The modules' weights are repacked once per request, outside the refinement
-loop, by `prepare_motion_encoder_params` / `prepare_gru_flowhead_params`:
-each conv becomes a `PackedConv`, its HWIO kernel flattened to
-[kh*kw*Cin, Cout] (row (ky*kw + kx)*Cin + ci) and zero-padded to the
-kernel's tiles. The plain versions take the same packed weights and run an
-`F.conv2d` chain. Maps are NHWC at every public function.
+loop, by `prepare_motion_encoder_params` / `prepare_gru_params` /
+`prepare_flow_head_params`: each conv becomes a `PackedConv`, its HWIO
+kernel flattened to [kh*kw*Cin, Cout] (row (ky*kw + kx)*Cin + ci) and
+zero-padded to the kernels' tiles, and beside it the same weights
+transposed (K-major) and split into the tf32 planes hi = tf32(w) and
+lo = tf32(w - hi) that the tensor-core tile reads. The plain versions take
+the same packed f32 weights and run an `F.conv2d` chain. Maps are NHWC at
+every public function. The tensor-core tile copies 4 channels (16 bytes)
+at a time, so its wrappers take inputs whose channel counts are multiples
+of 4 and whose addresses are 16-byte aligned, and raise on others.
 
     motion_encoder_2d(flow, corr, me)          -> motion [B, H, W, 126 + 2]
-    gru_flowhead_2d(h, x2d, motion, gf)        -> (h' [B, H, W, 128],
-                                                   delta [B, H, W, 2])
-    update_2d(h, x2d, flow, corr, me, gf)      -> the two above in ONE
+    gru_2d(h, x2d, motion, gru)                -> h' [B, H, W, 128]
+    flow_head_2d(h, head)                      -> delta [B, H, W, 2]
+    gru_flowhead_2d(h, x2d, motion, gf)        -> (h', delta): the two above
+                                                  in sequence
+    update_2d(h, x2d, flow, corr, me, gf)      -> the whole iteration in ONE
                                                   launch (RAFT, no CLFM
                                                   between them)
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -42,6 +52,8 @@ class PackedConv(NamedTuple):
     kw: int
     cin: int
     cout: int
+    hi: torch.Tensor | None = None  # [N_pad, K_pad]: tf32(weight.T)
+    lo: torch.Tensor | None = None  # [N_pad, K_pad]: tf32(weight.T - hi)
 
     def oihw(self) -> torch.Tensor:
         k = self.kh * self.kw * self.cin
@@ -53,9 +65,25 @@ def _round_up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest tf32 value (10 mantissa bits, ties away from
+    zero), as `cvt.rna.tf32.f32` rounds: half of the dropped 13 bits added
+    to the magnitude, then the 13 bits cleared (finite inputs)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split: hi = tf32(x), lo = tf32(x - hi); hi + lo is x to
+    about 2^-22 relative."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
 def pack_convs(*convs: nn.Conv2d) -> PackedConv:
     """One packed conv from Conv2d modules sharing their input: their output
-    channels are stacked in order (the GRU's z and r)."""
+    channels are stacked in order (the GRU's z and r). Also the tf32 planes
+    of the tensor-core tile, zero in the padding."""
     weight = torch.cat([c.weight for c in convs], dim=0).detach().float()
     bias = torch.cat([c.bias for c in convs], dim=0).detach().float()
     cout, cin, kh, kw = weight.shape
@@ -65,7 +93,8 @@ def pack_convs(*convs: nn.Conv2d) -> PackedConv:
     packed[:k, :cout] = flat
     padded_bias = bias.new_zeros(packed.shape[1])
     padded_bias[:cout] = bias
-    return PackedConv(packed, padded_bias, kh, kw, cin, cout)
+    hi, lo = split_tf32(packed.t().contiguous())
+    return PackedConv(packed, padded_bias, kh, kw, cin, cout, hi, lo)
 
 
 def conv_plain(x: torch.Tensor, conv: PackedConv) -> torch.Tensor:
@@ -113,6 +142,42 @@ def _check_params(name: str, params: dict, device: torch.device) -> None:
                                  f"{device}; prepare them on the inputs' device")
 
 
+def _check_tc(name: str, params: dict, keys, **tensors: torch.Tensor) -> None:
+    """What the tensor-core tile assumes: each input's channel count a
+    multiple of 4 and its address 16-byte aligned (16-byte copies of 4
+    channels), and each packed conv's tf32 planes beside its weights."""
+    for key, t in tensors.items():
+        if t.shape[-1] % 4:
+            raise ValueError(f"{name}: {key} has {t.shape[-1]} channels, not a multiple of 4 "
+                             "(the kernel copies 4 channels at a time)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start at a 16-byte aligned address")
+    for key in keys:
+        conv = params[key]
+        for plane in (conv.hi, conv.lo):
+            if (plane is None or plane.device != conv.weight.device
+                    or plane.shape != conv.weight.shape[::-1] or not plane.is_contiguous()
+                    or plane.data_ptr() % 16):
+                raise ValueError(f"{name}: params[{key!r}] lack their tf32 planes; pack them "
+                                 "with pack_convs")
+        if key != keys[-1] and conv.cout % 4:
+            raise ValueError(f"{name}: params[{key!r}] feed the next conv {conv.cout} "
+                             "channels, not a multiple of 4")
+
+
+def _planes(params: dict, keys) -> ctypes.Array:
+    """The (hi, lo, bias) pointers of the packed convs `keys`, in order, as
+    the C array the entry points take."""
+    ptrs = [t.data_ptr() for key in keys
+            for t in (params[key].hi, params[key].lo, params[key].bias)]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+ME_CONVS = ("conv_c1", "conv_c2", "conv_f2", "conv")
+GRU_CONVS = ("zr1", "q1", "zr2", "q2")
+HEAD_CONVS = ("head1", "head2")
+
+
 def motion_encoder_2d(flow: torch.Tensor, corr: torch.Tensor, params: dict):
     """flow [B, H, W, 2], corr [B, H, W, C] -> [B, H, W, 126 + 2] (the merge
     conv's output, then the flow). CPU tensors take the plain version; CUDA
@@ -123,22 +188,21 @@ def motion_encoder_2d(flow: torch.Tensor, corr: torch.Tensor, params: dict):
     _cuda.check(name, torch.float32, flow=flow, corr=corr)
     batch, height, width = flow.shape[:3]
     _cuda.check_shape(name, "flow", flow, (batch, height, width, 2))
-    c1, c2, f2, merge = (params[k] for k in ("conv_c1", "conv_c2", "conv_f2", "conv"))
+    c1, c2, f2, merge = (params[k] for k in ME_CONVS)
     _cuda.check_shape(name, "corr", corr, (batch, height, width, c1.cin))
     _check_params(name, params, flow.device)
     ff1 = _conv_f1(flow, params)
     if (c2.cin, f2.cin, merge.cin) != (c1.cout, ff1.shape[-1], c2.cout + f2.cout):
         raise ValueError(f"{name}: the packed convs do not chain")
+    _check_tc(name, params, ME_CONVS, corr=corr, ff1=ff1)
     new = lambda c: flow.new_empty(batch, height, width, c)  # noqa: E731
     cf1, cf, ff, out = new(c1.cout), new(c2.cout), new(f2.cout), new(merge.cout + 2)
     from ..csrc.build import launch
 
     launch("camli_motion_encoder_2d", flow.data_ptr(), ff1.data_ptr(), corr.data_ptr(),
-           c1.weight.data_ptr(), c1.bias.data_ptr(), c2.weight.data_ptr(),
-           c2.bias.data_ptr(), f2.weight.data_ptr(), f2.bias.data_ptr(),
-           merge.weight.data_ptr(), merge.bias.data_ptr(), cf1.data_ptr(),
-           cf.data_ptr(), ff.data_ptr(), out.data_ptr(), batch, height, width,
-           c1.cin, c1.cout, c2.cout, ff1.shape[-1], f2.cout, merge.cout)
+           _planes(params, ME_CONVS), cf1.data_ptr(), cf.data_ptr(), ff.data_ptr(),
+           out.data_ptr(), batch, height, width, c1.cin, c1.cout, c2.cout, ff1.shape[-1],
+           f2.cout, merge.cout)
     motion_encoder_2d.launches += 1
     return out
 
@@ -159,6 +223,7 @@ def prepare_gru_params(gru: nn.Module) -> dict:
 
 
 def prepare_flow_head_params(head: nn.Module) -> dict:
+    """Packed convs of a `models.raft.FlowHead2D`."""
     return {"head1": pack_convs(head.conv1), "head2": pack_convs(head.conv2)}
 
 
@@ -187,45 +252,110 @@ def gru_flowhead_2d_plain(h, x2d, motion, params):
     return h, flow_head_2d_plain(h, params)
 
 
-def _check_gru_flowhead(name: str, params: dict, ch: int, cx: int, cm: int) -> None:
-    """The GRU's packed convs take [h, x2d, motion] (Ch + Cx + Cm channels)
-    and the flow head's chain from Ch to 2."""
+def _check_gru(name: str, params: dict, ch: int, cx: int, cm: int) -> None:
+    """The GRU's packed convs take [h, x2d, motion] (Ch + Cx + Cm channels)."""
     for key, (kh, kw) in (("zr1", (1, 5)), ("q1", (1, 5)), ("zr2", (5, 1)), ("q2", (5, 1))):
         conv = params[key]
         cout = 2 * ch if key.startswith("zr") else ch
         if (conv.kh, conv.kw, conv.cin, conv.cout) != (kh, kw, ch + cx + cm, cout):
             raise ValueError(f"{name}: params[{key!r}] do not fit the inputs")
+
+
+def _check_flow_head(name: str, params: dict, ch: int) -> None:
+    """The flow head's packed convs chain from Ch to 2."""
     head1, head2 = params["head1"], params["head2"]
     if (head1.cin, head2.cin, head2.cout) != (ch, head1.cout, 2):
         raise ValueError(f"{name}: the flow head's packed convs do not chain")
+
+
+def _check_gru_flowhead(name: str, params: dict, ch: int, cx: int, cm: int) -> None:
+    _check_gru(name, params, ch, cx, cm)
+    _check_flow_head(name, params, ch)
+
+
+def _check_gru_inputs(name: str, h, x2d, motion) -> tuple[int, int, int, int, int, int]:
+    """(batch, height, width, Ch, Cx, Cm) of the GRU's inputs."""
+    _cuda.check(name, torch.float32, h=h, x2d=x2d, motion=motion)
+    batch, height, width, ch = h.shape
+    _cuda.check_shape(name, "x2d", x2d, (batch, height, width, None))
+    _cuda.check_shape(name, "motion", motion, (batch, height, width, None))
+    return batch, height, width, ch, x2d.shape[-1], motion.shape[-1]
+
+
+def gru_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
+           params: dict) -> torch.Tensor:
+    """h [B, H, W, Ch], x2d [B, H, W, Cx], motion [B, H, W, Cm] -> h'
+    [B, H, W, Ch]: GRU2D over [h, x2d, motion] (`prepare_gru_params`).
+    CPU tensors take the plain version; CUDA tensors #8's GRU half, 4
+    launches."""
+    if _cuda.on_cpu(h, x2d, motion):
+        return gru_2d_plain(h, torch.cat([x2d, motion], dim=-1), params)
+    name = "gru_2d"
+    batch, height, width, ch, cx, cm = _check_gru_inputs(name, h, x2d, motion)
+    _check_params(name, params, h.device)
+    _check_gru(name, params, ch, cx, cm)
+    _check_tc(name, params, GRU_CONVS, h=h, x2d=x2d, motion=motion)
+    z, rh, h1, h_out = (h.new_empty(batch, height, width, ch) for _ in range(4))
+    from ..csrc.build import launch
+
+    launch("camli_gru_2d", h.data_ptr(), x2d.data_ptr(), motion.data_ptr(),
+           _planes(params, GRU_CONVS), z.data_ptr(), rh.data_ptr(), h1.data_ptr(),
+           h_out.data_ptr(), batch, height, width, ch, cx, cm)
+    gru_2d.launches += 1
+    return h_out
+
+
+gru_2d.launches = 0
+
+
+def flow_head_2d(h: torch.Tensor, params: dict) -> torch.Tensor:
+    """h [B, H, W, Ch] -> delta [B, H, W, 2]: FlowHead2D
+    (`prepare_flow_head_params`). CPU tensors take the plain version; CUDA
+    tensors #8's flow-head half, 2 launches."""
+    if _cuda.on_cpu(h):
+        return flow_head_2d_plain(h, params)
+    name = "flow_head_2d"
+    _cuda.check(name, torch.float32, h=h)
+    batch, height, width, ch = h.shape
+    _check_params(name, params, h.device)
+    _check_flow_head(name, params, ch)
+    _check_tc(name, params, HEAD_CONVS, h=h)
+    mid = h.new_empty(batch, height, width, params["head1"].cout)
+    delta = h.new_empty(batch, height, width, 2)
+    from ..csrc.build import launch
+
+    launch("camli_flow_head_2d", h.data_ptr(), _planes(params, HEAD_CONVS), mid.data_ptr(),
+           delta.data_ptr(), batch, height, width, ch, mid.shape[-1])
+    flow_head_2d.launches += 1
+    return delta
+
+
+flow_head_2d.launches = 0
 
 
 def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
                     params: dict):
     """h [B, H, W, Ch], x2d [B, H, W, Cx], motion [B, H, W, Cm] ->
     (h' [B, H, W, Ch], delta [B, H, W, 2]). CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    version; CUDA tensors the kernel: `gru_2d` then `flow_head_2d` from one
+    entry point, 6 launches."""
     if _cuda.on_cpu(h, x2d, motion):
         return gru_flowhead_2d_plain(h, x2d, motion, params)
     name = "gru_flowhead_2d"
-    _cuda.check(name, torch.float32, h=h, x2d=x2d, motion=motion)
-    batch, height, width, ch = h.shape
-    _cuda.check_shape(name, "x2d", x2d, (batch, height, width, None))
-    _cuda.check_shape(name, "motion", motion, (batch, height, width, None))
+    batch, height, width, ch, cx, cm = _check_gru_inputs(name, h, x2d, motion)
     _check_params(name, params, h.device)
-    cx, cm = x2d.shape[-1], motion.shape[-1]
     _check_gru_flowhead(name, params, ch, cx, cm)
+    _check_tc(name, params, GRU_CONVS, h=h, x2d=x2d, motion=motion)
+    _check_tc(name, params, HEAD_CONVS)
     head1 = params["head1"]
     new = lambda c: h.new_empty(batch, height, width, c)  # noqa: E731
     z, rh, h1, mid, h_out, delta = new(ch), new(ch), new(ch), new(head1.cout), new(ch), new(2)
     from ..csrc.build import launch
 
     launch("camli_gru_flowhead_2d", h.data_ptr(), x2d.data_ptr(), motion.data_ptr(),
-           *(t.data_ptr() for key in ("zr1", "q1", "zr2", "q2", "head1", "head2")
-             for t in params[key][:2]),
-           z.data_ptr(), rh.data_ptr(), h1.data_ptr(), mid.data_ptr(),
-           h_out.data_ptr(), delta.data_ptr(), batch, height, width, ch, cx, cm,
-           head1.cout)
+           _planes(params, GRU_CONVS + HEAD_CONVS), z.data_ptr(), rh.data_ptr(), h1.data_ptr(),
+           mid.data_ptr(), h_out.data_ptr(), delta.data_ptr(), batch, height, width, ch, cx,
+           cm, head1.cout)
     gru_flowhead_2d.launches += 1
     return h_out, delta
 

@@ -13,11 +13,16 @@ flow heads) and RAFT eval (conf/model/raft.yaml: ResNet-50, the same
 images, 20 iterations as bench.py times it, bs=1), in phases:
 
 1. device: requires a CUDA card; prints its name and power limit;
-2. build: compiles the CUDA kernels from camliflow_torch/csrc with nvcc;
+2. build: compiles the CUDA kernels from camliflow_torch/csrc with nvcc,
+   and prints each kernel's registers, static shared memory and spills
+   (ptxas);
 3. kernels: each of the thirteen kernels against its plain PyTorch version
-   on the card, at the shapes the main paths give it (and the k-major
-   gather on tools/probe_gather_matrix.py's cases), with times for both and
-   the least time the card could take (bound);
+   on the card, at the shapes the main paths give it (and #8's two halves,
+   which the fuse_hidden path launches, and the k-major gather on
+   tools/probe_gather_matrix.py's cases, timed by CUDA events and by the
+   profiler's device time), with times for both and the least time the
+   card could take (bound; for the 2D chain's tensor-core kernels beside
+   the f32 bound outside the tensor cores);
 4. end to end, for each path: random weights from a seeded
    torch.Generator, synthetic inputs made with numpy from a seed (bench.py's
    recipe plus a target), through the port's Evaluator: 1 warm-up and 3
@@ -55,6 +60,9 @@ CONV_TOL = 1e-4  # max|kernel - plain| <= CONV_TOL * (1 + max|plain|), f32 both
 FLOW_3D_TOL = 5e-3  # m, max |CUDA - CPU| on flow_3d
 FLOW_2D_TOL = 1e-2  # px, max |CUDA - CPU| on flow_2d
 PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores, op/s
+PEAK_TF32 = 495e12  # H100 SXM TF32 on the tensor cores, dense, op/s
+TC_MMA = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, 3xTF32"  # conv_tile_tc.cuh
+TC_STAGES = 3  # conv_tile_tc.cuh's kStages
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, B/s
 L_CFGS = {  # conf/model/camliraft_l.yaml
     "name": "camliraft_l",
@@ -159,11 +167,75 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
+def bound(ops: float, nbytes: float, peak: float = PEAK_F32) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the operations
-    over the f32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    over the peak rate for their type and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def device_ms(fn, reps: int) -> float:
+    """fn()'s device time per call from torch.profiler: the self device
+    time of every kernel it launched, summed, over reps calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel symbol: the identifier (past an
+    anonymous namespace) and its integer template arguments."""
+    import re
+
+    rest = mangled[2:] if mangled.startswith("_Z") else mangled
+    if rest.startswith("N"):  # a nested name: skip an anonymous namespace
+        rest = rest[1:]
+        length = re.match(r"(\d+)", rest)
+        if length and rest[len(length.group(1)):].startswith("_GLOBAL__N"):
+            rest = rest[len(length.group(1)) + int(length.group(1)):]
+    length = re.match(r"(\d+)", rest)
+    if not length:
+        return mangled[:60]
+    start = len(length.group(1))
+    ident, rest = rest[start:start + int(length.group(1))], rest[start + int(length.group(1)):]
+    args = re.match(r"I((?:Li\d+E)+)E", rest)
+    if not args:
+        return ident
+    values = re.findall(r"Li(\d+)E", args.group(1))
+    return f"{ident}<{', '.join(values)}>"
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel from nvcc's -Xptxas -v output: registers, static
+    shared memory, stack and spills. conv_tc_kernel<BM, BN, warps in M,
+    warps in N, reduction slices, epilogue> takes its shared memory
+    dynamically, TC_STAGES stages of the slices' A [BM][16] and the two
+    weight planes [BN][16], which ptxas does not count: it is added."""
+    import re
+
+    lines, name, spills = [], None, ""
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name, spills = kernel_name(found.group(1)), ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            used = line.split(":", 1)[-1].strip()
+            if name.startswith("conv_tc_kernel<"):
+                bm, bn, _, _, ks, _ = map(int, re.findall(r"\d+", name))
+                used += f", {TC_STAGES * 4 * 16 * ks * (bm + 2 * bn)} bytes dynamic smem"
+            lines.append(f"{name}: {used} | {spills}")
+            name = None
+    return lines
 
 
 def profile_request(evaluator, batch, top: int = 15):
@@ -242,20 +314,29 @@ def kernel_parity(device) -> list[dict]:
     results = []
 
     def record(name, source, replaces, err, ms, plain_ms, ops, nbytes, label=None,
-               entry=True, wrapper=None, library_ms=None):
+               entry=True, wrapper=None, library_ms=None, tensor_cores=False, **extra):
         """Print one measurement (as `label`); `entry` adds it to the kernels
         JSON line, whose launches are those of `wrapper` (default `name`).
-        `library_ms`: one PyTorch call that computes the same function."""
+        `library_ms`: one PyTorch call that computes the same function.
+        `tensor_cores`: f32 work done on the tensor cores by the 3xTF32
+        split, whose least time is 3 TF32 operations per f32 operation at
+        the TF32 peak (bound_ms; the f32 bound outside the tensor cores
+        beside it). `extra`: more keys of the entry."""
         bound_ms, bound_by = bound(ops, nbytes)
+        if tensor_cores:
+            extra = {"bound_f32_ms": bound_ms, "mma": TC_MMA, **extra}
+            bound_ms, bound_by = bound(3 * ops, nbytes, PEAK_TF32)
         if entry:
             results.append({"name": name, "route": "cuda", "source": source,
                             "replaces": replaces, "launches": 0, "max_abs_err": err,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": library_ms,
-                            "wrapper": wrapper or name})
+                            "wrapper": wrapper or name, **extra})
         library = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        f32 = f", f32 {extra['bound_f32_ms']:.4f} ms" if tensor_cores else ""
         print(f"  {label or name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms{library}  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"{plain_ms:.4f} ms{library}  bound {bound_ms:.4f} ms ({bound_by}{f32})",
+              flush=True)
 
     # FPS [2, 8192] -> 4096: indices identical. Each step updates every
     # point's distance (8 flops), its running min and the argmax compare.
@@ -387,7 +468,8 @@ def kernel_parity(device) -> list[dict]:
                "camliflow_tpu/ops/pallas_update2d.py:461", err,
                time_ms(lambda: update2d.motion_encoder_2d(flow2d, corr, me), 20),
                time_ms(lambda: update2d.motion_encoder_2d_plain(flow2d, corr, me), 20),
-               2 * pixels * macs, 4 * (pixels * (2 + 128 + 324 + 128) + weights))
+               2 * pixels * macs, 4 * (pixels * (2 + 128 + 324 + 128) + weights),
+               tensor_cores=True)
 
         h, x2d, motion = torch.tanh(rand(128)), torch.relu(rand(128)), rand(128)
         gf = update2d.prepare_gru_flowhead_params(gru, head)
@@ -400,7 +482,33 @@ def kernel_parity(device) -> list[dict]:
                "camliflow_tpu/ops/pallas_update2d.py:235", err,
                time_ms(lambda: update2d.gru_flowhead_2d(h, x2d, motion, gf), 20),
                time_ms(lambda: update2d.gru_flowhead_2d_plain(h, x2d, motion, gf), 20),
-               2 * pixels * macs, 4 * (pixels * (3 * 128 + 128 + 2) + weights))
+               2 * pixels * macs, 4 * (pixels * (3 * 128 + 128 + 2) + weights),
+               tensor_cores=True)
+        for _ in range(2):  # the flow head's split reduction meets in a fixed order
+            again = update2d.gru_flowhead_2d(h, x2d, motion, gf)
+            if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
+                raise AssertionError("gru_flowhead_2d: two runs give different bits")
+
+        # #8's halves, as the fuse_hidden path calls them (CLFM between them)
+        gp = update2d.prepare_gru_params(gru)
+        hp = update2d.prepare_flow_head_params(head)
+        x_cat = torch.cat([x2d, motion], dim=-1)
+        h_k = update2d.gru_2d(h, x2d, motion, gp)
+        err = check("gru_2d", h_k, update2d.gru_2d_plain(h, x_cat, gp))
+        record("gru_2d", "camliflow_torch/csrc/update2d.cu",
+               "camliflow_tpu/ops/pallas_update2d.py:235", err,
+               time_ms(lambda: update2d.gru_2d(h, x2d, motion, gp), 20),
+               time_ms(lambda: update2d.gru_2d_plain(h, x_cat, gp), 20),
+               2 * pixels * 2 * 5 * 384 * (256 + 128),
+               4 * (pixels * 4 * 128 + sum(size(gp[k]) for k in gp)), tensor_cores=True)
+        d_k = update2d.flow_head_2d(h, hp)
+        err = check("flow_head_2d", d_k, update2d.flow_head_2d_plain(h, hp))
+        record("flow_head_2d", "camliflow_torch/csrc/update2d.cu",
+               "camliflow_tpu/ops/pallas_update2d.py:235", err,
+               time_ms(lambda: update2d.flow_head_2d(h, hp), 20),
+               time_ms(lambda: update2d.flow_head_2d_plain(h, hp), 20),
+               2 * pixels * (9 * 128 * 256 + 9 * 256 * 2),
+               4 * (pixels * (128 + 2) + sum(size(hp[k]) for k in hp)), tensor_cores=True)
 
         # the whole RAFT iteration, one cooperative launch: #9 then #8
         h_k, d_k = update2d.update_2d(h, x2d, flow2d, corr, me, gf)
@@ -561,21 +669,36 @@ def kernel_parity(device) -> list[dict]:
 
     # tools/probe_gather_matrix.py's twelve cases through the same kernel;
     # each is a B=1, k=1 row gather, which torch.index_select computes
+    # each is a B=1, k=1 row gather, which torch.index_select computes. Timed
+    # twice: CUDA events around back-to-back calls (host and device), and
+    # the profiler's device time of the kernels alone
     probe_ms = probe_plain_ms = probe_library_ms = probe_bytes = 0.0
+    probe_dev_ms = probe_library_dev_ms = 0.0
     for case in gather.PROBE_CASES:
         data, index, finish, want = gather.probe_case(case, gen, device)
         got = finish(gather.gather_points_kmajor(data, index))
         if got.dtype != want.dtype or not torch.equal(got, want):
             raise AssertionError(f"probe case {case[0]}: not bit-identical to torch indexing")
-        probe_ms += time_ms(lambda: gather.gather_points_kmajor(data, index), 20)
+        ms = time_ms(lambda: gather.gather_points_kmajor(data, index), 20)
+        library_ms = time_ms(lambda: torch.index_select(data[0], 0, index[0, :, 0]), 20)
+        dev_ms = device_ms(lambda: gather.gather_points_kmajor(data, index), 20)
+        library_dev_ms = device_ms(lambda: torch.index_select(data[0], 0, index[0, :, 0]), 20)
+        print(f"    probe {case[0]}: kernel {ms:.4f} ms (device {dev_ms:.4f})  index_select "
+              f"{library_ms:.4f} ms (device {library_dev_ms:.4f})")
+        probe_ms += ms
+        probe_library_ms += library_ms
+        probe_dev_ms += dev_ms
+        probe_library_dev_ms += library_dev_ms
         probe_plain_ms += time_ms(lambda: gather.gather_points_kmajor_plain(data, index)
                                   .contiguous(), 20)
-        probe_library_ms += time_ms(lambda: torch.index_select(data[0], 0, index[0, :, 0]), 20)
         probe_bytes += (data.numel() + index.numel() * data.shape[-1]) * data.element_size()
         probe_bytes += 4 * index.numel()
     record("probe_gather_matrix (12 cases, summed)", "camliflow_torch/csrc/gather.cu",
            "tools/probe_gather_matrix.py:91", 0.0, probe_ms, probe_plain_ms, 0, probe_bytes,
-           wrapper="gather_points_kmajor", library_ms=probe_library_ms)
+           wrapper="gather_points_kmajor", library_ms=probe_library_ms,
+           device_ms=probe_dev_ms, library_device_ms=probe_library_dev_ms)
+    print(f"  probe device time (profiler, 12 cases summed): kernel {probe_dev_ms:.4f} ms, "
+          f"index_select {probe_library_dev_ms:.4f} ms", flush=True)
     return results
 
 
@@ -651,9 +774,8 @@ def main() -> int:
     try:
         path, seconds, log = kbuild.build()
         kbuild.library()
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+        for line in ptxas_summary(log):
+            print("  ptxas:", line)
         print(f"  built {path.name} in {seconds:.1f} s", flush=True)
     except Exception:  # report and stop: nothing below can run unbuilt
         traceback.print_exc()
@@ -676,6 +798,8 @@ def main() -> int:
                 "correlation3d_knn": corr3d.correlation3d_knn,
                 "motion_encoder_2d": update2d.motion_encoder_2d,
                 "gru_flowhead_2d": update2d.gru_flowhead_2d,
+                "gru_2d": update2d.gru_2d,
+                "flow_head_2d": update2d.flow_head_2d,
                 "update_2d": update2d.update_2d,
                 "motion_encoder_3d": update3d.motion_encoder_3d,
                 "gru_flowhead_3d": update3d.gru_flowhead_3d,
@@ -692,19 +816,21 @@ def main() -> int:
     flagship = {**point, "k_nearest_neighbor": 8, "knn_interpolation": N_ITERS,
                 "gather_points_kmajor": 10, "motion_encoder_2d": N_ITERS,
                 "motion_encoder_3d": N_ITERS, "update_2d": 0}
+    # with fuse_hidden, #8's halves run on their own (CLFM between them)
+    halves = {"gru_2d": N_ITERS, "flow_head_2d": N_ITERS, "gru_flowhead_2d": 0}
     paths = (
         ("CamLiRAFT-L", CamLiRAFTL, L_CFGS, False,
          {**point, "k_nearest_neighbor": 6, "knn_interpolation": N_ITERS + 1,
           "gather_points_kmajor": 12, "motion_encoder_3d": N_ITERS,
           "gru_flowhead_3d": N_ITERS, "motion_encoder_2d": 0, "gru_flowhead_2d": 0,
-          "update_2d": 0, "clfm_fused": 0, "dw_max": 0}),
+          "gru_2d": 0, "flow_head_2d": 0, "update_2d": 0, "clfm_fused": 0, "dw_max": 0}),
         ("CamLiRAFT", CamLiRAFT, FLAGSHIP_CFGS, True,
-         {**flagship, "clfm_fused": 2 * N_ITERS, "gru_flowhead_2d": N_ITERS,
-          "gru_flowhead_3d": N_ITERS, "dw_max": 0}),
+         {**flagship, "clfm_fused": 2 * N_ITERS, "gru_flowhead_2d": N_ITERS, "gru_2d": 0,
+          "flow_head_2d": 0, "gru_flowhead_3d": N_ITERS, "dw_max": 0}),
         # GRU3D and FlowHead3D as torch ops around their 4 PointConvDW tails
         ("CamLiRAFT fuse_hidden", CamLiRAFT, HIDDEN_CFGS, True,
-         {**flagship, "clfm_fused": 3 * N_ITERS, "gru_flowhead_2d": 0,
-          "gru_flowhead_3d": 0, "dw_max": 4 * N_ITERS}),
+         {**flagship, **halves, "clfm_fused": 3 * N_ITERS, "gru_flowhead_3d": 0,
+          "dw_max": 4 * N_ITERS}),
         ("RAFT", RAFT, RAFT_CFGS, True,
          {**dict.fromkeys(wrappers, 0), "update_2d": N_ITERS}),
     )

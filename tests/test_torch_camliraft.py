@@ -397,10 +397,13 @@ def test_camliraft_matches_jax(flagship):
                                rtol=0, atol=1e-4)
 
 
-def test_camliraft_fuse_hidden_runs_the_plain_modules(flagship):
-    """fuse_hidden=True (off in the shipped config): GRU2D and FlowHead2D
-    run as the plain modules between which CLFM sits."""
-    cfgs = small_cfgs(fuse_hidden=True, n_iters_eval=1)
+def test_camliraft_fuse_hidden_runs_the_plain_modules(flagship, monkeypatch):
+    """fuse_hidden=True (off in the shipped config): CLFM sits between the
+    GRUs and the flow heads, where the JAX package runs the plain modules;
+    the port runs GRU2D and FlowHead2D as #8's two halves (`gru_2d`,
+    `flow_head_2d`, on weights packed once per request, never the modules'
+    own repacking forwards), and matches the JAX model."""
+    cfgs = small_cfgs(fuse_hidden=True, n_iters_eval=2)
     model = jm.CamLiRAFT(cfgs=cfgs, train_mode=False)
     inputs = make_inputs(2)
     variables = jax.jit(model.init)(jax.random.PRNGKey(1), {k: j(v) for k, v in inputs.items()})
@@ -408,8 +411,23 @@ def test_camliraft_fuse_hidden_runs_the_plain_modules(flagship):
     ref = jax.jit(model.apply)(variables, {k: j(v) for k, v in inputs.items()})
     port = tm.CamLiRAFT(cfgs).eval()
     load_jax_variables(port, flat, "camliraft")
+    calls = {"gru_2d": 0, "flow_head_2d": 0, "prepare": 0}
+
+    def counted(key, fn):
+        def run(*args):
+            calls[key] += 1
+            return fn(*args)
+        return run
+
+    for key in ("gru_2d", "flow_head_2d"):
+        monkeypatch.setattr(update2d, key, counted(key, getattr(update2d, key)))
+    monkeypatch.setattr(update2d, "prepare_gru_params",
+                        counted("prepare", update2d.prepare_gru_params))
+    for module in (traft.GRU2D, traft.FlowHead2D):
+        monkeypatch.setattr(module, "forward", lambda *a: pytest.fail("a plain module ran"))
     with torch.inference_mode():
         got = port({k: t(v) for k, v in inputs.items()})
+    assert calls == {"gru_2d": 2, "flow_head_2d": 2, "prepare": 1}
     np.testing.assert_allclose(got["flow_2d"].numpy(), np.asarray(ref["flow_2d"]),
                                rtol=0, atol=1e-3)
     np.testing.assert_allclose(got["flow_3d"].numpy(), np.asarray(ref["flow_3d"]),

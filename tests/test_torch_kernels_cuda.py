@@ -11,8 +11,9 @@ and corr3d selected squared distances rtol = atol = 1e-4; corr3d costs
 exactly the pyramid at the kernel's own indices; FPS indices identical;
 interpolation atol 1e-5; the 2D and 3D update kernels, the Correlation3D
 tail and CLFM max |kernel - plain| <= 1e-4 * (1 + max |plain|) (f32 on both
-sides, summation order only); the k-major gather, the probe's cases and the
-PointConvDW tail bit for bit.
+sides: summation order only, and for the 2D chain's tensor-core tile the
+3xTF32 split's ~2^-22 relative residue per product); the k-major gather,
+the probe's cases and the PointConvDW tail bit for bit.
 """
 
 import numpy as np
@@ -145,7 +146,7 @@ def assert_conv_close(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 1, 5)])
+@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 1, 5), (1, 5, 13)])
 def test_motion_encoder_2d_kernel_matches_plain(cuda, shape):
     encoder, _, _ = update_blocks(cuda, 30)
     flow = 2 * torch.randn(*shape, 2, device=cuda)
@@ -162,7 +163,7 @@ def test_motion_encoder_2d_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 6, 1)])
+@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 6, 1), (1, 5, 13)])
 def test_gru_flowhead_2d_kernel_matches_plain(cuda, shape):
     _, gru, head = update_blocks(cuda, 31)
     h = torch.tanh(torch.randn(*shape, 128, device=cuda))
@@ -177,6 +178,95 @@ def test_gru_flowhead_2d_kernel_matches_plain(cuda, shape):
     assert h_got.shape == (*shape, 128) and d_got.shape == (*shape, 2)
     assert_conv_close(h_got, h_ref)
     assert_conv_close(d_got, d_ref)
+
+
+def hidden_case(device, seed, shape):
+    """#8's halves as the fuse_hidden path calls them: random GRU2D and
+    FlowHead2D packed once, h in (-1, 1), x2d >= 0."""
+    _, gru, head = update_blocks(device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = torch.tanh(torch.randn(*shape, 128, generator=gen, device=device))
+    x2d = torch.relu(torch.randn(*shape, 128, generator=gen, device=device))
+    motion = torch.randn(*shape, 128, generator=gen, device=device)
+    with torch.inference_mode():
+        return (h, x2d, motion, update2d.prepare_gru_params(gru),
+                update2d.prepare_flow_head_params(head))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 6, 1), (1, 5, 13)])
+def test_gru_2d_kernel_matches_plain(cuda, shape):
+    """#8's GRU half: batch 2, a map one pixel wide, 65 pixels (one past the
+    64-pixel tile)."""
+    h, x2d, motion, gp, _ = hidden_case(cuda, 58, shape)
+    with torch.inference_mode():
+        before = update2d.gru_2d.launches
+        got = update2d.gru_2d(h, x2d, motion, gp)
+        assert update2d.gru_2d.launches == before + 1
+        ref = update2d.gru_2d_plain(h, torch.cat([x2d, motion], dim=-1), gp)
+    assert got.shape == (*shape, 128)
+    assert_conv_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 6, 1), (1, 5, 13)])
+def test_flow_head_2d_kernel_matches_plain(cuda, shape):
+    """#8's flow-head half; its last conv (256 -> 2) splits the reduction
+    over a block's warps and sums the parts in a fixed order, so two runs
+    give the same bits."""
+    h, _, _, _, hp = hidden_case(cuda, 59, shape)
+    with torch.inference_mode():
+        before = update2d.flow_head_2d.launches
+        got = update2d.flow_head_2d(h, hp)
+        again = update2d.flow_head_2d(h, hp)
+        assert update2d.flow_head_2d.launches == before + 2
+        ref = update2d.flow_head_2d_plain(h, hp)
+    assert got.shape == (*shape, 2)
+    assert_conv_close(got, ref)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_gru_flowhead_2d_is_its_halves_bit_for_bit(cuda):
+    """One entry point runs the two halves in sequence: the same launches,
+    the same bits, run after run."""
+    _, gru, head = update_blocks(cuda, 60)
+    h, x2d, motion, gp, hp = hidden_case(cuda, 60, (1, 68, 120))
+    with torch.inference_mode():
+        gf = update2d.prepare_gru_flowhead_params(gru, head)
+        h_fused, d_fused = update2d.gru_flowhead_2d(h, x2d, motion, gf)
+        h_again, d_again = update2d.gru_flowhead_2d(h, x2d, motion, gf)
+        h_half = update2d.gru_2d(h, x2d, motion, gp)
+        d_half = update2d.flow_head_2d(h_half, hp)
+    assert torch.equal(h_fused, h_again) and torch.equal(d_fused, d_again)
+    assert torch.equal(h_fused, h_half) and torch.equal(d_fused, d_half)
+
+
+@pytest.mark.cuda
+def test_tensor_core_wrappers_raise_on_what_the_tile_does_not_take(cuda):
+    """The tile copies 4 channels (16 bytes) at a time: a channel count that
+    is not a multiple of 4, or a view 4 bytes into its storage, raises."""
+    torch.manual_seed(61)
+    from camliflow_torch.models.raft import MotionEncoder2D
+
+    encoder = MotionEncoder2D(corr_channels=30).to(cuda)
+    h, x2d, motion, gp, hp = hidden_case(cuda, 61, (1, 6, 8))
+    with torch.inference_mode():
+        me = update2d.prepare_motion_encoder_params(encoder)
+        flow = torch.randn(1, 6, 8, 2, device=cuda)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            update2d.motion_encoder_2d(flow, torch.randn(1, 6, 8, 30, device=cuda), me)
+        shifted = torch.empty(h.numel() + 1, device=cuda)[1:].view(h.shape)
+        shifted.copy_(h)
+        assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte"):
+            update2d.gru_2d(shifted, x2d, motion, gp)
+        with pytest.raises(ValueError, match="16-byte"):
+            update2d.flow_head_2d(shifted, hp)
+        with pytest.raises(ValueError, match="16-byte"):
+            update2d.gru_2d(h, x2d, shifted, gp)  # the third input of the concat
+        with pytest.raises(ValueError, match="tf32 planes"):
+            update2d.flow_head_2d(h, {k: v._replace(hi=None) for k, v in hp.items()})
 
 
 @pytest.mark.cuda
