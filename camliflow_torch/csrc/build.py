@@ -39,7 +39,7 @@ SIGNATURES = {
     "camli_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
     "camli_fps": [_P, _P, _I, _I, _I, _P],
     "camli_interp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "camli_corr3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "camli_corr3d": [_P] * 5 + [_I] * 5 + [_P, _I, _P, _I, _I, _P],
     "camli_motion_encoder_2d": [_P] * 8 + [_I] * 9 + [_P],
     "camli_gru_2d": [_P] * 8 + [_I] * 6 + [_P],
     "camli_flow_head_2d": [_P] * 4 + [_I] * 5 + [_P],
@@ -50,7 +50,7 @@ SIGNATURES = {
     "camli_dw_max": [_P] * 4 + [_I] * 6 + [_P],
     "camli_gather_kmajor": [_P] * 3 + [_I] * 5 + [_P],
     "camli_corr3d_tail": [_P] * 11 + [_I] * 7 + [_P],
-    "camli_clfm": [_P] * 25 + [_I] * 7 + [_P],
+    "camli_clfm": [_P] * 14 + [_I] * 7 + [_P],
 }
 
 

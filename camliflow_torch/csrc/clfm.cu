@@ -17,29 +17,39 @@
 //
 // Bound on the card (the flagship's corr call: C2 = 324, C3 = 128,
 // HW = 8160 pixels, N = 2048 points, bs=1): 1.66 G multiply-adds in the six
-// dense layers against ~27 MB moved, so bound by operations (50 us at 67
-// TFLOP/s of f32); the motion and hidden calls (C2 = C3 = 128) do 0.50 G.
+// dense layers against ~27 MB moved, so bound by operations: 20 us on the
+// tensor cores at 495 TFLOP/s of TF32 with three products per f32 product
+// (50 us at 67 TFLOP/s of f32 outside them); the motion and hidden calls
+// (C2 = C3 = 128) do 0.50 G.
 //
 // Design: six launches of small kernels from this one entry point, on one
 // scratch buffer.
 //   1. gather: score * f3d[nn] at every pixel and the 4-tap bilinear sample
 //      at every point, each written once (one rounded product; the sample
 //      summed in the plain version's order, so both are bit-identical to it);
-//   2. dense, four layers in one grid: interp, a, sm, b3;
+//   2. dense, four layers in one grid: a, interp, sm, b3;
 //   3. dense, two layers in one grid: b over interp, a3 over sm;
 //   4. per batch item, column sums of a + b over fixed chunks of 256 rows;
-//   5. one block per batch item and side: the chunk sums in a fixed order,
-//      the mean, fc_mid, fc_out, sigmoid and the pair softmax;
+//   5. the SK heads: per side and batch item, kHeadParts blocks of 1024
+//      threads; each sums the chunks in a fixed order (the mean), then
+//      fc_mid and its share of fc_out as matrix-vector products with a warp
+//      per 6 rows and the lanes over the row, 4 (fc_mid) or 2 (fc_out)
+//      floats a load (weights stored transposed, so the loads are
+//      coalesced), each dot product summed over the lanes by shuffles in a
+//      fixed order; then sigmoid and the pair softmax;
 //   6. the blend of both sides.
-// The dense layers are 1x1 convolutions over [rows, C] on conv_tile.cuh's
-// tile (64 rows x 64 channels; the widths 324 and 128 are padded to the tile
-// in the packed weights, and the row edge is a predicate), for the pixels
-// and for the points alike. The mean over all pixels (or points) of a batch
-// item is the one reduction across blocks: it goes through partial sums and
-// a second pass in a fixed order, with no float atomics, so two runs give the
-// same bits. Stage launches rather than one cooperative launch: each stage
-// gets the grid it needs, and no grid barrier is needed.
-#include "conv_tile.cuh"
+// The dense layers are 1x1 convolutions over [rows, C] on conv_tile_tc.cuh's
+// 3xTF32 tensor-core tile (64 rows x 64 channels; the widths 324 and 128 are
+// padded to the tile in the packed weight planes, which ops/clfm.py splits
+// into tf32 hi and lo once per request; the row edge is a predicate), for
+// the pixels and for the points alike, with the leaky ReLU in the epilogue.
+// The tile copies 4 channels at a time, so C2 and C3 are multiples of 4.
+// The mean over all pixels (or points) of a batch item is the one reduction
+// across blocks: it goes through partial sums and a second pass in a fixed
+// order, with no float atomics, so two runs give the same bits. Stage
+// launches rather than one cooperative launch: each stage gets the grid it
+// needs, and no grid barrier is needed.
+#include "conv_tile_tc.cuh"
 
 namespace {
 
@@ -76,32 +86,14 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(
   }
 }
 
-__device__ __forceinline__ bool dense_tile(const Conv& a, int& t, TileA* As, TileB* Bs) {
-  const int tiles = tile_count(a);
-  if (t >= tiles) {
-    t -= tiles;
-    return false;
-  }
-  const int m_tiles = (a.pixels + BM - 1) / BM;
-  conv_tile<EPI_LEAKY>(a, (t % m_tiles) * BM, (t / m_tiles) * BN, As, Bs);
-  return true;
-}
-
-// Up to four independent dense layers in one grid (pixels == 0: no layer).
-__global__ void __launch_bounds__(kThreads) dense_kernel(const Conv a, const Conv b,
-                                                         const Conv c, const Conv d) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-  int t = blockIdx.x;
-  if (dense_tile(a, t, As, Bs) || dense_tile(b, t, As, Bs) || dense_tile(c, t, As, Bs)) return;
-  dense_tile(d, t, As, Bs);
-}
+constexpr int kHeadThreads = 1024;
+constexpr int kHeadParts = 4;  // blocks per side and batch item, each a share of fc_out
 
 struct Side {
   const float* a;       // [batch * rows, c], after the align layers
   const float* b;
-  const float* mid_w;   // fc_mid [c, c_mid]
-  const float* out_w;   // fc_out [c_mid, 2c]: columns 2o and 2o + 1 pair up
+  const float* mid_t;   // fc_mid transposed, [c_mid, c]
+  const float* out_t;   // fc_out transposed, [2c, c_mid]: rows 2o and 2o + 1 pair up
   float* partial;       // [batch, chunks, c]
   float* weights;       // [batch, c, 2]
   float* out;           // [batch * rows, c]
@@ -145,33 +137,86 @@ __global__ void __launch_bounds__(kThreads) partial_kernel(const Side two, const
   }
 }
 
-// The SK head of batch item b: mean, fc_mid + ReLU, fc_out + sigmoid, and the
-// softmax over each channel's pair, as torch.softmax computes it.
-__device__ __forceinline__ void head(const Side& s, int b) {
-  __shared__ float mean[kMaxC];
-  __shared__ float mid[kMaxC];
-  for (int c = threadIdx.x; c < s.c; c += kThreads) {
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// V consecutive floats from a 4V-byte aligned address, in one load.
+template <int V>
+__device__ __forceinline__ void load(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// y[r - r0] = x . w[r] for rows r0 <= r < r1 of w [*, len], x [len] in
+// shared memory, len a multiple of V and w's rows 4V-byte aligned: a warp
+// per 6 rows (the corr call's 162 fc_mid rows, or its part's 162 fc_out rows,
+// in one pass of the 32 warps), the lanes over the row, V floats a load
+// (coalesced), each dot product summed over the lanes in a fixed order.
+template <int V>
+__device__ __forceinline__ void rows_dot(const float* __restrict__ w, int len, int r0, int r1,
+                                         const float* x, float* y) {
+  constexpr int kRows = 6;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int r = r0 + warp * kRows; r < r1; r += kHeadThreads / 32 * kRows) {
+    float acc[kRows] = {};
+#pragma unroll 2
+    for (int c = V * lane; c < len; c += 32 * V) {
+      float xv[V];
+      load<V>(x + c, xv);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        if (r + i < r1) {
+          float wv[V];
+          load<V>(w + (size_t)(r + i) * len + c, wv);
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[i] = __fmaf_rn(xv[j], wv[j], acc[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float sum = warp_sum(acc[i]);
+      if (lane == 0 && r + i < r1) y[r + i - r0] = sum;
+    }
+  }
+}
+
+// Share `part` of the SK head of batch item b: the mean, fc_mid + ReLU (both
+// computed alike by every part), then fc_out + sigmoid and the softmax over
+// each channel's pair, as torch.softmax computes it, for the part's channels.
+__device__ __forceinline__ void head(const Side& s, int b, int part) {
+  __shared__ __align__(16) float mean[kMaxC];
+  __shared__ __align__(16) float mid[kMaxC];
+  __shared__ float logit[2 * kMaxC];
+  const int per = (s.c + kHeadParts - 1) / kHeadParts;
+  const int c0 = min(s.c, part * per), c1 = min(s.c, c0 + per);
+  for (int c = threadIdx.x; c < s.c; c += kHeadThreads) {
     const float* p = s.partial + (size_t)b * s.chunks * s.c + c;
     float sum = p[0];
+#pragma unroll 8
     for (int i = 1; i < s.chunks; ++i) sum = __fadd_rn(sum, p[(size_t)i * s.c]);
     mean[c] = __fdiv_rn(sum, (float)s.rows);
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < s.c_mid; j += kThreads) {
-    float v = 0.f;
-    for (int c = 0; c < s.c; ++c) v = __fmaf_rn(mean[c], s.mid_w[(size_t)c * s.c_mid + j], v);
-    mid[j] = v < 0.f ? 0.f : v;
-  }
+  rows_dot<4>(s.mid_t, s.c, 0, s.c_mid, mean, mid);  // c: a multiple of 4
   __syncthreads();
-  for (int c = threadIdx.x; c < s.c; c += kThreads) {
-    float s0 = 0.f, s1 = 0.f;
-    for (int j = 0; j < s.c_mid; ++j) {
-      const float* row = s.out_w + (size_t)j * 2 * s.c + 2 * c;
-      s0 = __fmaf_rn(mid[j], row[0], s0);
-      s1 = __fmaf_rn(mid[j], row[1], s1);
-    }
-    s0 = sigmoid(s0);
-    s1 = sigmoid(s1);
+  for (int j = threadIdx.x; j < s.c_mid; j += kHeadThreads) mid[j] = fmaxf(mid[j], 0.f);
+  __syncthreads();
+  rows_dot<2>(s.out_t, s.c_mid, 2 * c0, 2 * c1, mid, logit);  // c_mid = c / 2: even
+  __syncthreads();
+  for (int c = c0 + threadIdx.x; c < c1; c += kHeadThreads) {
+    const float s0 = sigmoid(logit[2 * (c - c0)]);
+    const float s1 = sigmoid(logit[2 * (c - c0) + 1]);
     const float top = fmaxf(s0, s1);
     const float e0 = expf(__fsub_rn(s0, top));
     const float e1 = expf(__fsub_rn(s1, top));
@@ -181,12 +226,15 @@ __device__ __forceinline__ void head(const Side& s, int b) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) head_kernel(const Side two, const Side three,
-                                                        int batch) {
-  if ((int)blockIdx.x < batch) {
-    head(two, blockIdx.x);
+// blocks [0, batch * kHeadParts) the 2D side's heads, then the 3D side's
+__global__ void __launch_bounds__(kHeadThreads) head_kernel(const Side two, const Side three,
+                                                            int batch) {
+  const int per_side = batch * kHeadParts;
+  if ((int)blockIdx.x < per_side) {
+    head(two, blockIdx.x / kHeadParts, blockIdx.x % kHeadParts);
   } else {
-    head(three, blockIdx.x - batch);
+    const int blk = blockIdx.x - per_side;
+    head(three, blk / kHeadParts, blk % kHeadParts);
   }
 }
 
@@ -207,17 +255,42 @@ __global__ void __launch_bounds__(kThreads) blend_kernel(const Side two, const S
   }
 }
 
-// A 1x1 convolution over [rows, cin] with a leaky ReLU.
-Conv dense(int rows, const float* in, int cin, const float* w, const float* bias, int cout,
-           float* out) {
-  Conv a = input(rows, rows, 1, in, cin);
-  a.w = w, a.bias = bias, a.out = out;
-  return shaped(a, 1, 1, cout);
+// Dense layers (1x1 convolutions over [rows, cin] -> [rows, cout]) in a
+// grouped launch take the 64 x 64 tile.
+constexpr int kDenseBM = 64, kDenseBN = 64;
+
+// A dense layer with its planes ([>= round_up(cout, 64)] rows of
+// round_up(cin, kTcBk) floats, K-major) for run_dense_group_tc.
+TcLayer dense_layer(int rows, const float* in, int cin, const float* hi, const float* lo,
+                    const float* bias, int cout, float* out) {
+  TcLayer l = {};
+  l.a = input(rows, rows, 1, in, cin);
+  l.a.bias = bias;
+  l.a.out = out;
+  l.a = shaped(l.a, 1, 1, cout);
+  l.hi = hi;
+  l.lo = lo;
+  l.k_pad = round_up(cin, kTcBk);
+  l.m_tiles = (rows + kDenseBM - 1) / kDenseBM;
+  l.n_tiles = (cout + kDenseBN - 1) / kDenseBN;
+  return l;
 }
 
-Side side(const float* a, const float* b, const float* mid_w, const float* out_w,
+// Up to four dense layers with a leaky ReLU in one launch (a default
+// TcLayer is none).
+int run_dense_group_tc(const TcGroup& g, cudaStream_t stream) {
+  using S = TcShape<kDenseBM, kDenseBN, 2, 2, 1>;
+  static_assert(S::kSmemBytes <= 48 * 1024, "no cudaFuncSetAttribute needed");
+  int blocks = 0;
+  for (const TcLayer& l : g.layer) blocks += l.m_tiles * l.n_tiles;
+  conv_tc_group_kernel<kDenseBM, kDenseBN, 2, 2, EPI_LEAKY>
+      <<<blocks, S::kThreads, S::kSmemBytes, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+Side side(const float* a, const float* b, const float* mid_t, const float* out_t,
           float* partial, float* weights, float* out, int rows, int c, int c_mid) {
-  Side s = {a, b, mid_w, out_w, partial, weights, out, rows, c, c_mid,
+  Side s = {a, b, mid_t, out_t, partial, weights, out, rows, c, c_mid,
             (rows + kChunk - 1) / kChunk, (c + 31) / 32};
   return s;
 }
@@ -232,22 +305,23 @@ unsigned blocks_for(size_t elements) { return (unsigned)((elements + kThreads - 
     if (err_ != 0) return err_; \
   } while (0)
 
-// Every dense weight is a packed [K_pad, N_pad] matrix with an [N_pad] bias
-// (ops/update3d.py::pack_linears); fc_mid [c, c_mid] and fc_out [c_mid, 2c]
-// are unpadded. scratch holds, in floats:
+// dense: (hi, lo, bias) of out_conv, align1_2d, align2_2d, mlps3d,
+// align1_3d, align2_3d in that order, each a packed layer's tf32 weight
+// planes [round_up(cout, 64), round_up(cin, 16)] and its bias
+// (ops/clfm.py::prepare_clfm_params); mid_t [c_mid, c] and out_t [2c, c_mid]
+// the SK heads' fc_mid and fc_out, transposed. scratch holds, in floats:
 //   rows2 = batch * hw and rows3 = batch * n;
 //   g, interp [rows2, c3]; samp, sm [rows3, c2]; a, b [rows2, c2];
 //   b3, a3 [rows3, c3]; partial sums [batch, ceil(hw / 256), c2] and
 //   [batch, ceil(n / 256), c3]; SK weights [batch, c2, 2] and [batch, c3, 2].
-extern "C" int camli_clfm(
-    const float* f2d, const float* f3d, const float* score, const int32_t* nn_idx,
-    const int32_t* tap_idx, const float* tap_w, const float* w_oc, const float* b_oc,
-    const float* w_a1, const float* b_a1, const float* w_a2, const float* b_a2,
-    const float* mid_2d, const float* fc_out_2d, const float* w_m3, const float* b_m3,
-    const float* w_a13, const float* b_a13, const float* w_a23, const float* b_a23,
-    const float* mid_3d, const float* fc_out_3d, float* scratch, float* out_2d, float* out_3d,
-    int batch, int hw, int n, int c2, int c3, int c2_mid, int c3_mid, cudaStream_t stream) {
-  if (c2 > kMaxC || c3 > kMaxC || c2_mid > kMaxC || c3_mid > kMaxC) {
+extern "C" int camli_clfm(const float* f2d, const float* f3d, const float* score,
+                          const int32_t* nn_idx, const int32_t* tap_idx, const float* tap_w,
+                          const float* const* dense, const float* mid_t_2d,
+                          const float* out_t_2d, const float* mid_t_3d, const float* out_t_3d,
+                          float* scratch, float* out_2d, float* out_3d, int batch, int hw, int n,
+                          int c2, int c3, int c2_mid, int c3_mid, cudaStream_t stream) {
+  if (c2 > kMaxC || c3 > kMaxC || c2_mid > kMaxC || c3_mid > kMaxC || c2 % 4 || c3 % 4 ||
+      c2_mid % 2 || c3_mid % 2) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t rows2 = (size_t)batch * hw;
@@ -264,35 +338,31 @@ extern "C" int camli_clfm(
   float* partial3 = partial2 + (size_t)batch * ((hw + kChunk - 1) / kChunk) * c2;
   float* weights2 = partial3 + (size_t)batch * ((n + kChunk - 1) / kChunk) * c3;
   float* weights3 = weights2 + (size_t)batch * c2 * 2;
-  const Side two = side(a, b, mid_2d, fc_out_2d, partial2, weights2, out_2d, hw, c2, c2_mid);
-  const Side three = side(a3, b3, mid_3d, fc_out_3d, partial3, weights3, out_3d, n, c3, c3_mid);
+  const Side two = side(a, b, mid_t_2d, out_t_2d, partial2, weights2, out_2d, hw, c2, c2_mid);
+  const Side three = side(a3, b3, mid_t_3d, out_t_3d, partial3, weights3, out_3d, n, c3, c3_mid);
 
   const Sizes sizes = {batch, hw, n, c2, c3};
   gather_kernel<<<blocks_for(rows2 * c3 + rows3 * c2), kThreads, 0, stream>>>(
       f2d, f3d, score, nn_idx, tap_idx, tap_w, g, samp, sizes);
   CAMLI_TRY((int)cudaGetLastError());
 
-  const Conv interp_l = dense((int)rows2, g, c3, w_oc, b_oc, c3, interp);
-  const Conv a_l = dense((int)rows2, f2d, c2, w_a1, b_a1, c2, a);
-  const Conv sm_l = dense((int)rows3, samp, c2, w_m3, b_m3, c2, sm);
-  const Conv b3_l = dense((int)rows3, f3d, c3, w_a23, b_a23, c3, b3);
-  dense_kernel<<<tile_count(interp_l) + tile_count(a_l) + tile_count(sm_l) + tile_count(b3_l),
-                 kThreads, 0, stream>>>(interp_l, a_l, sm_l, b3_l);
-  CAMLI_TRY((int)cudaGetLastError());
-
-  const Conv b_l = dense((int)rows2, interp, c3, w_a2, b_a2, c2, b);
-  const Conv a3_l = dense((int)rows3, sm, c2, w_a13, b_a13, c3, a3);
-  const Conv none = {};
-  dense_kernel<<<tile_count(b_l) + tile_count(a3_l), kThreads, 0, stream>>>(b_l, a3_l, none,
-                                                                            none);
-  CAMLI_TRY((int)cudaGetLastError());
+  // layer i of `dense` over [rows, cin] -> [rows, cout]
+  const auto layer = [&](int i, size_t rows, const float* in, int cin, int cout, float* out) {
+    return dense_layer((int)rows, in, cin, dense[3 * i], dense[3 * i + 1], dense[3 * i + 2],
+                       cout, out);
+  };
+  const TcGroup first = {{layer(1, rows2, f2d, c2, c2, a), layer(0, rows2, g, c3, c3, interp),
+                          layer(3, rows3, samp, c2, c2, sm), layer(5, rows3, f3d, c3, c3, b3)}};
+  CAMLI_TRY(run_dense_group_tc(first, stream));
+  const TcGroup second = {{layer(2, rows2, interp, c3, c2, b), layer(4, rows3, sm, c2, c3, a3)}};
+  CAMLI_TRY(run_dense_group_tc(second, stream));
 
   const int blocks_two = batch * two.chunks * two.groups;
   partial_kernel<<<blocks_two + batch * three.chunks * three.groups, kThreads, 0, stream>>>(
       two, three, blocks_two);
   CAMLI_TRY((int)cudaGetLastError());
 
-  head_kernel<<<2 * batch, kThreads, 0, stream>>>(two, three, batch);
+  head_kernel<<<2 * batch * kHeadParts, kHeadThreads, 0, stream>>>(two, three, batch);
   CAMLI_TRY((int)cudaGetLastError());
 
   blend_kernel<<<blocks_for(rows2 * c2 + rows3 * c3), kThreads, 0, stream>>>(

@@ -1,4 +1,6 @@
-// Shared device helpers for the point-cloud selection kernels.
+// Shared device helpers for the point-cloud selection kernels: the
+// distance, the sorted insert of one scan, and the merge of the sorted lists
+// of a scan split into slices.
 //
 // Every squared distance is written out per coordinate with round-to-nearest
 // intrinsics, in the order ((dx*dx + dy*dy) + dz*dz). The plain PyTorch
@@ -55,6 +57,51 @@ __device__ __forceinline__ void init_list(float (&D)[K], int (&I)[K]) {
     D[j] = CUDART_INF_F;
     I[j] = 0;
   }
+}
+
+// One merge step of a split scan, by the 32 lanes of a warp: the ascending
+// K-lists (ad, ai) and (bd, bi) in shared memory, each kept by
+// insert_sorted over its own slice of the candidates, every index of a's
+// slices below every index of b's, become in (ad, ai) the K first of their
+// union in (distance, index) order. Entry e of a takes place
+// e + #{b : d_b < d_a}, entry e of b place e + #{a : d_a <= d_b}: on equal
+// distances list a, the lower indices, comes first. So the places are
+// distinct, and the merge of a scan's slices in ascending order keeps what
+// one insert_sorted over all of them would keep, ties included.
+template <int K>
+__device__ __forceinline__ void merge_sorted(float* ad, int* ai, const float* bd,
+                                             const int* bi) {
+  constexpr int kPer = (2 * K + 31) / 32;  // entries a lane places
+  const int lane = threadIdx.x % 32;
+  float d[kPer];
+  int id[kPer], place[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int e = lane + 32 * r;
+    const bool in_a = e < K;
+    const int pos = in_a ? e : e - K;
+    d[r] = 0.f;
+    id[r] = 0;
+    place[r] = K;  // dropped
+    if (e < 2 * K) {
+      d[r] = in_a ? ad[pos] : bd[pos];
+      id[r] = in_a ? ai[pos] : bi[pos];
+      const float* other = in_a ? bd : ad;
+      int before = pos;
+#pragma unroll
+      for (int j = 0; j < K; ++j) before += in_a ? (other[j] < d[r]) : (other[j] <= d[r]);
+      place[r] = before;
+    }
+  }
+  __syncwarp();  // every lane has read both lists
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    if (place[r] < K) {
+      ad[place[r]] = d[r];
+      ai[place[r]] = id[r];
+    }
+  }
+  __syncwarp();
 }
 
 }  // namespace camli

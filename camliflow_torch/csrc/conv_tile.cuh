@@ -1,6 +1,6 @@
-// The f32 implicit-GEMM convolution tile shared by update2d.cu (the 2D update
-// chain) and clfm.cu (the in-loop CLFM, whose dense layers are 1x1
-// convolutions over [rows, C]).
+// The f32 implicit-GEMM convolution tile of update2d.cu's fused RAFT
+// iteration (#10), and the convolution description (Conv, the epilogues)
+// that conv_tile_tc.cuh's tensor-core tile shares.
 //
 // A block computes 64 pixels x 64 output channels with 256 threads, each a
 // 4x4 register tile; the reduction runs over (tap, input channel) in chunks
@@ -151,8 +151,6 @@ __device__ __forceinline__ void conv_tile(const Conv& a, int p0, int n0, TileA* 
       float v = acc[i][j] + a.bias[co];
       if (EPI == EPI_RELU) {
         v = v < 0.f ? 0.f : v;
-      } else if (EPI == EPI_LEAKY) {
-        v = v > 0.f ? v : __fmul_rn(0.1f, v);
       } else if (EPI == EPI_ZR) {
         v = sigmoid(v);
         if (co < a.half) {

@@ -1,13 +1,16 @@
-// The 3xTF32 tensor-core implicit-GEMM convolution tile of the 2D update
-// chain: update2d.cu's motion encoder (kernel #9), its GRU and flow head
-// (kernel #8) and #8's two halves run on it. conv_tile.cuh's f32 FMA tile
-// stays for the fused RAFT iteration (#10) and CLFM (#11).
+// The 3xTF32 tensor-core implicit-GEMM convolution tile: update2d.cu's
+// motion encoder (kernel #9), its GRU and flow head (kernel #8) and #8's two
+// halves, and clfm.cu's six dense layers (kernel #11) run on it.
+// conv_tile.cuh's f32 FMA tile stays for the fused RAFT iteration (#10).
 //
 // What it computes is conv_tile.cuh's convolution, with the same features:
 // NHWC inputs read as one virtual channel concat of up to three tensors, the
 // reduction ordered (tap, input channel), zero padding at the borders as a
-// load predicate, and the same epilogues (bias + ReLU, none, the GRU's z and
-// r*h, h' = (1-z)*h + z*tanh(q), nan_to_num, the 2-channel flow tail).
+// load predicate, and the same epilogues (bias + ReLU, none, leaky ReLU, the
+// GRU's z and r*h, h' = (1-z)*h + z*tanh(q), nan_to_num, the 2-channel flow
+// tail). A 1x1 convolution over [rows, C] (height = rows, width = 1) is a
+// dense layer; `conv_tc_group_kernel` deals the tiles of up to four
+// independent ones to one grid.
 //
 // Numerics: f32 in, f32 out, on the tensor cores by the 3xTF32 split. Every
 // operand x becomes hi = tf32(x) (cvt.rna, 10 mantissa bits) and
@@ -34,10 +37,11 @@
 // - Tiles: 4 warps a block. 64 pixels x 128 channels (warps of 32 x 64, 2
 //   blocks an SM) for the 256-channel convs, 64 x 64 (warps of 32 x 32, 4
 //   an SM) for the others, so that each conv of the chain at 68 x 120 px
-//   runs 128-384 blocks in one wave. The flow head's last conv (256 -> 2,
-//   3x3) is a narrow variant: 32 pixels x 8 channels a block, the reduction
-//   split over its 4 warps, whose partial sums meet in shared memory in a
-//   fixed order (no float atomics: two runs give the same bits).
+//   runs 128-384 blocks in one wave; CLFM's dense layers take 64 x 64 too.
+//   The flow head's last conv (256 -> 2, 3x3) is a narrow variant: 32
+//   pixels x 8 channels a block, the reduction split over its 4 warps, whose
+//   partial sums meet in shared memory in a fixed order (no float atomics:
+//   two runs give the same bits).
 // - wgmma (m64n64k8 tf32, A from registers, B through K-major descriptors
 //   without swizzle) computed the same sums but took longer at every conv
 //   of the chain on an H100, so the tile stays on mma.sync (PERF.md).
@@ -119,6 +123,8 @@ __device__ __forceinline__ void store(const Conv& a, int p, int co, float acc) {
   float v = acc + a.bias[co];
   if (EPI == EPI_RELU) {
     v = v < 0.f ? 0.f : v;
+  } else if (EPI == EPI_LEAKY) {
+    v = v > 0.f ? v : __fmul_rn(0.1f, v);
   } else if (EPI == EPI_ZR) {
     v = sigmoid(v);
     if (co < a.half) {
@@ -143,19 +149,18 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-// One block: BM pixels x BN output channels of one convolution. `hi` and
-// `lo` are the weight planes [>= n0 + BN][k_pad]; a.k_total <= k_pad.
+// One block's tile: BM pixels x BN output channels at (p0, n0) of one
+// convolution. `hi` and `lo` are the weight planes [>= n0 + BN][k_pad];
+// a.k_total <= k_pad.
 template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI>
-__global__ void __launch_bounds__(TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>::kThreads,
-                                  TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>::kMinBlocks)
-    conv_tc_kernel(const Conv a, const float* __restrict__ hi, const float* __restrict__ lo,
-                   int k_pad) {
+__device__ __forceinline__ void conv_tc_tile(const Conv& a, const float* __restrict__ hi,
+                                             const float* __restrict__ lo, int k_pad, int p0,
+                                             int n0) {
   using S = TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>;
   constexpr int kRows = BM / S::kRowsPerPass;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int p0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int cin = a.c0 + a.c1 + a.c2;
   const int hw = a.height * a.width;
   const int n_chunks = (a.k_total + S::kKStep - 1) / S::kKStep;
@@ -358,6 +363,49 @@ __global__ void __launch_bounds__(TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>::kTh
   }
 }
 
+// One convolution: block (x, y) computes the tile at (x * BM, y * BN).
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI>
+__global__ void __launch_bounds__(TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>::kThreads,
+                                  TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>::kMinBlocks)
+    conv_tc_kernel(const Conv a, const float* __restrict__ hi, const float* __restrict__ lo,
+                   int k_pad) {
+  conv_tc_tile<BM, BN, WARPS_M, WARPS_N, KSPLIT, EPI>(a, hi, lo, k_pad, blockIdx.x * BM,
+                                                      blockIdx.y * BN);
+}
+
+// A convolution with its weight planes, as one member of a grouped launch.
+struct TcLayer {
+  Conv a;
+  const float* hi;
+  const float* lo;
+  int k_pad;
+  int m_tiles, n_tiles;
+};
+
+// Up to four independent convolutions with one epilogue in one grid: block
+// t takes tile t of the layers' tiles in order, the n tiles of one row of
+// pixels consecutively (the blocks that read one A tile run together). The
+// layers stay in the parameter space (__grid_constant__) and the block
+// reads its own through a reference, so the tile's code is inlined once
+// (four inlined copies spilled 160 bytes and ran slower on an H100).
+struct TcGroup {
+  TcLayer layer[4];  // a layer of 0 m_tiles is none
+};
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int EPI>
+__global__ void __launch_bounds__(TcShape<BM, BN, WARPS_M, WARPS_N, 1>::kThreads,
+                                  TcShape<BM, BN, WARPS_M, WARPS_N, 1>::kMinBlocks)
+    conv_tc_group_kernel(const __grid_constant__ TcGroup g) {
+  int t = blockIdx.x, i = 0;
+  while (i < 3 && t >= g.layer[i].m_tiles * g.layer[i].n_tiles) {
+    t -= g.layer[i].m_tiles * g.layer[i].n_tiles;
+    ++i;
+  }
+  const TcLayer& l = g.layer[i];
+  conv_tc_tile<BM, BN, WARPS_M, WARPS_N, 1, EPI>(l.a, l.hi, l.lo, l.k_pad, (t / l.n_tiles) * BM,
+                                                 (t % l.n_tiles) * BN);
+}
+
 template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI>
 int launch_tc(const Conv& a, const float* hi, const float* lo, int k_pad, int n_tiles,
               cudaStream_t stream) {
@@ -371,42 +419,6 @@ int launch_tc(const Conv& a, const float* hi, const float* lo, int k_pad, int n_
   const dim3 grid((a.pixels + BM - 1) / BM, n_tiles);
   kernel<<<grid, S::kThreads, S::kSmemBytes, stream>>>(a, hi, lo, k_pad);
   return (int)cudaGetLastError();
-}
-
-// One convolution as its own launch. The weight planes are [N_pad][K_pad]
-// with N_pad = round_up(cout, 64) and K_pad = round_up(kh*kw*cin, 16), zero
-// past (cout, kh*kw*cin). A conv of at most 8 output channels and no
-// epilogue (the flow head's last) takes the narrow split-reduction variant;
-// one of 256 channels or more the 64 x 128 tile.
-int run_conv_tc(Conv a, const float* hi, const float* lo, int epi, int kh, int kw, int cout,
-                cudaStream_t stream) {
-  a = shaped(a, kh, kw, cout);
-  const int k_pad = round_up(a.k_total, kTcBk);
-  if (cout <= 8 && epi == EPI_NONE) {
-    return launch_tc<32, 8, 1, 1, 4, EPI_NONE>(a, hi, lo, k_pad, 1, stream);
-  }
-  if (cout >= 256 && a.n_pad % 128 == 0) {
-    const int n_tiles = a.n_pad / 128;
-    switch (epi) {
-      case EPI_RELU:
-        return launch_tc<64, 128, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, n_tiles, stream);
-      case EPI_ZR:
-        return launch_tc<64, 128, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, n_tiles, stream);
-      default:
-        break;  // the other epilogues take the 64 x 64 tile
-    }
-  }
-  const int n_tiles = a.n_pad / 64;
-  switch (epi) {
-    case EPI_RELU:
-      return launch_tc<64, 64, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, n_tiles, stream);
-    case EPI_NONE:
-      return launch_tc<64, 64, 2, 2, 1, EPI_NONE>(a, hi, lo, k_pad, n_tiles, stream);
-    case EPI_ZR:
-      return launch_tc<64, 64, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, n_tiles, stream);
-    default:
-      return launch_tc<64, 64, 2, 2, 1, EPI_GATE>(a, hi, lo, k_pad, n_tiles, stream);
-  }
 }
 
 }  // namespace

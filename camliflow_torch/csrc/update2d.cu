@@ -170,6 +170,42 @@ __global__ void __launch_bounds__(kThreads) update2d_kernel(const Update2D u) {
   stage<EPI_NONE>(r, u.head2, u.head2, false, As, Bs);
 }
 
+// One convolution as its own launch. The weight planes are [N_pad][K_pad]
+// with N_pad = round_up(cout, 64) and K_pad = round_up(kh*kw*cin, 16), zero
+// past (cout, kh*kw*cin). A conv of at most 8 output channels and no
+// epilogue (the flow head's last) takes the narrow split-reduction variant;
+// one of 256 channels or more the 64 x 128 tile.
+int run_conv_tc(Conv a, const float* hi, const float* lo, int epi, int kh, int kw, int cout,
+                cudaStream_t stream) {
+  a = shaped(a, kh, kw, cout);
+  const int k_pad = round_up(a.k_total, kTcBk);
+  if (cout <= 8 && epi == EPI_NONE) {
+    return launch_tc<32, 8, 1, 1, 4, EPI_NONE>(a, hi, lo, k_pad, 1, stream);
+  }
+  if (cout >= 256 && a.n_pad % 128 == 0) {
+    const int n_tiles = a.n_pad / 128;
+    switch (epi) {
+      case EPI_RELU:
+        return launch_tc<64, 128, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, n_tiles, stream);
+      case EPI_ZR:
+        return launch_tc<64, 128, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, n_tiles, stream);
+      default:
+        break;  // the other epilogues take the 64 x 64 tile
+    }
+  }
+  const int n_tiles = a.n_pad / 64;
+  switch (epi) {
+    case EPI_RELU:
+      return launch_tc<64, 64, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, n_tiles, stream);
+    case EPI_NONE:
+      return launch_tc<64, 64, 2, 2, 1, EPI_NONE>(a, hi, lo, k_pad, n_tiles, stream);
+    case EPI_ZR:
+      return launch_tc<64, 64, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, n_tiles, stream);
+    default:
+      return launch_tc<64, 64, 2, 2, 1, EPI_GATE>(a, hi, lo, k_pad, n_tiles, stream);
+  }
+}
+
 }  // namespace
 
 #define CAMLI_TRY(call)         \

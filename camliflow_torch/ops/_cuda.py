@@ -2,6 +2,7 @@
 
 A wrapper hands raw pointers to a kernel, so it first checks what the kernel
 assumes and raises on anything else: every tensor on the same CUDA device,
+which is the current one (kernels launch on the current device's stream),
 of the expected dtype and shape, contiguous.
 """
 
@@ -17,11 +18,15 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 def check(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
     """Raise unless each tensor is a contiguous `dtype` tensor on one CUDA
-    device."""
+    device, the current one."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: all inputs must lie on one CUDA device, got "
                          f"{ {k: str(t.device) for k, t in tensors.items()} }")
+    current = torch.cuda.current_device()
+    if next(iter(devices)).index not in (None, current):
+        raise ValueError(f"{name}: the inputs lie on {next(iter(devices))}, but the kernels "
+                         f"launch on the current device, cuda:{current}; select it first")
     for key, t in tensors.items():
         if t.dtype != dtype:
             raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")

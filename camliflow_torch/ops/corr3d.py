@@ -4,10 +4,12 @@ tail after it. CUDA kernels, plain versions, wrappers.
 `correlation3d_knn` replaces camliflow_tpu/ops/pallas_corr3d.py::
 correlation3d_knn_pallas (exact mode, with cost) with `csrc/corr3d.cu`. The
 frame-2 levels are row-prefixes of one FPS order, so one scan per query in
-ascending index serves every level: when it reaches a level's prefix length,
-the running sorted list is that level's k nearest. The kernel is
-arithmetic-bound on query-candidate pairs; see the source for the design
-note.
+ascending index serves every level. The kernel splits that scan into slices
+that follow the levels (`scan_plan`), keeps each slice's k nearest with a
+strictly-smaller insert, and merges the slices' sorted lists in ascending
+order by (distance, index): after the slices below a level's prefix length,
+the merge holds that level's k nearest, ties broken as one scan would. See
+the source for the design note.
 
 `corr3d_tail` replaces ::corr3d_tail_pallas with `csrc/corr3d_tail.cu`: the
 rel-xyz gather, the 2-layer cost MLP on [rel_xyz, cost], the sum over each
@@ -19,6 +21,7 @@ and its scale belong to the fast path, which is not ported.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -30,6 +33,10 @@ from .geometry import gather_points, knn_from_dists, squared_distance
 from .knn import MAX_K
 
 MAX_LEVELS = 8  # csrc/corr3d.cu kMaxLevels
+MAX_SLICES = 256  # csrc/corr3d.cu kMaxSlices
+SLICE = 128  # candidates one thread of the kernel scans, at most
+BLOCK_QUERIES = 16  # queries a block takes, at most: 2048 queries fill 128 blocks
+BLOCK_SLOTS = 256  # (query, slice) threads a block aims at
 TAIL_MAX_HIDDEN = 32  # csrc/corr3d_tail.cu: one lane per cost-MLP channel
 TAIL_MAX_OUT = 128  # and 4 merge outputs per lane
 
@@ -38,6 +45,33 @@ def level_offsets(level_sizes, k: int, device=None) -> torch.Tensor:
     """[L*k] column offset of each selected entry's level in the pyramid."""
     starts = [sum(level_sizes[:l]) for l in range(len(level_sizes))]
     return torch.tensor(starts, device=device).repeat_interleave(k)
+
+
+def scan_plan(level_sizes: tuple[int, ...]) -> tuple[tuple[int, ...], int]:
+    """How the kernel splits each query's candidate scan: (the slices'
+    starts, ending with m_0; queries per block). Each level range
+    [m_{l+1}, m_l), and [0, m_{L-1}), is split evenly into slices of at most
+    SLICE candidates, so no slice straddles a level boundary."""
+    bounds = [0, *reversed(level_sizes)]
+    starts = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        n = -(-(hi - lo) // SLICE)
+        starts += [lo + (hi - lo) * i // n for i in range(n)]
+    starts.append(level_sizes[0])
+    return tuple(starts), max(1, min(BLOCK_QUERIES, BLOCK_SLOTS // (len(starts) - 1)))
+
+
+@functools.lru_cache(maxsize=16)
+def _plan_arrays(level_sizes: tuple[int, ...]):
+    """The kernel's C arrays for `level_sizes`: the sizes and the slice
+    starts, with the slice count and queries per block (built once, as the
+    refinement loop calls the kernel with the same levels every time)."""
+    starts, queries = scan_plan(level_sizes)
+    if len(starts) - 1 > MAX_SLICES:
+        raise ValueError(f"correlation3d_knn: {level_sizes[0]} candidates need more than "
+                         f"{MAX_SLICES} slices of {SLICE}")
+    sizes = (ctypes.c_int * len(level_sizes))(*level_sizes)
+    return sizes, (ctypes.c_int * len(starts))(*starts), len(starts) - 1, queries
 
 
 def correlation3d_knn_plain(
@@ -90,14 +124,15 @@ def correlation3d_knn(
         raise ValueError(f"{name}: need 1..{MAX_LEVELS} strictly descending "
                          f"levels within M={m_rows} and 1 <= k <= "
                          f"min({MAX_K}, smallest level); got {level_sizes}, k={k}")
+    sizes, starts, n_slices, queries = _plan_arrays(level_sizes)
     idx = torch.empty(batch, n, n_levels * k, dtype=torch.int32, device=xyz1.device)
     cost = torch.empty(batch, n, n_levels * k, dtype=torch.float32, device=xyz1.device)
-    sizes = (ctypes.c_int * n_levels)(*level_sizes)
     from ..csrc.build import launch
 
     launch("camli_corr3d", xyz1.data_ptr(), xyz2_warp.data_ptr(),
            pyramid_cat.data_ptr(), idx.data_ptr(), cost.data_ptr(), batch, n,
-           m_rows, m_total, n_levels, ctypes.addressof(sizes), k)
+           m_rows, m_total, n_levels, ctypes.addressof(sizes), n_slices,
+           ctypes.addressof(starts), queries, k)
     correlation3d_knn.launches += 1
     return idx, cost
 

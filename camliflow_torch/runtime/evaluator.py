@@ -20,6 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.torch_setup import setup_torch
+
 logger = logging.getLogger("camliflow_torch")
 
 _HOST_KEYS = ("index", "input_h", "input_w")
@@ -33,9 +35,12 @@ class Evaluator:
     """Run a model over batches and reduce the protocol's metrics.
 
     `request_ms` records each forward's wall time, from the host arrays in to
-    the host arrays out (the copy back waits for the device)."""
+    the host arrays out (the copy back waits for the device). Building one
+    turns TF32 off (`setup_torch`), so the model's cuDNN convolutions and
+    matrix products run in full f32, as the reference computes them."""
 
     def __init__(self, model: nn.Module, device: torch.device | str):
+        setup_torch()
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.request_ms: list[float] = []

@@ -21,8 +21,10 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    which the fuse_hidden path launches, and the k-major gather on
    tools/probe_gather_matrix.py's cases, timed by CUDA events and by the
    profiler's device time), with times for both and the least time the
-   card could take (bound; for the 2D chain's tensor-core kernels beside
-   the f32 bound outside the tensor cores);
+   card could take (bound; for the tensor-core kernels, the 2D chain's and
+   CLFM's, beside the f32 bound outside the tensor cores); Correlation3D's
+   selection bit for bit, ties included, and CLFM's device time split by
+   stage (profiler);
 4. end to end, for each path: random weights from a seeded
    torch.Generator, synthetic inputs made with numpy from a seed (bench.py's
    recipe plus a target), through the port's Evaluator: 1 warm-up and 3
@@ -167,6 +169,21 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean host time to issue fn() (its checks and launches), over reps
+    calls without a synchronisation between them, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return 1e3 * seconds / reps
+
+
 def bound(ops: float, nbytes: float, peak: float = PEAK_F32) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the operations
     over the peak rate for their type and the bytes over the memory rate."""
@@ -188,6 +205,28 @@ def device_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     return sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+
+
+def stage_ms(fn, reps: int) -> list[tuple[str, float]]:
+    """Each kernel of fn() in launch order with its mean device time over
+    reps calls (torch.profiler's kernel events), or [] if the profiler saw
+    none or another count per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    if not kernels or len(kernels) % reps:
+        return []
+    per = len(kernels) // reps
+    return [(kernels[i].name, sum(e.time_range.elapsed_us() for e in kernels[i::per]) / reps / 1e3)
+            for i in range(per)]
 
 
 def kernel_name(mangled: str) -> str:
@@ -216,9 +255,11 @@ def kernel_name(mangled: str) -> str:
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel from nvcc's -Xptxas -v output: registers, static
     shared memory, stack and spills. conv_tc_kernel<BM, BN, warps in M,
-    warps in N, reduction slices, epilogue> takes its shared memory
-    dynamically, TC_STAGES stages of the slices' A [BM][16] and the two
-    weight planes [BN][16], which ptxas does not count: it is added."""
+    warps in N, reduction slices, epilogue> and conv_tc_group_kernel<BM, BN,
+    warps in M, warps in N, epilogue> (one slice; CLFM's dense layers) take
+    their shared memory dynamically, TC_STAGES stages of the slices' A
+    [BM][16] and the two weight planes [BN][16], which ptxas does not count:
+    it is added."""
     import re
 
     lines, name, spills = [], None, ""
@@ -230,8 +271,9 @@ def ptxas_summary(log: str) -> list[str]:
             spills = line.strip()
         elif "Used" in line and "registers" in line and name:
             used = line.split(":", 1)[-1].strip()
-            if name.startswith("conv_tc_kernel<"):
-                bm, bn, _, _, ks, _ = map(int, re.findall(r"\d+", name))
+            if name.startswith(("conv_tc_kernel<", "conv_tc_group_kernel<")):
+                bm, bn, _, _, *ks, _ = map(int, re.findall(r"\d+", name.split("<", 1)[1]))
+                ks = ks[0] if ks else 1
                 used += f", {TC_STAGES * 4 * 16 * ks * (bm + 2 * bn)} bytes dynamic smem"
             lines.append(f"{name}: {used} | {spills}")
             name = None
@@ -413,24 +455,29 @@ def kernel_parity(device) -> list[dict]:
            time_ms(lambda: interp.knn_interpolation_plain(warped, neg, xyz2, 3), 20),
            m * m * 9 + m * 3 * (12 + 2 * 3), 4 * (m * 3 * 2 + m * 3 * 2))
 
-    # Correlation3D selection + cost: levels 2048..256, k=16
+    # Correlation3D selection + cost: levels 2048..256, k=16; indices and
+    # costs bit for bit, also on a copy of the clouds with exact ties
     sizes = N_SAMPLES[1:]
     xyz2_warp = (lv[1][1:] + 0.05 * torch.randn(
         xyz1.shape, generator=gen, device=device)).contiguous()
     pyramid = torch.randn(1, sizes[0], sum(sizes), generator=gen, device=device)
+    tied_2, tied_1 = xyz2_warp.clone(), xyz1.clone()
+    tied_2[:, 1::7] = tied_2[:, : 7 * tied_2[:, 1::7].shape[1] : 7].clone()
+    tied_1[:, ::3] = tied_2[:, 5 : 5 + tied_1[:, ::3].shape[1]]
+    for query, support in ((xyz1, xyz2_warp), (tied_1, tied_2)):
+        got = corr3d.correlation3d_knn(query, support, pyramid, sizes, 16)
+        ref = corr3d.correlation3d_knn_plain(query, support, pyramid, sizes, 16)
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError("corr3d: indices or costs differ from the plain version")
     idx_sel, cost = corr3d.correlation3d_knn(xyz1, xyz2_warp, pyramid, sizes, 16)
-    idx_p, _ = corr3d.correlation3d_knn_plain(xyz1, xyz2_warp, pyramid, sizes, 16)
-    d = squared_distance(xyz1, xyz2_warp)
-    da, db = torch.gather(d, 2, idx_sel.long()), torch.gather(d, 2, idx_p.long())
-    if not torch.allclose(da, db, rtol=KNN_TOL, atol=KNN_TOL):
-        raise AssertionError("corr3d: selected distances differ")
-    columns = idx_sel.long() + corr3d.level_offsets(sizes, 16, device)
-    if not torch.equal(cost, torch.gather(pyramid, 2, columns)):
-        raise AssertionError("corr3d: cost is not the pyramid at its own indices")
+    starts, queries = corr3d.scan_plan(sizes)
+    select = lambda: corr3d.correlation3d_knn(xyz1, xyz2_warp, pyramid, sizes, 16)  # noqa: E731
+    print(f"  corr3d: {len(starts) - 1} slices a query, {queries} queries a block, "
+          f"{-(-m // queries)} blocks; device {device_ms(select, 20):.4f} ms, host "
+          f"{host_ms(select, 20):.4f} ms a call")
     n_sel = m * len(sizes) * 16
     record("correlation3d_knn", "camliflow_torch/csrc/corr3d.cu",
-           "camliflow_tpu/ops/pallas_corr3d.py:440", float((da - db).abs().max()),
-           time_ms(lambda: corr3d.correlation3d_knn(xyz1, xyz2_warp, pyramid, sizes, 16), 50),
+           "camliflow_tpu/ops/pallas_corr3d.py:440", 0.0, time_ms(select, 50),
            time_ms(lambda: corr3d.correlation3d_knn_plain(
                xyz1, xyz2_warp, pyramid, sizes, 16), 20),
            m * m * 9,  # one scan of the level-0 candidates serves every level
@@ -622,11 +669,28 @@ def kernel_parity(device) -> list[dict]:
             got_2d, got_3d = clfm.clfm_fused(*inputs, params)
             ref_2d, ref_3d = clfm.clfm_fused_plain(*inputs, params)
             err = max(check("clfm out_2d", got_2d, ref_2d), check("clfm out_3d", got_3d, ref_3d))
+            for _ in range(2):  # the SK means and heads sum in a fixed order
+                again = clfm.clfm_fused(*inputs, params)
+                if not (torch.equal(again[0], got_2d) and torch.equal(again[1], got_3d)):
+                    raise AssertionError("clfm_fused: two runs give different bits")
             macs = hw * (c3 * c3 + c2 * c2 + c3 * c2) + m * (c2 * c2 + c2 * c3 + c3 * c3)
-            heads = sum(t.numel() for key in ("sk_2d", "sk_3d") for t in params[key])
+            heads = sum(params[key].mid.numel() + params[key].out.numel()
+                        for key in ("sk_2d", "sk_3d"))
             macs += heads
             weights = sum(params[key].cin * params[key].cout + params[key].cout
                           for key in clfm.DENSE) + heads
+            stages = stage_ms(lambda: clfm.clfm_fused(*inputs, params), 20)
+            names = ("gather", "dense 1 (a, interp, sm, b3)", "dense 2 (b, a3)", "partial sums",
+                     "SK heads", "blend")
+            if len(stages) == len(names):
+                print(f"  clfm_fused (C2 {c2}, C3 {c3}) device time by stage (profiler): " +
+                      ", ".join(f"{label} {ms:.4f} ms" for label, (_, ms) in zip(names, stages)) +
+                      f"; total {sum(ms for _, ms in stages):.4f} ms; host "
+                      f"{host_ms(lambda: clfm.clfm_fused(*inputs, params), 20):.4f} ms a call")
+                print("    kernels: " + ", ".join(k.split("(")[0][-40:] for k, _ in stages))
+            else:
+                print(f"  clfm_fused: the profiler saw {len(stages)} kernels a call: "
+                      f"{[k for k, _ in stages]}")
             record("clfm_fused", "camliflow_torch/csrc/clfm.cu",
                    "camliflow_tpu/ops/pallas_clfm.py:200", err,
                    time_ms(lambda: clfm.clfm_fused(*inputs, params), 20),
@@ -634,7 +698,8 @@ def kernel_parity(device) -> list[dict]:
                    2 * macs,
                    # maps in and out, score, nn, taps, weights
                    4 * (2 * hw * c2 + 2 * m * c3 + hw * c3 + hw + 8 * m + weights),
-                   label=f"clfm_fused (C2 {c2}, C3 {c3})", entry=c2 == 324)
+                   label=f"clfm_fused (C2 {c2}, C3 {c3})", entry=c2 == 324, tensor_cores=True,
+                   stages_ms={label: ms for label, (_, ms) in zip(names, stages)})
 
     # the k-major gather: PointConv's at the encoder's level 0 ([2, 8192] ->
     # [2, 4096], k=16) and level 1 ([2, 4096] -> [2, 2048]), xyz and

@@ -9,7 +9,9 @@ f32, so the fused chain holds to 1e-5. The Pallas kernel computes in bf16:
 against it the tolerance is its own test's (tests/test_pallas_clfm.py, atol
 5e-2), at a narrow width so that interpret mode stays fast. The CUDA kernel
 itself runs only on a card: tests/test_torch_kernels_cuda.py compares it
-with the plain version.
+with the plain version; here its operands are held to the module's weights:
+the dense layers' tf32 planes (the tensor-core tile's 3xTF32 split) and the
+SK heads' transposed layers.
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ from camliflow_tpu.nn.clfm import fusion_interp_cache
 from camliflow_tpu.ops import pallas_clfm as jclfm
 from camliflow_tpu.runtime.checkpoint import tree_to_flat
 from camliflow_torch.nn.clfm import CLFM
-from camliflow_torch.ops import clfm
+from camliflow_torch.ops import clfm, update2d
 from camliflow_torch.runtime.names import translate_suffix
 
 BATCH, HEIGHT, WIDTH, N = 2, 8, 12, 64
@@ -112,3 +114,40 @@ def test_prepare_clfm_params_packs_and_rejects_norms():
     assert params["mlps3d"].weight.shape == (336, 384)  # padded to the kernel's tiles
     with pytest.raises(ValueError, match="Linear"):
         clfm.prepare_clfm_params(CLFM(16, 16, norm="batch_norm"))
+
+
+@pytest.mark.parametrize("key", clfm.DENSE)
+def test_prepare_clfm_params_splits_each_dense_layer_into_tf32_planes(key):
+    """hi and lo are tf32 values (13 low mantissa bits zero), K-major
+    ([N_pad, K_pad], the packed f32 weight transposed), zero in the padding,
+    hi is the weight rounded to tf32, and hi + lo is the weight to 2^-22
+    relative."""
+    torch.manual_seed(83)
+    conv = clfm.prepare_clfm_params(CLFM(324, 128))[key]
+    weight = conv.weight.t()
+    assert conv.hi.shape == conv.lo.shape == weight.shape
+    assert conv.hi.shape[0] % 64 == 0 and conv.hi.shape[1] % 16 == 0
+    assert conv.hi.is_contiguous() and conv.lo.is_contiguous()
+    for plane in (conv.hi, conv.lo):
+        assert not (plane.view(torch.int32) & 0x1FFF).any()
+        assert not plane[conv.cout:].any() and not plane[:, conv.cin:].any()
+    assert torch.equal(conv.hi, update2d.tf32_round(weight))
+    residue = (conv.hi.double() + conv.lo.double() - weight.double()).abs()
+    assert (residue <= 2.0 ** -22 * weight.double().abs()).all()
+    assert residue.max() > 0  # lo carries what tf32 drops; hi alone is not the weight
+
+
+@pytest.mark.parametrize("c2,c3", [(324, 128), (128, 128)])
+def test_prepare_clfm_params_transposes_the_sk_heads(c2, c3):
+    """The kernel reads fc_mid and fc_out a row of outputs at a time: mid_t
+    [C // 2, C] and out_t [2C, C // 2], the Linears' own weights, beside the
+    [in, out] layers the plain version multiplies by."""
+    port = CLFM(c2, c3)
+    params = clfm.prepare_clfm_params(port)
+    for key, fusion, c in (("sk_2d", port.fuse2d, c2), ("sk_3d", port.fuse3d, c3)):
+        head = params[key]
+        assert head.mid_t.shape == (c // 2, c) and head.out_t.shape == (2 * c, c // 2)
+        assert head.mid_t.is_contiguous() and head.out_t.is_contiguous()
+        assert torch.equal(head.mid_t, head.mid.t()) and torch.equal(head.out_t, head.out.t())
+        assert torch.equal(head.mid_t, fusion.fc_mid[0].weight.detach())
+        assert torch.equal(head.out_t, fusion.fc_out[0].weight.detach())

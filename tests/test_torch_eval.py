@@ -147,6 +147,21 @@ def test_eval_cli_needs_a_card_unless_told_cpu(synthetic):
         torch_eval.main(args + synthetic + ["device=tpu"])
 
 
+def test_evaluator_turns_tf32_off():
+    """Building an Evaluator runs the exact path's setup: with TF32 on, cuDNN
+    convolutions and matrix products would keep ~3 digits on a card."""
+    from camliflow_torch.runtime.evaluator import Evaluator as TorchEvaluator
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        TorchEvaluator(torch.nn.Linear(2, 2), "cpu")
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def test_port_never_imports_jax():
     code = (
         "import pkgutil, importlib, sys\n"

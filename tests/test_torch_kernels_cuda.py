@@ -7,13 +7,13 @@ installed:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 (`--noconftest` because tests/conftest.py configures JAX.) Tolerances: KNN
-and corr3d selected squared distances rtol = atol = 1e-4; corr3d costs
-exactly the pyramid at the kernel's own indices; FPS indices identical;
+selected squared distances rtol = atol = 1e-4; FPS indices identical;
 interpolation atol 1e-5; the 2D and 3D update kernels, the Correlation3D
 tail and CLFM max |kernel - plain| <= 1e-4 * (1 + max |plain|) (f32 on both
-sides: summation order only, and for the 2D chain's tensor-core tile the
-3xTF32 split's ~2^-22 relative residue per product); the k-major gather,
-the probe's cases and the PointConvDW tail bit for bit.
+sides: summation order only, and for the tensor-core tile of the 2D chain
+and CLFM the 3xTF32 split's ~2^-22 relative residue per product); the
+k-major gather, the probe's cases, the PointConvDW tail, and corr3d's
+indices and costs bit for bit.
 """
 
 import numpy as np
@@ -82,21 +82,36 @@ def test_interp_kernel_matches_plain(cuda, channels):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sizes", [(256, 128, 64, 32), (300, 50)])
-def test_corr3d_kernel_matches_plain(cuda, sizes):
-    xyz1 = ids_clouds(25, cuda, 1, 256)
-    xyz2 = ids_clouds(26, cuda, 1, 320)
-    pyramid = torch.randn(1, 256, sum(sizes), device=cuda)
-    idx, cost = corr3d.correlation3d_knn(xyz1, xyz2, pyramid, sizes, 16)
-    ref, ref_cost = corr3d.correlation3d_knn_plain(xyz1, xyz2, pyramid, sizes, 16)
+@pytest.mark.parametrize("sizes,k,ties", [
+    ((2048, 1024, 512, 256), 16, False),  # the main paths' shape, 2048 queries
+    ((2048, 1024, 512, 256), 16, True),
+    ((256, 128, 64, 32), 1, True),
+    ((256, 128, 64, 32), 16, False),
+    ((256, 128, 64, 32), 32, True),
+    ((300, 50), 1, False),
+    ((300, 50), 16, True),
+    ((300, 50), 32, False),
+])
+def test_corr3d_kernel_matches_plain(cuda, sizes, k, ties):
+    """Indices and costs bit for bit, ties included: with `ties`, every 7th
+    point repeats an earlier one, across slices and levels, and queries sit
+    on points."""
+    n = 2048 if sizes[0] == 2048 else 256
+    xyz2 = ids_clouds(26, cuda, 1, max(320, sizes[0]))
+    xyz1 = ids_clouds(25, cuda, 1, n)
+    if ties:
+        m = xyz2[:, 1::7].shape[1]
+        xyz2[:, 1::7] = xyz2[:, : 7 * m : 7].clone()
+        xyz1[:, ::3] = xyz2[:, 5 : 5 + xyz1[:, ::3].shape[1]]
+    pyramid = torch.randn(1, n, sum(sizes), device=cuda)
+    before = corr3d.correlation3d_knn.launches
+    idx, cost = corr3d.correlation3d_knn(xyz1, xyz2, pyramid, sizes, k)
+    assert corr3d.correlation3d_knn.launches == before + 1
+    ref, ref_cost = corr3d.correlation3d_knn_plain(xyz1, xyz2, pyramid, sizes, k)
     for level, m in enumerate(sizes):
-        sl = slice(level * 16, (level + 1) * 16)
-        assert int(idx[..., sl].max()) < m
-        assert_same_selection(xyz1, xyz2[:, :m], idx[..., sl], ref[..., sl])
-    columns = idx.long() + corr3d.level_offsets(sizes, 16, cuda)
-    assert torch.equal(cost, torch.gather(pyramid, 2, columns))
-    if torch.equal(idx, ref):
-        assert torch.equal(cost, ref_cost)
+        assert int(idx[..., level * k:(level + 1) * k].max()) < m
+    assert torch.equal(idx, ref)
+    assert torch.equal(cost, ref_cost)
 
 
 @pytest.mark.cuda
@@ -585,10 +600,29 @@ def test_clfm_kernel_matches_plain(cuda, batch, height, width, n, c2, c3):
 
 
 @pytest.mark.cuda
+def test_clfm_kernel_is_at_most_six_launches(cuda):
+    """One call at the flagship's corr widths: the profiler sees at most six
+    kernels, two of them the tensor-core tile's grouped dense launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        inputs, params = clfm_case(cuda, 48, 1, 68, 120, 2048, 324, 128)
+        clfm.clfm_fused(*inputs, params)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            clfm.clfm_fused(*inputs, params)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(names) <= 6, names
+    assert sum("conv_tc_group_kernel" in name for name in names) == 2, names
+
+
+@pytest.mark.cuda
 def test_clfm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with torch.inference_mode():
         (f2d, f3d, score, nn_idx, tap_idx, tap_w), params = clfm_case(cuda, 46, 1, 6, 8, 30,
                                                                       128, 128)
+        clfm.clfm_fused(f2d, f3d, score, nn_idx, tap_idx, tap_w, params)  # params checked once
         with pytest.raises(TypeError):
             clfm.clfm_fused(f2d.double(), f3d, score, nn_idx, tap_idx, tap_w, params)
         with pytest.raises(TypeError):
@@ -601,6 +635,14 @@ def test_clfm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError, match="fit"):
             clfm.clfm_fused(f2d[..., :64].contiguous(), f3d, score, nn_idx, tap_idx, tap_w,
                             params)
+        # a copy with another layer is checked again
+        bare = {**params, "mlps3d": params["mlps3d"]._replace(hi=None, lo=None)}
+        with pytest.raises(ValueError, match="tf32 planes"):
+            clfm.clfm_fused(f2d, f3d, score, nn_idx, tap_idx, tap_w, bare)
+        # the tensor-core tile copies 4 channels at a time
+        inputs, params = clfm_case(cuda, 46, 1, 6, 8, 30, 126, 128)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            clfm.clfm_fused(*inputs, params)
 
 
 @pytest.mark.cuda

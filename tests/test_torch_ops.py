@@ -21,7 +21,7 @@ from camliflow_tpu.ops.pallas_corr3d import correlation3d_knn_pallas
 from camliflow_tpu.ops.pallas_fps import furthest_point_sampling_pallas
 from camliflow_tpu.ops.pallas_interp import knn_interpolation_pallas
 from camliflow_tpu.ops.pallas_knn import k_nearest_neighbor_pallas
-from camliflow_torch.ops import corr3d, fps, geometry, ids, interp, knn
+from camliflow_torch.ops import _cuda, corr3d, fps, geometry, ids, interp, knn
 
 torch.set_num_threads(2)
 
@@ -221,3 +221,25 @@ def test_wrappers_reject_mixed_devices():
         interp.knn_interpolation(pts, pts, pts.to("meta"), 3)
     with pytest.raises(ValueError, match="CUDA"):
         corr3d.correlation3d_knn(pts, pts, torch.zeros(1, 8, 12).to("meta"), (8, 4), 2)
+
+
+class CudaStandIn:
+    """What `_cuda.check` reads of a tensor: device, dtype, contiguity."""
+
+    def __init__(self, index):
+        self.device = torch.device("cuda", index)
+        self.dtype = torch.float32
+
+    def is_contiguous(self):
+        return True
+
+
+def test_check_refuses_inputs_off_the_current_device(monkeypatch):
+    """Kernels launch on the current device's stream (csrc/build.py), so
+    inputs on another card are refused rather than read from the wrong one."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    _cuda.check("kernel", torch.float32, a=CudaStandIn(0), b=CudaStandIn(0))
+    with pytest.raises(ValueError, match="current device"):
+        _cuda.check("kernel", torch.float32, a=CudaStandIn(1), b=CudaStandIn(1))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        _cuda.check("kernel", torch.float32, a=CudaStandIn(0), b=CudaStandIn(1))
