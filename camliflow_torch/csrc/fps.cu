@@ -10,104 +10,324 @@
 // the plain version computes it, so the indices agree bit for bit.
 //
 // Bound: the 4096 steps are serial, so the kernel is bound by the latency of
-// one step (a distance update over the cloud, then a block-wide argmax with
-// two barriers), not by arithmetic or bandwidth. Design: one block of 1024
-// threads per cloud; each thread keeps its strided share of the points and
-// their running distances in registers (up to 8 each, so N <= 8192), and the
-// argmax is a warp-shuffle reduction followed by one across the 32 warps.
-// Spreading one cloud over several blocks is later work.
+// one step (a distance update over the cloud, an argmax, one exchange), not
+// by arithmetic or bandwidth (4096 x 8192 x 10 operations are ~10 us of the
+// card's f32 rate spread over every SM; one step's chain of dependent
+// instructions and one barrier cost far more).
+//
+// Design: one cluster of G thread blocks per cloud (G = 2..16 blocks of 128
+// threads on neighbouring SMs; G = 1 is one block of 1024 threads). Block r
+// keeps the points of its slice [r * ceil(N/G), ...) and their running
+// distances in registers, P a thread, and the slice's coordinates in shared
+// memory. One step:
+// - each thread lowers its distances and keeps its best (distance bits,
+//   index): the first index of its maximum;
+// - a warp's argmax is two redux instructions: __reduce_max_sync on the
+//   distance bits (a non-negative float orders like its unsigned bits), then
+//   __reduce_min_sync on the index over the lanes that hold the maximum;
+// - the winning lane publishes (bits, index, x, y, z), its coordinates read
+//   from the slice in shared memory, into slot [parity][r * W + warp] of
+//   every block of the cluster, so the next centre needs no global load;
+// - one exchange: the push (st.async stores into the peers' shared memory,
+//   each completing bytes on the receiving block's mbarrier, which that
+//   block waits on: one-way, no block waits for another to arrive), or a
+//   cluster barrier (barrier.cluster arrive.release / wait.acquire after
+//   plain distributed-shared-memory stores; G = 1: __syncthreads);
+// - every warp reads the G * W slots from its own shared memory and reduces
+//   them the same way, identically in every block, to the next centre.
+// Measured on an H100 (PERF.md), G = 4 with the push is the fastest: more
+// blocks shorten the update and lengthen the exchange.
+// The slots are double-buffered by the step's parity: a block writes slot
+// set p again two steps later, after every block has passed the exchange in
+// between, which it does only after reading set p.
+// Tie rule across slices, warps and lanes: candidates are ordered by
+// (distance desc, index asc), so the winner is the first index of the
+// maximum, exactly as one scan gives it, wherever the points lie. A thread
+// walks its points in ascending index and keeps a strictly larger distance;
+// the padding of a short slice has distance 0 and index INT_MAX, so it never
+// beats a real point (a real point always has distance >= 0 and a lower
+// index). tests/test_torch_fps.py emulates the split argmax in numpy.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kPerThread = 8;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;
+constexpr int kClusterThreads = 128;  // a block's threads when G > 1
+constexpr int kSoloThreads = 1024;    // when G = 1
+constexpr int kMaxSlots = 64;         // G * warps a block: 16 * 4, or 1 * 32
+constexpr unsigned kFull = 0xffffffffu;
 
-// (value, index) argmax with the first index winning on equal values.
-__device__ __forceinline__ void take_better(float& v, int& i, float ov,
-                                            int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the shared::cluster address of `addr` (this block's) in block `rank`
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    fps_kernel(const float* __restrict__ xyz, int32_t* __restrict__ out,
-               int n, int n_samples) {
-  __shared__ float warp_val[kWarps];
-  __shared__ int warp_idx[kWarps];
-  __shared__ int farthest_sh;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float* p = xyz + (size_t)b * n * 3;
+// One-way store into a peer's shared memory, completing `bytes` on its mbarrier.
+__device__ __forceinline__ void push4(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
 
-  float px[kPerThread], py[kPerThread], pz[kPerThread], dist[kPerThread];
+__device__ __forceinline__ void push1(uint32_t addr, uint32_t v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(addr),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
+// (bits, idx) better than (best_bits, best_idx): larger distance, then lower index
+__device__ __forceinline__ bool better(unsigned bits, unsigned idx, unsigned best_bits,
+                                       unsigned best_idx) {
+  return bits > best_bits || (bits == best_bits && idx < best_idx);
+}
+
+// The lane whose (bits, idx) is the warp's first index of the maximum; the
+// maximum's bits and index in wb, wi.
+__device__ __forceinline__ int warp_argmax(unsigned bits, unsigned idx, unsigned& wb,
+                                           unsigned& wi) {
+  wb = __reduce_max_sync(kFull, bits);
+  wi = __reduce_min_sync(kFull, bits == wb ? idx : 0xffffffffu);
+  return __ffs(__ballot_sync(kFull, bits == wb && idx == wi)) - 1;
+}
+
+// T threads a block, P points a thread; PUSH: the st.async exchange, else
+// the barrier. The block's slice of the cloud is also in shared memory
+// (dynamic, [chunk] float4), where a warp's winning lane finds its
+// coordinates: a thread's running best is only (distance bits, index).
+template <int T, int P, bool PUSH>
+__global__ void __launch_bounds__(T) fps_kernel(const float* __restrict__ xyz,
+                                                int32_t* __restrict__ out, int n,
+                                                int n_samples, int cluster) {
+  constexpr int W = T / 32;
+  extern __shared__ float4 slice[];
+  __shared__ __align__(16) uint4 key[2][kMaxSlots];  // (bits, index, x, y)
+  __shared__ float zs[2][kMaxSlots];
+  __shared__ __align__(8) unsigned long long bar[2];  // PUSH: the slot sets' mbarriers
+  const int rank = blockIdx.x % cluster;
+  const int b = blockIdx.x / cluster;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int slots = cluster * W;
+  const float* pts = xyz + (size_t)b * n * 3;
+
+  const int chunk = (n + cluster - 1) / cluster;
+  const int begin = rank * chunk;
+  const int end = min(n, begin + chunk);
+  float px[P], py[P], pz[P], dist[P];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int idx = tid + j * kThreads;
-    if (idx < n) {
-      px[j] = p[3 * idx];
-      py[j] = p[3 * idx + 1];
-      pz[j] = p[3 * idx + 2];
+  for (int j = 0; j < P; ++j) {
+    const int i = begin + tid + j * T;
+    if (i < end) {
+      px[j] = pts[3 * i];
+      py[j] = pts[3 * i + 1];
+      pz[j] = pts[3 * i + 2];
       dist[j] = 1e10f;
+      slice[i - begin] = make_float4(px[j], py[j], pz[j], 0.f);
     } else {
       px[j] = py[j] = pz[j] = 0.f;
-      dist[j] = -CUDART_INF_F;  // padding never wins the argmax
+      dist[j] = 0.f;  // stays 0 (fminf with a distance >= 0): never beats a real point
     }
+  }
+  if (PUSH) {
+    if (tid == 0) {
+      mbar_init(smem_addr(&bar[0]), 1);
+      mbar_init(smem_addr(&bar[1]), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  if (cluster > 1) {
+    cg::this_cluster().sync();  // the slice is stored; the peers' barriers exist
+  } else {
+    __syncthreads();
   }
 
+  float cx = pts[0], cy = pts[1], cz = pts[2];
   int farthest = 0;
-  for (int s = 0; s < n_samples; ++s) {
-    if (tid == 0) out[(size_t)b * n_samples + s] = farthest;
-    const float cx = p[3 * farthest];
-    const float cy = p[3 * farthest + 1];
-    const float cz = p[3 * farthest + 2];
-    float best_v = -CUDART_INF_F;
-    int best_i = 0x7fffffff;
+  for (int s = 0;; ++s) {
+    if (rank == 0 && tid == 0) out[(size_t)b * n_samples + s] = farthest;
+    if (s + 1 == n_samples) break;
+    const int par = s & 1;
+
+    // this thread's best: points in ascending index, a strictly larger distance wins
+    unsigned bb = 0, bi = 0xffffffffu;
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int idx = tid + j * kThreads;
-      if (idx < n) {
-        const float d = camli::sq_dist(px[j], py[j], pz[j], cx, cy, cz);
-        dist[j] = fminf(dist[j], d);
+    for (int j = 0; j < P; ++j) {
+      const int i = begin + tid + j * T;
+      dist[j] = fminf(dist[j], camli::sq_dist(px[j], py[j], pz[j], cx, cy, cz));
+      const unsigned bits = __float_as_uint(dist[j]);
+      if (j == 0 || bits > bb) bb = bits, bi = i < end ? (unsigned)i : 0x7fffffffu;
+    }
+    // its coordinates (read while the warp reduces; a thread of padding
+    // alone reads the slice's first point, which never wins)
+    const float4 mine = slice[bi < (unsigned)end ? bi - begin : 0];
+    unsigned wb, wi;
+    const int winner = warp_argmax(bb, bi, wb, wi);
+    const int slot = rank * W + warp;
+    if (lane == winner) {
+      const uint4 v = make_uint4(bb, bi, __float_as_uint(mine.x), __float_as_uint(mine.y));
+      if (PUSH) {
+        const uint32_t k_addr = smem_addr(&key[par][slot]);
+        const uint32_t z_addr = smem_addr(&zs[par][slot]);
+        const uint32_t b_addr = smem_addr(&bar[par]);
+        for (int r = 0; r < cluster; ++r) {
+          const uint32_t pb = peer_addr(b_addr, r);
+          push4(peer_addr(k_addr, r), v, pb);
+          push1(peer_addr(z_addr, r), __float_as_uint(mine.z), pb);
+        }
+      } else if (cluster == 1) {
+        key[par][slot] = v;
+        zs[par][slot] = mine.z;
+      } else {
+        cg::cluster_group group = cg::this_cluster();
+        for (int r = 0; r < cluster; ++r) {
+          *group.map_shared_rank(&key[par][slot], r) = v;
+          *group.map_shared_rank(&zs[par][slot], r) = mine.z;
+        }
       }
-      take_better(best_v, best_i, dist[j], idx);
     }
+    if (PUSH) {
+      if (tid == 0) mbar_expect(smem_addr(&bar[par]), slots * 20);
+      mbar_wait(smem_addr(&bar[par]), (s >> 1) & 1);
+    } else if (cluster == 1) {
+      __syncthreads();
+    } else {
+      cg::this_cluster().sync();
+    }
+
+    // the next centre: the best of the slots, in every warp alike
+    bb = 0, bi = 0xffffffffu;
+    float bx = 0.f, by = 0.f, bz = 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best_v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-      take_better(best_v, best_i, ov, oi);
-    }
-    if (lane == 0) {
-      warp_val[warp] = best_v;
-      warp_idx[warp] = best_i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best_v = warp_val[lane];
-      best_i = warp_idx[lane];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best_v, off);
-        const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-        take_better(best_v, best_i, ov, oi);
+    for (int q0 = 0; q0 < kMaxSlots; q0 += 32) {
+      const int q = q0 + lane;
+      if (q0 < slots && q < slots) {
+        const uint4 v = key[par][q];
+        if (better(v.x, v.y, bb, bi)) {
+          bb = v.x, bi = v.y, bx = __uint_as_float(v.z), by = __uint_as_float(v.w);
+          bz = zs[par][q];
+        }
       }
-      if (lane == 0) farthest_sh = best_i;
     }
-    __syncthreads();
-    farthest = farthest_sh;
+    const int from = warp_argmax(bb, bi, wb, wi);
+    farthest = (int)wi;
+    cx = __shfl_sync(kFull, bx, from);
+    cy = __shfl_sync(kFull, by, from);
+    cz = __shfl_sync(kFull, bz, from);
   }
+  if (cluster > 1) cg::this_cluster().sync();  // no block leaves while a peer may push
+}
+
+template <int T, int P, bool PUSH>
+int launch(const float* xyz, int32_t* out, int batch, int n, int n_samples, int cluster,
+           cudaStream_t stream) {
+  const auto kernel = fps_kernel<T, P, PUSH>;
+  const int smem = (n + cluster - 1) / cluster * (int)sizeof(float4);
+  if (smem > 32 * 1024) {  // with the static slots, past the 48 KB default
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (cluster == 1) {
+    kernel<<<batch, T, smem, stream>>>(xyz, out, n, n_samples, 1);
+    return (int)cudaGetLastError();
+  }
+  if (cluster > 8) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(batch * cluster);
+  config.blockDim = dim3(T);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, xyz, out, n, n_samples, cluster);
+  cudaGetLastError();  // a refused launch is reported once, here
+  return (int)err;
+}
+
+template <int T, bool PUSH>
+int dispatch(int per_thread, const float* xyz, int32_t* out, int batch, int n, int n_samples,
+             int cluster, cudaStream_t stream) {
+  if (per_thread <= 1) return launch<T, 1, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
+  if (per_thread <= 2) return launch<T, 2, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
+  if (per_thread <= 4) return launch<T, 4, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
+  if (per_thread <= 8) return launch<T, 8, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
+  if (T == kClusterThreads) {  // 128 threads: up to 32 points a thread
+    constexpr int TC = kClusterThreads;
+    if (per_thread <= 16) {
+      return launch<TC, 16, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
+    }
+    if (per_thread <= 32) {
+      return launch<TC, 32, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int camli_fps(const float* xyz, int32_t* out, int batch, int n,
-                         int n_samples, cudaStream_t stream) {
-  fps_kernel<<<batch, kThreads, 0, stream>>>(xyz, out, n, n_samples);
-  return (int)cudaGetLastError();
+// cluster: blocks a cloud (1, 2, 4, 8 or 16); push (cluster > 1): the
+// st.async exchange, else the cluster barrier. A cloud holds at most
+// cluster * 4096 points (cluster > 1: 128 threads x 32) or 8192 (one block:
+// 1024 threads x 8).
+extern "C" int camli_fps(const float* xyz, int32_t* out, int batch, int n, int n_samples,
+                         int cluster, int push, cudaStream_t stream) {
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int chunk = (n + cluster - 1) / cluster;
+  if (cluster == 1) {
+    return dispatch<kSoloThreads, false>((chunk + kSoloThreads - 1) / kSoloThreads, xyz, out,
+                                         batch, n, n_samples, 1, stream);
+  }
+  const int per_thread = (chunk + kClusterThreads - 1) / kClusterThreads;
+  if (push) {
+    return dispatch<kClusterThreads, true>(per_thread, xyz, out, batch, n, n_samples, cluster,
+                                           stream);
+  }
+  return dispatch<kClusterThreads, false>(per_thread, xyz, out, batch, n, n_samples, cluster,
+                                          stream);
 }

@@ -1,61 +1,66 @@
-// The 3D update chain of the refinement loop: two entry points, each a short
-// sequence of launches of one stage kernel.
+// The 3D update chain of the refinement loop.
 //
 // camli_motion_encoder_3d replaces
 //   camliflow_tpu/ops/pallas_update3d.py::motion_encoder_3d_pallas:
 //   MotionEncoder3D's four PointConvDW (conv_c1 k=16 on corr, conv_f1 k=32
 //   and conv_f2 k=16 on the flow, the merge conv k=16 over [corr_feat,
-//   flow_feat]), then the flow appended. 4 launches.
+//   flow_feat]), then the flow appended. 4 launches of the stage kernel.
 // camli_gru_flowhead_3d replaces
 //   camliflow_tpu/ops/pallas_update3d.py::gru_flowhead_3d_pallas: GRU3D
-//   (z|r and q PointConvDW at k=4 over hx = [h, x3d, motion]) and FlowHead3D
-//   (two PointConvDW at k=32, then fc 64->3), returning (h', delta).
-//   5 launches.
+//   (z|r and q PointConvDW at k=4 over hx = [h, x3d, motion], h' = (1-z) h
+//   + z tanh(q)) and FlowHead3D (two PointConvDW at k=32, then fc 64->3),
+//   returning (h', delta). Its own steps, below ("#7").
 // camli_dw_max replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg: one
 //   PointConvDW tail (gather, multiply, max over k) as one gather-only
 //   stage, for the flagship's fuse_hidden path, where CLFM sits between
-//   GRU3D and FlowHead3D. 1 launch.
+//   GRU3D and FlowHead3D. 1 launch of the stage kernel.
 //
 // A PointConvDW is out[q, c] = max_j table[idx[q, j], c] * w[q, j, c], where
 // table is the conv's MLP (one Linear, leaky ReLU or none) over every point
 // and w the geometric weights hoisted out of the loop ([B, N, k, C] f32).
 // The gather reads other points' rows, so a table must be complete before
-// its gather starts: that is where the launches split. Per-point work fuses:
-// a stage gathers for its 16 points into shared memory and feeds the gathered
-// rows straight into the next MLP, so the gathered features of conv_f1,
-// conv_f2, z|r, q, conv1 and conv2 never reach device memory. Stages:
+// its gather starts: that is where the launches split. The JAX chain
+// (camliflow_tpu/models/camliraft_l.py) applies no nan_to_num anywhere in
+// it, and neither does this one.
+//
+// Numerics: f32 throughout. A gathered product is one rounded multiply and
+// the max is exact and taken in neighbour order, so the gathers equal the
+// plain versions bit for bit (NaN propagates as in torch.amax); the MLPs
+// sum in another order than the plain versions' matmuls (#7's dense steps
+// on the tensor cores by the 3xTF32 split, conv_tile_tc.cuh).
+//
+// The stage kernel (#6, #13): a stage gathers for its 16 points into shared
+// memory and feeds the gathered rows straight into the next MLP, a tile of
+// 16 points x 64 channels, 256 threads, 1 x 4 outputs a thread, f32 FMA on
+// weights packed once per request as [K_pad, N_pad].
 //   #6: [MLP c1 | MLP f1] -> [gather c1 -> corr_feat | gather f1 -> MLP f2]
 //       -> [gather f2 -> merge MLP over (corr_feat, flow_feat)]
 //       -> [gather merge -> out, flow]
-//   #7: [MLP z|r over (h, x3d, motion)]
-//       -> [gather z|r -> z, r*h -> MLP q over (r*h, x3d, motion)]
-//       -> [gather q -> h' = (1-z) h + z tanh(q) -> MLP conv1]
-//       -> [gather conv1 -> MLP conv2] -> [gather conv2 -> fc]
-// The JAX chain (camliflow_tpu/models/camliraft_l.py) applies no nan_to_num
-// anywhere in it, and neither does this one.
 //
-// Numerics: f32 throughout. A gathered product is one rounded multiply and
-// the max is exact, so the gathers equal the plain versions bit for bit (NaN
-// propagates as in torch.amax); the MLPs accumulate in f32 with explicit
-// __fmaf_rn in another order than the plain versions' matmuls.
-//
-// Bound on the card at the main-path shape (N = 2048 points, bs=1): each
-// call reads its hoisted weights once, 5,328 floats per point for #6
-// (16x128 + 32x32 + 16x16 + 16x125; 43.6 MB) and 7,680 for #7 (4x256 +
-// 4x128 + 32x128 + 32x64; 62.9 MB), against ~0.2 GFLOP of MLPs: 13 us and
-// 19 us at 3.35 TB/s, bound by bytes. The gather loop reads the weights
-// coalesced over channels, one point's k x C block per row of threads. At
-// N = 2048 the work is too small to fill the card with large tiles, and a
-// gather is a chain of dependent loads per thread, so a block takes 16
-// points (128 blocks a stage, not 32) and the gather loop is unrolled for
-// loads in flight. The MLP tile is the 2D chain's with one point per thread
-// (16 points x 64 channels, 256 threads, 1 x 4 per thread, reduction chunks
-// of 16 in shared memory) on weights packed once per request as
-// [K_pad, N_pad].
+// #7: bound on the card at the main-path shape (N = 2048 points, bs=1): a
+// call reads its hoisted weights once, 7,680 floats a point (4x256 + 4x128
+// + 32x128 + 32x64; 62.9 MB), ~20 us at 3.35 TB/s; its 0.35 G
+// multiply-adds are ~4.3 us as 3xTF32 on the tensor cores. Bound by bytes.
+// Design (see "#7" below): the gathers as their own steps, built for bytes
+// (a warp a point, 16-byte loads over channels, the point's neighbour
+// indices read once, 8 rows of the table and of the weights in flight a
+// lane, each result written once to an L2-resident scratch after its post
+// op); the dense layers on the 3xTF32 tensor-core tile; q's x3d/motion part
+// moved into the first dense step; conv1 and conv2 as f32 FMA epilogues of
+// the gathers before them (6 launches) at the loop's size, on the tile (8
+// launches) at the eval CLI's batch of 8, where that is faster (the wrapper
+// chooses by the number of points). A cooperative form runs the same steps
+// in one launch with grid barriers, which cost more than the launch gaps
+// they replace on an H100 (PERF.md); it stays selectable and measured.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_tile_tc.cuh"
+#include "grid.cuh"
+
 namespace {
+// The stage kernel of #6 and #13.
+namespace staged {
 
 constexpr int ROWS = 1;  // points per thread in the MLP tile
 constexpr int BM = 16 * ROWS;  // points per block
@@ -301,6 +306,348 @@ int launch(const Stage& a, const Stage* b, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+}  // namespace staged
+
+// --- #7: GRU3D + FlowHead3D ---------------------------------------------------
+//
+// The chain as phases. A dense phase runs conv_tile_tc.cuh's 3xTF32 tile
+// over the points (a 1x1 conv, EPI_NONE: the table before its activation);
+// a tail phase gathers (gather, multiply, max over k), applies its post op
+// and writes the result once to an L2-resident scratch. q's input
+// [r*h, x3d, motion] is split: its x3d and motion part does not wait for
+// the z|r gather, so the first dense phase computes it beside z|r (one
+// [384 -> 384] product), and q's own dense phase reduces over r*h alone
+// (128 deep instead of 384):
+//   dense [z|r | q_xm] over [h, x3d, motion]
+//   tail z|r -> z = sigmoid, r*h = sigmoid * h
+//   dense q_h over r*h
+//   tail q (table q_h + q_xm) -> h' = (1-z) h + z tanh(q)
+//   dense conv1 over h'
+//   tail conv1 (leaky ReLU on read) -> g1
+//   dense conv2 over g1
+//   tail conv2 (leaky ReLU on read) -> fc 64->3 -> delta
+// With `fuse`, conv1's and conv2's dense layers run instead as the f32 FMA
+// epilogue of the tail before them: its block's rows (one point a warp) in
+// shared memory, each weight read once a block (6 phases, not 8). A gather
+// reads other points' rows, so each phase waits for the one before: one
+// launch a phase, or, in the cooperative form, a grid barrier.
+
+constexpr int kGfThreads = 128;  // the tile's 4 warps; a tail's 4 warps
+constexpr int kGfWarps = kGfThreads / 32;
+constexpr int kGfBM = 32, kGfBN = 64;  // the tile: 32 points x 64 channels, 2 x 2 warps
+using GfTile = TcShape<kGfBM, kGfBN, 2, 2, 1>;
+constexpr int kGfRows = 8;   // float4 neighbour rows (table + weights) a lane keeps in flight
+constexpr int kGruK = 8;     // the most neighbours of GRU3D's convs (the model's: 4)
+constexpr int kHeadK = 32;   // of FlowHead3D's (the model's: 32)
+constexpr int kMaxFc = 4;    // fc outputs (the model's: 3)
+constexpr int kMaxRow = 128; // a fused layer's input and output channels
+constexpr int kGfSteps = 8;
+
+enum GfPost { GP_ZR = 0, GP_GATE = 1, GP_PLAIN = 2, GP_FC = 3 };
+
+// One tail: g[p, c] = max_j act(table[idx[p, j], c]) * dw[p, j, c], c < c,
+// then the post op.
+struct GfTail {
+  const float* table;  // [B * n, ld], the dense layer's output before its activation
+  const float* table2; // GATE: added to the table (q's x3d/motion part), [B * n, ld2]
+  int ld, ld2;
+  const float* dw;     // [points, k, c]
+  int k, c, leaky;     // leaky: the table's leaky ReLU, applied as a row is read
+  float* out;          // ZR: z [points, half]; GATE: h'; PLAIN: g [points, c] (or none)
+  float* out2;         // ZR: r * h
+  const float* h;      // ZR, GATE: the hidden state [points, half]
+  const float* z;      // GATE: the update gate
+  int half;            // ZR, GATE: hidden channels
+  const float* fc_w;   // FC: [>= c, fc_npad], and its bias
+  const float* fc_b;
+  int fc_out, fc_npad;
+  const float* mlp_w;  // GATE, PLAIN with fuse: the next dense layer [>= c, mlp_npad]
+  const float* mlp_b;
+  float* mlp_out;      // its output before the activation [points, mlp_cout]
+  int mlp_cout, mlp_npad;
+};
+
+struct GfLayer {  // a dense layer: a 1x1 conv on the tile, and its tf32 planes
+  Conv a;
+  const float* hi;
+  const float* lo;
+  int k_pad;
+};
+
+struct Gru3D {
+  int points, n;  // B*N, and N (neighbour indices are local to a batch item)
+  const int* idx;  // [points, idx_stride], the first k columns
+  int idx_stride;
+  GfLayer layer[4];  // [z|r | q_xm], q_h, conv1, conv2
+  GfTail tail[4];    // z|r, q, conv1, conv2
+  int steps;
+  int step[kGfSteps];  // in order: 0-3 dense layer i, 4-7 tail i - 4
+  unsigned int* barrier;  // [1 + kMaxSmIds], zeroed (the cooperative form)
+};
+
+__device__ __forceinline__ float leaky(float v) { return v > 0.f ? v : __fmul_rn(0.1f, v); }
+
+// dw_max's step: the larger, and NaN once one is NaN (torch.amax)
+__device__ __forceinline__ float take_max(float m, float v) {
+  return (v > m || isnan(v)) ? v : m;
+}
+
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y), __fmul_rn(a.z, b.z),
+                     __fmul_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float gate(float z, float h, float q) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(1.f, z), h), __fmul_rn(z, tanhf(q)));
+}
+
+// A dense layer: the block takes tiles rank, rank + blocks, ...
+__device__ __forceinline__ void gf_dense(const GfLayer& l, int rank, int blocks) {
+  const int m_tiles = (l.a.pixels + kGfBM - 1) / kGfBM;
+  const int tiles = m_tiles * (l.a.n_pad / kGfBN);
+  for (int t = rank; t < tiles; t += blocks) {
+    conv_tc_tile<kGfBM, kGfBN, 2, 2, 1, EPI_NONE>(l.a, l.hi, l.lo, l.k_pad,
+                                                  (t % m_tiles) * kGfBM, (t / m_tiles) * kGfBN);
+    __syncthreads();  // the next tile's copies refill the ring
+  }
+}
+
+// A fused dense layer over the block's rows (one point a warp, points p0 +
+// warp): out[p, o] = sum_k rows[warp][k] * w[k, o] + bias[o], f32 FMA in k
+// order. A thread takes one output channel of kGfThreads / cout rows, so
+// each weight is read once a block.
+__device__ __forceinline__ void gf_rows_dense(const GfTail& g, const float (*rows)[kMaxRow],
+                                              int p0, int points) {
+  const int cout = g.mlp_cout;
+  const int per = kGfThreads / cout;  // rows a weight serves at once
+  const int t = threadIdx.x;
+  if (t >= per * cout) return;
+  const int o = t % cout, r0 = t / cout;
+  float acc[kGfWarps];
+#pragma unroll
+  for (int i = 0; i < kGfWarps; ++i) acc[i] = 0.f;
+  for (int k = 0; k < g.c; k += 4) {  // c is a multiple of 4
+    const float* wk = g.mlp_w + (size_t)k * g.mlp_npad + o;
+    const float w[4] = {__ldg(wk), __ldg(wk + g.mlp_npad), __ldg(wk + 2 * g.mlp_npad),
+                        __ldg(wk + 3 * g.mlp_npad)};
+#pragma unroll
+    for (int i = 0; i < kGfWarps; ++i) {
+      const int r = r0 + i * per;
+      if (r < kGfWarps) {
+        const float4 x = *reinterpret_cast<const float4*>(&rows[r][k]);
+        acc[i] = __fmaf_rn(x.x, w[0], acc[i]);
+        acc[i] = __fmaf_rn(x.y, w[1], acc[i]);
+        acc[i] = __fmaf_rn(x.z, w[2], acc[i]);
+        acc[i] = __fmaf_rn(x.w, w[3], acc[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kGfWarps; ++i) {
+    const int r = r0 + i * per;
+    if (r < kGfWarps && p0 + r < points) {
+      g.mlp_out[(size_t)(p0 + r) * cout + o] = acc[i] + g.mlp_b[o];
+    }
+  }
+}
+
+// A tail: LANES lanes a point (32 / LANES points a warp at once), VEC float4
+// of channels a lane (channel 4 * (lane + LANES * v)), up to KMAX neighbours.
+// A lane holds the point's neighbour indices l, l + LANES, ... (read once)
+// and hands row j to the others by a shuffle; it keeps kGfRows / VEC rows of
+// the table and of the weights in flight (16-byte loads, the weights
+// streamed once), then takes their products and the max in neighbour
+// order, bit for bit as dw_max does. The block's warps walk the points
+// together (the fused layer synchronises them).
+template <int LANES, int VEC, int KMAX, int POST>
+__device__ __forceinline__ void gf_tail(const Gru3D& u, const GfTail& g, int rank, int blocks) {
+  constexpr int kPer = 32 / LANES;
+  constexpr int kNb = (KMAX + LANES - 1) / LANES;
+  constexpr int kGroup = KMAX < kGfRows / VEC ? KMAX : kGfRows / VEC;
+  constexpr bool kFusable = (POST == GP_GATE || POST == GP_PLAIN) && LANES == 32 && VEC == 1;
+  static_assert(KMAX % kGroup == 0, "whole groups of neighbour rows");
+  __shared__ __align__(16) float rows[kFusable ? kGfWarps : 1][kMaxRow];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sub = lane / LANES, l = lane % LANES;
+  const int stride = blocks * kGfWarps * kPer;
+  for (int p0 = rank * kGfWarps * kPer; p0 < u.points; p0 += stride) {
+    const int p = p0 + warp * kPer + sub;
+    const bool live = p < u.points;
+    const int b = live ? p / u.n : 0;
+    int nb[kNb];
+#pragma unroll
+    for (int i = 0; i < kNb; ++i) {
+      const int j = l + LANES * i;
+      nb[i] = live && j < g.k ? __ldg(u.idx + (size_t)p * u.idx_stride + j) : 0;
+    }
+    const float* tb = g.table + (size_t)b * u.n * g.ld;
+    const float* tb2 = POST == GP_GATE ? g.table2 + (size_t)b * u.n * g.ld2 : nullptr;
+    const float* wp = g.dw + (size_t)(live ? p : 0) * g.k * g.c;
+    float4 m[VEC];
+#pragma unroll
+    for (int j0 = 0; j0 < KMAX; j0 += kGroup) {
+      float4 tv[kGroup][VEC], wv[kGroup][VEC];
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+        const int j = j0 + jj;
+        const int row = __shfl_sync(0xffffffffu, nb[j / LANES], sub * LANES + j % LANES);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const int c = 4 * (l + LANES * v);
+          tv[jj][v] = wv[jj][v] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (live && j < g.k && c < g.c) {
+            tv[jj][v] = __ldcg(reinterpret_cast<const float4*>(tb + (size_t)row * g.ld + c));
+            if (POST == GP_GATE) {
+              tv[jj][v] = add4(tv[jj][v], __ldcg(reinterpret_cast<const float4*>(
+                                              tb2 + (size_t)row * g.ld2 + c)));
+            }
+            wv[jj][v] = __ldcs(reinterpret_cast<const float4*>(wp + (size_t)j * g.c + c));
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+        const int j = j0 + jj;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          float4 t = tv[jj][v];
+          if (g.leaky) t = make_float4(leaky(t.x), leaky(t.y), leaky(t.z), leaky(t.w));
+          const float4 x = mul4(t, wv[jj][v]);
+          if (j == 0) {
+            m[v] = x;
+          } else if (j < g.k) {
+            m[v] = make_float4(take_max(m[v].x, x.x), take_max(m[v].y, x.y),
+                               take_max(m[v].z, x.z), take_max(m[v].w, x.w));
+          }
+        }
+      }
+    }
+
+    if (POST == GP_FC) {  // fc over the point's channels: lane sums, then the group's
+      float acc[kMaxFc];
+#pragma unroll
+      for (int o = 0; o < kMaxFc; ++o) {
+        acc[o] = 0.f;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const int c = 4 * (l + LANES * v);
+          if (c < g.c && o < g.fc_out) {
+            const float* w = g.fc_w + (size_t)c * g.fc_npad + o;
+            acc[o] = __fmaf_rn(m[v].x, w[0], acc[o]);
+            acc[o] = __fmaf_rn(m[v].y, w[g.fc_npad], acc[o]);
+            acc[o] = __fmaf_rn(m[v].z, w[2 * g.fc_npad], acc[o]);
+            acc[o] = __fmaf_rn(m[v].w, w[3 * g.fc_npad], acc[o]);
+          }
+        }
+#pragma unroll
+        for (int off = LANES / 2; off > 0; off >>= 1) {
+          acc[o] += __shfl_xor_sync(0xffffffffu, acc[o], off);
+        }
+      }
+      if (live && l == 0) {
+#pragma unroll
+        for (int o = 0; o < kMaxFc; ++o) {
+          if (o < g.fc_out) g.out[(size_t)p * g.fc_out + o] = acc[o] + g.fc_b[o];
+        }
+      }
+      continue;  // block-uniform: FC takes no fused layer
+    }
+    float4 res[VEC];  // the post op's result, the fused layer's input
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const int c = 4 * (l + LANES * v);
+      res[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!live || c >= g.c) continue;
+      if (POST == GP_ZR) {
+        const float4 s = make_float4(sigmoid(m[v].x), sigmoid(m[v].y), sigmoid(m[v].z),
+                                     sigmoid(m[v].w));
+        if (c < g.half) {
+          *reinterpret_cast<float4*>(g.out + (size_t)p * g.half + c) = s;
+        } else {
+          const size_t at = (size_t)p * g.half + (c - g.half);
+          *reinterpret_cast<float4*>(g.out2 + at) =
+              mul4(s, __ldg(reinterpret_cast<const float4*>(g.h + at)));
+        }
+      } else if (POST == GP_GATE) {
+        const size_t at = (size_t)p * g.half + c;
+        const float4 z = __ldcg(reinterpret_cast<const float4*>(g.z + at));
+        const float4 h = __ldg(reinterpret_cast<const float4*>(g.h + at));
+        res[v] = make_float4(gate(z.x, h.x, m[v].x), gate(z.y, h.y, m[v].y),
+                             gate(z.z, h.z, m[v].z), gate(z.w, h.w, m[v].w));
+        *reinterpret_cast<float4*>(g.out + at) = res[v];
+      } else {
+        res[v] = m[v];
+        if (g.out) *reinterpret_cast<float4*>(g.out + (size_t)p * g.c + c) = m[v];
+      }
+    }
+    if (kFusable && g.mlp_w != nullptr) {
+      const int c = 4 * l;
+      if (c < g.c) *reinterpret_cast<float4*>(&rows[warp][c]) = res[0];
+      __syncthreads();
+      gf_rows_dense(g, rows, p0, u.points);
+      __syncthreads();  // the rows are read before the next points overwrite them
+    }
+  }
+}
+
+// Step `s` of the chain; the tile is inlined once (the dense steps share
+// one call), each tail's instantiation once.
+__device__ __forceinline__ void gf_step(const Gru3D& u, int s, int rank, int blocks) {
+  const int kind = u.step[s];
+  if (kind < 4) {
+    gf_dense(u.layer[kind], rank, blocks);
+  } else if (kind == 4) {
+    gf_tail<32, 2, kGruK, GP_ZR>(u, u.tail[0], rank, blocks);
+  } else if (kind == 5) {
+    gf_tail<32, 1, kGruK, GP_GATE>(u, u.tail[1], rank, blocks);
+  } else if (kind == 6) {
+    gf_tail<32, 1, kHeadK, GP_PLAIN>(u, u.tail[2], rank, blocks);
+  } else {
+    gf_tail<16, 1, kHeadK, GP_FC>(u, u.tail[3], rank, blocks);
+  }
+}
+
+// The cooperative form: every block of the grid resident, the steps
+// separated by grid barriers, work dealt SM by SM (spread_rank).
+__global__ void __launch_bounds__(kGfThreads, 4)
+    gru_flowhead_3d_kernel(const __grid_constant__ Gru3D u) {
+  const int rank = spread_rank(u.barrier);
+#pragma unroll 1
+  for (int s = 0; s < u.steps; ++s) {
+    if (s > 0) grid_barrier(u.barrier);
+    gf_step(u, s, rank, gridDim.x);
+  }
+}
+
+// One launch a step.
+__global__ void __launch_bounds__(kGfThreads, 4)
+    gru_flowhead_3d_step_kernel(const __grid_constant__ Gru3D u, int s) {
+  gf_step(u, s, blockIdx.x, gridDim.x);
+}
+
+// The blocks a step can keep busy: its tiles, or its points over a block's
+// warps.
+int gf_blocks(const Gru3D& u, int s) {
+  const int kind = u.step[s];
+  if (kind < 4) {
+    const Conv& a = u.layer[kind].a;
+    return (a.pixels + kGfBM - 1) / kGfBM * (a.n_pad / kGfBN);
+  }
+  const int per_block = kGfWarps * (kind == 7 ? 2 : 1);
+  return (u.points + per_block - 1) / per_block;
+}
+
+GfLayer gf_layer(Conv a, const float* const* planes, int cout) {
+  a.bias = planes[2];
+  a = shaped(a, 1, 1, cout);
+  return GfLayer{a, planes[0], planes[1], round_up(a.k_total, kTcBk)};
+}
+
 }  // namespace
 
 #define CAMLI_TRY(call)         \
@@ -325,71 +672,121 @@ extern "C" int camli_motion_encoder_3d(
   float* t_f2 = corr_feat + p * c_c1;
   float* t_m = t_f2 + p * c_f2;
 
-  Stage a = points(batch, n), b = points(batch, n);
-  mlp(a, w_c1, b_c1, c_c1, ACT_LEAKY, t_c1, corr, c_corr);
-  mlp(b, w_f1, b_f1, c_f1, ACT_LEAKY, t_f1, flow, c_flow);
-  CAMLI_TRY(launch(a, &b, stream));
+  staged::Stage a = staged::points(batch, n), b = staged::points(batch, n);
+  staged::mlp(a, w_c1, b_c1, c_c1, staged::ACT_LEAKY, t_c1, corr, c_corr);
+  staged::mlp(b, w_f1, b_f1, c_f1, staged::ACT_LEAKY, t_f1, flow, c_flow);
+  CAMLI_TRY(staged::launch(a, &b, stream));
 
-  a = points(batch, n), b = points(batch, n);
-  gather(a, t_c1, dw_c1, idx, idx_stride, k_c1, c_c1);
+  a = staged::points(batch, n), b = staged::points(batch, n);
+  staged::gather(a, t_c1, dw_c1, idx, idx_stride, k_c1, c_c1);
   a.out = corr_feat, a.out_stride = c_c1;
-  gather(b, t_f1, dw_f1, idx, idx_stride, k_f1, c_f1);
-  mlp(b, w_f2, b_f2, c_f2, ACT_LEAKY, t_f2, nullptr, c_f1).g_slot = 0;
-  CAMLI_TRY(launch(a, &b, stream));
+  staged::gather(b, t_f1, dw_f1, idx, idx_stride, k_f1, c_f1);
+  staged::mlp(b, w_f2, b_f2, c_f2, staged::ACT_LEAKY, t_f2, nullptr, c_f1).g_slot = 0;
+  CAMLI_TRY(staged::launch(a, &b, stream));
 
-  a = points(batch, n);
-  gather(a, t_f2, dw_f2, idx, idx_stride, k_f2, c_f2);
-  mlp(a, w_m, b_m, c_m, ACT_LEAKY, t_m, corr_feat, c_c1, nullptr, c_f2).g_slot = 1;
-  CAMLI_TRY(launch(a, nullptr, stream));
+  a = staged::points(batch, n);
+  staged::gather(a, t_f2, dw_f2, idx, idx_stride, k_f2, c_f2);
+  staged::mlp(a, w_m, b_m, c_m, staged::ACT_LEAKY, t_m, corr_feat, c_c1, nullptr, c_f2)
+      .g_slot = 1;
+  CAMLI_TRY(staged::launch(a, nullptr, stream));
 
-  a = points(batch, n);
-  gather(a, t_m, dw_m, idx, idx_stride, k_m, c_m);
+  a = staged::points(batch, n);
+  staged::gather(a, t_m, dw_m, idx, idx_stride, k_m, c_m);
   a.out = out, a.out_stride = c_m + c_flow, a.tail = flow, a.tail_c = c_flow;
-  return launch(a, nullptr, stream);
+  return staged::launch(a, nullptr, stream);
 }
 
+// planes: (hi, lo, bias) of [z|r | q_xm], q_h, conv1, conv2 (tf32 planes
+// [N_pad][K_pad]); w_1, w_2: conv1's and conv2's f32 weights [K_pad, npad]
+// (the fused form); w_fc [>= c_2, fc_npad]; barrier: [1 + kMaxSmIds] words.
+// fuse: conv1 and conv2 as FMA epilogues; persistent: one cooperative launch
+// (grid_blocks > 0 asks for that many blocks instead of the co-resident
+// count; a grid too large is refused), else one launch a step.
 extern "C" int camli_gru_flowhead_3d(
     const float* h, const float* x3d, const float* motion, const int* idx,
     const float* dw_zr, const float* dw_q, const float* dw_1, const float* dw_2,
-    const float* w_zr, const float* b_zr, const float* w_q, const float* b_q,
-    const float* w_1, const float* b_1, const float* w_2, const float* b_2,
-    const float* w_fc, const float* b_fc, float* scratch, float* h_out, float* delta,
-    int batch, int n, int idx_stride, int c_h, int c_x, int c_m, int c_1, int c_2,
-    int c_out, int k_zr, int k_q, int k_1, int k_2, cudaStream_t stream) {
-  // scratch, channels per point: [z|r table (2 c_h) | z (c_h) | q table (c_h) |
-  // conv1 table (c_1) | conv2 table (c_2)]
-  const size_t p = (size_t)batch * n;
-  float* t_zr = scratch;
-  float* z = t_zr + p * 2 * c_h;
-  float* t_q = z + p * c_h;
-  float* t_1 = t_q + p * c_h;
-  float* t_2 = t_1 + p * c_1;
+    const float* const* planes, const float* w_1, const float* w_2, const float* w_fc,
+    const float* b_fc, float* scratch, unsigned int* barrier, float* h_out, float* delta,
+    int batch, int n, int idx_stride, int c_h, int c_x, int c_m, int c_1, int c_2, int c_out,
+    int k_zr, int k_q, int k_1, int k_2, int npad_1, int npad_2, int fc_npad, int fuse,
+    int persistent, int grid_blocks, cudaStream_t stream) {
+  // scratch, channels per point: [[z|r | q_xm] table (3 c_h) | z (c_h) |
+  // r*h (c_h) | q_h table (c_h) | conv1 table (c_1) | conv1 tail (c_1) |
+  // conv2 table (c_2)]
+  const int points = batch * n;
+  const size_t p = points;
+  float* t_zrq = scratch;
+  float* z = t_zrq + p * 3 * c_h;
+  float* rh = z + p * c_h;
+  float* t_qh = rh + p * c_h;
+  float* t_1 = t_qh + p * c_h;
+  float* g_1 = t_1 + p * c_1;
+  float* t_2 = g_1 + p * c_1;
 
-  Stage a = points(batch, n);
-  mlp(a, w_zr, b_zr, 2 * c_h, ACT_NONE, t_zr, h, c_h, x3d, c_x, motion, c_m);
-  CAMLI_TRY(launch(a, nullptr, stream));
+  Gru3D u = {};
+  u.points = points, u.n = n, u.idx = idx, u.idx_stride = idx_stride;
+  Conv a = input(points, points, 1, h, c_h, x3d, c_x, motion, c_m);
+  a.out = t_zrq;
+  u.layer[0] = gf_layer(a, planes, 3 * c_h);
+  a = input(points, points, 1, rh, c_h);
+  a.out = t_qh;
+  u.layer[1] = gf_layer(a, planes + 3, c_h);
+  a = input(points, points, 1, h_out, c_h);
+  a.out = t_1;
+  u.layer[2] = gf_layer(a, planes + 6, c_1);
+  a = input(points, points, 1, g_1, c_1);
+  a.out = t_2;
+  u.layer[3] = gf_layer(a, planes + 9, c_2);
 
-  a = points(batch, n);
-  gather(a, t_zr, dw_zr, idx, idx_stride, k_zr, 2 * c_h);
-  a.post = POST_ZR, a.h = h, a.side = z, a.half = c_h;
-  mlp(a, w_q, b_q, c_h, ACT_NONE, t_q, nullptr, c_h, x3d, c_x, motion, c_m).g_slot = 0;
-  CAMLI_TRY(launch(a, nullptr, stream));
+  GfTail& zr = u.tail[0];
+  zr.table = t_zrq, zr.ld = 3 * c_h, zr.dw = dw_zr, zr.k = k_zr, zr.c = 2 * c_h;
+  zr.out = z, zr.out2 = rh, zr.h = h, zr.half = c_h;
+  GfTail& q = u.tail[1];
+  q.table = t_qh, q.ld = c_h, q.table2 = t_zrq + 2 * c_h, q.ld2 = 3 * c_h;
+  q.dw = dw_q, q.k = k_q, q.c = c_h, q.out = h_out, q.h = h, q.z = z, q.half = c_h;
+  GfTail& c1 = u.tail[2];
+  c1.table = t_1, c1.ld = c_1, c1.dw = dw_1, c1.k = k_1, c1.c = c_1, c1.leaky = 1;
+  c1.out = fuse ? nullptr : g_1;
+  GfTail& c2 = u.tail[3];
+  c2.table = t_2, c2.ld = c_2, c2.dw = dw_2, c2.k = k_2, c2.c = c_2, c2.leaky = 1;
+  c2.out = delta, c2.fc_w = w_fc, c2.fc_b = b_fc, c2.fc_out = c_out, c2.fc_npad = fc_npad;
+  if (fuse) {
+    q.mlp_w = w_1, q.mlp_b = planes[8], q.mlp_out = t_1, q.mlp_cout = c_1, q.mlp_npad = npad_1;
+    c1.mlp_w = w_2, c1.mlp_b = planes[11], c1.mlp_out = t_2, c1.mlp_cout = c_2;
+    c1.mlp_npad = npad_2;
+  }
+  const int fused[] = {0, 4, 1, 5, 6, 7};
+  const int layered[] = {0, 4, 1, 5, 2, 6, 3, 7};
+  u.steps = fuse ? 6 : 8;
+  for (int s = 0; s < u.steps; ++s) u.step[s] = fuse ? fused[s] : layered[s];
+  u.barrier = barrier;
 
-  a = points(batch, n);
-  gather(a, t_q, dw_q, idx, idx_stride, k_q, c_h);
-  a.post = POST_GATE, a.h = h, a.z = z, a.side = h_out, a.half = c_h;
-  mlp(a, w_1, b_1, c_1, ACT_LEAKY, t_1, nullptr, c_h).g_slot = 0;
-  CAMLI_TRY(launch(a, nullptr, stream));
-
-  a = points(batch, n);
-  gather(a, t_1, dw_1, idx, idx_stride, k_1, c_1);
-  mlp(a, w_2, b_2, c_2, ACT_LEAKY, t_2, nullptr, c_1).g_slot = 0;
-  CAMLI_TRY(launch(a, nullptr, stream));
-
-  a = points(batch, n);
-  gather(a, t_2, dw_2, idx, idx_stride, k_2, c_2);
-  mlp(a, w_fc, b_fc, c_out, ACT_NONE, delta, nullptr, c_2).g_slot = 0;
-  return launch(a, nullptr, stream);
+  constexpr int smem = GfTile::kSmemBytes;
+  if (!persistent) {
+    for (int s = 0; s < u.steps; ++s) {
+      gru_flowhead_3d_step_kernel<<<gf_blocks(u, s), kGfThreads, u.step[s] < 4 ? smem : 0,
+                                    stream>>>(u, s);
+      CAMLI_TRY((int)cudaGetLastError());
+    }
+    return 0;
+  }
+  int grid = grid_blocks;
+  if (grid <= 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    CAMLI_TRY(cudaGetDevice(&device));
+    CAMLI_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+    CAMLI_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_flowhead_3d_kernel,
+                                                            kGfThreads, smem));
+    int most = 1;
+    for (int s = 0; s < u.steps; ++s) most = gf_blocks(u, s) > most ? gf_blocks(u, s) : most;
+    grid = per_sm * sms < most ? per_sm * sms : most;
+  }
+  CAMLI_TRY(cudaMemsetAsync(barrier, 0, (1 + kMaxSmIds) * sizeof(unsigned int), stream));
+  void* args[] = {&u};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)gru_flowhead_3d_kernel, dim3(grid), dim3(kGfThreads), args, smem, stream);
+  cudaGetLastError();  // a refused launch is reported once, here, not to the next launch
+  return (int)err;
 }
 
 // One PointConvDW tail on its own: out[b, q, c] = max_j table[b, idx[b, q, j],
@@ -402,9 +799,9 @@ extern "C" int camli_gru_flowhead_3d(
 extern "C" int camli_dw_max(const float* table, const float* dw, const int* idx, float* out,
                             int batch, int n_table, int m, int idx_stride, int k, int c,
                             cudaStream_t stream) {
-  Stage a = points(batch, m);
-  gather(a, table, dw, idx, idx_stride, k, c);
+  staged::Stage a = staged::points(batch, m);
+  staged::gather(a, table, dw, idx, idx_stride, k, c);
   a.t_n = n_table;
   a.out = out, a.out_stride = c;
-  return launch(a, nullptr, stream);
+  return staged::launch(a, nullptr, stream);
 }

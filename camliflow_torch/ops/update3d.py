@@ -9,12 +9,18 @@ path's bf16/int8 storage and k-major relayout are not ported).
 Each PointConvDW's MLP (one Linear) is packed once per request by
 `prepare_motion_encoder_3d_params` / `prepare_gru_flowhead_3d_params` into a
 `PackedConv` (1x1, weight [K_pad, N_pad]); z and r stack into one
-[384, 256] matmul, as the JAX packing does. The plain versions run the
-exact chain of models/camliraft_l.py on the same packed weights.
+[384, 256] matmul, as the JAX packing does. GRU3D's and FlowHead3D's also
+carry the tf32 planes of the tensor-core tile that #7's dense phases run
+on (`pack_dense`). The plain versions run the exact chain of
+models/camliraft_l.py on the same packed weights.
 
     motion_encoder_3d(flow, corr, knn_idx, dw, me)      -> [B, N, 125 + 3]
     gru_flowhead_3d(h, x3d, motion, knn_idx, dw, gf)    -> (h' [B, N, 128],
                                                            delta [B, N, 3])
+
+#7 runs as one launch a phase (the default) or as one cooperative launch
+(`persistent=True`), whose grid barriers cost more than the launch gaps
+they replace (PERF.md).
 
 `dw_max` replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg: one
 PointConvDW tail (gather, multiply, max over k) as `camli_dw_max`, without
@@ -35,24 +41,63 @@ from torch import nn
 
 from . import _cuda
 from .geometry import gather_points
-from .update2d import K_ALIGN, N_ALIGN, PackedConv, _check_params, _round_up
+from .update2d import (
+    K_ALIGN,
+    N_ALIGN,
+    SM_ID_WORDS,
+    PackedConv,
+    _check_params,
+    _check_tc,
+    _planes,
+    _round_up,
+    split_tf32,
+)
 
 ME_CONVS = ("conv_c1", "conv_f1", "conv_f2", "conv")
 GF_DW = ("conv_zr", "conv_q", "conv1", "conv2")
+GF_DENSE = ("zrq", "q_h", "conv1", "conv2")  # #7's dense steps, on the tensor-core tile
+GF_PARAMS = ("zr", "q") + GF_DENSE + ("fc",)
+CHECKED = "_checked"  # the params' entry that remembers their last check
 STAGED = 128  # the most gathered channels a kernel stage holds per point
+# csrc/update3d.cu, #7: the widest tails (z|r, q, conv1, conv2), their most
+# neighbours (kGruK, kHeadK) and fc outputs (kMaxFc)
+GF_WIDTHS = (256, 128, 128, 64)
+GF_KS = (8, 8, 32, 32)
+GF_MAX_FC = 4
+PERSISTENT = False  # #7 as one launch a step (PERF.md: faster than one cooperative launch)
+# conv1 and conv2 as the f32 FMA epilogues of the tails before them up to
+# this many points a call, on the tensor-core tile above it: fused is faster
+# at the loop's 2048 points, the tile at the eval CLI's 8 x 2048 (PERF.md)
+FUSE_POINTS = 8192
 
 
-def pack_linears(*linears: nn.Linear) -> PackedConv:
-    """One packed 1x1 conv from Linears sharing their input: their output
-    channels are stacked in order (z and r)."""
-    weight = torch.cat([lin.weight for lin in linears], dim=0).detach().float()
-    bias = torch.cat([lin.bias for lin in linears], dim=0).detach().float()
+def pack_matrix(weight: torch.Tensor, bias: torch.Tensor, planes: bool = False) -> PackedConv:
+    """A dense layer (weight [cout, cin], bias [cout]) as a packed 1x1 conv,
+    weight [K_pad, N_pad] zero-padded; with `planes`, also the tensor-core
+    tile's tf32 planes ([N_pad, K_pad], K-major)."""
+    weight, bias = weight.detach().float(), bias.detach().float()
     cout, cin = weight.shape
     packed = weight.new_zeros(_round_up(cin, K_ALIGN), _round_up(cout, N_ALIGN))
     packed[:cin, :cout] = weight.t()
     padded_bias = bias.new_zeros(packed.shape[1])
     padded_bias[:cout] = bias
-    return PackedConv(packed, padded_bias, 1, 1, cin, cout)
+    hi = lo = None
+    if planes:
+        hi, lo = split_tf32(packed.t().contiguous())
+    return PackedConv(packed, padded_bias, 1, 1, cin, cout, hi, lo)
+
+
+def pack_linears(*linears: nn.Linear) -> PackedConv:
+    """One packed 1x1 conv from Linears sharing their input: their output
+    channels are stacked in order (z and r)."""
+    return pack_matrix(torch.cat([lin.weight for lin in linears], dim=0),
+                       torch.cat([lin.bias for lin in linears], dim=0))
+
+
+def pack_dense(*linears: nn.Linear) -> PackedConv:
+    """`pack_linears` with the tensor-core tile's tf32 planes."""
+    return pack_matrix(torch.cat([lin.weight for lin in linears], dim=0),
+                       torch.cat([lin.bias for lin in linears], dim=0), planes=True)
 
 
 def _mlp(conv: nn.Module) -> nn.Linear:
@@ -158,13 +203,23 @@ motion_encoder_3d.launches = 0
 
 
 def prepare_gru_3d_params(gru: nn.Module) -> dict:
-    """Packed MLPs of a `models.camliraft_l.GRU3D`: z|r stacked, and q."""
-    return {"zr": pack_linears(_mlp(gru.conv_z), _mlp(gru.conv_r)),
-            "q": pack_linears(_mlp(gru.conv_q))}
+    """Packed MLPs of a `models.camliraft_l.GRU3D`: z|r stacked, and q (the
+    plain versions' and #13's path). For #7, q split by its input
+    [r*h, x3d, motion]: "zrq" stacks z|r and q's x3d/motion part (its r*h
+    rows zero, its bias) over [h, x3d, motion], "q_h" is q's r*h part
+    (bias zero); their sum is q's product. Both carry tf32 planes."""
+    z, r, q = _mlp(gru.conv_z), _mlp(gru.conv_r), _mlp(gru.conv_q)
+    hidden = z.weight.shape[0]
+    q_xm = q.weight.detach().clone()
+    q_xm[:, :hidden] = 0.0
+    zrq = pack_matrix(torch.cat([z.weight, r.weight, q_xm], dim=0),
+                      torch.cat([z.bias, r.bias, q.bias], dim=0), planes=True)
+    q_h = pack_matrix(q.weight[:, :hidden], torch.zeros_like(q.bias), planes=True)
+    return {"zr": pack_linears(z, r), "q": pack_linears(q), "zrq": zrq, "q_h": q_h}
 
 
 def prepare_flow_head_3d_params(head: nn.Module) -> dict:
-    return {"conv1": pack_linears(_mlp(head.conv1)), "conv2": pack_linears(_mlp(head.conv2)),
+    return {"conv1": pack_dense(_mlp(head.conv1)), "conv2": pack_dense(_mlp(head.conv2)),
             "fc": pack_linears(head.fc)}
 
 
@@ -202,38 +257,87 @@ def gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw: dict, params: dict):
     return h, flow_head_3d_plain(h, knn_idx, dw, params)
 
 
+def _gf_checked(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
+    """What #7 assumes of its packed MLPs and hoisted weights, for inputs of
+    `shape` (B, N, Ch, Cx, Cm): checked once and remembered in `params`
+    beside the objects it read, as `ops/clfm.py` does; a call with the same
+    objects, device and shape skips the check (the refinement loop makes 20
+    calls a request, and requests are paced by the host). Returns the
+    kernel's arguments that follow from them."""
+    read = tuple(params[k] for k in GF_PARAMS) + tuple(dw[k] for k in GF_DW)
+    checked = params.get(CHECKED)
+    if (checked is not None and checked[0] == (device, shape)
+            and all(a is b for a, b in zip(checked[1], read))):
+        return checked[2]
+    batch, n, ch, cx, cm = shape
+    ks = _check_dw(name, dw, GF_DW, batch, n, device)
+    packed = {k: params[k] for k in GF_PARAMS}
+    _check_params(name, packed, device)
+    zr, q, zrq, q_h, conv1, conv2, fc = (params[k] for k in GF_PARAMS)
+    if ((zr.cin, zr.cout, q.cin, q.cout) != (ch + cx + cm, 2 * ch, ch + cx + cm, ch)
+            or (zrq.cin, zrq.cout, q_h.cin, q_h.cout) != (ch + cx + cm, 3 * ch, ch, ch)
+            or (conv1.cin, conv2.cin, fc.cin) != (ch, conv1.cout, conv2.cout)
+            or [dw[k].shape[3] for k in GF_DW] != [2 * ch, ch, conv1.cout, conv2.cout]):
+        raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
+    widths = (2 * ch, ch, conv1.cout, conv2.cout)
+    if (any(w > most for w, most in zip(widths, GF_WIDTHS)) or fc.cout > GF_MAX_FC
+            or conv1.cout % 4
+            or any(k > most or k < 1 for k, most in zip(ks, GF_KS))):
+        raise ValueError(f"{name}: the kernel takes tails of up to {GF_WIDTHS} channels and "
+                         f"{GF_KS} neighbours and up to {GF_MAX_FC} fc outputs, got {widths}, "
+                         f"{tuple(ks)}, {fc.cout}")
+    _check_tc(name, packed, GF_DENSE)
+    per_point = 6 * ch + 2 * conv1.cout + conv2.cout  # the kernel's scratch
+    args = (tuple(dw[k].data_ptr() for k in GF_DW), _planes(packed, GF_DENSE),
+            tuple(t.data_ptr() for t in (conv1.weight, conv2.weight, fc.weight, fc.bias)),
+            (conv1.cout, conv2.cout, fc.cout), tuple(ks),
+            tuple(w.weight.shape[1] for w in (conv1, conv2, fc)), per_point)
+    params[CHECKED] = ((device, shape), read, args)
+    return args
+
+
 def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
-                    knn_idx: torch.Tensor, dw: dict, params: dict):
+                    knn_idx: torch.Tensor, dw: dict, params: dict,
+                    persistent: bool = PERSISTENT, fuse: bool | None = None, grid: int = 0):
     """h [B, N, Ch], x3d [B, N, Cx], motion [B, N, Cm], knn_idx [B, N, >=32]
     int32 -> (h' [B, N, Ch], delta [B, N, 3]). CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    version; CUDA tensors the kernel: one launch a step, or with
+    `persistent=True` one cooperative launch; conv1 and conv2 as FMA
+    epilogues (`fuse`; by default up to FUSE_POINTS points) or on the
+    tensor-core tile. `grid` > 0 asks the
+    cooperative launch for that many blocks instead of the co-resident count
+    (a grid too large is refused, and the wrapper raises)."""
     if _cuda.on_cpu(h, x3d, motion, knn_idx):
         return gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw, params)
     name = "gru_flowhead_3d"
     _cuda.check(name, torch.float32, h=h, x3d=x3d, motion=motion)
     batch, n, ch = h.shape
-    _cuda.check_shape(name, "x3d", x3d, (batch, n, None))
-    _cuda.check_shape(name, "motion", motion, (batch, n, None))
-    ks = _check_dw(name, dw, GF_DW, batch, n, h.device)
-    _check_idx(name, knn_idx, batch, n, max(ks), h.device)
-    _check_params(name, params, h.device)
     cx, cm = x3d.shape[-1], motion.shape[-1]
-    zr, q, conv1, conv2, fc = (params[k] for k in ("zr", "q", "conv1", "conv2", "fc"))
-    if ((zr.cin, zr.cout, q.cin, q.cout) != (ch + cx + cm, 2 * ch, ch + cx + cm, ch)
-            or (conv1.cin, conv2.cin, fc.cin) != (ch, conv1.cout, conv2.cout)
-            or [dw[k].shape[3] for k in GF_DW] != [2 * ch, ch, conv1.cout, conv2.cout]):
-        raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
-    if max(ch, conv1.cout, conv2.cout) > STAGED:
-        raise ValueError(f"{name}: a staged gather is wider than {STAGED} channels")
-    scratch = h.new_empty(batch * n * (4 * ch + conv1.cout + conv2.cout))
-    h_out, delta = h.new_empty(batch, n, ch), h.new_empty(batch, n, fc.cout)
+    if x3d.dim() != 3 or motion.dim() != 3 or x3d.shape[:2] != (batch, n) \
+            or motion.shape[:2] != (batch, n):
+        _cuda.check_shape(name, "x3d", x3d, (batch, n, None))
+        _cuda.check_shape(name, "motion", motion, (batch, n, None))
+    if (ch | cx | cm) % 4 or (h.data_ptr() | x3d.data_ptr() | motion.data_ptr()) % 16:
+        _check_tc(name, {}, (), h=h, x3d=x3d, motion=motion)
+    dws, planes, weights, (c1, c2, c_out), ks, npads, per_point = _gf_checked(
+        name, params, dw, (batch, n, ch, cx, cm), h.device)
+    if (knn_idx.dtype != torch.int32 or knn_idx.device != h.device or knn_idx.dim() != 3
+            or knn_idx.shape[:2] != (batch, n) or knn_idx.shape[2] < max(ks)
+            or not knn_idx.is_contiguous()):
+        _check_idx(name, knn_idx, batch, n, max(ks), h.device)
+    points = batch * n
+    if fuse is None:
+        fuse = points <= FUSE_POINTS
+    # the scratch, then the cooperative form's barrier words
+    scratch = h.new_empty(points * per_point + 1 + SM_ID_WORDS)
+    h_out, delta = h.new_empty(batch, n, ch), h.new_empty(batch, n, c_out)
     from ..csrc.build import launch
 
     launch("camli_gru_flowhead_3d", h.data_ptr(), x3d.data_ptr(), motion.data_ptr(),
-           knn_idx.data_ptr(), *(dw[k].data_ptr() for k in GF_DW),
-           *(t.data_ptr() for k in ("zr", "q", "conv1", "conv2", "fc") for t in params[k][:2]),
-           scratch.data_ptr(), h_out.data_ptr(), delta.data_ptr(), batch, n,
-           knn_idx.shape[2], ch, cx, cm, conv1.cout, conv2.cout, fc.cout, *ks)
+           knn_idx.data_ptr(), *dws, planes, *weights, scratch.data_ptr(),
+           scratch.data_ptr() + 4 * points * per_point, h_out.data_ptr(), delta.data_ptr(),
+           batch, n, knn_idx.shape[2], ch, cx, cm, c1, c2, c_out, *ks, *npads, int(fuse),
+           int(persistent), grid)
     gru_flowhead_3d.launches += 1
     return h_out, delta
 

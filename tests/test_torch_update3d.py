@@ -158,6 +158,30 @@ def test_packing_stacks_z_and_r(gru_flowhead):
     assert f1.weight.shape == (16, 64) and not f1.weight[3:].any() and not f1.weight[:, 32:].any()
 
 
+def test_q_split_sums_to_q(gru_flowhead):
+    """#7 splits q by its input [r*h, x3d, motion]: "zrq" is z|r beside q's
+    x3d/motion part (its r*h rows zero) over [h, x3d, motion], "q_h" q's r*h
+    part without bias; zrq's last 128 channels plus q_h give q's product, and
+    its first 256 are z|r's. Both carry tf32 planes that rebuild the
+    weights to ~2^-22."""
+    _, _, _, (tgru, _) = gru_flowhead
+    params = update3d.prepare_gru_3d_params(tgru)
+    rng = np.random.default_rng(3)
+    h, x, m, rh = (t(rng.standard_normal((2, 50, 128)).astype(np.float32)) for _ in range(4))
+    zrq = update3d.linear_plain(torch.cat([h, x, m], -1), params["zrq"])
+    np.testing.assert_array_equal(
+        zrq[..., :256].numpy(),
+        update3d.linear_plain(torch.cat([h, x, m], -1), params["zr"]).numpy())
+    q = update3d.linear_plain(torch.cat([rh, x, m], -1), params["q"])
+    np.testing.assert_allclose((zrq[..., 256:] + update3d.linear_plain(rh, params["q_h"])).numpy(),
+                               q.numpy(), rtol=1e-5, atol=1e-5)
+    for key in ("zrq", "q_h"):
+        conv = params[key]
+        assert conv.hi.shape == conv.weight.shape[::-1]
+        rebuilt = (conv.hi.double() + conv.lo.double()).t()
+        assert float((rebuilt - conv.weight.double()).abs().max()) <= 2.0**-21
+
+
 # --- the PointConvDW tail alone (kernel #13) -------------------------------
 
 
