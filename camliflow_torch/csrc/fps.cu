@@ -15,28 +15,27 @@
 // card's f32 rate spread over every SM; one step's chain of dependent
 // instructions and one barrier cost far more).
 //
-// Design: one cluster of G thread blocks per cloud (G = 2..16 blocks of 128
-// threads on neighbouring SMs; G = 1 is one block of 1024 threads). Block r
-// keeps the points of its slice [r * ceil(N/G), ...) and their running
-// distances in registers, P a thread, and the slice's coordinates in shared
-// memory. One step:
+// Design: one cluster of 4 thread blocks of 128 threads per cloud, on
+// neighbouring SMs. Block r keeps the points of its slice [r * ceil(N/4),
+// ...) and their running distances in registers, 16 a thread (so N <= 8192),
+// and the slice's coordinates in shared memory. One step:
 // - each thread lowers its distances and keeps its best (distance bits,
 //   index): the first index of its maximum;
 // - a warp's argmax is two redux instructions: __reduce_max_sync on the
 //   distance bits (a non-negative float orders like its unsigned bits), then
 //   __reduce_min_sync on the index over the lanes that hold the maximum;
-// - the winning lane publishes (bits, index, x, y, z), its coordinates read
+// - the winning lane pushes (bits, index, x, y, z), its coordinates read
 //   from the slice in shared memory, into slot [parity][r * W + warp] of
-//   every block of the cluster, so the next centre needs no global load;
-// - one exchange: the push (st.async stores into the peers' shared memory,
-//   each completing bytes on the receiving block's mbarrier, which that
-//   block waits on: one-way, no block waits for another to arrive), or a
-//   cluster barrier (barrier.cluster arrive.release / wait.acquire after
-//   plain distributed-shared-memory stores; G = 1: __syncthreads);
-// - every warp reads the G * W slots from its own shared memory and reduces
+//   every block of the cluster by st.async stores, each completing bytes on
+//   the receiving block's mbarrier, which that block waits on: one-way, no
+//   block waits for another to arrive, and the next centre needs no global
+//   load;
+// - every warp reads the 16 slots from its own shared memory and reduces
 //   them the same way, identically in every block, to the next centre.
-// Measured on an H100 (PERF.md), G = 4 with the push is the fastest: more
-// blocks shorten the update and lengthen the exchange.
+// Measured on an H100 (PERF.md), 4 blocks with the push were the fastest of
+// the forms tried (1 block of 1024 threads; 2, 4, 8 or 16 blocks; a cluster
+// barrier instead of the push): more blocks shorten the update and lengthen
+// the exchange.
 // The slots are double-buffered by the step's parity: a block writes slot
 // set p again two steps later, after every block has passed the exchange in
 // between, which it does only after reading set p.
@@ -55,10 +54,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxCluster = 16;
-constexpr int kClusterThreads = 128;  // a block's threads when G > 1
-constexpr int kSoloThreads = 1024;    // when G = 1
-constexpr int kMaxSlots = 64;         // G * warps a block: 16 * 4, or 1 * 32
+constexpr int kCluster = 4;     // blocks a cloud
+constexpr int kThreads = 128;   // threads a block
+constexpr int kPer = 16;        // points a thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlots = kCluster * kWarps;
+constexpr int kChunk = kThreads * kPer;  // the most points a block holds
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -125,33 +126,28 @@ __device__ __forceinline__ int warp_argmax(unsigned bits, unsigned idx, unsigned
   return __ffs(__ballot_sync(kFull, bits == wb && idx == wi)) - 1;
 }
 
-// T threads a block, P points a thread; PUSH: the st.async exchange, else
-// the barrier. The block's slice of the cloud is also in shared memory
-// (dynamic, [chunk] float4), where a warp's winning lane finds its
-// coordinates: a thread's running best is only (distance bits, index).
-template <int T, int P, bool PUSH>
-__global__ void __launch_bounds__(T) fps_kernel(const float* __restrict__ xyz,
-                                                int32_t* __restrict__ out, int n,
-                                                int n_samples, int cluster) {
-  constexpr int W = T / 32;
-  extern __shared__ float4 slice[];
-  __shared__ __align__(16) uint4 key[2][kMaxSlots];  // (bits, index, x, y)
-  __shared__ float zs[2][kMaxSlots];
-  __shared__ __align__(8) unsigned long long bar[2];  // PUSH: the slot sets' mbarriers
-  const int rank = blockIdx.x % cluster;
-  const int b = blockIdx.x / cluster;
+// A thread's running best is only (distance bits, index); a warp's winning
+// lane finds its coordinates in the block's slice in shared memory.
+__global__ void __launch_bounds__(kThreads) fps_kernel(const float* __restrict__ xyz,
+                                                       int32_t* __restrict__ out, int n,
+                                                       int n_samples) {
+  __shared__ float4 slice[kChunk];
+  __shared__ __align__(16) uint4 key[2][kSlots];  // (bits, index, x, y)
+  __shared__ float zs[2][kSlots];
+  __shared__ __align__(8) unsigned long long bar[2];  // the slot sets' mbarriers
+  const int rank = blockIdx.x % kCluster;
+  const int b = blockIdx.x / kCluster;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int slots = cluster * W;
   const float* pts = xyz + (size_t)b * n * 3;
 
-  const int chunk = (n + cluster - 1) / cluster;
+  const int chunk = (n + kCluster - 1) / kCluster;
   const int begin = rank * chunk;
   const int end = min(n, begin + chunk);
-  float px[P], py[P], pz[P], dist[P];
+  float px[kPer], py[kPer], pz[kPer], dist[kPer];
 #pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const int i = begin + tid + j * T;
+  for (int j = 0; j < kPer; ++j) {
+    const int i = begin + tid + j * kThreads;
     if (i < end) {
       px[j] = pts[3 * i];
       py[j] = pts[3 * i + 1];
@@ -163,18 +159,12 @@ __global__ void __launch_bounds__(T) fps_kernel(const float* __restrict__ xyz,
       dist[j] = 0.f;  // stays 0 (fminf with a distance >= 0): never beats a real point
     }
   }
-  if (PUSH) {
-    if (tid == 0) {
-      mbar_init(smem_addr(&bar[0]), 1);
-      mbar_init(smem_addr(&bar[1]), 1);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
+  if (tid == 0) {
+    mbar_init(smem_addr(&bar[0]), 1);
+    mbar_init(smem_addr(&bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (cluster > 1) {
-    cg::this_cluster().sync();  // the slice is stored; the peers' barriers exist
-  } else {
-    __syncthreads();
-  }
+  cg::this_cluster().sync();  // the slice is stored; the peers' barriers exist
 
   float cx = pts[0], cy = pts[1], cz = pts[2];
   int farthest = 0;
@@ -186,8 +176,8 @@ __global__ void __launch_bounds__(T) fps_kernel(const float* __restrict__ xyz,
     // this thread's best: points in ascending index, a strictly larger distance wins
     unsigned bb = 0, bi = 0xffffffffu;
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const int i = begin + tid + j * T;
+    for (int j = 0; j < kPer; ++j) {
+      const int i = begin + tid + j * kThreads;
       dist[j] = fminf(dist[j], camli::sq_dist(px[j], py[j], pz[j], cx, cy, cz));
       const unsigned bits = __float_as_uint(dist[j]);
       if (j == 0 || bits > bb) bb = bits, bi = i < end ? (unsigned)i : 0x7fffffffu;
@@ -197,50 +187,29 @@ __global__ void __launch_bounds__(T) fps_kernel(const float* __restrict__ xyz,
     const float4 mine = slice[bi < (unsigned)end ? bi - begin : 0];
     unsigned wb, wi;
     const int winner = warp_argmax(bb, bi, wb, wi);
-    const int slot = rank * W + warp;
     if (lane == winner) {
       const uint4 v = make_uint4(bb, bi, __float_as_uint(mine.x), __float_as_uint(mine.y));
-      if (PUSH) {
-        const uint32_t k_addr = smem_addr(&key[par][slot]);
-        const uint32_t z_addr = smem_addr(&zs[par][slot]);
-        const uint32_t b_addr = smem_addr(&bar[par]);
-        for (int r = 0; r < cluster; ++r) {
-          const uint32_t pb = peer_addr(b_addr, r);
-          push4(peer_addr(k_addr, r), v, pb);
-          push1(peer_addr(z_addr, r), __float_as_uint(mine.z), pb);
-        }
-      } else if (cluster == 1) {
-        key[par][slot] = v;
-        zs[par][slot] = mine.z;
-      } else {
-        cg::cluster_group group = cg::this_cluster();
-        for (int r = 0; r < cluster; ++r) {
-          *group.map_shared_rank(&key[par][slot], r) = v;
-          *group.map_shared_rank(&zs[par][slot], r) = mine.z;
-        }
+      const int slot = rank * kWarps + warp;
+      const uint32_t k_addr = smem_addr(&key[par][slot]);
+      const uint32_t z_addr = smem_addr(&zs[par][slot]);
+      const uint32_t b_addr = smem_addr(&bar[par]);
+      for (int r = 0; r < kCluster; ++r) {
+        const uint32_t pb = peer_addr(b_addr, r);
+        push4(peer_addr(k_addr, r), v, pb);
+        push1(peer_addr(z_addr, r), __float_as_uint(mine.z), pb);
       }
     }
-    if (PUSH) {
-      if (tid == 0) mbar_expect(smem_addr(&bar[par]), slots * 20);
-      mbar_wait(smem_addr(&bar[par]), (s >> 1) & 1);
-    } else if (cluster == 1) {
-      __syncthreads();
-    } else {
-      cg::this_cluster().sync();
-    }
+    if (tid == 0) mbar_expect(smem_addr(&bar[par]), kSlots * 20);
+    mbar_wait(smem_addr(&bar[par]), (s >> 1) & 1);
 
     // the next centre: the best of the slots, in every warp alike
     bb = 0, bi = 0xffffffffu;
     float bx = 0.f, by = 0.f, bz = 0.f;
-#pragma unroll
-    for (int q0 = 0; q0 < kMaxSlots; q0 += 32) {
-      const int q = q0 + lane;
-      if (q0 < slots && q < slots) {
-        const uint4 v = key[par][q];
-        if (better(v.x, v.y, bb, bi)) {
-          bb = v.x, bi = v.y, bx = __uint_as_float(v.z), by = __uint_as_float(v.w);
-          bz = zs[par][q];
-        }
+    if (lane < kSlots) {
+      const uint4 v = key[par][lane];
+      if (better(v.x, v.y, bb, bi)) {
+        bb = v.x, bi = v.y, bx = __uint_as_float(v.z), by = __uint_as_float(v.w);
+        bz = zs[par][lane];
       }
     }
     const int from = warp_argmax(bb, bi, wb, wi);
@@ -249,85 +218,27 @@ __global__ void __launch_bounds__(T) fps_kernel(const float* __restrict__ xyz,
     cy = __shfl_sync(kFull, by, from);
     cz = __shfl_sync(kFull, bz, from);
   }
-  if (cluster > 1) cg::this_cluster().sync();  // no block leaves while a peer may push
-}
-
-template <int T, int P, bool PUSH>
-int launch(const float* xyz, int32_t* out, int batch, int n, int n_samples, int cluster,
-           cudaStream_t stream) {
-  const auto kernel = fps_kernel<T, P, PUSH>;
-  const int smem = (n + cluster - 1) / cluster * (int)sizeof(float4);
-  if (smem > 32 * 1024) {  // with the static slots, past the 48 KB default
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (cluster == 1) {
-    kernel<<<batch, T, smem, stream>>>(xyz, out, n, n_samples, 1);
-    return (int)cudaGetLastError();
-  }
-  if (cluster > 8) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(batch * cluster);
-  config.blockDim = dim3(T);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, xyz, out, n, n_samples, cluster);
-  cudaGetLastError();  // a refused launch is reported once, here
-  return (int)err;
-}
-
-template <int T, bool PUSH>
-int dispatch(int per_thread, const float* xyz, int32_t* out, int batch, int n, int n_samples,
-             int cluster, cudaStream_t stream) {
-  if (per_thread <= 1) return launch<T, 1, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
-  if (per_thread <= 2) return launch<T, 2, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
-  if (per_thread <= 4) return launch<T, 4, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
-  if (per_thread <= 8) return launch<T, 8, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
-  if (T == kClusterThreads) {  // 128 threads: up to 32 points a thread
-    constexpr int TC = kClusterThreads;
-    if (per_thread <= 16) {
-      return launch<TC, 16, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
-    }
-    if (per_thread <= 32) {
-      return launch<TC, 32, PUSH>(xyz, out, batch, n, n_samples, cluster, stream);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
+  cg::this_cluster().sync();  // no block leaves while a peer may push
 }
 
 }  // namespace
 
-// cluster: blocks a cloud (1, 2, 4, 8 or 16); push (cluster > 1): the
-// st.async exchange, else the cluster barrier. A cloud holds at most
-// cluster * 4096 points (cluster > 1: 128 threads x 32) or 8192 (one block:
-// 1024 threads x 8).
+// A cloud holds at most kCluster * kChunk = 8192 points.
 extern "C" int camli_fps(const float* xyz, int32_t* out, int batch, int n, int n_samples,
-                         int cluster, int push, cudaStream_t stream) {
-  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int chunk = (n + cluster - 1) / cluster;
-  if (cluster == 1) {
-    return dispatch<kSoloThreads, false>((chunk + kSoloThreads - 1) / kSoloThreads, xyz, out,
-                                         batch, n, n_samples, 1, stream);
-  }
-  const int per_thread = (chunk + kClusterThreads - 1) / kClusterThreads;
-  if (push) {
-    return dispatch<kClusterThreads, true>(per_thread, xyz, out, batch, n, n_samples, cluster,
-                                           stream);
-  }
-  return dispatch<kClusterThreads, false>(per_thread, xyz, out, batch, n, n_samples, cluster,
-                                          stream);
+                         cudaStream_t stream) {
+  if (n > kCluster * kChunk) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(batch * kCluster);
+  config.blockDim = dim3(kThreads);
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, fps_kernel, xyz, out, n, n_samples);
+  cudaGetLastError();  // a refused launch is reported once, here
+  return (int)err;
 }

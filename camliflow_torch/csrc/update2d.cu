@@ -52,7 +52,6 @@
 // iteration (43.5 GFLOP, 0.65 ms in f32).
 #include "conv_tile.cuh"
 #include "conv_tile_tc.cuh"
-#include "grid.cuh"
 
 namespace {
 
@@ -74,6 +73,73 @@ __device__ __forceinline__ void stage(int rank, const Conv& a, const Conv& b, bo
       conv_tile<EPI>(b, (u % m_b) * BM, (u / m_b) * BN, As, Bs);
     }
   }
+}
+
+// Grid-wide barrier for a cooperative launch: every block's thread 0 adds
+// to one arrival word, block 0 adds 0x80000000 - (blocks - 1) and the others
+// 1, so the word's top bit flips once all have arrived and its low bits come
+// back to where they were. The fences make the stage's stores visible to
+// every block's loads after the barrier.
+__device__ __forceinline__ void grid_barrier(unsigned int* arrived) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned int old = atomicAdd(arrived, add);
+    volatile unsigned int* word = arrived;
+    while (((old ^ *word) & 0x80000000u) == 0) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ unsigned sm_id() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ unsigned sm_id_count() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%nsmid;" : "=r"(v));
+  return v;
+}
+
+constexpr unsigned kMaxSmIds = 1024;  // per-SM block counts after the barrier word
+
+// The block's rank in the order (slot on its SM, SM): tiles are dealt by
+// rank, so consecutive tiles go to different SMs. A cooperative grid is
+// placed SM by SM (consecutive blocks share an SM), and in blockIdx order a
+// stage with fewer tiles than blocks would crowd onto a few SMs. Each block
+// counts itself on its SM, and after a barrier its rank is the number of
+// blocks before it: sum over SMs of min(count, slot), plus the SMs before
+// its own that hold more than `slot` blocks.
+__device__ __forceinline__ int spread_rank(unsigned int* barrier) {
+  __shared__ int rank;
+  unsigned int* counts = barrier + 1;
+  const unsigned n_ids = sm_id_count();
+  unsigned sm = 0, slot = 0;
+  if (threadIdx.x == 0 && n_ids <= kMaxSmIds) {
+    sm = sm_id();
+    slot = atomicAdd(&counts[sm], 1u);
+  }
+  grid_barrier(barrier);
+  if (threadIdx.x == 0) {
+    int r = blockIdx.x;  // the blockIdx order where the SM ids do not fit
+    if (n_ids <= kMaxSmIds) {
+      r = 0;
+      const volatile unsigned int* c = counts;
+      for (unsigned s = 0; s < n_ids; ++s) {
+        const unsigned n = c[s];
+        r += n < slot ? n : slot;
+        r += s < sm && n > slot;
+      }
+    }
+    rank = r;
+  }
+  __syncthreads();
+  return rank;
 }
 
 struct Update2D {

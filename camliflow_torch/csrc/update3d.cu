@@ -45,18 +45,16 @@
 // (a warp a point, 16-byte loads over channels, the point's neighbour
 // indices read once, 8 rows of the table and of the weights in flight a
 // lane, each result written once to an L2-resident scratch after its post
-// op); the dense layers on the 3xTF32 tensor-core tile; q's x3d/motion part
-// moved into the first dense step; conv1 and conv2 as f32 FMA epilogues of
-// the gathers before them (6 launches) at the loop's size, on the tile (8
-// launches) at the eval CLI's batch of 8, where that is faster (the wrapper
-// chooses by the number of points). A cooperative form runs the same steps
-// in one launch with grid barriers, which cost more than the launch gaps
-// they replace on an H100 (PERF.md); it stays selectable and measured.
+// op); z|r's and q's dense layers on the 3xTF32 tensor-core tile; q's
+// x3d/motion part moved into the first dense step; conv1 and conv2 as f32
+// FMA epilogues of the gathers before them. 6 launches, one a step. Measured
+// on an H100 (PERF.md), one cooperative launch with grid barriers between the
+// steps cost more than the launch gaps it replaces, and conv1/conv2 on the
+// tile (8 launches) gained about 5% at 16,384 points and lost at 2048.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "conv_tile_tc.cuh"
-#include "grid.cuh"
 
 namespace {
 // The stage kernel of #6 and #13.
@@ -321,16 +319,13 @@ int launch(const Stage& a, const Stage* b, cudaStream_t stream) {
 //   dense [z|r | q_xm] over [h, x3d, motion]
 //   tail z|r -> z = sigmoid, r*h = sigmoid * h
 //   dense q_h over r*h
-//   tail q (table q_h + q_xm) -> h' = (1-z) h + z tanh(q)
-//   dense conv1 over h'
-//   tail conv1 (leaky ReLU on read) -> g1
-//   dense conv2 over g1
+//   tail q (table q_h + q_xm) -> h' = (1-z) h + z tanh(q), then conv1 over h'
+//   tail conv1 (leaky ReLU on read), then conv2 over it
 //   tail conv2 (leaky ReLU on read) -> fc 64->3 -> delta
-// With `fuse`, conv1's and conv2's dense layers run instead as the f32 FMA
-// epilogue of the tail before them: its block's rows (one point a warp) in
-// shared memory, each weight read once a block (6 phases, not 8). A gather
-// reads other points' rows, so each phase waits for the one before: one
-// launch a phase, or, in the cooperative form, a grid barrier.
+// conv1's and conv2's dense layers run as the f32 FMA epilogue of the tail
+// before them: its block's rows (one point a warp) in shared memory, each
+// weight read once a block. A gather reads other points' rows, so each phase
+// waits for the one before: one launch a phase.
 
 constexpr int kGfThreads = 128;  // the tile's 4 warps; a tail's 4 warps
 constexpr int kGfWarps = kGfThreads / 32;
@@ -341,7 +336,7 @@ constexpr int kGruK = 8;     // the most neighbours of GRU3D's convs (the model'
 constexpr int kHeadK = 32;   // of FlowHead3D's (the model's: 32)
 constexpr int kMaxFc = 4;    // fc outputs (the model's: 3)
 constexpr int kMaxRow = 128; // a fused layer's input and output channels
-constexpr int kGfSteps = 8;
+constexpr int kGfSteps = 6;
 
 enum GfPost { GP_ZR = 0, GP_GATE = 1, GP_PLAIN = 2, GP_FC = 3 };
 
@@ -361,7 +356,7 @@ struct GfTail {
   const float* fc_w;   // FC: [>= c, fc_npad], and its bias
   const float* fc_b;
   int fc_out, fc_npad;
-  const float* mlp_w;  // GATE, PLAIN with fuse: the next dense layer [>= c, mlp_npad]
+  const float* mlp_w;  // GATE, PLAIN: the next dense layer [>= c, mlp_npad]
   const float* mlp_b;
   float* mlp_out;      // its output before the activation [points, mlp_cout]
   int mlp_cout, mlp_npad;
@@ -378,11 +373,8 @@ struct Gru3D {
   int points, n;  // B*N, and N (neighbour indices are local to a batch item)
   const int* idx;  // [points, idx_stride], the first k columns
   int idx_stride;
-  GfLayer layer[4];  // [z|r | q_xm], q_h, conv1, conv2
+  GfLayer layer[2];  // [z|r | q_xm], q_h
   GfTail tail[4];    // z|r, q, conv1, conv2
-  int steps;
-  int step[kGfSteps];  // in order: 0-3 dense layer i, 4-7 tail i - 4
-  unsigned int* barrier;  // [1 + kMaxSmIds], zeroed (the cooperative form)
 };
 
 __device__ __forceinline__ float leaky(float v) { return v > 0.f ? v : __fmul_rn(0.1f, v); }
@@ -595,50 +587,32 @@ __device__ __forceinline__ void gf_tail(const Gru3D& u, const GfTail& g, int ran
   }
 }
 
-// Step `s` of the chain; the tile is inlined once (the dense steps share
-// one call), each tail's instantiation once.
-__device__ __forceinline__ void gf_step(const Gru3D& u, int s, int rank, int blocks) {
-  const int kind = u.step[s];
-  if (kind < 4) {
-    gf_dense(u.layer[kind], rank, blocks);
-  } else if (kind == 4) {
+// Step `s` of the chain, one launch: dense z|r | q_xm, tail z|r, dense q_h,
+// tail q (+ conv1), tail conv1 (+ conv2), tail conv2 (+ fc).
+__global__ void __launch_bounds__(kGfThreads, 4)
+    gru_flowhead_3d_kernel(const __grid_constant__ Gru3D u, int s) {
+  const int rank = blockIdx.x, blocks = gridDim.x;
+  if (s == 0 || s == 2) {
+    gf_dense(u.layer[s / 2], rank, blocks);
+  } else if (s == 1) {
     gf_tail<32, 2, kGruK, GP_ZR>(u, u.tail[0], rank, blocks);
-  } else if (kind == 5) {
+  } else if (s == 3) {
     gf_tail<32, 1, kGruK, GP_GATE>(u, u.tail[1], rank, blocks);
-  } else if (kind == 6) {
+  } else if (s == 4) {
     gf_tail<32, 1, kHeadK, GP_PLAIN>(u, u.tail[2], rank, blocks);
   } else {
     gf_tail<16, 1, kHeadK, GP_FC>(u, u.tail[3], rank, blocks);
   }
 }
 
-// The cooperative form: every block of the grid resident, the steps
-// separated by grid barriers, work dealt SM by SM (spread_rank).
-__global__ void __launch_bounds__(kGfThreads, 4)
-    gru_flowhead_3d_kernel(const __grid_constant__ Gru3D u) {
-  const int rank = spread_rank(u.barrier);
-#pragma unroll 1
-  for (int s = 0; s < u.steps; ++s) {
-    if (s > 0) grid_barrier(u.barrier);
-    gf_step(u, s, rank, gridDim.x);
-  }
-}
-
-// One launch a step.
-__global__ void __launch_bounds__(kGfThreads, 4)
-    gru_flowhead_3d_step_kernel(const __grid_constant__ Gru3D u, int s) {
-  gf_step(u, s, blockIdx.x, gridDim.x);
-}
-
 // The blocks a step can keep busy: its tiles, or its points over a block's
 // warps.
 int gf_blocks(const Gru3D& u, int s) {
-  const int kind = u.step[s];
-  if (kind < 4) {
-    const Conv& a = u.layer[kind].a;
+  if (s == 0 || s == 2) {
+    const Conv& a = u.layer[s / 2].a;
     return (a.pixels + kGfBM - 1) / kGfBM * (a.n_pad / kGfBN);
   }
-  const int per_block = kGfWarps * (kind == 7 ? 2 : 1);
+  const int per_block = kGfWarps * (s == 5 ? 2 : 1);
   return (u.points + per_block - 1) / per_block;
 }
 
@@ -696,23 +670,19 @@ extern "C" int camli_motion_encoder_3d(
   return staged::launch(a, nullptr, stream);
 }
 
-// planes: (hi, lo, bias) of [z|r | q_xm], q_h, conv1, conv2 (tf32 planes
-// [N_pad][K_pad]); w_1, w_2: conv1's and conv2's f32 weights [K_pad, npad]
-// (the fused form); w_fc [>= c_2, fc_npad]; barrier: [1 + kMaxSmIds] words.
-// fuse: conv1 and conv2 as FMA epilogues; persistent: one cooperative launch
-// (grid_blocks > 0 asks for that many blocks instead of the co-resident
-// count; a grid too large is refused), else one launch a step.
+// planes: (hi, lo, bias) of [z|r | q_xm] and q_h (tf32 planes [N_pad][K_pad]);
+// w_1, b_1, w_2, b_2: conv1's and conv2's f32 weights [K_pad, npad] and
+// biases; w_fc [>= c_2, fc_npad].
 extern "C" int camli_gru_flowhead_3d(
     const float* h, const float* x3d, const float* motion, const int* idx,
     const float* dw_zr, const float* dw_q, const float* dw_1, const float* dw_2,
-    const float* const* planes, const float* w_1, const float* w_2, const float* w_fc,
-    const float* b_fc, float* scratch, unsigned int* barrier, float* h_out, float* delta,
-    int batch, int n, int idx_stride, int c_h, int c_x, int c_m, int c_1, int c_2, int c_out,
-    int k_zr, int k_q, int k_1, int k_2, int npad_1, int npad_2, int fc_npad, int fuse,
-    int persistent, int grid_blocks, cudaStream_t stream) {
+    const float* const* planes, const float* w_1, const float* b_1, const float* w_2,
+    const float* b_2, const float* w_fc, const float* b_fc, float* scratch, float* h_out,
+    float* delta, int batch, int n, int idx_stride, int c_h, int c_x, int c_m, int c_1,
+    int c_2, int c_out, int k_zr, int k_q, int k_1, int k_2, int npad_1, int npad_2,
+    int fc_npad, cudaStream_t stream) {
   // scratch, channels per point: [[z|r | q_xm] table (3 c_h) | z (c_h) |
-  // r*h (c_h) | q_h table (c_h) | conv1 table (c_1) | conv1 tail (c_1) |
-  // conv2 table (c_2)]
+  // r*h (c_h) | q_h table (c_h) | conv1 table (c_1) | conv2 table (c_2)]
   const int points = batch * n;
   const size_t p = points;
   float* t_zrq = scratch;
@@ -720,8 +690,7 @@ extern "C" int camli_gru_flowhead_3d(
   float* rh = z + p * c_h;
   float* t_qh = rh + p * c_h;
   float* t_1 = t_qh + p * c_h;
-  float* g_1 = t_1 + p * c_1;
-  float* t_2 = g_1 + p * c_1;
+  float* t_2 = t_1 + p * c_1;
 
   Gru3D u = {};
   u.points = points, u.n = n, u.idx = idx, u.idx_stride = idx_stride;
@@ -731,12 +700,6 @@ extern "C" int camli_gru_flowhead_3d(
   a = input(points, points, 1, rh, c_h);
   a.out = t_qh;
   u.layer[1] = gf_layer(a, planes + 3, c_h);
-  a = input(points, points, 1, h_out, c_h);
-  a.out = t_1;
-  u.layer[2] = gf_layer(a, planes + 6, c_1);
-  a = input(points, points, 1, g_1, c_1);
-  a.out = t_2;
-  u.layer[3] = gf_layer(a, planes + 9, c_2);
 
   GfTail& zr = u.tail[0];
   zr.table = t_zrq, zr.ld = 3 * c_h, zr.dw = dw_zr, zr.k = k_zr, zr.c = 2 * c_h;
@@ -744,49 +707,20 @@ extern "C" int camli_gru_flowhead_3d(
   GfTail& q = u.tail[1];
   q.table = t_qh, q.ld = c_h, q.table2 = t_zrq + 2 * c_h, q.ld2 = 3 * c_h;
   q.dw = dw_q, q.k = k_q, q.c = c_h, q.out = h_out, q.h = h, q.z = z, q.half = c_h;
+  q.mlp_w = w_1, q.mlp_b = b_1, q.mlp_out = t_1, q.mlp_cout = c_1, q.mlp_npad = npad_1;
   GfTail& c1 = u.tail[2];
   c1.table = t_1, c1.ld = c_1, c1.dw = dw_1, c1.k = k_1, c1.c = c_1, c1.leaky = 1;
-  c1.out = fuse ? nullptr : g_1;
+  c1.mlp_w = w_2, c1.mlp_b = b_2, c1.mlp_out = t_2, c1.mlp_cout = c_2, c1.mlp_npad = npad_2;
   GfTail& c2 = u.tail[3];
   c2.table = t_2, c2.ld = c_2, c2.dw = dw_2, c2.k = k_2, c2.c = c_2, c2.leaky = 1;
   c2.out = delta, c2.fc_w = w_fc, c2.fc_b = b_fc, c2.fc_out = c_out, c2.fc_npad = fc_npad;
-  if (fuse) {
-    q.mlp_w = w_1, q.mlp_b = planes[8], q.mlp_out = t_1, q.mlp_cout = c_1, q.mlp_npad = npad_1;
-    c1.mlp_w = w_2, c1.mlp_b = planes[11], c1.mlp_out = t_2, c1.mlp_cout = c_2;
-    c1.mlp_npad = npad_2;
-  }
-  const int fused[] = {0, 4, 1, 5, 6, 7};
-  const int layered[] = {0, 4, 1, 5, 2, 6, 3, 7};
-  u.steps = fuse ? 6 : 8;
-  for (int s = 0; s < u.steps; ++s) u.step[s] = fuse ? fused[s] : layered[s];
-  u.barrier = barrier;
 
-  constexpr int smem = GfTile::kSmemBytes;
-  if (!persistent) {
-    for (int s = 0; s < u.steps; ++s) {
-      gru_flowhead_3d_step_kernel<<<gf_blocks(u, s), kGfThreads, u.step[s] < 4 ? smem : 0,
-                                    stream>>>(u, s);
-      CAMLI_TRY((int)cudaGetLastError());
-    }
-    return 0;
+  for (int s = 0; s < kGfSteps; ++s) {
+    const int smem = s == 0 || s == 2 ? GfTile::kSmemBytes : 0;
+    gru_flowhead_3d_kernel<<<gf_blocks(u, s), kGfThreads, smem, stream>>>(u, s);
+    CAMLI_TRY((int)cudaGetLastError());
   }
-  int grid = grid_blocks;
-  if (grid <= 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    CAMLI_TRY(cudaGetDevice(&device));
-    CAMLI_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-    CAMLI_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_flowhead_3d_kernel,
-                                                            kGfThreads, smem));
-    int most = 1;
-    for (int s = 0; s < u.steps; ++s) most = gf_blocks(u, s) > most ? gf_blocks(u, s) : most;
-    grid = per_sm * sms < most ? per_sm * sms : most;
-  }
-  CAMLI_TRY(cudaMemsetAsync(barrier, 0, (1 + kMaxSmIds) * sizeof(unsigned int), stream));
-  void* args[] = {&u};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)gru_flowhead_3d_kernel, dim3(grid), dim3(kGfThreads), args, smem, stream);
-  cudaGetLastError();  // a refused launch is reported once, here, not to the next launch
-  return (int)err;
+  return 0;
 }
 
 // One PointConvDW tail on its own: out[b, q, c] = max_j table[b, idx[b, q, j],

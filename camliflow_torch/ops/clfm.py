@@ -33,8 +33,8 @@ from torch import nn
 from . import _cuda
 from .geometry import gather_points
 from .gridsample import bilinear_taps
-from .update2d import _check_params, _check_tc, _planes
-from .update3d import linear_plain, pack_dense
+from .update2d import PackedConv, _check_params, _check_tc, _planes, split_tf32
+from .update3d import linear_plain, pack_linears
 
 DENSE = ("out_conv", "align1_2d", "align2_2d", "mlps3d", "align1_3d", "align2_3d")
 MAX_WIDTH = 1024  # csrc/clfm.cu kMaxC
@@ -75,6 +75,14 @@ def _sk(fusion: nn.Module) -> SKHead:
                   out.contiguous())
 
 
+def _pack_dense(linear: nn.Linear) -> PackedConv:
+    """A Linear packed as a 1x1 conv with the tensor-core tile's tf32
+    planes ([N_pad, K_pad], K-major)."""
+    packed = pack_linears(linear)
+    hi, lo = split_tf32(packed.weight.t().contiguous())
+    return packed._replace(hi=hi, lo=lo)
+
+
 def prepare_clfm_params(clfm: nn.Module) -> dict:
     """The dense layers of a `nn.clfm.CLFM` without norm (the in-loop ones),
     packed once per request: the six 1x1 layers as `PackedConv`s with their
@@ -85,7 +93,7 @@ def prepare_clfm_params(clfm: nn.Module) -> dict:
     for name, layer in layers.items():
         if not isinstance(layer.norm_fn, nn.Identity) or layer.act != "leaky_relu":
             raise ValueError(f"prepare_clfm_params: {name} must be a Linear + leaky ReLU")
-    params = {name: pack_dense(layer.conv_fn) for name, layer in layers.items()}
+    params = {name: _pack_dense(layer.conv_fn) for name, layer in layers.items()}
     params["sk_2d"], params["sk_3d"] = _sk(clfm.fuse2d), _sk(clfm.fuse3d)
     return params
 

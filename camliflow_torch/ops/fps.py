@@ -1,13 +1,13 @@
 """Furthest-point sampling: CUDA kernel, plain version, wrapper.
 
 Replaces camliflow_tpu/ops/pallas_fps.py::furthest_point_sampling_pallas
-with `csrc/fps.cu`: one thread-block cluster per cloud walks the serial
-steps, each block with its slice of the points and running distances in
-registers; a step's argmax is two warp redux instructions, and the winners
-travel with their coordinates through distributed shared memory, pushed by
-one-way st.async stores that complete an mbarrier each block waits on (or
-exchanged at a cluster barrier). The kernel is bound by the latency of one
-step, not by arithmetic or bandwidth; see the source for the design note.
+with `csrc/fps.cu`: one thread-block cluster of 4 blocks per cloud walks
+the serial steps, each block with its slice of the points and running
+distances in registers; a step's argmax is two warp redux instructions, and
+the winners travel with their coordinates through distributed shared
+memory, pushed by one-way st.async stores that complete an mbarrier each
+block waits on. The kernel is bound by the latency of one step, not by
+arithmetic or bandwidth; see the source for the design note.
 """
 
 from __future__ import annotations
@@ -16,21 +16,8 @@ import torch
 
 from . import _cuda
 
-CLUSTERS = (1, 2, 4, 8, 16)  # blocks a cloud the kernel takes
-# how the blocks of a cluster exchange a step's candidates (csrc/fps.cu)
-EXCHANGES = ("barrier", "push")
-CLUSTER = 4  # the defaults: the fastest at [2, 8192] -> 4096 on an H100 (PERF.md)
-EXCHANGE = "push"
-
-
-def capacity(cluster: int) -> int:
-    """The most points a cloud may hold on `cluster` blocks (csrc/fps.cu:
-    one block of 1024 threads x 8 points in registers, or 128 x 32 a block
-    of a cluster)."""
-    return 8192 if cluster == 1 else cluster * 128 * 32
-
-
-MAX_POINTS = capacity(CLUSTER)
+CLUSTER = 4  # csrc/fps.cu: blocks a cloud
+MAX_POINTS = 8192  # csrc/fps.cu: 4 blocks x 128 threads x 16 points in registers
 
 
 def furthest_point_sampling_plain(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
@@ -55,30 +42,23 @@ def furthest_point_sampling_plain(xyz: torch.Tensor, n_samples: int) -> torch.Te
     return indices
 
 
-def furthest_point_sampling(xyz: torch.Tensor, n_samples: int, cluster: int = CLUSTER,
-                            exchange: str = EXCHANGE) -> torch.Tensor:
+def furthest_point_sampling(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
     """[B, N, 3] -> [B, n_samples] int32. CPU tensors take the plain version;
-    CUDA tensors the kernel, on `cluster` blocks a cloud (one of CLUSTERS),
-    which exchange each step's candidates at a cluster barrier ("barrier")
-    or by one-way st.async stores ("push"); one block has no exchange."""
+    CUDA tensors the kernel."""
     if _cuda.on_cpu(xyz):
         return furthest_point_sampling_plain(xyz, n_samples)
     name = "furthest_point_sampling"
     _cuda.check(name, torch.float32, xyz=xyz)
     _cuda.check_shape(name, "xyz", xyz, (None, None, 3))
     batch, n_points, _ = xyz.shape
-    if cluster not in CLUSTERS or exchange not in EXCHANGES:
-        raise ValueError(f"{name}: cluster must be one of {CLUSTERS} and exchange one of "
-                         f"{EXCHANGES}, got {cluster}, {exchange!r}")
-    if n_points > capacity(cluster) or not 1 <= n_samples <= n_points:
-        raise ValueError(f"{name}: need N <= {capacity(cluster)} and "
+    if n_points > MAX_POINTS or not 1 <= n_samples <= n_points:
+        raise ValueError(f"{name}: need N <= {MAX_POINTS} and "
                          f"1 <= n_samples <= N, got N={n_points}, "
                          f"n_samples={n_samples}")
     out = torch.empty(batch, n_samples, dtype=torch.int32, device=xyz.device)
     from ..csrc.build import launch
 
-    launch("camli_fps", xyz.data_ptr(), out.data_ptr(), batch, n_points, n_samples, cluster,
-           EXCHANGES.index(exchange))
+    launch("camli_fps", xyz.data_ptr(), out.data_ptr(), batch, n_points, n_samples)
     furthest_point_sampling.launches += 1
     return out
 

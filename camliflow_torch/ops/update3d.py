@@ -9,18 +9,14 @@ path's bf16/int8 storage and k-major relayout are not ported).
 Each PointConvDW's MLP (one Linear) is packed once per request by
 `prepare_motion_encoder_3d_params` / `prepare_gru_flowhead_3d_params` into a
 `PackedConv` (1x1, weight [K_pad, N_pad]); z and r stack into one
-[384, 256] matmul, as the JAX packing does. GRU3D's and FlowHead3D's also
-carry the tf32 planes of the tensor-core tile that #7's dense phases run
-on (`pack_dense`). The plain versions run the exact chain of
-models/camliraft_l.py on the same packed weights.
+[384, 256] matmul, as the JAX packing does. GRU3D's also carry the tf32
+planes of the tensor-core tile that #7's first two dense phases run on. The
+plain versions run the exact chain of models/camliraft_l.py on the same
+packed weights.
 
     motion_encoder_3d(flow, corr, knn_idx, dw, me)      -> [B, N, 125 + 3]
     gru_flowhead_3d(h, x3d, motion, knn_idx, dw, gf)    -> (h' [B, N, 128],
                                                            delta [B, N, 3])
-
-#7 runs as one launch a phase (the default) or as one cooperative launch
-(`persistent=True`), whose grid barriers cost more than the launch gaps
-they replace (PERF.md).
 
 `dw_max` replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg: one
 PointConvDW tail (gather, multiply, max over k) as `camli_dw_max`, without
@@ -44,7 +40,6 @@ from .geometry import gather_points
 from .update2d import (
     K_ALIGN,
     N_ALIGN,
-    SM_ID_WORDS,
     PackedConv,
     _check_params,
     _check_tc,
@@ -55,8 +50,8 @@ from .update2d import (
 
 ME_CONVS = ("conv_c1", "conv_f1", "conv_f2", "conv")
 GF_DW = ("conv_zr", "conv_q", "conv1", "conv2")
-GF_DENSE = ("zrq", "q_h", "conv1", "conv2")  # #7's dense steps, on the tensor-core tile
-GF_PARAMS = ("zr", "q") + GF_DENSE + ("fc",)
+GF_DENSE = ("zrq", "q_h")  # #7's dense steps on the tensor-core tile
+GF_PARAMS = ("zr", "q") + GF_DENSE + ("conv1", "conv2", "fc")
 CHECKED = "_checked"  # the params' entry that remembers their last check
 STAGED = 128  # the most gathered channels a kernel stage holds per point
 # csrc/update3d.cu, #7: the widest tails (z|r, q, conv1, conv2), their most
@@ -64,11 +59,6 @@ STAGED = 128  # the most gathered channels a kernel stage holds per point
 GF_WIDTHS = (256, 128, 128, 64)
 GF_KS = (8, 8, 32, 32)
 GF_MAX_FC = 4
-PERSISTENT = False  # #7 as one launch a step (PERF.md: faster than one cooperative launch)
-# conv1 and conv2 as the f32 FMA epilogues of the tails before them up to
-# this many points a call, on the tensor-core tile above it: fused is faster
-# at the loop's 2048 points, the tile at the eval CLI's 8 x 2048 (PERF.md)
-FUSE_POINTS = 8192
 
 
 def pack_matrix(weight: torch.Tensor, bias: torch.Tensor, planes: bool = False) -> PackedConv:
@@ -92,12 +82,6 @@ def pack_linears(*linears: nn.Linear) -> PackedConv:
     channels are stacked in order (z and r)."""
     return pack_matrix(torch.cat([lin.weight for lin in linears], dim=0),
                        torch.cat([lin.bias for lin in linears], dim=0))
-
-
-def pack_dense(*linears: nn.Linear) -> PackedConv:
-    """`pack_linears` with the tensor-core tile's tf32 planes."""
-    return pack_matrix(torch.cat([lin.weight for lin in linears], dim=0),
-                       torch.cat([lin.bias for lin in linears], dim=0), planes=True)
 
 
 def _mlp(conv: nn.Module) -> nn.Linear:
@@ -219,7 +203,7 @@ def prepare_gru_3d_params(gru: nn.Module) -> dict:
 
 
 def prepare_flow_head_3d_params(head: nn.Module) -> dict:
-    return {"conv1": pack_dense(_mlp(head.conv1)), "conv2": pack_dense(_mlp(head.conv2)),
+    return {"conv1": pack_linears(_mlp(head.conv1)), "conv2": pack_linears(_mlp(head.conv2)),
             "fc": pack_linears(head.fc)}
 
 
@@ -281,15 +265,18 @@ def _gf_checked(name: str, params: dict, dw: dict, shape: tuple, device) -> tupl
         raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
     widths = (2 * ch, ch, conv1.cout, conv2.cout)
     if (any(w > most for w, most in zip(widths, GF_WIDTHS)) or fc.cout > GF_MAX_FC
-            or conv1.cout % 4
+            or conv1.cout % 4 or conv2.cout % 4
             or any(k > most or k < 1 for k, most in zip(ks, GF_KS))):
-        raise ValueError(f"{name}: the kernel takes tails of up to {GF_WIDTHS} channels and "
-                         f"{GF_KS} neighbours and up to {GF_MAX_FC} fc outputs, got {widths}, "
-                         f"{tuple(ks)}, {fc.cout}")
+        raise ValueError(f"{name}: the kernel takes tails of up to {GF_WIDTHS} channels, "
+                         f"multiples of 4, {GF_KS} neighbours and up to {GF_MAX_FC} fc "
+                         f"outputs, got {widths}, {tuple(ks)}, {fc.cout}")
+    misaligned = [k for k in GF_DW if dw[k].data_ptr() % 16]
+    if misaligned:  # the tails read the weights in 16-byte loads
+        raise ValueError(f"{name}: dw{misaligned} must be 16-byte aligned")
     _check_tc(name, packed, GF_DENSE)
-    per_point = 6 * ch + 2 * conv1.cout + conv2.cout  # the kernel's scratch
+    per_point = 6 * ch + conv1.cout + conv2.cout  # the kernel's scratch
     args = (tuple(dw[k].data_ptr() for k in GF_DW), _planes(packed, GF_DENSE),
-            tuple(t.data_ptr() for t in (conv1.weight, conv2.weight, fc.weight, fc.bias)),
+            tuple(t.data_ptr() for c in (conv1, conv2, fc) for t in (c.weight, c.bias)),
             (conv1.cout, conv2.cout, fc.cout), tuple(ks),
             tuple(w.weight.shape[1] for w in (conv1, conv2, fc)), per_point)
     params[CHECKED] = ((device, shape), read, args)
@@ -297,16 +284,10 @@ def _gf_checked(name: str, params: dict, dw: dict, shape: tuple, device) -> tupl
 
 
 def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
-                    knn_idx: torch.Tensor, dw: dict, params: dict,
-                    persistent: bool = PERSISTENT, fuse: bool | None = None, grid: int = 0):
+                    knn_idx: torch.Tensor, dw: dict, params: dict):
     """h [B, N, Ch], x3d [B, N, Cx], motion [B, N, Cm], knn_idx [B, N, >=32]
     int32 -> (h' [B, N, Ch], delta [B, N, 3]). CPU tensors take the plain
-    version; CUDA tensors the kernel: one launch a step, or with
-    `persistent=True` one cooperative launch; conv1 and conv2 as FMA
-    epilogues (`fuse`; by default up to FUSE_POINTS points) or on the
-    tensor-core tile. `grid` > 0 asks the
-    cooperative launch for that many blocks instead of the co-resident count
-    (a grid too large is refused, and the wrapper raises)."""
+    version; CUDA tensors the kernel."""
     if _cuda.on_cpu(h, x3d, motion, knn_idx):
         return gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw, params)
     name = "gru_flowhead_3d"
@@ -325,19 +306,14 @@ def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
             or knn_idx.shape[:2] != (batch, n) or knn_idx.shape[2] < max(ks)
             or not knn_idx.is_contiguous()):
         _check_idx(name, knn_idx, batch, n, max(ks), h.device)
-    points = batch * n
-    if fuse is None:
-        fuse = points <= FUSE_POINTS
-    # the scratch, then the cooperative form's barrier words
-    scratch = h.new_empty(points * per_point + 1 + SM_ID_WORDS)
+    scratch = h.new_empty(batch * n * per_point)
     h_out, delta = h.new_empty(batch, n, ch), h.new_empty(batch, n, c_out)
     from ..csrc.build import launch
 
     launch("camli_gru_flowhead_3d", h.data_ptr(), x3d.data_ptr(), motion.data_ptr(),
-           knn_idx.data_ptr(), *dws, planes, *weights, scratch.data_ptr(),
-           scratch.data_ptr() + 4 * points * per_point, h_out.data_ptr(), delta.data_ptr(),
-           batch, n, knn_idx.shape[2], ch, cx, cm, c1, c2, c_out, *ks, *npads, int(fuse),
-           int(persistent), grid)
+           knn_idx.data_ptr(), *dws, planes, *weights, scratch.data_ptr(), h_out.data_ptr(),
+           delta.data_ptr(), batch, n, knn_idx.shape[2], ch, cx, cm, c1, c2, c_out, *ks,
+           *npads)
     gru_flowhead_3d.launches += 1
     return h_out, delta
 

@@ -24,10 +24,9 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    card could take (bound; for the tensor-core kernels, the 2D chain's and
    CLFM's, beside the f32 bound outside the tensor cores); Correlation3D's
    selection bit for bit, ties included, CLFM's device time split by stage
-   (profiler); FPS bit for bit at every cluster size and exchange, also on
-   duplicated points, each timed (and its time a step); the 3D GRU + flow
-   head in its four forms, each timed, the default's steps by profiler
-   device time and the cooperative form's grid barriers beside them;
+   (profiler); FPS bit for bit, also on duplicated points, and its time a
+   step; the 3D GRU + flow head also at the eval CLI's batch of 8, each
+   timed, its steps by profiler device time;
 4. end to end, for each path: random weights from a seeded
    torch.Generator, synthetic inputs made with numpy from a seed (bench.py's
    recipe plus a target), through the port's Evaluator: 1 warm-up and 3
@@ -280,8 +279,6 @@ def ptxas_summary(log: str) -> list[str]:
                 used += f", {TC_STAGES * 4 * 16 * ks * (bm + 2 * bn)} bytes dynamic smem"
             elif name.startswith("gru_flowhead_3d"):  # the dense steps' 32 x 64 tile
                 used += f", {TC_STAGES * 4 * 16 * (32 + 2 * 64)} bytes dynamic smem (dense steps)"
-            elif name.startswith("fps_kernel"):
-                used += ", dynamic smem: the block's slice, 16 bytes a point"
             lines.append(f"{name}: {used} | {spills}")
             name = None
     return lines
@@ -388,38 +385,29 @@ def kernel_parity(device) -> list[dict]:
               flush=True)
 
     # FPS [2, 8192] -> 4096: indices identical, also on a copy of the clouds
-    # with every fifth point duplicated far away (exact ties), at every cluster size
-    # and exchange, and again on a second run; each form timed, the default
-    # as the kernel. Each step updates every point's distance (8 flops), its
+    # with every fifth point duplicated far away (exact ties), and again on a
+    # second run. Each step updates every point's distance (8 flops), its
     # running min and the argmax compare.
     n_fps = N_SAMPLES[0]
     dup = both.clone()  # every fifth point a copy of the point half a cloud away
     dup[:, 1::5] = both[:, (torch.arange(1, N_POINTS, 5, device=device) + N_POINTS // 2)
                         % N_POINTS]
     refs = [fps.furthest_point_sampling_plain(cloud, n_fps) for cloud in (both, dup)]
-    forms = [(1, "barrier")] + [(g, ex) for g in fps.CLUSTERS[1:] for ex in fps.EXCHANGES]
-    fps_forms = {}
-    for g, ex in forms:
-        for cloud, ref in zip((both, dup), refs):
-            first = fps.furthest_point_sampling(cloud, n_fps, cluster=g, exchange=ex)
-            again = fps.furthest_point_sampling(cloud, n_fps, cluster=g, exchange=ex)
-            if not (torch.equal(first, ref) and torch.equal(again, first)):
-                raise AssertionError(f"FPS cluster {g} {ex}: indices differ from the plain "
-                                     "version or between two runs")
-        fps_forms[f"cluster {g} {ex}"] = time_ms(
-            lambda: fps.furthest_point_sampling(both, n_fps, cluster=g, exchange=ex), 5)
-    print("  FPS forms, bit-identical on both clouds: " + ", ".join(
-        f"{key} {ms:.4f} ms ({1e3 * ms / n_fps:.4f} us a step)" for key, ms in fps_forms.items()))
+    for name, cloud, ref in zip(("random", "duplicated"), (both, dup), refs):
+        first = fps.furthest_point_sampling(cloud, n_fps)
+        again = fps.furthest_point_sampling(cloud, n_fps)
+        if not (torch.equal(first, ref) and torch.equal(again, first)):
+            raise AssertionError(f"FPS on the {name} clouds: indices differ from the plain "
+                                 "version or between two runs")
     got = fps.furthest_point_sampling(both, n_fps)
     ms = time_ms(lambda: fps.furthest_point_sampling(both, n_fps), 5)
     record("furthest_point_sampling", "camliflow_torch/csrc/fps.cu",
            "camliflow_tpu/ops/pallas_fps.py:109", 0.0, ms,
            time_ms(lambda: fps.furthest_point_sampling_plain(both, n_fps), 2),
            2 * n_fps * N_POINTS * 10, 4 * (2 * N_POINTS * 3 + 2 * n_fps),
-           label=f"furthest_point_sampling (cluster {fps.CLUSTER}, {fps.EXCHANGE}: "
+           label=f"furthest_point_sampling (cluster of {fps.CLUSTER} blocks: "
                  f"{1e3 * ms / n_fps:.4f} us a step)",
-           us_per_step=1e3 * ms / n_fps, cluster=fps.CLUSTER, exchange=fps.EXCHANGE,
-           forms_ms=fps_forms)
+           us_per_step=1e3 * ms / n_fps, cluster=fps.CLUSTER)
 
     # KNN: each call the main paths make; selected distances must agree
     lv = [gather_points(both, got[:, :m]) for m in N_SAMPLES]
@@ -632,61 +620,40 @@ def kernel_parity(device) -> list[dict]:
                # points, neighbours (int32), the hoisted weights, output
                4 * (n * (3 + 128 + 32 + 128) + n * dw_floats(dw_me) + weights))
 
-        # #7 in its four forms (one launch a step or one cooperative launch;
-        # conv1 and conv2 fused as FMA epilogues or on the tensor-core tile),
-        # each held to the plain version and to itself on a second run; the
-        # default's steps by profiler device time, and the cooperative
-        # form's grid barriers as its device time less the steps'
+        # #7 held to the plain version and to itself on a second run, at the
+        # loop's 2048 points and at the eval CLI's batch of 8; its steps by
+        # profiler device time
         h3, x3 = torch.tanh(rand3(128)), torch.relu(rand3(128))
         gf3 = update3d.prepare_gru_flowhead_3d_params(gru, head)
         h_p, d_p = update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, dw_gf, gf3)
-        gf_forms, err = {}, 0.0
-        for persistent in (False, True):
-            for fuse in (True, False):
-                def call():
-                    return update3d.gru_flowhead_3d(h3, x3, motion3, idx, dw_gf, gf3,
-                                                    persistent=persistent, fuse=fuse)
-                h_k, d_k = call()
-                label = f"gru_flowhead_3d ({'cooperative' if persistent else 'per step'}, " \
-                        f"{'fused' if fuse else 'tile'})"
-                err = max(err, check(f"{label} h'", h_k, h_p), check(f"{label} delta", d_k, d_p))
-                again = call()
-                if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
-                    raise AssertionError(f"{label}: two runs give different bits")
-                gf_forms[label[17:-1]] = {"ms": time_ms(call, 50), "device_ms": device_ms(call, 20)}
-        # the per-step forms at the eval CLI's batch of 8 (the default's
-        # choice between them follows the number of points)
+        default = lambda: update3d.gru_flowhead_3d(h3, x3, motion3, idx, dw_gf, gf3)  # noqa: E731
+        h_k, d_k = default()
+        err = max(check("gru_flowhead_3d h'", h_k, h_p), check("gru_flowhead_3d delta", d_k, d_p))
+        again = default()
+        if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
+            raise AssertionError("gru_flowhead_3d: two runs give different bits")
         rep = (8, 1, 1)
         xyz8 = xyz1.repeat(rep).contiguous()
         idx8 = knn.k_nearest_neighbor(xyz8, xyz8, 32)
         dw8 = {**gru.precompute_weights(xyz8, idx8), **head.precompute_weights(xyz8, idx8)}
         args8 = (h3.repeat(rep), x3.repeat(rep), motion3.repeat(rep), idx8, dw8, gf3)
         ref8 = update3d.gru_flowhead_3d_plain(*args8)
-        for fuse in (True, False):
-            got8 = update3d.gru_flowhead_3d(*args8, fuse=fuse)
-            err = max(err, check("gru_flowhead_3d bs=8 h'", got8[0], ref8[0]),
-                      check("gru_flowhead_3d bs=8 delta", got8[1], ref8[1]))
-            gf_forms[f"per step, {'fused' if fuse else 'tile'}, bs=8"] = {
-                "ms": time_ms(lambda: update3d.gru_flowhead_3d(*args8, fuse=fuse), 20),
-                "device_ms": device_ms(lambda: update3d.gru_flowhead_3d(*args8, fuse=fuse), 10)}
+        got8 = update3d.gru_flowhead_3d(*args8)
+        err = max(err, check("gru_flowhead_3d bs=8 h'", got8[0], ref8[0]),
+                  check("gru_flowhead_3d bs=8 delta", got8[1], ref8[1]))
+        bs8 = {"ms": time_ms(lambda: update3d.gru_flowhead_3d(*args8), 20),
+               "device_ms": device_ms(lambda: update3d.gru_flowhead_3d(*args8), 10)}
         del dw8, args8, ref8, got8
-        default = lambda: update3d.gru_flowhead_3d(h3, x3, motion3, idx, dw_gf, gf3)  # noqa: E731
-        fused = n <= update3d.FUSE_POINTS
+        print(f"  gru_flowhead_3d at bs=8 (16,384 points): {bs8['ms']:.4f} ms by events, "
+              f"{bs8['device_ms']:.4f} ms device")
         steps = stage_ms(default, 20)
-        names = (("dense z|r + q_xm", "tail z|r", "dense q_h", "tail q + conv1 (FMA)",
-                  "tail conv1 + conv2 (FMA)", "tail conv2 + fc") if fused else
-                 ("dense z|r + q_xm", "tail z|r", "dense q_h", "tail q", "dense conv1",
-                  "tail conv1", "dense conv2", "tail conv2 + fc"))
+        names = ("dense z|r + q_xm", "tail z|r", "dense q_h", "tail q + conv1 (FMA)",
+                 "tail conv1 + conv2 (FMA)", "tail conv2 + fc")
         steps_ms = {name: ms for name, (_, ms) in zip(names, steps)}
-        coop = gf_forms[f"cooperative, {'fused' if fused else 'tile'}"]["device_ms"]
-        barriers_ms = coop - sum(steps_ms.values()) if len(steps) == len(names) else None
-        print("  gru_flowhead_3d forms (events ms / device ms): " + ", ".join(
-            f"{key} {v['ms']:.4f} / {v['device_ms']:.4f}" for key, v in gf_forms.items()))
         if len(steps) == len(names):
             print("  gru_flowhead_3d steps, device time (profiler): " + ", ".join(
                 f"{name} {ms:.4f} ms" for name, ms in steps_ms.items()) +
-                f"; total {sum(steps_ms.values()):.4f} ms; the cooperative form's grid "
-                f"barriers ~ {barriers_ms:.4f} ms")
+                f"; total {sum(steps_ms.values()):.4f} ms")
         else:
             print(f"  gru_flowhead_3d: the profiler saw {len(steps)} kernels a call")
         gf_host = host_ms(default, 20)
@@ -699,7 +666,7 @@ def kernel_parity(device) -> list[dict]:
                        20),
                2 * n * (sum(gf3[k].cin * gf3[k].cout for k in keys) + dw_floats(dw_gf)),
                4 * (n * (3 * 128 + 32 + 128 + 3) + n * dw_floats(dw_gf) + weights),
-               steps_ms=steps_ms, barriers_ms=barriers_ms, host_ms=gf_host, forms=gf_forms)
+               steps_ms=steps_ms, host_ms=gf_host, bs8=bs8)
 
         # the PointConvDW tail alone, at the fuse_hidden path's four shapes:
         # GRU3D's z|r and q (k=4), FlowHead3D's conv1 and conv2 (k=32)

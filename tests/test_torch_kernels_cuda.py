@@ -8,9 +8,8 @@ installed:
 
 (`--noconftest` because tests/conftest.py configures JAX.) Tolerances: KNN
 selected squared distances rtol = atol = 1e-4; FPS indices identical;
-interpolation atol 1e-5 (FPS also on duplicated points at every cluster size
-and exchange, and the 3D GRU + flow head in each of its forms, NaN
-positions included); the 2D and 3D update kernels, the Correlation3D
+interpolation atol 1e-5 (FPS also on duplicated points, and the 3D GRU +
+flow head's NaN positions too); the 2D and 3D update kernels, the Correlation3D
 tail and CLFM max |kernel - plain| <= 1e-4 * (1 + max |plain|) (f32 on both
 sides: summation order only, and for the tensor-core tile of the 2D chain
 and CLFM the 3xTF32 split's ~2^-22 relative residue per product); the
@@ -74,17 +73,14 @@ def test_fps_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", fps.CLUSTERS)
-def test_fps_kernel_on_duplicated_points_at_every_cluster_size(cuda, cluster):
+@pytest.mark.parametrize("n", [1000, 8192])
+def test_fps_kernel_on_duplicated_points(cuda, n):
     """Every fifth point a copy of the point half a cloud away, in another
-    block: exact ties across blocks; both exchanges, indices identical."""
-    n = 8192
+    block of the cluster: exact ties across blocks; indices identical."""
     pc = ids_clouds(23, cuda, n=n)
     pc[:, 1::5] = pc[:, (torch.arange(1, n, 5, device=cuda) + n // 2) % n]
-    ref = fps.furthest_point_sampling_plain(pc, 2048)
-    for exchange in fps.EXCHANGES:
-        got = fps.furthest_point_sampling(pc, 2048, cluster=cluster, exchange=exchange)
-        assert torch.equal(got, ref), (cluster, exchange)
+    got = fps.furthest_point_sampling(pc, n // 4)
+    assert torch.equal(got, fps.furthest_point_sampling_plain(pc, n // 4))
 
 
 @pytest.mark.cuda
@@ -142,11 +138,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         interp.knn_interpolation(pts, pts, pts.cpu(), 3)
     with pytest.raises(ValueError, match="N <="):
-        fps.furthest_point_sampling(ids_clouds(28, cuda, 1, fps.MAX_POINTS + 1), 10)
-    with pytest.raises(ValueError, match="N <="):  # one block holds 8192 points
-        fps.furthest_point_sampling(ids_clouds(28, cuda, 1, 8193), 10, cluster=1)
-    with pytest.raises(ValueError, match="cluster"):
-        fps.furthest_point_sampling(pts, 10, cluster=3)
+        fps.furthest_point_sampling(ids_clouds(28, cuda, 1, 8193), 10)
     with pytest.raises(ValueError, match="descending"):
         corr3d.correlation3d_knn(pts[:1], pts[:1], torch.zeros(1, 512, 768, device=cuda),
                                  (256, 512), 16)
@@ -407,26 +399,19 @@ def gru_flowhead_3d_case(device, seed, batch, n):
     return (h, x3d, motion, idx), dw, update3d.prepare_gru_flowhead_3d_params(gru, head)
 
 
-GF_FORMS = [(False, True), (False, False), (True, True), (True, False)]  # persistent, fuse
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,n", [(1, 2048), (2, 2048), (8, 2048), (2, 100), (1, 70)])
 def test_gru_flowhead_3d_kernel_matches_plain(cuda, batch, n):
-    """Every form (one launch a step or one cooperative launch; conv1 and
-    conv2 fused or on the tile), at the eval CLI's batch of 8 too, where the
-    cooperative grid walks many tiles a block."""
+    """At the loop's 2048 points, at the eval CLI's batch of 8, and ragged."""
     with torch.inference_mode():
         inputs, dw, params = gru_flowhead_3d_case(cuda, 36, batch, n)
+        before = update3d.gru_flowhead_3d.launches
+        h_got, d_got = update3d.gru_flowhead_3d(*inputs, dw, params)
+        assert update3d.gru_flowhead_3d.launches == before + 1
         h_ref, d_ref = update3d.gru_flowhead_3d_plain(*inputs, dw, params)
-        for persistent, fuse in GF_FORMS:
-            before = update3d.gru_flowhead_3d.launches
-            h_got, d_got = update3d.gru_flowhead_3d(*inputs, dw, params, persistent=persistent,
-                                                    fuse=fuse)
-            assert update3d.gru_flowhead_3d.launches == before + 1
-            assert h_got.shape == (batch, n, 128) and d_got.shape == (batch, n, 3)
-            assert_conv_close(h_got, h_ref)
-            assert_conv_close(d_got, d_ref)
+    assert h_got.shape == (batch, n, 128) and d_got.shape == (batch, n, 3)
+    assert_conv_close(h_got, h_ref)
+    assert_conv_close(d_got, d_ref)
 
 
 @pytest.mark.cuda
@@ -442,31 +427,23 @@ def test_gru_flowhead_3d_propagates_nan_as_plain(cuda):
         bad["conv1"][0, 5, 3, 7] = float("nan")
         h_ref, d_ref = update3d.gru_flowhead_3d_plain(*inputs, bad, params)
         assert torch.isnan(h_ref).any() and torch.isnan(d_ref).any()
-        for persistent, fuse in GF_FORMS:
-            h_got, d_got = update3d.gru_flowhead_3d(*inputs, bad, params, persistent=persistent,
-                                                    fuse=fuse)
-            for got, ref in ((h_got, h_ref), (d_got, d_ref)):
-                assert torch.equal(torch.isnan(got), torch.isnan(ref))
-                assert_conv_close(torch.nan_to_num(got), torch.nan_to_num(ref))
+        h_got, d_got = update3d.gru_flowhead_3d(*inputs, bad, params)
+    for got, ref in ((h_got, h_ref), (d_got, d_ref)):
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert_conv_close(torch.nan_to_num(got), torch.nan_to_num(ref))
 
 
 @pytest.mark.cuda
 def test_fps_and_gru_flowhead_3d_rerun_bit_identical(cuda):
     """No atomics in either: two runs give the same bits."""
     pc = ids_clouds(24, cuda, n=8192)
-    for cluster in fps.CLUSTERS:
-        for exchange in fps.EXCHANGES:
-            first = fps.furthest_point_sampling(pc, 4096, cluster=cluster, exchange=exchange)
-            again = fps.furthest_point_sampling(pc, 4096, cluster=cluster, exchange=exchange)
-            assert torch.equal(first, again)
+    assert torch.equal(fps.furthest_point_sampling(pc, 4096),
+                       fps.furthest_point_sampling(pc, 4096))
     with torch.inference_mode():
         inputs, dw, params = gru_flowhead_3d_case(cuda, 39, 2, 2048)
-        for persistent, fuse in GF_FORMS:
-            first = update3d.gru_flowhead_3d(*inputs, dw, params, persistent=persistent,
-                                             fuse=fuse)
-            again = update3d.gru_flowhead_3d(*inputs, dw, params, persistent=persistent,
-                                             fuse=fuse)
-            assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+        first = update3d.gru_flowhead_3d(*inputs, dw, params)
+        again = update3d.gru_flowhead_3d(*inputs, dw, params)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 @pytest.mark.cuda
@@ -493,9 +470,16 @@ def test_update3d_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             update3d.gru_flowhead_3d(h, h, h[..., :64].contiguous(), idx, dw_gf, gf)
         with pytest.raises(ValueError, match="neighbours"):
             update3d.gru_flowhead_3d(h, h, h, idx[..., :16].contiguous(), dw_gf, gf)
-        with pytest.raises(RuntimeError, match="gru_flowhead_3d: CUDA error"):
-            update3d.gru_flowhead_3d(h, h, h, idx, dw_gf, gf, persistent=True,
-                                     grid=1 << 20)  # never co-resident
+        narrow = update3d.prepare_gru_flowhead_3d_params(gru, head)
+        narrow["conv2"] = narrow["conv2"]._replace(cout=62)
+        narrow["fc"] = narrow["fc"]._replace(cin=62)
+        dw_narrow = {**dw_gf, "conv2": dw_gf["conv2"][..., :62].contiguous()}
+        with pytest.raises(ValueError, match="multiples of 4"):  # 16-byte loads of conv2's
+            update3d.gru_flowhead_3d(h, h, h, idx, dw_narrow, narrow)
+        shifted = torch.empty(dw_gf["conv1"].numel() + 1, device=cuda)[1:]
+        shifted = shifted.view(dw_gf["conv1"].shape).copy_(dw_gf["conv1"])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            update3d.gru_flowhead_3d(h, h, h, idx, {**dw_gf, "conv1": shifted}, gf)
 
 
 @pytest.mark.cuda
