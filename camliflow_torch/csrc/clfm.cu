@@ -53,6 +53,7 @@
 
 namespace {
 
+constexpr int kThreads = 256;  // the elementwise and partial-sum kernels' blocks
 constexpr int kChunk = 256;   // rows per partial column sum
 constexpr int kMaxC = 1024;   // widest fused feature (the head's shared arrays)
 

@@ -1,16 +1,17 @@
 // The 3xTF32 tensor-core implicit-GEMM convolution tile: update2d.cu's
-// motion encoder (kernel #9), its GRU and flow head (kernel #8) and #8's two
-// halves, and clfm.cu's six dense layers (kernel #11) run on it.
-// conv_tile.cuh's f32 FMA tile stays for the fused RAFT iteration (#10).
+// motion encoder (kernel #9), its GRU and flow head (kernel #8), #8's two
+// halves and the fused RAFT iteration (#10), update3d.cu's dense steps
+// (#7) and clfm.cu's six dense layers (kernel #11) run on it.
 //
-// What it computes is conv_tile.cuh's convolution, with the same features:
-// NHWC inputs read as one virtual channel concat of up to three tensors, the
-// reduction ordered (tap, input channel), zero padding at the borders as a
-// load predicate, and the same epilogues (bias + ReLU, none, leaky ReLU, the
-// GRU's z and r*h, h' = (1-z)*h + z*tanh(q), nan_to_num, the 2-channel flow
-// tail). A 1x1 convolution over [rows, C] (height = rows, width = 1) is a
-// dense layer; `conv_tc_group_kernel` deals the tiles of up to four
-// independent ones to one grid.
+// The convolution (`Conv`): NHWC inputs read as one virtual channel concat
+// of up to three tensors, the reduction ordered (tap, input channel), zero
+// padding at the borders as a load predicate (a horizontal tap at x = 0 or
+// W-1 reads zero, never the neighbouring row), and epilogues that fuse the
+// bias and the activation (ReLU, none, leaky ReLU), or the GRU's gates (the
+// z|r conv writes z and r*h, the q conv writes h' = (1-z)*h + z*tanh(q)),
+// nan_to_num and the 2-channel flow tail. A 1x1 convolution over [rows, C]
+// (height = rows, width = 1) is a dense layer; `conv_tc_group_kernel` deals
+// the tiles of up to four independent ones to one grid.
 //
 // Numerics: f32 in, f32 out, on the tensor cores by the 3xTF32 split. Every
 // operand x becomes hi = tf32(x) (cvt.rna, 10 mantissa bits) and
@@ -47,12 +48,73 @@
 //   of the chain on an H100, so the tile stays on mma.sync (PERF.md).
 #pragma once
 
-#include "conv_tile.cuh"
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
 
 namespace {
 
+constexpr int kNPad = 64;    // output channels: the packed planes' rows, padded
 constexpr int kTcBk = 16;    // reduction floats per warp slice and stage
 constexpr int kStages = 3;   // cp.async ring depth
+
+enum Epilogue { EPI_RELU = 0, EPI_NONE = 1, EPI_ZR = 2, EPI_GATE = 3, EPI_LEAKY = 4 };
+
+struct Conv {
+  const float* in0;  // virtual concat of up to three NHWC inputs
+  const float* in1;
+  const float* in2;
+  int c0, c1, c2;
+  const float* bias;  // [N_pad]
+  int pixels, height, width, kh, kw;
+  int cout, n_pad, k_total;
+  float* out;  // out[p * out_stride + co]
+  int out_stride;
+  const float* h;  // ZR: r is applied to h; GATE: the previous state
+  const float* z;  // GATE: the update gate
+  float* out2;     // ZR: r * h
+  int half;        // ZR: hidden channels (z in [0, half), r in [half, 2 half))
+  const float* tail;  // copied to out[p, cout + j] for j < tail_c
+  int tail_c;
+  int nan_fix;  // nan_to_num on the stored value
+};
+
+__device__ __forceinline__ float nan_to_num(float v) {
+  if (isnan(v)) return 0.f;
+  return fminf(fmaxf(v, -FLT_MAX), FLT_MAX);
+}
+
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Fills the shape fields of a convolution.
+Conv shaped(Conv a, int kh, int kw, int cout) {
+  a.kh = kh;
+  a.kw = kw;
+  a.cout = cout;
+  a.n_pad = round_up(cout, kNPad);
+  a.k_total = kh * kw * (a.c0 + a.c1 + a.c2);
+  if (a.out_stride == 0) a.out_stride = cout;
+  return a;
+}
+
+Conv input(int pixels, int height, int width, const float* in0, int c0,
+           const float* in1 = nullptr, int c1 = 0, const float* in2 = nullptr,
+           int c2 = 0) {
+  Conv a = {};
+  a.pixels = pixels;
+  a.height = height;
+  a.width = width;
+  a.in0 = in0;
+  a.c0 = c0;
+  a.in1 = in1;
+  a.c1 = c1;
+  a.in2 = in2;
+  a.c2 = c2;
+  return a;
+}
+
 
 // --- PTX ------------------------------------------------------------------
 
@@ -116,7 +178,7 @@ struct TcShape {
   static constexpr int kMinBlocks = KSPLIT > 1 ? 1 : (BN == 64 ? 4 : 2);
 };
 
-// The epilogue of one output element: conv_tile.cuh's, unchanged.
+// The epilogue of one output element.
 template <int EPI>
 __device__ __forceinline__ void store(const Conv& a, int p, int co, float acc) {
   if (p >= a.pixels || co >= a.cout) return;

@@ -17,32 +17,69 @@
 // 16,384 per query, 0.37 GFLOP against ~2.1 MB moved, so bound by
 // operations (5.5 us at 67 TFLOP/s of f32).
 //
-// Design: one warp per query, one lane per hidden channel (C1 <= 32). Lane c
-// keeps column c of W1 and of W2 in registers; each tap's h is spread over
-// the warp and h2[c] collects it with C1 shuffles. The level sums never leave
-// registers: when a level's k taps are summed, each lane broadcasts its
-// channel of acc_l and every lane adds that level's share of the merge to its
-// outputs o = lane + 32 r (Cout <= 128), so [acc_0, ..., acc_{L-1}] is never
-// formed. The merge weights, L*C1 x Cout f32 (64 KB on the main path), live
-// in shared memory, which is above the 48 KB that a launch gets by default:
-// the entry point first raises the kernel's dynamic shared-memory limit, and
-// a refused launch returns its error (the wrapper raises). Blocks of 8 warps
-// walk over the queries. Sums are explicit __fmaf_rn/__fadd_rn in f32, in
-// another order than the plain version's matmuls.
+// Design, tap-parallel: nothing on a tap's path waits on another lane.
+// - Per-tap stage: one thread per (query, tap). It gathers rel and the
+//   cost and computes h and h2 in registers, C1 <= 32 independent
+//   accumulators (the layers are zero-padded to 32 channels in shared
+//   memory, so the loops unroll without branches). W1, W2 and the biases
+//   sit in shared memory, read as warp-wide broadcasts (every lane the same
+//   address, 16-byte loads). The thread writes relu(h2) to a row of shared
+//   memory (stride 33: conflict-free).
+// - Level sums: one thread per (query, level, channel) adds its level's k
+//   rows in tap order, for any k; a level that straddles two chunks of
+//   taps is carried in shared memory from one chunk to the next. No float
+//   atomics: two runs give the same bits.
+// - Merge: [queries x L*C1] x [L*C1 x Cout] against the merge weights in
+//   shared memory, each thread 2 queries x 2 outputs, then bias and leaky
+//   ReLU.
+// - Blocks are persistent: each loads the weights once (the merge's are
+//   64 KB on the main path, above a launch's default 48 KB: the entry point
+//   raises the kernel's limit first, and a refused launch returns its
+//   error, on which the wrapper raises) and walks over groups of up to 8
+//   queries, taps in chunks of 256. The merge weights arrive by cp.async
+//   while the first group's per-tap stage runs.
+// Sums are explicit __fmaf_rn/__fadd_rn in f32, in the order of the former
+// warp-per-query kernel (tap order per level, merge rows in order), another
+// order than the plain version's matmuls.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxHidden = 32;   // C1: one lane per channel
-constexpr int kOutPerLane = 4;   // Cout <= 128
-constexpr unsigned kAll = 0xffffffffu;
+constexpr int kThreads = 256;     // a block; also the taps of one chunk
+constexpr int kHidden = 32;       // C1 at most: the padded width of W1, W2
+constexpr int kRow = kHidden + 1;  // a tap's row of relu(h2) in shared memory
+constexpr int kMaxGroup = 8;      // queries a block takes at once
+constexpr int kMaxOut = 128;      // Cout at most: 2 output slots of 64
+constexpr int kGroupTaps = 512;   // a group spans about this many taps
+constexpr int kLayerFloats = 4 * kHidden + kHidden + kHidden * kHidden + kHidden;
 
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
 
-__global__ void __launch_bounds__(kThreads) corr3d_tail_kernel(
+// 16 bytes global -> shared, asynchronously
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// queries a block takes at once
+__host__ __device__ __forceinline__ int group_queries(int taps) {
+  const int q = kGroupTaps / taps;
+  return q < 1 ? 1 : (q > kMaxGroup ? kMaxGroup : q);
+}
+
+size_t smem_bytes(int n_levels, int c1, int c_out) {
+  const size_t lc = (size_t)n_levels * c1;
+  return (kLayerFloats + lc * c_out + (size_t)kThreads * kRow + kMaxGroup * lc) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kThreads, 2) corr3d_tail_kernel(
     const float* __restrict__ xyz1, const float* __restrict__ xyz2,
     const int32_t* __restrict__ idx, const float* __restrict__ cost,
     const float* __restrict__ w1, const float* __restrict__ b1,
@@ -50,72 +87,157 @@ __global__ void __launch_bounds__(kThreads) corr3d_tail_kernel(
     const float* __restrict__ wm, const float* __restrict__ bm,
     float* __restrict__ out, int queries, int n, int m_rows, int n_levels, int k,
     int c1, int c_out) {
-  extern __shared__ float merge_w[];  // [n_levels * c1, c_out]
-  const int merge_size = n_levels * c1 * c_out;
-  for (int t = threadIdx.x; t < merge_size; t += kThreads) merge_w[t] = wm[t];
+  // [W1 4 x 32 | b1 32 | W2 32 x 32 | b2 32] (zero past c1), the merge
+  // weights [L*c1][c_out], the taps' rows [256][33], the level sums
+  // [kMaxGroup][L*c1]
+  extern __shared__ __align__(16) float smem[];
+  float* w1s = smem;
+  float* b1s = w1s + 4 * kHidden;
+  float* w2s = b1s + kHidden;
+  float* b2s = w2s + kHidden * kHidden;
+  float* wms = smem + kLayerFloats;
+  const int lc = n_levels * c1;
+  float* rows = wms + lc * c_out;
+  float* sums = rows + kThreads * kRow;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < kLayerFloats; i += kThreads) {
+    float v = 0.f;
+    if (i < 4 * kHidden) {
+      const int r = i / kHidden, c = i % kHidden;
+      if (c < c1) v = w1[r * c1 + c];
+    } else if (i < 5 * kHidden) {
+      const int c = i - 4 * kHidden;
+      if (c < c1) v = b1[c];
+    } else if (i < 5 * kHidden + kHidden * kHidden) {
+      const int r = (i - 5 * kHidden) / kHidden, c = (i - 5 * kHidden) % kHidden;
+      if (r < c1 && c < c1) v = w2[r * c1 + c];
+    } else {
+      const int c = i - 5 * kHidden - kHidden * kHidden;
+      if (c < c1) v = b2[c];
+    }
+    smem[i] = v;
+  }
+  // the merge weights stay in flight while the first group's taps run:
+  // 16-byte copies (wm is 16-byte aligned, which the wrapper checks), the
+  // last few floats by plain loads
+  const int merge = lc * c_out;
+  for (int i = tid; i < merge / 4; i += kThreads) cp_async16(wms + 4 * i, wm + 4 * i);
+  for (int i = merge / 4 * 4 + tid; i < merge; i += kThreads) wms[i] = wm[i];
   __syncthreads();
+  bool merge_ready = false;  // uniform across the block
 
-  const int lane = threadIdx.x % 32;
-  const bool hidden = lane < c1;
-  float w1c[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) w1c[r] = hidden ? w1[r * c1 + lane] : 0.f;
-  float w2c[kMaxHidden];
-#pragma unroll
-  for (int i = 0; i < kMaxHidden; ++i) w2c[i] = hidden && i < c1 ? w2[i * c1 + lane] : 0.f;
-  const float b1c = hidden ? b1[lane] : 0.f;
-  const float b2c = hidden ? b2[lane] : 0.f;
+  const float4* w1v = reinterpret_cast<const float4*>(w1s);
+  const float4* b1v = reinterpret_cast<const float4*>(b1s);
+  const float4* w2v = reinterpret_cast<const float4*>(w2s);
+  const float4* b2v = reinterpret_cast<const float4*>(b2s);
   const int taps = n_levels * k;
+  const int group = group_queries(taps);
+  const int groups = (queries + group - 1) / group;
 
-  // the loop is uniform across a warp: every lane works on the same query
-  for (int q = blockIdx.x * kWarps + threadIdx.x / 32; q < queries; q += gridDim.x * kWarps) {
-    const float* p2 = xyz2 + (size_t)(q / n) * m_rows * 3;
-    const int32_t* iq = idx + (size_t)q * taps;
-    const float* cq = cost + (size_t)q * taps;
-    const float qx = xyz1[(size_t)q * 3];
-    const float qy = xyz1[(size_t)q * 3 + 1];
-    const float qz = xyz1[(size_t)q * 3 + 2];
-    float acc[kOutPerLane] = {0.f, 0.f, 0.f, 0.f};
-    for (int l = 0; l < n_levels; ++l) {
-      float sum = 0.f;  // lane c: channel c of acc_l
-      for (int j = 0; j < k; ++j) {
-        const int t = l * k + j;
-        const float* s = p2 + (size_t)iq[t] * 3;
-        float h = __fmaf_rn(w1c[0], __fsub_rn(s[0], qx), b1c);
-        h = __fmaf_rn(w1c[1], __fsub_rn(s[1], qy), h);
-        h = __fmaf_rn(w1c[2], __fsub_rn(s[2], qz), h);
-        h = relu(__fmaf_rn(w1c[3], cq[t], h));
-        float h2 = b2c;
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int q0 = g * group;
+    const int nq = queries - q0 < group ? queries - q0 : group;
+    const int pairs = nq * taps;
+    for (int c0 = 0; c0 < pairs; c0 += kThreads) {
+      // the per-tap stage: pair c0 + tid = (query q0 + qq, tap t)
+      const int p = c0 + tid;
+      if (p < pairs) {
+        const int qq = p / taps;
+        const int q = q0 + qq;
+        const size_t at = (size_t)q * taps + (p - qq * taps);
+        const float* s = xyz2 + ((size_t)(q / n) * m_rows + idx[at]) * 3;
+        const float rx = __fsub_rn(s[0], xyz1[(size_t)q * 3]);
+        const float ry = __fsub_rn(s[1], xyz1[(size_t)q * 3 + 1]);
+        const float rz = __fsub_rn(s[2], xyz1[(size_t)q * 3 + 2]);
+        const float cv = cost[at];
+        float h[kHidden];
 #pragma unroll
-        for (int i = 0; i < kMaxHidden; ++i) {
-          if (i < c1) h2 = __fmaf_rn(w2c[i], __shfl_sync(kAll, h, i), h2);
-        }
-        sum = __fadd_rn(sum, relu(h2));
-      }
-      // level l's share of the merge: rows l*c1 .. l*c1 + c1 - 1
-      const float* wl = merge_w + (size_t)l * c1 * c_out;
+        for (int i = 0; i < kHidden / 4; ++i) {
+          const float4 b = b1v[i], wx = w1v[i], wy = w1v[8 + i], wz = w1v[16 + i],
+                       wc = w1v[24 + i];
+          const float bb[4] = {b.x, b.y, b.z, b.w}, ax[4] = {wx.x, wx.y, wx.z, wx.w},
+                      ay[4] = {wy.x, wy.y, wy.z, wy.w}, az[4] = {wz.x, wz.y, wz.z, wz.w},
+                      ac[4] = {wc.x, wc.y, wc.z, wc.w};
 #pragma unroll
-      for (int i = 0; i < kMaxHidden; ++i) {
-        if (i < c1) {
-          const float v = __shfl_sync(kAll, sum, i);
-#pragma unroll
-          for (int r = 0; r < kOutPerLane; ++r) {
-            const int o = lane + 32 * r;
-            if (o < c_out) acc[r] = __fmaf_rn(wl[i * c_out + o], v, acc[r]);
+          for (int j = 0; j < 4; ++j) {
+            float v = __fmaf_rn(ax[j], rx, bb[j]);
+            v = __fmaf_rn(ay[j], ry, v);
+            v = __fmaf_rn(az[j], rz, v);
+            h[4 * i + j] = relu(__fmaf_rn(ac[j], cv, v));
           }
         }
-      }
-    }
-    float* oq = out + (size_t)q * c_out;
+        float h2[kHidden];
 #pragma unroll
-    for (int r = 0; r < kOutPerLane; ++r) {
-      const int o = lane + 32 * r;
-      if (o < c_out) {
-        float v = __fadd_rn(acc[r], bm[o]);
-        if (!(v > 0.f)) v = __fmul_rn(0.1f, v);
-        oq[o] = v;
+        for (int c = 0; c < kHidden / 4; ++c) {
+          const float4 b = b2v[c];
+          h2[4 * c] = b.x, h2[4 * c + 1] = b.y, h2[4 * c + 2] = b.z, h2[4 * c + 3] = b.w;
+        }
+#pragma unroll
+        for (int i = 0; i < kHidden; ++i) {
+#pragma unroll
+          for (int c = 0; c < kHidden / 4; ++c) {
+            const float4 w = w2v[i * (kHidden / 4) + c];
+            h2[4 * c] = __fmaf_rn(w.x, h[i], h2[4 * c]);
+            h2[4 * c + 1] = __fmaf_rn(w.y, h[i], h2[4 * c + 1]);
+            h2[4 * c + 2] = __fmaf_rn(w.z, h[i], h2[4 * c + 2]);
+            h2[4 * c + 3] = __fmaf_rn(w.w, h[i], h2[4 * c + 3]);
+          }
+        }
+        float* row = rows + tid * kRow;
+#pragma unroll
+        for (int c = 0; c < kHidden; ++c) row[c] = relu(h2[c]);
+      }
+      __syncthreads();
+      // the level sums: (query, level, channel) adds its taps in this chunk
+      for (int e = tid; e < nq * lc; e += kThreads) {
+        const int qq = e / lc;
+        const int l = (e - qq * lc) / c1;
+        const int ch = e - qq * lc - l * c1;
+        const int first = qq * taps + l * k;
+        const int lo = first > c0 ? first : c0;
+        const int hi = first + k < c0 + kThreads ? first + k : c0 + kThreads;
+        float sum = c0 == 0 ? 0.f : sums[e];
+        for (int t = lo; t < hi; ++t) sum = __fadd_rn(sum, rows[(t - c0) * kRow + ch]);
+        sums[e] = sum;
+      }
+      __syncthreads();
+    }
+    if (!merge_ready) {
+      cp_async_wait_all();
+      __syncthreads();
+      merge_ready = true;
+    }
+    // the merge: queries r and r + 4, outputs o and o + 64
+    const int o = tid % 64;
+    const int r = tid / 64;
+    float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    for (int i = 0; i < lc; ++i) {
+      const float wa = o < c_out ? wms[i * c_out + o] : 0.f;
+      const float wb = o + 64 < c_out ? wms[i * c_out + o + 64] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float v = sums[(r + 4 * j) * lc + i];  // past nq: unused
+        acc[j][0] = __fmaf_rn(wa, v, acc[j][0]);
+        acc[j][1] = __fmaf_rn(wb, v, acc[j][1]);
       }
     }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (r + 4 * j >= nq) continue;
+      float* oq = out + (size_t)(q0 + r + 4 * j) * c_out;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int co = o + 64 * u;
+        if (co < c_out) {
+          float v = __fadd_rn(acc[j][u], bm[co]);
+          if (!(v > 0.f)) v = __fmul_rn(0.1f, v);
+          oq[co] = v;
+        }
+      }
+    }
+    // the next group's per-tap stage writes only `rows`, and its level sums
+    // come after a barrier: no barrier needed here
   }
 }
 
@@ -127,14 +249,13 @@ extern "C" int camli_corr3d_tail(const float* xyz1, const float* xyz2, const int
                                  const float* w2, const float* b2, const float* wm,
                                  const float* bm, float* out, int batch, int n, int m_rows,
                                  int n_levels, int k, int c1, int c_out, cudaStream_t stream) {
-  if (c1 < 1 || c1 > kMaxHidden || c_out < 1 || c_out > 32 * kOutPerLane || n_levels < 1 ||
-      k < 1) {
+  if (c1 < 1 || c1 > kHidden || c_out < 1 || c_out > kMaxOut || n_levels < 1 || k < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const int queries = batch * n;
   if (queries == 0) return 0;
-  const size_t smem = (size_t)n_levels * c1 * c_out * sizeof(float);
-  int device = 0, sms = 0;
+  const size_t smem = smem_bytes(n_levels, c1, c_out);
+  int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   // above 48 KB of shared memory only after this; refused if above the card's limit
@@ -142,12 +263,17 @@ extern "C" int camli_corr3d_tail(const float* xyz1, const float* xyz2, const int
     err = cudaFuncSetAttribute(corr3d_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, corr3d_tail_kernel, kThreads,
+                                                        smem);
+  }
   if (err != cudaSuccess) {
     cudaGetLastError();  // reported here, not to the next launch
     return (int)err;
   }
-  int blocks = (queries + kWarps - 1) / kWarps;
-  if (blocks > 2 * sms) blocks = 2 * sms;
+  const int group = group_queries(n_levels * k);
+  int blocks = (queries + group - 1) / group;
+  if (per_sm > 0 && blocks > per_sm * sms) blocks = per_sm * sms;
   corr3d_tail_kernel<<<blocks, kThreads, smem, stream>>>(xyz1, xyz2, idx, cost, w1, b1, w2, b2,
                                                          wm, bm, out, queries, n, m_rows,
                                                          n_levels, k, c1, c_out);

@@ -37,8 +37,8 @@ MAX_SLICES = 256  # csrc/corr3d.cu kMaxSlices
 SLICE = 128  # candidates one thread of the kernel scans, at most
 BLOCK_QUERIES = 16  # queries a block takes, at most: 2048 queries fill 128 blocks
 BLOCK_SLOTS = 256  # (query, slice) threads a block aims at
-TAIL_MAX_HIDDEN = 32  # csrc/corr3d_tail.cu: one lane per cost-MLP channel
-TAIL_MAX_OUT = 128  # and 4 merge outputs per lane
+TAIL_MAX_HIDDEN = 32  # csrc/corr3d_tail.cu: a tap's cost-MLP channels in registers
+TAIL_MAX_OUT = 128  # and the merge's two output slots of 64 a thread
 
 
 def level_offsets(level_sizes, k: int, device=None) -> torch.Tensor:
@@ -207,6 +207,9 @@ def corr3d_tail(xyz1: torch.Tensor, xyz2_warp: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"{name}: need hidden width <= {TAIL_MAX_HIDDEN}, output width <= "
                          f"{TAIL_MAX_OUT} and 1..{MAX_LEVELS} levels; got {c1}, {c_out}, "
                          f"{n_levels}")
+    if params.wm.data_ptr() % 16:
+        raise ValueError(f"{name}: the merge weights must start at a 16-byte aligned address "
+                         "(the kernel copies them 16 bytes at a time)")
     out = xyz1.new_empty(batch, n, c_out)
     from ..csrc.build import launch
 

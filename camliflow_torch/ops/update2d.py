@@ -3,9 +3,10 @@
 Replaces camliflow_tpu/ops/pallas_update2d.py::motion_encoder_2d_pallas,
 ::gru_flowhead_2d_pallas and ::update_2d_pallas with `csrc/update2d.cu`
 (see the source's note for the design and the bound). All compute the exact
-path in f32: the motion encoder, the GRU and the flow head on the 3xTF32
-tensor-core tile of `csrc/conv_tile_tc.cuh`, the fused RAFT iteration on
-the f32 FMA tile of `csrc/conv_tile.cuh`.
+path in f32 on the 3xTF32 tensor-core tile of `csrc/conv_tile_tc.cuh`: the
+motion encoder, the GRU and the flow head as launches of their own, and the
+fused RAFT iteration as one cooperative launch whose h' and delta are the
+10-launch chain's bit for bit.
 
 The modules' weights are repacked once per request, outside the refinement
 loop, by `prepare_motion_encoder_params` / `prepare_gru_params` /
@@ -26,7 +27,8 @@ of 4 and whose addresses are 16-byte aligned, and raise on others.
                                                   in sequence
     update_2d(h, x2d, flow, corr, me, gf)      -> the whole iteration in ONE
                                                   launch (RAFT, no CLFM
-                                                  between them)
+                                                  between them): the two
+                                                  above's results
 """
 
 from __future__ import annotations
@@ -377,13 +379,14 @@ def update_2d_plain(h, x2d, flow, corr, me: dict, gf: dict):
 
 
 def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torch.Tensor,
-              me: dict, gf: dict, grid: int = 0):
+              me: dict, gf: dict, grid: int = 0, form: int = 0):
     """h [B, H, W, Ch], x2d [B, H, W, Cx], flow [B, H, W, 2], corr
     [B, H, W, C] -> (h' [B, H, W, Ch], delta [B, H, W, 2]). CPU tensors take
     the plain version; CUDA tensors conv_f1 as one F.conv2d, then the fused
-    kernel in one cooperative launch. `grid` > 0 asks for that many blocks
-    instead of the co-resident count (a grid too large is refused, and the
-    wrapper raises)."""
+    kernel in one cooperative launch, bit for bit `motion_encoder_2d` then
+    `gru_flowhead_2d`. `grid` > 0 asks for that many blocks instead of the
+    co-resident count (a grid too large is refused, and the wrapper
+    raises)."""
     if _cuda.on_cpu(h, x2d, flow, corr):
         return update_2d_plain(h, x2d, flow, corr, me, gf)
     name = "update_2d"
@@ -394,7 +397,7 @@ def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torc
     _cuda.check_shape(name, "flow", flow, (batch, height, width, 2))
     _check_params(name, me, h.device)
     _check_params(name, gf, h.device)
-    c1, c2, f2, merge = (me[k] for k in ("conv_c1", "conv_c2", "conv_f2", "conv"))
+    c1, c2, f2, merge = (me[k] for k in ME_CONVS)
     if c1.cin != corr.shape[-1] or (c2.cin, merge.cin) != (c1.cout, c2.cout + f2.cout):
         raise ValueError(f"{name}: the motion encoder's packed convs do not fit the inputs")
     cx, cm = x2d.shape[-1], merge.cout + 2
@@ -403,6 +406,12 @@ def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torc
     ff1 = _conv_f1(flow, me)
     if f2.cin != ff1.shape[-1]:
         raise ValueError(f"{name}: conv_f1 does not feed conv_f2")
+    _check_tc(name, me, ME_CONVS, corr=corr, ff1=ff1)
+    _check_tc(name, gf, GRU_CONVS, h=h, x2d=x2d)
+    _check_tc(name, gf, HEAD_CONVS)
+    if cm % 4:
+        raise ValueError(f"{name}: the motion features have {cm} channels, not a multiple of 4 "
+                         "(the kernel copies 4 channels at a time)")
     pixels = batch * height * width
     # one scratch buffer: [max(c1, head1) | c2 | f2 | motion | 3 x Ch] per pixel
     per_pixel = max(c1.cout, head1.cout) + c2.cout + f2.cout + cm + 3 * ch
@@ -412,16 +421,28 @@ def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torc
     from ..csrc.build import launch
 
     launch("camli_update_2d", h.data_ptr(), x2d.data_ptr(), flow.data_ptr(), ff1.data_ptr(),
-           corr.data_ptr(),
-           *(t.data_ptr() for key in ("conv_c1", "conv_c2", "conv_f2", "conv")
-             for t in me[key][:2]),
-           *(t.data_ptr() for key in ("zr1", "q1", "zr2", "q2", "head1", "head2")
-             for t in gf[key][:2]),
+           corr.data_ptr(), _planes({**me, **gf}, ME_CONVS + GRU_CONVS + HEAD_CONVS),
            scratch.data_ptr(), barrier.data_ptr(), h_out.data_ptr(), delta.data_ptr(),
            batch, height, width, c1.cin, c1.cout, c2.cout, ff1.shape[-1], f2.cout,
-           merge.cout, ch, cx, head1.cout, grid)
+           merge.cout, ch, cx, head1.cout, grid, form)
     update_2d.launches += 1
     return h_out, delta
+
+
+FORMS = ("64x128 for the 256-channel convs, 2 an SM", "64x64 only, 4 an SM",
+         "64x64 only, 3 an SM", "64x64 only, 2 an SM")  # update2d.cu kForms
+
+
+def update_2d_blocks_per_sm(form: int = 0) -> int:
+    """The fused kernel's co-resident blocks per SM: its grid is that many
+    per SM, capped at the largest stage's tile count. Needs the card."""
+    from ..csrc.build import library
+
+    per_sm = ctypes.c_int(0)
+    code = library().camli_update_2d_blocks_per_sm(form, ctypes.addressof(per_sm))
+    if code != 0:
+        raise RuntimeError(f"camli_update_2d_blocks_per_sm: CUDA error {code}")
+    return per_sm.value
 
 
 update_2d.launches = 0

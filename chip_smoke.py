@@ -26,7 +26,11 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    selection bit for bit, ties included, CLFM's device time split by stage
    (profiler); FPS bit for bit, also on duplicated points, and its time a
    step; the 3D GRU + flow head also at the eval CLI's batch of 8, each
-   timed, its steps by profiler device time;
+   timed, its steps by profiler device time; the fused RAFT iteration
+   bit for bit the chain of the motion encoder and the GRU + flow head,
+   both timed by events and device time (the chain by launch too), the
+   fused kernel's forms at each count of blocks an SM; the
+   Correlation3D tail by events, device and host time, rerun bit for bit;
 4. end to end, for each path: random weights from a seeded
    torch.Generator, synthetic inputs made with numpy from a seed (bench.py's
    recipe plus a target), through the port's Evaluator: 1 warm-up and 3
@@ -254,6 +258,14 @@ def kernel_name(mangled: str) -> str:
     return f"{ident}<{', '.join(values)}>"
 
 
+def short_name(kernel: str) -> str:
+    """A profiler's kernel name without its namespace and arguments."""
+    import re
+
+    found = re.search(r"::(\w+(?:<[^<>]*>)?)\(", kernel)
+    return found.group(1) if found else kernel[:40]
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel from nvcc's -Xptxas -v output: registers, static
     shared memory, stack and spills. conv_tc_kernel<BM, BN, warps in M,
@@ -279,6 +291,12 @@ def ptxas_summary(log: str) -> list[str]:
                 used += f", {TC_STAGES * 4 * 16 * ks * (bm + 2 * bn)} bytes dynamic smem"
             elif name.startswith("gru_flowhead_3d"):  # the dense steps' 32 x 64 tile
                 used += f", {TC_STAGES * 4 * 16 * (32 + 2 * 64)} bytes dynamic smem (dense steps)"
+            elif name.startswith("update2d_kernel"):  # the largest variant's ring
+                bn = 128 if name == "update2d_kernel<0>" else 64
+                used += f", {TC_STAGES * 4 * 16 * (64 + 2 * bn)} bytes dynamic smem"
+            elif name.startswith("corr3d_tail_kernel"):  # at the main path's shape
+                used += (", 108,288 bytes dynamic smem at L = 4, C1 = 32, Cout = 128 "
+                         "(the weights, the taps' rows, the level sums)")
             lines.append(f"{name}: {used} | {spills}")
             name = None
     return lines
@@ -571,19 +589,63 @@ def kernel_parity(device) -> list[dict]:
                2 * pixels * (9 * 128 * 256 + 9 * 256 * 2),
                4 * (pixels * (128 + 2) + sum(size(hp[k]) for k in hp)), tensor_cores=True)
 
-        # the whole RAFT iteration, one cooperative launch: #9 then #8
-        h_k, d_k = update2d.update_2d(h, x2d, flow2d, corr, me, gf)
+        # the whole RAFT iteration, one cooperative launch: #9 then #8 on the
+        # tile, bit for bit the 10-launch chain of the two, which is timed
+        # beside it (the port's own chain, not a library call)
+        fused = lambda **kw: update2d.update_2d(h, x2d, flow2d, corr, me, gf, **kw)  # noqa: E731
+        chain = lambda: update2d.gru_flowhead_2d(  # noqa: E731
+            h, x2d, update2d.motion_encoder_2d(flow2d, corr, me), gf)
+        h_k, d_k = fused()
+        h_c, d_c = chain()
+        if not (torch.equal(h_k, h_c) and torch.equal(d_k, d_c)):
+            raise AssertionError("update_2d: not bit for bit the chain motion_encoder_2d + "
+                                 "gru_flowhead_2d")
+        for _ in range(2):
+            again = fused()
+            if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
+                raise AssertionError("update_2d: two runs give different bits")
         h_p, d_p = update2d.update_2d_plain(h, x2d, flow2d, corr, me, gf)
         err = max(check("update_2d h'", h_k, h_p), check("update_2d delta", d_k, d_p))
         weights = sum(size(p) for k, p in me.items() if k != "conv_f1")
         weights += sum(size(p) for p in gf.values())
         macs = (324 * 256 + 9 * 256 * 192 + 9 * 128 * 64 + 9 * 256 * 126
                 + 2 * 5 * 384 * (256 + 128) + 9 * 128 * 256 + 9 * 256 * 2)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        most = 3 * -(-pixels // 64)  # the largest stage's tiles: c1 (2 of 64 x 128) | f2, or c2
+        forms = {}
+        for form, label in enumerate(update2d.FORMS):
+            per_sm = update2d.update_2d_blocks_per_sm(form)
+            times = {}
+            for per in (1, 2, 3, 4):
+                try:
+                    times[per] = time_ms(lambda: fused(grid=per * sms, form=form), 20)
+                except RuntimeError:
+                    times[per] = None  # refused: not co-resident
+            forms[label] = {"blocks_per_sm": per_sm, "grid": min(per_sm * sms, most),
+                            "ms": time_ms(lambda: fused(form=form), 20),
+                            "device_ms": device_ms(lambda: fused(form=form), 10),
+                            "ms_by_blocks_per_sm": times}
+            print(f"  update_2d form {form} ({label}): {per_sm} blocks an SM co-resident, "
+                  f"grid {forms[label]['grid']}: {forms[label]['ms']:.4f} ms by events, "
+                  f"{forms[label]['device_ms']:.4f} ms device; grid of k x {sms} blocks: " +
+                  ", ".join(f"k={k} " + ("refused" if t is None else f"{t:.4f} ms")
+                            for k, t in times.items()))
+        chain_ms, chain_dev = time_ms(chain, 20), device_ms(chain, 10)
+        steps = stage_ms(chain, 10)
+        print("  the chain motion_encoder_2d + gru_flowhead_2d, device time by launch "
+              "(profiler): " + ", ".join(f"{short_name(k)} {ms:.4f}" for k, ms in steps) +
+              f"; {chain_ms:.4f} ms by events, {chain_dev:.4f} ms device")
+        shipped = forms[update2d.FORMS[0]]
         record("update_2d", "camliflow_torch/csrc/update2d.cu",
-               "camliflow_tpu/ops/pallas_update2d.py:514", err,
-               time_ms(lambda: update2d.update_2d(h, x2d, flow2d, corr, me, gf), 20),
+               "camliflow_tpu/ops/pallas_update2d.py:514", err, shipped["ms"],
                time_ms(lambda: update2d.update_2d_plain(h, x2d, flow2d, corr, me, gf), 20),
-               2 * pixels * macs, 4 * (pixels * (2 * 128 + 2 + 324 + 128 + 2) + weights))
+               2 * pixels * macs, 4 * (pixels * (2 * 128 + 2 + 324 + 128 + 2) + weights),
+               library_ms=chain_ms, tensor_cores=True, device_ms=shipped["device_ms"],
+               library="the port's own 10-launch chain motion_encoder_2d + gru_flowhead_2d, "
+                       "not a library call",
+               library_device_ms=chain_dev, grid=shipped["grid"],
+               blocks_per_sm=shipped["blocks_per_sm"], forms=forms,
+               chain_steps_ms=[ms for _, ms in steps])
 
     # the 3D update chain at the loop's 2048 points, k=32 neighbours
     blocks = nn.ModuleList([MotionEncoder3D(), GRU3D(), FlowHead3D()])
@@ -691,14 +753,22 @@ def kernel_parity(device) -> list[dict]:
     tail = corr3d.prepare_corr3d_tail_params(tail_block.to(device))
     with torch.inference_mode():
         args = (xyz1, xyz2_warp, idx_sel, cost, tail, len(sizes), 16)
-        err = check("corr3d_tail", corr3d.corr3d_tail(*args), corr3d.corr3d_tail_plain(*args))
+        got = corr3d.corr3d_tail(*args)
+        err = check("corr3d_tail", got, corr3d.corr3d_tail_plain(*args))
+        for _ in range(2):  # the level sums and the merge add in a fixed order
+            if not torch.equal(corr3d.corr3d_tail(*args), got):
+                raise AssertionError("corr3d_tail: two runs give different bits")
         c1 = tail.w2.shape[0]
+        tail_dev = device_ms(lambda: corr3d.corr3d_tail(*args), 20)
+        tail_host = host_ms(lambda: corr3d.corr3d_tail(*args), 20)
+        print(f"  corr3d_tail: device {tail_dev:.4f} ms, host {tail_host:.4f} ms a call")
         record("corr3d_tail", "camliflow_torch/csrc/corr3d_tail.cu",
                "camliflow_tpu/ops/pallas_corr3d.py:729", err,
                time_ms(lambda: corr3d.corr3d_tail(*args), 50),
                time_ms(lambda: corr3d.corr3d_tail_plain(*args), 20),
                2 * m * (n_sel // m * (4 * c1 + c1 * c1) + len(sizes) * c1 * 128),
-               4 * (2 * m * 3 + 2 * n_sel + sum(t.numel() for t in tail) + m * 128))
+               4 * (2 * m * 3 + 2 * n_sel + sum(t.numel() for t in tail) + m * 128),
+               device_ms=tail_dev, host_ms=tail_host)
 
     # CLFM at the flagship's corr (324, 128) and motion (128, 128) widths:
     # the 1/8 map against the loop's 2048 projected points

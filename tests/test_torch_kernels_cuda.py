@@ -339,6 +339,54 @@ def test_update_2d_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9)])
+def test_update_2d_is_the_chain_bit_for_bit(cuda, shape):
+    """The fused iteration runs each conv on the tile variant the chain
+    launches for it, so h' and delta are those of motion_encoder_2d then
+    gru_flowhead_2d, bit for bit, run after run."""
+    encoder, gru, head = update_blocks(cuda, 35)
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    flow = 2 * torch.randn(*shape, 2, generator=gen, device=cuda)
+    corr = torch.randn(*shape, 36, generator=gen, device=cuda)
+    h = torch.tanh(torch.randn(*shape, 128, generator=gen, device=cuda))
+    x2d = torch.relu(torch.randn(*shape, 128, generator=gen, device=cuda))
+    with torch.inference_mode():
+        me, gf = update2d.prepare_update_2d_params(encoder, gru, head)
+        h_fused, d_fused = update2d.update_2d(h, x2d, flow, corr, me, gf)
+        h_again, d_again = update2d.update_2d(h, x2d, flow, corr, me, gf)
+        motion = update2d.motion_encoder_2d(flow, corr, me)
+        h_chain, d_chain = update2d.gru_flowhead_2d(h, x2d, motion, gf)
+    assert torch.equal(h_fused, h_chain) and torch.equal(d_fused, d_chain)
+    assert torch.equal(h_fused, h_again) and torch.equal(d_fused, d_again)
+
+
+@pytest.mark.cuda
+def test_update_2d_raises_where_the_tensor_core_tile_would_fault(cuda):
+    """The tile copies 4 channels (16 bytes) at a time: an x2d view 4 bytes
+    into its storage, or a corr of 30 channels, raises before the launch."""
+    torch.manual_seed(36)
+    from camliflow_torch.models.raft import FlowHead2D, GRU2D, MotionEncoder2D
+
+    shape = (1, 6, 8)
+    blocks = [m.to(cuda) for m in (MotionEncoder2D(corr_channels=30), GRU2D(), FlowHead2D())]
+    flow = torch.randn(*shape, 2, device=cuda)
+    h = torch.randn(*shape, 128, device=cuda)
+    with torch.inference_mode():
+        me30, gf = update2d.prepare_update_2d_params(*blocks)
+        before = update2d.update_2d.launches
+        with pytest.raises(ValueError, match="multiple of 4"):
+            update2d.update_2d(h, h, flow, torch.randn(*shape, 30, device=cuda), me30, gf)
+        encoder, _, _ = update_blocks(cuda, 36)
+        me = update2d.prepare_motion_encoder_params(encoder)
+        shifted = torch.empty(h.numel() + 1, device=cuda)[1:].view(h.shape)
+        shifted.copy_(h)
+        assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte"):
+            update2d.update_2d(h, shifted, flow, torch.randn(*shape, 36, device=cuda), me, gf)
+        assert update2d.update_2d.launches == before
+
+
+@pytest.mark.cuda
 def test_update_2d_raises_on_what_the_kernel_does_not_take(cuda):
     encoder, gru, head = update_blocks(cuda, 34)
     shape = (1, 6, 8)
@@ -564,6 +612,9 @@ def tail_case(device, seed, batch, n, level_sizes, k, out_channels):
     (2, 100, (96, 48, 24), 8, 128),  # the JAX tests' k and levels, batch 2
     (2, 77, (96, 48, 24), 8, 64),  # a hidden width of 16, N not a multiple of 8
     (1, 50, (64, 48, 40, 32, 24, 16, 12, 8), 8, 128),  # 8 levels: 128 KB
+    (1, 300, (96, 48, 24, 12), 6, 128),  # k = 6, not a power of two
+    # 8 levels of 6 taps: a level straddles two chunks of the kernel's taps
+    (2, 77, (64, 56, 48, 40, 32, 24, 16, 8), 6, 128),
 ])
 def test_corr3d_tail_kernel_matches_plain(cuda, batch, n, level_sizes, k, out_channels):
     with torch.inference_mode():
@@ -577,6 +628,17 @@ def test_corr3d_tail_kernel_matches_plain(cuda, batch, n, level_sizes, k, out_ch
         ref = corr3d.corr3d_tail_plain(xyz1, xyz2, idx, cost, params, n_levels, k)
     assert got.shape == (batch, n, out_channels)
     assert_conv_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_corr3d_tail_reruns_bit_identical(cuda):
+    """The level sums and the merge add in a fixed order: no float atomics."""
+    with torch.inference_mode():
+        params, xyz1, xyz2, idx, cost = tail_case(cuda, 45, 1, 2048, (2048, 1024, 512, 256), 16,
+                                                  128)
+        first = corr3d.corr3d_tail(xyz1, xyz2, idx, cost, params, 4, 16)
+        for _ in range(2):
+            assert torch.equal(corr3d.corr3d_tail(xyz1, xyz2, idx, cost, params, 4, 16), first)
 
 
 @pytest.mark.cuda

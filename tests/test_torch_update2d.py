@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from camliflow_tpu.models import raft as jraft
+from camliflow_tpu.ops import pallas_update2d as jpallas
+from camliflow_tpu.ops.pallas_update2d import update_2d_pallas
 from camliflow_tpu.runtime.checkpoint import flat_to_tree, tree_to_flat
 from camliflow_torch.models import raft as traft
 from camliflow_torch.ops import update2d
@@ -196,3 +198,57 @@ def test_halves_in_sequence_are_gru_flowhead_2d(hidden_inputs):
     h_got = update2d.gru_2d(h, x2d, motion, update2d.prepare_gru_params(modules["gru"]))
     d_got = update2d.flow_head_2d(h_got, update2d.prepare_flow_head_params(modules["head"]))
     assert torch.equal(h_got, h_ref) and torch.equal(d_got, d_ref)
+
+
+def emulate_update_2d(h, x2d, flow, corr, me, gf):
+    """Kernel #10's nine convolutions, each as `emulate_3xtf32` (conv_f1
+    stays an f32 F.conv2d, as in the wrapper), with the kernel's epilogues."""
+    relu, cat = torch.relu, torch.cat
+    cf = relu(emulate_3xtf32(relu(emulate_3xtf32(corr, me["conv_c1"])), me["conv_c2"]))
+    ff = relu(emulate_3xtf32(update2d._conv_f1(flow, me), me["conv_f2"]))
+    out = torch.nan_to_num(relu(emulate_3xtf32(cat([cf, ff], -1), me["conv"])))
+    motion = cat([out, flow], -1)
+    hidden = h.shape[-1]
+    for zr, q in (("zr1", "q1"), ("zr2", "q2")):
+        gates = torch.sigmoid(emulate_3xtf32(cat([h, x2d, motion], -1), gf[zr]))
+        z, r = gates[..., :hidden], gates[..., hidden:]
+        h = (1 - z) * h + z * torch.tanh(emulate_3xtf32(cat([r * h, x2d, motion], -1), gf[q]))
+    h = torch.nan_to_num(h)
+    mid = relu(emulate_3xtf32(h, gf["head1"]))
+    return h, torch.nan_to_num(emulate_3xtf32(mid, gf["head2"]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_3xtf32_emulation_of_the_raft_iteration_meets_the_card_tolerance(seed):
+    """The whole RAFT iteration with every conv split as the tile splits it
+    stays within the card tests' bound of the f32 chain (update_2d_plain),
+    and within the split kernels' tolerances of the Pallas kernel (bf16
+    operands, interpret mode) at 2 x 7 x 9, corr 36."""
+    rng = np.random.RandomState(70 + seed)
+    shape = (2, 7, 9)
+    c = {"flow": 2 * rng.randn(*shape, 2), "corr": rng.randn(*shape, 36),
+         "h": np.tanh(rng.randn(*shape, 128)), "x2d": np.maximum(rng.randn(*shape, 128), 0)}
+    c = {k: np.asarray(v, np.float32) for k, v in c.items()}
+    jc = {k: jnp.asarray(v) for k, v in c.items()}
+    flat_me, tree_me = flax_block(jraft.MotionEncoder2D(), 71 + seed, jc["flow"], jc["corr"])
+    motion = jraft.MotionEncoder2D().apply(tree_me, jc["flow"], jc["corr"])
+    flat_gru, tree_gru = flax_block(jraft.GRU2D(), 73 + seed, jc["h"],
+                                    jnp.concatenate([jc["x2d"], motion], -1))
+    flat_head, tree_head = flax_block(jraft.FlowHead2D(), 75 + seed, jc["h"])
+    me, gf = update2d.prepare_update_2d_params(
+        load_block(traft.MotionEncoder2D(corr_channels=36), flat_me),
+        load_block(traft.GRU2D(), flat_gru), load_block(traft.FlowHead2D(), flat_head))
+    args = [torch.from_numpy(c[k]) for k in ("h", "x2d", "flow", "corr")]
+    with torch.inference_mode():
+        got = emulate_update_2d(*args, me, gf)
+        plain = update2d.update_2d_plain(*args, me, gf)
+    pallas = [np.asarray(a) for a in update_2d_pallas(
+        jc["h"], jc["x2d"], jc["flow"], jc["corr"],
+        jpallas.prepare_motion_encoder_params(tree_me["params"]),
+        jpallas.prepare_gru_flowhead_params(tree_gru["params"], tree_head["params"]), 7, 9,
+        interpret=True)]
+    assert np.abs(plain[1].numpy()).max() > 1e-2  # not a comparison of near-zeros
+    for g, p, q, atol in zip(got, plain, pallas, (3e-2, 6e-2)):
+        err = float((g - p).abs().max())
+        assert err <= CONV_TOL * (1.0 + float(p.abs().max())), err
+        np.testing.assert_allclose(g.numpy(), q, rtol=0, atol=atol)
