@@ -208,6 +208,7 @@ constexpr int kFusedStages = 9;  // the first holds c1 and f2
 
 struct Update2D {
   FusedConv conv[kFusedConvs];
+  unsigned stage_mask;  // measurement: the stages that run their tiles
   unsigned int* barrier;  // [1 + kMaxSmIds], zeroed: the arrival word, counts
 };
 
@@ -250,6 +251,7 @@ __global__ void __launch_bounds__(kFusedThreads, kFormMinBlocks[FORM])
   const int rank = spread_rank(u.barrier);
   for (int s = 0; s < kFusedStages; ++s) {
     if (s > 0) grid_barrier(u.barrier);
+    if (!((u.stage_mask >> s) & 1u)) continue;
     const int first = s == 0 ? 0 : s + 1;
     const int last = s + 2;
     int total = 0;
@@ -261,6 +263,27 @@ __global__ void __launch_bounds__(kFusedThreads, kFormMinBlocks[FORM])
       fused_tile<kFormSquare[FORM]>(u.conv[c], local);
     }
   }
+}
+
+unsigned g_stage_mask = 0x1ffu;  // measurement: camli_update_2d_stage_mask
+
+// Measurement: one conv through the grouped kernel, which reads its conv
+// through a reference into __grid_constant__ parameters, as the fused
+// kernel does (64 x 64 tiles, ReLU).
+int run_conv_grouped(Conv a, const float* hi, const float* lo, int kh, int kw, int cout,
+                     cudaStream_t stream) {
+  a = shaped(a, kh, kw, cout);
+  TcGroup g = {};
+  g.layer[0].a = a;
+  g.layer[0].hi = hi;
+  g.layer[0].lo = lo;
+  g.layer[0].k_pad = round_up(a.k_total, kTcBk);
+  g.layer[0].m_tiles = (a.pixels + 63) / 64;
+  g.layer[0].n_tiles = a.n_pad / 64;
+  conv_tc_group_kernel<64, 64, 2, 2, EPI_RELU>
+      <<<g.layer[0].m_tiles * g.layer[0].n_tiles, SquareTile::kThreads, SquareTile::kSmemBytes,
+         stream>>>(g);
+  return (int)cudaGetLastError();
 }
 
 // The fused conv for `a` (shape filled in) with planes (hi, lo) and epilogue
@@ -475,6 +498,7 @@ extern "C" int camli_update_2d(const float* h, const float* x2d, const float* fl
   a.out = delta, a.nan_fix = 1;
   u.conv[9] = fused(shaped(a, 3, 3, 2), convs + 27, EPI_NONE, square);
   u.barrier = barrier;
+  u.stage_mask = g_stage_mask;
 
   int per_sm = 0;
   CAMLI_TRY(form_blocks_per_sm(form, &per_sm));
@@ -496,4 +520,34 @@ extern "C" int camli_update_2d(const float* h, const float* x2d, const float* fl
                                   form_smem(form), stream);
   cudaGetLastError();  // a refused launch is reported once, here, not to the next launch
   return (int)err;
+}
+
+// Measurement: the fused kernel runs the tiles of the stages in `mask` only
+// (bit s: stage s), and its barriers always.
+extern "C" int camli_update_2d_stage_mask(unsigned mask) {
+  g_stage_mask = mask;
+  return 0;
+}
+
+// Measurement: the motion encoder's convs, each through the grouped kernel.
+extern "C" int camli_motion_encoder_2d_grouped(const float* flow, const float* ff1,
+                                               const float* corr, const float* const* convs,
+                                               float* cf1, float* cf, float* ff, float* out,
+                                               int batch, int height, int width, int c_corr,
+                                               int c_c1, int c_c2, int c_f1, int c_f2, int c_m,
+                                               cudaStream_t stream) {
+  const int pixels = batch * height * width;
+  Conv a = input(pixels, height, width, corr, c_corr);
+  a.bias = convs[2], a.out = cf1;
+  CAMLI_TRY(run_conv_grouped(a, convs[0], convs[1], 1, 1, c_c1, stream));
+  a = input(pixels, height, width, cf1, c_c1);
+  a.bias = convs[5], a.out = cf;
+  CAMLI_TRY(run_conv_grouped(a, convs[3], convs[4], 3, 3, c_c2, stream));
+  a = input(pixels, height, width, ff1, c_f1);
+  a.bias = convs[8], a.out = ff;
+  CAMLI_TRY(run_conv_grouped(a, convs[6], convs[7], 3, 3, c_f2, stream));
+  a = input(pixels, height, width, cf, c_c2, ff, c_f2);
+  a.bias = convs[11], a.out = out, a.out_stride = c_m + 2;
+  a.tail = flow, a.tail_c = 2, a.nan_fix = 1;
+  return run_conv_grouped(a, convs[9], convs[10], 3, 3, c_m, stream);
 }

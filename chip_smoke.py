@@ -355,6 +355,7 @@ def kernel_parity(device) -> list[dict]:
     import torch
     from torch import nn
 
+    from camliflow_torch.csrc import build as kbuild
     from camliflow_torch.models.camliraft_l import (
         Correlation3D,
         FlowHead3D,
@@ -630,6 +631,46 @@ def kernel_parity(device) -> list[dict]:
                   f"{forms[label]['device_ms']:.4f} ms device; grid of k x {sms} blocks: " +
                   ", ".join(f"k={k} " + ("refused" if t is None else f"{t:.4f} ms")
                             for k, t in times.items()))
+        # where the fused form loses: each stage's tiles alone inside it (the
+        # other stages skip their tiles, every barrier stays), the barriers
+        # alone, and the grouped kernel (its conv read through a reference
+        # into __grid_constant__ parameters, as in the fused kernel) against
+        # the chain's launches on the motion encoder's convs
+        lib = kbuild.library()
+        stage_names = ("c1|f2", "c2", "merge", "zr1", "q1", "zr2", "q2", "head1", "head2")
+
+        def fused_kernel_ms(form):
+            return sum(ms for name, ms in stage_ms(lambda: fused(form=form), 10)
+                       if "update2d_kernel" in name)
+
+        by_stage = {}
+        for form in (0, 3):
+            by_stage[form] = {}
+            for mask, label in [(0, "barriers only")] + [
+                    (1 << i, name) for i, name in enumerate(stage_names)]:
+                lib.camli_update_2d_stage_mask(mask)
+                by_stage[form][label] = fused_kernel_ms(form)
+            lib.camli_update_2d_stage_mask(0x1FF)
+            print(f"  update_2d form {form}, fused kernel device time with one stage's tiles "
+                  "(profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in by_stage[form].items()))
+        ff1 = update2d._conv_f1(flow2d, me)
+        bufs = [torch.empty(1, feat_h, feat_w, c, device=device) for c in (256, 192, 64, 128)]
+        planes = update2d._planes(me, update2d.ME_CONVS)
+
+        def grouped():
+            kbuild.launch("camli_motion_encoder_2d_grouped", flow2d.data_ptr(), ff1.data_ptr(),
+                          corr.data_ptr(), planes, *(b.data_ptr() for b in bufs), 1, feat_h,
+                          feat_w, 324, 256, 192, 128, 64, 126)
+
+        grouped()
+        if not torch.equal(bufs[3], update2d.motion_encoder_2d(flow2d, corr, me)):
+            raise AssertionError("the grouped motion encoder is not the chain's bit for bit")
+        grouped_steps = [ms for name, ms in stage_ms(grouped, 10) if "conv_tc" in name]
+        me_steps = [ms for name, ms in stage_ms(lambda: update2d.motion_encoder_2d(
+            flow2d, corr, me), 10) if "conv_tc" in name]
+        print("  motion encoder convs c1, c2, f2, merge, device time (profiler): grouped "
+              "kernel (64 x 64) " + ", ".join(f"{ms:.4f}" for ms in grouped_steps) +
+              "; the chain's conv_tc_kernel " + ", ".join(f"{ms:.4f}" for ms in me_steps))
         chain_ms, chain_dev = time_ms(chain, 20), device_ms(chain, 10)
         steps = stage_ms(chain, 10)
         print("  the chain motion_encoder_2d + gru_flowhead_2d, device time by launch "
@@ -645,7 +686,8 @@ def kernel_parity(device) -> list[dict]:
                        "not a library call",
                library_device_ms=chain_dev, grid=shipped["grid"],
                blocks_per_sm=shipped["blocks_per_sm"], forms=forms,
-               chain_steps_ms=[ms for _, ms in steps])
+               chain_steps_ms=[ms for _, ms in steps], by_stage=by_stage,
+               grouped_me_ms=grouped_steps, chain_me_ms=me_steps)
 
     # the 3D update chain at the loop's 2048 points, k=32 neighbours
     blocks = nn.ModuleList([MotionEncoder3D(), GRU3D(), FlowHead3D()])
