@@ -44,10 +44,7 @@ SIGNATURES = {
     "camli_gru_2d": [_P] * 8 + [_I] * 6 + [_P],
     "camli_flow_head_2d": [_P] * 4 + [_I] * 5 + [_P],
     "camli_gru_flowhead_2d": [_P] * 10 + [_I] * 7 + [_P],
-    "camli_update_2d": [_P] * 10 + [_I] * 14 + [_P],
-    "camli_update_2d_blocks_per_sm": [_I, _P],
-    "camli_update_2d_stage_mask": [_I],
-    "camli_motion_encoder_2d_grouped": [_P] * 8 + [_I] * 9 + [_P],
+    "camli_update_2d": [_P] * 9 + [_I] * 12 + [_P],
     "camli_motion_encoder_3d": [_P] * 17 + [_I] * 13 + [_P],
     "camli_gru_flowhead_3d": [_P] * 18 + [_I] * 16 + [_P],
     "camli_dw_max": [_P] * 4 + [_I] * 6 + [_P],

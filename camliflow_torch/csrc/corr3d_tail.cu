@@ -38,8 +38,8 @@
 //   error, on which the wrapper raises) and walks over groups of up to 8
 //   queries, taps in chunks of 256. The merge weights arrive by cp.async
 //   while the first group's per-tap stage runs.
-// Sums are explicit __fmaf_rn/__fadd_rn in f32, in the order of the former
-// warp-per-query kernel (tap order per level, merge rows in order), another
+// Sums are explicit __fmaf_rn/__fadd_rn in f32: h and h2 over their inputs
+// in order, the level sums in tap order, the merge in row order; another
 // order than the plain version's matmuls.
 #include <cuda_runtime.h>
 #include <stdint.h>

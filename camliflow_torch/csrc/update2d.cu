@@ -20,28 +20,15 @@
 // request.
 // camli_update_2d replaces
 //   camliflow_tpu/ops/pallas_update2d.py::update_2d_pallas: the whole RAFT
-//   iteration (the motion encoder, then the GRU and the flow head) as ONE
-//   launch, so that the motion features never leave the kernel's scratch
-//   (at 68x120 the whole scratch, 33 MB, fits in the 50 MB L2). It is a
-//   persistent cooperative kernel (cudaLaunchCooperativeKernel, a grid no
-//   larger than the co-resident block count): 9 stages, [c1 | f2] -> c2 ->
-//   merge (+ flow tail) -> zr1 -> q1 -> zr2 -> q2 -> head1 -> head2, each a
-//   loop of the block over the stage's tiles, with a grid-wide barrier
-//   between dependent stages. Every conv runs on conv_tile_tc.cuh's tile in
-//   the variant that run_conv_tc launches for it (`tc_kind`): 64 x 128 for
-//   the 256-channel convs, 64 x 64 for the others, the narrow split
-//   reduction for head2; so the reductions are those of the 10-launch chain
-//   (camli_motion_encoder_2d, then camli_gru_flowhead_2d) and h' and delta
-//   come out bit for bit as the chain's. The kernel takes dynamic shared
-//   memory for the largest variant's ring (61,440 bytes, above the 48 KB
-//   default: the entry point raises the limit first), and the grid is the
-//   co-resident count for that, capped at the largest stage's tile count.
-//   The barrier is written by hand (one arrival word in global memory whose
-//   top bit flips when the last block arrives, as cooperative_groups does
-//   it), which a cooperative launch makes safe: every block of the grid is
-//   resident. Tiles are dealt to the blocks SM by SM (`spread_rank`), so
-//   that a stage with fewer tiles than blocks spreads over the card. A
-//   refused launch returns its error; the wrapper raises.
+//   iteration (the motion encoder, then the GRU and the flow head) from one
+//   entry point, as 10 launches of the tile on one scratch buffer: the two
+//   entry points above in sequence, so h' and delta are theirs bit for bit.
+//   At 68x120 the whole scratch (33 MB) stays in the 50 MB L2 between
+//   launches. One cooperative launch of the nine stages with grid barriers
+//   between them, on the same tile variants and bit for bit the same, took
+//   1.54 ms of device time against the chain's 1.02 on an H100 (PERF.md):
+//   the barriers cost 0.027 ms, but every stage ran 33-73% slower inside it
+//   than as its own launch, so it was deleted.
 //
 // All three compute the port's exact path; the TPU kernels' bf16 operands
 // belong to its fast path, not ported yet.
@@ -53,108 +40,34 @@
 // head 4.81 + 0.08) over ~24 MB. At 67 TFLOP/s of f32 outside the tensor
 // cores that is 0.22 ms and 0.43 ms, and at 495 TFLOP/s of TF32 with three
 // products per f32 product 0.088 ms and 0.176 ms, against ~7 us of memory
-// traffic at 3.35 TB/s: all are bound by operations, and so is the fused
+// traffic at 3.35 TB/s: all are bound by operations, and so is the whole
 // iteration (43.5 GFLOP, 0.65 ms in f32; 0.264 ms as 3xTF32).
 #include "conv_tile_tc.cuh"
 
 namespace {
 
-// Grid-wide barrier for a cooperative launch: every block's thread 0 adds
-// to one arrival word, block 0 adds 0x80000000 - (blocks - 1) and the others
-// 1, so the word's top bit flips once all have arrived and its low bits come
-// back to where they were. The fences make the stage's stores visible to
-// every block's loads after the barrier.
-__device__ __forceinline__ void grid_barrier(unsigned int* arrived) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    __threadfence();
-    const unsigned int old = atomicAdd(arrived, add);
-    volatile unsigned int* word = arrived;
-    while (((old ^ *word) & 0x80000000u) == 0) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ unsigned sm_id() {
-  unsigned v;
-  asm volatile("mov.u32 %0, %%smid;" : "=r"(v));
-  return v;
-}
-
-__device__ __forceinline__ unsigned sm_id_count() {
-  unsigned v;
-  asm volatile("mov.u32 %0, %%nsmid;" : "=r"(v));
-  return v;
-}
-
-constexpr unsigned kMaxSmIds = 1024;  // per-SM block counts after the barrier word
-
-// The block's rank in the order (slot on its SM, SM): tiles are dealt by
-// rank, so consecutive tiles go to different SMs. A cooperative grid is
-// placed SM by SM (consecutive blocks share an SM), and in blockIdx order a
-// stage with fewer tiles than blocks would crowd onto a few SMs. Each block
-// counts itself on its SM, and after a barrier its rank is the number of
-// blocks before it: sum over SMs of min(count, slot), plus the SMs before
-// its own that hold more than `slot` blocks.
-__device__ __forceinline__ int spread_rank(unsigned int* barrier) {
-  __shared__ int rank;
-  unsigned int* counts = barrier + 1;
-  const unsigned n_ids = sm_id_count();
-  unsigned sm = 0, slot = 0;
-  if (threadIdx.x == 0 && n_ids <= kMaxSmIds) {
-    sm = sm_id();
-    slot = atomicAdd(&counts[sm], 1u);
-  }
-  grid_barrier(barrier);
-  if (threadIdx.x == 0) {
-    int r = blockIdx.x;  // the blockIdx order where the SM ids do not fit
-    if (n_ids <= kMaxSmIds) {
-      r = 0;
-      const volatile unsigned int* c = counts;
-      for (unsigned s = 0; s < n_ids; ++s) {
-        const unsigned n = c[s];
-        r += n < slot ? n : slot;
-        r += s < sm && n > slot;
-      }
-    }
-    rank = r;
-  }
-  __syncthreads();
-  return rank;
-}
-
-// The tile variants of the chain: which one run_conv_tc launches for a conv.
-enum TcKind { TC_NARROW = 0, TC_WIDE = 1, TC_SQUARE = 2 };
-
-// A conv of at most 8 output channels and no epilogue (the flow head's
-// last) takes the narrow split-reduction variant; one of 256 channels or
-// more with ReLU or the z|r gates the 64 x 128 tile; the others 64 x 64.
-TcKind tc_kind(const Conv& a, int epi) {
-  if (a.cout <= 8 && epi == EPI_NONE) return TC_NARROW;
-  if (a.cout >= 256 && a.n_pad % 128 == 0 && (epi == EPI_RELU || epi == EPI_ZR)) return TC_WIDE;
-  return TC_SQUARE;
-}
-
 // One convolution as its own launch. The weight planes are [N_pad][K_pad]
 // with N_pad = round_up(cout, 64) and K_pad = round_up(kh*kw*cin, 16), zero
-// past (cout, kh*kw*cin).
+// past (cout, kh*kw*cin). A conv of at most 8 output channels and no
+// epilogue (the flow head's last) takes the narrow split-reduction variant;
+// one of 256 channels or more the 64 x 128 tile.
 int run_conv_tc(Conv a, const float* hi, const float* lo, int epi, int kh, int kw, int cout,
                 cudaStream_t stream) {
   a = shaped(a, kh, kw, cout);
   const int k_pad = round_up(a.k_total, kTcBk);
-  switch (tc_kind(a, epi)) {
-    case TC_NARROW:
-      return launch_tc<32, 8, 1, 1, 4, EPI_NONE>(a, hi, lo, k_pad, 1, stream);
-    case TC_WIDE:
-      if (epi == EPI_RELU) {
-        return launch_tc<64, 128, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, a.n_pad / 128, stream);
-      }
-      return launch_tc<64, 128, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, a.n_pad / 128, stream);
-    default:
-      break;
+  if (cout <= 8 && epi == EPI_NONE) {
+    return launch_tc<32, 8, 1, 1, 4, EPI_NONE>(a, hi, lo, k_pad, 1, stream);
+  }
+  if (cout >= 256 && a.n_pad % 128 == 0) {
+    const int n_tiles = a.n_pad / 128;
+    switch (epi) {
+      case EPI_RELU:
+        return launch_tc<64, 128, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, n_tiles, stream);
+      case EPI_ZR:
+        return launch_tc<64, 128, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, n_tiles, stream);
+      default:
+        break;  // the other epilogues take the 64 x 64 tile
+    }
   }
   const int n_tiles = a.n_pad / 64;
   switch (epi) {
@@ -167,151 +80,6 @@ int run_conv_tc(Conv a, const float* hi, const float* lo, int epi, int kh, int k
     default:
       return launch_tc<64, 64, 2, 2, 1, EPI_GATE>(a, hi, lo, k_pad, n_tiles, stream);
   }
-}
-
-// The fused iteration's tile variants, each with the one epilogue its
-// convs take there.
-enum FusedTile { F_WIDE_RELU, F_WIDE_ZR, F_SQUARE_RELU, F_SQUARE_ZR, F_SQUARE_GATE, F_NARROW_NONE };
-
-using WideTile = TcShape<64, 128, 2, 2, 1>;
-using SquareTile = TcShape<64, 64, 2, 2, 1>;
-using NarrowTile = TcShape<32, 8, 1, 1, 4>;
-constexpr int kFusedThreads = 128;  // every variant's block
-constexpr int max3(int a, int b, int c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
-static_assert(WideTile::kThreads == kFusedThreads && SquareTile::kThreads == kFusedThreads &&
-                  NarrowTile::kThreads == kFusedThreads,
-              "one block size for every stage");
-
-// Forms of the fused kernel, measured against each other: the chain's own
-// variants (64 x 128 for the 256-channel convs) with 2 blocks an SM, or
-// 64 x 64 for those too (the same sums, bit for bit) with 4, 3 or 2 blocks
-// an SM allowed by the registers.
-constexpr int kForms = 4;
-constexpr bool kFormSquare[kForms] = {false, true, true, true};
-constexpr int kFormMinBlocks[kForms] = {2, 4, 3, 2};
-constexpr int form_smem(int form) {
-  return kFormSquare[form] ? max3(0, SquareTile::kSmemBytes, NarrowTile::kSmemBytes)
-                           : max3(WideTile::kSmemBytes, SquareTile::kSmemBytes,
-                                  NarrowTile::kSmemBytes);
-}
-
-// A conv of the fused iteration: its planes, tile variant and tile grid.
-struct FusedConv {
-  Conv a;
-  const float* hi;
-  const float* lo;
-  int k_pad, tile, m_tiles, n_tiles;
-};
-
-constexpr int kFusedConvs = 10;  // c1, f2 | c2 | merge | zr1 | q1 | zr2 | q2 | head1 | head2
-constexpr int kFusedStages = 9;  // the first holds c1 and f2
-
-struct Update2D {
-  FusedConv conv[kFusedConvs];
-  unsigned stage_mask;  // measurement: the stages that run their tiles
-  unsigned int* barrier;  // [1 + kMaxSmIds], zeroed: the arrival word, counts
-};
-
-__host__ __device__ __forceinline__ int conv_tiles(const FusedConv& f) {
-  return f.m_tiles * f.n_tiles;
-}
-
-// Tile t of one conv: (t % m_tiles, t / m_tiles) in units of its variant.
-template <bool SQUARE>
-__device__ __forceinline__ void fused_tile(const FusedConv& f, int t) {
-  const int m = t % f.m_tiles, n = t / f.m_tiles;
-  switch (f.tile) {
-    case F_WIDE_RELU:
-      if constexpr (!SQUARE) conv_tc_tile<64, 128, 2, 2, 1, EPI_RELU>(f.a, f.hi, f.lo, f.k_pad, m * 64, n * 128);
-      break;
-    case F_WIDE_ZR:
-      if constexpr (!SQUARE) conv_tc_tile<64, 128, 2, 2, 1, EPI_ZR>(f.a, f.hi, f.lo, f.k_pad, m * 64, n * 128);
-      break;
-    case F_SQUARE_RELU:
-      conv_tc_tile<64, 64, 2, 2, 1, EPI_RELU>(f.a, f.hi, f.lo, f.k_pad, m * 64, n * 64);
-      break;
-    case F_SQUARE_ZR:
-      if constexpr (SQUARE) conv_tc_tile<64, 64, 2, 2, 1, EPI_ZR>(f.a, f.hi, f.lo, f.k_pad, m * 64, n * 64);
-      break;
-    case F_SQUARE_GATE:
-      conv_tc_tile<64, 64, 2, 2, 1, EPI_GATE>(f.a, f.hi, f.lo, f.k_pad, m * 64, n * 64);
-      break;
-    default:
-      conv_tc_tile<32, 8, 1, 1, 4, EPI_NONE>(f.a, f.hi, f.lo, f.k_pad, m * 32, 0);
-      break;
-  }
-}
-
-// The block with rank `rank` walks tiles rank, rank + grid, ... of stage s's
-// convs, in order. The convs stay in the parameter space (__grid_constant__)
-// and are read through a reference, so each variant's code is inlined once.
-template <int FORM>
-__global__ void __launch_bounds__(kFusedThreads, kFormMinBlocks[FORM])
-    update2d_kernel(const __grid_constant__ Update2D u) {
-  const int rank = spread_rank(u.barrier);
-  for (int s = 0; s < kFusedStages; ++s) {
-    if (s > 0) grid_barrier(u.barrier);
-    if (!((u.stage_mask >> s) & 1u)) continue;
-    const int first = s == 0 ? 0 : s + 1;
-    const int last = s + 2;
-    int total = 0;
-    for (int c = first; c < last; ++c) total += conv_tiles(u.conv[c]);
-    for (int t = rank; t < total; t += gridDim.x) {
-      int c = first, local = t;
-      while (local >= conv_tiles(u.conv[c])) local -= conv_tiles(u.conv[c++]);
-      __syncthreads();  // the previous tile's ring (and split sums) are consumed
-      fused_tile<kFormSquare[FORM]>(u.conv[c], local);
-    }
-  }
-}
-
-unsigned g_stage_mask = 0x1ffu;  // measurement: camli_update_2d_stage_mask
-
-// Measurement: one conv through the grouped kernel, which reads its conv
-// through a reference into __grid_constant__ parameters, as the fused
-// kernel does (64 x 64 tiles, ReLU).
-int run_conv_grouped(Conv a, const float* hi, const float* lo, int kh, int kw, int cout,
-                     cudaStream_t stream) {
-  a = shaped(a, kh, kw, cout);
-  TcGroup g = {};
-  g.layer[0].a = a;
-  g.layer[0].hi = hi;
-  g.layer[0].lo = lo;
-  g.layer[0].k_pad = round_up(a.k_total, kTcBk);
-  g.layer[0].m_tiles = (a.pixels + 63) / 64;
-  g.layer[0].n_tiles = a.n_pad / 64;
-  conv_tc_group_kernel<64, 64, 2, 2, EPI_RELU>
-      <<<g.layer[0].m_tiles * g.layer[0].n_tiles, SquareTile::kThreads, SquareTile::kSmemBytes,
-         stream>>>(g);
-  return (int)cudaGetLastError();
-}
-
-// The fused conv for `a` (shape filled in) with planes (hi, lo) and epilogue
-// `epi`: the variant run_conv_tc would launch.
-FusedConv fused(const Conv& a, const float* const* planes, int epi, bool square) {
-  FusedConv f;
-  f.a = a;
-  f.a.bias = planes[2];
-  f.hi = planes[0];
-  f.lo = planes[1];
-  f.k_pad = round_up(a.k_total, kTcBk);
-  switch (tc_kind(a, epi)) {
-    case TC_NARROW:
-      f.tile = F_NARROW_NONE, f.m_tiles = (a.pixels + 31) / 32, f.n_tiles = 1;
-      break;
-    case TC_WIDE:
-      if (!square) {
-        f.tile = epi == EPI_RELU ? F_WIDE_RELU : F_WIDE_ZR;
-        f.m_tiles = (a.pixels + 63) / 64, f.n_tiles = a.n_pad / 128;
-        break;
-      }
-      [[fallthrough]];
-    default:
-      f.tile = epi == EPI_RELU ? F_SQUARE_RELU : (epi == EPI_ZR ? F_SQUARE_ZR : F_SQUARE_GATE);
-      f.m_tiles = (a.pixels + 63) / 64, f.n_tiles = a.n_pad / 64;
-      break;
-  }
-  return f;
 }
 
 }  // namespace
@@ -396,62 +164,16 @@ extern "C" int camli_gru_flowhead_2d(const float* h, const float* x2d, const flo
                             stream);
 }
 
-namespace {
-
-// The fused kernel with its dynamic shared memory limit raised; the blocks
-// of it that fit on one SM.
-template <int FORM>
-int fused_blocks_per_sm(int* per_sm) {
-  CAMLI_TRY(cudaFuncSetAttribute(update2d_kernel<FORM>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, form_smem(FORM)));
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, update2d_kernel<FORM>,
-                                                            kFusedThreads, form_smem(FORM));
-}
-
-int form_blocks_per_sm(int form, int* per_sm) {
-  switch (form) {
-    case 0: return fused_blocks_per_sm<0>(per_sm);
-    case 1: return fused_blocks_per_sm<1>(per_sm);
-    case 2: return fused_blocks_per_sm<2>(per_sm);
-    case 3: return fused_blocks_per_sm<3>(per_sm);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-const void* form_kernel(int form) {
-  switch (form) {
-    case 0: return (const void*)update2d_kernel<0>;
-    case 1: return (const void*)update2d_kernel<1>;
-    case 2: return (const void*)update2d_kernel<2>;
-    default: return (const void*)update2d_kernel<3>;
-  }
-}
-
-}  // namespace
-
-// The fused kernel's co-resident blocks per SM, which size its grid.
-extern "C" int camli_update_2d_blocks_per_sm(int form, int* per_sm) {
-  const int err = form_blocks_per_sm(form, per_sm);
-  if (err != 0) cudaGetLastError();
-  return err;
-}
-
 // convs: (hi, lo, bias) of conv_c1, conv_c2, conv_f2, the merge conv, zr1,
-// q1, zr2, q2, head1, head2; barrier: [1 + kMaxSmIds] words of scratch (the
-// wrapper allocates them)
+// q1, zr2, q2, head1, head2
 extern "C" int camli_update_2d(const float* h, const float* x2d, const float* flow,
                                const float* ff1, const float* corr, const float* const* convs,
-                               float* scratch, unsigned int* barrier, float* h_out,
-                               float* delta, int batch, int height, int width, int c_corr,
-                               int c_c1, int c_c2, int c_f1, int c_f2, int c_m, int c_h,
-                               int c_x, int c_mid, int grid_blocks, int form,
-                               cudaStream_t stream) {
-  if (form < 0 || form >= kForms) return (int)cudaErrorInvalidValue;
-  const bool square = kFormSquare[form];
-  const int pixels = batch * height * width;
+                               float* scratch, float* h_out, float* delta, int batch, int height,
+                               int width, int c_corr, int c_c1, int c_c2, int c_f1, int c_f2,
+                               int c_m, int c_h, int c_x, int c_mid, cudaStream_t stream) {
   // scratch, channels per pixel: [max(c_c1, c_mid) | c_c2 | c_f2 | c_m + 2 |
   // 3 x c_h]; the first region holds cf1, then the flow head's mid
-  const size_t p = pixels;
+  const size_t p = (size_t)batch * height * width;
   float* wide = scratch;
   float* cf = wide + p * (c_c1 > c_mid ? c_c1 : c_mid);
   float* ff = cf + p * c_c2;
@@ -459,95 +181,8 @@ extern "C" int camli_update_2d(const float* h, const float* x2d, const float* fl
   float* z = motion + p * (c_m + 2);
   float* rh = z + p * c_h;
   float* h1 = rh + p * c_h;
-
-  Update2D u;
-  Conv a = input(pixels, height, width, corr, c_corr);
-  a.out = wide;
-  u.conv[0] = fused(shaped(a, 1, 1, c_c1), convs, EPI_RELU, square);
-  a = input(pixels, height, width, ff1, c_f1);
-  a.out = ff;
-  u.conv[1] = fused(shaped(a, 3, 3, c_f2), convs + 6, EPI_RELU, square);
-  a = input(pixels, height, width, wide, c_c1);
-  a.out = cf;
-  u.conv[2] = fused(shaped(a, 3, 3, c_c2), convs + 3, EPI_RELU, square);
-  a = input(pixels, height, width, cf, c_c2, ff, c_f2);
-  a.out = motion, a.out_stride = c_m + 2;
-  a.tail = flow, a.tail_c = 2, a.nan_fix = 1;
-  u.conv[3] = fused(shaped(a, 3, 3, c_m), convs + 9, EPI_RELU, square);
-  const float* state = h;
-  float* next[2] = {h1, h_out};
-  for (int d = 0; d < 2; ++d) {
-    const int kh = d == 0 ? 1 : 5;
-    const int kw = d == 0 ? 5 : 1;
-    const float* const* zr = convs + 12 + 6 * d;
-    const float* const* q = zr + 3;
-    a = input(pixels, height, width, state, c_h, x2d, c_x, motion, c_m + 2);
-    a.out = z, a.out2 = rh, a.h = state;
-    a.half = c_h;
-    u.conv[4 + 2 * d] = fused(shaped(a, kh, kw, 2 * c_h), zr, EPI_ZR, square);
-    a = input(pixels, height, width, rh, c_h, x2d, c_x, motion, c_m + 2);
-    a.out = next[d], a.h = state, a.z = z;
-    a.nan_fix = d == 1;  // nan_to_num once, after both directions
-    u.conv[5 + 2 * d] = fused(shaped(a, kh, kw, c_h), q, EPI_GATE, square);
-    state = next[d];
-  }
-  a = input(pixels, height, width, h_out, c_h);
-  a.out = wide;
-  u.conv[8] = fused(shaped(a, 3, 3, c_mid), convs + 24, EPI_RELU, square);
-  a = input(pixels, height, width, wide, c_mid);
-  a.out = delta, a.nan_fix = 1;
-  u.conv[9] = fused(shaped(a, 3, 3, 2), convs + 27, EPI_NONE, square);
-  u.barrier = barrier;
-  u.stage_mask = g_stage_mask;
-
-  int per_sm = 0;
-  CAMLI_TRY(form_blocks_per_sm(form, &per_sm));
-  int grid = grid_blocks;  // > 0: asked for (the tests ask for too many)
-  if (grid <= 0) {
-    int device = 0, sms = 0;
-    CAMLI_TRY(cudaGetDevice(&device));
-    CAMLI_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-    int most = conv_tiles(u.conv[0]) + conv_tiles(u.conv[1]);
-    for (int c = 2; c < kFusedConvs; ++c) {
-      most = conv_tiles(u.conv[c]) > most ? conv_tiles(u.conv[c]) : most;
-    }
-    grid = per_sm * sms < most ? per_sm * sms : most;
-  }
-  CAMLI_TRY(cudaMemsetAsync(barrier, 0, (1 + kMaxSmIds) * sizeof(unsigned int), stream));
-  void* args[] = {&u};
-  const cudaError_t err =
-      cudaLaunchCooperativeKernel(form_kernel(form), dim3(grid), dim3(kFusedThreads), args,
-                                  form_smem(form), stream);
-  cudaGetLastError();  // a refused launch is reported once, here, not to the next launch
-  return (int)err;
-}
-
-// Measurement: the fused kernel runs the tiles of the stages in `mask` only
-// (bit s: stage s), and its barriers always.
-extern "C" int camli_update_2d_stage_mask(unsigned mask) {
-  g_stage_mask = mask;
-  return 0;
-}
-
-// Measurement: the motion encoder's convs, each through the grouped kernel.
-extern "C" int camli_motion_encoder_2d_grouped(const float* flow, const float* ff1,
-                                               const float* corr, const float* const* convs,
-                                               float* cf1, float* cf, float* ff, float* out,
-                                               int batch, int height, int width, int c_corr,
-                                               int c_c1, int c_c2, int c_f1, int c_f2, int c_m,
-                                               cudaStream_t stream) {
-  const int pixels = batch * height * width;
-  Conv a = input(pixels, height, width, corr, c_corr);
-  a.bias = convs[2], a.out = cf1;
-  CAMLI_TRY(run_conv_grouped(a, convs[0], convs[1], 1, 1, c_c1, stream));
-  a = input(pixels, height, width, cf1, c_c1);
-  a.bias = convs[5], a.out = cf;
-  CAMLI_TRY(run_conv_grouped(a, convs[3], convs[4], 3, 3, c_c2, stream));
-  a = input(pixels, height, width, ff1, c_f1);
-  a.bias = convs[8], a.out = ff;
-  CAMLI_TRY(run_conv_grouped(a, convs[6], convs[7], 3, 3, c_f2, stream));
-  a = input(pixels, height, width, cf, c_c2, ff, c_f2);
-  a.bias = convs[11], a.out = out, a.out_stride = c_m + 2;
-  a.tail = flow, a.tail_c = 2, a.nan_fix = 1;
-  return run_conv_grouped(a, convs[9], convs[10], 3, 3, c_m, stream);
+  CAMLI_TRY(camli_motion_encoder_2d(flow, ff1, corr, convs, wide, cf, ff, motion, batch, height,
+                                    width, c_corr, c_c1, c_c2, c_f1, c_f2, c_m, stream));
+  return camli_gru_flowhead_2d(h, x2d, motion, convs + 12, z, rh, h1, wide, h_out, delta, batch,
+                               height, width, c_h, c_x, c_m + 2, c_mid, stream);
 }

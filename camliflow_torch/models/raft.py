@@ -9,7 +9,8 @@ state_dict (`core.fnet`, `core.correlation.fnet_aligner`, `core.gru`, ...).
 A module's `forward` is the plain chain of ops/update2d.py on its own
 weights, NHWC in and out; the refinement loop instead hoists the packed
 weights once per request and runs the whole iteration (motion encoder, GRU,
-flow head) as kernel #10, one launch (`update2d.update_2d`).
+flow head) as kernel #10 from one entry point (`update2d.update_2d`): ten
+launches of the 3xTF32 tensor-core conv tile.
 """
 
 from __future__ import annotations

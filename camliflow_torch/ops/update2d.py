@@ -3,10 +3,9 @@
 Replaces camliflow_tpu/ops/pallas_update2d.py::motion_encoder_2d_pallas,
 ::gru_flowhead_2d_pallas and ::update_2d_pallas with `csrc/update2d.cu`
 (see the source's note for the design and the bound). All compute the exact
-path in f32 on the 3xTF32 tensor-core tile of `csrc/conv_tile_tc.cuh`: the
-motion encoder, the GRU and the flow head as launches of their own, and the
-fused RAFT iteration as one cooperative launch whose h' and delta are the
-10-launch chain's bit for bit.
+path in f32 on the 3xTF32 tensor-core tile of `csrc/conv_tile_tc.cuh`, one
+launch a conv: the motion encoder (4), the GRU and the flow head (6), and
+the RAFT iteration (10) from one entry point.
 
 The modules' weights are repacked once per request, outside the refinement
 loop, by `prepare_motion_encoder_params` / `prepare_gru_params` /
@@ -25,10 +24,10 @@ of 4 and whose addresses are 16-byte aligned, and raise on others.
     flow_head_2d(h, head)                      -> delta [B, H, W, 2]
     gru_flowhead_2d(h, x2d, motion, gf)        -> (h', delta): the two above
                                                   in sequence
-    update_2d(h, x2d, flow, corr, me, gf)      -> the whole iteration in ONE
-                                                  launch (RAFT, no CLFM
+    update_2d(h, x2d, flow, corr, me, gf)      -> the whole iteration from ONE
+                                                  entry point (RAFT, no CLFM
                                                   between them): the two
-                                                  above's results
+                                                  above, bit for bit
 """
 
 from __future__ import annotations
@@ -44,7 +43,6 @@ from . import _cuda
 
 K_ALIGN = 16  # the kernel's reduction chunk
 N_ALIGN = 64  # the kernel's output-channel tile
-SM_ID_WORDS = 1024  # the fused kernel's per-SM block counts (kMaxSmIds)
 
 
 class PackedConv(NamedTuple):
@@ -379,14 +377,12 @@ def update_2d_plain(h, x2d, flow, corr, me: dict, gf: dict):
 
 
 def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torch.Tensor,
-              me: dict, gf: dict, grid: int = 0, form: int = 0):
+              me: dict, gf: dict):
     """h [B, H, W, Ch], x2d [B, H, W, Cx], flow [B, H, W, 2], corr
     [B, H, W, C] -> (h' [B, H, W, Ch], delta [B, H, W, 2]). CPU tensors take
-    the plain version; CUDA tensors conv_f1 as one F.conv2d, then the fused
-    kernel in one cooperative launch, bit for bit `motion_encoder_2d` then
-    `gru_flowhead_2d`. `grid` > 0 asks for that many blocks instead of the
-    co-resident count (a grid too large is refused, and the wrapper
-    raises)."""
+    the plain version; CUDA tensors conv_f1 as one F.conv2d, then the kernel
+    from one entry point: `motion_encoder_2d` then `gru_flowhead_2d`, bit
+    for bit, on one scratch buffer."""
     if _cuda.on_cpu(h, x2d, flow, corr):
         return update_2d_plain(h, x2d, flow, corr, me, gf)
     name = "update_2d"
@@ -416,33 +412,15 @@ def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torc
     # one scratch buffer: [max(c1, head1) | c2 | f2 | motion | 3 x Ch] per pixel
     per_pixel = max(c1.cout, head1.cout) + c2.cout + f2.cout + cm + 3 * ch
     scratch = h.new_empty(pixels * per_pixel)
-    barrier = torch.empty(1 + SM_ID_WORDS, dtype=torch.int32, device=h.device)
     h_out, delta = h.new_empty(batch, height, width, ch), h.new_empty(batch, height, width, 2)
     from ..csrc.build import launch
 
     launch("camli_update_2d", h.data_ptr(), x2d.data_ptr(), flow.data_ptr(), ff1.data_ptr(),
            corr.data_ptr(), _planes({**me, **gf}, ME_CONVS + GRU_CONVS + HEAD_CONVS),
-           scratch.data_ptr(), barrier.data_ptr(), h_out.data_ptr(), delta.data_ptr(),
-           batch, height, width, c1.cin, c1.cout, c2.cout, ff1.shape[-1], f2.cout,
-           merge.cout, ch, cx, head1.cout, grid, form)
+           scratch.data_ptr(), h_out.data_ptr(), delta.data_ptr(), batch, height, width,
+           c1.cin, c1.cout, c2.cout, ff1.shape[-1], f2.cout, merge.cout, ch, cx, head1.cout)
     update_2d.launches += 1
     return h_out, delta
-
-
-FORMS = ("64x128 for the 256-channel convs, 2 an SM", "64x64 only, 4 an SM",
-         "64x64 only, 3 an SM", "64x64 only, 2 an SM")  # update2d.cu kForms
-
-
-def update_2d_blocks_per_sm(form: int = 0) -> int:
-    """The fused kernel's co-resident blocks per SM: its grid is that many
-    per SM, capped at the largest stage's tile count. Needs the card."""
-    from ..csrc.build import library
-
-    per_sm = ctypes.c_int(0)
-    code = library().camli_update_2d_blocks_per_sm(form, ctypes.addressof(per_sm))
-    if code != 0:
-        raise RuntimeError(f"camli_update_2d_blocks_per_sm: CUDA error {code}")
-    return per_sm.value
 
 
 update_2d.launches = 0

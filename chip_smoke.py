@@ -26,10 +26,9 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    selection bit for bit, ties included, CLFM's device time split by stage
    (profiler); FPS bit for bit, also on duplicated points, and its time a
    step; the 3D GRU + flow head also at the eval CLI's batch of 8, each
-   timed, its steps by profiler device time; the fused RAFT iteration
-   bit for bit the chain of the motion encoder and the GRU + flow head,
-   both timed by events and device time (the chain by launch too), the
-   fused kernel's forms at each count of blocks an SM; the
+   timed, its steps by profiler device time; the RAFT iteration (#10) bit
+   for bit the motion encoder then the GRU + flow head, by events, device
+   time by launch and host time, beside those two wrappers in sequence; the
    Correlation3D tail by events, device and host time, rerun bit for bit;
 4. end to end, for each path: random weights from a seeded
    torch.Generator, synthetic inputs made with numpy from a seed (bench.py's
@@ -291,9 +290,6 @@ def ptxas_summary(log: str) -> list[str]:
                 used += f", {TC_STAGES * 4 * 16 * ks * (bm + 2 * bn)} bytes dynamic smem"
             elif name.startswith("gru_flowhead_3d"):  # the dense steps' 32 x 64 tile
                 used += f", {TC_STAGES * 4 * 16 * (32 + 2 * 64)} bytes dynamic smem (dense steps)"
-            elif name.startswith("update2d_kernel"):  # the largest variant's ring
-                bn = 128 if name == "update2d_kernel<0>" else 64
-                used += f", {TC_STAGES * 4 * 16 * (64 + 2 * bn)} bytes dynamic smem"
             elif name.startswith("corr3d_tail_kernel"):  # at the main path's shape
                 used += (", 108,288 bytes dynamic smem at L = 4, C1 = 32, Cout = 128 "
                          "(the weights, the taps' rows, the level sums)")
@@ -355,7 +351,6 @@ def kernel_parity(device) -> list[dict]:
     import torch
     from torch import nn
 
-    from camliflow_torch.csrc import build as kbuild
     from camliflow_torch.models.camliraft_l import (
         Correlation3D,
         FlowHead3D,
@@ -590,10 +585,10 @@ def kernel_parity(device) -> list[dict]:
                2 * pixels * (9 * 128 * 256 + 9 * 256 * 2),
                4 * (pixels * (128 + 2) + sum(size(hp[k]) for k in hp)), tensor_cores=True)
 
-        # the whole RAFT iteration, one cooperative launch: #9 then #8 on the
-        # tile, bit for bit the 10-launch chain of the two, which is timed
-        # beside it (the port's own chain, not a library call)
-        fused = lambda **kw: update2d.update_2d(h, x2d, flow2d, corr, me, gf, **kw)  # noqa: E731
+        # the whole RAFT iteration from one entry point: #9 then #8 on the
+        # tile, 10 launches, bit for bit the two wrappers in sequence, which
+        # are timed beside it (the port's own chain, not a library call)
+        fused = lambda: update2d.update_2d(h, x2d, flow2d, corr, me, gf)  # noqa: E731
         chain = lambda: update2d.gru_flowhead_2d(  # noqa: E731
             h, x2d, update2d.motion_encoder_2d(flow2d, corr, me), gf)
         h_k, d_k = fused()
@@ -611,83 +606,24 @@ def kernel_parity(device) -> list[dict]:
         weights += sum(size(p) for p in gf.values())
         macs = (324 * 256 + 9 * 256 * 192 + 9 * 128 * 64 + 9 * 256 * 126
                 + 2 * 5 * 384 * (256 + 128) + 9 * 128 * 256 + 9 * 256 * 2)
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        most = 3 * -(-pixels // 64)  # the largest stage's tiles: c1 (2 of 64 x 128) | f2, or c2
-        forms = {}
-        for form, label in enumerate(update2d.FORMS):
-            per_sm = update2d.update_2d_blocks_per_sm(form)
-            times = {}
-            for per in (1, 2, 3, 4):
-                try:
-                    times[per] = time_ms(lambda: fused(grid=per * sms, form=form), 20)
-                except RuntimeError:
-                    times[per] = None  # refused: not co-resident
-            forms[label] = {"blocks_per_sm": per_sm, "grid": min(per_sm * sms, most),
-                            "ms": time_ms(lambda: fused(form=form), 20),
-                            "device_ms": device_ms(lambda: fused(form=form), 10),
-                            "ms_by_blocks_per_sm": times}
-            print(f"  update_2d form {form} ({label}): {per_sm} blocks an SM co-resident, "
-                  f"grid {forms[label]['grid']}: {forms[label]['ms']:.4f} ms by events, "
-                  f"{forms[label]['device_ms']:.4f} ms device; grid of k x {sms} blocks: " +
-                  ", ".join(f"k={k} " + ("refused" if t is None else f"{t:.4f} ms")
-                            for k, t in times.items()))
-        # where the fused form loses: each stage's tiles alone inside it (the
-        # other stages skip their tiles, every barrier stays), the barriers
-        # alone, and the grouped kernel (its conv read through a reference
-        # into __grid_constant__ parameters, as in the fused kernel) against
-        # the chain's launches on the motion encoder's convs
-        lib = kbuild.library()
-        stage_names = ("c1|f2", "c2", "merge", "zr1", "q1", "zr2", "q2", "head1", "head2")
-
-        def fused_kernel_ms(form):
-            return sum(ms for name, ms in stage_ms(lambda: fused(form=form), 10)
-                       if "update2d_kernel" in name)
-
-        by_stage = {}
-        for form in (0, 3):
-            by_stage[form] = {}
-            for mask, label in [(0, "barriers only")] + [
-                    (1 << i, name) for i, name in enumerate(stage_names)]:
-                lib.camli_update_2d_stage_mask(mask)
-                by_stage[form][label] = fused_kernel_ms(form)
-            lib.camli_update_2d_stage_mask(0x1FF)
-            print(f"  update_2d form {form}, fused kernel device time with one stage's tiles "
-                  "(profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in by_stage[form].items()))
-        ff1 = update2d._conv_f1(flow2d, me)
-        bufs = [torch.empty(1, feat_h, feat_w, c, device=device) for c in (256, 192, 64, 128)]
-        planes = update2d._planes(me, update2d.ME_CONVS)
-
-        def grouped():
-            kbuild.launch("camli_motion_encoder_2d_grouped", flow2d.data_ptr(), ff1.data_ptr(),
-                          corr.data_ptr(), planes, *(b.data_ptr() for b in bufs), 1, feat_h,
-                          feat_w, 324, 256, 192, 128, 64, 126)
-
-        grouped()
-        if not torch.equal(bufs[3], update2d.motion_encoder_2d(flow2d, corr, me)):
-            raise AssertionError("the grouped motion encoder is not the chain's bit for bit")
-        grouped_steps = [ms for name, ms in stage_ms(grouped, 10) if "conv_tc" in name]
-        me_steps = [ms for name, ms in stage_ms(lambda: update2d.motion_encoder_2d(
-            flow2d, corr, me), 10) if "conv_tc" in name]
-        print("  motion encoder convs c1, c2, f2, merge, device time (profiler): grouped "
-              "kernel (64 x 64) " + ", ".join(f"{ms:.4f}" for ms in grouped_steps) +
-              "; the chain's conv_tc_kernel " + ", ".join(f"{ms:.4f}" for ms in me_steps))
+        steps = stage_ms(fused, 10)
+        update_dev, update_host = device_ms(fused, 10), host_ms(fused, 20)
         chain_ms, chain_dev = time_ms(chain, 20), device_ms(chain, 10)
-        steps = stage_ms(chain, 10)
-        print("  the chain motion_encoder_2d + gru_flowhead_2d, device time by launch "
-              "(profiler): " + ", ".join(f"{short_name(k)} {ms:.4f}" for k, ms in steps) +
-              f"; {chain_ms:.4f} ms by events, {chain_dev:.4f} ms device")
-        shipped = forms[update2d.FORMS[0]]
+        print("  update_2d device time by launch (profiler): " +
+              ", ".join(f"{short_name(k)} {ms:.4f}" for k, ms in steps) +
+              f"; {update_dev:.4f} ms device, host {update_host:.4f} ms a call; the chain "
+              f"motion_encoder_2d + gru_flowhead_2d {chain_ms:.4f} ms by events, "
+              f"{chain_dev:.4f} ms device")
         record("update_2d", "camliflow_torch/csrc/update2d.cu",
-               "camliflow_tpu/ops/pallas_update2d.py:514", err, shipped["ms"],
+               "camliflow_tpu/ops/pallas_update2d.py:514", err,
+               time_ms(fused, 20),
                time_ms(lambda: update2d.update_2d_plain(h, x2d, flow2d, corr, me, gf), 20),
                2 * pixels * macs, 4 * (pixels * (2 * 128 + 2 + 324 + 128 + 2) + weights),
-               library_ms=chain_ms, tensor_cores=True, device_ms=shipped["device_ms"],
-               library="the port's own 10-launch chain motion_encoder_2d + gru_flowhead_2d, "
-                       "not a library call",
-               library_device_ms=chain_dev, grid=shipped["grid"],
-               blocks_per_sm=shipped["blocks_per_sm"], forms=forms,
-               chain_steps_ms=[ms for _, ms in steps], by_stage=by_stage,
-               grouped_me_ms=grouped_steps, chain_me_ms=me_steps)
+               library_ms=chain_ms, tensor_cores=True, device_ms=update_dev,
+               host_ms=update_host,
+               library="the port's own wrappers motion_encoder_2d + gru_flowhead_2d in "
+                       "sequence (the same 10 launches), not a library call",
+               library_device_ms=chain_dev, steps_ms=[ms for _, ms in steps])
 
     # the 3D update chain at the loop's 2048 points, k=32 neighbours
     blocks = nn.ModuleList([MotionEncoder3D(), GRU3D(), FlowHead3D()])

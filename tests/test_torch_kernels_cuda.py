@@ -320,8 +320,8 @@ def test_update2d_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 6, 1), (1, 5, 13)])
 def test_update_2d_kernel_matches_plain(cuda, shape):
-    """The whole RAFT iteration in one cooperative launch: batch 2, a map
-    one pixel wide, pixel counts that are not a multiple of 64."""
+    """The whole RAFT iteration from one entry point: batch 2, a map one
+    pixel wide, pixel counts that are not a multiple of 64."""
     encoder, gru, head = update_blocks(cuda, 33)
     flow = 2 * torch.randn(*shape, 2, device=cuda)
     corr = torch.randn(*shape, 36, device=cuda)
@@ -341,9 +341,9 @@ def test_update_2d_kernel_matches_plain(cuda, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9)])
 def test_update_2d_is_the_chain_bit_for_bit(cuda, shape):
-    """The fused iteration runs each conv on the tile variant the chain
-    launches for it, so h' and delta are those of motion_encoder_2d then
-    gru_flowhead_2d, bit for bit, run after run."""
+    """The iteration's entry point runs the motion encoder's and the GRU +
+    flow head's launches on one scratch buffer, so h' and delta are those of
+    motion_encoder_2d then gru_flowhead_2d, bit for bit, run after run."""
     encoder, gru, head = update_blocks(cuda, 35)
     gen = torch.Generator(device=cuda).manual_seed(35)
     flow = 2 * torch.randn(*shape, 2, generator=gen, device=cuda)
@@ -402,8 +402,8 @@ def test_update_2d_raises_on_what_the_kernel_does_not_take(cuda):
                                me, gf)
         with pytest.raises(ValueError, match="CUDA"):
             update2d.update_2d(h, h, flow.cpu(), corr, me, gf)
-        with pytest.raises(RuntimeError, match="update_2d: CUDA error"):
-            update2d.update_2d(h, h, flow, corr, me, gf, grid=1 << 20)  # never co-resident
+        with pytest.raises(ValueError, match="shape"):
+            update2d.update_2d(h, h, flow[..., :1].contiguous(), corr, me, gf)
 
 
 def update3d_case(device, seed, batch, n):
@@ -677,6 +677,11 @@ def test_corr3d_tail_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError, match="do not fit"):
             corr3d.corr3d_tail(xyz1, xyz2, idx[..., :8].contiguous(), cost[..., :8].contiguous(),
                                params, 2, 4)
+        wm = torch.empty(params.wm.numel() + 1, device=cuda)[1:].view(params.wm.shape)
+        wm.copy_(params.wm)
+        assert wm.data_ptr() % 16 == 4 and wm.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte"):  # the merge weights' 16-byte copies
+            corr3d.corr3d_tail(xyz1, xyz2, idx, cost, params._replace(wm=wm), 3, 4)
 
 
 def clfm_case(device, seed, batch, height, width, n, c2, c3):
