@@ -36,9 +36,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    "camli_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "camli_knn": [_P, _P, _P] + [_I] * 7 + [_P],
     "camli_fps": [_P, _P, _I, _I, _I, _P],
-    "camli_interp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "camli_interp": [_P] * 4 + [_I] * 8 + [_P],
     "camli_corr3d": [_P] * 5 + [_I] * 5 + [_P, _I, _P, _I, _I, _P],
     "camli_motion_encoder_2d": [_P] * 8 + [_I] * 9 + [_P],
     "camli_gru_2d": [_P] * 8 + [_I] * 6 + [_P],

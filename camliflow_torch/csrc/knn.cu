@@ -7,73 +7,64 @@
 // the 2048 -> 8192 upsample (k=3) and CLFM's pixel-grid cache ([2,8160]
 // <- [2,2048], k=1), whose 2-D points the wrapper gives a zero z.
 //
-// Bound: about 8 flops per query-candidate pair and no device-memory traffic
-// beyond reading the points once per block, so the kernel is bound by the
-// SM's arithmetic and the sorted-insertion branches, not by bandwidth
-// (67 M pairs for the largest call). Design: one thread per query; the
-// support set is staged through shared memory in tiles of 1024 points that
-// every thread of the block scans in ascending index, keeping a sorted
-// register list of the k best (lowest index first on equal distances).
+// Bound: about 8 flops and a compare per query-candidate pair and no
+// device-memory traffic beyond the points and the indices, so the kernel is
+// bound by the SM's arithmetic (67 M pairs for the largest call, 9 us at
+// the f32 peak); in practice by the sorted inserts, about 100 a query at
+// k = 16 over 8192 candidates, each a chain of shuffles.
+//
+// Design: a split scan (camli::split_select). Each query's candidates are
+// cut into n_slices contiguous slices; a block takes `queries` queries and
+// a warp per (slice, 1 or 2 queries), which scans its slice 128 candidates
+// a step, 4 a lane, from shared memory, and keeps each query's sorted list
+// spread over its lanes: a lane holding a candidate nearer than the list's
+// last entry inserts it (and its other passing ones) by a ballot and a few
+// shuffles each, in ascending index, after every entry not farther. (Not
+// #4's thread per (query, slice) with a KL-step register insert: a warp's
+// 32 queries almost always hold one lane that inserts, so every lane would
+// pay the whole insert for nearly every candidate. That form was reasoned
+// out, not timed on the card.)
+// A warp per query then merges the slices' sorted lists by (distance,
+// index) and writes the k first. The selection is bit-identical to the
+// plain version's stable sort, ties included. ops/knn.py::select_plan
+// sizes the slices, blocks and pairs for each call.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;
-
-template <int KL>
-__global__ void knn_kernel(const float* __restrict__ support,
-                           const float* __restrict__ query,
-                           int32_t* __restrict__ out, int m, int n, int k) {
-  __shared__ float tile[kTile * 3];
+template <int KL, int R>
+__global__ void __launch_bounds__(camli::kSelectMaxWarps * 32, 1) knn_kernel(
+    const float* __restrict__ support, const float* __restrict__ query,
+    int32_t* __restrict__ out, int m, int n, int k, int n_slices, int queries) {
+  extern __shared__ float smem[];
   const int b = blockIdx.y;
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = q < n;
-  const float* sp = support + (size_t)b * m * 3;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    const float* qp = query + ((size_t)b * n + q) * 3;
-    qx = qp[0];
-    qy = qp[1];
-    qz = qp[2];
-  }
-  float D[KL];
-  int I[KL];
-  camli::init_list(D, I);
-
-  for (int base = 0; base < m; base += kTile) {
-    const int count = min(kTile, m - base);
-    __syncthreads();
-    for (int t = threadIdx.x; t < count * 3; t += blockDim.x) {
-      tile[t] = sp[(size_t)base * 3 + t];
-    }
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < count; ++j) {
-        const float d = camli::sq_dist(qx, qy, qz, tile[3 * j],
-                                       tile[3 * j + 1], tile[3 * j + 2]);
-        camli::insert_sorted(D, I, d, base + j);
-      }
-    }
-  }
-  if (active) {
-    int32_t* op = out + ((size_t)b * n + q) * k;
-#pragma unroll
-    for (int j = 0; j < KL; ++j) {
-      if (j < k) op[j] = I[j];
-    }
-  }
+  const int q0 = blockIdx.x * queries;
+  const int lane = threadIdx.x % 32;
+  int32_t* op = out + ((size_t)b * n + q0) * k;
+  camli::split_select<KL, R>(support + (size_t)b * m * 3, m, query + ((size_t)b * n + q0) * 3,
+                             min(queries, n - q0), queries, n_slices, smem,
+                             [&](int q, const float*, const int* mi) {
+                               if (lane < k) op[q * k + lane] = mi[lane];
+                             });
 }
 
 }  // namespace
 
-extern "C" int camli_knn(const float* support, const float* query,
-                         int32_t* out, int batch, int m, int n, int k,
+// The plan (ops/knn.py::select_plan): n_slices in [1, m], queries a block,
+// group (1 or 2) queries a warp, queries / group * n_slices <= 32 warps.
+extern "C" int camli_knn(const float* support, const float* query, int32_t* out, int batch,
+                         int m, int n, int k, int n_slices, int queries, int group,
                          cudaStream_t stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, batch);
-  CAMLI_DISPATCH_K(k, knn_kernel<KL><<<grid, kThreads, 0, stream>>>(
-                          support, query, out, m, n, k));
-  return (int)cudaGetLastError();
+  if (k < 1 || k > 32 || k > m || n_slices < 1 || n_slices > m || queries < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0 || batch == 0) return (int)cudaSuccess;
+  const dim3 grid((n + queries - 1) / queries, batch);
+  int code = (int)cudaErrorInvalidValue;
+  CAMLI_DISPATCH_K(k, CAMLI_DISPATCH_GROUP(group, code = camli::launch_select(
+                               knn_kernel<KL, R>, KL, R, m, queries, n_slices, grid, stream,
+                               support, query, out, m, n, k, n_slices, queries)));
+  return code;
 }
 
 extern "C" const char* camli_error_string(int code) {

@@ -8,12 +8,20 @@ of the expected dtype and shape, contiguous.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the plain version applies)."""
     return all(t.device.type == "cpu" for t in tensors)
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (132 on the H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:

@@ -1,10 +1,11 @@
 """k-NN inverse-distance interpolation: CUDA kernel, plain version, wrapper.
 
 Replaces camliflow_tpu/ops/pallas_interp.py::knn_interpolation_pallas with
-`csrc/interp.cu`: one thread per query selects its k nearest supports from
-shared-memory tiles into a sorted register list, then forms the weights and
-the weighted feature sum in registers. Arithmetic-bound on query-support
-pairs; see the source for the design note.
+`csrc/interp.cu`: the KNN kernel's split scan and warp merge select each
+query's k nearest supports (planned by `knn.select_plan`), then the merging
+warp forms the weights and the weighted feature sum, a lane a channel.
+Arithmetic-bound on query-support pairs; see the source for the design
+note.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from . import _cuda
 from .geometry import gather_points
-from .knn import MAX_K, k_nearest_neighbor_plain
+from .knn import MAX_K, k_nearest_neighbor_plain, select_plan
 
 
 def knn_interpolation_plain(
@@ -61,7 +62,8 @@ def knn_interpolation(
     from ..csrc.build import launch
 
     launch("camli_interp", input_xyz.data_ptr(), input_features.data_ptr(),
-           query_xyz.data_ptr(), out.data_ptr(), batch, m, n, channels, k)
+           query_xyz.data_ptr(), out.data_ptr(), batch, m, n, channels, k,
+           *select_plan(batch, n, m, k, _cuda.sm_count(input_xyz.device)))
     knn_interpolation.launches += 1
     return out
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port runs on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--other TREE]
 
 Drives the port's four main paths at full width, CamLiRAFT-L eval (8192
 points per cloud, n_samples_list 4096..256, 20 iterations, bs=1, IDS on),
@@ -22,7 +22,13 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    tools/probe_gather_matrix.py's cases, timed by CUDA events and by the
    profiler's device time), with times for both and the least time the
    card could take (bound; for the tensor-core kernels, the 2D chain's and
-   CLFM's, beside the f32 bound outside the tensor cores); Correlation3D's
+   CLFM's, beside the f32 bound outside the tensor cores); KNN bit for bit,
+   ties included, at each of its 8 main-path calls, each with its plan,
+   device time (profiler) and bound, and their sums a flagship and a
+   CamLiRAFT-L request; the interpolation at its two shapes by events and
+   device time, its selection the plain KNN's (with --other, another
+   tree's KNN and interpolation are held to the plain versions too and
+   timed beside this tree's, by device time in turns); Correlation3D's
    selection bit for bit, ties included, CLFM's device time split by stage
    (profiler); FPS bit for bit, also on duplicated points, and its time a
    step; the 3D GRU + flow head also at the eval CLI's batch of 8, each
@@ -61,7 +67,6 @@ N_SAMPLES = (4096, 2048, 1024, 512, 256)  # the FPS pyramid levels
 N_ITERS = 20
 IMAGE_H, IMAGE_W = 540, 960
 SEED = 0
-KNN_TOL = 1e-4  # rtol = atol on selected squared distances
 INTERP_TOL = 1e-5  # atol
 CONV_TOL = 1e-4  # max|kernel - plain| <= CONV_TOL * (1 + max|plain|), f32 both
 FLOW_3D_TOL = 5e-3  # m, max |CUDA - CPU| on flow_3d
@@ -196,9 +201,10 @@ def bound(ops: float, nbytes: float, peak: float = PEAK_F32) -> tuple[float, str
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, only: str = "") -> float:
     """fn()'s device time per call from torch.profiler: the self device
-    time of every kernel it launched, summed, over reps calls."""
+    time of every kernel it launched (whose name holds `only`), summed,
+    over reps calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,8 +214,39 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and only in e.key]
     return sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+
+
+def in_turns(calls: dict, reps: int, only: str) -> dict[str, list[float]]:
+    """device_ms of each of `calls`' functions, by key; of two, in turns
+    (first, second, second, first)."""
+    keys = list(calls)
+    times = {key: [] for key in keys}
+    for key in keys + keys[::-1] if len(keys) > 1 else keys:
+        times[key].append(device_ms(calls[key], reps, only=only))
+    return times
+
+
+def other_tree(root: str):
+    """Another checkout's #1 and #3 wrappers (its ops.knn and ops.interp),
+    to time beside this tree's: its camliflow_torch imported as
+    `other_camliflow_torch`, its kernels built from its own sources into its
+    own build/."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    name = "other_camliflow_torch"
+    package = Path(root).resolve() / "camliflow_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, package / "__init__.py", submodule_search_locations=[str(package)])
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+    path, seconds, _ = importlib.import_module(f"{name}.csrc.build").build()
+    print(f"  other tree: built {path} in {seconds:.1f} s", flush=True)
+    return importlib.import_module(f"{name}.ops.knn"), importlib.import_module(f"{name}.ops.interp")
 
 
 def stage_ms(fn, reps: int) -> list[tuple[str, float]]:
@@ -346,7 +383,60 @@ def profile_split(evaluator, batch) -> None:
         print(f"  {label}: {busy:.3f} ms device, {launches:.1f} launches")
 
 
-def kernel_parity(device) -> list[dict]:
+def main_path_clouds(device):
+    """The main path's clouds: bench inputs in IDS (parallel) coordinates,
+    both frames, [2, 8192, 3]."""
+    import torch
+
+    from camliflow_torch.ops.ids import make_parallel_camera_info, persp2paral
+
+    pcs = torch.as_tensor(frame_pair(SEED + 100, 0)["pcs"][0], device=device)
+    persp = {"sensor_h": 540, "sensor_w": 960, "f": INTRINSICS[0],
+             "cx": INTRINSICS[1], "cy": INTRINSICS[2]}
+    paral = make_parallel_camera_info(540, 960)
+    return persp2paral(torch.stack([pcs[:, :3], pcs[:, 3:]]), persp, paral).contiguous()
+
+
+def selection_calls(both, order, gen):
+    """The main paths' calls of #1 and #3 on the clouds `both` and their FPS
+    order: (the FPS levels, the KNN calls (label, support, query, k, paths
+    that make the call once a request: F flagship, H fuse_hidden, L
+    CamLiRAFT-L), the interpolation calls (label, support, features,
+    query), k=3). The CLFM cache's projected points and the flow come from
+    `gen`."""
+    import torch
+
+    from camliflow_torch.ops.geometry import gather_points
+
+    device = both.device
+    lv = [gather_points(both, order[:, :m]) for m in N_SAMPLES]
+    # the CLFM cache: the 1/8 pixel grid (68 x 120) against both frames'
+    # projected points in 2-D, k=1
+    feat_h, feat_w = -(-IMAGE_H // 8), -(-IMAGE_W // 8)
+    uv = torch.rand(2, N_SAMPLES[1], 2, generator=gen, device=device)
+    uv = (uv * torch.tensor([feat_w - 1.0, feat_h - 1.0], device=device)).contiguous()
+    ys, xs = torch.meshgrid(torch.arange(float(feat_h), device=device),
+                            torch.arange(float(feat_w), device=device), indexing="ij")
+    pixels = torch.stack([xs, ys], -1).reshape(1, -1, 2).expand(2, -1, -1).contiguous()
+    knn_calls = [
+        ("encoder level 0", both, lv[0], 16, "FHL"),  # both frames
+        ("encoder level 1", lv[0], lv[1], 16, "FHL"),
+        ("pooling 2048", lv[1][1:], lv[2][1:], 3, "FHL"),
+        ("pooling 1024", lv[2][1:], lv[3][1:], 3, "FHL"),
+        ("pooling 512", lv[3][1:], lv[4][1:], 3, "FHL"),
+        ("update neighbours", lv[1][:1], lv[1][:1], 32, "FHL"),
+        ("final upsample", lv[1][:1], both[:1], 3, "FH"),
+        ("CLFM pixel cache", uv, pixels, 1, "FH"),
+    ]
+    # the backwarp of frame 2 by the flow, and CamLiRAFT-L's final upsample
+    xyz1, xyz2 = lv[1][:1], lv[1][1:]
+    flow = 0.05 * torch.randn(xyz1.shape, generator=gen, device=device)
+    interp_calls = [("backwarp", (xyz1 + flow).contiguous(), (-flow).contiguous(), xyz2),
+                    ("upsample", xyz1, flow, both[:1])]
+    return lv, knn_calls, interp_calls
+
+
+def kernel_parity(device, other=None) -> list[dict]:
     """Phase 3: each kernel vs its plain version at the main-path shapes."""
     import torch
     from torch import nn
@@ -360,16 +450,8 @@ def kernel_parity(device) -> list[dict]:
     from camliflow_torch.models.raft import FlowHead2D, GRU2D, MotionEncoder2D
     from camliflow_torch.nn.clfm import CLFM, fusion_interp_cache
     from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
-    from camliflow_torch.ops.geometry import gather_points, squared_distance
-    from camliflow_torch.ops.ids import make_parallel_camera_info, persp2paral
 
-    # the main path's clouds: bench inputs in IDS (parallel) coordinates
-    pcs = torch.as_tensor(frame_pair(SEED + 100, 0)["pcs"][0], device=device)
-    persp = {"sensor_h": 540, "sensor_w": 960, "f": INTRINSICS[0],
-             "cx": INTRINSICS[1], "cy": INTRINSICS[2]}
-    paral = make_parallel_camera_info(540, 960)
-    both = persp2paral(torch.stack([pcs[:, :3], pcs[:, 3:]]), persp, paral)
-    both = both.contiguous()  # [2, 8192, 3]
+    both = main_path_clouds(device)  # [2, 8192, 3]
     gen = torch.Generator(device=device).manual_seed(SEED)
     results = []
 
@@ -423,65 +505,122 @@ def kernel_parity(device) -> list[dict]:
                  f"{1e3 * ms / n_fps:.4f} us a step)",
            us_per_step=1e3 * ms / n_fps, cluster=fps.CLUSTER)
 
-    # KNN: each call the main paths make; selected distances must agree
-    lv = [gather_points(both, got[:, :m]) for m in N_SAMPLES]
-    calls = [
-        (both, lv[0], 16), (lv[0], lv[1], 16),  # encoder, both frames
-        (lv[1][1:], lv[2][1:], 3), (lv[2][1:], lv[3][1:], 3),  # pooling
-        (lv[3][1:], lv[4][1:], 3),
-        (lv[1][:1], lv[1][:1], 32),  # update neighbours
-        (lv[1][:1], both[:1], 3),  # 2048 -> 8192 upsample
-    ]
-    knn_err = 0.0
-    for support, query, k in calls:
-        d = squared_distance(query, support)
-        a = knn.k_nearest_neighbor(support, query, k).long()
-        b = knn.k_nearest_neighbor_plain(support, query, k).long()
-        da, db = torch.gather(d, 2, a), torch.gather(d, 2, b)
-        if not torch.allclose(da, db, rtol=KNN_TOL, atol=KNN_TOL):
-            raise AssertionError(f"KNN k={k} {tuple(query.shape)}<-"
-                                 f"{tuple(support.shape)}: selected distances differ")
-        knn_err = max(knn_err, float((da - db).abs().max()))
-    # the CLFM cache: the 1/8 pixel grid (68 x 120) against both frames'
-    # projected points in 2-D, k=1
+    # KNN (#1): every call the main paths make, indices bit for bit the plain
+    # version's, also on a copy with exact ties (every 7th point repeats an
+    # earlier one, every third query sits on a point), and the kernel's
+    # device time at each (profiler; the 2-D call's two pad launches apart)
+    lv, knn_calls, interp_calls = selection_calls(both, got, gen)
     feat_h, feat_w = -(-IMAGE_H // 8), -(-IMAGE_W // 8)
-    uv = torch.rand(2, N_SAMPLES[1], 2, generator=gen, device=device)
-    uv = (uv * torch.tensor([feat_w - 1.0, feat_h - 1.0], device=device)).contiguous()
-    ys, xs = torch.meshgrid(torch.arange(float(feat_h), device=device),
-                            torch.arange(float(feat_w), device=device), indexing="ij")
-    pixels = torch.stack([xs, ys], -1).reshape(1, -1, 2).expand(2, -1, -1).contiguous()
-    d = squared_distance(pixels, uv)
-    a = knn.k_nearest_neighbor(uv, pixels, 1).long()
-    b = knn.k_nearest_neighbor_plain(uv, pixels, 1).long()
-    if not torch.equal(torch.gather(d, 2, a), torch.gather(d, 2, b)):
-        raise AssertionError("KNN 2-D k=1: selected distances differ")
+    xyz1, uv, pc1 = lv[1][:1], knn_calls[-1][1], both[:1]
+    flow = interp_calls[1][2]  # the flow the interpolation upsamples
+
+    def tie(support, query):
+        support, query = support.clone(), query.clone()
+        m7 = support[:, 1::7].shape[1]
+        support[:, 1::7] = support[:, : 7 * m7 : 7].clone()
+        n3 = query[:, ::3].shape[1]
+        query[:, ::3] = support[:, torch.arange(n3, device=device) * 5 % support.shape[1]]
+        return support, query
+
+    # (with another tree, its wrappers are held to the plain versions too and
+    # timed in turns with this tree's: other, this, this, other)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def mean(times):
+        return sum(times) / len(times)
+
+    def beside(times):  # each reading, where the other tree's stand beside
+        if "other" not in times:
+            return ""
+        this, theirs = (", ".join(f"{t:.4f}" for t in times[key]) for key in ("this", "other"))
+        return f" ({this}); other tree {theirs} ms"
+
+    knn_wrappers = {"this": knn.k_nearest_neighbor}
+    if other:
+        knn_wrappers = {"other": other[0].k_nearest_neighbor, **knn_wrappers}
+    knn_dev, knn_bound, knn_other = {}, {}, {}
+    for label, support, query, k, _ in knn_calls:
+        for sup, qry in ((support, query), tie(support, query)):
+            ref = knn.k_nearest_neighbor_plain(sup, qry, k)
+            for tree, wrapper in knn_wrappers.items():
+                if not torch.equal(wrapper(sup, qry, k), ref):
+                    raise AssertionError(f"KNN {label}: {tree} tree's indices differ from the "
+                                         "plain version")
+        calls = {tree: lambda w=wrapper: w(support, query, k)
+                 for tree, wrapper in knn_wrappers.items()}
+        times = in_turns(calls, 20, "knn_kernel")
+        if not all(all(t) for t in times.values()):
+            raise AssertionError(f"KNN {label}: the profiler saw no knn_kernel launch")
+        knn_dev[label] = mean(times["this"])
+        if other:
+            knn_other[label] = mean(times["other"])
+        batch, m, dim = support.shape
+        n = query.shape[1]
+        knn_bound[label] = bound(batch * n * m * 9,  # 8 flops + 1 compare per pair
+                                 4 * (batch * (m + n) * dim + batch * n * k))[0]
+        plan = knn.select_plan(batch, n, m, k, sms)
+        print(f"  k_nearest_neighbor {label} [{batch},{n}] <- [{batch},{m}], k={k}: plan "
+              f"(slices, queries a block, a warp) {plan}; device {knn_dev[label]:.4f} ms"
+              f"{beside(times)}, bound {knn_bound[label]:.4f} ms", flush=True)
+
+    def request(dev):  # the calls' device times summed a flagship and a CamLiRAFT-L request
+        return {path: sum(dev[label] for label, *_, paths in knn_calls if key in paths)
+                for path, key in (("flagship", "F"), ("camliraft_l", "L"))}
+
+    knn_request = request(knn_dev)
+    for tree, sums in (("", knn_request), ("other tree's ", request(knn_other) if other else None)):
+        if sums:
+            print(f"  {tree}k_nearest_neighbor device time a request: flagship (8 calls) "
+                  f"{sums['flagship']:.4f} ms, CamLiRAFT-L (6 calls) "
+                  f"{sums['camliraft_l']:.4f} ms", flush=True)
     record("k_nearest_neighbor", "camliflow_torch/csrc/knn.cu",
-           "camliflow_tpu/ops/pallas_knn.py:67", knn_err,
+           "camliflow_tpu/ops/pallas_knn.py:67", 0.0,
            time_ms(lambda: knn.k_nearest_neighbor(both, lv[0], 16), 20),
            time_ms(lambda: knn.k_nearest_neighbor_plain(both, lv[0], 16), 3),
            2 * N_SAMPLES[0] * N_POINTS * 9,  # 8 flops + 1 compare per pair
-           4 * (2 * N_POINTS * 3 + 2 * N_SAMPLES[0] * 3 + 2 * N_SAMPLES[0] * 16))
+           4 * (2 * N_POINTS * 3 + 2 * N_SAMPLES[0] * 3 + 2 * N_SAMPLES[0] * 16),
+           label="k_nearest_neighbor encoder level 0 (by events)",
+           device_ms=knn_dev["encoder level 0"], device_ms_by_call=knn_dev,
+           bound_ms_by_call=knn_bound, device_ms_request=knn_request)
 
-    # interpolation: backwarp [1,2048] <- [1,2048] and upsample [1,8192]
-    xyz1, xyz2 = lv[1][:1], lv[1][1:]
-    flow = 0.05 * torch.randn(xyz1.shape, generator=gen, device=device)
-    warped = (xyz1 + flow).contiguous()
-    neg = (-flow).contiguous()
-    pc1 = both[:1]
-    interp_err = 0.0
-    for support, feats, query in ((warped, neg, xyz2), (xyz1, flow, pc1)):
+    # interpolation (#3): backwarp [1,2048] <- [1,2048] and upsample [1,8192],
+    # k=3, C=3: within INTERP_TOL of the plain version, and with k=1 on each
+    # support's index as its feature, the selected index itself
+    index = torch.arange(float(N_SAMPLES[1]), device=device)[None, :, None].contiguous()
+    interp_err, interp_ms, interp_dev = 0.0, {}, {}
+    for label, support, feats, query in interp_calls:
         a = interp.knn_interpolation(support, feats, query, 3)
         b = interp.knn_interpolation_plain(support, feats, query, 3)
         err = float((a - b).abs().max())
         if err > INTERP_TOL:
-            raise AssertionError(f"interp {tuple(query.shape)}: max |d| {err}")
+            raise AssertionError(f"interp {label}: max |d| {err}")
+        picked = interp.knn_interpolation(support, index, query, 1)[..., 0].int()
+        if not torch.equal(picked, knn.k_nearest_neighbor_plain(support, query, 1)[..., 0]):
+            raise AssertionError(f"interp {label}: k=1 selects other supports than the plain KNN")
         interp_err = max(interp_err, err)
+        call = lambda: interp.knn_interpolation(support, feats, query, 3)  # noqa: E731
+        calls = {"this": call}
+        if other:
+            calls = {"other": lambda: other[1].knn_interpolation(support, feats, query, 3),
+                     **calls}
+            theirs = float((calls["other"]() - b).abs().max())
+            if theirs > INTERP_TOL:
+                raise AssertionError(f"other tree's interp {label}: max |d| {theirs}")
+        times = in_turns(calls, 20, "interp_kernel")
+        interp_ms[label], interp_dev[label] = time_ms(call, 50), mean(times["this"])
+        n = query.shape[1]
+        print(f"  knn_interpolation {label} [1,{n}] <- [1,{support.shape[1]}]: plan "
+              f"{knn.select_plan(1, n, support.shape[1], 3, sms)}; events "
+              f"{interp_ms[label]:.4f} ms, device {interp_dev[label]:.4f} ms{beside(times)}", flush=True)
     m = N_SAMPLES[1]
     record("knn_interpolation", "camliflow_torch/csrc/interp.cu",
-           "camliflow_tpu/ops/pallas_interp.py:81", interp_err,
-           time_ms(lambda: interp.knn_interpolation(warped, neg, xyz2, 3), 50),
-           time_ms(lambda: interp.knn_interpolation_plain(warped, neg, xyz2, 3), 20),
-           m * m * 9 + m * 3 * (12 + 2 * 3), 4 * (m * 3 * 2 + m * 3 * 2))
+           "camliflow_tpu/ops/pallas_interp.py:81", interp_err, interp_ms["backwarp"],
+           time_ms(lambda: interp.knn_interpolation_plain(*interp_calls[0][1:], 3), 20),
+           m * m * 9 + m * 3 * (12 + 2 * 3), 4 * (m * 3 * 2 + m * 3 * 2),
+           label="knn_interpolation backwarp (by events)", device_ms=interp_dev["backwarp"],
+           upsample_ms=interp_ms["upsample"], upsample_device_ms=interp_dev["upsample"],
+           upsample_bound_ms=bound(N_POINTS * m * 9 + N_POINTS * 3 * (12 + 2 * 3),
+                                   4 * (m * 3 * 2 + N_POINTS * 3 * 2))[0])
 
     # Correlation3D selection + cost: levels 2048..256, k=16; indices and
     # costs bit for bit, also on a copy of the clouds with exact ties
@@ -898,6 +1037,14 @@ def check_output(out: dict, key: str, shape: tuple) -> np.ndarray:
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Proof that the port runs on one CUDA card.")
+    parser.add_argument("--other", metavar="TREE",
+                        help="another checkout (a parent unpacked by git archive into an "
+                             "ignored directory, say) whose #1 and #3 phase 3 times beside "
+                             "this tree's")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -948,7 +1095,7 @@ def main() -> int:
           "the 2D chain, and is no yardstick of speed)", flush=True)
     kernels = []
     try:
-        kernels = kernel_parity(device)
+        kernels = kernel_parity(device, other_tree(args.other) if args.other else None)
     except Exception:
         traceback.print_exc()
         failures.append("kernels")

@@ -7,8 +7,9 @@ installed:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 (`--noconftest` because tests/conftest.py configures JAX.) Tolerances: KNN
-selected squared distances rtol = atol = 1e-4; FPS indices identical;
-interpolation atol 1e-5 (FPS also on duplicated points, and the 3D GRU +
+indices identical, ties included; FPS indices identical; interpolation
+atol 1e-5, and bit for bit its own arithmetic on the plain selection
+(FPS also on duplicated points, and the 3D GRU +
 flow head's NaN positions too); the 2D and 3D update kernels, the Correlation3D
 tail and CLFM max |kernel - plain| <= 1e-4 * (1 + max |plain|) (f32 on both
 sides: summation order only, and for the tensor-core tile of the 2D chain
@@ -22,11 +23,10 @@ import pytest
 import torch
 
 from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
-from camliflow_torch.ops.geometry import squared_distance
+from camliflow_torch.ops.geometry import gather_points, squared_distance
 from camliflow_torch.ops.ids import make_parallel_camera_info, persp2paral
 from camliflow_torch.utils.torch_setup import setup_torch
 
-SEL_TOL = dict(rtol=1e-4, atol=1e-4)
 PERSP = {"sensor_h": 540, "sensor_w": 960, "f": 1050.0, "cx": 479.5, "cy": 269.5}
 
 
@@ -47,12 +47,6 @@ def ids_clouds(seed, device, batch=2, n=512):
     return persp2paral(torch.from_numpy(pc), PERSP, paral).to(device).contiguous()
 
 
-def assert_same_selection(query, support, got, ref):
-    d = squared_distance(query, support)
-    torch.testing.assert_close(torch.gather(d, 2, got.long()),
-                               torch.gather(d, 2, ref.long()), **SEL_TOL)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 3, 5, 16, 32])
 def test_knn_kernel_matches_plain(cuda, k):
@@ -61,7 +55,58 @@ def test_knn_kernel_matches_plain(cuda, k):
     got = knn.k_nearest_neighbor(pts, q, k)
     assert knn.k_nearest_neighbor.launches == before + 1
     assert got.dtype == torch.int32 and got.shape == (2, 300, k)
-    assert_same_selection(q, pts, got, knn.k_nearest_neighbor_plain(pts, q, k))
+    assert torch.equal(got, knn.k_nearest_neighbor_plain(pts, q, k))
+
+
+def tie(support, query):
+    """Exact ties: every 7th point repeats an earlier one (across slices),
+    and every third query sits on a point."""
+    m = support[:, 1::7].shape[1]
+    support[:, 1::7] = support[:, : 7 * m : 7].clone()
+    n = query[:, ::3].shape[1]
+    query[:, ::3] = support[:, torch.arange(n, device=support.device) * 5 % support.shape[1]]
+
+
+# every (batch, queries, candidates, k) the main paths give #1 (tests/test_torch_knn.py)
+KNN_CALLS = [(2, 4096, 8192, 16), (2, 2048, 4096, 16), (1, 1024, 2048, 3), (1, 512, 1024, 3),
+             (1, 256, 512, 3), (1, 2048, 2048, 32), (1, 8192, 2048, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("batch,n,m,k", KNN_CALLS + [(2, 100, 40, 32), (1, 300, 32, 32)])
+def test_knn_kernel_at_main_path_shapes(cuda, batch, n, m, k, ties):
+    """Indices bit for bit the plain version's, ties included, at every
+    main-path shape (and M = 40, M = k = 32), and two runs bit for bit."""
+    support = ids_clouds(40 + m, cuda, batch, m)
+    query = ids_clouds(41 + n, cuda, batch, n)
+    if ties:
+        tie(support, query)
+    got = knn.k_nearest_neighbor(support, query, k)
+    assert torch.equal(got, knn.k_nearest_neighbor_plain(support, query, k))
+    assert torch.equal(knn.k_nearest_neighbor(support, query, k), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,m,k", [(1, 64, 8192, 16), (1, 1, 8192, 3),
+                                         (1, 100, 8192, 32), (2, 40, 9000, 16)])
+def test_selection_kernels_on_few_queries_over_many_candidates(cuda, batch, n, m, k):
+    """A few queries over thousands of candidates, where the plan's slices
+    stop at a block's 32 warps: KNN indices bit for bit the plain
+    version's, ties included; the interpolation within 1e-5 of its plain
+    version, and with k = 1 on each support's index as its feature, the
+    plain KNN's selection."""
+    support, query = ids_clouds(47, cuda, batch, m), ids_clouds(48, cuda, batch, n)
+    tie(support, query)
+    assert torch.equal(knn.k_nearest_neighbor(support, query, k),
+                       knn.k_nearest_neighbor_plain(support, query, k))
+    feats = torch.randn(batch, m, 3, device=cuda)
+    torch.testing.assert_close(interp.knn_interpolation(support, feats, query, k),
+                               interp.knn_interpolation_plain(support, feats, query, k),
+                               rtol=0, atol=1e-5)
+    index = torch.arange(float(m), device=cuda)[None, :, None].expand(batch, -1, -1).contiguous()
+    picked = interp.knn_interpolation(support, index, query, 1)[..., 0].int()
+    assert torch.equal(picked, knn.k_nearest_neighbor_plain(support, query, 1)[..., 0])
 
 
 @pytest.mark.cuda
@@ -84,6 +129,27 @@ def test_fps_kernel_on_duplicated_points(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,slices,queries,group", [
+    (40, 32, 5, 4, 1), (40, 32, 5, 4, 2), (40, 32, 32, 1, 1), (100, 16, 25, 1, 1),
+    (515, 3, 9, 3, 1), (515, 8, 3, 8, 2), (9000, 16, 5, 6, 2),
+])
+def test_knn_kernel_on_plans_of_its_own(cuda, m, k, slices, queries, group):
+    """Plans the wrapper does not choose, through the C entry point: slices
+    shorter than k (8 candidates for k = 32: their lists padded with
+    (inf, 0)), empty slices (32 slices of 40 candidates), 1 or 2 queries a
+    warp, and more candidates than a block stages at once (9000); indices
+    bit for bit the plain version's, ties included."""
+    from camliflow_torch.csrc.build import launch
+
+    support, query = ids_clouds(45, cuda, 2, m), ids_clouds(46, cuda, 2, 150)
+    tie(support, query)
+    out = torch.empty(2, 150, k, dtype=torch.int32, device=cuda)
+    launch("camli_knn", support.data_ptr(), query.data_ptr(), out.data_ptr(), 2, m, 150, k,
+           slices, queries, group)
+    assert torch.equal(out, knn.k_nearest_neighbor_plain(support, query, k))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("channels", [1, 3, 7])
 def test_interp_kernel_matches_plain(cuda, channels):
     src, q = ids_clouds(23, cuda), ids_clouds(24, cuda, n=1300)
@@ -91,6 +157,50 @@ def test_interp_kernel_matches_plain(cuda, channels):
     torch.testing.assert_close(interp.knn_interpolation(src, feats, q, 3),
                                interp.knn_interpolation_plain(src, feats, q, 3),
                                rtol=0, atol=1e-5)
+
+
+def interp_in_kernel_order(support, feats, query, idx):
+    """csrc/interp.cu's arithmetic as torch ops on given indices, one
+    rounding per operation: sqrt, clamp, reciprocal, the total in list
+    order, the division, each channel's sum in list order."""
+    diff = gather_points(support, idx) - query[:, :, None, :]
+    dist = torch.sqrt(diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+                      + diff[..., 2] * diff[..., 2]).clamp_min(1e-8)
+    w = 1.0 / dist
+    total = torch.zeros_like(w[..., 0])
+    for j in range(idx.shape[-1]):
+        total = total + w[..., j]
+    w = w / total[..., None]
+    f = gather_points(feats, idx)
+    acc = torch.zeros_like(f[:, :, 0])
+    for j in range(idx.shape[-1]):
+        acc = acc + f[:, :, j] * w[..., j : j + 1]
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n", [2048, 8192])  # the backwarp and CamLiRAFT-L's upsample
+def test_interp_kernel_at_main_path_shapes(cuda, n, ties):
+    """[1, n] <- [1, 2048], C = 3, k = 3: within 1e-5 of the plain version,
+    and bit for bit the kernel's arithmetic on the plain version's
+    selection (so the kernel selected what the plain version selects); with
+    k = 1 and a feature that holds each support's index, the output is the
+    selected index itself."""
+    support, query = ids_clouds(42, cuda, 1, 2048), ids_clouds(43, cuda, 1, n)
+    if ties:
+        tie(support, query)
+    feats = 0.05 * torch.randn(1, 2048, 3, device=cuda)
+    before = interp.knn_interpolation.launches
+    got = interp.knn_interpolation(support, feats, query, 3)
+    assert interp.knn_interpolation.launches == before + 1
+    torch.testing.assert_close(got, interp.knn_interpolation_plain(support, feats, query, 3),
+                               rtol=0, atol=1e-5)
+    idx = knn.k_nearest_neighbor_plain(support, query, 3)
+    assert torch.equal(got, interp_in_kernel_order(support, feats, query, idx))
+    index = torch.arange(2048.0, device=cuda)[None, :, None].contiguous()
+    picked = interp.knn_interpolation(support, index, query, 1)
+    assert torch.equal(picked[..., 0].int(), knn.k_nearest_neighbor_plain(support, query, 1)[..., 0])
 
 
 @pytest.mark.cuda
@@ -157,6 +267,27 @@ def test_knn_kernel_takes_2d_points(cuda):
     ref = knn.k_nearest_neighbor_plain(uv, grid, 1)
     d = squared_distance(grid, uv)
     assert torch.equal(torch.gather(d, 2, got.long()), torch.gather(d, 2, ref.long()))
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_on_the_clfm_pixel_grid(cuda):
+    """CLFM's cache at the main shape: the 68 x 120 pixel grid of 1/8
+    feature maps against 2048 projected points of each frame, k = 1, with
+    points on pixel centres (exact ties between points and between their
+    copies); indices bit for bit, reruns too."""
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    uv = torch.rand(2, 2048, 2, generator=gen, device=cuda)
+    uv = uv * torch.tensor([119.0, 67.0], device=cuda)
+    uv[:, ::4] = uv[:, ::4].round()
+    uv[:, 1::9] = uv[:, : uv[:, 1::9].shape[1]].clone()
+    uv = uv.contiguous()
+    ys, xs = torch.meshgrid(torch.arange(68.0, device=cuda), torch.arange(120.0, device=cuda),
+                            indexing="ij")
+    grid = torch.stack([xs, ys], -1).reshape(1, -1, 2).expand(2, -1, -1).contiguous()
+    got = knn.k_nearest_neighbor(uv, grid, 1)
+    assert torch.equal(got, knn.k_nearest_neighbor_plain(uv, grid, 1))
+    assert torch.equal(knn.k_nearest_neighbor(uv, grid, 1), got)
 
 
 def update_blocks(device, seed):
