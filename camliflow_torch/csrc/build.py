@@ -45,7 +45,7 @@ SIGNATURES = {
     "camli_flow_head_2d": [_P] * 4 + [_I] * 5 + [_P],
     "camli_gru_flowhead_2d": [_P] * 10 + [_I] * 7 + [_P],
     "camli_update_2d": [_P] * 9 + [_I] * 12 + [_P],
-    "camli_motion_encoder_3d": [_P] * 17 + [_I] * 13 + [_P],
+    "camli_motion_encoder_3d": [_P] * 14 + [_I] * 16 + [_P],
     "camli_gru_flowhead_3d": [_P] * 18 + [_I] * 16 + [_P],
     "camli_dw_max": [_P] * 4 + [_I] * 6 + [_P],
     "camli_gather_kmajor": [_P] * 3 + [_I] * 5 + [_P],

@@ -1,19 +1,19 @@
-// The 3D update chain of the refinement loop.
+// The 3D update chain of the refinement loop, and the PointConvDW tail.
 //
 // camli_motion_encoder_3d replaces
 //   camliflow_tpu/ops/pallas_update3d.py::motion_encoder_3d_pallas:
 //   MotionEncoder3D's four PointConvDW (conv_c1 k=16 on corr, conv_f1 k=32
 //   and conv_f2 k=16 on the flow, the merge conv k=16 over [corr_feat,
-//   flow_feat]), then the flow appended. 4 launches of the stage kernel.
+//   flow_feat]), then the flow appended. 5 launches ("#6" below).
 // camli_gru_flowhead_3d replaces
 //   camliflow_tpu/ops/pallas_update3d.py::gru_flowhead_3d_pallas: GRU3D
 //   (z|r and q PointConvDW at k=4 over hx = [h, x3d, motion], h' = (1-z) h
 //   + z tanh(q)) and FlowHead3D (two PointConvDW at k=32, then fc 64->3),
-//   returning (h', delta). Its own steps, below ("#7").
+//   returning (h', delta). 6 launches ("#7" below).
 // camli_dw_max replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg: one
-//   PointConvDW tail (gather, multiply, max over k) as one gather-only
-//   stage, for the flagship's fuse_hidden path, where CLFM sits between
-//   GRU3D and FlowHead3D. 1 launch of the stage kernel.
+//   PointConvDW tail (gather, multiply, max over k) on its own, for the
+//   flagship's fuse_hidden path, where CLFM sits between GRU3D and
+//   FlowHead3D and the MLPs run outside. 1 launch.
 //
 // A PointConvDW is out[q, c] = max_j table[idx[q, j], c] * w[q, j, c], where
 // table is the conv's MLP (one Linear, leaky ReLU or none) over every point
@@ -24,341 +24,88 @@
 // it, and neither does this one.
 //
 // Numerics: f32 throughout. A gathered product is one rounded multiply and
-// the max is exact and taken in neighbour order, so the gathers equal the
-// plain versions bit for bit (NaN propagates as in torch.amax); the MLPs
-// sum in another order than the plain versions' matmuls (#7's dense steps
-// on the tensor cores by the 3xTF32 split, conv_tile_tc.cuh).
+// the max is exact and taken in neighbour order, so a tail equals the plain
+// version's gather bit for bit (NaN propagates as in torch.amax); the dense
+// layers sum in another order than the plain versions' matmuls (on the
+// tensor cores by the 3xTF32 split, conv_tile_tc.cuh, or in f32 FMA).
 //
-// The stage kernel (#6, #13): a stage gathers for its 16 points into shared
-// memory and feeds the gathered rows straight into the next MLP, a tile of
-// 16 points x 64 channels, 256 threads, 1 x 4 outputs a thread, f32 FMA on
-// weights packed once per request as [K_pad, N_pad].
-//   #6: [MLP c1 | MLP f1] -> [gather c1 -> corr_feat | gather f1 -> MLP f2]
-//       -> [gather f2 -> merge MLP over (corr_feat, flow_feat)]
-//       -> [gather merge -> out, flow]
-//
-// #7: bound on the card at the main-path shape (N = 2048 points, bs=1): a
-// call reads its hoisted weights once, 7,680 floats a point (4x256 + 4x128
-// + 32x128 + 32x64; 62.9 MB), ~20 us at 3.35 TB/s; its 0.35 G
-// multiply-adds are ~4.3 us as 3xTF32 on the tensor cores. Bound by bytes.
-// Design (see "#7" below): the gathers as their own steps, built for bytes
-// (a warp a point, 16-byte loads over channels, the point's neighbour
-// indices read once, 8 rows of the table and of the weights in flight a
-// lane, each result written once to an L2-resident scratch after its post
-// op); z|r's and q's dense layers on the 3xTF32 tensor-core tile; q's
-// x3d/motion part moved into the first dense step; conv1 and conv2 as f32
-// FMA epilogues of the gathers before them. 6 launches, one a step. Measured
-// on an H100 (PERF.md), one cooperative launch with grid barriers between the
-// steps cost more than the launch gaps it replaces, and conv1/conv2 on the
-// tile (8 launches) gained about 5% at 16,384 points and lost at 2048.
+// All three kernels are chains of two kinds of step, one launch a step:
+// - a dense step runs conv_tile_tc.cuh's 3xTF32 tile over the points (a 1x1
+//   conv, EPI_NONE: the table before its activation), as a kernel of its
+//   own;
+// - a tail (`tail` below) gathers for its points, built for bytes: a warp,
+//   or LANES lanes of it, a point; the point's neighbour indices read once
+//   and handed to the other lanes by shuffles; narrow rows (#6's f1 and
+//   f2, #13 up to 64 channels) a lane a channel, or two (4-byte loads, a
+//   point a warp, so that a step keeps enough points in flight); wider
+//   rows 16-byte loads (4 channels a load) where the channel count is a
+//   multiple of 4 and the rows are aligned, else 4-byte loads of channel
+//   lane + 32 v (a warp still reads 128 contiguous bytes a row); kGfRows
+//   16-byte rows of the table and of the weights in
+//   flight a lane (as many bytes in 4-byte loads, at most 16 rows), the
+//   weights streamed once (__ldcs); the table's activation applied as a row
+//   is read; each result written once, after its post op, to an
+//   L2-resident scratch or the output. A small dense layer that follows may
+//   run as its f32 FMA epilogue over the block's rows in shared memory.
+// Bound on the card: every kernel here reads its hoisted weights once, and
+// these dominate its bytes; its dense layers are ~4-20 us as 3xTF32.
+//   #7 at N = 2048 points, bs=1: 7,680 floats a point (4x256 + 4x128 +
+//   32x128 + 32x64; 62.9 MB), ~20 us at 3.35 TB/s.
+//   #6: 5,328 floats a point (16x128 + 32x32 + 16x16 + 16x125; 43.6 MB),
+//   ~14 us.
+//   #13: M x k x C floats (fuse_hidden: z|r 8.4 MB, q 4.2, conv1 33.6,
+//   conv2 16.8).
+// Measured on an H100 (PERF.md): one cooperative launch with grid barriers
+// between #7's steps cost more than the launch gaps it replaces, and
+// conv1/conv2 on the tile (8 launches) gained about 5% at 16,384 points and
+// lost at 2048. The earlier stage kernel of #6 and #13 (16-point tiles,
+// 4-byte gathers a thread per (point, channel), its MLPs on f32 FMA) ran
+// 6-10x above their bounds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "conv_tile_tc.cuh"
 
 namespace {
-// The stage kernel of #6 and #13.
-namespace staged {
-
-constexpr int ROWS = 1;  // points per thread in the MLP tile
-constexpr int BM = 16 * ROWS;  // points per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 16;   // reduction chunk
-constexpr int GMAX = 128;  // gathered channels a block stages for its MLP
-constexpr int kThreads = 256;
-
-enum Post { POST_NONE = 0, POST_ZR = 1, POST_GATE = 2 };
-enum Act { ACT_NONE = 0, ACT_LEAKY = 1 };
-
-struct Stage {
-  int points, n;  // B*N, and N (a batch item's points; indices are local)
-  // the gather, g[p, c] = max_j table[idx[p, j], c] * dw[p, j, c], c < t_c
-  // (k == 0: none)
-  const float* table;  // [B * t_n, t_c]
-  const float* dw;     // [points, k, t_c]
-  const int* idx;      // [points, idx_stride], the first k columns
-  int idx_stride, k, t_c, t_n, post;  // t_n: table rows per batch item
-  const float* h;  // ZR: g = r*h is staged; GATE: h' = (1-z) h + z tanh(g)
-  const float* z;  // GATE: the update gate
-  float* side;     // ZR: z out; GATE: h' out
-  int half;        // ZR, GATE: hidden channels
-  // the MLP over the virtual concat of in0..in2, the part g_slot being the
-  // staged gather (cout == 0: no MLP, the gather itself is the output)
-  const float* in0;
-  const float* in1;
-  const float* in2;
-  int c0, c1, c2, g_slot;
-  const float* w;     // [K_pad, N_pad]
-  const float* bias;  // [N_pad]
-  int cout, n_pad, k_total, act;
-  float* out;  // out[p * out_stride + co]
-  int out_stride;
-  const float* tail;  // gather-only stage: copied to out[p, t_c + j], j < tail_c
-  int tail_c;
-};
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
-// max_j table[idx[p, j], c] * dw[p, j, c]
-__device__ __forceinline__ float dw_max(const Stage& s, int p, int c) {
-  const int b = p / s.n;
-  const int* nb = s.idx + (size_t)p * s.idx_stride;
-  const float* wp = s.dw + (size_t)p * s.k * s.t_c + c;
-  const float* tb = s.table + (size_t)b * s.t_n * s.t_c + c;
-  float m = __fmul_rn(tb[(size_t)nb[0] * s.t_c], wp[0]);
-#pragma unroll 4
-  for (int j = 1; j < s.k; ++j) {
-    const float v = __fmul_rn(tb[(size_t)nb[j] * s.t_c], wp[(size_t)j * s.t_c]);
-    m = (v > m || isnan(v)) ? v : m;
-  }
-  return m;
-}
-
-// The gather of the block's BM points into shared memory (after the post
-// op); the tile at n0 == 0 also writes the side output.
-__device__ __forceinline__ void gather_rows(const Stage& s, int p0, bool side,
-                                            float (*G)[GMAX + 1]) {
-  for (int e = threadIdx.x; e < BM * s.t_c; e += kThreads) {
-    const int row = e / s.t_c;
-    const int c = e - row * s.t_c;
-    const int p = p0 + row;
-    if (p >= s.points) continue;
-    const float v = dw_max(s, p, c);
-    if (s.post == POST_NONE) {
-      G[row][c] = v;
-    } else if (s.post == POST_ZR) {
-      const float g = sigmoid(v);
-      if (c < s.half) {
-        if (side) s.side[(size_t)p * s.half + c] = g;
-      } else {
-        const size_t at = (size_t)p * s.half + (c - s.half);
-        G[row][c - s.half] = __fmul_rn(g, s.h[at]);
-      }
-    } else {
-      const size_t at = (size_t)p * s.half + c;
-      const float zv = s.z[at];
-      const float hn = __fadd_rn(__fmul_rn(__fsub_rn(1.f, zv), s.h[at]),
-                                 __fmul_rn(zv, tanhf(v)));
-      G[row][c] = hn;
-      if (side) s.side[at] = hn;
-    }
-  }
-}
-
-// A gather-only stage: BM points x 64 channels of the gather to `out`.
-__device__ __forceinline__ void gather_out(const Stage& s, int p0, int n0) {
-  for (int e = threadIdx.x; e < BM * BN; e += kThreads) {
-    const int p = p0 + e / BN;
-    const int c = n0 + e % BN;
-    if (p < s.points && c < s.t_c) s.out[(size_t)p * s.out_stride + c] = dw_max(s, p, c);
-  }
-  if (s.tail_c > 0 && n0 == 0) {
-    for (int e = threadIdx.x; e < BM * s.tail_c; e += kThreads) {
-      const int p = p0 + e / s.tail_c;
-      const int j = e % s.tail_c;
-      if (p < s.points) {
-        s.out[(size_t)p * s.out_stride + s.t_c + j] = s.tail[(size_t)p * s.tail_c + j];
-      }
-    }
-  }
-}
-
-// One BM-point x 64-channel tile of the MLP at (p0, n0).
-__device__ __forceinline__ void mlp_tile(const Stage& s, int p0, int n0,
-                                         float (*G)[GMAX + 1], float (*As)[BM + 4],
-                                         float (*Bs)[BN]) {
-  const int tid = threadIdx.x;
-  const int a_k = tid % BK;  // load roles: A element (k, point rows a_m + 16 i)
-  const int a_m = tid / BK;
-  const int b_row = tid / 16;  // B float4
-  const int b_col = (tid % 16) * 4;
-  const int tx = tid % 16;  // compute role: points ty*ROWS + i, channels tx*4 + j
-  const int ty = tid / 16;
-  float acc[ROWS][4];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < s.k_total; k0 += BK) {
-    float va[ROWS] = {};
-    const int k = k0 + a_k;
-    if (k < s.k_total) {
-      const float* src = s.in0;
-      int part = 0, cs = s.c0, cc = k;
-      if (k >= s.c0 + s.c1) {
-        src = s.in2, part = 2, cs = s.c2, cc = k - s.c0 - s.c1;
-      } else if (k >= s.c0) {
-        src = s.in1, part = 1, cs = s.c1, cc = k - s.c0;
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const int row = a_m + 16 * i;
-        if (p0 + row < s.points) {
-          va[i] = part == s.g_slot ? G[row][cc] : src[(size_t)(p0 + row) * cs + cc];
-        }
-      }
-    }
-    const float4 wv = *reinterpret_cast<const float4*>(
-        s.w + (size_t)(k0 + b_row) * s.n_pad + n0 + b_col);
-    __syncthreads();  // the previous chunk is consumed
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) As[a_k][a_m + 16 * i] = va[i];
-    *reinterpret_cast<float4*>(&Bs[b_row][b_col]) = wv;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(As[kk][ty * ROWS + i], br[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int p = p0 + ty * ROWS + i;
-    if (p >= s.points) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = n0 + tx * 4 + j;
-      if (co >= s.cout) continue;
-      float v = __fadd_rn(acc[i][j], s.bias[co]);
-      if (s.act == ACT_LEAKY && !(v > 0.f)) v = __fmul_rn(0.1f, v);
-      s.out[(size_t)p * s.out_stride + co] = v;
-    }
-  }
-}
-
-__host__ __device__ __forceinline__ int tile_count(const Stage& s) {
-  const int n_tiles = s.cout > 0 ? s.n_pad / BN : (s.t_c + BN - 1) / BN;
-  return (s.points + BM - 1) / BM * n_tiles;
-}
-
-__device__ __forceinline__ void run_tile(const Stage& s, int t, float (*G)[GMAX + 1],
-                                         float (*As)[BM + 4], float (*Bs)[BN]) {
-  const int m_tiles = (s.points + BM - 1) / BM;
-  const int p0 = (t % m_tiles) * BM;
-  const int n0 = (t / m_tiles) * BN;
-  if (s.cout == 0) {
-    gather_out(s, p0, n0);
-    return;
-  }
-  if (s.k > 0) {
-    gather_rows(s, p0, n0 == 0, G);
-    __syncthreads();
-  }
-  mlp_tile(s, p0, n0, G, As, Bs);
-}
-
-// One launch runs the tiles of `a`, then those of `b` (tiles_b may be 0).
-__global__ void __launch_bounds__(kThreads) stage_kernel(const Stage a, const Stage b,
-                                                         int tiles_a) {
-  __shared__ float G[BM][GMAX + 1];
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int t = blockIdx.x;
-  if (t < tiles_a) {
-    run_tile(a, t, G, As, Bs);
-  } else {
-    run_tile(b, t - tiles_a, G, As, Bs);
-  }
-}
-
-int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-Stage points(int batch, int n) {
-  Stage s = {};
-  s.points = batch * n;
-  s.n = n;
-  s.g_slot = -1;
-  return s;
-}
-
-// The gather part of a stage.
-Stage& gather(Stage& s, const float* table, const float* dw, const int* idx,
-              int idx_stride, int k, int t_c) {
-  s.table = table, s.dw = dw, s.idx = idx;
-  s.idx_stride = idx_stride, s.k = k, s.t_c = t_c, s.t_n = s.n;
-  return s;
-}
-
-// The MLP part of a stage over [in0 (c0), in1 (c1), in2 (c2)].
-Stage& mlp(Stage& s, const float* w, const float* bias, int cout, int act, float* out,
-           const float* in0, int c0, const float* in1 = nullptr, int c1 = 0,
-           const float* in2 = nullptr, int c2 = 0) {
-  s.w = w, s.bias = bias, s.cout = cout, s.act = act, s.out = out;
-  s.out_stride = cout;
-  s.n_pad = round_up(cout, BN);
-  s.in0 = in0, s.c0 = c0, s.in1 = in1, s.c1 = c1, s.in2 = in2, s.c2 = c2;
-  s.k_total = c0 + c1 + c2;
-  return s;
-}
-
-int launch(const Stage& a, const Stage* b, cudaStream_t stream) {
-  const int tiles_a = tile_count(a);
-  const int tiles = tiles_a + (b ? tile_count(*b) : 0);
-  stage_kernel<<<tiles, kThreads, 0, stream>>>(a, b ? *b : a, tiles_a);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace staged
-
-// --- #7: GRU3D + FlowHead3D ---------------------------------------------------
-//
-// The chain as phases. A dense phase runs conv_tile_tc.cuh's 3xTF32 tile
-// over the points (a 1x1 conv, EPI_NONE: the table before its activation);
-// a tail phase gathers (gather, multiply, max over k), applies its post op
-// and writes the result once to an L2-resident scratch. q's input
-// [r*h, x3d, motion] is split: its x3d and motion part does not wait for
-// the z|r gather, so the first dense phase computes it beside z|r (one
-// [384 -> 384] product), and q's own dense phase reduces over r*h alone
-// (128 deep instead of 384):
-//   dense [z|r | q_xm] over [h, x3d, motion]
-//   tail z|r -> z = sigmoid, r*h = sigmoid * h
-//   dense q_h over r*h
-//   tail q (table q_h + q_xm) -> h' = (1-z) h + z tanh(q), then conv1 over h'
-//   tail conv1 (leaky ReLU on read), then conv2 over it
-//   tail conv2 (leaky ReLU on read) -> fc 64->3 -> delta
-// conv1's and conv2's dense layers run as the f32 FMA epilogue of the tail
-// before them: its block's rows (one point a warp) in shared memory, each
-// weight read once a block. A gather reads other points' rows, so each phase
-// waits for the one before: one launch a phase.
 
 constexpr int kGfThreads = 128;  // the tile's 4 warps; a tail's 4 warps
 constexpr int kGfWarps = kGfThreads / 32;
 constexpr int kGfBM = 32, kGfBN = 64;  // the tile: 32 points x 64 channels, 2 x 2 warps
 using GfTile = TcShape<kGfBM, kGfBN, 2, 2, 1>;
-constexpr int kGfRows = 8;   // float4 neighbour rows (table + weights) a lane keeps in flight
-constexpr int kGruK = 8;     // the most neighbours of GRU3D's convs (the model's: 4)
-constexpr int kHeadK = 32;   // of FlowHead3D's (the model's: 32)
+constexpr int kGfRows = 8;   // 16-byte neighbour rows (table + weights) a lane keeps in flight
+constexpr int kGruK = 8;     // the neighbours GRU3D's tails unroll (the model's: 4)
+constexpr int kHeadK = 32;   // FlowHead3D's, #6's and #13's (the model's: 16 or 32)
 constexpr int kMaxFc = 4;    // fc outputs (the model's: 3)
-constexpr int kMaxRow = 128; // a fused layer's input and output channels
-constexpr int kGfSteps = 6;
+constexpr int kMaxRow = 128; // a fused layer's input channels, and its outputs
+constexpr int kTailAlign = 16;  // bytes: the 16-byte form's alignment of every row it reads
 
 enum GfPost { GP_ZR = 0, GP_GATE = 1, GP_PLAIN = 2, GP_FC = 3 };
 
 // One tail: g[p, c] = max_j act(table[idx[p, j], c]) * dw[p, j, c], c < c,
 // then the post op.
-struct GfTail {
-  const float* table;  // [B * n, ld], the dense layer's output before its activation
-  const float* table2; // GATE: added to the table (q's x3d/motion part), [B * n, ld2]
+struct Tail {
+  int points, n, n_table;  // B*M points; M a batch item's points, n_table its table's rows
+  const int* idx;          // [points, idx_stride], the first k columns, local to a batch item
+  int idx_stride;
+  const float* table;   // [B * n_table, ld], the dense layer's output before its activation
+  const float* table2;  // GATE: added to the table (q's x3d/motion part), [B * n_table, ld2]
   int ld, ld2;
-  const float* dw;     // [points, k, c]
-  int k, c, leaky;     // leaky: the table's leaky ReLU, applied as a row is read
-  float* out;          // ZR: z [points, half]; GATE: h'; PLAIN: g [points, c] (or none)
-  float* out2;         // ZR: r * h
-  const float* h;      // ZR, GATE: the hidden state [points, half]
-  const float* z;      // GATE: the update gate
-  int half;            // ZR, GATE: hidden channels
-  const float* fc_w;   // FC: [>= c, fc_npad], and its bias
+  const float* dw;      // [points, k, dw_ld], the first c channels of a row
+  int dw_ld, k, c, leaky;  // leaky: the table's leaky ReLU, applied as a row is read
+  float* out;           // ZR: z [points, half]; GATE: h'; PLAIN: g [points, out_ld] (or none)
+  int out_ld;
+  float* out2;          // ZR: r * h
+  const float* h;       // ZR, GATE: the hidden state [points, half]
+  const float* z;       // GATE: the update gate
+  int half;             // ZR, GATE: hidden channels
+  const float* copy;    // PLAIN: copy[p, j] to out[p, c + j], j < copy_c
+  int copy_c;
+  const float* fc_w;    // FC: [>= c, fc_npad], and its bias
   const float* fc_b;
   int fc_out, fc_npad;
-  const float* mlp_w;  // GATE, PLAIN: the next dense layer [>= c, mlp_npad]
+  const float* mlp_w;   // fused: the next dense layer [>= c, mlp_npad]
   const float* mlp_b;
-  float* mlp_out;      // its output before the activation [points, mlp_cout]
+  float* mlp_out;       // its output before the activation [points, mlp_cout]
   int mlp_cout, mlp_npad;
 };
 
@@ -369,14 +116,6 @@ struct GfLayer {  // a dense layer: a 1x1 conv on the tile, and its tf32 planes
   int k_pad;
 };
 
-struct Gru3D {
-  int points, n;  // B*N, and N (neighbour indices are local to a batch item)
-  const int* idx;  // [points, idx_stride], the first k columns
-  int idx_stride;
-  GfLayer layer[2];  // [z|r | q_xm], q_h
-  GfTail tail[4];    // z|r, q, conv1, conv2
-};
-
 __device__ __forceinline__ float leaky(float v) { return v > 0.f ? v : __fmul_rn(0.1f, v); }
 
 // dw_max's step: the larger, and NaN once one is NaN (torch.amax)
@@ -384,18 +123,38 @@ __device__ __forceinline__ float take_max(float m, float v) {
   return (v > m || isnan(v)) ? v : m;
 }
 
-__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
-  return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y), __fmul_rn(a.z, b.z),
-                     __fmul_rn(a.w, b.w));
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
-                     __fadd_rn(a.w, b.w));
-}
-
 __device__ __forceinline__ float gate(float z, float h, float q) {
   return __fadd_rn(__fmul_rn(__fsub_rn(1.f, z), h), __fmul_rn(z, tanhf(q)));
+}
+
+// W consecutive floats (W = 4: one 16-byte load) to and from registers
+template <int W>
+struct Vec {
+  float x[W];
+};
+
+enum Cache { LD_CG = 0, LD_CS = 1, LD_G = 2 };
+
+template <int W, int CACHE>
+__device__ __forceinline__ Vec<W> load(const float* p) {
+  Vec<W> r;
+  if constexpr (W == 4) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    const float4 v = CACHE == LD_CG ? __ldcg(q) : CACHE == LD_CS ? __ldcs(q) : __ldg(q);
+    r.x[0] = v.x, r.x[1] = v.y, r.x[2] = v.z, r.x[3] = v.w;
+  } else {
+    r.x[0] = CACHE == LD_CG ? __ldcg(p) : CACHE == LD_CS ? __ldcs(p) : __ldg(p);
+  }
+  return r;
+}
+
+template <int W>
+__device__ __forceinline__ void store(float* p, const Vec<W>& r) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r.x[0], r.x[1], r.x[2], r.x[3]);
+  } else {
+    p[0] = r.x[0];
+  }
 }
 
 // A dense layer: the block takes tiles rank, rank + blocks, ...
@@ -409,28 +168,48 @@ __device__ __forceinline__ void gf_dense(const GfLayer& l, int rank, int blocks)
   }
 }
 
-// A fused dense layer over the block's rows (one point a warp, points p0 +
-// warp): out[p, o] = sum_k rows[warp][k] * w[k, o] + bias[o], f32 FMA in k
-// order. A thread takes one output channel of kGfThreads / cout rows, so
-// each weight is read once a block.
-__device__ __forceinline__ void gf_rows_dense(const GfTail& g, const float (*rows)[kMaxRow],
-                                              int p0, int points) {
+// A fused dense layer over the block's R rows (points p0 + r): out[p, o] =
+// sum_k rows[r][k] * w[k, o] + bias[o], f32 FMA in k order. A thread takes
+// one output channel of kGfThreads / cout rows, so each weight is read
+// once a block.
+template <int R>
+__device__ __forceinline__ void rows_dense(const Tail& g, const float (*rows)[kMaxRow], int p0) {
   const int cout = g.mlp_cout;
   const int per = kGfThreads / cout;  // rows a weight serves at once
   const int t = threadIdx.x;
   if (t >= per * cout) return;
   const int o = t % cout, r0 = t / cout;
-  float acc[kGfWarps];
+  float acc[R];
 #pragma unroll
-  for (int i = 0; i < kGfWarps; ++i) acc[i] = 0.f;
-  for (int k = 0; k < g.c; k += 4) {  // c is a multiple of 4
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  int k = 0;
+  for (; k + 16 <= g.c; k += 16) {  // 16 weights in flight, then their products in k order
+    float w[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) w[q] = __ldg(g.mlp_w + (size_t)(k + q) * g.mlp_npad + o);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = r0 + i * per;
+      if (r < R) {
+#pragma unroll
+        for (int q = 0; q < 16; q += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(&rows[r][k + q]);
+          acc[i] = __fmaf_rn(x.x, w[q], acc[i]);
+          acc[i] = __fmaf_rn(x.y, w[q + 1], acc[i]);
+          acc[i] = __fmaf_rn(x.z, w[q + 2], acc[i]);
+          acc[i] = __fmaf_rn(x.w, w[q + 3], acc[i]);
+        }
+      }
+    }
+  }
+  for (; k < g.c; k += 4) {  // c is a multiple of 4
     const float* wk = g.mlp_w + (size_t)k * g.mlp_npad + o;
     const float w[4] = {__ldg(wk), __ldg(wk + g.mlp_npad), __ldg(wk + 2 * g.mlp_npad),
                         __ldg(wk + 3 * g.mlp_npad)};
 #pragma unroll
-    for (int i = 0; i < kGfWarps; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int r = r0 + i * per;
-      if (r < kGfWarps) {
+      if (r < R) {
         const float4 x = *reinterpret_cast<const float4*>(&rows[r][k]);
         acc[i] = __fmaf_rn(x.x, w[0], acc[i]);
         acc[i] = __fmaf_rn(x.y, w[1], acc[i]);
@@ -440,102 +219,185 @@ __device__ __forceinline__ void gf_rows_dense(const GfTail& g, const float (*row
     }
   }
 #pragma unroll
-  for (int i = 0; i < kGfWarps; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = r0 + i * per;
-    if (r < kGfWarps && p0 + r < points) {
+    if (r < R && p0 + r < g.points) {
       g.mlp_out[(size_t)(p0 + r) * cout + o] = acc[i] + g.mlp_b[o];
     }
   }
 }
 
-// A tail: LANES lanes a point (32 / LANES points a warp at once), VEC float4
-// of channels a lane (channel 4 * (lane + LANES * v)), up to KMAX neighbours.
-// A lane holds the point's neighbour indices l, l + LANES, ... (read once)
-// and hands row j to the others by a shuffle; it keeps kGfRows / VEC rows of
-// the table and of the weights in flight (16-byte loads, the weights
-// streamed once), then takes their products and the max in neighbour
-// order, bit for bit as dw_max does. The block's warps walk the points
-// together (the fused layer synchronises them).
-template <int LANES, int VEC, int KMAX, int POST>
-__device__ __forceinline__ void gf_tail(const Gru3D& u, const GfTail& g, int rank, int blocks) {
+// A dense layer of few inputs as f32 FMA, a thread an output:
+// out[p, o] = sum_i x[p, i] w[i, o] + bias[o] (#6's f1, 3 -> 32).
+__device__ __forceinline__ void fma_dense(const float* x, int cin, const float* w,
+                                          const float* bias, int npad, float* out, int cout,
+                                          int points, int rank, int blocks) {
+  const int total = points * cout;
+  for (int e = rank * kGfThreads + threadIdx.x; e < total; e += blocks * kGfThreads) {
+    const int p = e / cout, o = e - (e / cout) * cout;
+    float acc = 0.f;
+    for (int i = 0; i < cin; ++i) {
+      acc = __fmaf_rn(__ldg(x + (size_t)p * cin + i), __ldg(w + (size_t)i * npad + o), acc);
+    }
+    out[(size_t)p * cout + o] = __fadd_rn(acc, bias[o]);
+  }
+}
+
+// The tail. LANES lanes a point (32 / LANES points a warp), VEC loads of W
+// floats a lane and row: channel c0 + W * (lane + LANES * v) + e of the
+// chunk at c0 (a chunk is LANES * VEC * W channels; wider tails take
+// several). A lane holds the point's neighbour indices l, l + LANES, ... of
+// the KMAX at jb (read once; more than KMAX neighbours take several
+// rounds) and hands row j to the others by a shuffle; it keeps kGroup rows
+// of the table and of the weights in flight, then takes their products and
+// the max in neighbour order, bit for bit as dw_max_plain does. FUSE: the
+// post op's result also goes to the block's rows in shared memory, and the
+// next dense layer runs over them (the block's warps walk the points
+// together).
+template <int LANES, int VEC, int W, int KMAX, int POST, bool FUSE = false>
+__device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
   constexpr int kPer = 32 / LANES;
+  constexpr int kRowsB = kGfWarps * kPer;  // points a block takes at once
   constexpr int kNb = (KMAX + LANES - 1) / LANES;
-  constexpr int kGroup = KMAX < kGfRows / VEC ? KMAX : kGfRows / VEC;
-  constexpr bool kFusable = (POST == GP_GATE || POST == GP_PLAIN) && LANES == 32 && VEC == 1;
+  constexpr int kE = VEC * W;  // floats a lane holds of a row
+  constexpr int kCw = LANES * kE;
+  constexpr int kFit = kGfRows * 4 / kE > 16 ? 16 : (kGfRows * 4 / kE > 0 ? kGfRows * 4 / kE : 1);
+  constexpr int kGroup = KMAX < kFit ? KMAX : kFit;
   static_assert(KMAX % kGroup == 0, "whole groups of neighbour rows");
-  __shared__ __align__(16) float rows[kFusable ? kGfWarps : 1][kMaxRow];
+  static_assert(!FUSE || POST == GP_GATE || POST == GP_PLAIN, "a fused layer follows a row");
+  __shared__ __align__(16) float rows[FUSE ? kRowsB : 1][FUSE ? kMaxRow : 4];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int sub = lane / LANES, l = lane % LANES;
-  const int stride = blocks * kGfWarps * kPer;
-  for (int p0 = rank * kGfWarps * kPer; p0 < u.points; p0 += stride) {
-    const int p = p0 + warp * kPer + sub;
-    const bool live = p < u.points;
-    const int b = live ? p / u.n : 0;
-    int nb[kNb];
+  const int r = warp * kPer + sub;  // the point's row of the block
+  const int stride = blocks * kRowsB;
+  for (int p0 = rank * kRowsB; p0 < g.points; p0 += stride) {
+    const int p = p0 + r;
+    const bool live = p < g.points;
+    const int b = live ? p / g.n : 0;
+    const float* tb = g.table + (size_t)b * g.n_table * g.ld;
+    const float* tb2 = POST == GP_GATE ? g.table2 + (size_t)b * g.n_table * g.ld2 : nullptr;
+    const float* wp = g.dw + (size_t)(live ? p : 0) * g.k * g.dw_ld;
+    const int* ip = g.idx + (size_t)(live ? p : 0) * g.idx_stride;
+    float acc[POST == GP_FC ? kMaxFc : 1];
 #pragma unroll
-    for (int i = 0; i < kNb; ++i) {
-      const int j = l + LANES * i;
-      nb[i] = live && j < g.k ? __ldg(u.idx + (size_t)p * u.idx_stride + j) : 0;
-    }
-    const float* tb = g.table + (size_t)b * u.n * g.ld;
-    const float* tb2 = POST == GP_GATE ? g.table2 + (size_t)b * u.n * g.ld2 : nullptr;
-    const float* wp = g.dw + (size_t)(live ? p : 0) * g.k * g.c;
-    float4 m[VEC];
+    for (int o = 0; o < (POST == GP_FC ? kMaxFc : 1); ++o) acc[o] = 0.f;
+
+    for (int c0 = 0; c0 < g.c; c0 += kCw) {
+      float m[kE];
+      for (int jb = 0; jb < g.k; jb += KMAX) {
+        int nb[kNb];
 #pragma unroll
-    for (int j0 = 0; j0 < KMAX; j0 += kGroup) {
-      float4 tv[kGroup][VEC], wv[kGroup][VEC];
+        for (int i = 0; i < kNb; ++i) {
+          const int j = jb + l + LANES * i;
+          nb[i] = live && j < g.k ? __ldg(ip + j) : 0;
+        }
 #pragma unroll
-      for (int jj = 0; jj < kGroup; ++jj) {
-        const int j = j0 + jj;
-        const int row = __shfl_sync(0xffffffffu, nb[j / LANES], sub * LANES + j % LANES);
+        for (int j0 = 0; j0 < KMAX; j0 += kGroup) {
+          if (jb + j0 >= g.k) break;  // warp-uniform
+          float tv[kGroup][kE], wv[kGroup][kE];
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          const int c = 4 * (l + LANES * v);
-          tv[jj][v] = wv[jj][v] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (live && j < g.k && c < g.c) {
-            tv[jj][v] = __ldcg(reinterpret_cast<const float4*>(tb + (size_t)row * g.ld + c));
-            if (POST == GP_GATE) {
-              tv[jj][v] = add4(tv[jj][v], __ldcg(reinterpret_cast<const float4*>(
-                                              tb2 + (size_t)row * g.ld2 + c)));
+          for (int jj = 0; jj < kGroup; ++jj) {
+            const int jl = j0 + jj, j = jb + jl;
+            const int row = __shfl_sync(0xffffffffu, nb[jl / LANES], sub * LANES + jl % LANES);
+            const bool ok = live && j < g.k;
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              const int c = c0 + W * (l + LANES * v);
+#pragma unroll
+              for (int e = 0; e < W; ++e) {
+                tv[jj][v * W + e] = wv[jj][v * W + e] = 0.f;
+              }
+              if (ok && c < g.c) {
+                Vec<W> t = load<W, LD_CG>(tb + (size_t)row * g.ld + c);
+                if constexpr (POST == GP_GATE) {
+                  const Vec<W> t2 = load<W, LD_CG>(tb2 + (size_t)row * g.ld2 + c);
+#pragma unroll
+                  for (int e = 0; e < W; ++e) t.x[e] = __fadd_rn(t.x[e], t2.x[e]);
+                }
+#pragma unroll
+                for (int e = 0; e < W; ++e) tv[jj][v * W + e] = t.x[e];
+                const Vec<W> w = load<W, LD_CS>(wp + (size_t)j * g.dw_ld + c);
+#pragma unroll
+                for (int e = 0; e < W; ++e) wv[jj][v * W + e] = w.x[e];
+              }
             }
-            wv[jj][v] = __ldcs(reinterpret_cast<const float4*>(wp + (size_t)j * g.c + c));
+          }
+#pragma unroll
+          for (int jj = 0; jj < kGroup; ++jj) {
+            const int j = jb + j0 + jj;
+#pragma unroll
+            for (int e = 0; e < kE; ++e) {
+              float t = tv[jj][e];
+              if (g.leaky) t = leaky(t);
+              const float x = __fmul_rn(t, wv[jj][e]);
+              if (j == 0) {
+                m[e] = x;
+              } else if (j < g.k) {
+                m[e] = take_max(m[e], x);
+              }
+            }
           }
         }
       }
+
+      // the post op of the chunk
 #pragma unroll
-      for (int jj = 0; jj < kGroup; ++jj) {
-        const int j = j0 + jj;
+      for (int v = 0; v < VEC; ++v) {
+        const int c = c0 + W * (l + LANES * v);
+        if constexpr (POST == GP_FC) {  // the lane's sums of fc over its channels
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          float4 t = tv[jj][v];
-          if (g.leaky) t = make_float4(leaky(t.x), leaky(t.y), leaky(t.z), leaky(t.w));
-          const float4 x = mul4(t, wv[jj][v]);
-          if (j == 0) {
-            m[v] = x;
-          } else if (j < g.k) {
-            m[v] = make_float4(take_max(m[v].x, x.x), take_max(m[v].y, x.y),
-                               take_max(m[v].z, x.z), take_max(m[v].w, x.w));
+          for (int o = 0; o < kMaxFc; ++o) {
+#pragma unroll
+            for (int e = 0; e < W; ++e) {
+              if (c + e < g.c && o < g.fc_out) {
+                acc[o] = __fmaf_rn(m[v * W + e], g.fc_w[(size_t)(c + e) * g.fc_npad + o], acc[o]);
+              }
+            }
           }
+          continue;
+        }
+        if (!live || c >= g.c) continue;
+        Vec<W> res;
+        if constexpr (POST == GP_ZR) {
+#pragma unroll
+          for (int e = 0; e < W; ++e) res.x[e] = sigmoid(m[v * W + e]);
+          if (c < g.half) {
+            store<W>(g.out + (size_t)p * g.half + c, res);
+          } else {
+            const size_t at = (size_t)p * g.half + (c - g.half);
+            Vec<W> h = load<W, LD_G>(g.h + at);
+#pragma unroll
+            for (int e = 0; e < W; ++e) h.x[e] = __fmul_rn(res.x[e], h.x[e]);
+            store<W>(g.out2 + at, h);
+          }
+        } else if constexpr (POST == GP_GATE) {
+          const size_t at = (size_t)p * g.half + c;
+          const Vec<W> z = load<W, LD_CG>(g.z + at);
+          const Vec<W> h = load<W, LD_G>(g.h + at);
+#pragma unroll
+          for (int e = 0; e < W; ++e) res.x[e] = gate(z.x[e], h.x[e], m[v * W + e]);
+          store<W>(g.out + at, res);
+        } else {
+#pragma unroll
+          for (int e = 0; e < W; ++e) res.x[e] = m[v * W + e];
+          if (g.out != nullptr && c + W <= g.c) {
+            store<W>(g.out + (size_t)p * g.out_ld + c, res);
+          } else if (g.out != nullptr) {  // the last channels of a row of c % 4 != 0
+#pragma unroll
+            for (int e = 0; e < W; ++e) {
+              if (c + e < g.c) g.out[(size_t)p * g.out_ld + c + e] = res.x[e];
+            }
+          }
+        }
+        if constexpr (FUSE) {
+          if (c < kMaxRow) store<W>(&rows[r][c], res);
         }
       }
     }
 
-    if (POST == GP_FC) {  // fc over the point's channels: lane sums, then the group's
-      float acc[kMaxFc];
+    if constexpr (POST == GP_FC) {  // the point's lanes add their sums
 #pragma unroll
       for (int o = 0; o < kMaxFc; ++o) {
-        acc[o] = 0.f;
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          const int c = 4 * (l + LANES * v);
-          if (c < g.c && o < g.fc_out) {
-            const float* w = g.fc_w + (size_t)c * g.fc_npad + o;
-            acc[o] = __fmaf_rn(m[v].x, w[0], acc[o]);
-            acc[o] = __fmaf_rn(m[v].y, w[g.fc_npad], acc[o]);
-            acc[o] = __fmaf_rn(m[v].z, w[2 * g.fc_npad], acc[o]);
-            acc[o] = __fmaf_rn(m[v].w, w[3 * g.fc_npad], acc[o]);
-          }
-        }
 #pragma unroll
         for (int off = LANES / 2; off > 0; off >>= 1) {
           acc[o] += __shfl_xor_sync(0xffffffffu, acc[o], off);
@@ -547,73 +409,25 @@ __device__ __forceinline__ void gf_tail(const Gru3D& u, const GfTail& g, int ran
           if (o < g.fc_out) g.out[(size_t)p * g.fc_out + o] = acc[o] + g.fc_b[o];
         }
       }
-      continue;  // block-uniform: FC takes no fused layer
     }
-    float4 res[VEC];  // the post op's result, the fused layer's input
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const int c = 4 * (l + LANES * v);
-      res[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (!live || c >= g.c) continue;
-      if (POST == GP_ZR) {
-        const float4 s = make_float4(sigmoid(m[v].x), sigmoid(m[v].y), sigmoid(m[v].z),
-                                     sigmoid(m[v].w));
-        if (c < g.half) {
-          *reinterpret_cast<float4*>(g.out + (size_t)p * g.half + c) = s;
-        } else {
-          const size_t at = (size_t)p * g.half + (c - g.half);
-          *reinterpret_cast<float4*>(g.out2 + at) =
-              mul4(s, __ldg(reinterpret_cast<const float4*>(g.h + at)));
-        }
-      } else if (POST == GP_GATE) {
-        const size_t at = (size_t)p * g.half + c;
-        const float4 z = __ldcg(reinterpret_cast<const float4*>(g.z + at));
-        const float4 h = __ldg(reinterpret_cast<const float4*>(g.h + at));
-        res[v] = make_float4(gate(z.x, h.x, m[v].x), gate(z.y, h.y, m[v].y),
-                             gate(z.z, h.z, m[v].z), gate(z.w, h.w, m[v].w));
-        *reinterpret_cast<float4*>(g.out + at) = res[v];
-      } else {
-        res[v] = m[v];
-        if (g.out) *reinterpret_cast<float4*>(g.out + (size_t)p * g.c + c) = m[v];
+    if (POST == GP_PLAIN && g.copy != nullptr && live) {
+      for (int j = l; j < g.copy_c; j += LANES) {
+        g.out[(size_t)p * g.out_ld + g.c + j] = g.copy[(size_t)p * g.copy_c + j];
       }
     }
-    if (kFusable && g.mlp_w != nullptr) {
-      const int c = 4 * l;
-      if (c < g.c) *reinterpret_cast<float4*>(&rows[warp][c]) = res[0];
+    if constexpr (FUSE) {
       __syncthreads();
-      gf_rows_dense(g, rows, p0, u.points);
+      rows_dense<kRowsB>(g, rows, p0);
       __syncthreads();  // the rows are read before the next points overwrite them
     }
   }
 }
 
-// Step `s` of the chain, one launch: dense z|r | q_xm, tail z|r, dense q_h,
-// tail q (+ conv1), tail conv1 (+ conv2), tail conv2 (+ fc).
-__global__ void __launch_bounds__(kGfThreads, 4)
-    gru_flowhead_3d_kernel(const __grid_constant__ Gru3D u, int s) {
-  const int rank = blockIdx.x, blocks = gridDim.x;
-  if (s == 0 || s == 2) {
-    gf_dense(u.layer[s / 2], rank, blocks);
-  } else if (s == 1) {
-    gf_tail<32, 2, kGruK, GP_ZR>(u, u.tail[0], rank, blocks);
-  } else if (s == 3) {
-    gf_tail<32, 1, kGruK, GP_GATE>(u, u.tail[1], rank, blocks);
-  } else if (s == 4) {
-    gf_tail<32, 1, kHeadK, GP_PLAIN>(u, u.tail[2], rank, blocks);
-  } else {
-    gf_tail<16, 1, kHeadK, GP_FC>(u, u.tail[3], rank, blocks);
-  }
-}
-
-// The blocks a step can keep busy: its tiles, or its points over a block's
-// warps.
-int gf_blocks(const Gru3D& u, int s) {
-  if (s == 0 || s == 2) {
-    const Conv& a = u.layer[s / 2].a;
-    return (a.pixels + kGfBM - 1) / kGfBM * (a.n_pad / kGfBN);
-  }
-  const int per_block = kGfWarps * (s == 5 ? 2 : 1);
-  return (u.points + per_block - 1) / per_block;
+// The blocks a tail of `lanes` lanes a point keeps busy: one round of its
+// points over a block's warps.
+int tail_blocks(const Tail& g, int lanes) {
+  const int per_block = kGfWarps * (32 / lanes);
+  return (g.points + per_block - 1) / per_block;
 }
 
 GfLayer gf_layer(Conv a, const float* const* planes, int cout) {
@@ -621,6 +435,144 @@ GfLayer gf_layer(Conv a, const float* const* planes, int cout) {
   a = shaped(a, 1, 1, cout);
   return GfLayer{a, planes[0], planes[1], round_up(a.k_total, kTcBk)};
 }
+
+Tail gather_of(int points, int n, const int* idx, int idx_stride, const float* table, int ld,
+               const float* dw, int k, int c) {
+  Tail g = {};
+  g.points = points, g.n = n, g.n_table = n, g.idx = idx, g.idx_stride = idx_stride;
+  g.table = table, g.ld = ld, g.dw = dw, g.dw_ld = c, g.k = k, g.c = c;
+  return g;
+}
+
+// A dense step: a layer on the tile, and beside it, on blocks of their own,
+// a layer of few inputs as f32 FMA (x == nullptr: none).
+struct DenseStep {
+  GfLayer layer;
+  const float* x;  // [points, cin]
+  const float* w;  // [>= cin, npad]
+  const float* bias;
+  float* out;      // [points, cout]
+  int points, cin, cout, npad;
+};
+
+__device__ __forceinline__ void dense_step(const DenseStep& d) {
+  const int tiles = (d.layer.a.pixels + kGfBM - 1) / kGfBM * (d.layer.a.n_pad / kGfBN);
+  if ((int)blockIdx.x < tiles) {
+    gf_dense(d.layer, blockIdx.x, tiles);
+  } else {
+    fma_dense(d.x, d.cin, d.w, d.bias, d.npad, d.out, d.cout, d.points, blockIdx.x - tiles,
+              gridDim.x - tiles);
+  }
+}
+
+int dense_blocks(const DenseStep& d) {
+  const int tiles = (d.layer.a.pixels + kGfBM - 1) / kGfBM * (d.layer.a.n_pad / kGfBN);
+  return tiles + (d.x ? (d.points * d.cout + kGfThreads - 1) / kGfThreads : 0);
+}
+
+// The dense steps of #7 and of #6 are kernels of their own, apart from the
+// tails: the tile keeps its registers (in one kernel with #6's tails it
+// spilled).
+__global__ void __launch_bounds__(kGfThreads, 4)
+    gru_flowhead_3d_dense(const __grid_constant__ DenseStep d) {
+  dense_step(d);
+}
+
+__global__ void __launch_bounds__(kGfThreads, 4)
+    motion_encoder_3d_dense(const __grid_constant__ DenseStep d) {
+  dense_step(d);
+}
+
+int launch_dense(bool me, const DenseStep& d, cudaStream_t stream) {
+  if (me) {
+    motion_encoder_3d_dense<<<dense_blocks(d), kGfThreads, GfTile::kSmemBytes, stream>>>(d);
+  } else {
+    gru_flowhead_3d_dense<<<dense_blocks(d), kGfThreads, GfTile::kSmemBytes, stream>>>(d);
+  }
+  return (int)cudaGetLastError();
+}
+
+// --- #7: GRU3D + FlowHead3D ---------------------------------------------------
+//
+// The chain as steps. q's input [r*h, x3d, motion] is split: its x3d and
+// motion part does not wait for the z|r gather, so the first dense step
+// computes it beside z|r (one [384 -> 384] product), and q's own dense step
+// reduces over r*h alone (128 deep instead of 384):
+//   dense [z|r | q_xm] over [h, x3d, motion]
+//   tail z|r -> z = sigmoid, r*h = sigmoid * h
+//   dense q_h over r*h
+//   tail q (table q_h + q_xm) -> h' = (1-z) h + z tanh(q), then conv1 over h'
+//   tail conv1 (leaky ReLU on read), then conv2 over it
+//   tail conv2 (leaky ReLU on read) -> fc 64->3 -> delta
+// conv1's and conv2's dense layers run as the FMA epilogue of the tail
+// before them.
+
+struct Gru3D {
+  Tail tail[4];  // z|r, q, conv1, conv2
+};
+
+__global__ void __launch_bounds__(kGfThreads, 4)
+    gru_flowhead_3d_tail(const __grid_constant__ Gru3D u, int t) {
+  const int rank = blockIdx.x, blocks = gridDim.x;
+  if (t == 0) {
+    tail<32, 2, 4, kGruK, GP_ZR>(u.tail[0], rank, blocks);
+  } else if (t == 1) {
+    tail<32, 1, 4, kGruK, GP_GATE, true>(u.tail[1], rank, blocks);
+  } else if (t == 2) {
+    tail<32, 1, 4, kHeadK, GP_PLAIN, true>(u.tail[2], rank, blocks);
+  } else {
+    tail<16, 1, 4, kHeadK, GP_FC>(u.tail[3], rank, blocks);
+  }
+}
+
+// --- #6: MotionEncoder3D ------------------------------------------------------
+//
+//   dense c1 over corr (the tile) | f1 over the flow (FMA; 3 inputs)
+//   tail f1 (leaky on read), then f2's dense layer as its FMA epilogue
+//   tail f2 (leaky on read) -> flow_feat | tail c1 (leaky on read) -> corr_feat
+//   dense merge over [corr_feat, flow_feat] (the tile)
+//   tail merge (leaky on read) -> out[:, :c_m], the flow copied to out[:, c_m:]
+// c1's tail and f2's share a launch (c1's ready since the first step; beside
+// f1's it ran slower on an H100, PERF.md). Tails of at most 32 channels (f1
+// 32, f2 16) take 32 lanes a point and 4-byte loads, so a step keeps one
+// point a warp in flight; c1's and the merge's 16-byte loads, 32 lanes x 1.
+// The merge conv's hoisted weights arrive with their 125 channels padded
+// to 128 a row (models/camliraft_l.py), so its rows are 16-byte aligned:
+// read 4 bytes at a time they took 190 registers and 1.7x the time.
+
+struct Me3D {
+  Tail tail[4];  // c1, f1, f2, merge
+  int c1_blocks;  // the launch of f2's and c1's tails: c1's first
+};
+
+__global__ void __launch_bounds__(kGfThreads, 4)
+    motion_encoder_3d_tail(const __grid_constant__ Me3D u, int t) {
+  if (t == 1) {
+    tail<32, 1, 1, kHeadK, GP_PLAIN, true>(u.tail[1], blockIdx.x, gridDim.x);
+  } else if (t == 2 && (int)blockIdx.x < u.c1_blocks) {
+    tail<32, 1, 4, kHeadK, GP_PLAIN>(u.tail[0], blockIdx.x, u.c1_blocks);
+  } else if (t == 2) {
+    tail<32, 1, 1, kHeadK, GP_PLAIN>(u.tail[2], blockIdx.x - u.c1_blocks,
+                                     gridDim.x - u.c1_blocks);
+  } else {
+    tail<32, 1, 4, kHeadK, GP_PLAIN>(u.tail[3], blockIdx.x, gridDim.x);
+  }
+}
+
+// --- #13: one tail on its own ---------------------------------------------------
+
+template <int LANES, int VEC, int W>
+__global__ void __launch_bounds__(kGfThreads) dw_max_tail(const __grid_constant__ Tail g) {
+  tail<LANES, VEC, W, kHeadK, GP_PLAIN>(g, blockIdx.x, gridDim.x);
+}
+
+template <int LANES, int VEC, int W>
+int launch_dw_max(const Tail& g, cudaStream_t stream) {
+  dw_max_tail<LANES, VEC, W><<<tail_blocks(g, LANES), kGfThreads, 0, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % kTailAlign == 0; }
 
 }  // namespace
 
@@ -630,44 +582,71 @@ GfLayer gf_layer(Conv a, const float* const* planes, int cout) {
     if (err_ != 0) return err_; \
   } while (0)
 
+// planes: (hi, lo, bias) of c1 and of the merge (tf32 planes [N_pad][K_pad]);
+// w_f1, b_f1, w_f2, b_f2: f1's and f2's f32 weights [K_pad, npad] and
+// biases. dw_m's rows hold round_up(c_m, 4) floats (the first c_m read);
+// the other hoisted weights' rows c floats. scratch holds per_point floats
+// a point.
 extern "C" int camli_motion_encoder_3d(
     const float* flow, const float* corr, const int* idx, const float* dw_c1,
-    const float* dw_f1, const float* dw_f2, const float* dw_m, const float* w_c1,
-    const float* b_c1, const float* w_f1, const float* b_f1, const float* w_f2,
-    const float* b_f2, const float* w_m, const float* b_m, float* scratch, float* out,
-    int batch, int n, int idx_stride, int c_flow, int c_corr, int c_c1, int c_f1,
-    int c_f2, int c_m, int k_c1, int k_f1, int k_f2, int k_m, cudaStream_t stream) {
-  // scratch, channels per point: [c_c1 table | c_f1 table | corr_feat (c_c1) |
-  // c_f2 table | c_m table]
-  const size_t p = (size_t)batch * n;
+    const float* dw_f1, const float* dw_f2, const float* dw_m, const float* const* planes,
+    const float* w_f1, const float* b_f1, const float* w_f2, const float* b_f2,
+    float* scratch, float* out, int batch, int n, int idx_stride, int c_flow, int c_corr,
+    int c_c1, int c_f1, int c_f2, int c_m, int k_c1, int k_f1, int k_f2, int k_m, int npad_f1,
+    int npad_f2, int per_point, cudaStream_t stream) {
+  // scratch, channels per point: [c1 table (c_c1) | f1 table (c_f1) |
+  // corr_feat (c_c1) | f2 table (c_f2) | flow_feat (c_f2) | merge table
+  // (ld_m)]; every part starts 16-byte aligned
+  const int ld_m = round_up(c_m, 4);
+  if (per_point < 2 * c_c1 + c_f1 + 2 * c_f2 + ld_m || (c_c1 | c_f1 | c_f2 | c_corr) % 4 ||
+      c_f1 > kMaxRow || c_f2 > kGfThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int points = batch * n;
+  const size_t p = points;
   float* t_c1 = scratch;
   float* t_f1 = t_c1 + p * c_c1;
   float* corr_feat = t_f1 + p * c_f1;
   float* t_f2 = corr_feat + p * c_c1;
-  float* t_m = t_f2 + p * c_f2;
+  float* flow_feat = t_f2 + p * c_f2;
+  float* t_m = flow_feat + p * c_f2;
 
-  staged::Stage a = staged::points(batch, n), b = staged::points(batch, n);
-  staged::mlp(a, w_c1, b_c1, c_c1, staged::ACT_LEAKY, t_c1, corr, c_corr);
-  staged::mlp(b, w_f1, b_f1, c_f1, staged::ACT_LEAKY, t_f1, flow, c_flow);
-  CAMLI_TRY(staged::launch(a, &b, stream));
+  DenseStep c1_f1 = {};
+  Conv a = input(points, points, 1, corr, c_corr);
+  a.out = t_c1;
+  c1_f1.layer = gf_layer(a, planes, c_c1);
+  c1_f1.x = flow, c1_f1.w = w_f1, c1_f1.bias = b_f1, c1_f1.out = t_f1;
+  c1_f1.points = points, c1_f1.cin = c_flow, c1_f1.cout = c_f1, c1_f1.npad = npad_f1;
+  DenseStep merge = {};
+  a = input(points, points, 1, corr_feat, c_c1, flow_feat, c_f2);
+  a.out = t_m, a.out_stride = ld_m;
+  merge.layer = gf_layer(a, planes + 3, c_m);
 
-  a = staged::points(batch, n), b = staged::points(batch, n);
-  staged::gather(a, t_c1, dw_c1, idx, idx_stride, k_c1, c_c1);
-  a.out = corr_feat, a.out_stride = c_c1;
-  staged::gather(b, t_f1, dw_f1, idx, idx_stride, k_f1, c_f1);
-  staged::mlp(b, w_f2, b_f2, c_f2, staged::ACT_LEAKY, t_f2, nullptr, c_f1).g_slot = 0;
-  CAMLI_TRY(staged::launch(a, &b, stream));
+  Me3D u = {};
+  Tail& c1 = u.tail[0];
+  c1 = gather_of(points, n, idx, idx_stride, t_c1, c_c1, dw_c1, k_c1, c_c1);
+  c1.leaky = 1, c1.out = corr_feat, c1.out_ld = c_c1;
+  Tail& f1 = u.tail[1];
+  f1 = gather_of(points, n, idx, idx_stride, t_f1, c_f1, dw_f1, k_f1, c_f1);
+  f1.leaky = 1;
+  f1.mlp_w = w_f2, f1.mlp_b = b_f2, f1.mlp_out = t_f2, f1.mlp_cout = c_f2, f1.mlp_npad = npad_f2;
+  Tail& f2 = u.tail[2];
+  f2 = gather_of(points, n, idx, idx_stride, t_f2, c_f2, dw_f2, k_f2, c_f2);
+  f2.leaky = 1, f2.out = flow_feat, f2.out_ld = c_f2;
+  Tail& mg = u.tail[3];
+  mg = gather_of(points, n, idx, idx_stride, t_m, ld_m, dw_m, k_m, c_m);
+  mg.dw_ld = ld_m;
+  mg.leaky = 1, mg.out = out, mg.out_ld = c_m + c_flow, mg.copy = flow, mg.copy_c = c_flow;
+  u.c1_blocks = tail_blocks(c1, 32);
 
-  a = staged::points(batch, n);
-  staged::gather(a, t_f2, dw_f2, idx, idx_stride, k_f2, c_f2);
-  staged::mlp(a, w_m, b_m, c_m, staged::ACT_LEAKY, t_m, corr_feat, c_c1, nullptr, c_f2)
-      .g_slot = 1;
-  CAMLI_TRY(staged::launch(a, nullptr, stream));
-
-  a = staged::points(batch, n);
-  staged::gather(a, t_m, dw_m, idx, idx_stride, k_m, c_m);
-  a.out = out, a.out_stride = c_m + c_flow, a.tail = flow, a.tail_c = c_flow;
-  return staged::launch(a, nullptr, stream);
+  CAMLI_TRY(launch_dense(true, c1_f1, stream));
+  motion_encoder_3d_tail<<<tail_blocks(f1, 32), kGfThreads, 0, stream>>>(u, 1);
+  CAMLI_TRY((int)cudaGetLastError());
+  motion_encoder_3d_tail<<<u.c1_blocks + tail_blocks(f2, 32), kGfThreads, 0, stream>>>(u, 2);
+  CAMLI_TRY((int)cudaGetLastError());
+  CAMLI_TRY(launch_dense(true, merge, stream));
+  motion_encoder_3d_tail<<<tail_blocks(mg, 32), kGfThreads, 0, stream>>>(u, 3);
+  return (int)cudaGetLastError();
 }
 
 // planes: (hi, lo, bias) of [z|r | q_xm] and q_h (tf32 planes [N_pad][K_pad]);
@@ -692,50 +671,66 @@ extern "C" int camli_gru_flowhead_3d(
   float* t_1 = t_qh + p * c_h;
   float* t_2 = t_1 + p * c_1;
 
-  Gru3D u = {};
-  u.points = points, u.n = n, u.idx = idx, u.idx_stride = idx_stride;
+  DenseStep zrq = {}, qh = {};
   Conv a = input(points, points, 1, h, c_h, x3d, c_x, motion, c_m);
   a.out = t_zrq;
-  u.layer[0] = gf_layer(a, planes, 3 * c_h);
+  zrq.layer = gf_layer(a, planes, 3 * c_h);
   a = input(points, points, 1, rh, c_h);
   a.out = t_qh;
-  u.layer[1] = gf_layer(a, planes + 3, c_h);
+  qh.layer = gf_layer(a, planes + 3, c_h);
 
-  GfTail& zr = u.tail[0];
-  zr.table = t_zrq, zr.ld = 3 * c_h, zr.dw = dw_zr, zr.k = k_zr, zr.c = 2 * c_h;
+  Gru3D u = {};
+  Tail& zr = u.tail[0];
+  zr = gather_of(points, n, idx, idx_stride, t_zrq, 3 * c_h, dw_zr, k_zr, 2 * c_h);
   zr.out = z, zr.out2 = rh, zr.h = h, zr.half = c_h;
-  GfTail& q = u.tail[1];
-  q.table = t_qh, q.ld = c_h, q.table2 = t_zrq + 2 * c_h, q.ld2 = 3 * c_h;
-  q.dw = dw_q, q.k = k_q, q.c = c_h, q.out = h_out, q.h = h, q.z = z, q.half = c_h;
+  Tail& q = u.tail[1];
+  q = gather_of(points, n, idx, idx_stride, t_qh, c_h, dw_q, k_q, c_h);
+  q.table2 = t_zrq + 2 * c_h, q.ld2 = 3 * c_h;
+  q.out = h_out, q.h = h, q.z = z, q.half = c_h;
   q.mlp_w = w_1, q.mlp_b = b_1, q.mlp_out = t_1, q.mlp_cout = c_1, q.mlp_npad = npad_1;
-  GfTail& c1 = u.tail[2];
-  c1.table = t_1, c1.ld = c_1, c1.dw = dw_1, c1.k = k_1, c1.c = c_1, c1.leaky = 1;
+  Tail& c1 = u.tail[2];
+  c1 = gather_of(points, n, idx, idx_stride, t_1, c_1, dw_1, k_1, c_1);
+  c1.leaky = 1;
   c1.mlp_w = w_2, c1.mlp_b = b_2, c1.mlp_out = t_2, c1.mlp_cout = c_2, c1.mlp_npad = npad_2;
-  GfTail& c2 = u.tail[3];
-  c2.table = t_2, c2.ld = c_2, c2.dw = dw_2, c2.k = k_2, c2.c = c_2, c2.leaky = 1;
+  Tail& c2 = u.tail[3];
+  c2 = gather_of(points, n, idx, idx_stride, t_2, c_2, dw_2, k_2, c_2);
+  c2.leaky = 1;
   c2.out = delta, c2.fc_w = w_fc, c2.fc_b = b_fc, c2.fc_out = c_out, c2.fc_npad = fc_npad;
 
-  for (int s = 0; s < kGfSteps; ++s) {
-    const int smem = s == 0 || s == 2 ? GfTile::kSmemBytes : 0;
-    gru_flowhead_3d_kernel<<<gf_blocks(u, s), kGfThreads, smem, stream>>>(u, s);
+  // dense z|r | q_xm, tail z|r, dense q_h, tails q, conv1, conv2: 6 launches
+  CAMLI_TRY(launch_dense(false, zrq, stream));
+  for (int t = 0; t < 4; ++t) {
+    if (t == 1) CAMLI_TRY(launch_dense(false, qh, stream));
+    gru_flowhead_3d_tail<<<tail_blocks(u.tail[t], t == 3 ? 16 : 32), kGfThreads, 0, stream>>>(
+        u, t);
     CAMLI_TRY((int)cudaGetLastError());
   }
   return 0;
 }
 
 // One PointConvDW tail on its own: out[b, q, c] = max_j table[b, idx[b, q, j],
-// c] * dw[b, q, j, c] for m queries against a table of n_table rows, as one
-// gather-only stage. It replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg
+// c] * dw[b, q, j, c] for m queries against a table of n_table rows, any k
+// >= 1 and c >= 1. It replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg
 // (whose one-hot selection is a TPU device; here the gather is a load), on
-// the flagship's fuse_hidden path: GRU3D's z|r and q, FlowHead3D's conv1 and
-// conv2, with their MLPs outside, as dw_conv_ohg leaves them. Bound by
-// reading the hoisted weights (m x k x c floats).
+// the flagship's fuse_hidden path: GRU3D's z|r (c 256) and q (128),
+// FlowHead3D's conv1 (128) and conv2 (64), with their MLPs outside, as
+// dw_conv_ohg leaves them. A warp a point; loads a lane follow c: up to 64
+// channels, 4-byte loads of channel lane + 32 v (1 or 2 a lane); past that,
+// 16-byte loads where c is a multiple of 4 and table, dw and out are
+// 16-byte aligned (128: 1 float4 a lane; wider: 2, in rounds of 256
+// channels), else 4-byte loads in rounds of 64 channels. On an H100 (PERF.md)
+// 4-byte loads on 32 lanes beat 16-byte loads on 4-16 lanes at 16-64
+// channels and k >= 16 (more points in flight), and lost to 16-byte loads at
+// 125-128 channels.
 extern "C" int camli_dw_max(const float* table, const float* dw, const int* idx, float* out,
                             int batch, int n_table, int m, int idx_stride, int k, int c,
                             cudaStream_t stream) {
-  staged::Stage a = staged::points(batch, m);
-  staged::gather(a, table, dw, idx, idx_stride, k, c);
-  a.t_n = n_table;
-  a.out = out, a.out_stride = c;
-  return staged::launch(a, nullptr, stream);
+  if (k < 1 || c < 1) return (int)cudaErrorInvalidValue;
+  Tail g = gather_of(batch * m, m, idx, idx_stride, table, c, dw, k, c);
+  g.n_table = n_table, g.out = out, g.out_ld = c;
+  if (c <= 32) return launch_dw_max<32, 1, 1>(g, stream);
+  if (c > 64 && c % 4 == 0 && aligned(table) && aligned(dw) && aligned(out)) {
+    return c <= 128 ? launch_dw_max<32, 1, 4>(g, stream) : launch_dw_max<32, 2, 4>(g, stream);
+  }
+  return launch_dw_max<32, 2, 1>(g, stream);
 }

@@ -130,8 +130,12 @@ class MotionEncoder3D(nn.Module):
         self.conv = PointConvDW(corr_dim + 16, 128 - 3, k=16)
 
     def precompute_weights(self, xyz, knn_indices):
+        """Each conv's hoisted weights [B, N, k, C], with rows a multiple of 4
+        floats apart (the merge conv's 125 channels in rows of 128), as
+        kernel #6 reads them."""
         return {
-            name: getattr(self, name).compute_weights(xyz, knn_indices=knn_indices)
+            name: update3d.padded_rows(
+                getattr(self, name).compute_weights(xyz, knn_indices=knn_indices))
             for name in self.NAMES
         }
 

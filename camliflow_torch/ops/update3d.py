@@ -9,18 +9,19 @@ path's bf16/int8 storage and k-major relayout are not ported).
 Each PointConvDW's MLP (one Linear) is packed once per request by
 `prepare_motion_encoder_3d_params` / `prepare_gru_flowhead_3d_params` into a
 `PackedConv` (1x1, weight [K_pad, N_pad]); z and r stack into one
-[384, 256] matmul, as the JAX packing does. GRU3D's also carry the tf32
-planes of the tensor-core tile that #7's first two dense phases run on. The
-plain versions run the exact chain of models/camliraft_l.py on the same
-packed weights.
+[384, 256] matmul, as the JAX packing does. The layers that run on the
+tensor-core tile also carry its tf32 planes: #7's first two dense steps,
+and #6's c1 (128 -> 128) and merge (144 -> 125). The plain versions run the
+exact chain of models/camliraft_l.py on the same packed weights.
 
     motion_encoder_3d(flow, corr, knn_idx, dw, me)      -> [B, N, 125 + 3]
     gru_flowhead_3d(h, x3d, motion, knn_idx, dw, gf)    -> (h' [B, N, 128],
                                                            delta [B, N, 3])
 
 `dw_max` replaces camliflow_tpu/ops/pallas_ohg.py::dw_conv_ohg: one
-PointConvDW tail (gather, multiply, max over k) as `camli_dw_max`, without
-the TPU's one-hot selection. `gru_3d` and `flow_head_3d` run GRU3D and
+PointConvDW tail (gather, multiply, max over k) as `camli_dw_max`, one
+launch of the tail that #6 and #7 also run on, without the TPU's one-hot
+selection. `gru_3d` and `flow_head_3d` run GRU3D and
 FlowHead3D as torch ops around it, where CLFM sits between them
 (`fuse_hidden`) and #7 cannot take both.
 
@@ -53,12 +54,17 @@ GF_DW = ("conv_zr", "conv_q", "conv1", "conv2")
 GF_DENSE = ("zrq", "q_h")  # #7's dense steps on the tensor-core tile
 GF_PARAMS = ("zr", "q") + GF_DENSE + ("conv1", "conv2", "fc")
 CHECKED = "_checked"  # the params' entry that remembers their last check
-STAGED = 128  # the most gathered channels a kernel stage holds per point
-# csrc/update3d.cu, #7: the widest tails (z|r, q, conv1, conv2), their most
+ME_DENSE = ("conv_c1", "conv")  # #6's dense steps on the tensor-core tile
+# csrc/update3d.cu: #7's widest tails (z|r, q, conv1, conv2), their most
 # neighbours (kGruK, kHeadK) and fc outputs (kMaxFc)
 GF_WIDTHS = (256, 128, 128, 64)
 GF_KS = (8, 8, 32, 32)
 GF_MAX_FC = 4
+# csrc/update3d.cu: a fused dense layer's most input channels (kMaxRow) and
+# outputs (kGfThreads); the 16-byte loads' alignment (kTailAlign)
+MAX_ROW = 128
+MAX_FUSED_OUT = 128
+TAIL_ALIGN = 16
 
 
 def pack_matrix(weight: torch.Tensor, bias: torch.Tensor, planes: bool = False) -> PackedConv:
@@ -77,11 +83,11 @@ def pack_matrix(weight: torch.Tensor, bias: torch.Tensor, planes: bool = False) 
     return PackedConv(packed, padded_bias, 1, 1, cin, cout, hi, lo)
 
 
-def pack_linears(*linears: nn.Linear) -> PackedConv:
+def pack_linears(*linears: nn.Linear, planes: bool = False) -> PackedConv:
     """One packed 1x1 conv from Linears sharing their input: their output
     channels are stacked in order (z and r)."""
     return pack_matrix(torch.cat([lin.weight for lin in linears], dim=0),
-                       torch.cat([lin.bias for lin in linears], dim=0))
+                       torch.cat([lin.bias for lin in linears], dim=0), planes)
 
 
 def _mlp(conv: nn.Module) -> nn.Linear:
@@ -103,15 +109,26 @@ def dw_max_plain(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tens
     return torch.amax(gather_points(table, knn_idx[:, :, :k]) * weights, dim=2)
 
 
-def _check_dw(name: str, dw: dict, keys, batch: int, n: int, device) -> list[int]:
-    """The hoisted weights [B, N, k, C]; returns their k."""
+def _check_dw(name: str, dw: dict, keys, batch: int, n: int, device,
+              padded=()) -> list[int]:
+    """The hoisted weights [B, N, k, C], contiguous, or for the `padded`
+    keys with rows round_up(C, 4) floats apart (`padded_rows`); returns
+    their k."""
     ks = []
     for key in keys:
         w = dw[key]
-        _cuda.check(name, torch.float32, **{key: w})
+        if key in padded:
+            if w.dtype != torch.float32:
+                raise TypeError(f"{name}: dw[{key!r}] must be {torch.float32}, got {w.dtype}")
+        else:
+            _cuda.check(name, torch.float32, **{key: w})
         if w.device != device:
             raise ValueError(f"{name}: dw[{key!r}] lies on {w.device}, not {device}")
         _cuda.check_shape(name, f"dw[{key!r}]", w, (batch, n, None, None))
+        ld = _round_up(w.shape[3], 4)
+        if key in padded and w.stride() != (n * w.shape[2] * ld, w.shape[2] * ld, ld, 1):
+            raise ValueError(f"{name}: dw[{key!r}] must hold its rows {ld} floats apart "
+                             "(padded_rows; MotionEncoder3D.precompute_weights hoists them so)")
         ks.append(w.shape[2])
     return ks
 
@@ -130,8 +147,21 @@ def _check_idx(name: str, knn_idx: torch.Tensor, batch: int, n: int, k: int, dev
 
 
 def prepare_motion_encoder_3d_params(encoder: nn.Module) -> dict:
-    """Packed MLPs of a `models.camliraft_l.MotionEncoder3D`."""
-    return {name: pack_linears(_mlp(getattr(encoder, name))) for name in ME_CONVS}
+    """Packed MLPs of a `models.camliraft_l.MotionEncoder3D`; c1's and the
+    merge conv's (#6's dense steps) also carry tf32 planes."""
+    return {name: pack_linears(_mlp(getattr(encoder, name)), planes=name in ME_DENSE)
+            for name in ME_CONVS}
+
+
+def padded_rows(weights: torch.Tensor) -> torch.Tensor:
+    """Hoisted weights [B, N, k, C] as #6 reads them: the same values, with
+    rows round_up(C, 4) floats apart (16-byte rows: the merge conv's 125
+    channels in rows of 128), as a view of a zero-padded buffer; unchanged
+    where C is a multiple of 4."""
+    channels = weights.shape[-1]
+    if channels % 4 == 0:
+        return weights
+    return F.pad(weights, (0, _round_up(channels, 4) - channels))[..., :channels]
 
 
 def motion_encoder_3d_plain(flow, corr, knn_idx, dw: dict, params: dict):
@@ -146,36 +176,88 @@ def motion_encoder_3d_plain(flow, corr, knn_idx, dw: dict, params: dict):
     return torch.cat([out, flow], dim=-1)
 
 
+def _remembered(params: dict, state: tuple, read: tuple, check):
+    """check()'s result, computed once and remembered in `params` beside
+    `state` and the objects `read`, as `ops/clfm.py` does; a call with the
+    same state and the same objects returns it unchecked (the refinement
+    loop makes 20 calls a request, and requests are paced by the host)."""
+    checked = params.get(CHECKED)
+    if (checked is not None and checked[0] == state
+            and all(a is b for a, b in zip(checked[1], read))):
+        return checked[2]
+    args = check()
+    params[CHECKED] = (state, read, args)
+    return args
+
+
+def _me_checked(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
+    """What #6 assumes of its packed MLPs and hoisted weights, for inputs of
+    `shape` (B, N, C_flow, C_corr), checked once (`_remembered`). Returns
+    the kernel's arguments that follow from them."""
+    read = tuple(params[k] for k in ME_CONVS) + tuple(dw[k] for k in ME_CONVS)
+    return _remembered(params, (device, shape), read,
+                       lambda: _me_check(name, params, dw, shape, device))
+
+
+def _me_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
+    batch, n, c_flow, c_corr = shape
+    ks = _check_dw(name, dw, ME_CONVS, batch, n, device, padded=("conv",))
+    packed = {k: params[k] for k in ME_CONVS}
+    _check_params(name, packed, device)
+    c1, f1, f2, merge = (params[k] for k in ME_CONVS)
+    if ((c1.cin, f1.cin, f2.cin, merge.cin) != (c_corr, c_flow, f1.cout, c1.cout + f2.cout)
+            or [dw[k].shape[3] for k in ME_CONVS] != [p.cout for p in (c1, f1, f2, merge)]):
+        raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
+    widths = (c1.cout, f1.cout, f2.cout)
+    if (any(w % 4 for w in widths) or f1.cout > MAX_ROW or f2.cout > MAX_FUSED_OUT
+            or min(ks) < 1):
+        raise ValueError(f"{name}: the kernel takes c1, f1 and f2 widths that are multiples "
+                         f"of 4, f1 up to {MAX_ROW} and f2 up to {MAX_FUSED_OUT} channels, "
+                         f"and at least one neighbour, got {widths}, {tuple(ks)}")
+    misaligned = [k for k in ("conv_c1", "conv") if dw[k].data_ptr() % TAIL_ALIGN]
+    if misaligned:  # the c1 and merge tails read the weights in 16-byte loads
+        raise ValueError(f"{name}: dw{misaligned} must be {TAIL_ALIGN}-byte aligned")
+    _check_tc(name, packed, ME_DENSE)
+    # the scratch a point: c1's table, f1's, corr_feat, f2's table, flow_feat
+    # and the merge table, its rows padded to 4 channels
+    per_point = 2 * c1.cout + f1.cout + 2 * f2.cout + _round_up(merge.cout, 4)
+    return (tuple(dw[k].data_ptr() for k in ME_CONVS), _planes(packed, ME_DENSE),
+            tuple(t.data_ptr() for c in (f1, f2) for t in (c.weight, c.bias)),
+            (c1.cout, f1.cout, f2.cout, merge.cout), tuple(ks),
+            (f1.weight.shape[1], f2.weight.shape[1]), per_point)
+
+
 def motion_encoder_3d(flow: torch.Tensor, corr: torch.Tensor, knn_idx: torch.Tensor,
                       dw: dict, params: dict):
-    """flow [B, N, 3], corr [B, N, C], knn_idx [B, N, >=32] int32 -> [B, N,
-    125 + 3] (the merge conv's output, then the flow). CPU tensors take the
-    plain version; CUDA tensors the kernel."""
+    """flow [B, N, 3], corr [B, N, C], knn_idx [B, N, >=32] int32, `dw` the
+    hoisted weights as MotionEncoder3D.precompute_weights gives them (the
+    merge conv's rows 128 floats apart, `padded_rows`) -> [B, N, 125 + 3]
+    (the merge conv's output, then the flow). CPU tensors take the plain
+    version; CUDA tensors the kernel."""
     if _cuda.on_cpu(flow, corr, knn_idx):
         return motion_encoder_3d_plain(flow, corr, knn_idx, dw, params)
     name = "motion_encoder_3d"
     _cuda.check(name, torch.float32, flow=flow, corr=corr)
+    if flow.dim() != 3 or corr.dim() != 3 or corr.shape[:2] != flow.shape[:2]:
+        _cuda.check_shape(name, "flow", flow, (None, None, None))
+        _cuda.check_shape(name, "corr", corr, (flow.shape[0], flow.shape[1], None))
     batch, n, c_flow = flow.shape
-    _cuda.check_shape(name, "corr", corr, (batch, n, None))
-    c1, f1, f2, merge = (params[k] for k in ME_CONVS)
-    ks = _check_dw(name, dw, ME_CONVS, batch, n, flow.device)
-    _check_idx(name, knn_idx, batch, n, max(ks), flow.device)
-    _check_params(name, params, flow.device)
-    if ((c1.cin, f1.cin, f2.cin, merge.cin) != (corr.shape[-1], c_flow, f1.cout,
-                                                c1.cout + f2.cout)
-            or [dw[k].shape[3] for k in ME_CONVS] != [p.cout for p in (c1, f1, f2, merge)]):
-        raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
-    if f1.cout > STAGED or f2.cout > STAGED:
-        raise ValueError(f"{name}: a staged gather is wider than {STAGED} channels")
-    scratch = flow.new_empty(batch * n * (2 * c1.cout + f1.cout + f2.cout + merge.cout))
-    out = flow.new_empty(batch, n, merge.cout + c_flow)
+    c_corr = corr.shape[-1]
+    if c_corr % 4 or corr.data_ptr() % 16:  # corr feeds the tensor-core tile
+        _check_tc(name, {}, (), corr=corr)
+    dws, planes, weights, (c1, f1, f2, c_m), ks, npads, per_point = _me_checked(
+        name, params, dw, (batch, n, c_flow, c_corr), flow.device)
+    if (knn_idx.dtype != torch.int32 or knn_idx.device != flow.device or knn_idx.dim() != 3
+            or knn_idx.shape[:2] != (batch, n) or knn_idx.shape[2] < max(ks)
+            or not knn_idx.is_contiguous()):
+        _check_idx(name, knn_idx, batch, n, max(ks), flow.device)
+    scratch = flow.new_empty(batch * n * per_point)
+    out = flow.new_empty(batch, n, c_m + c_flow)
     from ..csrc.build import launch
 
     launch("camli_motion_encoder_3d", flow.data_ptr(), corr.data_ptr(), knn_idx.data_ptr(),
-           *(dw[k].data_ptr() for k in ME_CONVS),
-           *(t.data_ptr() for k in ME_CONVS for t in params[k][:2]),
-           scratch.data_ptr(), out.data_ptr(), batch, n, knn_idx.shape[2], c_flow,
-           corr.shape[-1], c1.cout, f1.cout, f2.cout, merge.cout, *ks)
+           *dws, planes, *weights, scratch.data_ptr(), out.data_ptr(), batch, n,
+           knn_idx.shape[2], c_flow, c_corr, c1, f1, f2, c_m, *ks, *npads, per_point)
     motion_encoder_3d.launches += 1
     return out
 
@@ -243,16 +325,14 @@ def gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw: dict, params: dict):
 
 def _gf_checked(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
     """What #7 assumes of its packed MLPs and hoisted weights, for inputs of
-    `shape` (B, N, Ch, Cx, Cm): checked once and remembered in `params`
-    beside the objects it read, as `ops/clfm.py` does; a call with the same
-    objects, device and shape skips the check (the refinement loop makes 20
-    calls a request, and requests are paced by the host). Returns the
+    `shape` (B, N, Ch, Cx, Cm), checked once (`_remembered`). Returns the
     kernel's arguments that follow from them."""
     read = tuple(params[k] for k in GF_PARAMS) + tuple(dw[k] for k in GF_DW)
-    checked = params.get(CHECKED)
-    if (checked is not None and checked[0] == (device, shape)
-            and all(a is b for a, b in zip(checked[1], read))):
-        return checked[2]
+    return _remembered(params, (device, shape), read,
+                       lambda: _gf_check(name, params, dw, shape, device))
+
+
+def _gf_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
     batch, n, ch, cx, cm = shape
     ks = _check_dw(name, dw, GF_DW, batch, n, device)
     packed = {k: params[k] for k in GF_PARAMS}
@@ -279,7 +359,6 @@ def _gf_checked(name: str, params: dict, dw: dict, shape: tuple, device) -> tupl
             tuple(t.data_ptr() for c in (conv1, conv2, fc) for t in (c.weight, c.bias)),
             (conv1.cout, conv2.cout, fc.cout), tuple(ks),
             tuple(w.weight.shape[1] for w in (conv1, conv2, fc)), per_point)
-    params[CHECKED] = ((device, shape), read, args)
     return args
 
 
@@ -324,22 +403,40 @@ gru_flowhead_3d.launches = 0
 # --- the PointConvDW tail alone (kernel #13) -------------------------------
 
 
-def dw_max(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
-    """table [B, N, C], knn_idx [B, M, >=k] int32, weights [B, M, k, C] ->
-    [B, M, C]: max_j table[idx[:, :, j]] * weights[:, :, j], bit-identical
-    to `dw_max_plain`. CPU tensors take the plain version; CUDA tensors the
-    kernel."""
-    if _cuda.on_cpu(table, knn_idx, weights):
-        return dw_max_plain(table, knn_idx, weights)
-    name = "dw_max"
+def _dw_max_check(name: str, table, knn_idx, weights) -> None:
+    """Every argument check of `dw_max`, each raising with its reason."""
     _cuda.check(name, torch.float32, table=table, weights=weights)
     _cuda.check_shape(name, "table", table, (None, None, None))
-    batch, n_table, channels = table.shape
+    batch, _, channels = table.shape
     _cuda.check_shape(name, "weights", weights, (batch, None, None, channels))
     m, k = weights.shape[1:3]
     _check_idx(name, knn_idx, batch, m, k, table.device)
     if k < 1:
         raise ValueError(f"{name}: the weights have no neighbours")
+
+
+def dw_max(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
+    """table [B, N, C], knn_idx [B, M, >=k] int32, weights [B, M, k, C] ->
+    [B, M, C]: max_j table[idx[:, :, j]] * weights[:, :, j], bit-identical
+    to `dw_max_plain`, for any k >= 1 and C. CPU tensors take the plain
+    version; CUDA tensors the kernel."""
+    if _cuda.on_cpu(table, knn_idx, weights):
+        return dw_max_plain(table, knn_idx, weights)
+    name = "dw_max"
+    # cheap conditions first (80 calls a fuse_hidden request), every check
+    # with its reason only when one fails
+    device = table.device
+    if (table.dtype != torch.float32 or weights.dtype != torch.float32
+            or knn_idx.dtype != torch.int32 or table.dim() != 3 or weights.dim() != 4
+            or knn_idx.dim() != 3 or device.type != "cuda" or weights.device != device
+            or knn_idx.device != device or device.index != torch.cuda.current_device()
+            or weights.shape[0] != table.shape[0] or weights.shape[3] != table.shape[2]
+            or knn_idx.shape[:2] != weights.shape[:2] or knn_idx.shape[2] < weights.shape[2]
+            or weights.shape[2] < 1 or not table.is_contiguous()
+            or not weights.is_contiguous() or not knn_idx.is_contiguous()):
+        _dw_max_check(name, table, knn_idx, weights)
+    batch, n_table, channels = table.shape
+    m, k = weights.shape[1:3]
     out = table.new_empty(batch, m, channels)
     from ..csrc.build import launch
 

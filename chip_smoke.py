@@ -27,15 +27,20 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    device time (profiler) and bound, and their sums a flagship and a
    CamLiRAFT-L request; the interpolation at its two shapes by events and
    device time, its selection the plain KNN's (with --other, another
-   tree's KNN and interpolation are held to the plain versions too and
-   timed beside this tree's, by device time in turns); Correlation3D's
-   selection bit for bit, ties included, CLFM's device time split by stage
-   (profiler); FPS bit for bit, also on duplicated points, and its time a
-   step; the 3D GRU + flow head also at the eval CLI's batch of 8, each
-   timed, its steps by profiler device time; the RAFT iteration (#10) bit
-   for bit the motion encoder then the GRU + flow head, by events, device
-   time by launch and host time, beside those two wrappers in sequence; the
-   Correlation3D tail by events, device and host time, rerun bit for bit;
+   tree's KNN, interpolation, 3D motion encoder, 3D GRU + flow head and
+   PointConvDW tail are held to the plain versions too and timed beside
+   this tree's, by device time in turns, the GRU + flow head held to this
+   tree's bit for bit); Correlation3D's selection bit for bit, ties
+   included, CLFM's device time split by stage (profiler); FPS bit for bit,
+   also on duplicated points, and its time a step; the 3D motion encoder
+   (its flow columns bit for bit) by events, device time, by launch and
+   host time a call; the 3D GRU + flow head also at the eval CLI's batch of
+   8, each timed, its steps by profiler device time; the PointConvDW tail
+   bit for bit at its four fuse_hidden shapes, by events, device and host
+   time; the RAFT iteration (#10) bit for bit the motion encoder then the
+   GRU + flow head, by events, device time by launch and host time, beside
+   those two wrappers in sequence; the Correlation3D tail by events, device
+   and host time, rerun bit for bit;
 4. end to end, for each path: random weights from a seeded
    torch.Generator, synthetic inputs made with numpy from a seed (bench.py's
    recipe plus a target), through the port's Evaluator: 1 warm-up and 3
@@ -219,19 +224,23 @@ def device_ms(fn, reps: int, only: str = "") -> float:
     return sum(e.self_device_time_total for e in kernels) / 1e3 / reps
 
 
-def in_turns(calls: dict, reps: int, only: str) -> dict[str, list[float]]:
+def in_turns(calls: dict, reps: int, only) -> dict[str, list[float]]:
     """device_ms of each of `calls`' functions, by key; of two, in turns
-    (first, second, second, first)."""
+    (first, second, second, first). `only`: the kernels' name part, or one
+    by key."""
     keys = list(calls)
     times = {key: [] for key in keys}
     for key in keys + keys[::-1] if len(keys) > 1 else keys:
-        times[key].append(device_ms(calls[key], reps, only=only))
+        times[key].append(device_ms(calls[key], reps,
+                                    only=only[key] if isinstance(only, dict) else only))
     return times
 
 
 def other_tree(root: str):
-    """Another checkout's #1 and #3 wrappers (its ops.knn and ops.interp),
-    to time beside this tree's: its camliflow_torch imported as
+    """Another checkout's wrappers of #1, #3 and the 3D chain (#6, #7,
+    #13): its ops.knn, ops.interp and ops.update3d (and models.camliraft_l,
+    whose modules hoist the weights as its wrappers take them), to time
+    beside this tree's: its camliflow_torch imported as
     `other_camliflow_torch`, its kernels built from its own sources into its
     own build/."""
     import importlib
@@ -246,7 +255,8 @@ def other_tree(root: str):
     spec.loader.exec_module(sys.modules[name])
     path, seconds, _ = importlib.import_module(f"{name}.csrc.build").build()
     print(f"  other tree: built {path} in {seconds:.1f} s", flush=True)
-    return importlib.import_module(f"{name}.ops.knn"), importlib.import_module(f"{name}.ops.interp")
+    return tuple(importlib.import_module(f"{name}.{module}")
+                 for module in ("ops.knn", "ops.interp", "ops.update3d", "models.camliraft_l"))
 
 
 def stage_ms(fn, reps: int) -> list[tuple[str, float]]:
@@ -325,7 +335,7 @@ def ptxas_summary(log: str) -> list[str]:
                 bm, bn, _, _, *ks, _ = map(int, re.findall(r"\d+", name.split("<", 1)[1]))
                 ks = ks[0] if ks else 1
                 used += f", {TC_STAGES * 4 * 16 * ks * (bm + 2 * bn)} bytes dynamic smem"
-            elif name.startswith("gru_flowhead_3d"):  # the dense steps' 32 x 64 tile
+            elif name.startswith(("gru_flowhead_3d_dense", "motion_encoder_3d_dense")):
                 used += f", {TC_STAGES * 4 * 16 * (32 + 2 * 64)} bytes dynamic smem (dense steps)"
             elif name.startswith("corr3d_tail_kernel"):  # at the main path's shape
                 used += (", 108,288 bytes dynamic smem at L = 4, C1 = 32, Cout = 128 "
@@ -783,21 +793,54 @@ def kernel_parity(device, other=None) -> list[dict]:
         def dw_floats(dw):
             return sum(w[0, 0].numel() for w in dw.values())
 
+        # #6, and with another tree its #6 too, held to the plain version
+        # (the flow columns bit for bit) and to itself on a second run; timed
+        # by events, by profiler device time (in turns with the other tree's,
+        # each tree's own kernels), by launch, and by host time a call
         flow3d, corr3 = rand3(3, 0.05), rand3(128)
         me3 = update3d.prepare_motion_encoder_3d_params(encoder)
-        motion3 = update3d.motion_encoder_3d(flow3d, corr3, idx, dw_me, me3)
-        err = check("motion_encoder_3d", motion3,
-                    update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw_me, me3))
-        weights = sum(size(p) for p in me3.values())
+        me_plain = update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw_me, me3)
+        me_calls = {"this": lambda: update3d.motion_encoder_3d(flow3d, corr3, idx, dw_me, me3)}
+        me_only = {"this": "motion_encoder_3d"}
+        if other:  # its own module hoists the weights in its own layout
+            other_encoder = other[3].MotionEncoder3D().to(device)
+            other_encoder.load_state_dict(encoder.state_dict())
+            dw_other = other_encoder.precompute_weights(xyz1, idx)
+            me_other = other[2].prepare_motion_encoder_3d_params(other_encoder)
+            me_calls = {"other": lambda: other[2].motion_encoder_3d(flow3d, corr3, idx, dw_other,
+                                                                    me_other), **me_calls}
+            me_only["other"] = ""  # whatever kernels the other tree's #6 launches
+        for tree, call in me_calls.items():
+            motion3 = call()
+            err = check(f"{tree} tree's motion_encoder_3d", motion3, me_plain)
+            if not torch.equal(motion3[..., -3:], flow3d):
+                raise AssertionError(f"{tree} tree's motion_encoder_3d: the flow columns differ")
+            if not torch.equal(call(), motion3):
+                raise AssertionError(f"{tree} tree's motion_encoder_3d: two runs give "
+                                     "different bits")
+        me_times = in_turns(me_calls, 20, me_only)
+        me_dev = mean(me_times["this"])
+        me_steps = stage_ms(me_calls["this"], 20)
+        me_host = {tree: host_ms(call, 20) for tree, call in me_calls.items()}
+        print("  motion_encoder_3d steps, device time (profiler): " + ", ".join(
+            f"{ms:.4f}" for _, ms in me_steps) + f"; device {me_dev:.4f} ms a call"
+            f"{beside(me_times)}; host " + ", ".join(
+                f"{tree} {ms:.4f}" for tree, ms in me_host.items()) + " ms a call", flush=True)
+        weights = sum(size(me3[k]) for k in update3d.ME_CONVS)
+        me_floats = sum(dw_me[k].shape[2] * me3[k].cout for k in update3d.ME_CONVS)  # 5,328
         record("motion_encoder_3d", "camliflow_torch/csrc/update3d.cu",
                "camliflow_tpu/ops/pallas_update3d.py:248", err,
-               time_ms(lambda: update3d.motion_encoder_3d(flow3d, corr3, idx, dw_me, me3), 50),
+               time_ms(me_calls["this"], 50),
                time_ms(lambda: update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw_me, me3),
                        20),
                # the MLPs' multiply-adds, a multiply and a max per gathered value
-               2 * n * (linear_macs(me3) + dw_floats(dw_me)),
-               # points, neighbours (int32), the hoisted weights, output
-               4 * (n * (3 + 128 + 32 + 128) + n * dw_floats(dw_me) + weights))
+               2 * n * (linear_macs({k: me3[k] for k in update3d.ME_CONVS}) + me_floats),
+               # points, neighbours (int32), the hoisted weights (unpadded), output
+               4 * (n * (3 + 128 + 32 + 128) + n * me_floats + weights),
+               device_ms=me_dev, host_ms=me_host["this"],
+               steps_ms=[ms for _, ms in me_steps],
+               **({"other_device_ms": mean(me_times["other"]),
+                   "other_host_ms": me_host["other"]} if other else {}))
 
         # #7 held to the plain version and to itself on a second run, at the
         # loop's 2048 points and at the eval CLI's batch of 8; its steps by
@@ -811,6 +854,17 @@ def kernel_parity(device, other=None) -> list[dict]:
         again = default()
         if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
             raise AssertionError("gru_flowhead_3d: two runs give different bits")
+        gf_calls = {"this": default}
+        if other:  # the other tree's #7: the same bits, and its device time in turns
+            gf_other = other[2].prepare_gru_flowhead_3d_params(gru, head)
+            gf_calls = {"other": lambda: other[2].gru_flowhead_3d(h3, x3, motion3, idx, dw_gf,
+                                                                  gf_other), **gf_calls}
+            theirs = gf_calls["other"]()
+            if not (torch.equal(theirs[0], h_k) and torch.equal(theirs[1], d_k)):
+                raise AssertionError("gru_flowhead_3d: not the other tree's bits")
+        gf_times = in_turns(gf_calls, 20, "gru_flowhead_3d")
+        print(f"  gru_flowhead_3d: device {mean(gf_times['this']):.4f} ms a call"
+              f"{beside(gf_times)}{'; the other tree bit for bit' if other else ''}", flush=True)
         rep = (8, 1, 1)
         xyz8 = xyz1.repeat(rep).contiguous()
         idx8 = knn.k_nearest_neighbor(xyz8, xyz8, 32)
@@ -848,21 +902,44 @@ def kernel_parity(device, other=None) -> list[dict]:
                steps_ms=steps_ms, host_ms=gf_host, bs8=bs8)
 
         # the PointConvDW tail alone, at the fuse_hidden path's four shapes:
-        # GRU3D's z|r and q (k=4), FlowHead3D's conv1 and conv2 (k=32)
+        # GRU3D's z|r and q (k=4), FlowHead3D's conv1 and conv2 (k=32); with
+        # another tree, its tail too, bit for bit both, timed in turns
+        tail_dev, tail_other, tail_bound = {}, {}, {}  # by shape, filled as they run
         for key, channels in (("conv_zr", 256), ("conv_q", 128), ("conv1", 128),
                               ("conv2", 64)):
             table, w = rand3(channels), dw_gf[key]
-            got = update3d.dw_max(table, idx, w)
-            if not torch.equal(got, update3d.dw_max_plain(table, idx, w)):
-                raise AssertionError(f"dw_max {key}: not bit-identical to the plain version")
+            ref = update3d.dw_max_plain(table, idx, w)
+            tails = {"this": update3d.dw_max}
+            if other:
+                tails = {"other": other[2].dw_max, **tails}
+            for tree, wrapper in tails.items():
+                for _ in range(2):
+                    if not torch.equal(wrapper(table, idx, w), ref):
+                        raise AssertionError(f"{tree} tree's dw_max {key}: not bit-identical to "
+                                             "the plain version")
+            calls = {tree: lambda fn=wrapper: fn(table, idx, w) for tree, wrapper in tails.items()}
+            times = in_turns(calls, 20, {"this": "dw_max_tail", "other": ""})
+            hosts = {tree: host_ms(call, 20) for tree, call in calls.items()}
             k = w.shape[2]
+            tail_dev[key] = mean(times["this"])
+            if other:
+                tail_other[key] = mean(times["other"])
+            tail_bound[key] = bound(2 * n * k * channels,
+                                    4 * (2 * n * channels + n * 32 + n * k * channels))[0]
+            print(f"  dw_max {key} (k={k}, C={channels}): device {tail_dev[key]:.4f} ms"
+                  f"{beside(times)}; host " + ", ".join(
+                      f"{tree} {ms:.4f}" for tree, ms in hosts.items()) + " ms a call",
+                  flush=True)
             record("dw_max", "camliflow_torch/csrc/update3d.cu",
                    "camliflow_tpu/ops/pallas_ohg.py:177", 0.0,
-                   time_ms(lambda: update3d.dw_max(table, idx, w), 50),
+                   time_ms(calls["this"], 50),
                    time_ms(lambda: update3d.dw_max_plain(table, idx, w), 20),
                    2 * n * k * channels,  # a multiply and a max per gathered value
                    4 * (2 * n * channels + n * 32 + n * k * channels),
-                   label=f"dw_max {key} (k={k}, C={channels})", entry=key == "conv1")
+                   label=f"dw_max {key} (k={k}, C={channels}, by events)", entry=key == "conv1",
+                   device_ms=tail_dev[key], host_ms=hosts["this"], device_ms_by_shape=tail_dev,
+                   bound_ms_by_shape=tail_bound,
+                   **({"other_device_ms_by_shape": tail_other} if other else {}))
 
     # the Correlation3D tail on the selection above (L=4, k=16, 2048 queries)
     tail_block = Correlation3D(n_levels=len(sizes), out_channels=128, k=16)
@@ -1042,8 +1119,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Proof that the port runs on one CUDA card.")
     parser.add_argument("--other", metavar="TREE",
                         help="another checkout (a parent unpacked by git archive into an "
-                             "ignored directory, say) whose #1 and #3 phase 3 times beside "
-                             "this tree's")
+                             "ignored directory, say) whose #1, #3, #6, #7 and #13 phase 3 "
+                             "times beside this tree's")
     args = parser.parse_args()
     import torch
 

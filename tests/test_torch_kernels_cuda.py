@@ -554,7 +554,7 @@ def update3d_case(device, seed, batch, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 100), (1, 70)])
+@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 100), (1, 70), (8, 2048)])
 def test_motion_encoder_3d_kernel_matches_plain(cuda, batch, n):
     with torch.inference_mode():
         (encoder, _, _), idx, dw, _ = update3d_case(cuda, 35, batch, n)
@@ -568,6 +568,45 @@ def test_motion_encoder_3d_kernel_matches_plain(cuda, batch, n):
     assert got.shape == (batch, n, 128)
     assert torch.equal(got[..., -3:], flow)
     assert_conv_close(got, ref)
+
+
+def motion_encoder_3d_case(device, seed, batch, n):
+    (encoder, _, _), idx, dw, _ = update3d_case(device, seed, batch, n)
+    flow = 0.1 * torch.randn(batch, n, 3, device=device)
+    corr = torch.randn(batch, n, 128, device=device)
+    return (flow, corr, idx), dw, update3d.prepare_motion_encoder_3d_params(encoder)
+
+
+@pytest.mark.cuda
+def test_motion_encoder_3d_propagates_nan_as_plain(cuda):
+    """One NaN in the merge conv's hoisted weights: it lands where the plain
+    version's does (one point's channel), and the rest agrees."""
+    with torch.inference_mode():
+        inputs, dw, params = motion_encoder_3d_case(cuda, 48, 1, 2048)
+        bad = {**dw, "conv": update3d.padded_rows(dw["conv"].clone())}
+        bad["conv"][0, 9, 1, 2] = float("nan")
+        ref = update3d.motion_encoder_3d_plain(*inputs, bad, params)
+        assert torch.isnan(ref).any()
+        got = update3d.motion_encoder_3d(*inputs, bad, params)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert_conv_close(torch.nan_to_num(got), torch.nan_to_num(ref))
+
+
+@pytest.mark.cuda
+def test_motion_encoder_3d_and_dw_max_rerun_bit_identical(cuda):
+    """No atomics in either: two runs give the same bits."""
+    with torch.inference_mode():
+        inputs, dw, params = motion_encoder_3d_case(cuda, 49, 2, 2048)
+        first = update3d.motion_encoder_3d(*inputs, dw, params)
+        assert torch.equal(update3d.motion_encoder_3d(*inputs, dw, params), first)
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    for k, channels in ((4, 256), (4, 128), (32, 128), (32, 64), (16, 125)):
+        table = torch.randn(1, 2048, channels, generator=gen, device=cuda)
+        idx = torch.randint(0, 2048, (1, 2048, 32), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        weights = torch.randn(1, 2048, k, channels, generator=gen, device=cuda)
+        first = update3d.dw_max(table, idx, weights)
+        assert torch.equal(update3d.dw_max(table, idx, weights), first)
 
 
 def gru_flowhead_3d_case(device, seed, batch, n):
@@ -641,6 +680,30 @@ def test_update3d_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                        idx, dw_me, me)
         with pytest.raises(ValueError, match="CUDA"):
             update3d.motion_encoder_3d(flow, corr, idx.cpu(), dw_me, me)
+        # the c1 and merge tails read their weights in 16-byte loads, the
+        # merge conv's rows 128 floats apart, and corr feeds the tensor-core
+        # tile
+        def shifted(t, row=None):  # 4 bytes past a 16-byte boundary
+            row = row or t.shape[-1]
+            base = torch.empty(t[..., :1].numel() * row + 1, device=cuda)[1:]
+            base = base.view(*t.shape[:-1], row)
+            base[..., :t.shape[-1]] = t
+            return base[..., :t.shape[-1]]
+
+        for key, row in (("conv_c1", None), ("conv", 128)):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                update3d.motion_encoder_3d(flow, corr, idx, {**dw_me, key: shifted(dw_me[key], row)},
+                                           me)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            update3d.motion_encoder_3d(flow, shifted(corr), idx, dw_me, me)
+        with pytest.raises(ValueError, match="128 floats apart"):
+            update3d.motion_encoder_3d(flow, corr, idx, {**dw_me, "conv": dw_me["conv"].contiguous()},
+                                       me)
+        # f1's and f2's tails read 4 bytes at a time: their weights may sit anywhere
+        moved = {**dw_me, "conv_f1": shifted(dw_me["conv_f1"]),
+                 "conv_f2": shifted(dw_me["conv_f2"])}
+        assert torch.equal(update3d.motion_encoder_3d(flow, corr, idx, moved, me),
+                           update3d.motion_encoder_3d(flow, corr, idx, dw_me, me))
         h = torch.randn(1, 100, 128, device=cuda)
         gf = update3d.prepare_gru_flowhead_3d_params(gru, head)
         with pytest.raises(ValueError, match="CUDA|lies on"):
@@ -908,13 +971,17 @@ def test_clfm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     (1, 2048, 2048, 32, 64),  # FlowHead3D's conv2
     (2, 70, 100, 32, 125),  # batch 2, a table longer than the queries
     (2, 33, 33, 1, 3),
+    (1, 2048, 2048, 4, 128),  # GRU3D's q
+    (1, 2048, 2048, 32, 128),  # FlowHead3D's conv1
+    (1, 300, 300, 40, 20),  # more neighbours than a round holds
+    (1, 100, 120, 5, 300),  # wider than a round of channels
 ])
 def test_dw_max_kernel_matches_plain(cuda, batch, m, n_table, k, channels):
     """Duplicate neighbours and NaN propagate as in torch.amax: bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(47)
     table = torch.randn(batch, n_table, channels, generator=gen, device=cuda)
     table[:, 5, :2] = float("nan")
-    idx = torch.randint(0, n_table, (batch, m, 32), generator=gen, device=cuda,
+    idx = torch.randint(0, n_table, (batch, m, max(k, 32)), generator=gen, device=cuda,
                         dtype=torch.int32)
     idx[:, ::7, k - 1] = idx[:, ::7, 0]  # duplicate neighbours
     weights = torch.randn(batch, m, k, channels, generator=gen, device=cuda)
@@ -942,3 +1009,24 @@ def test_dw_max_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         update3d.dw_max(table, idx.cpu(), weights)
     with pytest.raises(ValueError, match="neighbours"):
         update3d.dw_max(table, idx[..., :4].contiguous(), weights)
+    with pytest.raises(ValueError, match="no neighbours"):
+        update3d.dw_max(table, idx, weights[:, :, :0].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [128, 64, 12])
+def test_dw_max_kernel_takes_misaligned_rows(cuda, channels):
+    """A table, weights or both starting 4 bytes past a 16-byte boundary
+    take the 4-byte form: bit for bit all the same."""
+    gen = torch.Generator(device=cuda).manual_seed(51)
+    table = torch.randn(2, 90, channels, generator=gen, device=cuda)
+    idx = torch.randint(0, 90, (2, 80, 32), generator=gen, device=cuda, dtype=torch.int32)
+    weights = torch.randn(2, 80, 32, channels, generator=gen, device=cuda)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+
+    ref = update3d.dw_max_plain(table, idx, weights)
+    for t, w in ((shifted(table), weights), (table, shifted(weights)),
+                 (shifted(table), shifted(weights))):
+        assert torch.equal(update3d.dw_max(t, idx, w), ref)

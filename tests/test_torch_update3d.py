@@ -10,7 +10,13 @@ mode, which run their matmuls and gathers in bf16 on `to_kernel_layout`'d
 bf16 weights, the tolerances are those of tests/test_pallas_update3d.py.
 The CUDA kernels themselves run only on a card:
 tests/test_torch_kernels_cuda.py compares them with these plain versions.
+Here the wrappers' CUDA path runs on CPU tensors with the launch recorded:
+what they hand the kernels (pointers, strides, scratch) is held to
+csrc/update3d.cu's own constants and layout check, read from the source.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -239,3 +245,204 @@ def test_gru_and_flow_head_forwards_take_packed_params(cloud, gru_flowhead):
         delta = thead(t(xyz), h_new, t(knn), dw, params=head_params)
         assert torch.equal(delta, thead(t(xyz), h_new, t(knn), dw))
         assert torch.equal(delta, update3d.flow_head_3d_plain(h_new, t(knn), dw, head_params))
+
+
+# --- what the wrappers hand the kernels (csrc/update3d.cu) ------------------
+
+SOURCE = (Path(__file__).resolve().parents[1] / "camliflow_torch" / "csrc"
+          / "update3d.cu").read_text()
+
+
+def source_constants():
+    """csrc/update3d.cu's `constexpr int k*` constants, each expression
+    evaluated with the ones before it."""
+    values = {}
+    for line in re.findall(r"^constexpr int (k\w+ = [^;]+);", SOURCE, re.M):
+        for declaration in line.split(", k"):  # `constexpr int kA = 1, kB = 2;`
+            name, expr = declaration.split(" = ")
+            values["k" + name.lstrip("k")] = eval(expr, {"__builtins__": {}}, dict(values))
+    return values
+
+
+def test_wrapper_limits_are_the_kernels_constants():
+    """The wrappers' widths, neighbour caps and alignment rule are the ones
+    the kernels declare, the models' widths lie inside them, and the stage
+    kernel is gone: #6, #7 and #13 run on the one tail."""
+    k = source_constants()
+    assert update3d.MAX_ROW == k["kMaxRow"]
+    assert update3d.MAX_FUSED_OUT == k["kGfThreads"]
+    assert update3d.TAIL_ALIGN == k["kTailAlign"] == 16
+    assert update3d.GF_KS == (k["kGruK"], k["kGruK"], k["kHeadK"], k["kHeadK"])
+    assert update3d.GF_MAX_FC == k["kMaxFc"]
+    assert max(update3d.GF_WIDTHS[1:3]) <= k["kMaxRow"]  # q's and conv1's fused layers
+    # MotionEncoder3D's widths: f1 32 feeds the fused f2 layer (16 outputs)
+    me = update3d.prepare_motion_encoder_3d_params(tm.MotionEncoder3D())
+    assert me["conv_f1"].cout <= update3d.MAX_ROW and me["conv_f2"].cout <= update3d.MAX_FUSED_OUT
+    assert all(me[key].cout % 4 == 0 for key in update3d.ME_CONVS[:3])
+    assert "stage_kernel" not in SOURCE and "namespace staged" not in SOURCE
+    assert SOURCE.count("__device__ __forceinline__ void tail(") == 1
+
+
+def kernel_layout_floats(c_c1, c_f1, c_f2, c_m):
+    """The floats a point of #6's scratch must hold, by the entry point's
+    own check in csrc/update3d.cu (`per_point < ...`)."""
+    expr = re.search(r"if \(per_point < ([^|]+) \|\|", SOURCE).group(1)
+    ld_m = -(-c_m // 4) * 4
+    return eval(expr, {"__builtins__": {}}, dict(c_c1=c_c1, c_f1=c_f1, c_f2=c_f2, ld_m=ld_m))
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers' CUDA path on CPU tensors: no device checks, and each
+    launch recorded (name, arguments) instead of run; every tensor the
+    wrappers allocate recorded too."""
+    from camliflow_torch.csrc import build
+    from camliflow_torch.ops import _cuda
+
+    launches, made = [], []
+    real_new_empty = torch.Tensor.new_empty
+
+    def new_empty(self, *size, **kwargs):
+        made.append(real_new_empty(self, *size, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(_cuda, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(_cuda, "check", lambda *args, **kwargs: None)
+    monkeypatch.setattr(torch.Tensor, "new_empty", new_empty)
+    monkeypatch.setattr(build, "launch", lambda name, *args: launches.append((name, args)))
+    return launches, made
+
+
+def me_inputs(batch, n, idx_width):
+    """MotionEncoder3D's packed MLPs, and inputs of its shapes (values
+    unread: nothing runs)."""
+    params = update3d.prepare_motion_encoder_3d_params(tm.MotionEncoder3D())
+    dw = {key: update3d.padded_rows(torch.zeros(batch, n, k, params[key].cout))
+          for key, k in zip(update3d.ME_CONVS, (16, 32, 16, 16))}
+    knn_idx = torch.zeros(batch, n, idx_width, dtype=torch.int32)
+    return torch.zeros(batch, n, 3), torch.zeros(batch, n, 128), knn_idx, dw, params
+
+
+@pytest.mark.parametrize("batch,n,idx_width", [(1, 2048, 32), (2, 100, 33), (1, 70, 40)])
+def test_motion_encoder_3d_hands_the_kernel_fitting_scratch(fake_card, batch, n, idx_width):
+    """At the main path's shape and odd ones, the wrapper hands #6 the
+    pointers in order, the widths, neighbours and strides of the inputs,
+    and a scratch buffer that holds the kernel's layout: every part
+    16-byte aligned, the last ending inside it. A second call on the same
+    objects reuses the remembered check."""
+    launches, made = fake_card
+    flow, corr, knn_idx, dw, params = me_inputs(batch, n, idx_width)
+    out = update3d.motion_encoder_3d(flow, corr, knn_idx, dw, params)
+    (name, args), = launches
+    assert name == "camli_motion_encoder_3d" and len(args) == 30
+    assert args[:7] == (flow.data_ptr(), corr.data_ptr(), knn_idx.data_ptr(),
+                        *(dw[key].data_ptr() for key in update3d.ME_CONVS))
+    planes = [params[key][i] for key in update3d.ME_DENSE for i in (6, 7, 1)]  # hi, lo, bias
+    assert list(args[7]) == [t.data_ptr() for t in planes]
+    assert args[8:12] == tuple(t.data_ptr() for key in ("conv_f1", "conv_f2")
+                               for t in params[key][:2])
+    scratch = next(t for t in made if t.data_ptr() == args[12])
+    assert args[13] == out.data_ptr() and out.shape == (batch, n, 125 + 3)
+    ints = args[14:]
+    assert ints[:9] == (batch, n, idx_width, 3, 128, 128, 32, 16, 125)
+    assert ints[9:13] == (16, 32, 16, 16)  # neighbours: c1, f1, f2, merge
+    assert ints[13:15] == (64, 64)  # f1's and f2's packed weights' row length
+    per_point = ints[15]
+    assert per_point == kernel_layout_floats(128, 32, 16, 125) == 448
+    assert scratch.numel() == batch * n * per_point
+    points = batch * n
+    parts = [128, 32, 128, 16, 16, 128]  # c1 table, f1 table, corr_feat, f2, flow_feat, merge
+    offsets = np.cumsum([0] + parts) * points
+    assert all(o % 4 == 0 for o in offsets) and offsets[-1] <= scratch.numel()
+    # the check is remembered while the objects stay the same
+    calls = []
+    check_dw = update3d._check_dw
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(update3d, "_check_dw", lambda *a, **k: calls.append(1) or check_dw(*a, **k))
+        update3d.motion_encoder_3d(flow, corr, knn_idx, dw, params)
+        assert not calls
+        update3d.motion_encoder_3d(flow, corr, knn_idx,
+                                   {**dw, "conv": update3d.padded_rows(dw["conv"].clone())},
+                                   params)
+        assert len(calls) == 1
+
+
+def shifted(t, row=None):
+    """A copy of `t` 4 bytes past a 16-byte boundary; with `row`, its rows
+    `row` floats apart."""
+    row = row or t.shape[-1]
+    base = torch.empty(t[..., :1].numel() * row + 1)[1:].view(*t.shape[:-1], row)
+    base[..., :t.shape[-1]] = t
+    return base[..., :t.shape[-1]]
+
+
+def test_motion_encoder_3d_raises_where_the_kernel_would_fault(fake_card):
+    """The c1 and merge tails read 16-byte rows and corr feeds the
+    tensor-core tile: misaligned c1 or merge weights or corr, merge weights
+    whose rows are not 128 floats apart, or a width that is not a multiple
+    of 4, raise before any launch. f1's and f2's tails read 4 bytes at a
+    time: their weights may sit anywhere."""
+    launches, _ = fake_card
+    flow, corr, knn_idx, dw, params = me_inputs(1, 50, 32)
+    for key, row in (("conv_c1", None), ("conv", 128)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            update3d.motion_encoder_3d(flow, corr, knn_idx, {**dw, key: shifted(dw[key], row)},
+                                       params)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        update3d.motion_encoder_3d(flow, shifted(corr), knn_idx, dw, params)
+    with pytest.raises(ValueError, match="128 floats apart"):
+        update3d.motion_encoder_3d(flow, corr, knn_idx, {**dw, "conv": dw["conv"].contiguous()},
+                                   params)
+    narrow = {**params, "conv_f2": params["conv_f2"]._replace(cout=15),
+              "conv": params["conv"]._replace(cin=143)}
+    with pytest.raises(ValueError, match="multiples of 4"):
+        update3d.motion_encoder_3d(flow, corr, knn_idx,
+                                   {**dw, "conv_f2": dw["conv_f2"][..., :15].contiguous()}, narrow)
+    assert not launches
+    update3d.motion_encoder_3d(flow, corr, knn_idx, {**dw, "conv_f1": shifted(dw["conv_f1"]),
+                                                     "conv_f2": shifted(dw["conv_f2"])}, params)
+    assert len(launches) == 1
+
+
+def test_merge_rows_padded_at_the_hoist(cloud, motion_encoder):
+    """MotionEncoder3D.precompute_weights gives each conv's weights with its
+    own values and shape, the merge conv's 125 channels in rows 128 floats
+    apart (16-byte rows, zeros between), the others contiguous; the plain
+    chain gives the same bits on them as on contiguous weights."""
+    xyz, knn, c = cloud
+    _, _, dw, port = motion_encoder
+    with torch.inference_mode():
+        padded = port.precompute_weights(t(xyz), t(knn))
+        own = {name: getattr(port, name).compute_weights(t(xyz), knn_indices=t(knn))
+               for name in update3d.ME_CONVS}
+    merge = padded["conv"]
+    assert merge.shape == own["conv"].shape and merge.stride()[2:] == (128, 1)
+    assert not merge.as_strided((merge.numel() // 125, 3), (128, 1), 125).any()
+    for name in update3d.ME_CONVS:
+        assert torch.equal(padded[name], own[name])
+        assert name == "conv" or padded[name].is_contiguous()
+    params = update3d.prepare_motion_encoder_3d_params(port)
+    args = (t(c["flow"]), t(c["corr"]), t(knn))
+    np.testing.assert_array_equal(update3d.motion_encoder_3d_plain(*args, padded, params).numpy(),
+                                  update3d.motion_encoder_3d_plain(*args, own, params).numpy())
+
+
+@pytest.mark.parametrize("batch,m,n_table,idx_width,k,channels", [
+    (1, 2048, 2048, 32, 4, 256), (1, 2048, 2048, 32, 4, 128),  # z|r, q
+    (1, 2048, 2048, 32, 32, 128), (1, 2048, 2048, 32, 32, 64),  # conv1, conv2
+    (2, 70, 100, 33, 32, 125), (2, 33, 33, 32, 1, 3), (1, 20, 30, 41, 40, 20),
+])
+def test_dw_max_hands_the_kernel_its_shapes(fake_card, batch, m, n_table, idx_width, k,
+                                            channels):
+    """#13 takes any k >= 1 and C: the wrapper hands it the table's rows,
+    the queries, the index stride, k and C, and an output of [B, M, C]."""
+    launches, _ = fake_card
+    table = torch.zeros(batch, n_table, channels)
+    knn_idx = torch.zeros(batch, m, idx_width, dtype=torch.int32)
+    weights = torch.zeros(batch, m, k, channels)
+    out = update3d.dw_max(table, knn_idx, weights)
+    (name, args), = launches
+    assert name == "camli_dw_max"
+    assert args == (table.data_ptr(), weights.data_ptr(), knn_idx.data_ptr(), out.data_ptr(),
+                    batch, n_table, m, idx_width, k, channels)
+    assert out.shape == (batch, m, channels)
