@@ -11,8 +11,10 @@ mirrors that package's layout and its channel-last conventions (points
 - ``csrc``     the CUDA sources and their nvcc/ctypes build
 - ``nn``       dense/norm/act blocks, point convolutions, ResNet, CLFM
 - ``models``   CamLiRAFT, CamLiRAFT-L and RAFT (eval) and the model registry
-- ``runtime``  the things-protocol evaluator and the JAX weight bridge
-- ``data``     the FlyingThings3D eval reader
+- ``runtime``  the evaluator (the things, Sintel and scene-flow protocols)
+               and the JAX weight bridge
+- ``data``     the eval readers (FlyingThings3D, KITTI, Sintel and the
+               scene-flow protocols' sets)
 - ``eval.py``  the eval entry point
 
 It imports no JAX.

@@ -48,7 +48,7 @@ SIGNATURES = {
     "camli_motion_encoder_3d": [_P] * 14 + [_I] * 16 + [_P],
     "camli_gru_flowhead_3d": [_P] * 18 + [_I] * 16 + [_P],
     "camli_dw_max": [_P] * 4 + [_I] * 6 + [_P],
-    "camli_gather_kmajor": [_P] * 3 + [_I] * 5 + [_P],
+    "camli_gather_kmajor": [_P] * 3 + [_I] * 7 + [_P],
     "camli_corr3d_tail": [_P] * 11 + [_I] * 7 + [_P],
     "camli_clfm": [_P] * 14 + [_I] * 7 + [_P],
 }

@@ -4,11 +4,21 @@
         model=camliraft ckpt.path=<JAX variables .npz> [device=cpu] [key=value ...]
 
 Composes the same `conf/` tree as eval.py, loads the JAX package's variables
-through the weight bridge, and runs the `things` protocol. It runs on the
-CUDA card unless `device=cpu` is given (there the kernels' plain versions
-run); without a card and without `device=cpu` it raises. Ported so far:
-`protocol=things` with `model=camliraft`, `model=camliraft_l` or
-`model=raft`.
+through the weight bridge, and runs one protocol in batches of 8:
+    things        eval_things.py        (2D and 3D metrics)
+    sintel        eval_sintel.py        (per-scene 2D AEPE; testset=sintel)
+    things_noc_sf eval_things_noc_sf.py (HPLFlowNet's protocol;
+                                         testset=flyingthings3d_subset_hpl)
+    things_occ_sf eval_things_occ_sf.py (FlowNet3D's protocol;
+                                         testset=flyingthings3d_subset_flownet3d)
+    kitti_occ_sf  eval_kitti_occ_sf.py  (FlowNet3D's KITTI protocol)
+    kitti_noc_sf  eval_kitti_noc_sf.py  (PointPWC's KITTI protocol)
+The two KITTI protocols read their sets from the reference's relative roots
+under datasets/kitti_scene_flow/training, as eval.py does, with the
+testset's n_points (8192 without a testset). It runs on the CUDA card
+unless `device=cpu` is given (there the kernels' plain versions run);
+without a card and without `device=cpu` it raises. Ported models:
+`model=camliraft`, `model=camliraft_l` and `model=raft`.
 """
 
 from __future__ import annotations
@@ -21,6 +31,35 @@ import torch
 
 CONF_DIR = Path(__file__).resolve().parents[1] / "conf"
 BATCH_SIZE = 8  # eval.py's Evaluator default
+
+
+# the scene-flow protocols' (per_sample_average, use_noc_mask); None: its own run
+PROTOCOLS = {
+    "things": None,
+    "sintel": None,
+    "things_noc_sf": (False, False),
+    "things_occ_sf": (True, True),
+    "kitti_occ_sf": (True, False),
+    "kitti_noc_sf": (True, False),
+}
+
+
+def protocol_dataset(protocol: str, cfgs):
+    """The test set a protocol reads: its own reader for the scene-flow
+    protocols, else the testset's."""
+    from .data import protocol_datasets as pd
+    from .data.datasets import dataset_factory
+
+    testset = cfgs.get("testset") or {}
+    if protocol == "things_noc_sf":
+        return pd.FlyingThings3DSubsetHPL(cfgs.testset)
+    if protocol == "things_occ_sf":
+        return pd.FlyingThings3DSubsetFlowNet3D(cfgs.testset)
+    if protocol == "kitti_occ_sf":
+        return pd.KITTIFlowNet3D(n_points=int(testset.get("n_points", 8192)))
+    if protocol == "kitti_noc_sf":
+        return pd.KITTIPointPWC(n_points=int(testset.get("n_points", 8192)))
+    return dataset_factory(cfgs.testset)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -47,14 +86,12 @@ def main(argv: list[str] | None = None) -> dict:
             overrides.append(arg)
     if groups["model"] is None:
         raise SystemExit("missing required group: model=<name>")
-    if groups["protocol"] != "things":
-        raise NotImplementedError(
-            f"protocol={groups['protocol']} is not ported; see ROADMAP.md "
-            "Queue 1 item 8 (eval protocols)"
-        )
+    protocol = groups["protocol"]
+    if protocol not in PROTOCOLS:
+        raise SystemExit(f"unknown protocol: {protocol}")
     device = resolve_device(groups["device"])
 
-    from .data.datasets import batches, dataset_factory
+    from .data.datasets import batches
     from .models.factory import model_factory
     from .runtime.checkpoint import load_jax_variables, load_npz
     from .runtime.evaluator import Evaluator
@@ -71,8 +108,14 @@ def main(argv: list[str] | None = None) -> dict:
     if cfgs.ckpt.path is None:
         raise SystemExit("missing ckpt.path=<JAX variables .npz>")
     load_jax_variables(model, load_npz(cfgs.ckpt.path), cfgs.model.name)
-    dataset = dataset_factory(cfgs.testset)
-    return Evaluator(model, device).run_things(batches(dataset, BATCH_SIZE))
+    evaluator = Evaluator(model, device)
+    loader = batches(protocol_dataset(protocol, cfgs), BATCH_SIZE)
+    if protocol == "things":
+        return evaluator.run_things(loader)
+    if protocol == "sintel":
+        return evaluator.run_sintel(loader)
+    per_sample_average, use_noc_mask = PROTOCOLS[protocol]
+    return evaluator.run_sf_protocol(loader, per_sample_average, use_noc_mask)
 
 
 if __name__ == "__main__":

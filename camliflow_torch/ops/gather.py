@@ -2,7 +2,10 @@
 
 Replaces camliflow_tpu/ops/pallas_gather.py::gather_points_kmajor with
 `csrc/gather.cu`: data [B, N, C] and indices [B, M, k] -> [B, k, M, C], each
-tap a contiguous [M, C] slab. The copy is exact in any element type of 4, 2
+tap a contiguous [M, C] slab, which the kernel writes a tile of T query
+points at a time from a shared staging buffer (`gather_plan` picks T and,
+for rows wider than the buffer, the piece of a row; rows narrower than 16
+bytes go a word a thread). The copy is exact in any element type of 4, 2
 or 1 bytes (f32, int32, bf16, int8); see the source's note for the design.
 Consumers contract over k anyway (PointConv's einsum, the upsample's
 weighted sum), so the k-major layout needs no transpose back.
@@ -23,7 +26,29 @@ import torch
 from . import _cuda
 from .geometry import gather_points
 
-WORD_LIMIT = 2**31  # csrc/gather.cu indexes the output with 32-bit words
+WORD_LIMIT = 2**31  # gather_kmajor_words indexes the output with 32-bit words
+NARROW_BYTES = 16  # narrower rows go a word a thread (csrc/gather.cu: gather_kmajor_words)
+SLAB_BYTES = 24576  # the staging buffer: one slab of T rows
+ROWS_MAX = 1024  # T at most
+
+
+def gather_plan(batch: int, m: int, k: int, row_bytes: int, sms: int) -> tuple[int, int]:
+    """(T, piece) for csrc/gather.cu: T query points a block, each row copied
+    in pieces of `piece` bytes; (0, 0) for rows narrower than NARROW_BYTES,
+    which take the word-a-thread kernel. T is the largest multiple of 16 (at
+    most ROWS_MAX) whose slab fits SLAB_BYTES, so a slab is a whole number of
+    16-byte chunks (rows too wide for 16 take fewer, and rows wider than the
+    buffer one, in pieces), lowered by 16 while the grid of (tile, tap,
+    sample) blocks has fewer than two blocks an SM."""
+    if row_bytes < NARROW_BYTES:
+        return 0, 0
+    if row_bytes > SLAB_BYTES:
+        return 1, SLAB_BYTES
+    fit = SLAB_BYTES // row_bytes
+    rows = min(ROWS_MAX, fit // 16 * 16) if fit >= 16 else fit
+    while rows > 16 and batch * k * -(-m // rows) < 2 * sms:
+        rows -= 16
+    return rows, row_bytes
 
 
 def gather_points_kmajor_plain(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -55,8 +80,9 @@ def gather_points_kmajor(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: the output {tuple(out.shape)} is 2 GiB or more")
     from ..csrc.build import launch
 
+    plan = gather_plan(batch, m, k, row_bytes, _cuda.sm_count(data.device))
     launch("camli_gather_kmajor", data.data_ptr(), idx.data_ptr(), out.data_ptr(), batch, n,
-           m, k, row_bytes)
+           m, k, row_bytes, *plan)
     gather_points_kmajor.launches += 1
     return out
 

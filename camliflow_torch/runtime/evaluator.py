@@ -1,13 +1,20 @@
-"""Evaluation: the `things` protocol.
+"""Evaluation protocols: PyTorch counterpart of
+camliflow_tpu/runtime/evaluator.py, with the same sums, masks, keys and log
+lines, summed on the host in numpy.
 
-PyTorch counterpart of camliflow_tpu/runtime/evaluator.py::run_things:
-per-pixel EPE2d, 1px and Fl over the validity mask for models that output
-`flow_2d`; per-point EPE3d, 5cm and 10cm accuracy (and the non-occluded
-split when the batches carry `occ_mask_3d`) for models that output
-`flow_3d`; NaN-masked, summed on the host in numpy. Batches come from any
-iterable of dicts in the FlyingThings3D sample format (`images`
-[B, H, W, 6], `flow_2d` [B, H, W, 2|3], `pcs` [B, N, 6], `intrinsics`
-[B, 3], `flow_3d` [B, N, 3|4], `index`), such as `data.datasets.batches`.
+- `run_things` (eval_things.py): per-pixel EPE2d, 1px and Fl over the
+  validity mask for models that output `flow_2d`; per-point EPE3d, 5cm and
+  10cm accuracy (and the non-occluded split when the batches carry
+  `occ_mask_3d`) for models that output `flow_3d`; NaN-masked.
+- `run_sintel` (eval_sintel.py): 2D AEPE per scene, then over all.
+- `run_sf_protocol` (eval_*_sf.py): EPE3d, AccS, AccR and Outlier, summed
+  per point (things_noc_sf) or averaged per sample (things_occ_sf, and the
+  two KITTI protocols), over `noc_mask_3d` for things_occ_sf.
+
+Batches come from any iterable of dicts in the readers' sample format
+(`images` [B, H, W, 6], `flow_2d` [B, H, W, 2|3], `pcs` [B, N, 6],
+`intrinsics` [B, 3], `flow_3d` [B, N, 3|4], `index`, ...), such as
+`data.datasets.batches`.
 """
 
 from __future__ import annotations
@@ -29,6 +36,12 @@ _HOST_KEYS = ("index", "input_h", "input_w")
 
 def _epe_map(pred: np.ndarray, target: np.ndarray) -> np.ndarray:
     return np.sqrt(np.sum((pred - target[..., : pred.shape[-1]]) ** 2, axis=-1))
+
+
+def _in_f64(sums: dict) -> dict:
+    """The sums as float64 before the ratios are taken, as the JAX Evaluator
+    takes them (a ratio of float32 sums rounds in the 8th digit)."""
+    return defaultdict(float, {key: np.float64(value) for key, value in sums.items()})
 
 
 class Evaluator:
@@ -58,13 +71,17 @@ class Evaluator:
         self.request_ms.append(1e3 * (time.perf_counter() - start))
         return outputs
 
+    def outputs(self, batches):
+        """(batch, the model's outputs as numpy) for each batch."""
+        for batch in batches:
+            yield batch, self.forward(batch)
+
     def run_things(self, batches) -> dict[str, float]:
         """eval_things.py protocol."""
         m2d = defaultdict(float)
         m3d = defaultdict(float)
         m3d_noc = defaultdict(float)
-        for batch in batches:
-            outputs = self.forward(batch)
+        for batch, outputs in self.outputs(batches):
             for b in range(len(batch["index"])):
                 if "flow_2d" in outputs:
                     pred = outputs["flow_2d"][b]
@@ -105,6 +122,7 @@ class Evaluator:
                     m3d_noc["5cm"] += np.count_nonzero(noc < 0.05)
                     m3d_noc["10cm"] += np.count_nonzero(noc < 0.1)
 
+        m2d, m3d, m3d_noc = (_in_f64(m) for m in (m2d, m3d, m3d_noc))
         results = {}
         if m2d["counts"] > 0:
             for key in ("EPE2d", "1px", "Fl"):
@@ -127,4 +145,71 @@ class Evaluator:
             results["10cm_noc"] = m3d_noc["10cm"] / m3d_noc["counts"]
             logger.info("#### 3D Metrics (Non-occluded) ####")
             logger.info("EPE: %.3f", results["EPE3d_noc"])
+        return results
+
+    def run_sintel(self, batches) -> dict[str, float]:
+        """eval_sintel.py protocol: per-scene 2D AEPE, then the total."""
+        per_scene = defaultdict(lambda: defaultdict(float))
+        for batch, outputs in self.outputs(batches):
+            for b in range(len(batch["index"])):
+                scene = batch["scene_name"][b]
+                epe = _epe_map(outputs["flow_2d"][b], batch["flow_2d"][b][..., :2])
+                mask = ~np.isnan(epe)
+                per_scene[scene]["counts"] += epe[mask].size
+                per_scene[scene]["EPE2d"] += epe[mask].sum()
+
+        total_epe, total_count = 0.0, 0
+        for scene, m in sorted(per_scene.items()):
+            if m["counts"] == 0:
+                continue
+            total_epe += m["EPE2d"]
+            total_count += m["counts"]
+            logger.info("%s:\t%.3f", scene, m["EPE2d"] / m["counts"])
+        totals = _in_f64({"EPE2d": total_epe, "counts": total_count})
+        result = float(totals["EPE2d"] / max(totals["counts"], 1))
+        logger.info("Total:\t%.3f", result)
+        return {"AEPE": result}
+
+    def run_sf_protocol(self, batches, per_sample_average: bool,
+                        use_noc_mask: bool) -> dict[str, float]:
+        """The AccS / AccR / Outlier protocols:
+        per_sample_average=False, use_noc_mask=False: things_noc_sf (HPLFlowNet);
+        per_sample_average=True,  use_noc_mask=True:  things_occ_sf (FlowNet3D);
+        per_sample_average=True,  use_noc_mask=False: kitti_occ_sf, kitti_noc_sf."""
+        m = defaultdict(float)
+        for batch, outputs in self.outputs(batches):
+            for b in range(len(batch["index"])):
+                epe = _epe_map(outputs["flow_3d"][b], batch["flow_3d"][b][..., :3])
+                rel = epe / (np.linalg.norm(batch["flow_3d"][b][..., :3], axis=-1) + 1e-4)
+                if use_noc_mask:
+                    mask = batch["noc_mask_3d"][b].astype(np.float32)
+                    acc_s = np.logical_or((epe < 0.05) * mask, (rel < 0.05) * mask)
+                    acc_r = np.logical_or((epe < 0.1) * mask, (rel < 0.1) * mask)
+                    outlier = np.logical_or((epe > 0.3) * mask, (rel > 0.1) * mask)
+                    denom = mask.sum()
+                    if denom == 0:
+                        continue
+                    m["counts"] += 1
+                    m["EPE3d"] += (epe * mask).sum() / denom
+                    m["AccS"] += np.count_nonzero(acc_s) / denom
+                    m["AccR"] += np.count_nonzero(acc_r) / denom
+                    m["Outlier"] += np.count_nonzero(outlier) / denom
+                    continue
+                acc_s = np.logical_or(epe < 0.05, rel < 0.05)
+                acc_r = np.logical_or(epe < 0.1, rel < 0.1)
+                outlier = np.logical_or(epe > 0.3, rel > 0.1)
+                n = epe.size if per_sample_average else 1
+                m["counts"] += 1 if per_sample_average else epe.size
+                m["EPE3d"] += epe.sum() / n
+                m["AccS"] += np.count_nonzero(acc_s) / n
+                m["AccR"] += np.count_nonzero(acc_r) / n
+                m["Outlier"] += np.count_nonzero(outlier) / n
+
+        m = _in_f64(m)
+        results = {key: float(m[key] / m["counts"]) for key in ("EPE3d", "AccS", "AccR", "Outlier")}
+        logger.info("#### 3D Metrics ####")
+        logger.info("EPE: %.3f", results["EPE3d"])
+        logger.info("AccS: %.2f%%", results["AccS"] * 100)
+        logger.info("AccR: %.2f%%", results["AccR"] * 100)
+        logger.info("Outlier: %.2f%%", results["Outlier"] * 100)
         return results

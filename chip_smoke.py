@@ -27,10 +27,12 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    device time (profiler) and bound, and their sums a flagship and a
    CamLiRAFT-L request; the interpolation at its two shapes by events and
    device time, its selection the plain KNN's (with --other, another
-   tree's KNN, interpolation, 3D motion encoder, 3D GRU + flow head and
-   PointConvDW tail are held to the plain versions too and timed beside
-   this tree's, by device time in turns, the GRU + flow head held to this
-   tree's bit for bit); Correlation3D's selection bit for bit, ties
+   tree's KNN, interpolation, 3D motion encoder, 3D GRU + flow head,
+   PointConvDW tail and k-major gather are held to the plain versions too
+   and timed beside this tree's, by device time in turns, the GRU + flow
+   head held to this tree's bit for bit); the k-major gather bit for bit at
+   its six main-path calls, by device, event and host time, beside one
+   advanced indexing; Correlation3D's selection bit for bit, ties
    included, CLFM's device time split by stage (profiler); FPS bit for bit,
    also on duplicated points, and its time a step; the 3D motion encoder
    (its flow columns bit for bit) by events, device time, by launch and
@@ -48,7 +50,10 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    zeroed just before them) held to what the path must launch, then a
    torch.profiler view: the top kernels, and device time and launches per
    refinement iteration and once per frame pair (requests at 20 and 10
-   iterations);
+   iterations); then the eval CLI's batch of 8: 8 frame pairs, each run
+   alone, then together in one request, each sample's output held to the
+   same sample alone within phase 5's envelope, the request's launches to a
+   bs=1 request's, with its time, device busy share and peak memory;
 5. CUDA vs CPU, for each path: the same weights and input on the CPU, where
    the plain versions run.
 
@@ -108,6 +113,7 @@ RAFT_CFGS = {  # conf/model/raft.yaml, at bench.py's 20 iterations
     "fast_inference": "auto",
 }
 INTRINSICS = (1050.0, 479.5, 269.5)
+BATCH = 8  # the eval CLI's batch (camliflow_torch/eval.py)
 
 
 def clouds(rng):
@@ -237,9 +243,10 @@ def in_turns(calls: dict, reps: int, only) -> dict[str, list[float]]:
 
 
 def other_tree(root: str):
-    """Another checkout's wrappers of #1, #3 and the 3D chain (#6, #7,
-    #13): its ops.knn, ops.interp and ops.update3d (and models.camliraft_l,
-    whose modules hoist the weights as its wrappers take them), to time
+    """Another checkout's wrappers of #1, #3, the 3D chain (#6, #7, #13)
+    and #12: its ops.knn, ops.interp, ops.update3d, models.camliraft_l
+    (whose modules hoist the weights as its wrappers take them) and
+    ops.gather, to time
     beside this tree's: its camliflow_torch imported as
     `other_camliflow_torch`, its kernels built from its own sources into its
     own build/."""
@@ -256,7 +263,8 @@ def other_tree(root: str):
     path, seconds, _ = importlib.import_module(f"{name}.csrc.build").build()
     print(f"  other tree: built {path} in {seconds:.1f} s", flush=True)
     return tuple(importlib.import_module(f"{name}.{module}")
-                 for module in ("ops.knn", "ops.interp", "ops.update3d", "models.camliraft_l"))
+                 for module in ("ops.knn", "ops.interp", "ops.update3d", "models.camliraft_l",
+                                "ops.gather"))
 
 
 def stage_ms(fn, reps: int) -> list[tuple[str, float]]:
@@ -1015,37 +1023,69 @@ def kernel_parity(device, other=None) -> list[dict]:
 
     # the k-major gather: PointConv's at the encoder's level 0 ([2, 8192] ->
     # [2, 4096], k=16) and level 1 ([2, 4096] -> [2, 2048]), xyz and
-    # [xyz, features] (99 and 131 channels), and the upsample's
+    # [xyz, features] (99 and 131 channels), and the upsample's; each held
+    # bit for bit to the plain version (with another tree, its gather too)
+    # and timed by profiler device time in turns with the other tree's, by
+    # events and by host time a call
     enc = [knn.k_nearest_neighbor(both, lv[0], 16), knn.k_nearest_neighbor(lv[0], lv[1], 16)]
     tables = [torch.cat([both, torch.randn(2, N_POINTS, 96, generator=gen, device=device)], -1),
               torch.cat([lv[0], torch.randn(2, N_SAMPLES[0], 128, generator=gen,
                                             device=device)], -1)]
     up_idx = knn.k_nearest_neighbor(xyz1, pc1, 3)
-    cases = [(both, enc[0]), (tables[0], enc[0]), (lv[0], enc[1]), (tables[1], enc[1]),
-             (xyz1, up_idx), (flow, up_idx)]
-    for data, index in cases:
-        if not torch.equal(gather.gather_points_kmajor(data, index),
-                           gather.gather_points_kmajor_plain(data, index)):
-            raise AssertionError(f"gather {tuple(data.shape)} x {tuple(index.shape)}: "
-                                 "not bit-identical to the plain version")
-    for level, (data, index) in enumerate(cases[1:4:2]):
-        out_bytes = 4 * index.numel() * data.shape[-1]
+    cases = [("level 0 xyz", both, enc[0]), ("level 0", tables[0], enc[0]),
+             ("level 1 xyz", lv[0], enc[1]), ("level 1", tables[1], enc[1]),
+             ("upsample xyz", xyz1, up_idx), ("upsample flow", flow, up_idx)]
+    gathers = {"this": gather.gather_points_kmajor}
+    if other:
+        gathers = {"other": other[4].gather_points_kmajor, **gathers}
+    gather_dev, gather_other, gather_bound, gather_host = {}, {}, {}, {}
+    for label, data, index in cases:
+        ref = gather.gather_points_kmajor_plain(data, index)
+        for tree, wrapper in gathers.items():
+            if not torch.equal(wrapper(data, index), ref):
+                raise AssertionError(f"{tree} tree's gather {label}: not bit-identical to the "
+                                     "plain version")
+        calls = {tree: lambda fn=wrapper: fn(data, index) for tree, wrapper in gathers.items()}
+        times = in_turns(calls, 50, "gather_kmajor")
+        if not all(all(t) for t in times.values()):
+            raise AssertionError(f"gather {label}: the profiler saw no gather kernel")
+        hosts = {tree: host_ms(call, 50) for tree, call in calls.items()}
+        events = {tree: time_ms(call, 50) for tree, call in calls.items()}
+        gather_dev[label], gather_host[label] = mean(times["this"]), hosts["this"]
+        if other:
+            gather_other[label] = mean(times["other"])
+        nbytes = 4 * (data.numel() + index.numel()) + 4 * index.numel() * data.shape[-1]
+        gather_bound[label] = bound(0, nbytes)[0]
+        batch, m, k = index.shape
+        print(f"  gather_points_kmajor {label} {tuple(data.shape)} x {tuple(index.shape)}: plan "
+              f"{gather.gather_plan(batch, m, k, 4 * data.shape[-1], sms)}; device "
+              f"{gather_dev[label]:.4f} ms{beside(times)}; events " + ", ".join(
+                  f"{tree} {ms:.4f}" for tree, ms in events.items()) + " ms; host " + ", ".join(
+                  f"{tree} {ms:.4f}" for tree, ms in hosts.items()) + " ms a call; bound "
+              f"{gather_bound[label]:.4f} ms", flush=True)
+    for level, (label, data, index) in enumerate(cases[1:4:2]):
         # the library call: one advanced indexing, [B, 1, 1] x [B, k, M] -> [B, k, M, C]
         rows = torch.arange(data.shape[0], device=device)[:, None, None]
         if not torch.equal(data[rows, index.transpose(1, 2)],
                            gather.gather_points_kmajor(data, index)):
             raise AssertionError("gather: the library call computes another function")
+        library = lambda: data[rows, index.transpose(1, 2)]  # noqa: E731
+        library_dev = device_ms(library, 50)
+        print(f"  gather_points_kmajor {label}: advanced indexing {library_dev:.4f} ms device",
+              flush=True)
         record("gather_points_kmajor", "camliflow_torch/csrc/gather.cu",
                "camliflow_tpu/ops/pallas_gather.py:71", 0.0,
                time_ms(lambda: gather.gather_points_kmajor(data, index), 50),
                time_ms(lambda: gather.gather_points_kmajor_plain(data, index).contiguous(), 20),
-               0, 4 * (data.numel() + index.numel()) + out_bytes,
-               label=f"gather_points_kmajor {tuple(data.shape)} x {tuple(index.shape)}",
-               entry=level == 0,
-               library_ms=time_ms(lambda: data[rows, index.transpose(1, 2)], 50))
+               0, 4 * (data.numel() + index.numel()) + 4 * index.numel() * data.shape[-1],
+               label=f"gather_points_kmajor {label} (by events)", entry=level == 0,
+               library_ms=time_ms(library, 50), library_device_ms=library_dev,
+               device_ms=gather_dev[label], host_ms=gather_host[label],
+               device_ms_by_call=gather_dev, bound_ms_by_call=gather_bound,
+               host_ms_by_call=gather_host,
+               **({"other_device_ms_by_call": gather_other} if other else {}))
 
     # tools/probe_gather_matrix.py's twelve cases through the same kernel;
-    # each is a B=1, k=1 row gather, which torch.index_select computes
     # each is a B=1, k=1 row gather, which torch.index_select computes. Timed
     # twice: CUDA events around back-to-back calls (host and device), and
     # the profiler's device time of the kernels alone
@@ -1106,6 +1146,57 @@ def drive(name, evaluator, batches, wrappers, card) -> dict:
     return launches
 
 
+def stack(batches: list[dict]) -> dict:
+    """bs=1 frame pairs as one batch, in order."""
+    return {key: np.concatenate([b[key] for b in batches]) for key in batches[0]}
+
+
+def drive_batch(name, evaluator, images, wrappers, per_request, card) -> dict:
+    """The eval CLI's batch: BATCH frame pairs made as frame_pair makes them,
+    each first run alone on the card, then one warm-up and one timed
+    request of all of them, and a profiled one. Every kernel's launches in
+    the timed request (counters zeroed just before it) must equal a bs=1
+    request's, and each sample's output must lie within phase 5's envelope
+    of the same sample run alone. Returns the launches."""
+    import torch
+
+    batches = [frame_pair(SEED + 20 + i, i, images) for i in range(BATCH)]
+    alone = [evaluator.forward(b) for b in batches]
+    batch = stack(batches)
+    evaluator.forward(batch)  # warm-up at this batch's shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    out = evaluator.forward(batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - start)
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    deltas = {}
+    for key, tol, unit in (("flow_3d", FLOW_3D_TOL, "m"), ("flow_2d", FLOW_2D_TOL, "px")):
+        if key not in out:
+            continue
+        check_output(out, key, (BATCH,) + alone[0][key].shape[1:])
+        deltas[key] = max(float(np.abs(out[key][i] - alone[i][key][0]).max())
+                          for i in range(BATCH))
+        if not deltas[key] <= tol:
+            raise AssertionError(f"bs={BATCH}: a sample's {key} differs from the same sample "
+                                 f"alone by {deltas[key]} {unit} > {tol}")
+    wall, busy, total = profile_request(evaluator, batch, top=5)
+    print(f"  {name} bs={BATCH}: request {ms:.3f} ms ({ms / BATCH:.3f} ms a frame pair), "
+          f"profiled {wall:.3f} ms wall, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), {total} kernel launches; peak {peak:.1f} MiB; max "
+          "|sample - alone| " + ", ".join(f"{k} {d:.3e}" for k, d in deltas.items()) +
+          f" | {card}", flush=True)
+    got = {k: launches[k] for k in per_request}
+    if got != per_request:
+        raise AssertionError(f"bs={BATCH} launches per request {got}, expected {per_request}")
+    print(f"  {name} bs={BATCH} launches in the request:", launches, flush=True)
+    return launches
+
+
 def check_output(out: dict, key: str, shape: tuple) -> np.ndarray:
     value = out[key]
     if value.shape != shape or not np.isfinite(value).all():
@@ -1119,8 +1210,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Proof that the port runs on one CUDA card.")
     parser.add_argument("--other", metavar="TREE",
                         help="another checkout (a parent unpacked by git archive into an "
-                             "ignored directory, say) whose #1, #3, #6, #7 and #13 phase 3 "
-                             "times beside this tree's")
+                             "ignored directory, say) whose #1, #3, #6, #7, #12 and #13 "
+                             "phase 3 times beside this tree's")
     args = parser.parse_args()
     import torch
 
@@ -1248,6 +1339,11 @@ def main() -> int:
         except Exception:
             traceback.print_exc()
             failures.append(f"{label} end to end")
+        try:  # the eval CLI's batch of 8
+            drive_batch(label, evaluator, images, wrappers, per_request, card)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{label} bs={BATCH}")
 
         # 5. CUDA vs CPU
         print(f"[5/5] {label}: same weights and input on the CPU (plain versions)",

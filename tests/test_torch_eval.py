@@ -130,8 +130,13 @@ def test_eval_cli_raft_matches_jax_evaluator(synthetic):
 
 
 def test_eval_cli_rejects_what_is_not_ported(synthetic):
+    """Every eval protocol is ported; an unknown one, the readers' training
+    augmentation and the PWC family are not."""
+    with pytest.raises(SystemExit, match="unknown protocol"):
+        torch_eval.main(["protocol=kitti_submission", "model=camliraft_l"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_eval.main(["protocol=sintel", "model=camliraft_l"])
+        torch_eval.main(["protocol=things", "testset=flyingthings3d_subset", "model=camliraft_l",
+                         "device=cpu", "testset.augmentation.enabled=true"] + synthetic)
     with pytest.raises(NotImplementedError, match="pwc"):
         torch_eval.main(["protocol=things", "testset=flyingthings3d_subset",
                          "model=pwc", "device=cpu"] + synthetic)

@@ -66,6 +66,29 @@ def test_gather_points_fast_and_knn_weighted_sum_match_jax():
         np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("batch,m,k,row_bytes,plan", [
+    (2, 4096, 16, 396, (48, 396)),  # the encoder's level-0 [xyz, features]
+    (2, 2048, 16, 524, (32, 524)),  # level 1
+    (8, 4096, 16, 396, (48, 396)),  # the eval CLI's batch
+    (2, 4096, 16, 12, (0, 0)),  # xyz: a word a thread
+    (1, 8192, 3, 12, (0, 0)),  # the upsample
+    (1, 77, 4, 1296, (16, 1296)),  # 324 floats: fewer rows, still 16-byte slabs
+    (1, 77, 4, 2000, (12, 2000)),  # too wide for 16 rows
+    (1, 10, 4, 100000, (1, gather.SLAB_BYTES)),  # wider than the buffer: pieces
+    (1, 1024, 1, 512, (16, 512)),  # few blocks: T lowered to 16
+])
+def test_gather_plan(batch, m, k, row_bytes, plan):
+    """csrc/gather.cu's plan at the main path's calls and at the edges: a
+    slab of T >= 16 rows is a whole number of 16-byte chunks and fits the
+    staging buffer."""
+    got = gather.gather_plan(batch, m, k, row_bytes, 132)
+    assert got == plan
+    rows, piece = got
+    if rows >= 16:
+        assert rows % 16 == 0 and rows * piece % 16 == 0
+    assert rows * piece <= gather.SLAB_BYTES
+
+
 def test_probe_cases_on_the_cpu():
     """tools/probe_gather_matrix.py's cases, through the wrapper's plain
     version: the case list itself (the card test runs the kernel on it)."""

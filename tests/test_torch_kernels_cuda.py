@@ -771,6 +771,67 @@ def test_probe_gather_cases(cuda, case):
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+def strided_view(base_numel, offset, shape, dtype, device, seed):
+    """A contiguous [B, N, C] view of `dtype` starting `offset` elements into
+    its storage (so at an odd address for offset 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = (50 * torch.randn(base_numel + offset, generator=gen, device=device)).to(dtype)
+    return base[offset:offset + int(np.prod(shape))].view(*shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,m,k,channels,dtype,offset", [
+    (1, 300, 77, 3, 3, torch.float32, 0),  # unaligned slabs: M * 12 bytes % 16 != 0
+    (2, 300, 77, 16, 99, torch.float32, 0),  # M % T != 0 (T = 32)
+    (2, 300, 77, 16, 131, torch.float32, 0),  # T = 16
+    (2, 300, 77, 5, 5, torch.bfloat16, 0),  # bf16 rows of 10 bytes
+    (2, 300, 77, 5, 7, torch.int8, 0),  # int8 rows of 7 bytes
+    (2, 300, 77, 4, 99, torch.float32, 1),  # a view at an odd element
+    (1, 300, 77, 3, 5, torch.bfloat16, 1),
+    (1, 300, 77, 3, 7, torch.int8, 3),
+    (2, 300, 77, 1, 3, torch.float32, 0),  # k = 1, xyz
+    (1, 2048, 8192, 3, 3, torch.float32, 0),  # the upsample: k = 3, xyz
+    (8, 4096, 2048, 16, 131, torch.float32, 0),  # B = 8, encoder level 1
+    (8, 300, 77, 16, 3, torch.float32, 0),  # B = 8, xyz
+    (1, 40, 9, 2, 5000, torch.float32, 0),  # rows wider than a buffer: pieces
+    (2, 64, 20, 3, 4, torch.float32, 0),  # 16-byte rows: 16-byte words
+])
+def test_gather_kmajor_staged_slabs(cuda, batch, n, m, k, channels, dtype, offset):
+    """The staged slab copy at the shapes that take its edge paths (an
+    unaligned slab head and tail, a last tile of M % T rows, 1- and 2-byte
+    words, a view at an odd element, rows copied in pieces) and at the main
+    path's: bit for bit the plain version, one launch."""
+    data = strided_view(batch * n * channels, offset, (batch, n, channels), dtype, cuda, 43)
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    idx = torch.randint(0, n, (batch, m, k), generator=gen, device=cuda, dtype=torch.int32)
+    idx[:, ::3, -1] = idx[:, ::3, 0]
+    before = gather.gather_points_kmajor.launches
+    got = gather.gather_points_kmajor(data, idx)
+    torch.cuda.synchronize()
+    assert gather.gather_points_kmajor.launches == before + 1
+    assert got.dtype == dtype and got.shape == (batch, k, m, channels)
+    assert torch.equal(got, gather.gather_points_kmajor_plain(data, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,plan", [(9, (16, 36)), (9, (10, 36)), (9, (1, 16)),
+                                           (3, (1024, 12)), (9, (7, 36)), (99, (0, 0)),
+                                           (3, (48, 12))])
+def test_gather_kmajor_kernel_on_plans_of_its_own(cuda, channels, plan):
+    """Plans gather_plan does not pick for these shapes (T not a multiple of
+    16, a row in 16-byte pieces, T above M, 12-byte rows staged, a wide row
+    a word a thread): bit for bit the plain version."""
+    from camliflow_torch.csrc.build import launch
+
+    data = strided_view(2 * 80 * channels, 0, (2, 80, channels), torch.float32, cuda, 45)
+    idx = torch.randint(0, 80, (2, 45, 7), device=cuda, dtype=torch.int32)
+    out = torch.empty(2, 7, 45, channels, device=cuda)
+    launch("camli_gather_kmajor", data.data_ptr(), idx.data_ptr(), out.data_ptr(), 2, 80, 45,
+           7, 4 * channels, *plan)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather.gather_points_kmajor_plain(data, idx))
+
+
 @pytest.mark.cuda
 def test_gather_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     data = torch.randn(2, 50, 7, device=cuda)
