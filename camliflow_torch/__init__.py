@@ -11,11 +11,15 @@ mirrors that package's layout and its channel-last conventions (points
 - ``csrc``     the CUDA sources and their nvcc/ctypes build
 - ``nn``       dense/norm/act blocks, point convolutions, ResNet, CLFM
 - ``models``   CamLiRAFT, CamLiRAFT-L and RAFT (eval) and the model registry
-- ``runtime``  the evaluator (the things, Sintel and scene-flow protocols)
-               and the JAX weight bridge
+- ``runtime``  the evaluator (the things, Sintel and scene-flow protocols,
+               one batch ahead), the KITTI submission writer and the JAX
+               weight bridge
+- ``postprocess`` the rigid-background refinement (host, OpenCV's solvers)
 - ``data``     the eval readers (FlyingThings3D, KITTI, Sintel and the
-               scene-flow protocols' sets)
-- ``eval.py``  the eval entry point
+               scene-flow protocols' sets), their codecs and a PNG codec
+- ``utils``    config composition, torch setup, the flow colour wheel
+- ``eval.py``, ``kitti_submission.py``, ``refine_background.py``,
+  ``demo.py``  the entry points
 
 It imports no JAX.
 """

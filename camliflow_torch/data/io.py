@@ -2,7 +2,10 @@
 what they need from camliflow_tpu/data/io.py (the reference's utils.py
 semantics): PFM, Middlebury .flo, KITTI 16-bit flow and disparity PNGs,
 KITTI calibration files, zero padding, disparity -> point cloud lifting and
-numpy camera projection. OpenCV is imported only where a PNG is decoded."""
+numpy camera projection, and the KITTI PNG writers. PNGs go through the
+port's own codec (`png.py`), which returns a file's channels in their stored
+RGB order; each function here keeps what OpenCV's BGR reads gave the JAX
+package."""
 
 from __future__ import annotations
 
@@ -11,27 +14,71 @@ from pathlib import Path
 
 import numpy as np
 
+from .png import read_png, write_png
+
 
 def load_flow_png(path: str | Path, scale: float = 64.0):
     """Load a KITTI 16-bit flow PNG.
 
-    Stored channel layout (as read by cv2, BGR): ch0 = validity, ch1 = v,
-    ch2 = u; flow = (value - 32768) / scale. Returns (flow [H, W, 2] f32 as
-    (u, v), valid_mask [H, W] bool).
+    Stored channels (RGB): R = u, G = v, B = validity; flow = (value -
+    32768) / scale. Returns (flow [H, W, 2] f32 as (u, v), valid_mask
+    [H, W] bool).
     """
-    import cv2
-
-    flow_img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
-    flow = flow_img[:, :, 2:0:-1].astype(np.float32)  # (u, v)
-    mask = flow_img[:, :, 0] > 0
+    flow_img = read_png(path)
+    flow = flow_img[:, :, 0:2].astype(np.float32)  # (u, v)
+    mask = flow_img[:, :, 2] > 0
     return (flow - 32768.0) / scale, mask
 
 
-def load_image_rgb(path: str | Path) -> np.ndarray:
-    """An 8-bit image as [H, W, 3] RGB."""
-    import cv2
+def save_flow_png(path: str | Path, flow: np.ndarray, mask=None, scale: float = 64.0) -> None:
+    """Save a KITTI 16-bit flow PNG: value = flow * scale + 32768, truncated
+    to uint16; validity 1, or (mask > 0) where a mask is given. |flow| must
+    stay under 32767 / scale."""
+    if flow.ndim != 3 or flow.shape[2] != 2:
+        raise ValueError(f"flow must be [H, W, 2], got {flow.shape}")
+    if not np.abs(flow).max() < 32767.0 / scale:
+        raise ValueError(f"|flow| reaches {np.abs(flow).max()}, the PNG holds under "
+                         f"{32767.0 / scale}")
+    flow = flow * scale + 32768.0
+    if mask is None:
+        mask = np.ones_like(flow)[..., 0]
+    else:
+        mask = np.float32(mask > 0)
+    flow_img = np.concatenate([flow[..., 0:1], flow[..., 1:2], mask[..., None]],
+                              axis=-1).astype(np.uint16)
+    write_png(path, flow_img)
 
-    return cv2.imread(str(path))[..., ::-1]
+
+def load_image_rgb(path: str | Path) -> np.ndarray:
+    """An image as [H, W, 3] RGB uint8, as OpenCV's colour read gives it:
+    grey repeated into three channels, alpha dropped, 16-bit samples cut to
+    their high byte."""
+    image = read_png(path)
+    if image.dtype == np.uint16:
+        image = (image >> 8).astype(np.uint8)
+    if image.ndim == 2:
+        image = image[..., None]
+    if image.shape[2] in (2, 4):  # drop alpha
+        image = image[..., :-1]
+    if image.shape[2] == 1:
+        image = np.repeat(image, 3, axis=2)
+    return image
+
+
+def load_grey_png(path: str | Path) -> np.ndarray:
+    """An 8-bit greyscale PNG (a class map, a mask) as [H, W] uint8."""
+    image = read_png(path)
+    if image.ndim != 2 or image.dtype != np.uint8:
+        raise ValueError(f"{path}: expected an 8-bit greyscale PNG, got {image.dtype} "
+                         f"{image.shape}")
+    return image
+
+
+def save_grey_png(path: str | Path, image: np.ndarray) -> None:
+    """Save an [H, W] uint8 array as an 8-bit greyscale PNG."""
+    if image.ndim != 2 or image.dtype != np.uint8:
+        raise ValueError(f"expected [H, W] uint8, got {image.dtype} {image.shape}")
+    write_png(path, image)
 
 
 def load_pfm(path: str | Path) -> np.ndarray:
@@ -71,13 +118,22 @@ def load_disp_png(path: str | Path):
     """Load a KITTI 16-bit disparity PNG. Returns (disp [H, W] f32,
     valid_mask [H, W]): disp = value / 256, and -1 where the value is 0
     (invalid)."""
-    import cv2
-
-    array = cv2.imread(str(path), cv2.IMREAD_UNCHANGED).astype(np.float32)
+    array = read_png(path).astype(np.float32)
     valid_mask = array > 0
     disp = array / 256.0
     disp[~valid_mask] = -1.0
     return disp, valid_mask
+
+
+def save_disp_png(path: str | Path, disp: np.ndarray, mask=None) -> None:
+    """Save a KITTI 16-bit disparity PNG: value = disp * 256, clipped to
+    uint16 and truncated; 0 (invalid) where mask, by default disp > 0, is
+    false."""
+    if mask is None:
+        mask = disp > 0
+    disp = np.clip(disp * 256.0, 0, 65535).astype(np.uint16)
+    disp[~mask] = 0
+    write_png(path, disp)
 
 
 def load_calib(path: str | Path) -> np.ndarray:

@@ -13,7 +13,9 @@ through the weight bridge, and runs one protocol in batches of 8:
                                          testset=flyingthings3d_subset_flownet3d)
     kitti_occ_sf  eval_kitti_occ_sf.py  (FlowNet3D's KITTI protocol)
     kitti_noc_sf  eval_kitti_noc_sf.py  (PointPWC's KITTI protocol)
-The two KITTI protocols read their sets from the reference's relative roots
+With `save_results=true`, `things` also writes each sample's predictions
+under prediction/things (flow_2d/%07d.png, flow_3d/%07d.npy), as eval.py
+does. The two KITTI protocols read their sets from the reference's relative roots
 under datasets/kitti_scene_flow/training, as eval.py does, with the
 testset's n_points (8192 without a testset). It runs on the CUDA card
 unless `device=cpu` is given (there the kernels' plain versions run);
@@ -70,7 +72,8 @@ def resolve_device(name: str) -> torch.device:
         raise ValueError(f"device must be cuda|cpu, got {name!r}")
     if not torch.cuda.is_available():
         raise RuntimeError("device=cuda but no CUDA card is visible; pass "
-                           "device=cpu to run the plain versions on the CPU")
+                           "device=cpu (--device cpu) to run the plain versions on "
+                           "the CPU")
     return torch.device("cuda")
 
 
@@ -111,7 +114,7 @@ def main(argv: list[str] | None = None) -> dict:
     evaluator = Evaluator(model, device)
     loader = batches(protocol_dataset(protocol, cfgs), BATCH_SIZE)
     if protocol == "things":
-        return evaluator.run_things(loader)
+        return evaluator.run_things(loader, save_results=bool(cfgs.get("save_results", False)))
     if protocol == "sintel":
         return evaluator.run_sintel(loader)
     per_sample_average, use_noc_mask = PROTOCOLS[protocol]

@@ -137,7 +137,7 @@ class CamLiRAFTCore(nn.Module):
         feat_h, feat_w = feat1_2d.shape[1:3]
         scale = torch.tensor([(feat_w - 1) / (camera_info["sensor_w"] - 1),
                               (feat_h - 1) / (camera_info["sensor_h"] - 1)],
-                             dtype=torch.float32, device=pc1.device)
+                             dtype=torch.float32).to(pc1.device, non_blocking=True)
         uv1 = project_pc2image(xyz1, camera_info) * scale
         uv2 = project_pc2image(xyzs2[0], camera_info) * scale
 
@@ -273,6 +273,10 @@ class CamLiRAFT(nn.Module):
             fuse_hidden=bool(cfgs["fuse_hidden"]),
             n_samples_list=tuple(cfgs.get("n_samples_list", DEFAULT_N_SAMPLES)),
         )
+        # on the model's device with it, so no forward copies them from the
+        # host (which would make the host wait for the card); not weights
+        self.register_buffer("image_mean", torch.tensor(_IMAGENET_MEAN), persistent=False)
+        self.register_buffer("image_std", torch.tensor(_IMAGENET_STD), persistent=False)
 
     def forward(self, inputs: dict) -> dict:
         images = inputs["images"].float()
@@ -280,10 +284,8 @@ class CamLiRAFT(nn.Module):
         intrinsics = inputs["intrinsics"].float()
         padder = InputPadder(images.shape, x=8)
         image1, image2 = padder.pad(images[..., :3], images[..., 3:])
-        mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32, device=images.device)
-        std = torch.tensor(_IMAGENET_STD, dtype=torch.float32, device=images.device)
-        image1 = ((image1 - mean) / std).contiguous()
-        image2 = ((image2 - mean) / std).contiguous()
+        image1 = ((image1 - self.image_mean) / self.image_std).contiguous()
+        image2 = ((image2 - self.image_mean) / self.image_std).contiguous()
 
         persp_cam = {
             "projection_mode": "perspective",

@@ -34,7 +34,8 @@ def all_pairs_correlation_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
     f1 = fmap1.reshape(batch, height * width, dim).float()
     f2 = fmap2.reshape(batch, height * width, dim).float()
     corr = torch.matmul(f1, f2.transpose(1, 2))
-    corr = corr / torch.sqrt(torch.tensor(dim, dtype=torch.float32, device=corr.device))
+    # sqrt(C) filled on the card (a copy from the host would make it wait)
+    corr = corr / torch.sqrt(torch.full((), dim, dtype=torch.float32, device=corr.device))
     corr = corr.reshape(batch * height * width, height, width, 1)
     pyramid = [corr]
     for _ in range(num_levels - 1):

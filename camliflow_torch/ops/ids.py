@@ -11,8 +11,12 @@ import torch
 
 
 def _expand(v, like: torch.Tensor) -> torch.Tensor:
-    """Broadcast a scalar or [B] camera parameter against [B, N] data."""
-    v = torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    """Broadcast a scalar or [B] camera parameter against [B, N] data. A
+    Python number becomes a 0-dim tensor filled on like's device (a copy
+    from the host would make the host wait for the card)."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full((), v, dtype=like.dtype, device=like.device)
+    v = v.to(dtype=like.dtype, device=like.device)
     return v[:, None] if v.dim() == 1 else v
 
 

@@ -69,3 +69,34 @@ def load_npz(path: str | Path) -> dict[str, np.ndarray]:
     """Read a flat `.npz` of JAX variables (as the JAX package saves them)."""
     with np.load(path, allow_pickle=False) as data:
         return {k: data[k] for k in data.files}
+
+
+def random_weights(model: nn.Module, seed: int) -> None:
+    """Fill every parameter and buffer from one seeded generator: Linear and
+    Conv2d U(+-1/sqrt(fan_in)), fan_in = I*kh*kw, as torch initialises
+    them; every BatchNorm (the backbone's too) perturbed from (1, 0, 0, 1)
+    so that the normalisation does real work."""
+    from ..nn.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    filled = set()
+    with torch.no_grad():
+        for name, module in model.named_modules():
+            if isinstance(module, BatchNorm):
+                module.weight.copy_(1.0 + 0.1 * torch.randn(module.weight.shape, generator=gen))
+                module.bias.copy_(0.1 * torch.randn(module.bias.shape, generator=gen))
+                module.running_mean.copy_(0.1 * torch.randn(module.running_mean.shape,
+                                                            generator=gen))
+                module.running_var.copy_(1.0 + 0.5 * torch.rand(module.running_var.shape,
+                                                                generator=gen))
+            elif isinstance(module, (nn.Linear, nn.Conv2d)):
+                bound = module.weight[0].numel() ** -0.5
+                for t in (module.weight, module.bias):
+                    if t is not None:
+                        t.copy_((2 * torch.rand(t.shape, generator=gen) - 1) * bound)
+            else:
+                continue
+            filled.update(f"{name}.{key}" for key in module.state_dict())
+    missing = set(model.state_dict()) - filled
+    if missing:
+        raise RuntimeError(f"random_weights left these unfilled: {sorted(missing)[:5]}")

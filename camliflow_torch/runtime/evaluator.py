@@ -14,14 +14,19 @@ lines, summed on the host in numpy.
 Batches come from any iterable of dicts in the readers' sample format
 (`images` [B, H, W, 6], `flow_2d` [B, H, W, 2|3], `pcs` [B, N, 6],
 `intrinsics` [B, 3], `flow_3d` [B, N, 3|4], `index`, ...), such as
-`data.datasets.batches`.
+`data.datasets.batches`. The protocols iterate `Evaluator.batches`, which
+runs one batch ahead: batch i + 1's forward is on the card's stream before
+batch i's outputs are handed out, so the host's metric sums, and the file
+writing of `run_things(save_results=True)`, overlap the card's work.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from collections import defaultdict
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -44,13 +49,23 @@ def _in_f64(sums: dict) -> dict:
     return defaultdict(float, {key: np.float64(value) for key, value in sums.items()})
 
 
+@dataclass
+class Pending:
+    """A forward on its way: the outputs, or the host buffers they are being
+    copied into, and the event recorded after the copies were enqueued
+    (None where the forward ran on the CPU)."""
+
+    outputs: dict[str, torch.Tensor]
+    done: torch.cuda.Event | None
+
+
 class Evaluator:
     """Run a model over batches and reduce the protocol's metrics.
 
-    `request_ms` records each forward's wall time, from the host arrays in to
-    the host arrays out (the copy back waits for the device). Building one
-    turns TF32 off (`setup_torch`), so the model's cuDNN convolutions and
-    matrix products run in full f32, as the reference computes them."""
+    `request_ms` records each `forward`'s wall time, from the host arrays in
+    to the host arrays out. Building one turns TF32 off (`setup_torch`), so
+    the model's cuDNN convolutions and matrix products run in full f32, as
+    the reference computes them."""
 
     def __init__(self, model: nn.Module, device: torch.device | str):
         setup_torch()
@@ -58,30 +73,66 @@ class Evaluator:
         self.model = model.to(self.device).eval()
         self.request_ms: list[float] = []
 
-    def forward(self, batch: dict) -> dict[str, np.ndarray]:
-        start = time.perf_counter()
-        inputs = {
-            k: torch.as_tensor(v, device=self.device)
-            for k, v in batch.items()
-            if isinstance(v, np.ndarray) and k not in _HOST_KEYS
-        }
+    def enqueue(self, batch: dict) -> Pending:
+        """Start the forward of `batch` without waiting for the card. On a
+        CUDA device the inputs go up from pinned host memory and the outputs
+        come back into pinned host buffers, both without blocking the host
+        (a copy to or from pageable memory would wait for the stream)."""
+        arrays = {k: v for k, v in batch.items()
+                  if isinstance(v, np.ndarray) and k not in _HOST_KEYS}
+        cuda = self.device.type == "cuda"
+        inputs = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+        if cuda:
+            inputs = {k: v.pin_memory().to(self.device, non_blocking=True)
+                      for k, v in inputs.items()}
         with torch.inference_mode():
             outputs = self.model(inputs)
-        outputs = {k: v.cpu().numpy() for k, v in outputs.items()}
+        if not cuda:
+            return Pending(outputs, None)
+        host = {}
+        for key, value in outputs.items():
+            host[key] = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+            host[key].copy_(value, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return Pending(host, done)
+
+    @staticmethod
+    def fetch(pending: Pending) -> dict[str, np.ndarray]:
+        """Wait for an enqueued forward and return its outputs as numpy."""
+        if pending.done is not None:
+            pending.done.synchronize()
+        return {k: v.numpy() for k, v in pending.outputs.items()}
+
+    def forward(self, batch: dict) -> dict[str, np.ndarray]:
+        """One request, start to finish: the model's outputs as numpy."""
+        start = time.perf_counter()
+        outputs = self.fetch(self.enqueue(batch))
         self.request_ms.append(1e3 * (time.perf_counter() - start))
         return outputs
 
-    def outputs(self, batches):
-        """(batch, the model's outputs as numpy) for each batch."""
+    def batches(self, batches):
+        """(batch, the model's outputs as numpy) for each batch, one batch
+        ahead: the next batch's forward is enqueued before this batch's
+        outputs are fetched."""
+        pending = None
         for batch in batches:
-            yield batch, self.forward(batch)
+            launched = (batch, self.enqueue(batch))
+            if pending is not None:
+                yield pending[0], self.fetch(pending[1])
+            pending = launched
+        if pending is not None:
+            yield pending[0], self.fetch(pending[1])
 
-    def run_things(self, batches) -> dict[str, float]:
-        """eval_things.py protocol."""
+    def run_things(self, batches, save_results: bool = False,
+                   save_dir: str = "prediction/things") -> dict[str, float]:
+        """eval_things.py protocol. With `save_results`, each sample's
+        predictions also go to `save_dir`: flow_2d/%07d.png (KITTI 16-bit
+        flow, clipped to +-500 px) and flow_3d/%07d.npy, by its index."""
         m2d = defaultdict(float)
         m3d = defaultdict(float)
         m3d_noc = defaultdict(float)
-        for batch, outputs in self.outputs(batches):
+        for batch, outputs in self.batches(batches):
             for b in range(len(batch["index"])):
                 if "flow_2d" in outputs:
                     pred = outputs["flow_2d"][b]
@@ -99,6 +150,8 @@ class Evaluator:
                     m2d["EPE2d"] += epe[mask].sum()
                     m2d["1px"] += np.count_nonzero(epe[mask] < 1.0)
                     m2d["Fl"] += fl[mask].sum()
+                    if save_results:
+                        save_flow2d(save_dir, batch["index"][b], pred)
                 if "flow_3d" not in outputs:
                     continue
                 pred = outputs["flow_3d"][b]
@@ -121,6 +174,8 @@ class Evaluator:
                     m3d_noc["EPE3d"] += noc.sum()
                     m3d_noc["5cm"] += np.count_nonzero(noc < 0.05)
                     m3d_noc["10cm"] += np.count_nonzero(noc < 0.1)
+                if save_results:
+                    save_flow3d(save_dir, batch["index"][b], pred)
 
         m2d, m3d, m3d_noc = (_in_f64(m) for m in (m2d, m3d, m3d_noc))
         results = {}
@@ -150,7 +205,7 @@ class Evaluator:
     def run_sintel(self, batches) -> dict[str, float]:
         """eval_sintel.py protocol: per-scene 2D AEPE, then the total."""
         per_scene = defaultdict(lambda: defaultdict(float))
-        for batch, outputs in self.outputs(batches):
+        for batch, outputs in self.batches(batches):
             for b in range(len(batch["index"])):
                 scene = batch["scene_name"][b]
                 epe = _epe_map(outputs["flow_2d"][b], batch["flow_2d"][b][..., :2])
@@ -177,7 +232,7 @@ class Evaluator:
         per_sample_average=True,  use_noc_mask=True:  things_occ_sf (FlowNet3D);
         per_sample_average=True,  use_noc_mask=False: kitti_occ_sf, kitti_noc_sf."""
         m = defaultdict(float)
-        for batch, outputs in self.outputs(batches):
+        for batch, outputs in self.batches(batches):
             for b in range(len(batch["index"])):
                 epe = _epe_map(outputs["flow_3d"][b], batch["flow_3d"][b][..., :3])
                 rel = epe / (np.linalg.norm(batch["flow_3d"][b][..., :3], axis=-1) + 1e-4)
@@ -213,3 +268,17 @@ class Evaluator:
         logger.info("AccR: %.2f%%", results["AccR"] * 100)
         logger.info("Outlier: %.2f%%", results["Outlier"] * 100)
         return results
+
+
+def save_flow2d(save_dir: str, index, pred: np.ndarray) -> None:
+    """flow_2d/%07d.png under save_dir: the flow clipped to +-500 px."""
+    from ..data.io import save_flow_png
+
+    os.makedirs(f"{save_dir}/flow_2d", exist_ok=True)
+    save_flow_png(f"{save_dir}/flow_2d/%07d.png" % int(index), np.clip(pred, -500, 500))
+
+
+def save_flow3d(save_dir: str, index, pred: np.ndarray) -> None:
+    """flow_3d/%07d.npy under save_dir."""
+    os.makedirs(f"{save_dir}/flow_3d", exist_ok=True)
+    np.save(f"{save_dir}/flow_3d/%07d.npy" % int(index), pred)

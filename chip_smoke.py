@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--other TREE]
 
-Drives the port's four main paths at full width, CamLiRAFT-L eval (8192
+Drives the port's main paths at full width, CamLiRAFT-L eval (8192
 points per cloud, n_samples_list 4096..256, 20 iterations, bs=1, IDS on),
 the flagship CamLiRAFT eval (conf/model/camliraft.yaml: ResNet-50 cut at
 stage 2, CLFM at fnet/cnet/corr/motion, 960x540 images padded to 960x544
@@ -46,8 +46,10 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
 4. end to end, for each path: random weights from a seeded
    torch.Generator, synthetic inputs made with numpy from a seed (bench.py's
    recipe plus a target), through the port's Evaluator: 1 warm-up and 3
-   requests, with every kernel's launch count over the 3 requests (counters
-   zeroed just before them) held to what the path must launch, then a
+   requests through run_things (one batch ahead), with every kernel's
+   launch count over the 3 requests (counters zeroed just before them) held
+   to what the path must launch, each request again alone through forward
+   for its own time, then a
    torch.profiler view: the top kernels, and device time and launches per
    refinement iteration and once per frame pair (requests at 20 and 10
    iterations); then the eval CLI's batch of 8: 8 frame pairs, each run
@@ -55,9 +57,28 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    same sample alone within phase 5's envelope, the request's launches to a
    bs=1 request's, with its time, device busy share and peak memory;
 5. CUDA vs CPU, for each path: the same weights and input on the CPU, where
-   the plain versions run.
+   the plain versions run;
+6. the Evaluator's one-batch lookahead: the flagship over 4 batches of 8
+   frame pairs through run_things, one batch ahead and through a
+   synchronous loop over forward, in turns; outputs and metrics bit for
+   bit; wall time a batch, device busy share, the host's time to issue a
+   forward and to sum a batch's metrics, and where a forward makes the
+   host wait (set_sync_debug_mode);
+7. the KITTI submission: 8 synthetic frames at 375x1242 (written with the
+   port's PNG encoder, KITTI's P_rect_02, 3-70 m of disparity), the
+   flagship at bs=8 as `python -m camliflow_torch.kitti_submission`
+   configures it; the files decoded to their shapes, launches held to one
+   flagship request plus a densification a frame, ms a frame split into
+   forward, reading, densification and files, one frame against the CPU,
+   #3 at the densify shape ([1, 465,750] <- [1, 8192]) against its plain
+   version run over chunks of queries (and #1 there, bit for bit), and #9,
+   #8 and #11 at KITTI's 47x156 map beside the bench's 68x120;
+8. the demo: `camliflow_torch.demo` on a synthetic 960x540 pair with PFM
+   disparities, on the card (launches held to one flagship request) and on
+   the CPU.
 
-Prints the kernels' JSON line, then the card's name and power limit, then, as
+Each path's launches (4, 7 and 8) are counted with every counter zeroed
+just before it and read just after. Prints the kernels' JSON line, then the card's name and power limit, then, as
 the last line, the device JSON with "ok": true. Exits non-zero, without that
 line, if any phase fails or there is no CUDA card.
 """
@@ -140,40 +161,6 @@ def frame_pair(seed: int, index: int, images: bool = False) -> dict:
     return batch
 
 
-def random_weights(model, seed: int) -> None:
-    """Fill every parameter and buffer from one seeded generator: Linear and
-    Conv2d U(+-1/sqrt(fan_in)), fan_in = I*kh*kw, as torch initialises
-    them; every BatchNorm (the backbone's too) perturbed from (1, 0, 0, 1)
-    so that the normalisation does real work."""
-    import torch
-    from torch import nn
-
-    from camliflow_torch.nn.layers import BatchNorm
-
-    gen = torch.Generator().manual_seed(seed)
-    filled = set()
-    with torch.no_grad():
-        for name, module in model.named_modules():
-            if isinstance(module, BatchNorm):
-                module.weight.copy_(1.0 + 0.1 * torch.randn(module.weight.shape, generator=gen))
-                module.bias.copy_(0.1 * torch.randn(module.bias.shape, generator=gen))
-                module.running_mean.copy_(0.1 * torch.randn(module.running_mean.shape,
-                                                            generator=gen))
-                module.running_var.copy_(1.0 + 0.5 * torch.rand(module.running_var.shape,
-                                                                generator=gen))
-            elif isinstance(module, (nn.Linear, nn.Conv2d)):
-                bound = module.weight[0].numel() ** -0.5
-                for t in (module.weight, module.bias):
-                    if t is not None:
-                        t.copy_((2 * torch.rand(t.shape, generator=gen) - 1) * bound)
-            else:
-                continue
-            filled.update(f"{name}.{key}" for key in module.state_dict())
-    missing = set(model.state_dict()) - filled
-    if missing:
-        raise AssertionError(f"random_weights left these unfilled: {sorted(missing)[:5]}")
-
-
 def time_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps, with CUDA events, after a warm-up."""
     import torch
@@ -212,22 +199,62 @@ def bound(ops: float, nbytes: float, peak: float = PEAK_F32) -> tuple[float, str
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def device_ms(fn, reps: int, only: str = "") -> float:
-    """fn()'s device time per call from torch.profiler: the self device
-    time of every kernel it launched (whose name holds `only`), summed,
-    over reps calls."""
+PROFILE_TRIES = 6  # the profiler on the H100 drops all or part of a run's events, now and then
+
+
+def profile_kernels(fn, only: str = "", partial: bool = False) -> tuple[float, list]:
+    """fn() under torch.profiler: (wall ms, the device kernels it launched
+    whose name holds `only`). A profile is taken as whole when it holds as
+    many launches as the profile before it, within 1%: over thousands of
+    launches the profiles of one run differ by a few, while one that lost
+    part of its events lost far more. With `partial`, any profile that kept
+    a launch will do (the caller averages over the launches it kept).
+    Another profile is taken until one does, up to PROFILE_TRIES; then it
+    raises, so no device time is ever reported that was not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    named = f" named {only}" if only else ""
+    previous = None
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - start)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and only in e.key]
+        seen = sum(e.count for e in kernels)
+        if seen and (partial or previous and abs(seen - previous) <= previous // 100):
+            return wall, kernels
+        if previous is not None or not seen:
+            against = f", the one before {previous}" if previous is not None else ""
+            print(f"  (profile {attempt + 1} of {PROFILE_TRIES} recorded {seen} kernel launches"
+                  f"{named}{against})", flush=True)
+        previous = seen
+    raise AssertionError(f"{PROFILE_TRIES} profiles lost kernel launches{named}: device time "
+                         "not measured")
+
+
+def device_ms(fn, reps: int, only: str = "", per_call: int | None = None) -> float:
+    """fn()'s device time per call from torch.profiler: the self device
+    time of every kernel it launched (whose name holds `only`), summed,
+    over reps calls (profile_kernels). per_call: where one kernel is all
+    that matches and a call launches it per_call times, its mean time over
+    the launches a profile kept, times per_call, which a profile that lost
+    some of them gives as well."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and only in e.key]
-    return sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    _, kernels = profile_kernels(lambda: [fn() for _ in range(reps)], only,
+                                 partial=per_call is not None)
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if per_call is None:
+        return total / reps
+    if len(kernels) != 1:
+        raise AssertionError(f"device_ms: {len(kernels)} kernels named {only}, expected one")
+    return total / kernels[0].count * per_call
 
 
 def in_turns(calls: dict, reps: int, only) -> dict[str, list[float]]:
@@ -276,12 +303,16 @@ def stage_ms(fn, reps: int) -> list[tuple[str, float]]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
+    for _ in range(PROFILE_TRIES):  # as in device_ms
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        if kernels:
+            break
     if not kernels or len(kernels) % reps:
         return []
     per = len(kernels) // reps
@@ -357,21 +388,10 @@ def profile_request(evaluator, batch, top: int = 15):
     """One request under torch.profiler: the device's busy share of the
     request's wall time and the kernels that take the most device time.
     Returns (wall ms, device busy ms, kernel launches)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        evaluator.forward(batch)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - start)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    wall, kernels = profile_kernels(lambda: evaluator.forward(batch))
+    wall_us = 1e3 * wall
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    if not busy_us:
-        print("  profile: the profiler saw no device time")
-        return wall_us / 1e3, 0.0, launches
     print(f"  profile: request {wall_us / 1e3:.3f} ms wall, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
           f"{launches} kernel launches")
@@ -468,6 +488,7 @@ def kernel_parity(device, other=None) -> list[dict]:
     from camliflow_torch.models.raft import FlowHead2D, GRU2D, MotionEncoder2D
     from camliflow_torch.nn.clfm import CLFM, fusion_interp_cache
     from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
+    from camliflow_torch.runtime.checkpoint import random_weights
 
     both = main_path_clouds(device)  # [2, 8192, 3]
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -567,8 +588,6 @@ def kernel_parity(device, other=None) -> list[dict]:
         calls = {tree: lambda w=wrapper: w(support, query, k)
                  for tree, wrapper in knn_wrappers.items()}
         times = in_turns(calls, 20, "knn_kernel")
-        if not all(all(t) for t in times.values()):
-            raise AssertionError(f"KNN {label}: the profiler saw no knn_kernel launch")
         knn_dev[label] = mean(times["this"])
         if other:
             knn_other[label] = mean(times["other"])
@@ -1047,8 +1066,6 @@ def kernel_parity(device, other=None) -> list[dict]:
                                      "plain version")
         calls = {tree: lambda fn=wrapper: fn(data, index) for tree, wrapper in gathers.items()}
         times = in_turns(calls, 50, "gather_kmajor")
-        if not all(all(t) for t in times.values()):
-            raise AssertionError(f"gather {label}: the profiler saw no gather kernel")
         hosts = {tree: host_ms(call, 50) for tree, call in calls.items()}
         events = {tree: time_ms(call, 50) for tree, call in calls.items()}
         gather_dev[label], gather_host[label] = mean(times["this"]), hosts["this"]
@@ -1120,8 +1137,10 @@ def kernel_parity(device, other=None) -> list[dict]:
 
 
 def drive(name, evaluator, batches, wrappers, card) -> dict:
-    """1 warm-up and 3 requests through the Evaluator; the launch counts of
-    the 3 requests (counters zeroed just before them)."""
+    """1 warm-up and 3 requests through the Evaluator's run_things (one batch
+    ahead), then the same 3 requests each through `forward` for their own
+    times; the launch counts of run_things' 3 requests (counters zeroed just
+    before them)."""
     import torch
 
     evaluator.run_things(batches[:1])  # warm-up
@@ -1131,12 +1150,15 @@ def drive(name, evaluator, batches, wrappers, card) -> dict:
     for fn in wrappers.values():
         fn.launches = 0
     start = time.perf_counter()
-    metrics = evaluator.run_things(batches[1:])
+    metrics = evaluator.run_things(batches[1:])  # one batch ahead
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = {key: fn.launches for key, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**20
     ms = 1e3 * seconds / 3
+    evaluator.request_ms.clear()
+    for batch in batches[1:]:  # each request alone, start to finish
+        evaluator.forward(batch)
     requests = ", ".join(f"{t:.3f}" for t in evaluator.request_ms)
     shown = " | ".join(f"{k} {v:.6f}" for k, v in metrics.items() if k.startswith("EPE"))
     print(f"  {name}: {shown} | {ms:.3f} ms per frame pair | {1e3 / ms:.3f} "
@@ -1204,6 +1226,450 @@ def check_output(out: dict, key: str, shape: tuple) -> np.ndarray:
     return value
 
 
+KITTI_P2 = (721.5377, 0.0, 609.5593, 44.85728, 0.0, 721.5377, 172.854, 0.2163791,
+            0.0, 0.0, 1.0, 0.002745884)  # KITTI's P_rect_02 (2011_09_26 calibration)
+KITTI_H, KITTI_W = 375, 1242  # a KITTI image; the reader pads it to 376 x 1242
+KITTI_FRAMES = 8
+WORK = "build/chip_smoke"  # under the checkout's ignored build/
+
+
+def kitti_disparity(rng, shift: float) -> np.ndarray:
+    """A road-like disparity map at KITTI's focal length and 0.54 m baseline:
+    depth from 70 m at row 110 down to 3 m at the bottom row, less `shift`
+    (frame 2: the car moved forward), boxes of nearer objects, far sky above
+    row 100, noise, and 2% of the pixels invalid (0)."""
+    rows = np.arange(KITTI_H, dtype=np.float32)[:, None] * np.ones((1, KITTI_W), np.float32)
+    depth = 70.0 * (3.0 / 70.0) ** np.clip((rows - 110) / (KITTI_H - 1 - 110), 0, 1) - shift
+    for x0, y0, z in ((200, 150, 12.0), (700, 170, 25.0), (1000, 140, 8.0)):
+        depth[y0:y0 + 80, x0:x0 + 150] = np.minimum(depth[y0:y0 + 80, x0:x0 + 150], z - shift)
+    disp = 0.54 * KITTI_P2[0] / depth + 0.2 * rng.rand(KITTI_H, KITTI_W)
+    disp[:100] = 0.54 * KITTI_P2[0] / 150.0
+    disp[rng.rand(KITTI_H, KITTI_W) < 0.02] = 0.0
+    return disp.astype(np.float32)
+
+
+def write_kitti_split(root) -> None:
+    """A synthetic KITTI testing split of KITTI_FRAMES frames at 375 x 1242,
+    written with the port's own PNG encoder: calib_cam_to_cam (KITTI's
+    P_rect_02), image_2 (both frames) and disp_ganet (both frames)."""
+    import os
+
+    from camliflow_torch.data import io
+    from camliflow_torch.data.png import write_png
+
+    base = os.path.join(root, "testing")
+    for sub in ("calib_cam_to_cam", "image_2", "disp_ganet"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    rng = np.random.RandomState(SEED + 40)
+    cols = np.arange(KITTI_W)[None, :, None]
+    for i in range(KITTI_FRAMES):
+        with open(os.path.join(base, "calib_cam_to_cam", "%06d.txt" % i), "w") as f:
+            f.write("P_rect_02: " + " ".join(f"{v:e}" for v in KITTI_P2) + "\n")
+        for suffix, shift in (("10", 0.0), ("11", 1.0)):
+            image = (rng.randint(0, 60, (KITTI_H, KITTI_W, 3)) + (cols + 40 * i) % 190)
+            write_png(os.path.join(base, "image_2", "%06d_%s.png" % (i, suffix)),
+                      image.astype(np.uint8))
+            io.save_disp_png(os.path.join(base, "disp_ganet", "%06d_%s.png" % (i, suffix)),
+                             kitti_disparity(rng, shift))
+
+
+def write_pfm(path, image: np.ndarray) -> None:
+    """A greyscale little-endian PFM, bottom row first."""
+    with open(path, "wb") as f:
+        f.write(b"Pf\n%d %d\n-1.0\n" % (image.shape[1], image.shape[0]))
+        np.flipud(image).astype("<f4").tofile(f)
+
+
+def profiled(fn) -> tuple[float, float]:
+    """fn() under torch.profiler: (wall ms, device busy ms)."""
+    wall, kernels = profile_kernels(fn)
+    return wall, sum(e.self_device_time_total for e in kernels) / 1e3
+
+
+def host_syncs(fn) -> list[str]:
+    """The places where fn() made the host wait for the card, from
+    torch.cuda.set_sync_debug_mode("warn"): file:line (repo-relative) and
+    the warning, with their counts."""
+    import collections
+    import os
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}: {str(w.message).splitlines()[0][:70]}"
+        for w in caught if "called a synchronizing" in str(w.message))
+    return [f"{count}x {site}" for site, count in sites.most_common()]
+
+
+def lookahead_phase(device, card) -> None:
+    """The flagship over 4 batches of BATCH in-memory frame pairs through
+    run_things: with the Evaluator's one-batch lookahead and with a
+    synchronous loop over forward, in turns (lookahead, synchronous,
+    synchronous, lookahead). Outputs and metrics bit for bit equal; wall
+    time per batch of each run and each loop's device busy share by
+    profiler; the host's time to issue one forward (enqueue) and to reduce
+    one batch's metrics; the places where one forward makes the host
+    wait."""
+    import torch
+
+    from camliflow_torch.models.camliraft import CamLiRAFT
+    from camliflow_torch.runtime.checkpoint import random_weights
+    from camliflow_torch.runtime.evaluator import Evaluator
+
+    model = CamLiRAFT(FLAGSHIP_CFGS)
+    random_weights(model, SEED)
+    ev = Evaluator(model, device)
+    data = [stack([frame_pair(SEED + 60 + 8 * j + i, 8 * j + i, True) for i in range(BATCH)])
+            for j in range(4)]
+    ev.forward(data[0])  # warm-up at this batch's shapes
+    torch.cuda.synchronize()
+    lookahead = ev.batches
+
+    def synchronous(loader):
+        for batch in loader:
+            yield batch, ev.forward(batch)
+
+    loops = {"lookahead": lookahead, "synchronous": synchronous}
+    runs = {name: [] for name in loops}
+    for name in ("lookahead", "synchronous", "synchronous", "lookahead"):
+        seen = []
+
+        def recording(loader, loop=loops[name], seen=seen):
+            for batch, out in loop(loader):
+                seen.append(out)
+                yield batch, out
+
+        ev.batches = recording
+        start = time.perf_counter()
+        metrics = ev.run_things(data)
+        torch.cuda.synchronize()
+        runs[name].append((1e3 * (time.perf_counter() - start) / len(data), seen, metrics))
+    busy = {}
+    for name, loop in loops.items():
+        ev.batches = loop
+        busy[name] = profiled(lambda: ev.run_things(data))
+    ev.batches = lookahead
+    for name, results in runs.items():
+        wall, share = busy[name][0], 100 * busy[name][1] / busy[name][0]
+        print(f"  {name}: " + ", ".join(f"{ms:.3f}" for ms, _, _ in results) +
+              f" ms a batch of {BATCH} ({len(data)} batches a run); profiled {wall:.3f} ms "
+              f"wall, device busy {busy[name][1]:.3f} ms ({share:.1f}%) | {card}", flush=True)
+    reference = runs["synchronous"][0]
+    for name, results in runs.items():
+        for _, seen, metrics in results:
+            if len(seen) != len(reference[1]) or any(
+                    set(a) != set(b) or any(not np.array_equal(a[k], b[k]) for k in a)
+                    for a, b in zip(seen, reference[1])):
+                raise AssertionError(f"{name}: outputs differ from the synchronous loop's")
+            if metrics != reference[2]:
+                raise AssertionError(f"{name}: metrics {metrics} differ from {reference[2]}")
+    print(f"  every run's outputs and metrics bit for bit the same: {reference[2]}")
+    start = time.perf_counter()
+    pending = ev.enqueue(data[0])
+    issued = time.perf_counter()
+    outputs = ev.fetch(pending)
+    fetched = time.perf_counter()
+    ev.batches = lambda loader: zip(loader, [outputs] * len(data))
+    start_metrics = time.perf_counter()
+    ev.run_things(data)
+    metrics_ms = 1e3 * (time.perf_counter() - start_metrics) / len(data)
+    ev.batches = lookahead
+    print(f"  one batch: the host issues its forward in {1e3 * (issued - start):.3f} ms, its "
+          f"outputs are on the host {1e3 * (fetched - start):.3f} ms after the start; the "
+          f"host's metric sums {metrics_ms:.3f} ms a batch | {card}", flush=True)
+    sites = host_syncs(lambda: ev.enqueue(data[0]))
+    print(f"  host syncs in one enqueued forward (set_sync_debug_mode): {len(sites)} places")
+    for site in sites:
+        print(f"    {site}")
+
+
+def map_kernels_2d(device, feat_h: int, feat_w: int) -> dict[str, float]:
+    """#9, #8 and #11 (corr widths) at a 1/8 map of feat_h x feat_w against
+    their plain versions (CONV_TOL), with phase 3's weight seeds: ms a call
+    by CUDA events, by wrapper. Not by profiler: on the H100 its profiles of
+    these calls kept a varying share of their launches, no two alike."""
+    import torch
+    from torch import nn
+
+    from camliflow_torch.models.raft import FlowHead2D, GRU2D, MotionEncoder2D
+    from camliflow_torch.nn.clfm import CLFM, fusion_interp_cache
+    from camliflow_torch.ops import clfm, update2d
+    from camliflow_torch.runtime.checkpoint import random_weights
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    blocks = nn.ModuleList([MotionEncoder2D(), GRU2D(), FlowHead2D()])
+    random_weights(blocks, SEED + 7)
+    encoder, gru, head = blocks.to(device)
+    block = CLFM(324, 128).eval()
+    random_weights(block, SEED + 10)
+    block = block.to(device)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=device)
+
+    def check(name, got, ref):
+        err = float((got - ref).abs().max())
+        if not err <= CONV_TOL * (1.0 + float(ref.abs().max())):
+            raise AssertionError(f"{name} at {feat_h}x{feat_w}: max |d| {err}")
+
+    shape = (1, feat_h, feat_w)
+    times = {}
+    with torch.inference_mode():
+        flow2d, corr = rand(*shape, 2, scale=2.0), rand(*shape, 324)
+        me = update2d.prepare_motion_encoder_params(encoder)
+        check("motion_encoder_2d", update2d.motion_encoder_2d(flow2d, corr, me),
+              update2d.motion_encoder_2d_plain(flow2d, corr, me))
+        times["motion_encoder_2d"] = time_ms(
+            lambda: update2d.motion_encoder_2d(flow2d, corr, me), 20)
+        h, x2d, motion = torch.tanh(rand(*shape, 128)), torch.relu(rand(*shape, 128)), \
+            rand(*shape, 128)
+        gf = update2d.prepare_gru_flowhead_params(gru, head)
+        got, ref = (update2d.gru_flowhead_2d(h, x2d, motion, gf),
+                    update2d.gru_flowhead_2d_plain(h, x2d, motion, gf))
+        check("gru_flowhead_2d h'", got[0], ref[0])
+        check("gru_flowhead_2d delta", got[1], ref[1])
+        times["gru_flowhead_2d"] = time_ms(
+            lambda: update2d.gru_flowhead_2d(h, x2d, motion, gf), 20)
+        m = N_SAMPLES[1]
+        uv = (torch.rand(1, m, 2, generator=gen, device=device)
+              * torch.tensor([feat_w - 1.0, feat_h - 1.0], device=device)).contiguous()
+        cache = fusion_interp_cache(uv, feat_h, feat_w)
+        inputs = (rand(*shape, 324), rand(1, m, 128),
+                  clfm.hoist_interp_score(block.interp, cache[1]), cache[0],
+                  *clfm.grid_sample_cache(uv, feat_h, feat_w))
+        params = clfm.prepare_clfm_params(block)
+        got, ref = clfm.clfm_fused(*inputs, params), clfm.clfm_fused_plain(*inputs, params)
+        check("clfm out_2d", got[0], ref[0])
+        check("clfm out_3d", got[1], ref[1])
+        times["clfm_fused"] = time_ms(lambda: clfm.clfm_fused(*inputs, params), 20)
+    return times
+
+
+def submission_phase(device, wrappers, per_request, card, kernels) -> dict:
+    """The KITTI submission on the card: a synthetic testing split of
+    KITTI_FRAMES frames at 375 x 1242, the flagship at full width with
+    seeded random weights, bs=8, 8192 points, configured as
+    `python -m camliflow_torch.kitti_submission model=camliraft` configures
+    it. One warm-up run, then a timed one with every wrapper's launches
+    counted (one request of 8 frames, plus a densification a frame). Holds
+    the files' shapes, #3 at the densify shape against its chunked plain
+    version, one frame against the CPU, and #1 at the same shape. Returns
+    the launches of the timed run."""
+    import os
+    import shutil
+
+    import torch
+
+    from camliflow_torch import kitti_submission
+    from camliflow_torch.data import io
+    from camliflow_torch.data.datasets import KITTITest, collate
+    from camliflow_torch.data.png import read_png
+    from camliflow_torch.models.camliraft import CamLiRAFT
+    from camliflow_torch.ops import interp, knn
+    from camliflow_torch.runtime.checkpoint import random_weights
+    from camliflow_torch.runtime.evaluator import Evaluator
+    from camliflow_torch.runtime.submission import SubmissionWriter, over_query_chunks
+
+    root = os.path.join(WORK, "kitti")
+    shutil.rmtree(root, ignore_errors=True)
+    start = time.perf_counter()
+    write_kitti_split(root)
+    print(f"  wrote {KITTI_FRAMES} synthetic KITTI frames in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    cfgs, _ = kitti_submission.configure(["model=camliraft", f"testset.root_dir={root}"])
+    model = CamLiRAFT(cfgs.model.to_dict())
+    random_weights(model, SEED)
+    cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
+    length = KITTITest.__len__
+    KITTITest.__len__ = lambda self: KITTI_FRAMES  # the split's first 8 frames
+    try:
+        writer = SubmissionWriter(cfgs, model, device)
+        out_root = os.path.join(WORK, "submission")
+        writer.run(out_root)  # warm-up at KITTI's shapes
+        torch.cuda.synchronize()
+        writer.frame_ms = {key: [] for key in writer.frame_ms}
+        for fn in wrappers.values():
+            fn.launches = 0
+        start = time.perf_counter()
+        writer.run(out_root)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - start)
+        launches = {key: fn.launches for key, fn in wrappers.items()}
+    finally:
+        KITTITest.__len__ = length
+    expected = {**per_request, "knn_interpolation": per_request["knn_interpolation"]
+                + KITTI_FRAMES}
+    got = {k: launches[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f"submission launches {got}, expected {expected} (one flagship "
+                             f"request and a densification a frame)")
+    shapes = {"disp_0": ((KITTI_H, KITTI_W), np.uint16),
+              "flow_initial": ((KITTI_H, KITTI_W, 3), np.uint16),
+              "disp_1_initial": ((KITTI_H, KITTI_W), np.uint16),
+              "occ": ((KITTI_H, KITTI_W), np.uint8)}
+    for sub, (shape, dtype) in shapes.items():
+        for i in range(KITTI_FRAMES):
+            image = read_png(os.path.join(out_root, "testing", sub, "%06d_10.png" % i))
+            if image.shape != shape or image.dtype != dtype:
+                raise AssertionError(f"{sub}/{i}: {image.dtype} {image.shape}, expected "
+                                     f"{dtype.__name__} {shape}")
+    # the split per frame: the forward of the batch (synchronous, again),
+    # reading a frame, the densification, the files
+    dataset = KITTITest(cfgs.testset)
+    start = time.perf_counter()
+    samples = [dataset[i] for i in range(KITTI_FRAMES)]
+    read_ms = 1e3 * (time.perf_counter() - start) / KITTI_FRAMES
+    evaluator = writer.evaluator
+    evaluator.request_ms.clear()
+    evaluator.forward(collate(samples))
+    forward_ms = evaluator.request_ms[-1] / KITTI_FRAMES
+    densify_ms = float(np.mean(writer.frame_ms["densify"]))
+    files_ms = float(np.mean(writer.frame_ms["files"]))
+    print(f"  submission: {wall / KITTI_FRAMES:.3f} ms a frame ({wall:.3f} ms for "
+          f"{KITTI_FRAMES}, one batch); split a frame: forward {forward_ms:.3f} (a bs={BATCH} "
+          f"request / {BATCH}), reading {read_ms:.3f}, densify {densify_ms:.3f}, files "
+          f"{files_ms:.3f} ms | {card}", flush=True)
+    print(f"  submission launches: {launches}", flush=True)
+
+    # one frame alone: the card against the CPU (phase 5's envelope)
+    frame = collate(samples[:1])
+    out = evaluator.forward(frame)
+    pad_h, pad_w = frame["images"].shape[1:3]  # the reader's zero padding, 376 x 1242
+    for key, shape in (("flow_3d", (1, cfgs.testset.n_points, 3)),
+                       ("flow_2d", (1, pad_h, pad_w, 2))):
+        check_output(out, key, shape)
+    cpu_model = CamLiRAFT(cfgs.model.to_dict())
+    cpu_model.load_state_dict(cpu_state)
+    ref = Evaluator(cpu_model, "cpu").forward(frame)
+    for key, tol, unit in (("flow_3d", FLOW_3D_TOL, "m"), ("flow_2d", FLOW_2D_TOL, "px")):
+        delta = float(np.abs(out[key] - ref[key]).max())
+        print(f"  KITTI frame 0 max|d{key}| {delta:.3e} {unit} (bound {tol}), |{key}| up to "
+              f"{np.abs(ref[key]).max():.3f} {unit}", flush=True)
+        if not delta <= tol:
+            raise AssertionError(f"KITTI frame 0: CUDA vs CPU max |d{key}| {delta} > {tol}")
+
+    # #3 at the densify shape: [1, 375 * 1242] queries <- [1, 8192] supports
+    f, cx, cy = (float(v) for v in frame["intrinsics"][0])
+    disp1 = io.load_disp_png(os.path.join(root, "testing", "disp_ganet", "000000_10.png"))[0]
+    queries = io.disp2pc(disp1, baseline=0.54, f=f, cx=cx, cy=cy).reshape(1, -1, 3)
+    query = torch.as_tensor(queries.astype(np.float32), device=device).contiguous()
+    support = torch.as_tensor(frame["pcs"][:, :, :3], device=device).contiguous()
+    feats = torch.as_tensor(out["flow_3d"], device=device).contiguous()
+    n, m = query.shape[1], support.shape[1]
+
+    def chunked(fn):  # the plain version's dense [1, 32768, M] distances and their sort
+        return over_query_chunks(fn, query, 32768)
+
+    got = interp.knn_interpolation(support, feats, query, 3)
+    start = time.perf_counter()
+    ref = chunked(lambda q: interp.knn_interpolation_plain(support, feats, q, 3))
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - start)
+    err = float((got - ref).abs().max())
+    if not err <= INTERP_TOL:
+        raise AssertionError(f"interp densify: max |d| {err}")
+    index = torch.arange(float(m), device=device)[None, :, None].contiguous()
+    picked = interp.knn_interpolation(support, index, query, 1)[..., 0].int()
+    nearest = chunked(lambda q: knn.k_nearest_neighbor_plain(support, q, 1))[..., 0]
+    if not torch.equal(picked, nearest):
+        raise AssertionError("interp densify: k=1 selects other supports than the plain KNN")
+    if not torch.equal(knn.k_nearest_neighbor(support, query, 3),
+                       chunked(lambda q: knn.k_nearest_neighbor_plain(support, q, 3))):
+        raise AssertionError("KNN at the densify shape: indices differ from the plain version")
+    call = lambda: interp.knn_interpolation(support, feats, query, 3)  # noqa: E731
+    dev = device_ms(call, 5, only="interp_kernel", per_call=1)
+    events = time_ms(call, 5)
+    pairs = n * m
+    bound_ms = bound(pairs * 9 + n * 3 * (12 + 2 * 3), 4 * (m * 3 * 2 + n * 3 * 2))[0]
+    print(f"  knn_interpolation densify [1,{n}] <- [1,{m}], k=3, C=3: plan "
+          f"{knn.select_plan(1, n, m, 3, torch.cuda.get_device_properties(device).multi_processor_count)}"
+          f"; device {dev:.4f} ms, events {events:.4f} ms, chunked plain "
+          f"{plain_ms:.1f} ms; "
+          f"bound {bound_ms:.4f} ms ({pairs:.3e} pairs; 8 flops a pair without the compare: "
+          f"{1e3 * pairs * 8 / PEAK_F32:.4f} ms); max |d| {err:.3g}; the k=1 pick and #1's "
+          f"k=3 indices bit for bit | {card}", flush=True)
+    for entry in kernels:
+        if entry["name"] == "knn_interpolation":
+            entry.update(densify_device_ms=dev, densify_ms=events, densify_plain_ms=plain_ms,
+                         densify_bound_ms=bound_ms, densify_max_abs_err=err)
+
+    # #9, #8 and #11 at KITTI's 1/8 map beside the bench's
+    feat = (-(-pad_h // 8), -(-pad_w // 8))
+    here, bench = map_kernels_2d(device, *feat), map_kernels_2d(device, 68, 120)
+    print(f"  at the {feat[0]}x{feat[1]} map ({feat[0] * feat[1]} px) against 68x120 (8160 px), "
+          "ms a call by events: " + ", ".join(f"{k} {here[k]:.4f} / {bench[k]:.4f}" for k in here),
+          flush=True)
+    for entry in kernels:
+        if entry["name"] in here and entry["wrapper"] == entry["name"]:
+            entry.update(ms_47x156=here[entry["name"]], ms_68x120=bench[entry["name"]])
+    return launches
+
+
+def demo_phase(device, wrappers, per_request, card) -> dict:
+    """camliflow_torch.demo on a synthetic 960 x 540 pair with PFM
+    disparities (5-30 m at the demo's f = 1050 px, baseline 1 m): the
+    flagship (conf/model/camliraft.yaml) on the card with seeded random
+    weights, its launches counted (one request), then on the CPU; flow_3d
+    and flow_2d within phase 5's envelope. Returns the card run's
+    launches."""
+    import os
+
+    import torch
+
+    from camliflow_torch import demo
+    from camliflow_torch.data.png import read_png, write_png
+
+    root = os.path.join(WORK, "demo")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(SEED + 50)
+    rows = np.arange(IMAGE_H, dtype=np.float32)[:, None] * np.ones((1, IMAGE_W), np.float32)
+    for i in (1, 2):
+        image = rng.randint(0, 60, (IMAGE_H, IMAGE_W, 3)) + (np.arange(IMAGE_W)[None, :, None]
+                                                            + 7 * i) % 190
+        write_png(os.path.join(root, f"image{i}.png"), image.astype(np.uint8))
+        depth = 30.0 - 25.0 * rows / (IMAGE_H - 1) - 0.3 * i
+        write_pfm(os.path.join(root, f"disp{i}.pfm"),
+                  -(INTRINSICS[0] / depth + 0.2 * rng.rand(IMAGE_H, IMAGE_W)))
+    args = ["--image1", f"{root}/image1.png", "--image2", f"{root}/image2.png",
+            "--disp1", f"{root}/disp1.pfm", "--disp2", f"{root}/disp2.pfm"]
+    for fn in wrappers.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    out = demo.main(demo.parse_args(args + ["--out_dir", f"{root}/cuda"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    got = {k: launches[k] for k in per_request}
+    if got != per_request:
+        raise AssertionError(f"demo launches {got}, expected {per_request}")
+    picture = read_png(f"{root}/cuda/flow_2d.png")
+    if picture.shape != (3 * IMAGE_H, IMAGE_W, 3) or picture.dtype != np.uint8:
+        raise AssertionError(f"demo flow_2d.png: {picture.dtype} {picture.shape}")
+    saved = np.load(f"{root}/cuda/flow_3d.npz")
+    if not np.array_equal(saved["flow_3d"], out["flow_3d"][0]):
+        raise AssertionError("demo flow_3d.npz holds another flow than the run's")
+    ref = demo.main(demo.parse_args(args + ["--out_dir", f"{root}/cpu", "--device", "cpu"]))
+    for key, tol, unit in (("flow_3d", FLOW_3D_TOL, "m"), ("flow_2d", FLOW_2D_TOL, "px")):
+        check_output(out, key, ref[key].shape)
+        delta = float(np.abs(out[key] - ref[key]).max())
+        print(f"  demo max|d{key}| {delta:.3e} {unit} (bound {tol}), |{key}| up to "
+              f"{np.abs(ref[key]).max():.3f} {unit}")
+        if not delta <= tol:
+            raise AssertionError(f"demo: CUDA vs CPU max |d{key}| {delta} > {tol}")
+    print(f"  demo on the card: {seconds:.1f} s (model built, random weights, one request, "
+          f"files); launches {launches} | {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -1225,6 +1691,7 @@ def main() -> int:
         from camliflow_torch.models.camliraft_l import CamLiRAFTL
         from camliflow_torch.models.raft import RAFT
         from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
+        from camliflow_torch.runtime.checkpoint import random_weights
         from camliflow_torch.runtime.evaluator import Evaluator
         from camliflow_torch.utils.torch_setup import setup_torch
     except ImportError as e:
@@ -1240,13 +1707,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False, timeout=60,
     ).stdout.strip().splitlines()
-    print("[1/5] device:", torch.cuda.get_device_name(0), "| torch",
+    print("[1/8] device:", torch.cuda.get_device_name(0), "| torch",
           torch.__version__, "| CUDA", torch.version.cuda, flush=True)
     card = smi[0] if smi else "nvidia-smi gave no output"
     print(card, flush=True)
 
     # 2. build
-    print("[2/5] build", flush=True)
+    print("[2/8] build", flush=True)
     try:
         path, seconds, log = kbuild.build()
         kbuild.library()
@@ -1258,7 +1725,7 @@ def main() -> int:
         return 1
 
     # 3. per-kernel parity
-    print("[3/5] kernels vs plain versions at main-path shapes (a plain version "
+    print("[3/8] kernels vs plain versions at main-path shapes (a plain version "
           "repeats its kernel's arithmetic in PyTorch ops, cuDNN convolutions for "
           "the 2D chain, and is no yardstick of speed)", flush=True)
     kernels = []
@@ -1314,7 +1781,7 @@ def main() -> int:
     for label, cls, cfgs, images, per_request in paths:
         # 4. end to end
         points = "" if cls is RAFT else f"{N_POINTS} pts, "
-        print(f"[4/5] {label} eval: {points}"
+        print(f"[4/8] {label} eval: {points}"
               f"{f'{IMAGE_W}x{IMAGE_H} images, ' if images else ''}{N_ITERS} iters, bs=1"
               f"{'' if cls is RAFT else ', IDS on'}", flush=True)
         model = cls(cfgs)
@@ -1346,7 +1813,7 @@ def main() -> int:
             failures.append(f"{label} bs={BATCH}")
 
         # 5. CUDA vs CPU
-        print(f"[5/5] {label}: same weights and input on the CPU (plain versions)",
+        print(f"[5/8] {label}: same weights and input on the CPU (plain versions)",
               flush=True)
         try:
             if out is None:
@@ -1369,7 +1836,36 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"{label} cuda vs cpu")
 
-    # each kernel's launches over the three paths' measured requests
+    # 6-8. this slice's paths: the lookahead, the KITTI submission, the demo
+    flagship_request = next(per_request for label, _, _, _, per_request in paths
+                            if label == "CamLiRAFT")
+    print("[6/8] the Evaluator's one-batch lookahead against a synchronous loop: the "
+          f"flagship, 4 batches of {BATCH} frame pairs", flush=True)
+    try:
+        lookahead_phase(device, card)
+    except Exception:
+        traceback.print_exc()
+        failures.append("lookahead")
+    print(f"[7/8] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
+          f"the flagship, bs={BATCH}, {N_POINTS} pts, densified by #3", flush=True)
+    try:
+        launches = submission_phase(device, wrappers, flagship_request, card, kernels)
+        for key, count in launches.items():
+            total[key] += count
+    except Exception:
+        traceback.print_exc()
+        failures.append("submission")
+    print(f"[8/8] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
+          "flagship, on the card and on the CPU", flush=True)
+    try:
+        launches = demo_phase(device, wrappers, flagship_request, card)
+        for key, count in launches.items():
+            total[key] += count
+    except Exception:
+        traceback.print_exc()
+        failures.append("demo")
+
+    # each kernel's launches over the paths' measured requests
     for entry in kernels:
         entry["launches"] = total[entry.pop("wrapper")]
     print(json.dumps({"kernels": kernels}))

@@ -197,6 +197,30 @@ def test_port_never_imports_jax():
     assert len(sources) >= 25 and not found, found
 
 
+def test_port_imports_opencv_only_inside_refinement():
+    """The port reads and writes its PNGs with its own codec: OpenCV is
+    imported only inside postprocess/refine.py's functions (its solvers),
+    never at a module's top, and chip_smoke.py does not import it."""
+    sources = sorted((REPO / "camliflow_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+    def imports_cv2(node):
+        if isinstance(node, ast.Import):
+            return any(alias.name.split(".")[0] == "cv2" for alias in node.names)
+        return isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[0] == "cv2"
+
+    where = []
+    for path in sources:
+        tree = ast.parse(path.read_text(), str(path))
+        inside = {id(node) for fn in ast.walk(tree)
+                  if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                  for node in ast.walk(fn)}
+        where += [(path.relative_to(REPO).as_posix(), id(node) in inside)
+                  for node in ast.walk(tree) if imports_cv2(node)]
+    assert len(sources) >= 30
+    assert where and all(in_function for _, in_function in where), where
+    assert {path for path, _ in where} == {"camliflow_torch/postprocess/refine.py"}, where
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: chip_smoke.py would run for real")

@@ -131,7 +131,8 @@ def jax_evaluator():
 
 def torch_evaluator():
     ev = TorchEvaluator(torch.nn.Identity(), "cpu")
-    ev.forward = fixed_outputs
+    ev.enqueue = fixed_outputs  # the "enqueued" forward is the outputs themselves
+    ev.fetch = lambda outputs: outputs
     return ev
 
 
@@ -248,14 +249,14 @@ def test_eval_cli_runs_each_protocol(protocol, checkpoints, tmp_path, monkeypatc
     monkeypatch.setattr(tpd, "HPL_VAL_SAMPLES", 3)  # the synthetic set's directories
     testset, model, overrides = protocol_case(protocol, tmp_path, checkpoints)
     seen = []
-    forward = TorchEvaluator.forward
+    lookahead = TorchEvaluator.batches
 
-    def recording(self, batch):
-        out = forward(self, batch)
-        seen.append((batch, out))
-        return out
+    def recording(self, batches):
+        for batch, out in lookahead(self, batches):
+            seen.append((batch, out))
+            yield batch, out
 
-    monkeypatch.setattr(TorchEvaluator, "forward", recording)
+    monkeypatch.setattr(TorchEvaluator, "batches", recording)
     got = torch_eval.main([f"protocol={protocol}", f"testset={testset}", f"model={model}",
                            "device=cpu"] + overrides)
     assert seen and all(np.isfinite(v) for v in got.values()), got
