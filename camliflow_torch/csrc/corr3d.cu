@@ -1,9 +1,12 @@
-// Correlation3D neighbour selection with cost extraction.
+// Correlation3D neighbour selection, with or without cost extraction.
 //
 // Replaces camliflow_tpu/ops/pallas_corr3d.py::correlation3d_knn_pallas
-// (exact mode, with_cost=True). On the CamLiRAFT and CamLiRAFT-L paths it
-// runs every refinement iteration: xyz1 [1,2048,3], warped frame 2
-// [1,2048,3], levels (2048, 1024, 512, 256), k=16, pyramid [1,2048,3840].
+// (exact mode, with_cost=True and with_cost=False). On the CamLiRAFT and
+// CamLiRAFT-L eval paths it runs every refinement iteration with the cost:
+// xyz1 [1,2048,3], warped frame 2 [1,2048,3], levels (2048, 1024, 512,
+// 256), k=16, pyramid [1,2048,3840]. Training runs the index-only form
+// (pyramid and cost_out null): the same selection, bit for bit, without
+// reading the pyramid; the differentiable cost gather follows in PyTorch.
 //
 // Semantics: for each level l, the k nearest of the first m_l warped points
 // (the frame-2 levels are row-prefixes of one FPS order), ascending distance
@@ -26,8 +29,9 @@
 // (camli::merge_sorted, by (distance, index)); once the merge has taken
 // every slice below m_l it holds level l's k nearest, which it writes out,
 // then goes on; the costs of all levels are read at the end, their loads in
-// flight together. The selection is bit-identical to the plain version's
-// stable sort, ties included. The warped prefix sits in shared memory as
+// flight together (the index-only form skips that read and its shared
+// list). The selection is bit-identical to the plain version's stable sort,
+// ties included. The warped prefix sits in shared memory as
 // float4 (x, y, z, 0): a warp's lanes are 16 queries of one slice, so each
 // quarter-warp's 128-bit load is one broadcast.
 #include "common.cuh"
@@ -46,7 +50,7 @@ struct Plan {
   int queries;  // per block
 };
 
-template <int KL>
+template <int KL, bool kCost>
 __global__ void __launch_bounds__(kMaxThreads) corr3d_kernel(
     const float* __restrict__ xyz1, const float* __restrict__ xyz2,
     const float* __restrict__ pyramid, int32_t* __restrict__ idx_out,
@@ -104,11 +108,15 @@ __global__ void __launch_bounds__(kMaxThreads) corr3d_kernel(
     int level = plan.n_levels - 1;
     for (int merged = 1;; ++merged) {
       for (; level >= 0 && plan.level_end[level] == merged; --level) {
-        if (lane < k) io[level * k + lane] = sel[level * k + lane] = mi[lane];
+        if (lane < k) {
+          io[level * k + lane] = mi[lane];
+          if (kCost) sel[level * k + lane] = mi[lane];
+        }
       }
       if (merged == plan.n_slices) break;
       camli::merge_sorted<KL>(md, mi, md + merged * KL, mi + merged * KL);
     }
+    if (!kCost) continue;
     __syncwarp();
     const float* costs = pyramid + row * m_total;
     for (int e = lane; e < lk; e += 32) {
@@ -121,14 +129,17 @@ __global__ void __launch_bounds__(kMaxThreads) corr3d_kernel(
 
 // level_sizes: descending prefix lengths; slice_starts [n_slices + 1]: from
 // 0, ascending, ending at level_sizes[0], every level size among them;
-// queries per block, at most kMaxThreads / n_slices.
+// queries per block, at most kMaxThreads / n_slices. pyramid and cost_out
+// both null: the index-only form (m_total is then not read).
 extern "C" int camli_corr3d(const float* xyz1, const float* xyz2, const float* pyramid,
                             int32_t* idx_out, float* cost_out, int batch, int n, int m_rows,
                             int m_total, int n_levels, const int* level_sizes, int n_slices,
                             const int* slice_starts, int queries, int k, cudaStream_t stream) {
+  const bool with_cost = pyramid != nullptr;
   if (n_levels < 1 || n_levels > kMaxLevels || n_slices < 1 || n_slices > kMaxSlices ||
       queries < 1 || queries * n_slices > kMaxThreads || k < 1 || k > 32 ||
-      slice_starts[0] != 0 || slice_starts[n_slices] != level_sizes[0]) {
+      slice_starts[0] != 0 || slice_starts[n_slices] != level_sizes[0] ||
+      with_cost != (cost_out != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Plan plan = {};
@@ -152,13 +163,16 @@ extern "C" int camli_corr3d(const float* xyz1, const float* xyz2, const float* p
   const int threads = (queries * n_slices + 31) / 32 * 32;
   const dim3 grid((n + queries - 1) / queries, batch);
   CAMLI_DISPATCH_K(k, {
-    const size_t smem = (size_t)level_sizes[0] * sizeof(float4) +
-                        sizeof(float) * queries * (2 * ((size_t)n_slices * KL + 1) + n_levels * k);
-    cudaError_t err = cudaFuncSetAttribute(
-        corr3d_kernel<KL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const size_t smem =
+        (size_t)level_sizes[0] * sizeof(float4) +
+        sizeof(float) * queries *
+            (2 * ((size_t)n_slices * KL + 1) + (with_cost ? n_levels * k : 0));
+    auto kernel = with_cost ? corr3d_kernel<KL, true> : corr3d_kernel<KL, false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    corr3d_kernel<KL><<<grid, threads, smem, stream>>>(xyz1, xyz2, pyramid, idx_out, cost_out, n,
-                                                       m_rows, m_total, k, plan);
+    kernel<<<grid, threads, smem, stream>>>(xyz1, xyz2, pyramid, idx_out, cost_out, n, m_rows,
+                                            m_total, k, plan);
   });
   return (int)cudaGetLastError();
 }

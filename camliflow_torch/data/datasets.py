@@ -1,20 +1,25 @@
-"""The eval datasets (FlyingThings3D, KITTI, KITTI's test split, Sintel)
-and a sequential batch loader.
+"""The datasets (FlyingThings3D for training and eval; KITTI, KITTI's test
+split and Sintel for eval) and a sequential batch loader.
 
-The port's copy of the eval half of camliflow_tpu/data/datasets.py and of
-camliflow_tpu/data/loader.py (`collate`), with the same channel-last sample
-format:
+The port's copy of camliflow_tpu/data/datasets.py (all but KITTI's training
+half) and of camliflow_tpu/data/loader.py's `collate`, with the same
+channel-last sample format:
   images  [H, W, 6]   (frame1 | frame2, RGB uint8-as-float)
   flow_2d [H, W, 3]   (u, v, validity)
   pcs     [N, 6]      (pc1 | pc2)
   flow_3d [N, 3]
   occ_mask_3d [N]
   intrinsics [3] = (f, cx, cy)
-Augmentation (training) is not ported: with it disabled the reference's
-`joint_augmentation` is the identity, and a reader given an enabled one
-raises. Points are sampled with the reference's fixed seeds, so a sample
-equals the JAX reader's bit for bit. The loader reads samples one after
-another in the calling thread: the config's `n_workers` is not used.
+Without augmentation, points are sampled with the reference's fixed seeds,
+so a sample equals the JAX reader's bit for bit. FlyingThings3D with
+augmentation (training) draws the pass, the augmentation and the points
+from one explicit `numpy.random.RandomState` per sample, in the JAX
+reader's order: seeded as the JAX package's global `np.random`, it gives
+the JAX sample bit for bit (`FlyingThings3D.sample`); in a run it is seeded
+by (seed, epoch, index), so a sample does not depend on which worker thread
+reads it. KITTI's training half (augmentation on KITTI) is not ported and
+raises. `batches` reads samples one after another in the calling thread;
+data/loader.py's `DataLoader` reads them on worker threads.
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ import os
 import numpy as np
 
 from . import io
+from .augmentation import joint_augmentation
 
 
 def eval_only(name: str, cfgs) -> None:
-    """Raise for an enabled augmentation: training is not ported."""
+    """Raise for an enabled augmentation where training is not ported."""
     if cfgs.augmentation.enabled:
         raise NotImplementedError(
             f"{name} augmentation (training) is not ported; see ROADMAP.md Queue 1 "
@@ -43,13 +49,15 @@ def sample_points(rng, n: int, n_points: int):
 
 
 class FlyingThings3D:
-    """Preprocessed FlyingThings3D subset, eval split."""
+    """Preprocessed FlyingThings3D subset: the eval split, or with
+    augmentation the training split."""
 
-    def __init__(self, cfgs):
-        eval_only("FlyingThings3D", cfgs)
+    def __init__(self, cfgs, seed: int = 0):
         assert os.path.isdir(cfgs.root_dir), cfgs.root_dir
         self.split_dir = os.path.join(str(cfgs.root_dir), str(cfgs.split))
         self.cfgs = cfgs
+        self.seed = seed
+        self.epoch = 0
         self.indices = sorted(
             int(fn.split(".")[0])
             for fn in os.listdir(os.path.join(self.split_dir, "flow_2d"))
@@ -58,14 +66,29 @@ class FlyingThings3D:
     def __len__(self):
         return len(self.indices)
 
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch that seeds each sample's draws with augmentation."""
+        self.epoch = epoch
+
     def __getitem__(self, i):
-        rng = np.random.RandomState(0)  # deterministic point sampling
+        if self.cfgs.augmentation.enabled:
+            rng = np.random.RandomState([self.seed, self.epoch, i])
+        else:
+            rng = np.random.RandomState(0)  # deterministic point sampling
+        return self.sample(i, rng)
+
+    def sample(self, i, rng: np.random.RandomState) -> dict:
+        """Sample i, every random draw from `rng`."""
+        augment = self.cfgs.augmentation.enabled
         idx1 = self.indices[i]
         data = {"index": idx1}
         f, cx, cy = 1050.0, 479.5, 269.5
         path = lambda sub, name: os.path.join(self.split_dir, sub, name)  # noqa: E731
 
-        images = f"image_{self.cfgs.pass_name}"
+        pass_name = self.cfgs.pass_name
+        if pass_name == "cleanfinal" and augment:
+            pass_name = "clean" if rng.randint(2) == 0 else "final"
+        images = f"image_{pass_name}"
         image1 = io.load_image_rgb(path(images, "%07d.png" % idx1))
         image2 = io.load_image_rgb(path(images, "%07d.png" % (idx1 + 1)))
         flow_2d, flow_mask_2d = io.load_flow_png(path("flow_2d", "%07d.png" % idx1))
@@ -88,8 +111,18 @@ class FlyingThings3D:
             [flow_2d, flow_mask_2d[..., None].astype(np.float32)], axis=2
         )
 
+        # augmentation, drawn again after an empty crop
+        while augment:
+            try:
+                results = joint_augmentation(image1, image2, pc1, pc2, flow_2d, flow_3d, f,
+                                             cx, cy, self.cfgs.augmentation, rng)
+            except AssertionError:
+                continue
+            image1, image2, pc1, pc2, flow_2d, flow_3d, f, cx, cy = results
+            break
+
         n_points = self.cfgs.n_points
-        if pc1.shape[0] != n_points:
+        if augment or pc1.shape[0] != n_points:
             idxs1 = sample_points(rng, pc1.shape[0], n_points)
             idxs2 = sample_points(rng, pc2.shape[0], n_points)
             pc1, pc2 = pc1[idxs1], pc2[idxs2]
@@ -351,12 +384,15 @@ class Sintel:
         return data
 
 
-def dataset_factory(cfgs):
-    """The eval dataset named by `cfgs.name`."""
+def dataset_factory(cfgs, seed: int = 0):
+    """The dataset named by `cfgs.name`; `seed` seeds FlyingThings3D's
+    augmentation."""
     readers = {"flyingthings3d": FlyingThings3D, "kitti": KITTI, "kitti_test": KITTITest,
                "sintel": Sintel}
     if cfgs["name"] not in readers:
         raise NotImplementedError(f"Unknown dataset: {cfgs['name']}")
+    if cfgs["name"] == "flyingthings3d":
+        return FlyingThings3D(cfgs, seed)
     return readers[cfgs["name"]](cfgs)
 
 

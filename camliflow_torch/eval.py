@@ -1,10 +1,12 @@
 """Evaluation entry point of the port (counterpart of the repo's eval.py).
 
     python -m camliflow_torch.eval protocol=things testset=flyingthings3d_subset \\
-        model=camliraft ckpt.path=<JAX variables .npz> [device=cpu] [key=value ...]
+        model=camliraft ckpt.path=<JAX variables .npz | trainer checkpoint .pt> \\
+        [device=cpu] [key=value ...]
 
 Composes the same `conf/` tree as eval.py, loads the JAX package's variables
-through the weight bridge, and runs one protocol in batches of 8:
+through the weight bridge (a `.npz`) or a checkpoint of the port's trainer
+(`python -m camliflow_torch.train`), and runs one protocol in batches of 8:
     things        eval_things.py        (2D and 3D metrics)
     sintel        eval_sintel.py        (per-scene 2D AEPE; testset=sintel)
     things_noc_sf eval_things_noc_sf.py (HPLFlowNet's protocol;
@@ -96,7 +98,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     from .data.datasets import batches
     from .models.factory import model_factory
-    from .runtime.checkpoint import load_jax_variables, load_npz
+    from .runtime.checkpoint import load_weights
     from .runtime.evaluator import Evaluator
     from .utils.config import compose
     from .utils.torch_setup import setup_torch
@@ -109,8 +111,8 @@ def main(argv: list[str] | None = None) -> dict:
 
     model = model_factory(cfgs.model)(cfgs.model.to_dict())
     if cfgs.ckpt.path is None:
-        raise SystemExit("missing ckpt.path=<JAX variables .npz>")
-    load_jax_variables(model, load_npz(cfgs.ckpt.path), cfgs.model.name)
+        raise SystemExit("missing ckpt.path=<JAX variables .npz or trainer checkpoint .pt>")
+    load_weights(model, cfgs.ckpt.path, cfgs.model.name)
     evaluator = Evaluator(model, device)
     loader = batches(protocol_dataset(protocol, cfgs), BATCH_SIZE)
     if protocol == "things":

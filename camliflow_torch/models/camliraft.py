@@ -1,5 +1,5 @@
 """CamLiRAFT: joint 2D optical flow + 3D scene flow with bidirectional
-camera-LiDAR fusion (eval).
+camera-LiDAR fusion (eval and training).
 
 PyTorch counterpart of camliflow_tpu/models/camliraft.py on its exact path:
 f32 all-pairs 2D volume, f32 3D cost pyramid, no bf16 casts. The refinement
@@ -24,6 +24,15 @@ kernel #13, their PointConvDW tails (`update3d.gru_3d`,
 point encoders' gathers and the final upsample's run as kernel #12
 (ops/gather.py).
 
+In train mode (`model.train()`) the model runs the JAX training path,
+camliflow_tpu/models/camliraft.py with `train=True` (`CamLiRAFTCore.
+forward_train`): fnet_3d per frame with BatchNorm batch statistics, the
+flows detached at the top of every iteration, both flows upsampled in every
+iteration, the modules' own differentiable forwards. It calls none of the
+fused wrappers (#5-#13); the selections run as kernels #1-#4 (#4 in its
+index-only form) on integer work, without a gradient. `loss_fn` and
+`is_better` are the JAX ones.
+
 Module names follow the reference state_dict (`core.branch_2d.fnet`,
 `core.branch_3d.correlation`, `core.clfm_corr`, ...), so the weight bridge
 names every key with runtime/names.py.
@@ -35,6 +44,7 @@ import torch
 from torch import nn
 
 from ..nn.clfm import CLFM, fusion_interp_cache
+from ..nn.layers import BatchNorm, compute_precision, full_precision
 from ..nn.resnet import ResNetEncoder2D
 from ..ops import clfm, corr3d, update2d, update3d
 from ..ops.correlation import (
@@ -43,7 +53,7 @@ from ..ops.correlation import (
     resolve_lookup_storage,
 )
 from ..ops.gather import gather_points_fast, knn_weighted_sum
-from ..ops.geometry import backwarp_3d, build_pc_pyramid, k_nearest_neighbor
+from ..ops.geometry import backwarp_3d, build_pc_pyramid, gather_points, k_nearest_neighbor
 from ..ops.ids import make_parallel_camera_info, paral2persp, persp2paral, project_pc2image
 from ..ops.image import InputPadder, mesh_grid
 from .camliraft_l import (
@@ -57,6 +67,8 @@ from .camliraft_l import (
     encoder_knn_indices,
     resolve_fast_inference,
 )
+from .losses import calc_sequence_loss
+from .metrics import compute_2d_metrics, compute_3d_metrics, merge_metrics, scalar_metric
 from .raft import Correlation2D, ConvexUpsampler2D, FlowHead2D, GRU2D, MotionEncoder2D
 
 # ImageNet statistics of the mmdet backbone
@@ -93,7 +105,8 @@ class Branch3D(nn.Module):
 
 
 class CamLiRAFTCore(nn.Module):
-    """Fused two-branch RAFT core, eval (final-only)."""
+    """Fused two-branch RAFT core: eval (final-only) through `forward`, training
+    through `forward_train`."""
 
     def __init__(self, n_iters: int = 20, backbone_depth: int = 50, fuse_fnet=True,
                  fuse_cnet=True, fuse_corr=True, fuse_motion=True, fuse_hidden=False,
@@ -110,6 +123,30 @@ class CamLiRAFTCore(nn.Module):
             if self.fuse[point]:
                 norm = "batch_norm" if point in ("fnet", "cnet") else None
                 self.add_module(f"clfm_{point}", CLFM(channels_2d, 128, norm=norm))
+
+    def fuse_encoders(self, xyz1, xyz2, camera_info, feat1_2d, feat2_2d, featc_2d, feat1_3d,
+                      feat2_3d, featc_3d):
+        """The points in 1/8-resolution feature-map pixel coordinates, the
+        pixel grid's nearest points (both frames in one KNN; uv1's cache is
+        reused by every later fusion) and the fnet and cnet fusions. Returns
+        (uv1, uv1's cache, the six features fused)."""
+        batch = xyz1.shape[0]
+        feat_h, feat_w = feat1_2d.shape[1:3]
+        scale = torch.tensor([(feat_w - 1) / (camera_info["sensor_w"] - 1),
+                              (feat_h - 1) / (camera_info["sensor_h"] - 1)],
+                             dtype=torch.float32).to(xyz1.device, non_blocking=True)
+        uv1 = project_pc2image(xyz1, camera_info) * scale
+        uv2 = project_pc2image(xyz2, camera_info) * scale
+        cache_idx, cache_off = fusion_interp_cache(torch.cat([uv1, uv2], dim=0),
+                                                   feat_h, feat_w)
+        cache1 = (cache_idx[:batch], cache_off[:batch])
+        cache2 = (cache_idx[batch:], cache_off[batch:])
+        if self.fuse["fnet"]:  # one CLFM shared by both frames
+            feat1_2d, feat1_3d = self.clfm_fnet(uv1, feat1_2d, feat1_3d, cache1)
+            feat2_2d, feat2_3d = self.clfm_fnet(uv2, feat2_2d, feat2_3d, cache2)
+        if self.fuse["cnet"]:
+            featc_2d, featc_3d = self.clfm_cnet(uv1, featc_2d, featc_3d, cache1)
+        return uv1, cache1, (feat1_2d, feat2_2d, featc_2d, feat1_3d, feat2_3d, featc_3d)
 
     def encode(self, image1, image2, pc1, pc2, camera_info):
         """Everything before the loop: features, fusion, volumes, caches and
@@ -133,25 +170,10 @@ class CamLiRAFTCore(nn.Module):
         xyzs2 = xyzs2[2:]
         xyz1 = xyzs1[2]
 
-        # points in 1/8-resolution feature-map pixel coordinates
         feat_h, feat_w = feat1_2d.shape[1:3]
-        scale = torch.tensor([(feat_w - 1) / (camera_info["sensor_w"] - 1),
-                              (feat_h - 1) / (camera_info["sensor_h"] - 1)],
-                             dtype=torch.float32).to(pc1.device, non_blocking=True)
-        uv1 = project_pc2image(xyz1, camera_info) * scale
-        uv2 = project_pc2image(xyzs2[0], camera_info) * scale
-
-        # the pixel grid's nearest points, both frames in one KNN, reused by
-        # every fusion (the loop's with uv1)
-        cache_idx, cache_off = fusion_interp_cache(torch.cat([uv1, uv2], dim=0),
-                                                   feat_h, feat_w)
-        cache1 = (cache_idx[:batch], cache_off[:batch])
-        cache2 = (cache_idx[batch:], cache_off[batch:])
-        if self.fuse["fnet"]:  # one CLFM shared by both frames
-            feat1_2d, feat1_3d = self.clfm_fnet(uv1, feat1_2d, feat1_3d, cache1)
-            feat2_2d, feat2_3d = self.clfm_fnet(uv2, feat2_2d, feat2_3d, cache2)
-        if self.fuse["cnet"]:
-            featc_2d, featc_3d = self.clfm_cnet(uv1, featc_2d, featc_3d, cache1)
+        uv1, cache1, (feat1_2d, feat2_2d, featc_2d, feat1_3d, feat2_3d, featc_3d) = (
+            self.fuse_encoders(xyz1, xyzs2[0], camera_info, feat1_2d, feat2_2d, featc_2d,
+                               feat1_3d, feat2_3d, featc_3d))
 
         h_2d, x_2d = torch.chunk(b2d.cnet_aligner(featc_2d), 2, dim=-1)
         h_3d, x_3d = torch.chunk(b3d.cnet_aligner(featc_3d), 2, dim=-1)
@@ -255,14 +277,111 @@ class CamLiRAFTCore(nn.Module):
         weights = weights / weights.sum(dim=-1, keepdim=True)
         return flow_2d, knn_weighted_sum(state["flow_3d"], up_idx, weights)
 
+    def forward_train(self, image1, image2, pc1, pc2, camera_info, n_iters: int):
+        """The training forward: (flow_2d_seq [T, B, H, W, 2], flow_3d_seq
+        [T, B, N, 3]), both flows upsampled in every iteration. Under a bf16
+        `compute_precision` the cost volumes stay f32 (`full_precision`),
+        as the JAX einsums do, and the selections take f32 inputs."""
+        b2d, b3d = self.branch_2d, self.branch_3d
+        device_type = image1.device.type
+        xyzs1, xyzs2, _, _ = build_pc_pyramid(pc1, pc2, list(self.n_samples_list))
+        batch = image1.shape[0]
+
+        # the backbone's BatchNorms use running statistics: both frames share
+        # one fnet call, as at eval
+        fmaps = b2d.fnet(torch.cat([image1, image2], dim=0))
+        feat1_2d, feat2_2d = fmaps[:batch], fmaps[batch:]
+        featc_2d = b2d.cnet(image1)
+
+        # fnet_3d per frame (its BatchNorms take per-frame batch statistics);
+        # one two-frame KNN per level serves fnet and cnet
+        stacked = [torch.cat([a, b], dim=0) for a, b in zip(xyzs1[:3], xyzs2[:3])]
+        knn_both = encoder_knn_indices(stacked)
+        knn_f1 = [idx[:batch] for idx in knn_both]
+        feat1_3d = b3d.fnet(xyzs1[:3], knn_indices=knn_f1)[2]
+        feat2_3d = b3d.fnet(xyzs2[:3], knn_indices=[idx[batch:] for idx in knn_both])[2]
+        featc_3d = b3d.cnet(xyzs1[:3], knn_indices=knn_f1)[2]
+
+        xyzs2 = xyzs2[2:]
+        xyz1 = xyzs1[2]
+        feat_h, feat_w = feat1_2d.shape[1:3]
+        uv1, cache1, (feat1_2d, feat2_2d, featc_2d, feat1_3d, feat2_3d, featc_3d) = (
+            self.fuse_encoders(xyz1, xyzs2[0], camera_info, feat1_2d, feat2_2d, featc_2d,
+                               feat1_3d, feat2_3d, featc_3d))
+
+        h_2d, x_2d = torch.chunk(b2d.cnet_aligner(featc_2d), 2, dim=-1)
+        h_3d, x_3d = torch.chunk(b3d.cnet_aligner(featc_3d), 2, dim=-1)
+        h_2d, x_2d = torch.tanh(h_2d.float()), torch.relu(x_2d.float())
+        h_3d, x_3d = torch.tanh(h_3d.float()), torch.relu(x_3d.float())
+        aligner = b2d.correlation.fnet_aligner
+        align1, align2 = aligner(feat1_2d.float()), aligner(feat2_2d.float())
+        with full_precision(device_type):
+            pyramid_2d = all_pairs_correlation_pyramid(align1.float(), align2.float(),
+                                                       CORR_LEVELS)
+            pyramid_3d = torch.cat(build_cost_volume_pyramid_3d(
+                feat1_3d.float(), feat2_3d.float(), xyzs2), dim=-1)
+        knn_indices = k_nearest_neighbor(xyz1, xyz1, 32)
+        # the 3D upsample's neighbours and weights (2048 -> full cloud), once
+        up_idx = k_nearest_neighbor(xyz1, pc1, 3)
+        dists = torch.linalg.vector_norm(gather_points(xyz1, up_idx) - pc1[:, :, None, :],
+                                         dim=-1)
+        up_weights = 1.0 / torch.clamp(dists, min=1e-8)
+        up_weights = up_weights / up_weights.sum(dim=-1, keepdim=True)
+        grid = mesh_grid(batch, feat_h, feat_w, device=pc1.device)
+        level_sizes = tuple(x.shape[1] for x in xyzs2)
+        # the loop-invariant PointConvDW weights, in the graph
+        dw = {name: getattr(b3d, name).precompute_weights(xyz1, knn_indices)
+              for name in ("motion_encoder", "gru", "flow_head")}
+
+        flow_2d = feat1_2d.new_zeros(batch, feat_h, feat_w, 2, dtype=torch.float32)
+        flow_3d = torch.zeros_like(xyz1)
+        seq_2d, seq_3d = [], []
+        for _ in range(n_iters):
+            flow_2d, flow_3d = flow_2d.detach(), flow_3d.detach()
+            xyz2_warp_full = backwarp_3d(xyz1, xyzs2[0], flow_3d)
+            corr_2d = corr_lookup_2d(pyramid_2d, grid + flow_2d, radius=CORR_RADIUS)
+            corr_3d = b3d.correlation.forward_train(xyz1, xyz2_warp_full, level_sizes,
+                                                    pyramid_3d)
+            if self.fuse["corr"]:
+                corr_2d, corr_3d = self.clfm_corr(uv1, corr_2d, corr_3d, cache1)
+            motion_2d = b2d.motion_encoder(flow_2d, corr_2d)
+            motion_3d = b3d.motion_encoder(xyz1, flow_3d, corr_3d, knn_indices,
+                                           dw["motion_encoder"])
+            if self.fuse["motion"]:
+                motion_2d, motion_3d = self.clfm_motion(uv1, motion_2d, motion_3d, cache1)
+            h_2d = b2d.gru(h_2d, torch.cat([x_2d, motion_2d], dim=-1))
+            h_3d = b3d.gru(xyz1, h_3d, torch.cat([x_3d, motion_3d], dim=-1), knn_indices,
+                           dw["gru"])
+            if self.fuse["hidden"]:
+                h_2d, h_3d = self.clfm_hidden(uv1, h_2d, h_3d, cache1)
+            flow_2d = flow_2d + b2d.flow_head(h_2d)
+            flow_3d = flow_3d + b3d.flow_head(xyz1, h_3d, knn_indices, dw["flow_head"]).float()
+            seq_2d.append(b2d.convex_upsampler(h_2d, flow_2d))
+            seq_3d.append(torch.sum(gather_points(flow_3d, up_idx) * up_weights[..., None],
+                                    dim=2))
+        return torch.stack(seq_2d), torch.stack(seq_3d)
+
 
 class CamLiRAFT(nn.Module):
-    """Model wrapper: ImageNet normalisation, padding, IDS and the core."""
+    """Model wrapper: ImageNet normalisation, padding, IDS and the core. In
+    train mode it runs `CamLiRAFTCore.forward_train` for `n_iters_train`
+    iterations under `compute_dtype` (bf16 autocast or f32); eval stays
+    f32. `freeze_bn` keeps every BatchNorm on its running statistics in
+    train mode."""
 
     def __init__(self, cfgs: dict):
         super().__init__()
         resolve_fast_inference(str(cfgs.get("fast_inference", "auto")))
         resolve_lookup_storage(str(cfgs.get("lookup_storage", "auto")))
+        for key in ("loss_in_scan", "remat_scan"):
+            if cfgs.get(key, False):
+                raise NotImplementedError(
+                    f"{key} (in-loop loss accumulation / rematerialised iterations) is not "
+                    "ported; see ROADMAP.md Queue 1, item 9 (training)")
+        self.n_iters_train = int(cfgs.get("n_iters_train", cfgs["n_iters_eval"]))
+        self.freeze_bn = bool(cfgs.get("freeze_bn", False))
+        self.compute_dtype = cfgs.get("compute_dtype")
+        compute_precision(self.compute_dtype, "cpu")  # raises on a dtype it does not know
         self.core = CamLiRAFTCore(
             n_iters=int(cfgs["n_iters_eval"]),
             backbone_depth=int(cfgs["backbone"]["depth"]),
@@ -277,6 +396,14 @@ class CamLiRAFT(nn.Module):
         # host (which would make the host wait for the card); not weights
         self.register_buffer("image_mean", torch.tensor(_IMAGENET_MEAN), persistent=False)
         self.register_buffer("image_std", torch.tensor(_IMAGENET_STD), persistent=False)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and self.freeze_bn:
+            for module in self.modules():
+                if isinstance(module, BatchNorm):
+                    module.eval()
+        return self
 
     def forward(self, inputs: dict) -> dict:
         images = inputs["images"].float()
@@ -299,9 +426,42 @@ class CamLiRAFT(nn.Module):
         pc1 = persp2paral(pcs[..., :3], persp_cam, paral_cam)
         pc2 = persp2paral(pcs[..., 3:], persp_cam, paral_cam)
 
+        base = paral2persp(pc1, persp_cam, paral_cam)
+        if self.training:
+            with compute_precision(self.compute_dtype, image1.device.type):
+                seq_2d, seq_3d = self.core.forward_train(image1, image2, pc1, pc2, paral_cam,
+                                                         self.n_iters_train)
+            seq_2d = padder.unpad(seq_2d.flatten(0, 1)).unflatten(0, seq_2d.shape[:2])
+            seq_3d = paral2persp(pc1 + seq_3d.float(), persp_cam, paral_cam) - base
+            return {"flow_2d": seq_2d[-1], "flow_3d": seq_3d[-1],
+                    "flow_2d_seq": seq_2d, "flow_3d_seq": seq_3d}
         flow_2d, flow_3d = self.core(image1, image2, pc1, pc2, paral_cam)
         flow_2d = padder.unpad(flow_2d)
-        base = paral2persp(pc1, persp_cam, paral_cam)
         flow_3d = paral2persp(pc1 + flow_3d, persp_cam, paral_cam) - base
         return {"flow_2d": flow_2d, "flow_3d": flow_3d,
                 "flow_2d_seq": flow_2d[None], "flow_3d_seq": flow_3d[None]}
+
+
+def loss_fn(outputs: dict, inputs: dict, cfgs) -> tuple[torch.Tensor, dict]:
+    """Joint sequence losses and metrics (the JAX `loss_fn`): (loss, (sum,
+    count) metrics)."""
+    target_2d, target_3d = inputs["flow_2d"], inputs["flow_3d"]
+    loss_2d = calc_sequence_loss(outputs["flow_2d_seq"], target_2d,
+                                 gamma=cfgs["loss2d"]["gamma"], order=cfgs["loss2d"]["order"])
+    loss_3d = calc_sequence_loss(outputs["flow_3d_seq"], target_3d,
+                                 gamma=cfgs["loss3d"]["gamma"], order=cfgs["loss3d"]["order"])
+    loss = loss_2d + loss_3d
+    metrics = merge_metrics(
+        {"loss": scalar_metric(loss), "loss2d": scalar_metric(loss_2d),
+         "loss3d": scalar_metric(loss_3d)},
+        compute_2d_metrics(outputs["flow_2d"], target_2d),
+        compute_3d_metrics(outputs["flow_3d"], target_3d),
+    )
+    if "occ_mask_3d" in inputs:
+        metrics = merge_metrics(metrics, compute_3d_metrics(
+            outputs["flow_3d"], target_3d, occ_mask=inputs["occ_mask_3d"]))
+    return loss, metrics
+
+
+def is_better(curr: dict, best: dict | None) -> bool:
+    return best is None or curr["epe2d"] < best["epe2d"]

@@ -13,13 +13,19 @@ wrappers in ops/: FPS and KNN once per frame, the encoders' k-major gathers
 iteration (the selection as kernel #4, its tail as kernel #5,
 ops/corr3d.py). In the loop, MotionEncoder3D runs as kernel #6 and GRU3D +
 FlowHead3D as kernel #7 (ops/update3d.py), on weights packed once per
-request. MotionEncoder3D's own `forward` is the plain chain of
-ops/update3d.py on its own weights; GRU3D's and FlowHead3D's run their
-PointConvDW tails through kernel #13 (`update3d.dw_max`), on weights they
-pack themselves unless the caller hands them packed.
+request.
+
+The modules' own `forward`s are the differentiable chains the flagship
+trains through (camliflow_tpu's exact path with `train=True`): in train
+mode Correlation3D selects with #4's index-only form under `no_grad`, then
+gathers the costs and the neighbours' coordinates with `torch.gather`;
+MotionEncoder3D, GRU3D and FlowHead3D run their PointConvDWs as torch ops
+on the hoisted weights, which stay in the graph.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -30,6 +36,7 @@ from ..ops import corr3d, update3d
 from ..ops.geometry import (
     backwarp_3d,
     build_pc_pyramid,
+    gather_points,
     k_nearest_neighbor,
     knn_interpolation,
 )
@@ -95,6 +102,14 @@ def build_cost_volume_pyramid_3d(feat1, feat2, xyzs2, k: int = 3):
     return pyramid
 
 
+@functools.lru_cache(maxsize=16)
+def _level_columns(level_sizes: tuple[int, ...], k: int, device: torch.device) -> torch.Tensor:
+    """[L*k] pyramid column offset of each selected entry, made once per
+    (levels, device): a tensor built from host data mid-loop would make the
+    host wait for the card."""
+    return corr3d.level_offsets(level_sizes, k, device)
+
+
 class Correlation3D(nn.Module):
     """Multi-scale correlation lookup over prefix-nested frame-2 levels."""
 
@@ -104,10 +119,29 @@ class Correlation3D(nn.Module):
         self.cost_mlp = MLP(4, [out_channels // 4, out_channels // 4], act="relu")
         self.merge = DenseNormAct(n_levels * (out_channels // 4), out_channels)
 
+    def forward_train(self, xyz1, xyz2_warp_full, level_sizes, pyramid_cat):
+        """The training path (camliflow_tpu Correlation3D, exact, with the
+        train selection): the indices from #4's index-only form, without a
+        gradient (they are integers); the costs and the neighbours'
+        coordinates gathered differentiably; the cost MLP, the per-level sum
+        and the merge as torch ops."""
+        level_sizes = tuple(int(m) for m in level_sizes)
+        with torch.no_grad():
+            idx, _ = corr3d.correlation3d_knn(xyz1.float(), xyz2_warp_full.float(), None,
+                                              level_sizes, k=self.k, with_cost=False)
+        columns = idx.long() + _level_columns(level_sizes, self.k, idx.device)
+        knn_cost = torch.gather(pyramid_cat, 2, columns)  # [B, N, L*k]
+        rel = gather_points(xyz2_warp_full, idx) - xyz1[:, :, None, :]
+        cost = self.cost_mlp(torch.cat([rel, knn_cost[..., None]], dim=-1))
+        batch, n = xyz1.shape[:2]
+        levels = cost.reshape(batch, n, len(level_sizes), self.k, -1).sum(dim=3)
+        return self.merge(levels.reshape(batch, n, -1))
+
     def forward(self, xyz1, xyz2_warp_full, level_sizes, pyramid_cat, params=None):
-        """pyramid_cat: [B, N, sum(level_sizes)], concatenated once outside
-        the refinement loop; params: `corr3d.prepare_corr3d_tail_params`
-        of this module (packed here when not given)."""
+        """The eval path (kernels #4 and #5). pyramid_cat: [B, N,
+        sum(level_sizes)], concatenated once outside the refinement loop;
+        params: `corr3d.prepare_corr3d_tail_params` of this module (packed
+        here when not given)."""
         idx, knn_cost = corr3d.correlation3d_knn(
             xyz1, xyz2_warp_full, pyramid_cat, level_sizes, k=self.k
         )  # [B, N, L*k] each
@@ -140,8 +174,14 @@ class MotionEncoder3D(nn.Module):
         }
 
     def forward(self, xyz, flow, corr, knn_indices, dw):
-        params = update3d.prepare_motion_encoder_3d_params(self)
-        return update3d.motion_encoder_3d_plain(flow, corr, knn_indices, dw, params)
+        """The differentiable chain on the hoisted weights `dw`."""
+        def conv(name, features):
+            return getattr(self, name)(xyz, features, knn_indices=knn_indices, weights=dw[name])
+
+        corr_feat = conv("conv_c1", corr)
+        flow_feat = conv("conv_f2", conv("conv_f1", flow))
+        out = conv("conv", torch.cat([corr_feat, flow_feat], dim=-1))
+        return torch.cat([out, flow], dim=-1)
 
 
 class GRU3D(nn.Module):
@@ -163,10 +203,17 @@ class GRU3D(nn.Module):
         )
         return {"conv_zr": torch.cat([wz, wr], dim=-1), "conv_q": wq}
 
-    def forward(self, xyz, h, x, knn_indices, dw, params=None):
-        if params is None:
-            params = update3d.prepare_gru_3d_params(self)
-        return update3d.gru_3d(h, x, knn_indices, dw, params)
+    def forward(self, xyz, h, x, knn_indices, dw):
+        """The differentiable GRU on the hoisted weights `dw` (z's and r's
+        stacked in conv_zr)."""
+        hidden = h.shape[-1]
+        hx = torch.cat([h, x], dim=-1)
+        wz, wr = dw["conv_zr"][..., :hidden], dw["conv_zr"][..., hidden:]
+        z = torch.sigmoid(self.conv_z(xyz, hx, knn_indices=knn_indices, weights=wz))
+        r = torch.sigmoid(self.conv_r(xyz, hx, knn_indices=knn_indices, weights=wr))
+        q = torch.tanh(self.conv_q(xyz, torch.cat([r * h, x], dim=-1), knn_indices=knn_indices,
+                                   weights=dw["conv_q"]))
+        return (1.0 - z) * h + z * q
 
 
 class FlowHead3D(nn.Module):
@@ -186,10 +233,12 @@ class FlowHead3D(nn.Module):
             for name in self.NAMES
         }
 
-    def forward(self, xyz, features, knn_indices, dw, params=None):
-        if params is None:
-            params = update3d.prepare_flow_head_3d_params(self)
-        return update3d.flow_head_3d(features, knn_indices, dw, params)
+    def forward(self, xyz, features, knn_indices, dw):
+        """The differentiable head on the hoisted weights `dw`."""
+        for name in self.NAMES:
+            features = getattr(self, name)(xyz, features, knn_indices=knn_indices,
+                                           weights=dw[name])
+        return self.fc(features)
 
 
 class UpdateBlock3D(nn.Module):

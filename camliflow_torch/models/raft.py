@@ -6,11 +6,11 @@ all-pairs volume stays f32, the refinement `nn.scan` is a Python loop and
 eval is final-only (one convex upsample of the last flow). Each conv is a
 `Conv2d` with bias and symmetric padding, named as in the reference
 state_dict (`core.fnet`, `core.correlation.fnet_aligner`, `core.gru`, ...).
-A module's `forward` is the plain chain of ops/update2d.py on its own
-weights, NHWC in and out; the refinement loop instead hoists the packed
-weights once per request and runs the whole iteration (motion encoder, GRU,
-flow head) as kernel #10 from one entry point (`update2d.update_2d`): ten
-launches of the 3xTF32 tensor-core conv tile.
+A module's `forward` is its differentiable chain of `Conv2d`s, NHWC in and
+out, which the flagship trains through; the refinement loop at eval instead
+hoists the packed weights once per request and runs the whole iteration
+(motion encoder, GRU, flow head) as kernel #10 from one entry point
+(`update2d.update_2d`): ten launches of the 3xTF32 tensor-core conv tile.
 """
 
 from __future__ import annotations
@@ -36,6 +36,10 @@ def _conv(cin: int, cout: int, kernel: tuple[int, int]) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, padding=tuple((k - 1) // 2 for k in kernel))
 
 
+def _nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
 class MotionEncoder2D(nn.Module):
     """corr + flow -> motion features [.., 126 conv channels + 2 flow]."""
 
@@ -48,8 +52,10 @@ class MotionEncoder2D(nn.Module):
         self.conv = _conv(192 + 64, 128 - 2, (3, 3))
 
     def forward(self, flow, corr):
-        params = update2d.prepare_motion_encoder_params(self)
-        return update2d.motion_encoder_2d_plain(flow, corr, params)
+        cf = torch.relu(_nhwc(self.conv_c2, torch.relu(_nhwc(self.conv_c1, corr))))
+        ff = torch.relu(_nhwc(self.conv_f2, torch.relu(_nhwc(self.conv_f1, flow))))
+        out = torch.nan_to_num(torch.relu(_nhwc(self.conv, torch.cat([cf, ff], dim=-1))))
+        return torch.cat([out, flow], dim=-1)
 
 
 class GRU2D(nn.Module):
@@ -63,7 +69,13 @@ class GRU2D(nn.Module):
                 self.add_module(f"conv{gate}{suffix}", _conv(cin, hidden_dim, kernel))
 
     def forward(self, h, x):
-        return update2d.gru_2d_plain(h, x, update2d.prepare_gru_params(self))
+        for suffix in ("1", "2"):
+            hx = torch.cat([h, x], dim=-1)
+            z = torch.sigmoid(_nhwc(getattr(self, f"convz{suffix}"), hx))
+            r = torch.sigmoid(_nhwc(getattr(self, f"convr{suffix}"), hx))
+            q = torch.tanh(_nhwc(getattr(self, f"convq{suffix}"), torch.cat([r * h, x], dim=-1)))
+            h = (1.0 - z) * h + z * q
+        return torch.nan_to_num(h)
 
 
 class FlowHead2D(nn.Module):
@@ -75,7 +87,8 @@ class FlowHead2D(nn.Module):
         self.conv2 = _conv(hidden_dim, 2, (3, 3))
 
     def forward(self, h):
-        return update2d.flow_head_2d_plain(h, update2d.prepare_flow_head_params(self))
+        mid = torch.relu(_nhwc(self.conv1, h))
+        return torch.nan_to_num(_nhwc(self.conv2, mid).float())
 
 
 class ConvexUpsampler2D(nn.Module):

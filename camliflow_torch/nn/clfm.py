@@ -1,4 +1,4 @@
-"""CLFM: bidirectional camera-LiDAR fusion (eval).
+"""CLFM: bidirectional camera-LiDAR fusion.
 
 PyTorch counterpart of camliflow_tpu/nn/clfm.py with the selective-kernel
 fusion head the models use ('sk', reduction 2):
@@ -91,8 +91,12 @@ class CLFM(nn.Module):
         self.fuse3d = SKFusion(c2, c3, c3, norm=norm)
 
     def forward(self, uv, feat_2d, feat_3d, interp_cache):
-        """-> (out_2d [B, H, W, C2], out_3d [B, N, C3])."""
+        """-> (out_2d [B, H, W, C2], out_3d [B, N, C3]). Each side reaches the
+        other's features detached, as in the reference: the gradient of a
+        fused output flows into its own side's input only (and into the
+        fusion's weights)."""
         feat_2d, feat_3d = feat_2d.float(), feat_3d.float()
-        out_2d = self.fuse2d(feat_2d, self.interp(feat_2d, feat_3d, interp_cache))
-        sampled = self.mlps3d(grid_sample_points(feat_2d, uv))
+        interp = self.interp(feat_2d.detach(), feat_3d.detach(), interp_cache)
+        out_2d = self.fuse2d(feat_2d, interp)
+        sampled = self.mlps3d(grid_sample_points(feat_2d.detach(), uv))
         return out_2d, self.fuse3d(sampled, feat_3d)

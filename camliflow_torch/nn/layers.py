@@ -8,6 +8,7 @@ reference PyTorch state_dict (`convs.<i>.conv_fn`, `convs.<i>.norm_fn`), so
 
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Sequence
 
 import torch
@@ -29,9 +30,30 @@ def apply_act(x: torch.Tensor, act: str | None) -> torch.Tensor:
     raise NotImplementedError(f"Unknown activation function: {act}")
 
 
+def compute_precision(dtype: str | None, device_type: str = "cuda"):
+    """The `compute_dtype` config key as a context: `"bfloat16"` runs the
+    forward under a bf16 `torch.autocast` (matrix products and convolutions
+    in bf16; parameters, the cost volumes and the selections stay f32),
+    None or `"float32"` leaves everything f32. Any other string raises
+    (the JAX package turns an unknown one, `"bf16"` say, into f32 silently)."""
+    if dtype in (None, "float32"):
+        return contextlib.nullcontext()
+    if dtype == "bfloat16":
+        return torch.autocast(device_type, dtype=torch.bfloat16)
+    raise ValueError(f"compute_dtype must be bfloat16 or float32, got {dtype!r}")
+
+
+def full_precision(device_type: str):
+    """An f32 island inside `compute_precision`: autocast off."""
+    return torch.autocast(device_type, enabled=False)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last (channel) axis of data of any rank. Eval
-    normalises with the running statistics, eps 1e-5."""
+    normalises with the running statistics, eps 1e-5. Train normalises with
+    the batch statistics and updates the running ones as Flax does: with
+    the biased batch variance (torch's own update takes the unbiased one),
+    momentum 0.1 (Flax's 0.9)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -43,11 +65,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        flat = F.batch_norm(
-            x.reshape(-1, x.shape[-1]), self.running_mean, self.running_var,
-            self.weight, self.bias, self.training, self.momentum, self.eps,
-        )
-        return flat.reshape(x.shape)
+        flat = x.reshape(-1, x.shape[-1])
+        if not self.training:
+            out = F.batch_norm(flat, self.running_mean, self.running_var, self.weight,
+                               self.bias, False, 0.0, self.eps)
+            return out.reshape(x.shape)
+        with torch.no_grad():
+            stats = flat.to(self.running_mean.dtype)
+            mean = stats.mean(dim=0)
+            var = (stats - mean).square().mean(dim=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        out = F.batch_norm(flat, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return out.reshape(x.shape)
 
 
 def Norm(norm: str | None, channels: int) -> nn.Module:

@@ -4,12 +4,15 @@ PyTorch counterpart of camliflow_tpu/nn/point_conv.py (exact path).
 
 PointConv: KNN gather -> relative-xyz weight net MLP(3->[8,16]) ->
 weights^T @ neighbour features -> linear -> norm -> act. Both gathers are
-k-major ([B, k, M, C], kernel #12 on a card, ops/gather.py), as the JAX fast
-path gathers; the contraction over k is the same sum either way.
-PointConvDW: depthwise variant, feature MLP * weight_net(dxyz), max over k
-(the tail is kernel #13 on a card, ops/update3d.py::dw_max); its geometric
-weights depend only on the points, so `compute_weights` lets a caller hoist
-them out of a refinement loop.
+k-major ([B, k, M, C]): in eval through kernel #12 on a card
+(ops/gather.py), as the JAX fast path gathers; in train mode through the
+plain, differentiable gather, as the JAX training path gathers. The
+contraction over k is the same sum either way.
+PointConvDW: depthwise variant, feature MLP * weight_net(dxyz), max over k,
+as differentiable torch ops (the eval loops run the tail as kernel #13 or
+inside #6/#7 on weights packed once per request, ops/update3d.py); its
+geometric weights depend only on the points, so `compute_weights` lets a
+caller hoist them out of a refinement loop.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 from torch import nn
 
 from ..ops import update3d
-from ..ops.gather import gather_points_kmajor
+from ..ops.gather import gather_points_kmajor, gather_points_kmajor_plain
 from ..ops.geometry import gather_points, k_nearest_neighbor
 from .layers import MLP, Norm, apply_act
 
@@ -53,9 +56,10 @@ class PointConv(nn.Module):
         batch, n_samples = sampled_xyz.shape[:2]
         features = torch.cat([xyz.to(features.dtype), features], dim=-1)
         knn_indices = _resolve_knn(xyz, sampled_xyz, knn_indices, self.k).contiguous()
-        rel_xyz = gather_points_kmajor(xyz, knn_indices) - sampled_xyz[:, None, :, :]
+        gather = gather_points_kmajor_plain if self.training else gather_points_kmajor
+        rel_xyz = gather(xyz, knn_indices) - sampled_xyz[:, None, :, :]
         weights = self.weight_net(rel_xyz)  # [B, k, M, 16]
-        knn_feats = gather_points_kmajor(features, knn_indices)  # [B, k, M, C+3]
+        knn_feats = gather(features, knn_indices)  # [B, k, M, C+3]
         # flattened weights-major ([16, C+3] row-major) so checkpoints line up
         out = torch.einsum("bkmw,bkmc->bmwc", weights, knn_feats)
         out = self.linear(out.reshape(batch, n_samples, -1))
@@ -88,5 +92,5 @@ class PointConvDW(nn.Module):
         knn_indices = _resolve_knn(xyz, sampled_xyz, knn_indices, self.k).contiguous()
         if weights is None:
             weights = self.compute_weights(xyz, sampled_xyz, knn_indices)
-        return update3d.dw_max(self.mlp(features), knn_indices, weights)
+        return update3d.dw_max_plain(self.mlp(features), knn_indices, weights)
 

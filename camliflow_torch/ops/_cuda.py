@@ -13,6 +13,32 @@ import functools
 import torch
 
 
+def forward_only(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: the fused
+    kernels (#5-#13) have no backward, so on either device their wrappers
+    refuse to drop a gradient without a word. Training runs the modules'
+    own differentiable forwards instead."""
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{name} is forward-only (no backward) but an input requires grad; run it "
+            "under torch.no_grad() / torch.inference_mode(), or train through the "
+            "modules' own forwards (the model in train mode)")
+
+
+def forward_only_modules(name: str, *modules: torch.nn.Module) -> None:
+    """Raise when grad mode is on and a module whose weights a fused kernel's
+    packer copies requires grad: the packed copies carry no gradient back."""
+    if torch.is_grad_enabled() and any(
+        p.requires_grad for m in modules for p in m.parameters()
+    ):
+        raise RuntimeError(
+            f"{name} packs weights that require grad into a forward-only kernel's "
+            "layout; pack under torch.no_grad() / torch.inference_mode() (eval), or "
+            "train through the modules' own forwards (the model in train mode)")
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the plain version applies)."""
     return all(t.device.type == "cpu" for t in tensors)

@@ -87,6 +87,7 @@ def prepare_clfm_params(clfm: nn.Module) -> dict:
     """The dense layers of a `nn.clfm.CLFM` without norm (the in-loop ones),
     packed once per request: the six 1x1 layers as `PackedConv`s with their
     tf32 planes, and each SK head's fc_mid and fc_out."""
+    _cuda.forward_only_modules("prepare_clfm_params", clfm)
     layers = {"out_conv": clfm.interp.out_conv, "align1_2d": clfm.fuse2d.align1,
               "align2_2d": clfm.fuse2d.align2, "mlps3d": clfm.mlps3d,
               "align1_3d": clfm.fuse3d.align1, "align2_3d": clfm.fuse3d.align2}
@@ -184,6 +185,7 @@ def clfm_fused(feat_2d: torch.Tensor, feat_3d: torch.Tensor, score: torch.Tensor
     (out_2d, out_3d). CPU tensors take the plain version; CUDA tensors the
     kernel."""
     tensors = (feat_2d, feat_3d, score, nn_idx, tap_idx, tap_w)
+    _cuda.forward_only("clfm_fused", *tensors)
     if _cuda.on_cpu(*tensors):
         return clfm_fused_plain(*tensors, params)
     name = "clfm_fused"

@@ -2,7 +2,8 @@
 tail after it. CUDA kernels, plain versions, wrappers.
 
 `correlation3d_knn` replaces camliflow_tpu/ops/pallas_corr3d.py::
-correlation3d_knn_pallas (exact mode, with cost) with `csrc/corr3d.cu`. The
+correlation3d_knn_pallas (exact mode, with cost, and the training path's
+index-only form, `with_cost=False`) with `csrc/corr3d.cu`. The
 frame-2 levels are row-prefixes of one FPS order, so one scan per query in
 ascending index serves every level. The kernel splits that scan into slices
 that follow the levels (`scan_plan`), keeps each slice's k nearest with a
@@ -77,16 +78,20 @@ def _plan_arrays(level_sizes: tuple[int, ...]):
 def correlation3d_knn_plain(
     xyz1: torch.Tensor,
     xyz2_warp: torch.Tensor,
-    pyramid_cat: torch.Tensor,
+    pyramid_cat: torch.Tensor | None,
     level_sizes: tuple[int, ...],
     k: int = 16,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    with_cost: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One distance matrix over the widest prefix; each level selects from
-    its column-prefix; the cost is read at offset_l + idx."""
+    its column-prefix; the cost is read at offset_l + idx (not with
+    `with_cost=False`, which returns (indices, None))."""
     dists = squared_distance(xyz1, xyz2_warp[:, : level_sizes[0]])
     idx = torch.cat(
         [knn_from_dists(dists[:, :, :m], k) for m in level_sizes], dim=-1
     )
+    if not with_cost:
+        return idx, None
     columns = idx.long() + level_offsets(level_sizes, k, idx.device)
     return idx, torch.gather(pyramid_cat, 2, columns)
 
@@ -94,29 +99,37 @@ def correlation3d_knn_plain(
 def correlation3d_knn(
     xyz1: torch.Tensor,
     xyz2_warp: torch.Tensor,
-    pyramid_cat: torch.Tensor,
+    pyramid_cat: torch.Tensor | None,
     level_sizes: tuple[int, ...],
     k: int = 16,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    with_cost: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Per-level prefix KNN plus cost extraction.
 
     xyz1 [B, N, 3] queries; xyz2_warp [B, M, 3] warped frame 2 (levels are
     row-prefixes); pyramid_cat [B, N, sum(level_sizes)]; level_sizes
     descending. Returns (indices [B, N, L*k] int32 grouped by level, costs
-    [B, N, L*k] f32). CPU tensors take the plain version; CUDA tensors the
-    kernel."""
+    [B, N, L*k] f32). With `with_cost=False` (training: indices only; the
+    caller gathers the costs differentiably) the pyramid is not read and
+    may be None, and the costs are None. CPU tensors take the plain
+    version; CUDA tensors the kernel. The index-only launches count on
+    `correlation3d_knn.index_launches`, the others on `.launches`."""
     level_sizes = tuple(int(m) for m in level_sizes)
-    if _cuda.on_cpu(xyz1, xyz2_warp, pyramid_cat):
-        return correlation3d_knn_plain(xyz1, xyz2_warp, pyramid_cat, level_sizes, k)
+    if not with_cost:
+        pyramid_cat = None
+    if _cuda.on_cpu(*(t for t in (xyz1, xyz2_warp, pyramid_cat) if t is not None)):
+        return correlation3d_knn_plain(xyz1, xyz2_warp, pyramid_cat, level_sizes, k,
+                                       with_cost)
     name = "correlation3d_knn"
     _cuda.check(name, torch.float32, xyz1=xyz1, xyz2_warp=xyz2_warp,
-                pyramid_cat=pyramid_cat)
+                **({"pyramid_cat": pyramid_cat} if with_cost else {}))
     batch, n = xyz1.shape[:2]
     m_rows = xyz2_warp.shape[1]
     m_total = sum(level_sizes)
     _cuda.check_shape(name, "xyz1", xyz1, (batch, n, 3))
     _cuda.check_shape(name, "xyz2_warp", xyz2_warp, (batch, m_rows, 3))
-    _cuda.check_shape(name, "pyramid_cat", pyramid_cat, (batch, n, m_total))
+    if with_cost:
+        _cuda.check_shape(name, "pyramid_cat", pyramid_cat, (batch, n, m_total))
     n_levels = len(level_sizes)
     descending = all(a > b for a, b in zip(level_sizes, level_sizes[1:]))
     if not (1 <= n_levels <= MAX_LEVELS and descending
@@ -126,18 +139,24 @@ def correlation3d_knn(
                          f"min({MAX_K}, smallest level); got {level_sizes}, k={k}")
     sizes, starts, n_slices, queries = _plan_arrays(level_sizes)
     idx = torch.empty(batch, n, n_levels * k, dtype=torch.int32, device=xyz1.device)
-    cost = torch.empty(batch, n, n_levels * k, dtype=torch.float32, device=xyz1.device)
+    cost = None
+    if with_cost:
+        cost = torch.empty(batch, n, n_levels * k, dtype=torch.float32, device=xyz1.device)
     from ..csrc.build import launch
 
     launch("camli_corr3d", xyz1.data_ptr(), xyz2_warp.data_ptr(),
-           pyramid_cat.data_ptr(), idx.data_ptr(), cost.data_ptr(), batch, n,
-           m_rows, m_total, n_levels, ctypes.addressof(sizes), n_slices,
-           ctypes.addressof(starts), queries, k)
-    correlation3d_knn.launches += 1
+           None if cost is None else pyramid_cat.data_ptr(), idx.data_ptr(),
+           None if cost is None else cost.data_ptr(), batch, n, m_rows, m_total, n_levels,
+           ctypes.addressof(sizes), n_slices, ctypes.addressof(starts), queries, k)
+    if with_cost:
+        correlation3d_knn.launches += 1
+    else:
+        correlation3d_knn.index_launches += 1
     return idx, cost
 
 
 correlation3d_knn.launches = 0
+correlation3d_knn.index_launches = 0
 
 
 # --- the tail (kernel #5) --------------------------------------------------
@@ -158,6 +177,7 @@ def prepare_corr3d_tail_params(correlation: nn.Module) -> TailParams:
     """The six dense operands of a `models.camliraft_l.Correlation3D`, packed
     once per request: its cost MLP and merge carry no norm, so weights and
     biases describe the tail."""
+    _cuda.forward_only_modules("prepare_corr3d_tail_params", correlation)
     first, second = (conv.conv_fn for conv in correlation.cost_mlp.convs)
     merge = correlation.merge.conv_fn
 
@@ -185,6 +205,7 @@ def corr3d_tail(xyz1: torch.Tensor, xyz2_warp: torch.Tensor, idx: torch.Tensor,
     """xyz1 [B, N, 3], xyz2_warp [B, M, 3], idx [B, N, L*k] int32 and cost
     [B, N, L*k] (from `correlation3d_knn`) -> [B, N, Cout]. CPU tensors take
     the plain version; CUDA tensors the kernel."""
+    _cuda.forward_only("corr3d_tail", xyz1, xyz2_warp, cost)
     if _cuda.on_cpu(xyz1, xyz2_warp, idx, cost):
         return corr3d_tail_plain(xyz1, xyz2_warp, idx, cost, params, n_levels, k)
     name = "corr3d_tail"

@@ -60,6 +60,7 @@ def gather_points_kmajor(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     [B, k, M, C], bit-identical to `gather_points(data, idx)` transposed.
     CPU tensors take the plain version; CUDA tensors the kernel, which takes
     int32 indices in [0, N)."""
+    _cuda.forward_only("gather_points_kmajor", data)
     if _cuda.on_cpu(data, idx):
         return gather_points_kmajor_plain(data, idx)
     name = "gather_points_kmajor"

@@ -1,7 +1,8 @@
-"""2D image-space ops: mesh grid, input padding, convex upsampling (NHWC).
+"""2D image-space ops: mesh grid, input padding, convex upsampling, flow
+resizing (NHWC).
 
 PyTorch counterpart of camliflow_tpu/ops/image.py (`mesh_grid`,
-`InputPadder`, `convex_upsample`).
+`InputPadder`, `convex_upsample`, `resize_flow2d`).
 """
 
 from __future__ import annotations
@@ -37,6 +38,18 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, scale_factor: int = 
     )  # [B, h, w, 9, 2]
     up = torch.einsum("bhwkyx,bhwkc->bhwyxc", mask, neighbors)
     return up.permute(0, 1, 3, 2, 4, 5).reshape(batch, h * s, w * s, 2)
+
+
+def resize_flow2d(flow: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
+    """Bilinear-resize a flow field [B, h, w, 2] (align_corners=True) to
+    [B, target_h, target_w, 2] and rescale its magnitudes."""
+    origin_h, origin_w = flow.shape[1:3]
+    if (target_h, target_w) == (origin_h, origin_w):
+        return flow
+    flow = F.interpolate(flow.permute(0, 3, 1, 2), size=(target_h, target_w),
+                         mode="bilinear", align_corners=True).permute(0, 2, 3, 1)
+    scale = torch.tensor([target_w / origin_w, target_h / origin_h], dtype=flow.dtype)
+    return flow * scale.to(flow.device, non_blocking=True)
 
 
 class InputPadder:

@@ -110,6 +110,7 @@ def conv_plain(x: torch.Tensor, conv: PackedConv) -> torch.Tensor:
 def prepare_motion_encoder_params(encoder: nn.Module) -> dict:
     """Packed convs of a `models.raft.MotionEncoder2D`; conv_f1 stays a
     plain (weight, bias) pair: it runs outside the kernel."""
+    _cuda.forward_only_modules("prepare_motion_encoder_params", encoder)
     params = {name: pack_convs(getattr(encoder, name))
               for name in ("conv_c1", "conv_c2", "conv_f2", "conv")}
     params["conv_f1"] = (encoder.conv_f1.weight.detach().float(),
@@ -182,6 +183,7 @@ def motion_encoder_2d(flow: torch.Tensor, corr: torch.Tensor, params: dict):
     """flow [B, H, W, 2], corr [B, H, W, C] -> [B, H, W, 126 + 2] (the merge
     conv's output, then the flow). CPU tensors take the plain version; CUDA
     tensors the kernel, after conv_f1 as one F.conv2d."""
+    _cuda.forward_only("motion_encoder_2d", flow, corr)
     if _cuda.on_cpu(flow, corr):
         return motion_encoder_2d_plain(flow, corr, params)
     name = "motion_encoder_2d"
@@ -216,6 +218,7 @@ motion_encoder_2d.launches = 0
 def prepare_gru_params(gru: nn.Module) -> dict:
     """Packed convs of a `models.raft.GRU2D`: per direction, z|r stacked
     into one conv, and q."""
+    _cuda.forward_only_modules("prepare_gru_params", gru)
     return {
         "zr1": pack_convs(gru.convz1, gru.convr1), "q1": pack_convs(gru.convq1),
         "zr2": pack_convs(gru.convz2, gru.convr2), "q2": pack_convs(gru.convq2),
@@ -224,6 +227,7 @@ def prepare_gru_params(gru: nn.Module) -> dict:
 
 def prepare_flow_head_params(head: nn.Module) -> dict:
     """Packed convs of a `models.raft.FlowHead2D`."""
+    _cuda.forward_only_modules("prepare_flow_head_params", head)
     return {"head1": pack_convs(head.conv1), "head2": pack_convs(head.conv2)}
 
 
@@ -288,6 +292,7 @@ def gru_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
     [B, H, W, Ch]: GRU2D over [h, x2d, motion] (`prepare_gru_params`).
     CPU tensors take the plain version; CUDA tensors #8's GRU half, 4
     launches."""
+    _cuda.forward_only("gru_2d", h, x2d, motion)
     if _cuda.on_cpu(h, x2d, motion):
         return gru_2d_plain(h, torch.cat([x2d, motion], dim=-1), params)
     name = "gru_2d"
@@ -312,6 +317,7 @@ def flow_head_2d(h: torch.Tensor, params: dict) -> torch.Tensor:
     """h [B, H, W, Ch] -> delta [B, H, W, 2]: FlowHead2D
     (`prepare_flow_head_params`). CPU tensors take the plain version; CUDA
     tensors #8's flow-head half, 2 launches."""
+    _cuda.forward_only("flow_head_2d", h)
     if _cuda.on_cpu(h):
         return flow_head_2d_plain(h, params)
     name = "flow_head_2d"
@@ -339,6 +345,7 @@ def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
     (h' [B, H, W, Ch], delta [B, H, W, 2]). CPU tensors take the plain
     version; CUDA tensors the kernel: `gru_2d` then `flow_head_2d` from one
     entry point, 6 launches."""
+    _cuda.forward_only("gru_flowhead_2d", h, x2d, motion)
     if _cuda.on_cpu(h, x2d, motion):
         return gru_flowhead_2d_plain(h, x2d, motion, params)
     name = "gru_flowhead_2d"
@@ -383,6 +390,7 @@ def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torc
     the plain version; CUDA tensors conv_f1 as one F.conv2d, then the kernel
     from one entry point: `motion_encoder_2d` then `gru_flowhead_2d`, bit
     for bit, on one scratch buffer."""
+    _cuda.forward_only("update_2d", h, x2d, flow, corr)
     if _cuda.on_cpu(h, x2d, flow, corr):
         return update_2d_plain(h, x2d, flow, corr, me, gf)
     name = "update_2d"

@@ -149,6 +149,7 @@ def _check_idx(name: str, knn_idx: torch.Tensor, batch: int, n: int, k: int, dev
 def prepare_motion_encoder_3d_params(encoder: nn.Module) -> dict:
     """Packed MLPs of a `models.camliraft_l.MotionEncoder3D`; c1's and the
     merge conv's (#6's dense steps) also carry tf32 planes."""
+    _cuda.forward_only_modules("prepare_motion_encoder_3d_params", encoder)
     return {name: pack_linears(_mlp(getattr(encoder, name)), planes=name in ME_DENSE)
             for name in ME_CONVS}
 
@@ -234,6 +235,7 @@ def motion_encoder_3d(flow: torch.Tensor, corr: torch.Tensor, knn_idx: torch.Ten
     merge conv's rows 128 floats apart, `padded_rows`) -> [B, N, 125 + 3]
     (the merge conv's output, then the flow). CPU tensors take the plain
     version; CUDA tensors the kernel."""
+    _cuda.forward_only("motion_encoder_3d", flow, corr, *dw.values())
     if _cuda.on_cpu(flow, corr, knn_idx):
         return motion_encoder_3d_plain(flow, corr, knn_idx, dw, params)
     name = "motion_encoder_3d"
@@ -274,6 +276,7 @@ def prepare_gru_3d_params(gru: nn.Module) -> dict:
     [r*h, x3d, motion]: "zrq" stacks z|r and q's x3d/motion part (its r*h
     rows zero, its bias) over [h, x3d, motion], "q_h" is q's r*h part
     (bias zero); their sum is q's product. Both carry tf32 planes."""
+    _cuda.forward_only_modules("prepare_gru_3d_params", gru)
     z, r, q = _mlp(gru.conv_z), _mlp(gru.conv_r), _mlp(gru.conv_q)
     hidden = z.weight.shape[0]
     q_xm = q.weight.detach().clone()
@@ -285,6 +288,7 @@ def prepare_gru_3d_params(gru: nn.Module) -> dict:
 
 
 def prepare_flow_head_3d_params(head: nn.Module) -> dict:
+    _cuda.forward_only_modules("prepare_flow_head_3d_params", head)
     return {"conv1": pack_linears(_mlp(head.conv1)), "conv2": pack_linears(_mlp(head.conv2)),
             "fc": pack_linears(head.fc)}
 
@@ -367,6 +371,7 @@ def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
     """h [B, N, Ch], x3d [B, N, Cx], motion [B, N, Cm], knn_idx [B, N, >=32]
     int32 -> (h' [B, N, Ch], delta [B, N, 3]). CPU tensors take the plain
     version; CUDA tensors the kernel."""
+    _cuda.forward_only("gru_flowhead_3d", h, x3d, motion, *dw.values())
     if _cuda.on_cpu(h, x3d, motion, knn_idx):
         return gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw, params)
     name = "gru_flowhead_3d"
@@ -420,6 +425,7 @@ def dw_max(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
     [B, M, C]: max_j table[idx[:, :, j]] * weights[:, :, j], bit-identical
     to `dw_max_plain`, for any k >= 1 and C. CPU tensors take the plain
     version; CUDA tensors the kernel."""
+    _cuda.forward_only("dw_max", table, weights)
     if _cuda.on_cpu(table, knn_idx, weights):
         return dw_max_plain(table, knn_idx, weights)
     name = "dw_max"
@@ -454,9 +460,11 @@ def gru_3d(h: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor, dw: dict, pa
     (F.linear), the gates and the blend run as torch ops around it. The
     flagship's fuse_hidden path runs it, where CLFM sits between GRU3D and
     FlowHead3D."""
+    _cuda.forward_only("gru_3d", h, x, *dw.values())
     return _gru_3d(h, x, knn_idx, dw, params, dw_max)
 
 
 def flow_head_3d(h: torch.Tensor, knn_idx: torch.Tensor, dw: dict, params: dict):
     """FlowHead3D with its two PointConvDW tails through `dw_max`."""
+    _cuda.forward_only("flow_head_3d", h, *dw.values())
     return _flow_head_3d(h, knn_idx, dw, params, dw_max)

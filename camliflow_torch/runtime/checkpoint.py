@@ -1,4 +1,5 @@
-"""Weight bridge: JAX variables -> the port's state_dict.
+"""Weight bridge (JAX variables -> the port's state_dict), the trainer's
+checkpoints, and ImageNet backbone weights.
 
 The JAX package stores its variables as '/'-joined paths (`params/...`,
 `batch_stats/...`; `camliflow_tpu/runtime/checkpoint.py::tree_to_flat`, and
@@ -100,3 +101,61 @@ def random_weights(model: nn.Module, seed: int) -> None:
     missing = set(model.state_dict()) - filled
     if missing:
         raise RuntimeError(f"random_weights left these unfilled: {sorted(missing)[:5]}")
+
+
+# --- the trainer's checkpoints -------------------------------------------
+
+
+def save_train_checkpoint(path: str | Path, model: nn.Module, optimizer: torch.optim.Optimizer,
+                          last_epoch: int, step: int) -> None:
+    """The model's state, the optimizer's state (the JAX trainer keeps it
+    too; the reference drops it), the last finished epoch and the update
+    count, in one `torch.save` file, written under a temporary name first,
+    so a reader sees a whole file or none."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "last_epoch": int(last_epoch), "step": int(step)}, tmp)
+    tmp.replace(path)
+
+
+def load_train_checkpoint(path: str | Path) -> dict:
+    """A `save_train_checkpoint` file, its tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_weights(model: nn.Module, path: str | Path, model_name: str) -> None:
+    """Fill `model` from `path`: the JAX package's flat `.npz` through the
+    weight bridge, or a trainer checkpoint of the port (strict both)."""
+    if Path(path).suffix == ".npz":
+        load_jax_variables(model, load_npz(path), model_name)
+    else:
+        model.load_state_dict(load_train_checkpoint(path)["model"], strict=True)
+
+
+def load_backbone_pretrained(model: nn.Module, path: str | Path) -> int:
+    """ImageNet ResNet weights (a torchvision-named state_dict in a `.pth`/
+    `.pt`, or the same names in an `.npz`) into every 2D backbone of the
+    model (its `ResNetEncoder2D`s, whose names are torchvision's), the align
+    conv excepted. Returns the number of tensors loaded."""
+    from ..nn.resnet import ResNetEncoder2D
+
+    path = Path(path)
+    if path.suffix == ".npz":
+        source = {k: torch.from_numpy(v) for k, v in load_npz(path).items()}
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        source = payload.get("state_dict", payload)
+    loaded = 0
+    with torch.no_grad():
+        for module in model.modules():
+            if not isinstance(module, ResNetEncoder2D):
+                continue
+            for name, tensor in module.state_dict().items():
+                src = source.get(name)
+                if name.startswith("align.") or src is None or src.shape != tensor.shape:
+                    continue
+                tensor.copy_(src)
+                loaded += 1
+    return loaded

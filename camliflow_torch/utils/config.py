@@ -1,10 +1,11 @@
 """Config composition for the port's CLI: YAML groups + dotted overrides.
 
-The port's own copy of what its eval entry point needs from
-camliflow_tpu/utils/config.py (same semantics, so both CLIs read the shared
-`conf/` tree alike): `Config` is a dict with attribute access, `compose`
-merges the base file and the model/testset groups, then the `override:`
-block, then `key=value` overrides. PyYAML is imported only when a file or an
+The port's own copy of what its entry points need from
+camliflow_tpu/utils/config.py (same semantics, so both packages' CLIs read
+the shared `conf/` tree alike): `Config` is a dict with attribute access,
+`compose` merges the base file, the model/trainset/valset/testset groups
+and the training group, then the `override:` block, then `key=value`
+overrides. PyYAML is imported only when a file or an
 override value is parsed.
 """
 
@@ -137,13 +138,22 @@ def compose(
     testset: str | None = None,
     base: str = "evaluator.yaml",
     overrides: list[str] | None = None,
+    trainset: str | None = None,
+    valset: str | None = None,
 ) -> Config:
-    """Base file + model and testset groups + `override:` block + overrides."""
+    """Base file + the model, trainset, valset and testset groups + (with a
+    trainset and a model) training/<trainset>/<model>.yaml + `override:`
+    block + overrides, in camliflow_tpu's order."""
     conf_dir = Path(conf_dir)
     cfg = load_yaml(conf_dir / base)
-    for group, name in (("model", model), ("testset", testset)):
+    for group, name in (("model", model), ("trainset", trainset), ("valset", valset),
+                        ("testset", testset)):
         if name is not None:
             cfg = deep_merge(cfg, load_yaml(conf_dir / group / f"{name}.yaml").to_dict())
+    if trainset is not None and model is not None:
+        training = conf_dir / "training" / trainset / f"{model}.yaml"
+        if training.exists():
+            cfg = deep_merge(cfg, load_yaml(training).to_dict())
     cfg = apply_override_block(cfg)
     if overrides:
         cfg = parse_overrides(cfg, overrides)

@@ -33,7 +33,10 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    head held to this tree's bit for bit); the k-major gather bit for bit at
    its six main-path calls, by device, event and host time, beside one
    advanced indexing; Correlation3D's selection bit for bit, ties
-   included, CLFM's device time split by stage (profiler); FPS bit for bit,
+   included, and its index-only form (training's) at the train shapes, a
+   batch of 2, bit for bit the full form's indices and the plain
+   version's, with its device time beside the full form's; CLFM's device
+   time split by stage (profiler); FPS bit for bit,
    also on duplicated points, and its time a step; the 3D motion encoder
    (its flow columns bit for bit) by events, device time, by launch and
    host time a call; the 3D GRU + flow head also at the eval CLI's batch of
@@ -75,9 +78,21 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    #8 and #11 at KITTI's 47x156 map beside the bench's 68x120;
 8. the demo: `camliflow_torch.demo` on a synthetic 960x540 pair with PFM
    disparities, on the card (launches held to one flagship request) and on
-   the CPU.
+   the CPU;
+9. training: the port's Trainer (`python -m camliflow_torch.train
+   trainset=flyingthings3d_subset valset=flyingthings3d_subset
+   model=camliraft`'s) at the flagship's full width, amp and augmentation
+   on, batches of 2 on 8 synthetic 960x540 pairs written with the port's
+   writers: a warm-up epoch, a timed epoch (ms a step, frame pairs/s,
+   launches a step held to #1-#4's counts, #4 index-only, #5-#13 never,
+   peak memory), a profiled step (device busy share), every step's loss
+   and both branch gradient norms finite and > 0, a validation pass, a
+   checkpoint saved and resumed; a resumed run's first loss against the
+   uninterrupted run's (augmentation off); one f32 step at batch 1 and 2
+   iterations on the card against the CPU (loss, every gradient, the
+   parameters after the step).
 
-Each path's launches (4, 7 and 8) are counted with every counter zeroed
+Each path's launches (4, 7, 8 and 9) are counted with every counter zeroed
 just before it and read just after. Prints the kernels' JSON line, then the card's name and power limit, then, as
 the last line, the device JSON with "ok": true. Exits non-zero, without that
 line, if any phase fails or there is no CUDA card.
@@ -687,6 +702,35 @@ def kernel_parity(device, other=None) -> list[dict]:
            m * m * 9,  # one scan of the level-0 candidates serves every level
            # the points, the selected pyramid entries, indices and costs out
            4 * (2 * m * 3 + 3 * n_sel))
+
+    # its index-only form (the training path's, with_cost=False) at the
+    # train shapes, a batch of 2 (one cloud random, one with exact ties):
+    # the full form's indices and the plain version's, bit for bit
+    train_1 = torch.cat([xyz1, tied_1]).contiguous()
+    train_2 = torch.cat([xyz2_warp, tied_2]).contiguous()
+    train_pyramid = pyramid.expand(2, -1, -1).contiguous()
+    only, none = corr3d.correlation3d_knn(train_1, train_2, None, sizes, 16, with_cost=False)
+    full = corr3d.correlation3d_knn(train_1, train_2, train_pyramid, sizes, 16)[0]
+    plain = corr3d.correlation3d_knn_plain(train_1, train_2, None, sizes, 16, with_cost=False)[0]
+    if none is not None or not (torch.equal(only, full) and torch.equal(only, plain)):
+        raise AssertionError("corr3d index-only: indices differ from the full form's or the "
+                             "plain version's")
+    select_only = lambda: corr3d.correlation3d_knn(  # noqa: E731
+        train_1, train_2, None, sizes, 16, with_cost=False)
+    only_dev = device_ms(select_only, 20, only="corr3d_kernel")
+    full_dev = device_ms(lambda: corr3d.correlation3d_knn(train_1, train_2, train_pyramid,
+                                                          sizes, 16), 20, only="corr3d_kernel")
+    print(f"  corr3d index-only, batch 2: device {only_dev:.4f} ms a call, the full form "
+          f"{full_dev:.4f} ms; host {host_ms(select_only, 20):.4f} ms", flush=True)
+    record("correlation3d_knn (index-only)", "camliflow_torch/csrc/corr3d.cu",
+           "camliflow_tpu/ops/pallas_corr3d.py:440", 0.0, time_ms(select_only, 50),
+           time_ms(lambda: corr3d.correlation3d_knn_plain(
+               train_1, train_2, None, sizes, 16, with_cost=False), 20),
+           2 * m * m * 9,
+           # the points in, the indices out: no pyramid, no costs
+           4 * 2 * (2 * m * 3 + n_sel),
+           wrapper="correlation3d_knn_index", device_ms=only_dev, full_form_device_ms=full_dev,
+           batch=2)
 
     # the 2D update chain at the flagship's 1/8 map
     blocks = nn.ModuleList([MotionEncoder2D(), GRU2D(), FlowHead2D()])
@@ -1670,6 +1714,262 @@ def demo_phase(device, wrappers, per_request, card) -> dict:
     return launches
 
 
+class IndexOnly:
+    """#4's index-only launches (`correlation3d_knn(..., with_cost=False)`),
+    which the wrapper counts beside its full form's, under the `launches`
+    name every other counter has."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self) -> int:
+        return self.wrapper.index_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.wrapper.index_launches = value
+
+
+TRAIN_PAIRS = 8  # frame pairs of the synthetic training split
+TRAIN_POINTS = 10000  # points a cloud (the reader samples 8192 of them)
+TRAIN_BATCH = 2
+TRAIN_ITERS = 10  # conf/model/camliraft.yaml n_iters_train
+LOSS_TOL = 1e-4  # relative, the f32 train step's loss on the card against the CPU
+GRAD_TOL = 1e-3  # max|dg| <= GRAD_TOL * (1 + max|g_cpu|), each parameter
+PARAM_TOL = 1e-5  # the parameters after the step, absolute, where the gradients agree in sign
+RESUME_TOL = 1e-5  # relative, the first loss after a resume against the straight run
+
+
+def write_things_split(root, split: str, pairs: int, seed: int) -> None:
+    """A FlyingThings3D-prep split in tools/make_synthetic_dataset.py's
+    layout (image_clean, flow_2d, flow_3d, pc, occ_mask_3d; pair i is frames
+    2i and 2i + 1), at 960 x 540 with TRAIN_POINTS points a cloud inside
+    the camera's view (f 1050, 5-35 m), written with the port's writers."""
+    import os
+
+    from camliflow_torch.data.io import save_flow_png
+    from camliflow_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, split)
+    for sub in ("image_clean", "flow_2d", "flow_3d", "pc", "occ_mask_3d"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    f, cx, cy = INTRINSICS
+    ramp = (np.arange(IMAGE_W)[None, :, None] + np.arange(IMAGE_H)[:, None, None]) % 200
+    for i in range(pairs):
+        first = 2 * i
+        for j in (first, first + 1):
+            image = rng.randint(0, 55, (IMAGE_H, IMAGE_W, 3)) + (ramp + 5 * j) % 200
+            write_png(os.path.join(base, "image_clean", "%07d.png" % j), image.astype(np.uint8))
+        flow_2d = (3 * rng.randn(IMAGE_H, IMAGE_W, 2)).astype(np.float32)
+        save_flow_png(os.path.join(base, "flow_2d", "%07d.png" % first), flow_2d,
+                      (rng.rand(IMAGE_H, IMAGE_W) > 0.1).astype(np.float32))
+        depth = rng.uniform(5.0, 35.0, TRAIN_POINTS)
+        u, v = rng.uniform(0, IMAGE_W - 1, TRAIN_POINTS), rng.uniform(0, IMAGE_H - 1, TRAIN_POINTS)
+        pc1 = np.stack([(u - cx) * depth / f, (v - cy) * depth / f, depth], -1).astype(np.float32)
+        pc2 = (pc1 + 0.1 * rng.randn(TRAIN_POINTS, 3)).astype(np.float32)
+        np.savez(os.path.join(base, "pc", "%07d.npz" % first), pc1=pc1, pc2=pc2)
+        np.save(os.path.join(base, "flow_3d", "%07d.npy" % first), pc2 - pc1)
+        np.save(os.path.join(base, "occ_mask_3d", "%07d.npy" % first),
+                np.packbits(rng.rand(TRAIN_POINTS) > 0.9))
+
+
+def training_phase(device, wrappers, card) -> dict:
+    """Phase 9: `python -m camliflow_torch.train trainset=flyingthings3d_subset
+    valset=flyingthings3d_subset model=camliraft`'s Trainer on the card at
+    the flagship's full width (conf/model/camliraft.yaml and
+    conf/training/flyingthings3d_subset/camliraft.yaml: ResNet-50 to stage
+    2, 960x540, 8192 points, 10 iterations, amp, augmentation on), batches
+    of 2, on a synthetic FlyingThings3D-prep set of 8 pairs: epoch 0 (its
+    first step the warm-up), epoch 1 timed with every counter zeroed just
+    before it (launches held: #1-#4 at their counts a step, #4 only in its
+    index-only form, #5-#13 never), one step profiled, a validation pass, a
+    checkpoint saved and resumed; every step's loss finite and both branch
+    gradient norms finite and > 0. Then, augmentation off, a run resumed
+    after epoch 0 against the run that went on (first loss within
+    RESUME_TOL), and one f32 step at batch 1 and 2 iterations on the card
+    against the same step on the CPU. Returns the timed epoch's launches."""
+    import copy
+    import os
+    import shutil
+
+    import torch
+
+    from camliflow_torch.data.datasets import collate, dataset_factory
+    from camliflow_torch.models.camliraft import loss_fn
+    from camliflow_torch.models.factory import model_factory, optimizer_factory
+    from camliflow_torch.runtime.trainer import Trainer, device_batch
+    from camliflow_torch.runtime.train_state import train_step
+    from camliflow_torch.utils.config import compose
+
+    root = os.path.join(WORK, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    start = time.perf_counter()
+    write_things_split(os.path.join(root, "data"), "train", TRAIN_PAIRS, SEED + 70)
+    write_things_split(os.path.join(root, "data"), "val", 4, SEED + 71)
+    print(f"  wrote {TRAIN_PAIRS} + 4 pairs at {IMAGE_W}x{IMAGE_H}, {TRAIN_POINTS} points a "
+          f"cloud in {time.perf_counter() - start:.1f} s", flush=True)
+
+    def cfgs(name, *extra):
+        return compose("conf", trainset="flyingthings3d_subset", valset="flyingthings3d_subset",
+                       model="camliraft", base="trainer.yaml", overrides=[
+                           f"trainset.root_dir={root}/data", f"valset.root_dir={root}/data",
+                           f"model.batch_size={TRAIN_BATCH}", "training.epochs=2",
+                           f"log.dir={root}/{name}", "log.print_interval=1",
+                           "log.val_interval=100", "trainset.n_workers=4",
+                           "valset.n_workers=4", *extra])
+
+    main_cfgs = cfgs("run")
+    if not (main_cfgs.model.n_iters_train == TRAIN_ITERS and main_cfgs.training.amp
+            and main_cfgs.trainset.augmentation.enabled and main_cfgs.trainset.n_points == N_POINTS
+            and main_cfgs.model.backbone.depth == 50):
+        raise AssertionError("the composed config is not the flagship's training config")
+    def check_steps(history):
+        for record in history:
+            if not (np.isfinite(record["loss"]) and all(
+                    np.isfinite(record[k]) and record[k] > 0 for k in ("grad_norm_2d",
+                                                                       "grad_norm_3d"))):
+                raise AssertionError(f"training step {record}: a loss or gradient norm is not "
+                                     "finite, or a branch's gradient is 0")
+        return history
+
+    trainer = Trainer(main_cfgs, device)
+    steps = len(trainer.train_loader)
+    start = time.perf_counter()
+    trainer.train_one_epoch(0)
+    torch.cuda.synchronize()
+    first_epoch = time.perf_counter() - start
+    records = check_steps(trainer.history)
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    start = time.perf_counter()
+    trainer.train_one_epoch(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    per_step = {key: count / steps for key, count in launches.items()}
+    want = {**dict.fromkeys(wrappers, 0), "k_nearest_neighbor": 8,
+            "furthest_point_sampling": 1, "knn_interpolation": TRAIN_ITERS,
+            "correlation3d_knn_index": TRAIN_ITERS}
+    if per_step != want:
+        raise AssertionError(f"training launches a step {per_step}, expected {want}")
+    records += check_steps(trainer.history)
+    ms = 1e3 * seconds / steps
+    batch = device_batch(collate([trainer.train_set[i] for i in range(TRAIN_BATCH)]), device)
+    step = lambda: train_step(trainer.model, trainer.optimizer, batch,  # noqa: E731
+                              trainer.loss_fn, trainer.cfgs.model, trainer.step)
+    wall, kernels = profile_kernels(step)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  train steps (epoch 1, {steps} steps of {TRAIN_BATCH}): {ms:.1f} ms a step, "
+          f"{1e3 * TRAIN_BATCH / ms:.2f} frame pairs/s (epoch 0, the first step warming up: "
+          f"{1e3 * first_epoch / steps:.1f} ms a step); profiled step: wall {wall:.1f} ms, device "
+          f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} "
+          f"kernel launches; peak memory {peak:.0f} MiB | {card}", flush=True)
+    print(f"  launches a step: { {k: v for k, v in per_step.items() if v} } (the fused "
+          "kernels #5-#13: 0)", flush=True)
+    print("  per step:", [{k: round(v, 4) if isinstance(v, float) else v for k, v in r.items()}
+                          for r in records], flush=True)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3:8.2f} ms {e.count:5d}x  "
+              f"{short_name(e.key)[:80]}")
+
+    summary = trainer.validate(1)
+    if not all(np.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"validation: {summary}")
+    path = trainer.save_ckpt(1)
+    resumed = Trainer(cfgs("run", "ckpt.resume=true"), device)
+    if (resumed.start_epoch, resumed.step) != (2, trainer.step) or any(
+            not torch.equal(v, trainer.model.state_dict()[k])
+            for k, v in resumed.model.state_dict().items()):
+        raise AssertionError("the resumed trainer does not hold the saved state")
+    print(f"  validation: EPE2d {summary['epe2d']:.3f} px, EPE3d {summary['epe3d']:.3f} m; "
+          f"saved {path} and resumed (epoch {resumed.start_epoch}, step {resumed.step})",
+          flush=True)
+    del resumed
+
+    # resumed against uninterrupted, augmentation off
+    off = "trainset.augmentation.enabled=false"
+    straight = Trainer(cfgs("straight", off), device)
+    straight.train_one_epoch(0)
+    straight.save_ckpt(0)
+    straight.train_one_epoch(1)
+    split = Trainer(cfgs("straight", off, "ckpt.resume=true"), device)
+    split.train_one_epoch(split.start_epoch)
+    want_losses = [r["loss"] for r in straight.history if r["epoch"] == 1]
+    got_losses = [r["loss"] for r in split.history]
+    rel = abs(got_losses[0] - want_losses[0]) / abs(want_losses[0])
+    print(f"  resume: epoch-1 losses resumed {got_losses}, straight {want_losses}; first "
+          f"step's relative difference {rel:.2e} (bound {RESUME_TOL})", flush=True)
+    if not rel <= RESUME_TOL:
+        raise AssertionError(f"resumed loss {got_losses[0]} vs {want_losses[0]}")
+    del straight, split, trainer
+
+    # one f32 train step, batch 1, 2 iterations: the card against the CPU
+    f32_cfgs = {**main_cfgs.model.to_dict(), "n_iters_train": 2}
+    torch.manual_seed(SEED)
+    cpu_model = model_factory(f32_cfgs)(f32_cfgs).train()
+    card_model = copy.deepcopy(cpu_model).to(device).train()
+    sample = collate([dataset_factory(cfgs("f32", off).trainset)[0]])
+    results = {}
+    for name, model, dev in (("cuda", card_model, device), ("cpu", cpu_model, torch.device("cpu"))):
+        optimizer = optimizer_factory(main_cfgs.training, model, steps)
+        start = time.perf_counter()
+        loss, _, _ = train_step(model, optimizer, device_batch(sample, dev), loss_fn, f32_cfgs, 0)
+        loss = float(loss)
+        results[name] = (loss, {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                         {k: p.detach().cpu() for k, p in model.named_parameters()},
+                         time.perf_counter() - start)
+        lr = max(group["lr"] for group in optimizer.param_groups)
+    (loss_gpu, grads_gpu, params_gpu, s_gpu), (loss_cpu, grads_cpu, params_cpu, s_cpu) = (
+        results["cuda"], results["cpu"])
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_ratio, grad_worst = max(
+        (float((grads_gpu[k] - g).abs().max()) / (GRAD_TOL * (1 + float(g.abs().max()))), k)
+        for k, g in grads_cpu.items())
+    agree, flipped = step_differences(params_gpu, params_cpu, grads_gpu, grads_cpu)
+    n_flipped = sum(n for _, n, _ in flipped.values())
+    flip_err = max((d for d, _, _ in flipped.values()), default=0.0)
+    param_err, param_worst = max((d, k) for k, d in agree.items())
+    print(f"  f32 step, batch 1, 2 iterations: loss card {loss_gpu:.6f}, CPU {loss_cpu:.6f} "
+          f"(relative {loss_rel:.2e}, bound {LOSS_TOL}); worst gradient at {grad_ratio:.3f} of "
+          f"its bound ({grad_worst}); parameters after the step max|d| {param_err:.2e} "
+          f"({param_worst}; bound {PARAM_TOL}) where the two gradients agree in sign; "
+          f"{n_flipped} elements of {sum(p.numel() for p in params_cpu.values())} where they "
+          f"differ in sign (f32 rounding of near-zero gradients: Adam's first step moves each "
+          f"by about +-lr = {lr:g} on either side), max|d| {flip_err:.2e} (bound 2 lr), in "
+          f"{ {k: (n, f'{g:.1e}') for k, (_, n, g) in flipped.items()} } (elements, largest "
+          f"|g_cpu|); card {s_gpu:.1f} s, CPU {s_cpu:.1f} s", flush=True)
+    if not (loss_rel <= LOSS_TOL and grad_ratio <= 1.0 and param_err <= PARAM_TOL
+            and flip_err <= 2 * lr * (1 + 1e-3)):
+        raise AssertionError("the f32 train step on the card differs from the CPU's")
+    return launches
+
+
+def step_differences(params_a, params_b, grads_a, grads_b):
+    """Two devices' parameters after one optimizer step from the same
+    weights: ({name: max |dp| over the elements whose two gradients have the
+    same sign}, {name: (max |dp|, count, max |g_b|) over the elements whose
+    gradients differ in sign}, the latter only where there are some). Adam's
+    first step moves an element by lr * g / (|g| + eps), about +-lr, so an
+    element whose gradient rounds to the other sign on the other device
+    (|g| within the devices' rounding difference) moves 2 lr apart."""
+    import torch
+
+    agree, flipped = {}, {}
+    for name, p in params_b.items():
+        diff = (params_a[name] - p).abs()
+        other = torch.sign(grads_a[name]) != torch.sign(grads_b[name])
+        agree[name] = float(diff[~other].max()) if bool((~other).any()) else 0.0
+        if bool(other.any()):
+            flipped[name] = (float(diff[other].max()), int(other.sum()),
+                             float(grads_b[name][other].abs().max()))
+    return agree, flipped
+
+
 def main() -> int:
     import argparse
 
@@ -1707,13 +2007,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False, timeout=60,
     ).stdout.strip().splitlines()
-    print("[1/8] device:", torch.cuda.get_device_name(0), "| torch",
+    print("[1/9] device:", torch.cuda.get_device_name(0), "| torch",
           torch.__version__, "| CUDA", torch.version.cuda, flush=True)
     card = smi[0] if smi else "nvidia-smi gave no output"
     print(card, flush=True)
 
     # 2. build
-    print("[2/8] build", flush=True)
+    print("[2/9] build", flush=True)
     try:
         path, seconds, log = kbuild.build()
         kbuild.library()
@@ -1725,12 +2025,13 @@ def main() -> int:
         return 1
 
     # 3. per-kernel parity
-    print("[3/8] kernels vs plain versions at main-path shapes (a plain version "
+    print("[3/9] kernels vs plain versions at main-path shapes (a plain version "
           "repeats its kernel's arithmetic in PyTorch ops, cuDNN convolutions for "
           "the 2D chain, and is no yardstick of speed)", flush=True)
     kernels = []
     try:
-        kernels = kernel_parity(device, other_tree(args.other) if args.other else None)
+        with torch.no_grad():  # the fused kernels and their packers are forward-only
+            kernels = kernel_parity(device, other_tree(args.other) if args.other else None)
     except Exception:
         traceback.print_exc()
         failures.append("kernels")
@@ -1749,13 +2050,14 @@ def main() -> int:
                 "corr3d_tail": corr3d.corr3d_tail,
                 "clfm_fused": clfm.clfm_fused,
                 "gather_points_kmajor": gather.gather_points_kmajor,
-                "dw_max": update3d.dw_max}
+                "dw_max": update3d.dw_max,
+                "correlation3d_knn_index": IndexOnly(corr3d.correlation3d_knn)}
     # per path, each kernel's launches per request (0: never on this path).
     # The encoders' PointConvs gather twice each (xyz, [xyz, features]):
     # CamLiRAFT-L runs 3 encoder passes of 2 PointConvs, the flagship 2 (both
     # frames share fnet's) and 2 gathers in the final upsample.
     point = {"furthest_point_sampling": 1, "correlation3d_knn": N_ITERS,
-             "corr3d_tail": N_ITERS}
+             "corr3d_tail": N_ITERS, "correlation3d_knn_index": 0}
     flagship = {**point, "k_nearest_neighbor": 8, "knn_interpolation": N_ITERS,
                 "gather_points_kmajor": 10, "motion_encoder_2d": N_ITERS,
                 "motion_encoder_3d": N_ITERS, "update_2d": 0}
@@ -1781,7 +2083,7 @@ def main() -> int:
     for label, cls, cfgs, images, per_request in paths:
         # 4. end to end
         points = "" if cls is RAFT else f"{N_POINTS} pts, "
-        print(f"[4/8] {label} eval: {points}"
+        print(f"[4/9] {label} eval: {points}"
               f"{f'{IMAGE_W}x{IMAGE_H} images, ' if images else ''}{N_ITERS} iters, bs=1"
               f"{'' if cls is RAFT else ', IDS on'}", flush=True)
         model = cls(cfgs)
@@ -1813,7 +2115,7 @@ def main() -> int:
             failures.append(f"{label} bs={BATCH}")
 
         # 5. CUDA vs CPU
-        print(f"[5/8] {label}: same weights and input on the CPU (plain versions)",
+        print(f"[5/9] {label}: same weights and input on the CPU (plain versions)",
               flush=True)
         try:
             if out is None:
@@ -1839,14 +2141,14 @@ def main() -> int:
     # 6-8. this slice's paths: the lookahead, the KITTI submission, the demo
     flagship_request = next(per_request for label, _, _, _, per_request in paths
                             if label == "CamLiRAFT")
-    print("[6/8] the Evaluator's one-batch lookahead against a synchronous loop: the "
+    print("[6/9] the Evaluator's one-batch lookahead against a synchronous loop: the "
           f"flagship, 4 batches of {BATCH} frame pairs", flush=True)
     try:
         lookahead_phase(device, card)
     except Exception:
         traceback.print_exc()
         failures.append("lookahead")
-    print(f"[7/8] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
+    print(f"[7/9] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
           f"the flagship, bs={BATCH}, {N_POINTS} pts, densified by #3", flush=True)
     try:
         launches = submission_phase(device, wrappers, flagship_request, card, kernels)
@@ -1855,7 +2157,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("submission")
-    print(f"[8/8] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
+    print(f"[8/9] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
           "flagship, on the card and on the CPU", flush=True)
     try:
         launches = demo_phase(device, wrappers, flagship_request, card)
@@ -1864,6 +2166,16 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("demo")
+    print(f"[9/9] training: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
+          f"{N_POINTS} pts, {TRAIN_ITERS} iters, amp, augmentation), batches of {TRAIN_BATCH}, "
+          f"{TRAIN_PAIRS} synthetic pairs; resume; an f32 step against the CPU", flush=True)
+    try:
+        launches = training_phase(device, wrappers, card)
+        for key, count in launches.items():
+            total[key] += count
+    except Exception:
+        traceback.print_exc()
+        failures.append("training")
 
     # each kernel's launches over the paths' measured requests
     for entry in kernels:

@@ -57,6 +57,16 @@ torch.set_num_threads(2)
 N_SAMPLES = [256, 128, 64, 32, 16]
 
 
+@pytest.fixture(autouse=True)
+def forward_only():
+    """The fused kernels' packers and wrappers are forward-only: they refuse
+    weights or inputs that require grad while grad mode is on (a gradient
+    would be dropped). These tests exercise the eval path, so grad mode is
+    off, as it is under the Evaluator's inference_mode."""
+    with torch.no_grad():
+        yield
+
+
 def j(a):
     return jnp.asarray(np.asarray(a))
 

@@ -30,6 +30,16 @@ from camliflow_torch.runtime.names import translate_suffix
 LEVELS = (64, 32, 16)
 
 
+@pytest.fixture(autouse=True)
+def forward_only():
+    """The fused kernels' packers and wrappers are forward-only: they refuse
+    weights or inputs that require grad while grad mode is on (a gradient
+    would be dropped). These tests exercise the eval path, so grad mode is
+    off, as it is under the Evaluator's inference_mode."""
+    with torch.no_grad():
+        yield
+
+
 def t(a):
     return torch.from_numpy(np.array(a))
 

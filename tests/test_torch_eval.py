@@ -130,12 +130,13 @@ def test_eval_cli_raft_matches_jax_evaluator(synthetic):
 
 
 def test_eval_cli_rejects_what_is_not_ported(synthetic):
-    """Every eval protocol is ported; an unknown one, the readers' training
-    augmentation and the PWC family are not."""
+    """Every eval protocol is ported; an unknown one, KITTI's training
+    augmentation (FlyingThings3D's is ported, for training) and the PWC
+    family are not."""
     with pytest.raises(SystemExit, match="unknown protocol"):
         torch_eval.main(["protocol=kitti_submission", "model=camliraft_l"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_eval.main(["protocol=things", "testset=flyingthings3d_subset", "model=camliraft_l",
+        torch_eval.main(["protocol=things", "testset=kitti", "model=camliraft_l",
                          "device=cpu", "testset.augmentation.enabled=true"] + synthetic)
     with pytest.raises(NotImplementedError, match="pwc"):
         torch_eval.main(["protocol=things", "testset=flyingthings3d_subset",
@@ -199,8 +200,10 @@ def test_port_never_imports_jax():
 
 def test_port_imports_opencv_only_inside_refinement():
     """The port reads and writes its PNGs with its own codec: OpenCV is
-    imported only inside postprocess/refine.py's functions (its solvers),
-    never at a module's top, and chip_smoke.py does not import it."""
+    imported only inside postprocess/refine.py's functions (its solvers)
+    and data/augmentation.py's (the hue shift through HSV and the scale's
+    resize, as the JAX augmentation computes them), never at a module's
+    top, and chip_smoke.py does not import it."""
     sources = sorted((REPO / "camliflow_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
     def imports_cv2(node):
@@ -218,7 +221,8 @@ def test_port_imports_opencv_only_inside_refinement():
                   for node in ast.walk(tree) if imports_cv2(node)]
     assert len(sources) >= 30
     assert where and all(in_function for _, in_function in where), where
-    assert {path for path, _ in where} == {"camliflow_torch/postprocess/refine.py"}, where
+    assert {path for path, _ in where} == {"camliflow_torch/postprocess/refine.py",
+                                           "camliflow_torch/data/augmentation.py"}, where
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -30,6 +30,16 @@ from camliflow_torch.utils.torch_setup import setup_torch
 PERSP = {"sensor_h": 540, "sensor_w": 960, "f": 1050.0, "cx": 479.5, "cy": 269.5}
 
 
+@pytest.fixture(autouse=True)
+def forward_only():
+    """The fused kernels' packers and wrappers are forward-only: they refuse
+    weights or inputs that require grad while grad mode is on (a gradient
+    would be dropped). These tests exercise the eval path, so grad mode is
+    off, as it is under the Evaluator's inference_mode."""
+    with torch.no_grad():
+        yield
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -234,6 +244,34 @@ def test_corr3d_kernel_matches_plain(cuda, sizes, k, ties):
         assert int(idx[..., level * k:(level + 1) * k].max()) < m
     assert torch.equal(idx, ref)
     assert torch.equal(cost, ref_cost)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,k,ties,batch", [
+    ((2048, 1024, 512, 256), 16, False, 2),  # the training path's shape, batch 2
+    ((2048, 1024, 512, 256), 16, True, 2),
+    ((256, 128, 64, 32), 32, True, 1),
+    ((300, 50), 1, True, 3),
+])
+def test_corr3d_index_only_kernel_matches_the_full_form(cuda, sizes, k, ties, batch):
+    """The index-only form (`with_cost=False`, training's): no pyramid read,
+    no costs, the full form's and the plain version's indices bit for bit,
+    ties included; counted on `index_launches`."""
+    n = 2048 if sizes[0] == 2048 else 256
+    xyz2 = ids_clouds(36, cuda, batch, max(320, sizes[0]))
+    xyz1 = ids_clouds(35, cuda, batch, n)
+    if ties:
+        m = xyz2[:, 1::7].shape[1]
+        xyz2[:, 1::7] = xyz2[:, : 7 * m : 7].clone()
+        xyz1[:, ::3] = xyz2[:, 5 : 5 + xyz1[:, ::3].shape[1]]
+    pyramid = torch.randn(batch, n, sum(sizes), device=cuda)
+    before = (corr3d.correlation3d_knn.launches, corr3d.correlation3d_knn.index_launches)
+    idx, cost = corr3d.correlation3d_knn(xyz1, xyz2, None, sizes, k, with_cost=False)
+    after = (corr3d.correlation3d_knn.launches, corr3d.correlation3d_knn.index_launches)
+    assert cost is None and after == (before[0], before[1] + 1)
+    assert torch.equal(idx, corr3d.correlation3d_knn(xyz1, xyz2, pyramid, sizes, k)[0])
+    ref, none = corr3d.correlation3d_knn_plain(xyz1, xyz2, None, sizes, k, with_cost=False)
+    assert none is None and torch.equal(idx, ref)
 
 
 @pytest.mark.cuda

@@ -34,6 +34,16 @@ torch.set_num_threads(2)
 CONV_TOL = 1e-4  # max|kernel - plain| <= CONV_TOL * (1 + max|plain|), as on the card
 
 
+@pytest.fixture(autouse=True)
+def forward_only():
+    """The fused kernels' packers and wrappers are forward-only: they refuse
+    weights or inputs that require grad while grad mode is on (a gradient
+    would be dropped). These tests exercise the eval path, so grad mode is
+    off, as it is under the Evaluator's inference_mode."""
+    with torch.no_grad():
+        yield
+
+
 def low_bits(x: torch.Tensor) -> torch.Tensor:
     """The 13 mantissa bits a tf32 value leaves zero."""
     return x.contiguous().view(torch.int32) & 0x1FFF

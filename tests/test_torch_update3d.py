@@ -43,6 +43,16 @@ torch.set_num_threads(2)
 N = 96  # points; the Pallas kernels in interpret mode set the size
 
 
+@pytest.fixture(autouse=True)
+def forward_only():
+    """The fused kernels' packers and wrappers are forward-only: they refuse
+    weights or inputs that require grad while grad mode is on (a gradient
+    would be dropped). These tests exercise the eval path, so grad mode is
+    off, as it is under the Evaluator's inference_mode."""
+    with torch.no_grad():
+        yield
+
+
 def j(a):
     return jnp.asarray(np.asarray(a))
 
@@ -229,9 +239,11 @@ def test_dw_max_plain_matches_ohg(k, channels):
 
 
 def test_gru_and_flow_head_forwards_take_packed_params(cloud, gru_flowhead):
-    """GRU3D and FlowHead3D run their tails through `dw_max` (on the CPU its
-    plain version), on weights packed by the caller once per request or by
-    the module itself: the same results either way, and the plain chain's."""
+    """GRU3D's and FlowHead3D's own forwards (the differentiable chains the
+    flagship trains through, on the module weights) compute what the
+    packed path computes: `gru_3d`/`flow_head_3d` through `dw_max` (on the
+    CPU its plain version) and the plain chains, on weights packed once per
+    request."""
     xyz, knn, c = cloud
     _, _, dw, (tgru, thead) = gru_flowhead
     dw = dw_to_torch(dw)
@@ -239,12 +251,16 @@ def test_gru_and_flow_head_forwards_take_packed_params(cloud, gru_flowhead):
     with torch.inference_mode():
         gru_params = update3d.prepare_gru_3d_params(tgru)
         head_params = update3d.prepare_flow_head_3d_params(thead)
-        h_new = tgru(t(xyz), h, x, t(knn), dw, params=gru_params)
-        assert torch.equal(h_new, tgru(t(xyz), h, x, t(knn), dw))
-        assert torch.equal(h_new, update3d.gru_3d_plain(h, x, t(knn), dw, gru_params))
-        delta = thead(t(xyz), h_new, t(knn), dw, params=head_params)
-        assert torch.equal(delta, thead(t(xyz), h_new, t(knn), dw))
-        assert torch.equal(delta, update3d.flow_head_3d_plain(h_new, t(knn), dw, head_params))
+        h_new = tgru(t(xyz), h, x, t(knn), dw)
+        close = dict(rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(h_new, update3d.gru_3d(h, x, t(knn), dw, gru_params), **close)
+        torch.testing.assert_close(h_new, update3d.gru_3d_plain(h, x, t(knn), dw, gru_params),
+                                   **close)
+        delta = thead(t(xyz), h_new, t(knn), dw)
+        torch.testing.assert_close(delta, update3d.flow_head_3d(h_new, t(knn), dw, head_params),
+                                   **close)
+        torch.testing.assert_close(
+            delta, update3d.flow_head_3d_plain(h_new, t(knn), dw, head_params), **close)
 
 
 # --- what the wrappers hand the kernels (csrc/update3d.cu) ------------------
