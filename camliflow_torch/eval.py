@@ -21,8 +21,9 @@ does. The two KITTI protocols read their sets from the reference's relative root
 under datasets/kitti_scene_flow/training, as eval.py does, with the
 testset's n_points (8192 without a testset). It runs on the CUDA card
 unless `device=cpu` is given (there the kernels' plain versions run);
-without a card and without `device=cpu` it raises. Ported models:
-`model=camliraft`, `model=camliraft_l` and `model=raft`.
+without a card and without `device=cpu` it raises. Ported models: all six
+families, `model=camliraft`, `camliraft_l`, `raft`, `camlipwc`, `camlipwc_l`
+and `pwc`.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Model registry and optimizer factory: the port's counterpart of
-camliflow_tpu/models/factory.py. Ported so far: CamLiRAFT, CamLiRAFT-L and
-RAFT (all three for eval, CamLiRAFT for training).
+camliflow_tpu/models/factory.py. Ported: all six model families for eval
+(CamLiRAFT, CamLiRAFT-L, RAFT, CamLiPWC, CamLiPWC-L, PWC), CamLiRAFT for
+training.
 
 The optimizer realises the reference's 4-group partition (2D/3D x
 decay/no-decay) with per-branch learning rates as 4 param groups of one
@@ -20,12 +21,15 @@ import torch
 from torch import nn
 
 from ..runtime.names import PREFIX_TABLES
-from . import camliraft, camliraft_l, raft
+from . import camliraft, camliraft_l, camlipwc, camlipwc_l, pwc, raft
 
 _REGISTRY: dict[str, type[nn.Module]] = {
     "camliraft": camliraft.CamLiRAFT,
     "camliraft_l": camliraft_l.CamLiRAFTL,
     "raft": raft.RAFT,
+    "camlipwc": camlipwc.CamLiPWC,
+    "camlipwc_l": camlipwc_l.CamLiPWCL,
+    "pwc": pwc.PWC,
 }
 # loss and model-selection functions of the models the port trains
 _TRAINING = {"camliraft": (camliraft.loss_fn, camliraft.is_better)}
@@ -38,10 +42,7 @@ def model_factory(cfgs) -> type[nn.Module]:
     """Look up a model class by `cfgs["name"]` (or a bare name)."""
     name = cfgs["name"] if isinstance(cfgs, dict) else cfgs
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"Unknown or not yet ported model: {name} (ported: "
-            f"{sorted(_REGISTRY)}; see ROADMAP.md Queue 1)"
-        )
+        raise NotImplementedError(f"Unknown model: {name} (known: {sorted(_REGISTRY)})")
     return _REGISTRY[name]
 
 

@@ -1,15 +1,40 @@
-"""RAFT all-pairs correlation pyramid and its windowed bilinear lookup.
+"""2D cost volumes: PWC's local correlation, and RAFT's all-pairs
+correlation pyramid with its windowed bilinear lookup.
 
-PyTorch counterpart of camliflow_tpu/ops/correlation.py
-(`all_pairs_correlation_pyramid`, `corr_lookup_2d`) on the exact path: the
+PyTorch counterpart of camliflow_tpu/ops/correlation.py (`correlation2d`,
+`all_pairs_correlation_pyramid`, `corr_lookup_2d`) on the exact path: the
 volume stays f32 (the TPU's bf16 hi/lo split storage, which rebuilds f32 to
 ~2^-18, is a workaround of its matrix unit and is not ported). Plain
-PyTorch; the JAX lookup is not a Pallas kernel either. NHWC.
+PyTorch; the JAX functions are not Pallas kernels either. NHWC.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def correlation2d(input1: torch.Tensor, input2: torch.Tensor,
+                  max_displacement: int) -> torch.Tensor:
+    """PWC's local cost volume: input1, input2 [B, H, W, C] -> [B, H, W,
+    (2d+1)^2] f32, channel i*(2d+1) + j the mean over channels of
+    input1(y, x) * input2(y + i - d, x + j - d): the vertical shift is the
+    major index. Frame 2 is zero-padded, so a shift past the border gives 0.
+
+    One vertical shift at a time: its 2d+1 horizontal shifts are a window
+    view of the padded rows, multiplied by input1 and summed over channels
+    (2 launches a vertical shift rather than 2 a shift)."""
+    d = max_displacement
+    span = 2 * d + 1
+    batch, height, width, channels = input1.shape
+    input1 = input1.float()[:, :, :, None, :]  # [B, H, W, 1, C]
+    padded = F.pad(input2.float(), (0, 0, d, d, d, d))  # [B, H+2d, W+2d, C]
+    costs = []
+    for i in range(span):
+        # [B, H, span, C, W] -> [B, H, W, span, C]: the j-th horizontal shift
+        window = padded[:, i : i + height].unfold(2, width, 1).permute(0, 1, 4, 2, 3)
+        costs.append((input1 * window).sum(dim=-1))
+    return torch.cat(costs, dim=-1) / channels
 
 
 def resolve_lookup_storage(mode: str) -> None:

@@ -1,14 +1,17 @@
-"""2D image-space ops: mesh grid, input padding, convex upsampling, flow
-resizing (NHWC).
+"""2D image-space ops: mesh grid, backward warping, input padding and
+resizing, convex upsampling, flow resizing (NHWC).
 
 PyTorch counterpart of camliflow_tpu/ops/image.py (`mesh_grid`,
-`InputPadder`, `convex_upsample`, `resize_flow2d`).
+`backwarp_2d`, `InputPadder`, `resize_to_multiple`, `convex_upsample`,
+`resize_flow2d`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .gridsample import grid_sample_pixel, resize_bilinear_align_corners
 
 
 def mesh_grid(batch: int, height: int, width: int, device=None) -> torch.Tensor:
@@ -19,6 +22,14 @@ def mesh_grid(batch: int, height: int, width: int, device=None) -> torch.Tensor:
         indexing="ij",
     )
     return torch.stack([xs, ys], dim=-1)[None].expand(batch, height, width, 2)
+
+
+def backwarp_2d(x: torch.Tensor, flow12: torch.Tensor, padding_mode: str) -> torch.Tensor:
+    """Frame-2 features x [B, H, W, C] sampled at p + flow12 [B, H, W, 2]
+    for every pixel p of frame 1; `padding_mode` "zeros" or "border"."""
+    batch, height, width, _ = x.shape
+    grid = mesh_grid(batch, height, width, device=x.device) + flow12.float()
+    return grid_sample_pixel(x, grid, padding_mode=padding_mode)
 
 
 def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, scale_factor: int = 8):
@@ -50,6 +61,22 @@ def resize_flow2d(flow: torch.Tensor, target_h: int, target_w: int) -> torch.Ten
                          mode="bilinear", align_corners=True).permute(0, 2, 3, 1)
     scale = torch.tensor([target_w / origin_w, target_h / origin_h], dtype=flow.dtype)
     return flow * scale.to(flow.device, non_blocking=True)
+
+
+def resize_to_multiple(inputs: torch.Tensor, target: torch.Tensor | None, x: int = 64):
+    """Bilinear-resize (align_corners=True) images [B, H, W, C] up to the
+    next multiples of x, and a flow target [B, H, W, 2] with them, its
+    magnitudes rescaled. Returns (inputs, target)."""
+    _, h, w, _ = inputs.shape
+    if h % x == 0 and w % x == 0:
+        return inputs, target
+    resized_h, resized_w = -(-h // x) * x, -(-w // x) * x
+    inputs = resize_bilinear_align_corners(inputs, resized_h, resized_w)
+    if target is not None:
+        target = resize_bilinear_align_corners(target, resized_h, resized_w)
+        scale = torch.tensor([resized_w / w, resized_h / h], dtype=target.dtype)
+        target = target * scale.to(target.device, non_blocking=True)
+    return inputs, target
 
 
 class InputPadder:

@@ -5,7 +5,8 @@ The port's modules carry the reference PyTorch state_dict names
 JAX variable path (`core/fnet_2d/layer1_0/conv1/kernel`) into that name: a
 per-model prefix swap (longest match wins), then token rewrites of the rest
 of the path. Same tables and rules as tools/port_checkpoint.py, for the
-models the port has.
+models the port has (its InstanceNorm and LayerNorm rules excepted: no
+ported model has those norms).
 """
 
 from __future__ import annotations
@@ -55,6 +56,74 @@ PREFIX_TABLES = {
         ("core/update/flow_head/", "core.flow_head."),
         ("core/update/convex_upsampler/", "core.convex_upsampler."),
     ],
+    "pwc": [
+        ("core/feature_pyramid/", "core.feature_pyramid."),
+        ("core/aligner_1/", "core.pyramid_feature_aligners.1."),
+        ("core/aligner_2/", "core.pyramid_feature_aligners.2."),
+        ("core/aligner_3/", "core.pyramid_feature_aligners.3."),
+        ("core/aligner_4/", "core.pyramid_feature_aligners.4."),
+        ("core/aligner_5/", "core.pyramid_feature_aligners.5."),
+        ("core/flow_estimator/", "core.flow_estimator."),
+        ("core/context_network/", "core.context_network."),
+        ("core/up_mask_head/conv0/", "core.up_mask_head.0."),
+        ("core/up_mask_head/conv1/", "core.up_mask_head.2."),
+    ],
+    "camlipwc_l": [
+        ("core/feature_pyramid/", "core.feature_pyramid."),
+        ("core/correlation_1/", "core.correlations.1."),
+        ("core/correlation_2/", "core.correlations.2."),
+        ("core/correlation_3/", "core.correlations.3."),
+        ("core/correlation_4/", "core.correlations.4."),
+        ("core/correlation_5/", "core.correlations.5."),
+        ("core/aligner_1/", "core.pyramid_feat_aligners.1."),
+        ("core/aligner_2/", "core.pyramid_feat_aligners.2."),
+        ("core/aligner_3/", "core.pyramid_feat_aligners.3."),
+        ("core/aligner_4/", "core.pyramid_feat_aligners.4."),
+        ("core/aligner_5/", "core.pyramid_feat_aligners.5."),
+        ("core/flow_estimator/", "core.flow_estimator."),
+    ],
+    "camlipwc": [
+        ("core/branch_2d_fnet/", "core.branch_2d_fnet."),
+        ("core/fnet2d_aligner_1/", "core.branch_2d_fnet_aligners.1."),
+        ("core/fnet2d_aligner_2/", "core.branch_2d_fnet_aligners.2."),
+        ("core/fnet2d_aligner_3/", "core.branch_2d_fnet_aligners.3."),
+        ("core/fnet2d_aligner_4/", "core.branch_2d_fnet_aligners.4."),
+        ("core/fnet2d_aligner_5/", "core.branch_2d_fnet_aligners.5."),
+        ("core/branch_2d_flow_estimator/", "core.branch_2d_flow_estimator."),
+        ("core/branch_2d_context_network/", "core.branch_2d_context_network."),
+        ("core/branch_2d_up_mask_head/conv0/", "core.branch_2d_up_mask_head.0."),
+        ("core/branch_2d_up_mask_head/conv1/", "core.branch_2d_up_mask_head.2."),
+        ("core/branch_3d_fnet/", "core.branch_3d_fnet."),
+        ("core/fnet3d_aligner_1/", "core.branch_3d_fnet_aligners.1."),
+        ("core/fnet3d_aligner_2/", "core.branch_3d_fnet_aligners.2."),
+        ("core/fnet3d_aligner_3/", "core.branch_3d_fnet_aligners.3."),
+        ("core/fnet3d_aligner_4/", "core.branch_3d_fnet_aligners.4."),
+        ("core/fnet3d_aligner_5/", "core.branch_3d_fnet_aligners.5."),
+        ("core/correlation3d_1/", "core.branch_3d_correlations.1."),
+        ("core/correlation3d_2/", "core.branch_3d_correlations.2."),
+        ("core/correlation3d_3/", "core.branch_3d_correlations.3."),
+        ("core/correlation3d_4/", "core.branch_3d_correlations.4."),
+        ("core/correlation3d_5/", "core.branch_3d_correlations.5."),
+        ("core/corr3d_aligner_1/", "core.branch_3d_correlation_aligners.1."),
+        ("core/corr3d_aligner_2/", "core.branch_3d_correlation_aligners.2."),
+        ("core/corr3d_aligner_3/", "core.branch_3d_correlation_aligners.3."),
+        ("core/corr3d_aligner_4/", "core.branch_3d_correlation_aligners.4."),
+        ("core/corr3d_aligner_5/", "core.branch_3d_correlation_aligners.5."),
+        ("core/branch_3d_flow_estimator/", "core.branch_3d_flow_estimator."),
+        ("core/clfm_pyr_1/", "core.pyramid_clfms.1."),
+        ("core/clfm_pyr_2/", "core.pyramid_clfms.2."),
+        ("core/clfm_pyr_3/", "core.pyramid_clfms.3."),
+        ("core/clfm_pyr_4/", "core.pyramid_clfms.4."),
+        ("core/clfm_pyr_5/", "core.pyramid_clfms.5."),
+        ("core/clfm_corr_1/", "core.corr_clfms.1."),
+        ("core/clfm_corr_2/", "core.corr_clfms.2."),
+        ("core/clfm_corr_3/", "core.corr_clfms.3."),
+        ("core/clfm_corr_4/", "core.corr_clfms.4."),
+        ("core/clfm_corr_5/", "core.corr_clfms.5."),
+        ("core/clfm_estimator/", "core.estimator_clfm."),
+        ("core/conv_last_2d/", "core.branch_2d_conv_last."),
+        ("core/conv_last_3d/", "core.branch_3d_conv_last."),
+    ],
 }
 
 # token-level rewrites of the path after the prefix swap
@@ -92,11 +161,17 @@ _SUFFIX_RULES = [
 _BN_MAP = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
 
-def translate_suffix(suffix: str) -> str:
+def translate_suffix(suffix: str, torch_prefix: str = "") -> str:
     """Translate the rest of a JAX path (after the prefix) to its
     state_dict suffix: the first rule that matches the whole remaining path
     is applied and the tail is translated in turn; otherwise one path
-    segment is peeled (`mlp_<i>` -> `mlps.<i>`, `conv_<i>` -> `convs.<i>`)."""
+    segment is peeled (`mlp_<i>` -> `mlps.<i>`, `conv_<i>` -> `convs.<i>`,
+    `block_<i>` -> `pyramid_convs.<i>`). Under a point feature pyramid's
+    prefix (`torch_prefix` the state_dict prefix the table gave), whose
+    reference members are `pyramid_mlps`/`pyramid_convs`, `mlp_<i>` and
+    `conv_<i>` take those names."""
+    pyramid = (("branch_3d_fnet" in torch_prefix or "feature_pyramid." in torch_prefix)
+               and "branch_2d" not in torch_prefix)
     for pattern, template in _SUFFIX_RULES:
         m = re.match(pattern, suffix)
         if not m:
@@ -107,16 +182,18 @@ def translate_suffix(suffix: str) -> str:
         translated = m.expand(t)
         rest = suffix[m.end():]
         if rest:
-            rest = translate_suffix(rest.lstrip("/"))
+            rest = translate_suffix(rest.lstrip("/"), torch_prefix)
             translated = translated + ("." if rest else "") + rest
         return translated
 
     if "/" in suffix:
         head, tail = suffix.split("/", 1)
-        m = re.fullmatch(r"(mlp|conv)_(\d+)", head)
+        m = re.fullmatch(r"(mlp|conv|block)_(\d+)", head)
         if m:
-            head = f"{m.group(1)}s.{m.group(2)}"
-        return head + "." + translate_suffix(tail)
+            kind = "conv" if m.group(1) == "block" else m.group(1)
+            pyramid_member = pyramid or m.group(1) == "block"
+            head = f"{'pyramid_' if pyramid_member else ''}{kind}s.{m.group(2)}"
+        return head + "." + translate_suffix(tail, torch_prefix)
     return suffix
 
 
@@ -126,5 +203,5 @@ def our_path_to_torch(path: str, model_name: str) -> str | None:
     table = PREFIX_TABLES[model_name]
     for ours, theirs in sorted(table, key=lambda kv: -len(kv[0])):
         if path.startswith(ours):
-            return theirs + translate_suffix(path[len(ours):])
+            return theirs + translate_suffix(path[len(ours):], theirs)
     return None

@@ -9,8 +9,12 @@ the flagship CamLiRAFT eval (conf/model/camliraft.yaml: ResNet-50 cut at
 stage 2, CLFM at fnet/cnet/corr/motion, 960x540 images padded to 960x544
 and 8192 points, 20 iterations, bs=1, IDS on), the same with
 `fuse_hidden=true` (CLFM at the hidden state too, between the GRUs and the
-flow heads) and RAFT eval (conf/model/raft.yaml: ResNet-50, the same
-images, 20 iterations as bench.py times it, bs=1), in phases:
+flow heads), RAFT eval (conf/model/raft.yaml: ResNet-50, the same
+images, 20 iterations as bench.py times it, bs=1) and the PWC family's
+eval (bs=1, no refinement loop): PWC (conf/model/pwc.yaml: the same
+images, resized to 960x576 inside), CamLiPWC-L (conf/model/camlipwc_l.yaml,
+8192 points, IDS on) and CamLiPWC (conf/model/camlipwc.yaml: the images
+and points, all three fusions), in phases:
 
 1. device: requires a CUDA card; prints its name and power limit;
 2. build: compiles the CUDA kernels from camliflow_torch/csrc with nvcc,
@@ -23,16 +27,21 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    profiler's device time), with times for both and the least time the
    card could take (bound; for the tensor-core kernels, the 2D chain's and
    CLFM's, beside the f32 bound outside the tensor cores); KNN bit for bit,
-   ties included, at each of its 8 main-path calls, each with its plan,
-   device time (profiler) and bound, and their sums a flagship and a
-   CamLiRAFT-L request; the interpolation at its two shapes by events and
-   device time, its selection the plain KNN's (with --other, another
+   ties included, at each of its 8 main-path calls and the PWC family's 15
+   call shapes (the pyramid's 8192 -> 4096 .. 512 -> 256, the decoder's
+   4096 .. 256, CamLiPWC's 2-D CLFM caches from 144x240 pixels against 4096
+   points down to 9x15 against 256), each with its plan, device time
+   (profiler) and bound, and their sums a request of the flagship,
+   CamLiRAFT-L, CamLiPWC-L and CamLiPWC; the interpolation at its three
+   shapes (CamLiPWC's level upsample with 67 channels the third) by events
+   and device time, its selection the plain KNN's (with --other, another
    tree's KNN, interpolation, 3D motion encoder, 3D GRU + flow head,
    PointConvDW tail and k-major gather are held to the plain versions too
    and timed beside this tree's, by device time in turns, the GRU + flow
    head held to this tree's bit for bit); the k-major gather bit for bit at
-   its six main-path calls, by device, event and host time, beside one
-   advanced indexing; Correlation3D's selection bit for bit, ties
+   its six main-path calls and CamLiPWC's widest (FlowEstimator3D at level
+   1, [1, 4096, 198] x [1, 4096, 16]), by device, event and host time,
+   beside one advanced indexing; Correlation3D's selection bit for bit, ties
    included, and its index-only form (training's) at the train shapes, a
    batch of 2, bit for bit the full form's indices and the plain
    version's, with its device time beside the full form's; CLFM's device
@@ -55,7 +64,8 @@ images, 20 iterations as bench.py times it, bs=1), in phases:
    for its own time, then a
    torch.profiler view: the top kernels, and device time and launches per
    refinement iteration and once per frame pair (requests at 20 and 10
-   iterations); then the eval CLI's batch of 8: 8 frame pairs, each run
+   iterations; the PWC family, which has no loop, one profiled request);
+   then the eval CLI's batch of 8: 8 frame pairs, each run
    alone, then together in one request, each sample's output held to the
    same sample alone within phase 5's envelope, the request's launches to a
    bs=1 request's, with its time, device busy share and peak memory;
@@ -148,6 +158,30 @@ RAFT_CFGS = {  # conf/model/raft.yaml, at bench.py's 20 iterations
     "n_iters_eval": N_ITERS,
     "fast_inference": "auto",
 }
+PWC_CFGS = {  # conf/model/pwc.yaml
+    "name": "pwc",
+    "max_displacement": 4,
+    "lite_estimator": False,
+    "norm": {"feature_pyramid": "batch_norm", "flow_estimator": None,
+             "context_network": None},
+}
+CAMLIPWC_L_CFGS = {  # conf/model/camlipwc_l.yaml (n_samples_list: the model's default)
+    "name": "camlipwc_l",
+    "ids": {"enabled": True},
+    "norm": {"feature_pyramid": "batch_norm", "correlation": None, "flow_estimator": None},
+}
+CAMLIPWC_CFGS = {  # conf/model/camlipwc.yaml: all three fusions
+    "name": "camlipwc",
+    "freeze_bn": False,
+    "pwc2d": {"norm": {"feature_pyramid": "batch_norm", "flow_estimator": None,
+                       "context_network": None},
+              "max_displacement": 4, "lite_estimator": False, "fixed": False},
+    "pwc3d": {"norm": {"feature_pyramid": "batch_norm", "correlation": None,
+                       "flow_estimator": None},
+              "fixed": False, "k": 16},
+    "fusion": {"fuse_pyramid": True, "fuse_correlation": True, "fuse_estimator": True},
+}
+PWC_H = -(-IMAGE_H // 64) * 64  # the PWC family resizes 540 up to 576
 INTRINSICS = (1050.0, 479.5, 269.5)
 BATCH = 8  # the eval CLI's batch (camliflow_torch/eval.py)
 
@@ -452,11 +486,14 @@ def main_path_clouds(device):
 
 def selection_calls(both, order, gen):
     """The main paths' calls of #1 and #3 on the clouds `both` and their FPS
-    order: (the FPS levels, the KNN calls (label, support, query, k, paths
-    that make the call once a request: F flagship, H fuse_hidden, L
-    CamLiRAFT-L), the interpolation calls (label, support, features,
-    query), k=3). The CLFM cache's projected points and the flow come from
-    `gen`."""
+    order: (the FPS levels, the KNN calls (label, support, query, k, the
+    paths that make the call, a letter each time a request: F flagship, H
+    fuse_hidden, L CamLiRAFT-L, P CamLiPWC-L, C CamLiPWC), the
+    interpolation calls (label, support, features, query), k=3). The CLFM
+    caches' projected points, the flow and the flow features come from
+    `gen`. The PWC family's calls are a frame's: its pyramid runs each frame
+    alone; a decoder level's two selections, the level's points among
+    themselves and among frame 2's, are one row of the same shape."""
     import torch
 
     from camliflow_torch.ops.geometry import gather_points
@@ -481,11 +518,39 @@ def selection_calls(both, order, gen):
         ("final upsample", lv[1][:1], both[:1], 3, "FH"),
         ("CLFM pixel cache", uv, pixels, 1, "FH"),
     ]
-    # the backwarp of frame 2 by the flow, and CamLiRAFT-L's final upsample
+    # the PWC family's: frame 1's pyramid 8192 -> 4096 -> ... -> 256 (each
+    # frame's), a decoder level's two k=16 selections at 4096 .. 256 points,
+    # and CamLiPWC's two CLFM caches a level: the level's pixel grid (1/4 of
+    # the 576 x 960 resized images at level 1: 144 x 240) against its points
+    # projected, 2-D, k=1
+    frame = [both[:1]] + [level[:1] for level in lv]
+    for i in range(len(N_SAMPLES)):
+        n_in, n_out = frame[i].shape[1], frame[i + 1].shape[1]
+        knn_calls.append((f"pyramid {n_in}->{n_out}", frame[i], frame[i + 1], 16, "PPCC"))
+    for level in range(1, len(N_SAMPLES) + 1):
+        n = frame[level].shape[1]
+        knn_calls.append((f"decoder level {level} ({n})", frame[level], frame[level], 16,
+                          "PPCC"))
+    for level in range(1, len(N_SAMPLES) + 1):
+        map_h, map_w = PWC_H >> (level + 1), IMAGE_W >> (level + 1)
+        n = frame[level].shape[1]
+        level_uv = torch.rand(1, n, 2, generator=gen, device=device)
+        level_uv = (level_uv * torch.tensor([map_w - 1.0, map_h - 1.0], device=device))
+        ys, xs = torch.meshgrid(torch.arange(float(map_h), device=device),
+                                torch.arange(float(map_w), device=device), indexing="ij")
+        grid = torch.stack([xs, ys], -1).reshape(1, -1, 2).contiguous()
+        knn_calls.append((f"CLFM cache level {level} ({map_h}x{map_w})",
+                          level_uv.contiguous(), grid, 1, "CC"))
+    # the backwarp of frame 2 by the flow, CamLiRAFT-L's final upsample and
+    # CamLiPWC's level upsample (2048 -> 4096) of the flow and its 64
+    # flow-feature channels
     xyz1, xyz2 = lv[1][:1], lv[1][1:]
     flow = 0.05 * torch.randn(xyz1.shape, generator=gen, device=device)
+    flow_feat = torch.randn(1, N_SAMPLES[1], 64, generator=gen, device=device)
     interp_calls = [("backwarp", (xyz1 + flow).contiguous(), (-flow).contiguous(), xyz2),
-                    ("upsample", xyz1, flow, both[:1])]
+                    ("upsample", xyz1, flow, both[:1]),
+                    ("level upsample, 67 channels", xyz1, torch.cat([flow, flow_feat], -1),
+                     lv[0][:1])]
     return lv, knn_calls, interp_calls
 
 
@@ -565,7 +630,8 @@ def kernel_parity(device, other=None) -> list[dict]:
     # device time at each (profiler; the 2-D call's two pad launches apart)
     lv, knn_calls, interp_calls = selection_calls(both, got, gen)
     feat_h, feat_w = -(-IMAGE_H // 8), -(-IMAGE_W // 8)
-    xyz1, uv, pc1 = lv[1][:1], knn_calls[-1][1], both[:1]
+    xyz1, pc1 = lv[1][:1], both[:1]
+    uv = next(call[1] for call in knn_calls if call[0] == "CLFM pixel cache")
     flow = interp_calls[1][2]  # the flow the interpolation upsamples
 
     def tie(support, query):
@@ -615,16 +681,19 @@ def kernel_parity(device, other=None) -> list[dict]:
               f"(slices, queries a block, a warp) {plan}; device {knn_dev[label]:.4f} ms"
               f"{beside(times)}, bound {knn_bound[label]:.4f} ms", flush=True)
 
-    def request(dev):  # the calls' device times summed a flagship and a CamLiRAFT-L request
-        return {path: sum(dev[label] for label, *_, paths in knn_calls if key in paths)
-                for path, key in (("flagship", "F"), ("camliraft_l", "L"))}
+    request_paths = (("flagship", "F"), ("camliraft_l", "L"), ("camlipwc_l", "P"),
+                     ("camlipwc", "C"))
+
+    def request(dev):  # the calls' device times summed a request of each path
+        return {path: sum(paths.count(key) * dev[label] for label, *_, paths in knn_calls)
+                for path, key in request_paths}
 
     knn_request = request(knn_dev)
     for tree, sums in (("", knn_request), ("other tree's ", request(knn_other) if other else None)):
         if sums:
-            print(f"  {tree}k_nearest_neighbor device time a request: flagship (8 calls) "
-                  f"{sums['flagship']:.4f} ms, CamLiRAFT-L (6 calls) "
-                  f"{sums['camliraft_l']:.4f} ms", flush=True)
+            print(f"  {tree}k_nearest_neighbor device time a request: " + ", ".join(
+                f"{path} ({sum(c[-1].count(key) for c in knn_calls)} calls) {sums[path]:.4f} ms"
+                for path, key in request_paths), flush=True)
     record("k_nearest_neighbor", "camliflow_torch/csrc/knn.cu",
            "camliflow_tpu/ops/pallas_knn.py:67", 0.0,
            time_ms(lambda: knn.k_nearest_neighbor(both, lv[0], 16), 20),
@@ -636,10 +705,13 @@ def kernel_parity(device, other=None) -> list[dict]:
            bound_ms_by_call=knn_bound, device_ms_request=knn_request)
 
     # interpolation (#3): backwarp [1,2048] <- [1,2048] and upsample [1,8192],
-    # k=3, C=3: within INTERP_TOL of the plain version, and with k=1 on each
-    # support's index as its feature, the selected index itself
+    # k=3, C=3, and CamLiPWC's level upsample [1,4096] <- [1,2048], C=67:
+    # within INTERP_TOL of the plain version, and with k=1 on each support's
+    # index as its feature, the selected index itself. A call's work: the
+    # selection's pairs (8 flops + 1 compare), then per query and neighbour
+    # 12 flops of weight and 2 a channel
     index = torch.arange(float(N_SAMPLES[1]), device=device)[None, :, None].contiguous()
-    interp_err, interp_ms, interp_dev = 0.0, {}, {}
+    interp_err, interp_ms, interp_dev, interp_bound = 0.0, {}, {}, {}
     for label, support, feats, query in interp_calls:
         a = interp.knn_interpolation(support, feats, query, 3)
         b = interp.knn_interpolation_plain(support, feats, query, 3)
@@ -660,10 +732,13 @@ def kernel_parity(device, other=None) -> list[dict]:
                 raise AssertionError(f"other tree's interp {label}: max |d| {theirs}")
         times = in_turns(calls, 20, "interp_kernel")
         interp_ms[label], interp_dev[label] = time_ms(call, 50), mean(times["this"])
-        n = query.shape[1]
-        print(f"  knn_interpolation {label} [1,{n}] <- [1,{support.shape[1]}]: plan "
-              f"{knn.select_plan(1, n, support.shape[1], 3, sms)}; events "
-              f"{interp_ms[label]:.4f} ms, device {interp_dev[label]:.4f} ms{beside(times)}", flush=True)
+        n, (m, c) = query.shape[1], feats.shape[1:]
+        interp_bound[label] = bound(n * m * 9 + n * 3 * (12 + 2 * c),
+                                    4 * (m * 3 + m * c + n * 3 + n * c))[0]
+        print(f"  knn_interpolation {label} [1,{n}] <- [1,{m}], C={c}: plan "
+              f"{knn.select_plan(1, n, m, 3, sms)}; events "
+              f"{interp_ms[label]:.4f} ms, device {interp_dev[label]:.4f} ms{beside(times)}, "
+              f"bound {interp_bound[label]:.4f} ms", flush=True)
     m = N_SAMPLES[1]
     record("knn_interpolation", "camliflow_torch/csrc/interp.cu",
            "camliflow_tpu/ops/pallas_interp.py:81", interp_err, interp_ms["backwarp"],
@@ -671,8 +746,8 @@ def kernel_parity(device, other=None) -> list[dict]:
            m * m * 9 + m * 3 * (12 + 2 * 3), 4 * (m * 3 * 2 + m * 3 * 2),
            label="knn_interpolation backwarp (by events)", device_ms=interp_dev["backwarp"],
            upsample_ms=interp_ms["upsample"], upsample_device_ms=interp_dev["upsample"],
-           upsample_bound_ms=bound(N_POINTS * m * 9 + N_POINTS * 3 * (12 + 2 * 3),
-                                   4 * (m * 3 * 2 + N_POINTS * 3 * 2))[0])
+           upsample_bound_ms=interp_bound["upsample"], ms_by_call=interp_ms,
+           device_ms_by_call=interp_dev, bound_ms_by_call=interp_bound)
 
     # Correlation3D selection + cost: levels 2048..256, k=16; indices and
     # costs bit for bit, also on a copy of the clouds with exact ties
@@ -1086,18 +1161,24 @@ def kernel_parity(device, other=None) -> list[dict]:
 
     # the k-major gather: PointConv's at the encoder's level 0 ([2, 8192] ->
     # [2, 4096], k=16) and level 1 ([2, 4096] -> [2, 2048]), xyz and
-    # [xyz, features] (99 and 131 channels), and the upsample's; each held
-    # bit for bit to the plain version (with another tree, its gather too)
-    # and timed by profiler device time in turns with the other tree's, by
-    # events and by host time a call
+    # [xyz, features] (99 and 131 channels), the upsample's, and CamLiPWC's
+    # widest, FlowEstimator3D's first PointConv at level 1 (4096 points
+    # among themselves, [xyz, 195 channels]); each held bit for bit to the
+    # plain version (with another tree, its gather too) and timed by
+    # profiler device time in turns with the other tree's, by events and by
+    # host time a call
     enc = [knn.k_nearest_neighbor(both, lv[0], 16), knn.k_nearest_neighbor(lv[0], lv[1], 16)]
     tables = [torch.cat([both, torch.randn(2, N_POINTS, 96, generator=gen, device=device)], -1),
               torch.cat([lv[0], torch.randn(2, N_SAMPLES[0], 128, generator=gen,
-                                            device=device)], -1)]
+                                            device=device)], -1),
+              torch.cat([lv[0][:1], torch.randn(1, N_SAMPLES[0], 195, generator=gen,
+                                                device=device)], -1)]
     up_idx = knn.k_nearest_neighbor(xyz1, pc1, 3)
+    estimator_idx = knn.k_nearest_neighbor(lv[0][:1], lv[0][:1], 16)
     cases = [("level 0 xyz", both, enc[0]), ("level 0", tables[0], enc[0]),
              ("level 1 xyz", lv[0], enc[1]), ("level 1", tables[1], enc[1]),
-             ("upsample xyz", xyz1, up_idx), ("upsample flow", flow, up_idx)]
+             ("upsample xyz", xyz1, up_idx), ("upsample flow", flow, up_idx),
+             ("estimator level 1", tables[2], estimator_idx)]
     gathers = {"this": gather.gather_points_kmajor}
     if other:
         gathers = {"other": other[4].gather_points_kmajor, **gathers}
@@ -1124,14 +1205,15 @@ def kernel_parity(device, other=None) -> list[dict]:
                   f"{tree} {ms:.4f}" for tree, ms in events.items()) + " ms; host " + ", ".join(
                   f"{tree} {ms:.4f}" for tree, ms in hosts.items()) + " ms a call; bound "
               f"{gather_bound[label]:.4f} ms", flush=True)
-    for level, (label, data, index) in enumerate(cases[1:4:2]):
+    library_by_call = {}  # the entry's (filled as the loop goes)
+    for level, (label, data, index) in enumerate(cases[1:4:2] + cases[6:]):
         # the library call: one advanced indexing, [B, 1, 1] x [B, k, M] -> [B, k, M, C]
         rows = torch.arange(data.shape[0], device=device)[:, None, None]
         if not torch.equal(data[rows, index.transpose(1, 2)],
                            gather.gather_points_kmajor(data, index)):
             raise AssertionError("gather: the library call computes another function")
         library = lambda: data[rows, index.transpose(1, 2)]  # noqa: E731
-        library_dev = device_ms(library, 50)
+        library_dev = library_by_call[label] = device_ms(library, 50)
         print(f"  gather_points_kmajor {label}: advanced indexing {library_dev:.4f} ms device",
               flush=True)
         record("gather_points_kmajor", "camliflow_torch/csrc/gather.cu",
@@ -1143,7 +1225,7 @@ def kernel_parity(device, other=None) -> list[dict]:
                library_ms=time_ms(library, 50), library_device_ms=library_dev,
                device_ms=gather_dev[label], host_ms=gather_host[label],
                device_ms_by_call=gather_dev, bound_ms_by_call=gather_bound,
-               host_ms_by_call=gather_host,
+               host_ms_by_call=gather_host, library_device_ms_by_call=library_by_call,
                **({"other_device_ms_by_call": gather_other} if other else {}))
 
     # tools/probe_gather_matrix.py's twelve cases through the same kernel;
@@ -1989,6 +2071,9 @@ def main() -> int:
         from camliflow_torch.csrc import build as kbuild
         from camliflow_torch.models.camliraft import CamLiRAFT
         from camliflow_torch.models.camliraft_l import CamLiRAFTL
+        from camliflow_torch.models.camlipwc import CamLiPWC
+        from camliflow_torch.models.camlipwc_l import CamLiPWCL
+        from camliflow_torch.models.pwc import PWC
         from camliflow_torch.models.raft import RAFT
         from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
         from camliflow_torch.runtime.checkpoint import random_weights
@@ -2063,6 +2148,9 @@ def main() -> int:
                 "motion_encoder_3d": N_ITERS, "update_2d": 0}
     # with fuse_hidden, #8's halves run on their own (CLFM between them)
     halves = {"gru_2d": N_ITERS, "flow_head_2d": N_ITERS, "gru_flowhead_2d": 0}
+    pwc_point = {**dict.fromkeys(wrappers, 0), "k_nearest_neighbor": 20,
+                 "furthest_point_sampling": 1, "knn_interpolation": 9,
+                 "gather_points_kmajor": 40}
     paths = (
         ("CamLiRAFT-L", CamLiRAFTL, L_CFGS, False,
          {**point, "k_nearest_neighbor": 6, "knn_interpolation": N_ITERS + 1,
@@ -2078,14 +2166,25 @@ def main() -> int:
           "dw_max": 4 * N_ITERS}),
         ("RAFT", RAFT, RAFT_CFGS, True,
          {**dict.fromkeys(wrappers, 0), "update_2d": N_ITERS}),
+        # the PWC family (no refinement loop): the point side's KNN in each
+        # pyramid PointConv (5 a frame) and twice a decoder level, #3 in the
+        # level upsample and the backwarp (levels 4-1) and the final
+        # upsample, #12 in 20 PointConvs; CamLiPWC adds 2 CLFM caches a level
+        ("PWC", PWC, PWC_CFGS, True, dict.fromkeys(wrappers, 0)),
+        ("CamLiPWC-L", CamLiPWCL, CAMLIPWC_L_CFGS, False, pwc_point),
+        ("CamLiPWC", CamLiPWC, CAMLIPWC_CFGS, True,
+         {**pwc_point, "k_nearest_neighbor": 30}),
     )
     total = dict.fromkeys(wrappers, 0)
     for label, cls, cfgs, images, per_request in paths:
         # 4. end to end
-        points = "" if cls is RAFT else f"{N_POINTS} pts, "
+        has_points = cls not in (RAFT, PWC)
+        iterative = cls in (CamLiRAFTL, CamLiRAFT, RAFT)
+        points = f"{N_POINTS} pts, " if has_points else ""
         print(f"[4/9] {label} eval: {points}"
-              f"{f'{IMAGE_W}x{IMAGE_H} images, ' if images else ''}{N_ITERS} iters, bs=1"
-              f"{'' if cls is RAFT else ', IDS on'}", flush=True)
+              f"{f'{IMAGE_W}x{IMAGE_H} images, ' if images else ''}"
+              f"{f'{N_ITERS} iters, ' if iterative else ''}bs=1"
+              f"{', IDS on' if has_points else ''}", flush=True)
         model = cls(cfgs)
         random_weights(model, SEED)
         cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
@@ -2100,11 +2199,14 @@ def main() -> int:
             if got != per_request:
                 raise AssertionError(f"launches per request {got}, expected {per_request}")
             out = evaluator.forward(batches[0])
-            if cls is not RAFT:
+            if has_points:
                 check_output(out, "flow_3d", (1, N_POINTS, 3))
             if images:
                 check_output(out, "flow_2d", (1, IMAGE_H, IMAGE_W, 2))
-            profile_split(evaluator, batches[1])
+            if iterative:
+                profile_split(evaluator, batches[1])
+            else:
+                profile_request(evaluator, batches[1])
         except Exception:
             traceback.print_exc()
             failures.append(f"{label} end to end")

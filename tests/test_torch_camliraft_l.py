@@ -389,5 +389,5 @@ def test_fast_inference_key():
         tm.CamLiRAFTL({**small_cfgs(False), "fast_inference": "on"})
     with pytest.raises(ValueError):
         tm.CamLiRAFTL({**small_cfgs(False), "fast_inference": "fast"})
-    with pytest.raises(NotImplementedError, match="pwc"):
-        model_factory({"name": "pwc"})
+    with pytest.raises(NotImplementedError, match="flownet3d"):  # no such model
+        model_factory({"name": "flownet3d"})

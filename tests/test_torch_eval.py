@@ -14,13 +14,17 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from camliflow_tpu.models import camlipwc as jm_camlipwc
+from camliflow_tpu.models import camlipwc_l as jm_camlipwc_l
 from camliflow_tpu.models import camliraft as jm_flagship
 from camliflow_tpu.models import camliraft_l as jm
+from camliflow_tpu.models import pwc as jm_pwc
 from camliflow_tpu.models import raft as jm_raft
 from camliflow_tpu.runtime.checkpoint import flat_to_tree, save_variables, tree_to_flat
 from camliflow_tpu.runtime.evaluator import Evaluator as JaxEvaluator
 from camliflow_tpu.utils.config import compose
 from camliflow_torch import eval as torch_eval
+from test_torch_pwc import jax_variables
 
 torch.set_num_threads(2)
 
@@ -130,17 +134,47 @@ def test_eval_cli_raft_matches_jax_evaluator(synthetic):
 
 
 def test_eval_cli_rejects_what_is_not_ported(synthetic):
-    """Every eval protocol is ported; an unknown one, KITTI's training
-    augmentation (FlyingThings3D's is ported, for training) and the PWC
-    family are not."""
+    """Every eval protocol and model is ported; an unknown protocol and
+    KITTI's training augmentation (FlyingThings3D's is ported, for
+    training) are not."""
     with pytest.raises(SystemExit, match="unknown protocol"):
         torch_eval.main(["protocol=kitti_submission", "model=camliraft_l"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_eval.main(["protocol=things", "testset=kitti", "model=camliraft_l",
                          "device=cpu", "testset.augmentation.enabled=true"] + synthetic)
-    with pytest.raises(NotImplementedError, match="pwc"):
-        torch_eval.main(["protocol=things", "testset=flyingthings3d_subset",
-                         "model=pwc", "device=cpu"] + synthetic)
+
+
+@pytest.mark.parametrize("model", ["pwc", "camlipwc_l", "camlipwc"])
+def test_eval_cli_pwc_family_matches_jax_evaluator(synthetic, model):
+    """The PWC family through the CLI on the CPU: every metric of the
+    things protocol within 1e-4 of the JAX Evaluator's on the same JAX
+    variables (tests/test_torch_pwc.py::jax_variables)."""
+    root = synthetic[0].split("=", 1)[1]
+    overrides = [f"testset.root_dir={root}", "testset.n_points=512", "testset.n_workers=0"]
+    if model != "pwc":
+        overrides.append("model.n_samples_list=[256,128,64,32,16]")
+    cfgs = compose(REPO / "conf", testset="flyingthings3d_subset", model=model,
+                   base="evaluator.yaml", overrides=overrides)
+    rng = np.random.RandomState(3)
+    pcs = rng.randn(1, 512, 6).astype(np.float32)
+    pcs[..., 2] = pcs[..., 5] = np.abs(pcs[..., 2]) * 10 + 5
+    inputs = {"images": rng.randint(0, 255, (1, 128, 192, 6)).astype(np.float32),
+              "pcs": pcs, "intrinsics": np.float32([[1050.0, 479.5, 269.5]])}
+    module = {"pwc": jm_pwc.PWC, "camlipwc_l": jm_camlipwc_l.CamLiPWCL,
+              "camlipwc": jm_camlipwc.CamLiPWC}[model]
+    ckpt = Path(root) / f"{model}.npz"
+    save_variables(ckpt, flat_to_tree(jax_variables(module, cfgs.model.to_dict(), inputs)))
+    overrides.append(f"ckpt.path={ckpt}")
+    got = torch_eval.main(["protocol=things", "testset=flyingthings3d_subset", f"model={model}",
+                           "device=cpu"] + overrides)
+    cfgs.ckpt.path = str(ckpt)
+    ref = JaxEvaluator(cfgs, batch_size=torch_eval.BATCH_SIZE).run_things()
+    keys_2d, keys_3d = {"EPE2d", "1px", "Fl"}, {"EPE3d", "5cm", "10cm"}
+    assert set(got) == set(ref)
+    assert keys_2d <= set(got) if model != "camlipwc_l" else not keys_2d & set(got)
+    assert keys_3d <= set(got) if model != "pwc" else not keys_3d & set(got)
+    for key in got:
+        assert abs(got[key] - ref[key]) <= 1e-4, (key, got[key], ref[key])
 
 
 def test_eval_cli_needs_a_card_unless_told_cpu(synthetic):
