@@ -1,4 +1,5 @@
-"""CamLiPWC-L: LiDAR-only coarse-to-fine scene flow (a point-space PWC), eval.
+"""CamLiPWC-L: LiDAR-only coarse-to-fine scene flow (a point-space PWC), eval
+and training.
 
 PyTorch counterpart of camliflow_tpu/models/camlipwc_l.py. Module and
 parameter names follow the reference PyTorch state_dict
@@ -12,8 +13,18 @@ in each PointConv of the pyramid and twice a decoder level, the
 interpolation (#3) in the level upsample, the backwarp and the final
 upsample, and every PointConv's two gathers as the k-major gather (#12).
 Correlation3DPWC gathers with `torch.gather`, as the JAX package does. Eval
-returns the final flow only: the coarser levels' upsampled flows are the
-training loss's, which is not ported yet.
+returns the final flow only.
+
+Train mode (and eval with `with_pyramid`, as the trainer validates) also
+returns every level's flow, each interpolated to the next finer level and
+taken back through IDS (`flows_3d`, finest first), and the FPS indices
+(`sample_indices1`) at which the pyramid loss reads the target. In train
+mode the pyramid's BatchNorms take batch statistics, per frame, and every
+interpolation the flow goes through (the level upsample, the backwarp, the
+final upsamples) is `knn_interpolation_train`, differentiable, its
+selection #1 (#3 has no backward); the PointConvs gather with the plain,
+differentiable gather (#12 has none either). `loss_fn` and `is_better` are
+the JAX ones.
 """
 
 from __future__ import annotations
@@ -21,7 +32,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..nn.layers import MLP, DenseNormAct, level_list
+from ..nn.layers import MLP, DenseNormAct, compute_precision, level_list
 from ..nn.point_conv import PointConv
 from ..ops.geometry import (
     backwarp_3d,
@@ -29,9 +40,12 @@ from ..ops.geometry import (
     gather_points,
     k_nearest_neighbor,
     knn_interpolation,
+    knn_interpolation_train,
 )
 from ..ops.ids import make_parallel_camera_info, paral2persp, persp2paral
 from .camliraft_l import DEFAULT_N_SAMPLES
+from .losses import calc_pyramid_loss_3d
+from .metrics import compute_3d_metrics, merge_metrics, scalar_metric
 
 PYRAMID_CHANNELS = (16, 32, 64, 96, 128, 192)
 # the sensor CamLiPWC-L's IDS assumes, whatever the input (camlipwc_l.py)
@@ -128,36 +142,45 @@ class CamLiPWCLCore(nn.Module):
         self.flow_estimator = FlowEstimator3D((64 + 64 + 3, 128, 128, 64),
                                               norm=norm_flow_estimator)
 
-    def decode(self, xyzs1, xyzs2, feats1, feats2):
-        """-> the flow at level 1's points, upsampled to the full cloud."""
-        flow = None
+    def decode(self, xyzs1, xyzs2, feats1, feats2, pyramid: bool = False):
+        """-> [the flow at level 1's points, upsampled to the full cloud];
+        with `pyramid`, every level's flow upsampled to the next finer
+        level's points, finest first."""
+        interp = knn_interpolation_train if self.training else knn_interpolation
+        flows = []
         for level in range(len(xyzs1) - 1, 0, -1):
             xyz1, feat1 = xyzs1[level], feats1[level]
             xyz2, feat2 = xyzs2[level], feats2[level]
             knn1 = k_nearest_neighbor(xyz1, xyz1, 16)
-            if flow is None:
+            if not flows:
                 last_flow = torch.zeros_like(xyz1)
                 xyz2_warp = xyz2
             else:
-                last_flow = knn_interpolation(xyzs1[level + 1], flow, xyz1)
-                xyz2_warp = backwarp_3d(xyz1, xyz2, last_flow)
+                last_flow = interp(xyzs1[level + 1], flows[-1], xyz1)
+                xyz2_warp = backwarp_3d(xyz1, xyz2, last_flow, train=self.training)
             x = torch.cat([self.pyramid_feat_aligners[level](feat1),
                            self.correlations[level](xyz1, feat1, xyz2_warp, feat2, knn1),
-                           last_flow], dim=-1)
-            flow = last_flow + self.flow_estimator(xyz1, x, knn1)[1]
-        return knn_interpolation(xyzs1[1], flow, xyzs1[0])
+                           last_flow.to(feat1.dtype)], dim=-1)
+            flows.append(last_flow + self.flow_estimator(xyz1, x, knn1)[1].float())
+        levels = len(flows) if pyramid else 1
+        return [interp(xyzs1[i + 1], flow, xyzs1[i]) for i, flow in enumerate(flows[::-1][:levels])]
 
-    def forward(self, xyzs1, xyzs2):
+    def forward(self, xyzs1, xyzs2, pyramid: bool = False):
         return self.decode(xyzs1, xyzs2, self.feature_pyramid(xyzs1),
-                           self.feature_pyramid(xyzs2))
+                           self.feature_pyramid(xyzs2), pyramid)
 
 
 class CamLiPWCL(nn.Module):
     """Model wrapper: IDS (on a fixed 540x960 sensor), the FPS pyramids, the
-    core, IDS back."""
+    core, IDS back. In train mode (and with `with_pyramid`) it also returns
+    `flows_3d` and `sample_indices1`; train mode computes under
+    `compute_dtype` (bf16 autocast or f32), eval stays f32."""
 
     def __init__(self, cfgs: dict):
         super().__init__()
+        self.with_pyramid = False
+        self.compute_dtype = cfgs.get("compute_dtype")
+        compute_precision(self.compute_dtype, "cpu")  # raises on a dtype it does not know
         self.ids_enabled = bool(cfgs["ids"]["enabled"])
         self.n_samples_list = tuple(cfgs.get("n_samples_list", DEFAULT_N_SAMPLES))
         self.core = CamLiPWCLCore(norm_feature_pyramid=cfgs["norm"]["feature_pyramid"],
@@ -174,9 +197,29 @@ class CamLiPWCL(nn.Module):
             paral_cam = make_parallel_camera_info(SENSOR_H, SENSOR_W)
             pc1 = persp2paral(pc1, persp_cam, paral_cam)
             pc2 = persp2paral(pc2, persp_cam, paral_cam)
-        xyzs1, xyzs2, _, _ = build_pc_pyramid(pc1, pc2, list(self.n_samples_list))
-        flow = self.core(xyzs1, xyzs2)
+        xyzs1, xyzs2, sample_indices1, _ = build_pc_pyramid(pc1, pc2,
+                                                            list(self.n_samples_list))
+        pyramid = self.training or self.with_pyramid
+        dtype = self.compute_dtype if self.training else None
+        with compute_precision(dtype, pc1.device.type):
+            flows = self.core(xyzs1, xyzs2, pyramid)
         if self.ids_enabled:
-            flow = (paral2persp(pc1 + flow, persp_cam, paral_cam)
-                    - paral2persp(pc1, persp_cam, paral_cam))
-        return {"flow_3d": flow}
+            flows = [paral2persp(xyz + flow, persp_cam, paral_cam)
+                     - paral2persp(xyz, persp_cam, paral_cam) for xyz, flow in zip(xyzs1, flows)]
+        if not pyramid:
+            return {"flow_3d": flows[0]}
+        return {"flow_3d": flows[0], "flows_3d": flows, "sample_indices1": sample_indices1}
+
+
+def loss_fn(outputs: dict, inputs: dict, cfgs) -> tuple[torch.Tensor, dict]:
+    """Pyramid loss at the FPS levels and metrics (the JAX `loss_fn`)."""
+    target_3d = inputs["flow_3d"]
+    loss = calc_pyramid_loss_3d(outputs["flows_3d"], target_3d,
+                                level_weights=list(cfgs["loss"]["level_weights"]),
+                                order=cfgs["loss"]["order"], indices=outputs["sample_indices1"])
+    return loss, merge_metrics({"loss3d": scalar_metric(loss)},
+                               compute_3d_metrics(outputs["flow_3d"], target_3d[..., :3]))
+
+
+def is_better(curr: dict, best: dict | None) -> bool:
+    return best is None or curr["epe3d"] < best["epe3d"]

@@ -53,7 +53,13 @@ from ..ops.correlation import (
     resolve_lookup_storage,
 )
 from ..ops.gather import gather_points_fast, knn_weighted_sum
-from ..ops.geometry import backwarp_3d, build_pc_pyramid, gather_points, k_nearest_neighbor
+from ..ops.geometry import (
+    backwarp_3d,
+    build_pc_pyramid,
+    interpolation_weights,
+    k_nearest_neighbor,
+    weighted_sum,
+)
 from ..ops.ids import make_parallel_camera_info, paral2persp, persp2paral, project_pc2image
 from ..ops.image import InputPadder, mesh_grid
 from .camliraft_l import (
@@ -322,11 +328,7 @@ class CamLiRAFTCore(nn.Module):
                 feat1_3d.float(), feat2_3d.float(), xyzs2), dim=-1)
         knn_indices = k_nearest_neighbor(xyz1, xyz1, 32)
         # the 3D upsample's neighbours and weights (2048 -> full cloud), once
-        up_idx = k_nearest_neighbor(xyz1, pc1, 3)
-        dists = torch.linalg.vector_norm(gather_points(xyz1, up_idx) - pc1[:, :, None, :],
-                                         dim=-1)
-        up_weights = 1.0 / torch.clamp(dists, min=1e-8)
-        up_weights = up_weights / up_weights.sum(dim=-1, keepdim=True)
+        up_idx, up_weights = interpolation_weights(xyz1, pc1, 3)
         grid = mesh_grid(batch, feat_h, feat_w, device=pc1.device)
         level_sizes = tuple(x.shape[1] for x in xyzs2)
         # the loop-invariant PointConvDW weights, in the graph
@@ -357,8 +359,7 @@ class CamLiRAFTCore(nn.Module):
             flow_2d = flow_2d + b2d.flow_head(h_2d)
             flow_3d = flow_3d + b3d.flow_head(xyz1, h_3d, knn_indices, dw["flow_head"]).float()
             seq_2d.append(b2d.convex_upsampler(h_2d, flow_2d))
-            seq_3d.append(torch.sum(gather_points(flow_3d, up_idx) * up_weights[..., None],
-                                    dim=2))
+            seq_3d.append(weighted_sum(flow_3d, up_idx, up_weights))
         return torch.stack(seq_2d), torch.stack(seq_3d)
 
 

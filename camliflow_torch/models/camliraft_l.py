@@ -1,4 +1,5 @@
-"""CamLiRAFT-L: LiDAR-only iterative scene flow (point-space RAFT), eval.
+"""CamLiRAFT-L: LiDAR-only iterative scene flow (point-space RAFT), eval
+and training.
 
 PyTorch counterpart of camliflow_tpu/models/camliraft_l.py on its exact path
 (f32 cost pyramid, f32 hoisted PointConvDW weights, no bf16 casts). The
@@ -21,6 +22,13 @@ mode Correlation3D selects with #4's index-only form under `no_grad`, then
 gathers the costs and the neighbours' coordinates with `torch.gather`;
 MotionEncoder3D, GRU3D and FlowHead3D run their PointConvDWs as torch ops
 on the hoisted weights, which stay in the graph.
+
+In train mode (`model.train()`) CamLiRAFT-L runs that path
+(`CamLiRAFTLCore.forward_train`, camliflow_tpu's core with `train=True`):
+the encoders' BatchNorms on batch statistics, per frame, the flow detached
+at the top of every iteration (the backwarp's interpolation, #3, sees it
+detached) and every iteration's flow upsampled to the full cloud through
+one shared k=3 selection (#1). `loss_fn` and `is_better` are the JAX ones.
 """
 
 from __future__ import annotations
@@ -30,17 +38,21 @@ import functools
 import torch
 from torch import nn
 
-from ..nn.layers import MLP, DenseNormAct
+from ..nn.layers import MLP, DenseNormAct, compute_precision, full_precision
 from ..nn.point_conv import PointConv, PointConvDW
 from ..ops import corr3d, update3d
 from ..ops.geometry import (
     backwarp_3d,
     build_pc_pyramid,
     gather_points,
+    interpolation_weights,
     k_nearest_neighbor,
     knn_interpolation,
+    weighted_sum,
 )
 from ..ops.ids import make_parallel_camera_info, paral2persp, persp2paral
+from .losses import calc_sequence_loss
+from .metrics import compute_3d_metrics, merge_metrics, scalar_metric
 
 DEFAULT_N_SAMPLES = (4096, 2048, 1024, 512, 256)
 
@@ -285,7 +297,8 @@ class UpdateBlock3D(nn.Module):
 
 
 class CamLiRAFTLCore(nn.Module):
-    """Point-space RAFT core, eval (final-only)."""
+    """Point-space RAFT core: eval (final-only) through `forward`, training
+    through `forward_train`."""
 
     def __init__(self, n_iters: int = 20, n_samples_list=DEFAULT_N_SAMPLES):
         super().__init__()
@@ -305,8 +318,10 @@ class CamLiRAFTLCore(nn.Module):
         self.flow_head = update.flow_head
         self.__dict__["update"] = update
 
-    def forward(self, pc1, pc2):
-        """pc1/pc2 [B, N, 3] -> final flow [B, N, 3]."""
+    def encode(self, pc1, pc2):
+        """The FPS pyramids, both encoders (fnet per frame) and the context:
+        (xyz1 [B, 2048, 3] at full width, the frame-2 levels, feat1, feat2,
+        featc)."""
         xyzs1, xyzs2, _, _ = build_pc_pyramid(pc1, pc2, list(self.n_samples_list))
         # one KNN per level serves both frames (batched) and both encoders
         batch = pc1.shape[0]
@@ -319,9 +334,11 @@ class CamLiRAFTLCore(nn.Module):
         feat1 = self.fnet(xyzs1[:3], knn_indices=knn_f1)[2]
         feat2 = self.fnet(xyzs2[:3], knn_indices=knn_f2)[2]
         featc = self.cnet_aligner(self.cnet(xyzs1[:3], knn_indices=knn_f1)[2])
+        return xyzs1[2], xyzs2[2:], feat1, feat2, featc
 
-        xyzs2 = xyzs2[2:]
-        xyz1 = xyzs1[2]  # [B, 2048, 3] at full width
+    def forward(self, pc1, pc2):
+        """pc1/pc2 [B, N, 3] -> final flow [B, N, 3]."""
+        xyz1, xyzs2, feat1, feat2, featc = self.encode(pc1, pc2)
         pyramid = build_cost_volume_pyramid_3d(feat1, feat2, xyzs2)
         h, x = torch.chunk(featc, 2, dim=-1)
         h, x = torch.tanh(h), torch.relu(x)
@@ -340,14 +357,48 @@ class CamLiRAFTLCore(nn.Module):
             h, flow = self.update(h, flow, consts)
         return knn_interpolation(xyz1, flow, pc1, k=3)
 
+    def forward_train(self, pc1, pc2, n_iters: int):
+        """The training forward: flow_seq [T, B, N, 3], every iteration's
+        flow upsampled. Under a bf16 `compute_precision` the cost pyramid
+        stays f32 (`full_precision`), as the JAX einsum does, and the flow
+        and the selections' inputs stay f32."""
+        xyz1, xyzs2, feat1, feat2, featc = self.encode(pc1, pc2)
+        with full_precision(pc1.device.type):
+            pyramid = torch.cat(build_cost_volume_pyramid_3d(feat1.float(), feat2.float(),
+                                                             xyzs2), dim=-1)
+        h, x = torch.chunk(featc, 2, dim=-1)
+        h, x = torch.tanh(h.float()), torch.relu(x.float())
+        knn_indices = k_nearest_neighbor(xyz1, xyz1, 32)
+        # the upsample's neighbours and weights (2048 -> full cloud), once
+        up_idx, up_weights = interpolation_weights(xyz1, pc1, 3)
+        level_sizes = tuple(x.shape[1] for x in xyzs2)
+        # the loop-invariant PointConvDW weights, in the graph
+        dw = self.update.precompute(xyz1, knn_indices)
+        flow = torch.zeros_like(xyz1)
+        seq = []
+        for _ in range(n_iters):
+            flow = flow.detach()
+            xyz2_warp_full = backwarp_3d(xyz1, xyzs2[0], flow)
+            corr = self.correlation.forward_train(xyz1, xyz2_warp_full, level_sizes, pyramid)
+            motion = self.motion_encoder(xyz1, flow, corr, knn_indices, dw["motion_encoder"])
+            h = self.gru(xyz1, h, torch.cat([x, motion], dim=-1), knn_indices, dw["gru"])
+            flow = flow + self.flow_head(xyz1, h, knn_indices, dw["flow_head"]).float()
+            seq.append(weighted_sum(flow, up_idx, up_weights))
+        return torch.stack(seq)
+
 
 class CamLiRAFTL(nn.Module):
-    """Model wrapper: IDS, domain alignment and the core."""
+    """Model wrapper: IDS, domain alignment and the core. In train mode it
+    runs `CamLiRAFTLCore.forward_train` for `n_iters_train` iterations
+    under `compute_dtype` (bf16 autocast or f32); eval stays f32."""
 
     def __init__(self, cfgs: dict):
         super().__init__()
         resolve_fast_inference(str(cfgs.get("fast_inference", "auto")))
         self.ids_enabled = bool(cfgs["ids"]["enabled"])
+        self.n_iters_train = int(cfgs.get("n_iters_train", cfgs["n_iters_eval"]))
+        self.compute_dtype = cfgs.get("compute_dtype")
+        compute_precision(self.compute_dtype, "cpu")  # raises on a dtype it does not know
         self.core = CamLiRAFTLCore(
             n_iters=int(cfgs["n_iters_eval"]),
             n_samples_list=tuple(cfgs.get("n_samples_list", DEFAULT_N_SAMPLES)),
@@ -380,7 +431,11 @@ class CamLiRAFTL(nn.Module):
             pc1 = ((pc1 - src_mean) / src_std) * dst_std + dst_mean
             pc2 = ((pc2 - src_mean) / src_std) * dst_std + dst_mean
 
-        flow = self.core(pc1, pc2)
+        if self.training:  # [T, B, N, 3]; the maps below broadcast over T
+            with compute_precision(self.compute_dtype, pc1.device.type):
+                flow = self.core.forward_train(pc1, pc2, self.n_iters_train)
+        else:
+            flow = self.core(pc1, pc2)
 
         if has_da:
             pcw = pc1 + flow
@@ -393,4 +448,19 @@ class CamLiRAFTL(nn.Module):
             base = paral2persp(pc1, persp_cam, paral_cam)
             flow = paral2persp(pc1 + flow, persp_cam, paral_cam) - base
 
+        if self.training:
+            return {"flow_3d": flow[-1], "flow_3d_seq": flow}
         return {"flow_3d": flow, "flow_3d_seq": flow[None]}
+
+
+def loss_fn(outputs: dict, inputs: dict, cfgs) -> tuple[torch.Tensor, dict]:
+    """Sequence loss and metrics (the JAX `loss_fn`)."""
+    target_3d = inputs["flow_3d"][..., :3]
+    loss = calc_sequence_loss(outputs["flow_3d_seq"], target_3d, gamma=cfgs["loss"]["gamma"],
+                              order=cfgs["loss"]["order"])
+    return loss, merge_metrics({"loss3d": scalar_metric(loss)},
+                               compute_3d_metrics(outputs["flow_3d"], target_3d))
+
+
+def is_better(curr: dict, best: dict | None) -> bool:
+    return best is None or curr["epe3d"] < best["epe3d"]

@@ -1,7 +1,6 @@
 """Model registry and optimizer factory: the port's counterpart of
-camliflow_tpu/models/factory.py. Ported: all six model families for eval
-(CamLiRAFT, CamLiRAFT-L, RAFT, CamLiPWC, CamLiPWC-L, PWC), CamLiRAFT for
-training.
+camliflow_tpu/models/factory.py. Ported: all six model families (CamLiRAFT,
+CamLiRAFT-L, RAFT, CamLiPWC, CamLiPWC-L, PWC), for eval and for training.
 
 The optimizer realises the reference's 4-group partition (2D/3D x
 decay/no-decay) with per-branch learning rates as 4 param groups of one
@@ -32,7 +31,9 @@ _REGISTRY: dict[str, type[nn.Module]] = {
     "pwc": pwc.PWC,
 }
 # loss and model-selection functions of the models the port trains
-_TRAINING = {"camliraft": (camliraft.loss_fn, camliraft.is_better)}
+_TRAINING = {name: (module.loss_fn, module.is_better) for name, module in (
+    ("camliraft", camliraft), ("camliraft_l", camliraft_l), ("raft", raft),
+    ("camlipwc", camlipwc), ("camlipwc_l", camlipwc_l), ("pwc", pwc))}
 GROUPS = ("2d_decay", "3d_decay", "2d_no_decay", "3d_no_decay")
 # a JAX module-path component of the 3D branch (camliflow_tpu's rule)
 _3D_COMPONENT = re.compile(r"^(branch_3d.*|.*_3d|correlation3d.*|fnet3d.*|corr3d.*)$")
@@ -49,9 +50,7 @@ def model_factory(cfgs) -> type[nn.Module]:
 def training_functions(name: str):
     """(loss_fn, is_better) of a model the port trains."""
     if name not in _TRAINING:
-        raise NotImplementedError(
-            f"training {name} is not ported (ported: {sorted(_TRAINING)}; see ROADMAP.md "
-            "Queue 1, item 9)")
+        raise NotImplementedError(f"no training for model {name} (known: {sorted(_TRAINING)})")
     return _TRAINING[name]
 
 

@@ -1,15 +1,22 @@
-"""PWC-Net: 2D optical flow, coarse to fine with local cost volumes, eval.
+"""PWC-Net: 2D optical flow, coarse to fine with local cost volumes, eval
+and training.
 
 PyTorch counterpart of camliflow_tpu/models/pwc.py. Module and parameter
 names follow the reference PyTorch state_dict (`core.feature_pyramid.
 pyramid_convs.<i>`, `core.pyramid_feature_aligners.<i>`, ...), so the weight
 bridge names every key with runtime/names.py (a per-level list is a
 `level_list`: levels 1-5 at their own index). Modules take and return NHWC;
-inside, a module's chain of convolutions runs on one contiguous NCHW copy. Eval returns the final flow only: the
-per-level flows are the training loss's, which is not ported yet. No kernel
-of the port is on this path: the cost volume and the warps are plain
-PyTorch, as the JAX package computes them in XLA, and the convolutions are
-cuDNN's, their algorithms autotuned (`utils/torch_setup.py`).
+inside, a module's chain of convolutions runs on one contiguous NCHW copy.
+Eval returns the final flow only; train mode (and eval with
+`with_pyramid`, as the trainer validates) also every level's flow at 4x its
+size, `flows_2d`, finest first, which the pyramid loss reads. In train mode
+the feature pyramid's BatchNorms take batch statistics, each frame's call
+updating the running ones in turn, as Flax's mutable `batch_stats` does.
+No kernel of the port is on this path, in eval or training: the cost volume
+and the warps are plain PyTorch, as the JAX package computes them in XLA,
+and the convolutions are cuDNN's, their algorithms autotuned
+(`utils/torch_setup.py`), in training for the backward too
+(`CONV_BENCHMARK`, read by `runtime/train_state.py`).
 """
 
 from __future__ import annotations
@@ -18,11 +25,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import Conv2dNormAct, level_list
+from ..nn.layers import Conv2dNormAct, compute_precision, level_list
 from ..ops.correlation import correlation2d
 from ..ops.gridsample import resize_bilinear_align_corners
 from ..ops.image import backwarp_2d, convex_upsample, resize_flow2d, resize_to_multiple
 from ..utils.torch_setup import autotuned_convolutions
+from .losses import calc_pyramid_loss_2d
+from .metrics import compute_2d_metrics, merge_metrics, scalar_metric
 
 PYRAMID_CHANNELS = (16, 32, 64, 96, 128, 192)
 CONTEXT_DILATIONS = (1, 2, 4, 8, 16, 1)
@@ -48,6 +57,13 @@ def upsample2x_flow(flow: torch.Tensor) -> torch.Tensor:
     """A coarser level's flow at this level: twice the size, twice the
     magnitude."""
     return upsample2x(flow * 2.0)
+
+
+def upsample_flow(flow: torch.Tensor, scale: int) -> torch.Tensor:
+    """A level's flow `scale` times the size and magnitude, bilinear with
+    align_corners=True (the pyramid loss's coarser levels)."""
+    h, w = flow.shape[1:3]
+    return resize_bilinear_align_corners(flow * float(scale), h * scale, w * scale)
 
 
 def flow_conv(in_channels: int) -> nn.Conv2d:
@@ -186,8 +202,12 @@ class PWCCore(nn.Module):
             norm=norm_context_network)
         self.up_mask_head = UpMaskHead()
 
-    def decode(self, feats1, feats2):
+    def decode(self, feats1, feats2, pyramid: bool = False):
+        """-> [the final flow [B, H, W, 2]]; with `pyramid`, every level's
+        flow, finest first: level 1's convex-upsampled x4 (the final flow),
+        each coarser one resized x4."""
         flow = flow_feat = None
+        flows = []
         for level in range(len(feats1) - 1, 0, -1):
             feat1, feat2 = feats1[level], feats2[level]
             if flow is None:
@@ -204,20 +224,29 @@ class PWCCore(nn.Module):
             flow = flow_delta + last_flow
             flow_feat, flow_delta = self.context_network(torch.cat([flow_feat, flow], dim=-1))
             flow = flow_delta + flow
-        return convex_upsample(flow, self.up_mask_head(flow_feat), scale_factor=4)
+            flows.append(flow)
+        final = convex_upsample(flow, self.up_mask_head(flow_feat), scale_factor=4)
+        return [final] + [upsample_flow(f.float(), 4) for f in flows[-2::-1] if pyramid]
 
-    def forward(self, image1, image2):
-        """Images [B, H, W, 3] in [0, 1], H and W multiples of 64 -> flow
-        [B, H, W, 2]."""
-        return self.decode(self.feature_pyramid(image1), self.feature_pyramid(image2))
+    def forward(self, image1, image2, pyramid: bool = False):
+        """Images [B, H, W, 3] in [0, 1], H and W multiples of 64 -> the
+        flows of `decode`."""
+        return self.decode(self.feature_pyramid(image1), self.feature_pyramid(image2), pyramid)
 
 
 class PWC(nn.Module):
     """Model wrapper: images to [0, 1], resized up to multiples of 64, the
-    core, the flow resized back."""
+    core, the flow resized back. In train mode (and with `with_pyramid`) it
+    also returns `flows_2d`; train mode computes under `compute_dtype`
+    (bf16 autocast or f32), eval stays f32."""
+
+    CONV_BENCHMARK = True  # train_step runs the backward under autotuning too
 
     def __init__(self, cfgs: dict):
         super().__init__()
+        self.with_pyramid = False
+        self.compute_dtype = cfgs.get("compute_dtype")
+        compute_precision(self.compute_dtype, "cpu")  # raises on a dtype it does not know
         norm = cfgs["norm"]
         self.core = PWCCore(
             max_displacement=int(cfgs["max_displacement"]),
@@ -231,6 +260,24 @@ class PWC(nn.Module):
         images = inputs["images"].float() / 255.0
         origin_h, origin_w = images.shape[1:3]
         images, _ = resize_to_multiple(images, None, x=64)
-        with autotuned_convolutions():
-            flow = self.core(images[..., :3].contiguous(), images[..., 3:].contiguous())
-        return {"flow_2d": resize_flow2d(flow, origin_h, origin_w)}
+        image1, image2 = images[..., :3].contiguous(), images[..., 3:].contiguous()
+        pyramid = self.training or self.with_pyramid
+        dtype = self.compute_dtype if self.training else None
+        with autotuned_convolutions(), compute_precision(dtype, image1.device.type):
+            flows = self.core(image1, image2, pyramid)
+        out = {"flow_2d": resize_flow2d(flows[0], origin_h, origin_w)}
+        return {**out, "flows_2d": flows} if pyramid else out
+
+
+def loss_fn(outputs: dict, inputs: dict, cfgs) -> tuple[torch.Tensor, dict]:
+    """Pyramid loss and metrics (the JAX `loss_fn`)."""
+    target_2d = inputs["flow_2d"]
+    loss = calc_pyramid_loss_2d(outputs["flows_2d"], target_2d,
+                                level_weights=list(cfgs["loss"]["level_weights"]),
+                                order=cfgs["loss"]["order"])
+    return loss, merge_metrics({"loss2d": scalar_metric(loss)},
+                               compute_2d_metrics(outputs["flow_2d"], target_2d))
+
+
+def is_better(curr: dict, best: dict | None) -> bool:
+    return best is None or curr["epe2d"] < best["epe2d"]

@@ -1,5 +1,5 @@
-"""RAFT: 2D optical flow with all-pairs correlation and a ConvGRU (eval),
-and its 2D update modules, which the flagship's 2D branch shares.
+"""RAFT: 2D optical flow with all-pairs correlation and a ConvGRU (eval and
+training), and its 2D update modules, which the flagship's 2D branch shares.
 
 PyTorch counterpart of camliflow_tpu/models/raft.py on its exact path: the
 all-pairs volume stays f32, the refinement `nn.scan` is a Python loop and
@@ -11,6 +11,12 @@ out, which the flagship trains through; the refinement loop at eval instead
 hoists the packed weights once per request and runs the whole iteration
 (motion encoder, GRU, flow head) as kernel #10 from one entry point
 (`update2d.update_2d`): ten launches of the 3xTF32 tensor-core conv tile.
+
+In train mode (`model.train()`) RAFT runs the JAX training path
+(`RAFTCore.forward_train`, camliflow_tpu's core with `train=True`): the
+modules' own `Conv2d` chains (#10 has no backward), the flow detached at
+the top of every iteration and convex-upsampled in every one. No kernel of
+the port is on that path. `loss_fn` and `is_better` are the JAX ones.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..nn.layers import compute_precision, full_precision
 from ..nn.resnet import ResNetEncoder2D
 from ..ops import update2d
 from ..ops.correlation import (
@@ -27,6 +34,8 @@ from ..ops.correlation import (
 )
 from ..ops.image import InputPadder, convex_upsample, mesh_grid
 from .camliraft_l import resolve_fast_inference
+from .losses import calc_sequence_loss
+from .metrics import compute_2d_metrics, merge_metrics, scalar_metric
 
 CORR_RADIUS = 4
 CORR_LEVELS = 4
@@ -137,7 +146,8 @@ class UpdateBlock2D(nn.Module):
 
 
 class RAFTCore(nn.Module):
-    """Standalone 2D RAFT loop, eval (final-only)."""
+    """Standalone 2D RAFT loop: eval (final-only) through `forward`,
+    training through `forward_train`."""
 
     def __init__(self, n_iters: int = 12, backbone_depth: int = 50):
         super().__init__()
@@ -176,10 +186,39 @@ class RAFTCore(nn.Module):
             h, flow = self.update(h, flow, consts)
         return self.convex_upsampler(h, flow)
 
+    def forward_train(self, image1, image2, n_iters: int):
+        """The training forward: flow_seq [T, B, H, W, 2], the flow
+        upsampled in every iteration. Under a bf16 `compute_precision` the
+        volume stays f32 (`full_precision`), as the JAX einsum does."""
+        batch = image1.shape[0]
+        # both frames share one fnet call (its BatchNorms use running stats)
+        fmaps = self.fnet(torch.cat([image1, image2], dim=0))
+        aligner = self.correlation.fnet_aligner
+        align1, align2 = aligner(fmaps[:batch].float()), aligner(fmaps[batch:].float())
+        with full_precision(image1.device.type):
+            pyramid = all_pairs_correlation_pyramid(align1.float(), align2.float(),
+                                                    CORR_LEVELS)
+        h, x = torch.chunk(self.cnet_aligner(self.cnet(image1)), 2, dim=-1)
+        h, x = torch.tanh(h.float()), torch.relu(x.float())
+        feat_h, feat_w = fmaps.shape[1:3]
+        grid = mesh_grid(batch, feat_h, feat_w, device=image1.device)
+        flow = image1.new_zeros(batch, feat_h, feat_w, 2, dtype=torch.float32)
+        seq = []
+        for _ in range(n_iters):
+            flow = flow.detach()
+            corr = corr_lookup_2d(pyramid, grid + flow, radius=CORR_RADIUS)
+            motion = self.motion_encoder(flow, corr)
+            h = self.gru(h, torch.cat([x, motion], dim=-1))
+            flow = flow + self.flow_head(h)
+            seq.append(self.convex_upsampler(h, flow))
+        return torch.stack(seq)
+
 
 class RAFT(nn.Module):
     """Model wrapper: [-1, 1] normalisation, padding to a multiple of 8, the
-    core, unpadding."""
+    core, unpadding. In train mode it runs `RAFTCore.forward_train` for
+    `n_iters_train` iterations under `compute_dtype` (bf16 autocast or
+    f32); eval stays f32."""
 
     def __init__(self, cfgs: dict):
         super().__init__()
@@ -192,10 +231,32 @@ class RAFT(nn.Module):
         else:
             depth = 50
         self.core = RAFTCore(n_iters=int(cfgs["n_iters_eval"]), backbone_depth=int(depth))
+        self.n_iters_train = int(cfgs.get("n_iters_train", cfgs["n_iters_eval"]))
+        self.compute_dtype = cfgs.get("compute_dtype")
+        compute_precision(self.compute_dtype, "cpu")  # raises on a dtype it does not know
 
     def forward(self, inputs: dict) -> dict:
         images = 2.0 * (inputs["images"].float() / 255.0) - 1.0
         padder = InputPadder(images.shape, x=8)
         image1, image2 = padder.pad(images[..., :3], images[..., 3:])
-        flow = padder.unpad(self.core(image1.contiguous(), image2.contiguous()))
+        image1, image2 = image1.contiguous(), image2.contiguous()
+        if self.training:
+            with compute_precision(self.compute_dtype, image1.device.type):
+                seq = self.core.forward_train(image1, image2, self.n_iters_train)
+            seq = padder.unpad(seq.flatten(0, 1)).unflatten(0, seq.shape[:2])
+            return {"flow_2d": seq[-1], "flow_2d_seq": seq}
+        flow = padder.unpad(self.core(image1, image2))
         return {"flow_2d": flow, "flow_2d_seq": flow[None]}
+
+
+def loss_fn(outputs: dict, inputs: dict, cfgs) -> tuple[torch.Tensor, dict]:
+    """Sequence loss and metrics (the JAX `loss_fn`)."""
+    target_2d = inputs["flow_2d"]
+    loss = calc_sequence_loss(outputs["flow_2d_seq"], target_2d, gamma=cfgs["loss"]["gamma"],
+                              order=cfgs["loss"]["order"])
+    return loss, merge_metrics({"loss2d": scalar_metric(loss)},
+                               compute_2d_metrics(outputs["flow_2d"], target_2d))
+
+
+def is_better(curr: dict, best: dict | None) -> bool:
+    return best is None or curr["epe2d"] < best["epe2d"]

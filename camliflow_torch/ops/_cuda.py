@@ -15,9 +15,9 @@ import torch
 
 def forward_only(name: str, *tensors) -> None:
     """Raise when grad mode is on and an input requires grad: the fused
-    kernels (#5-#13) have no backward, so on either device their wrappers
-    refuse to drop a gradient without a word. Training runs the modules'
-    own differentiable forwards instead."""
+    kernels (#5-#13) and the interpolation (#3) have no backward, so on
+    either device their wrappers refuse to drop a gradient without a word.
+    Training runs the modules' own differentiable forwards instead."""
     if torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
     ):

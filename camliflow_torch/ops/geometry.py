@@ -13,6 +13,10 @@ differ only by rounding, and the direct form is the more exact of the two.
 The selection functions (`k_nearest_neighbor`, `knn_interpolation`,
 `furthest_point_sampling`) dispatch to the kernel modules `knn`, `interp` and
 `fps`: a CPU tensor takes the plain version there, a CUDA tensor the kernel.
+The interpolation's kernel (#3) has no backward, so the train paths use
+`knn_interpolation_train` (and `backwarp_3d(..., train=True)`) on either
+device: the selection by KNN (#1 on a card), without a gradient, then the
+weights and the weighted sum as differentiable torch ops.
 """
 
 from __future__ import annotations
@@ -75,12 +79,48 @@ def knn_interpolation(
     return interp(input_xyz, input_features, query_xyz, k)
 
 
-def backwarp_3d(
-    xyz1: torch.Tensor, xyz2: torch.Tensor, flow12: torch.Tensor, k: int = 3
+def interpolation_weights(
+    input_xyz: torch.Tensor, query_xyz: torch.Tensor, k: int = 3
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest supports of each query, [B, N, k] int32, selected
+    without a gradient, and their inverse-distance weights [B, N, k] (f32),
+    differentiable in both point sets: 1 / max(|support - query|, 1e-8),
+    normalised (camliflow_tpu/ops/geometry.py::knn_interpolation)."""
+    with torch.no_grad():
+        idx = k_nearest_neighbor(input_xyz.detach(), query_xyz.detach(), k)
+    diff = (gather_points(input_xyz, idx) - query_xyz[:, :, None, :]).float()
+    weights = 1.0 / torch.clamp(torch.linalg.vector_norm(diff, dim=-1), min=1e-8)
+    return idx, weights / weights.sum(dim=-1, keepdim=True)
+
+
+def weighted_sum(features: torch.Tensor, idx: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """sum_j features[idx[..., j]] * weights[..., j] in the features' dtype:
+    [B, M, C], [B, N, k], [B, N, k] -> [B, N, C]."""
+    feats = gather_points(features, idx)
+    return torch.sum(feats * weights[..., None].to(feats.dtype), dim=2)
+
+
+def knn_interpolation_train(
+    input_xyz: torch.Tensor,
+    input_features: torch.Tensor,
+    query_xyz: torch.Tensor,
+    k: int = 3,
 ) -> torch.Tensor:
-    """Warp `xyz2` towards frame 1 by interpolating the negated flow."""
+    """`knn_interpolation` as the train paths take it: differentiable in all
+    three inputs, with no kernel of its own (the selection is KNN's)."""
+    return weighted_sum(input_features, *interpolation_weights(input_xyz, query_xyz, k))
+
+
+def backwarp_3d(
+    xyz1: torch.Tensor, xyz2: torch.Tensor, flow12: torch.Tensor, k: int = 3,
+    train: bool = False,
+) -> torch.Tensor:
+    """Warp `xyz2` towards frame 1 by interpolating the negated flow; with
+    `train`, through the differentiable interpolation."""
     xyz1_warp = xyz1 + flow12
-    flow21 = knn_interpolation(xyz1_warp, -flow12, xyz2, k=k)
+    interp = knn_interpolation_train if train else knn_interpolation
+    flow21 = interp(xyz1_warp, -flow12, xyz2, k=k)
     return xyz2 + flow21
 
 

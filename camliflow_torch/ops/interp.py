@@ -5,7 +5,9 @@ Replaces camliflow_tpu/ops/pallas_interp.py::knn_interpolation_pallas with
 query's k nearest supports (planned by `knn.select_plan`), then the merging
 warp forms the weights and the weighted feature sum, a lane a channel.
 Arithmetic-bound on query-support pairs; see the source for the design
-note.
+note. The kernel has no backward: the wrapper raises under grad mode on an
+input that requires grad, on either device, and the train paths
+interpolate through `geometry.knn_interpolation_train` instead.
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ def knn_interpolation(
     k: int = 3,
 ) -> torch.Tensor:
     """[B, M, 3] supports, [B, M, C] features, [B, N, 3] queries -> [B, N, C].
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel. Forward
+    only: under grad mode an input that requires grad raises."""
+    _cuda.forward_only("knn_interpolation", input_xyz, input_features, query_xyz)
     if _cuda.on_cpu(input_xyz, input_features, query_xyz):
         return knn_interpolation_plain(input_xyz, input_features, query_xyz, k)
     name = "knn_interpolation"

@@ -89,20 +89,25 @@ class Evaluator:
             outputs = self.model(inputs)
         if not cuda:
             return Pending(outputs, None)
-        host = {}
-        for key, value in outputs.items():
-            host[key] = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
-            host[key].copy_(value, non_blocking=True)
+
+        def to_host(value):
+            host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+            return host.copy_(value, non_blocking=True)
+
+        host = {key: [to_host(v) for v in value] if isinstance(value, list) else to_host(value)
+                for key, value in outputs.items()}
         done = torch.cuda.Event()
         done.record()
         return Pending(host, done)
 
     @staticmethod
     def fetch(pending: Pending) -> dict[str, np.ndarray]:
-        """Wait for an enqueued forward and return its outputs as numpy."""
+        """Wait for an enqueued forward and return its outputs as numpy (a
+        list output, a pyramid's levels, as a list of arrays)."""
         if pending.done is not None:
             pending.done.synchronize()
-        return {k: v.numpy() for k, v in pending.outputs.items()}
+        return {k: [x.numpy() for x in v] if isinstance(v, list) else v.numpy()
+                for k, v in pending.outputs.items()}
 
     def forward(self, batch: dict) -> dict[str, np.ndarray]:
         """One request, start to finish: the model's outputs as numpy."""

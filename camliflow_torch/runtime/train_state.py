@@ -2,14 +2,20 @@
 port's counterpart of camliflow_tpu/runtime/train_state.py's jitted
 `train_step`). Parameters and optimizer state stay f32; the model's train
 forward computes under its own `compute_dtype` (bf16 autocast with amp).
-bf16 has f32's exponent range, so no loss scaling is needed."""
+bf16 has f32's exponent range, so no loss scaling is needed. A model
+class with `CONV_BENCHMARK` set (the PWC family) takes the whole step,
+backward included, under `autotuned_convolutions`: cuDNN's heuristics
+alone pick pathological algorithms for some of its convolutions."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 
 from ..models.factory import param_group_label, set_learning_rates
+from ..utils.torch_setup import autotuned_convolutions
 
 
 def branch_grad_norms(model: nn.Module, model_name: str) -> dict[str, torch.Tensor]:
@@ -31,9 +37,11 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
     learning rates. Returns (loss, (sum, count) metrics, telemetry), every
     value a tensor on the device, so the caller chooses when to wait."""
     optimizer.zero_grad(set_to_none=True)
-    outputs = model(batch)
-    loss, metrics = loss_fn(outputs, batch, cfgs)
-    loss.backward()
+    tuned = getattr(model, "CONV_BENCHMARK", False)
+    with autotuned_convolutions() if tuned else contextlib.nullcontext():
+        outputs = model(batch)
+        loss, metrics = loss_fn(outputs, batch, cfgs)
+        loss.backward()
     telemetry = branch_grad_norms(model, model_name)
     if optimizer.max_norm is not None:
         torch.nn.utils.clip_grad_norm_(

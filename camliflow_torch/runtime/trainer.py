@@ -103,6 +103,10 @@ class Trainer:
             logger.info("loaded %d pretrained backbone tensors from %s", n, pretrained)
         elif pretrained:
             logger.warning("backbone.pretrained=%s not found, training from scratch", pretrained)
+        # a coarse-to-fine model's validation reads every level's flow, as
+        # the pyramid loss does
+        if hasattr(self.model, "with_pyramid"):
+            self.model.with_pyramid = True
         self.model.to(self.device).train()
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("#parameters: %.2fM on %s", n_params / 1e6, self.device)
@@ -186,8 +190,9 @@ class Trainer:
         agg: dict = {}
         for batch, outputs in evaluator.batches(self.val_loader):
             inputs = device_batch(batch, torch.device("cpu"))
-            _, metrics = self.loss_fn({k: torch.from_numpy(v) for k, v in outputs.items()},
-                                      inputs, self.cfgs.model)
+            outputs = {k: [torch.from_numpy(x) for x in v] if isinstance(v, list)
+                       else torch.from_numpy(v) for k, v in outputs.items()}
+            _, metrics = self.loss_fn(outputs, inputs, self.cfgs.model)
             agg = merge_metrics(agg, metrics)
         self.model.train()
         summary = finalize_metrics(agg)

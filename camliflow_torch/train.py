@@ -8,8 +8,10 @@ then conf/training/<trainset>/<model>.yaml, then the dotted overrides) and
 runs the port's Trainer: `log.dir` receives train.log, metrics.jsonl,
 best_metrics.json and the checkpoints (`ckpt.resume=true` continues from
 the newest). It trains on the CUDA card unless `device=cpu` is given;
-without a card and without `device=cpu` it raises. Ported: `model=camliraft`
-on FlyingThings3D. A checkpoint it writes is read back by
+without a card and without `device=cpu` it raises. Every model family
+trains: `model=camliraft`, `camliraft_l`, `raft`, `pwc`, `camlipwc_l` or
+`camlipwc`, each with its conf/training/<trainset>/<model>.yaml (on
+FlyingThings3D). A checkpoint it writes is read back by
 `python -m camliflow_torch.eval ... ckpt.path=<log.dir>/ckpts/<epoch>.pt`.
 """
 

@@ -30,8 +30,11 @@ and points, all three fusions), in phases:
    ties included, at each of its 8 main-path calls and the PWC family's 15
    call shapes (the pyramid's 8192 -> 4096 .. 512 -> 256, the decoder's
    4096 .. 256, CamLiPWC's 2-D CLFM caches from 144x240 pixels against 4096
-   points down to 9x15 against 256), each with its plan, device time
-   (profiler) and bound, and their sums a request of the flagship,
+   points down to 9x15 against 256) and the train paths' 10 k=3 call
+   shapes at batch 2 (CamLiRAFT-L's upsample, the PWC family's level
+   upsamples and backwarps: the interpolation's train form), each with its
+   plan, device time (profiler) and bound, and their sums a request of the
+   flagship,
    CamLiRAFT-L, CamLiPWC-L and CamLiPWC; the interpolation at its three
    shapes (CamLiPWC's level upsample with 67 channels the third) by events
    and device time, its selection the plain KNN's (with --other, another
@@ -100,7 +103,13 @@ and points, all three fusions), in phases:
    checkpoint saved and resumed; a resumed run's first loss against the
    uninterrupted run's (augmentation off); one f32 step at batch 1 and 2
    iterations on the card against the CPU (loss, every gradient, the
-   parameters after the step).
+   parameters after the step). Then each other family (CamLiRAFT-L, RAFT,
+   PWC, CamLiPWC-L, CamLiPWC) with its own training config at full width,
+   batches of 2 on 4 synthetic pairs: a warm-up epoch, a timed epoch of 2
+   steps (launches a step held to the counts derived from the code: #3
+   only on detached flows, #5-#13 and #12 never), every loss and branch
+   gradient norm finite and > 0, a profiled step, a validation pass, and
+   one f32 step at 448x256, 2048 points and 2 iterations against the CPU.
 
 Each path's launches (4, 7, 8 and 9) are counted with every counter zeroed
 just before it and read just after. Prints the kernels' JSON line, then the card's name and power limit, then, as
@@ -488,7 +497,8 @@ def selection_calls(both, order, gen):
     """The main paths' calls of #1 and #3 on the clouds `both` and their FPS
     order: (the FPS levels, the KNN calls (label, support, query, k, the
     paths that make the call, a letter each time a request: F flagship, H
-    fuse_hidden, L CamLiRAFT-L, P CamLiPWC-L, C CamLiPWC), the
+    fuse_hidden, L CamLiRAFT-L, P CamLiPWC-L, C CamLiPWC; none for the
+    train paths' k=3 calls), the
     interpolation calls (label, support, features, query), k=3). The CLFM
     caches' projected points, the flow and the flow features come from
     `gen`. The PWC family's calls are a frame's: its pyramid runs each frame
@@ -541,6 +551,21 @@ def selection_calls(both, order, gen):
         grid = torch.stack([xs, ys], -1).reshape(1, -1, 2).contiguous()
         knn_calls.append((f"CLFM cache level {level} ({map_h}x{map_w})",
                           level_uv.contiguous(), grid, 1, "CC"))
+    # the train paths' k=3 selections, batches of 2 (each frame a sample):
+    # CamLiRAFT-L's upsample 2048 -> 8192, and the interpolation's train form
+    # in the PWC family, each level's flow upsampled to the next finer level
+    # and the backwarps of decoder levels 1-4
+    knn_calls.append(("train upsample [2,8192] <- [2,2048]", lv[1], both, 3, ""))
+    finer = [both] + lv
+    for i in range(len(N_SAMPLES)):
+        n, m = finer[i].shape[1], finer[i + 1].shape[1]
+        knn_calls.append((f"train level upsample [2,{n}] <- [2,{m}]", finer[i + 1], finer[i], 3,
+                          ""))
+    for level in range(1, len(N_SAMPLES)):
+        xyz = lv[level - 1]
+        warped = xyz + 0.05 * torch.randn(xyz.shape, generator=gen, device=device)
+        knn_calls.append((f"train backwarp [2,{xyz.shape[1]}]", warped.contiguous(),
+                          xyz.flip(0).contiguous(), 3, ""))
     # the backwarp of frame 2 by the flow, CamLiRAFT-L's final upsample and
     # CamLiPWC's level upsample (2048 -> 4096) of the flow and its 64
     # flow-feature channels
@@ -2052,6 +2077,228 @@ def step_differences(params_a, params_b, grads_a, grads_b):
     return agree, flipped
 
 
+# phase 9's other five families: (config name, launches a train step at
+# full width, derived from the code, the branches the family labels
+# parameters with). CamLiRAFT-L: the flagship's selections less the fusion
+# cache (2 encoder levels, the k=32 neighbours, the upsample's k=3, 3
+# pooling levels), #3 on the detached flow and #4 index-only once an
+# iteration (10); the PWC family's point side: 10 KNN in the two pyramids,
+# 2 a decoder level, then 13 k=3 selections of the interpolation's train
+# form (4 level upsamples, 4 backwarps, 5 final upsamples), CamLiPWC 2
+# fusion caches a level more; RAFT and PWC: none of the port's kernels.
+TRAIN_FAMILIES = (
+    ("camliraft_l", {"k_nearest_neighbor": 7, "furthest_point_sampling": 1,
+                     "knn_interpolation": 10, "correlation3d_knn_index": 10}, ("2d",)),
+    ("raft", {}, ("2d",)),
+    ("pwc", {}, ("2d",)),
+    ("camlipwc_l", {"k_nearest_neighbor": 33, "furthest_point_sampling": 1}, ("2d",)),
+    ("camlipwc", {"k_nearest_neighbor": 43, "furthest_point_sampling": 1}, ("2d", "3d")),
+)
+FAMILY_PAIRS = 4  # the families' training split: 2 steps of 2 an epoch
+# the f32 step against the CPU, cut so the CPU side stays short
+SMALL_H, SMALL_W, SMALL_POINTS, SMALL_ITERS = 256, 448, 2048, 2
+SMALL_SAMPLES = [1024, 512, 256, 128, 64]
+
+
+def small_batch(seed: int) -> dict:
+    """One frame pair at SMALL_W x SMALL_H with SMALL_POINTS points in its
+    view (its own intrinsics, 5-35 m), targets included."""
+    rng = np.random.RandomState(seed)
+    f, cx, cy = INTRINSICS[0] * SMALL_W / IMAGE_W, (SMALL_W - 1) / 2, (SMALL_H - 1) / 2
+    depth = rng.uniform(5.0, 35.0, SMALL_POINTS)
+    u, v = rng.uniform(0, SMALL_W - 1, SMALL_POINTS), rng.uniform(0, SMALL_H - 1, SMALL_POINTS)
+    pc1 = np.stack([(u - cx) * depth / f, (v - cy) * depth / f, depth], -1)[None]
+    pc2 = pc1 + 0.1 * rng.randn(*pc1.shape)
+    flow_2d = np.concatenate([3 * rng.randn(1, SMALL_H, SMALL_W, 2),
+                              rng.rand(1, SMALL_H, SMALL_W, 1) > 0.1], -1)
+    out = {"images": rng.randint(0, 255, (1, SMALL_H, SMALL_W, 6)), "flow_2d": flow_2d,
+           "pcs": np.concatenate([pc1, pc2], -1), "flow_3d": pc2 - pc1,
+           "intrinsics": np.float32([[f, cx, cy]]),
+           "occ_mask_3d": rng.rand(1, SMALL_POINTS) > 0.9}
+    return {k: np.asarray(v, dtype=np.float32) for k, v in out.items()}
+
+
+def adam_step_differences(params_a, params_b, grads_a, grads_b, start, opt):
+    """`step_differences` for a first Adam/AdamW step with any eps: (the
+    largest |dp| - bound over all elements, the elements where the bound
+    exceeds PARAM_TOL + 0.1 lr). Adam's first step moves an element by
+    lr u, u = g / (|g| + eps) for the gradient g the optimizer sees (with
+    Adam's L2 term for decayed parameters), so two devices' steps differ by
+    lr |u_a - u_b|: about 2 lr where their gradients round to opposite
+    signs, ~0 where |g| >> eps, and in between where |g| is near eps (PWC's
+    eps is 1e-7). The bound is PARAM_TOL + lr |u_a - u_b|."""
+    import torch
+
+    worst, sensitive = -float("inf"), 0
+    for group in opt.param_groups:
+        lr, eps, decay = group["lr"], group["eps"], group["weight_decay"]
+        l2 = isinstance(opt, torch.optim.Adam) and not isinstance(opt, torch.optim.AdamW)
+        for name in group["names"]:
+            dirs = []
+            for g in (grads_a[name], grads_b[name]):
+                g = g + decay * start[name] if l2 else g
+                dirs.append(g / (g.abs() + eps))
+            du = (dirs[0] - dirs[1]).abs()
+            diff = (params_a[name] - params_b[name]).abs()
+            worst = max(worst, float((diff - PARAM_TOL - lr * du * (1 + 1e-3)).max()))
+            sensitive += int((du > 0.1).sum())
+    return worst, sensitive
+
+
+def family_training_phase(device, wrappers, card, root, family, want, branches) -> dict:
+    """Phase 9 for one of the other five families: `python -m
+    camliflow_torch.train trainset=flyingthings3d_subset
+    valset=flyingthings3d_subset model=<family>`'s Trainer on the card at the
+    family's full width with its own training config (amp, augmentation
+    on), batches of 2 on FAMILY_PAIRS synthetic 960x540 pairs: epoch 0 (the
+    warm-up), epoch 1 timed with every counter zeroed just before it
+    (launches a step held to `want`, every other wrapper's 0), every step's
+    loss and each of the family's branch gradient norms finite and > 0, one
+    profiled step (device busy share), a validation pass with finite
+    metrics; then one f32 step at SMALL_W x SMALL_H, SMALL_POINTS points and
+    SMALL_ITERS iterations (batch 1) on the card against the same step on
+    the CPU. Returns the timed epoch's launches."""
+    import copy
+
+    import torch
+
+    from camliflow_torch.data.datasets import collate
+    from camliflow_torch.models.factory import model_factory, optimizer_factory, training_functions
+    from camliflow_torch.runtime.trainer import Trainer, device_batch
+    from camliflow_torch.runtime.train_state import train_step
+    from camliflow_torch.utils.config import compose
+
+    cfgs = compose("conf", trainset="flyingthings3d_subset", valset="flyingthings3d_subset",
+                   model=family, base="trainer.yaml", overrides=[
+                       f"trainset.root_dir={root}/data", f"valset.root_dir={root}/data",
+                       "trainset.split=train_small", f"model.batch_size={TRAIN_BATCH}",
+                       "training.epochs=2", f"log.dir={root}/{family}", "log.print_interval=1",
+                       "log.val_interval=100", "trainset.n_workers=4", "valset.n_workers=4"])
+    own = compose("conf", trainset="flyingthings3d_subset", valset="flyingthings3d_subset",
+                  model=family, base="trainer.yaml")
+    if not (cfgs.model.name == family and cfgs.training.to_dict() == {
+            **own.training.to_dict(), "epochs": 2} and cfgs.training.amp
+            and cfgs.trainset.augmentation.enabled and cfgs.trainset.n_points == N_POINTS
+            and cfgs.model.get("n_iters_train") == own.model.get("n_iters_train")
+            and cfgs.model.get("n_samples_list") == own.model.get("n_samples_list")):
+        raise AssertionError(f"the composed config is not {family}'s training config")
+
+    def check_steps(history):
+        for record in history:
+            if not (np.isfinite(record["loss"]) and all(
+                    np.isfinite(record[f"grad_norm_{b}"]) and record[f"grad_norm_{b}"] > 0
+                    for b in branches)):
+                raise AssertionError(f"{family} training step {record}: a loss or gradient "
+                                     "norm is not finite, or a branch's gradient is 0")
+        return history
+
+    trainer = Trainer(cfgs, device)
+    steps = len(trainer.train_loader)
+    start = time.perf_counter()
+    trainer.train_one_epoch(0)
+    torch.cuda.synchronize()
+    first_epoch = time.perf_counter() - start
+    records = check_steps(trainer.history)
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    start = time.perf_counter()
+    trainer.train_one_epoch(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    per_step = {key: count / steps for key, count in launches.items()}
+    expected = {**dict.fromkeys(wrappers, 0), **want}
+    if per_step != expected:
+        raise AssertionError(f"{family} training launches a step {per_step}, expected "
+                             f"{expected}")
+    records += check_steps(trainer.history)
+    ms = 1e3 * seconds / steps
+    batch = device_batch(collate([trainer.train_set[i] for i in range(TRAIN_BATCH)]), device)
+    step = lambda: train_step(trainer.model, trainer.optimizer, batch,  # noqa: E731
+                              trainer.loss_fn, trainer.cfgs.model, trainer.step,
+                              trainer.model_name)
+    wall, kernels = profile_kernels(step)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    shape = (f"{cfgs.trainset.augmentation.random_crop.crop_size[0]}x"
+             f"{cfgs.trainset.augmentation.random_crop.crop_size[1]} crops"
+             if cfgs.trainset.augmentation.random_crop.enabled else f"{IMAGE_W}x{IMAGE_H}")
+    print(f"  {family} train steps (epoch 1, {steps} steps of {TRAIN_BATCH}, "
+          f"{shape if cfgs.trainset.with_image else 'no images'}, "
+          f"{f'{N_POINTS} pts' if cfgs.trainset.with_pc else 'no points'}, "
+          f"{cfgs.model.get('n_iters_train', 'no')} iters, amp): {ms:.1f} ms a step, "
+          f"{1e3 * TRAIN_BATCH / ms:.2f} frame pairs/s (epoch 0, the first step warming up: "
+          f"{1e3 * first_epoch / steps:.1f} ms a step); profiled step: wall {wall:.1f} ms, "
+          f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
+          f"{sum(e.count for e in kernels)} kernel launches; peak memory {peak:.0f} MiB "
+          f"| {card}", flush=True)
+    print(f"  {family} launches a step: { {k: v for k, v in per_step.items() if v} } (every "
+          "other wrapper: 0)", flush=True)
+    print(f"  {family} per step:", [{k: round(v, 4) if isinstance(v, float) else v
+                                     for k, v in r.items()} for r in records], flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"    {e.self_device_time_total / 1e3:8.2f} ms {e.count:5d}x  "
+              f"{short_name(e.key)[:80]}")
+    summary = trainer.validate(1)
+    if not summary or not all(np.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"{family} validation: {summary}")
+    print(f"  {family} validation: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        summary.items())), flush=True)
+    del trainer, batch
+
+    # one f32 train step at the reduced size: the card against the CPU
+    f32_cfgs = {**cfgs.model.to_dict(), "compute_dtype": "float32", "batch_size": 1}
+    if "n_iters_train" in f32_cfgs:
+        f32_cfgs["n_iters_train"] = SMALL_ITERS
+    if family not in ("raft", "pwc"):  # the families that take the clouds
+        f32_cfgs["n_samples_list"] = SMALL_SAMPLES
+    torch.manual_seed(SEED)
+    cpu_model = model_factory(f32_cfgs)(f32_cfgs).train()
+    card_model = copy.deepcopy(cpu_model).to(device).train()
+    start_params = {k: p.detach().clone() for k, p in cpu_model.named_parameters()}
+    sample = small_batch(SEED + 80)
+    loss_fn, _ = training_functions(family)
+    results = {}
+    for name, model, dev in (("cuda", card_model, device),
+                             ("cpu", cpu_model, torch.device("cpu"))):
+        optimizer = optimizer_factory(cfgs.training, model, steps, family)
+        names = {id(q): k for k, q in model.named_parameters()}
+        for group in optimizer.param_groups:
+            group["names"] = [names[id(p)] for p in group["params"]]
+        start = time.perf_counter()
+        loss, _, _ = train_step(model, optimizer, device_batch(sample, dev), loss_fn, f32_cfgs,
+                                0, family)
+        loss = float(loss)
+        results[name] = (loss, {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                         {k: p.detach().cpu() for k, p in model.named_parameters()},
+                         time.perf_counter() - start, optimizer)
+    (loss_gpu, grads_gpu, params_gpu, s_gpu, _), (loss_cpu, grads_cpu, params_cpu, s_cpu,
+                                                  opt_cpu) = results["cuda"], results["cpu"]
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_ratio, grad_worst = max(
+        (float((grads_gpu[k] - g).abs().max()) / (GRAD_TOL * (1 + float(g.abs().max()))), k)
+        for k, g in grads_cpu.items())
+    agree, flipped = step_differences(params_gpu, params_cpu, grads_gpu, grads_cpu)
+    over, sensitive = adam_step_differences(params_gpu, params_cpu, grads_gpu, grads_cpu,
+                                            start_params, opt_cpu)
+    lr = max(group["lr"] for group in opt_cpu.param_groups)
+    param_err, param_worst = max((d, k) for k, d in agree.items())
+    print(f"  {family} f32 step, batch 1, {SMALL_W}x{SMALL_H}, {SMALL_POINTS} pts, "
+          f"{SMALL_ITERS} iters (cut from full width so the CPU side stays short): loss card "
+          f"{loss_gpu:.6f}, CPU {loss_cpu:.6f} (relative {loss_rel:.2e}, bound {LOSS_TOL}); "
+          f"worst gradient at {grad_ratio:.3f} of its bound ({grad_worst}); parameters after "
+          f"the step max|d| {param_err:.2e} ({param_worst}) where the gradients agree in sign, "
+          f"{sum(n for _, n, _ in flipped.values())} elements where they differ (lr {lr:g}); "
+          f"every element within PARAM_TOL {PARAM_TOL} + lr |du| of Adam's step direction "
+          f"u = g / (|g| + eps) ({over:.2e} over), {sensitive} elements with |du| > 0.1; "
+          f"card {s_gpu:.1f} s, CPU {s_cpu:.1f} s", flush=True)
+    if not (np.isfinite(loss_cpu) and loss_rel <= LOSS_TOL and grad_ratio <= 1.0
+            and over <= 0.0 and sensitive <= 1e-2 * sum(p.numel() for p in params_cpu.values())):
+        raise AssertionError(f"{family}: the f32 train step on the card differs from the CPU's")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -2278,6 +2525,28 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("training")
+    import os
+
+    root = os.path.join(WORK, "train")
+    try:
+        write_things_split(os.path.join(root, "data"), "train_small", FAMILY_PAIRS, SEED + 72)
+        if not os.path.isdir(os.path.join(root, "data", "val")):
+            write_things_split(os.path.join(root, "data"), "val", 4, SEED + 71)
+    except Exception:
+        traceback.print_exc()
+        failures.append("training data")
+    for family, want, branches in TRAIN_FAMILIES:
+        print(f"[9/9] training {family}: its Trainer at full width (its own training config, "
+              f"amp, augmentation), batches of {TRAIN_BATCH}, {FAMILY_PAIRS} synthetic pairs; "
+              "an f32 step against the CPU", flush=True)
+        try:
+            launches = family_training_phase(device, wrappers, card, root, family, want,
+                                             branches)
+            for key, count in launches.items():
+                total[key] += count
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"training {family}")
 
     # each kernel's launches over the paths' measured requests
     for entry in kernels:
