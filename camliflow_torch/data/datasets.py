@@ -1,25 +1,24 @@
-"""The datasets (FlyingThings3D for training and eval; KITTI, KITTI's test
+"""The datasets (FlyingThings3D and KITTI for training and eval, KITTI's test
 split and Sintel for eval) and a sequential batch loader.
 
-The port's copy of camliflow_tpu/data/datasets.py (all but KITTI's training
-half) and of camliflow_tpu/data/loader.py's `collate`, with the same
-channel-last sample format:
+The port's copy of camliflow_tpu/data/datasets.py and of
+camliflow_tpu/data/loader.py's `collate`, with the same channel-last sample
+format:
   images  [H, W, 6]   (frame1 | frame2, RGB uint8-as-float)
   flow_2d [H, W, 3]   (u, v, validity)
   pcs     [N, 6]      (pc1 | pc2)
-  flow_3d [N, 3]
+  flow_3d [N, 3]      (KITTI: [N, 4], a validity channel of ones)
   occ_mask_3d [N]
   intrinsics [3] = (f, cx, cy)
 Without augmentation, points are sampled with the reference's fixed seeds,
-so a sample equals the JAX reader's bit for bit. FlyingThings3D with
-augmentation (training) draws the pass, the augmentation and the points
-from one explicit `numpy.random.RandomState` per sample, in the JAX
-reader's order: seeded as the JAX package's global `np.random`, it gives
-the JAX sample bit for bit (`FlyingThings3D.sample`); in a run it is seeded
-by (seed, epoch, index), so a sample does not depend on which worker thread
-reads it. KITTI's training half (augmentation on KITTI) is not ported and
-raises. `batches` reads samples one after another in the calling thread;
-data/loader.py's `DataLoader` reads them on worker threads.
+so a sample equals the JAX reader's bit for bit. With augmentation
+(training), FlyingThings3D and KITTI draw every random choice (the pass,
+the augmentation, the points) from one explicit `numpy.random.RandomState`
+per sample, in the JAX reader's order: seeded as the JAX package's global
+`np.random`, it gives the JAX sample bit for bit (`sample`); in a run it is
+seeded by (seed, epoch, index), so a sample does not depend on which worker
+thread reads it. `batches` reads samples one after another in the calling
+thread; data/loader.py's `DataLoader` reads them on worker threads.
 """
 
 from __future__ import annotations
@@ -31,15 +30,6 @@ import numpy as np
 
 from . import io
 from .augmentation import joint_augmentation
-
-
-def eval_only(name: str, cfgs) -> None:
-    """Raise for an enabled augmentation where training is not ported."""
-    if cfgs.augmentation.enabled:
-        raise NotImplementedError(
-            f"{name} augmentation (training) is not ported; see ROADMAP.md Queue 1 "
-            "item 9 (training)"
-        )
 
 
 def sample_points(rng, n: int, n_points: int):
@@ -140,19 +130,21 @@ class FlyingThings3D:
 
 
 class KITTI:
-    """KITTI scene-flow training splits, for evaluation (JAX
-    data/datasets.py:126, the reference's kitti.py)."""
+    """KITTI scene-flow training splits: training160 with augmentation for
+    fine-tuning, the others for evaluation (JAX data/datasets.py:126, the
+    reference's kitti.py)."""
 
     SPLITS = ("training200", "training160", "training40", "testing200")
 
-    def __init__(self, cfgs):
-        eval_only("KITTI", cfgs)
+    def __init__(self, cfgs, seed: int = 0):
         assert os.path.isdir(cfgs.root_dir), cfgs.root_dir
         if cfgs.split not in self.SPLITS:
             raise ValueError(f"KITTI split must be one of {self.SPLITS}, got {cfgs.split!r}")
         sub = "training" if "training" in cfgs.split else "testing"
         self.root_dir = os.path.join(cfgs.root_dir, sub)
         self.cfgs = cfgs
+        self.seed = seed
+        self.epoch = 0
         if cfgs.split in ("training200", "testing200"):
             self.indices = list(range(200))
         elif cfgs.split == "training160":
@@ -163,8 +155,21 @@ class KITTI:
     def __len__(self):
         return len(self.indices)
 
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch that seeds each sample's draws with augmentation."""
+        self.epoch = epoch
+
     def __getitem__(self, i):
-        rng = np.random.RandomState(23333)
+        if self.cfgs.augmentation.enabled:
+            rng = np.random.RandomState([self.seed, self.epoch, i])
+        else:
+            rng = np.random.RandomState(23333)  # deterministic point sampling
+        return self.sample(i, rng)
+
+    def sample(self, i, rng: np.random.RandomState) -> dict:
+        """Sample i, every random draw from `rng`: the augmentation (after
+        the zero padding to 376 x 1242, so a flip moves the padding to the
+        left), then pc1's points, then pc2's."""
         index = self.indices[i]
         data = {"index": index}
         path = lambda sub, name: os.path.join(self.root_dir, sub, name % index)  # noqa: E731
@@ -197,6 +202,9 @@ class KITTI:
         image1 = io.zero_padding(image1, 376, 1242)
         image2 = io.zero_padding(image2, 376, 1242)
         flow_2d = io.zero_padding(flow_2d, 376, 1242)
+
+        image1, image2, pc1, pc2, flow_2d, flow_3d, f, cx, cy = joint_augmentation(
+            image1, image2, pc1, pc2, flow_2d, flow_3d, f, cx, cy, self.cfgs.augmentation, rng)
 
         n_points = self.cfgs.n_points
         idxs1 = sample_points(rng, pc1.shape[0], n_points)
@@ -385,14 +393,14 @@ class Sintel:
 
 
 def dataset_factory(cfgs, seed: int = 0):
-    """The dataset named by `cfgs.name`; `seed` seeds FlyingThings3D's
-    augmentation."""
+    """The dataset named by `cfgs.name`; `seed` seeds the augmentation of
+    the readers that train (FlyingThings3D, KITTI)."""
     readers = {"flyingthings3d": FlyingThings3D, "kitti": KITTI, "kitti_test": KITTITest,
                "sintel": Sintel}
     if cfgs["name"] not in readers:
         raise NotImplementedError(f"Unknown dataset: {cfgs['name']}")
-    if cfgs["name"] == "flyingthings3d":
-        return FlyingThings3D(cfgs, seed)
+    if cfgs["name"] in ("flyingthings3d", "kitti"):
+        return readers[cfgs["name"]](cfgs, seed)
     return readers[cfgs["name"]](cfgs)
 
 

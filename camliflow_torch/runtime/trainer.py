@@ -12,7 +12,12 @@ epochs (and after the last), keeps the best checkpoint by the model's
 the train forward under bf16 autocast; validation stays f32.
 
 The log directory holds train.log, metrics.jsonl (one line per train and
-val epoch summary), best_metrics.json, ckpts/<epoch>.pt (the newest
+val epoch summary), tb/ (a TensorBoard event file: each summary's scalars
+as "<train|val>/<name>" at step = epoch; unless `log.tensorboard` is
+false, on when missing, as in the JAX trainer), images/flow2d_epochNNN.png
+(with `log.save_image_summary`: the flow image of the first validation
+batch's first sample, also a "val/flow2d" event; models without a 2D flow
+write none), best_metrics.json, ckpts/<epoch>.pt (the newest
 `ckpt.max_to_keep`) and ckpts_best/<epoch>.pt (the best one).
 `ckpt.resume=true` continues from the newest of ckpts/.
 """
@@ -29,10 +34,13 @@ import torch
 
 from ..data.datasets import dataset_factory
 from ..data.loader import DataLoader
+from ..data.png import write_png
 from ..models.factory import model_factory, optimizer_factory, training_functions
 from ..models.metrics import finalize_metrics, merge_metrics
 from ..utils.profiling import BadLossChecker
+from ..utils.tensorboard import EventWriter
 from ..utils.torch_setup import setup_torch
+from ..utils.visualization import viz_optical_flow
 from .checkpoint import load_backbone_pretrained, load_train_checkpoint, save_train_checkpoint
 from .evaluator import _HOST_KEYS, Evaluator
 from .train_state import train_step
@@ -119,20 +127,25 @@ class Trainer:
         # the last epoch's per-step telemetry: dicts of epoch, step, loss,
         # grad_norm_2d, grad_norm_3d
         self.history: list[dict] = []
+        self.tb = EventWriter(self.log_dir / "tb") if cfgs.log.get("tensorboard", True) else None
         if cfgs.ckpt.get("resume", False) and self.latest_ckpt() is not None:
             self.load_ckpt(self.latest_ckpt())
 
     def run(self) -> None:
         epochs = int(self.cfgs.training.epochs)
         val_interval = int(self.cfgs.log.get("val_interval", 1))
-        for epoch in range(self.start_epoch, epochs):
-            self.train_one_epoch(epoch)
-            if (epoch + 1) % val_interval == 0 or epoch == epochs - 1:
-                metrics = self.validate(epoch)
-                if self.is_better(metrics, self.best_metrics):
-                    self.best_metrics = metrics
-                    self.save_ckpt(epoch, best=True)
-            self.save_ckpt(epoch)
+        try:
+            for epoch in range(self.start_epoch, epochs):
+                self.train_one_epoch(epoch)
+                if (epoch + 1) % val_interval == 0 or epoch == epochs - 1:
+                    metrics = self.validate(epoch)
+                    if self.is_better(metrics, self.best_metrics):
+                        self.best_metrics = metrics
+                        self.save_ckpt(epoch, best=True)
+                self.save_ckpt(epoch)
+        finally:
+            if self.tb is not None:
+                self.tb.close()
         logger.info("training finished")
 
     def train_one_epoch(self, epoch: int) -> dict:
@@ -184,25 +197,57 @@ class Trainer:
     def validate(self, epoch: int) -> dict:
         """The model's loss and metrics over the validation set, through the
         port's Evaluator (f32, the eval forward, one batch ahead); the model
-        returns to train mode after."""
+        returns to train mode after. With `log.save_image_summary`, the
+        first batch's flow image follows."""
         logger.info("validating epoch %d", epoch + 1)
         evaluator = Evaluator(self.model, self.device)
         agg: dict = {}
+        first_batch = None
         for batch, outputs in evaluator.batches(self.val_loader):
+            if first_batch is None:
+                first_batch = batch
             inputs = device_batch(batch, torch.device("cpu"))
             outputs = {k: [torch.from_numpy(x) for x in v] if isinstance(v, list)
                        else torch.from_numpy(v) for k, v in outputs.items()}
             _, metrics = self.loss_fn(outputs, inputs, self.cfgs.model)
             agg = merge_metrics(agg, metrics)
-        self.model.train()
         summary = finalize_metrics(agg)
         logger.info("val epoch %d: %s", epoch + 1, _fmt(summary))
         self._dump_scalars("val", epoch, summary)
+        if self.cfgs.log.get("save_image_summary", False):
+            self._save_image_summary(epoch, first_batch)
+        self.model.train()
         return summary
+
+    def _save_image_summary(self, epoch: int, batch: dict | None) -> None:
+        """The flow image (utils/visualization.py) of sample 0's `flow_2d`
+        from one eval forward of `batch`: images/flow2d_epoch<epoch>.png and
+        a "val/flow2d" event. A model without a 2D flow writes nothing. A
+        failed file write is logged and training goes on; a failed forward
+        raises."""
+        if batch is None or "images" not in batch:
+            return
+        outputs = Evaluator(self.model, self.device).forward(batch)
+        if "flow_2d" not in outputs:
+            return
+        viz = viz_optical_flow(outputs["flow_2d"][0])
+        try:
+            out_dir = self.log_dir / "images"
+            out_dir.mkdir(exist_ok=True)
+            write_png(out_dir / f"flow2d_epoch{epoch:03d}.png", viz)
+            if self.tb is not None:
+                self.tb.add_image("val/flow2d", viz, epoch)
+                self.tb.flush()
+        except Exception as exc:  # a summary must not end a training run
+            logger.warning("image summary failed: %s", exc)
 
     def _dump_scalars(self, tag: str, epoch: int, summary: dict) -> None:
         with open(self.log_dir / "metrics.jsonl", "a") as f:
             f.write(json.dumps({"tag": tag, "epoch": epoch, **summary}) + "\n")
+        if self.tb is not None:
+            for name, value in summary.items():
+                self.tb.add_scalar(f"{tag}/{name}", float(value), epoch)
+            self.tb.flush()
 
     def save_ckpt(self, epoch: int, best: bool = False) -> Path:
         """ckpts/<epoch>.pt (the newest `ckpt.max_to_keep` are kept), or

@@ -2,16 +2,23 @@
 
     python -m camliflow_torch.train trainset=flyingthings3d_subset \\
         valset=flyingthings3d_subset model=camliraft [device=cpu] [key=value ...]
+    python -m camliflow_torch.train trainset=kitti valset=kitti \\
+        model=camliraft|camlipwc [device=cpu] [key=value ...]
 
 Composes the same `conf/` tree as train.py (trainer.yaml, the three groups,
-then conf/training/<trainset>/<model>.yaml, then the dotted overrides) and
-runs the port's Trainer: `log.dir` receives train.log, metrics.jsonl,
+then conf/training/<trainset>/<model>.yaml with its `override:` block, then
+the dotted overrides) and runs the port's Trainer: `log.dir` receives
+train.log, metrics.jsonl, tb/ (TensorBoard events; `log.tensorboard=false`
+turns them off), images/ (with `log.save_image_summary=true`),
 best_metrics.json and the checkpoints (`ckpt.resume=true` continues from
 the newest). It trains on the CUDA card unless `device=cpu` is given;
 without a card and without `device=cpu` it raises. Every model family
-trains: `model=camliraft`, `camliraft_l`, `raft`, `pwc`, `camlipwc_l` or
-`camlipwc`, each with its conf/training/<trainset>/<model>.yaml (on
-FlyingThings3D). A checkpoint it writes is read back by
+trains on FlyingThings3D (`model=camliraft`, `camliraft_l`, `raft`, `pwc`,
+`camlipwc_l` or `camlipwc`, each with its
+conf/training/flyingthings3d_subset/<model>.yaml); CamLiRAFT and CamLiPWC
+also fine-tune on KITTI's training160 split, validated on training40
+(conf/training/kitti/<model>.yaml: `freeze_bn`, no warm-up, colour jitter,
+horizontal flip and random scale). A checkpoint it writes is read back by
 `python -m camliflow_torch.eval ... ckpt.path=<log.dir>/ckpts/<epoch>.pt`.
 """
 

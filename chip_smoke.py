@@ -30,9 +30,11 @@ and points, all three fusions), in phases:
    ties included, at each of its 8 main-path calls and the PWC family's 15
    call shapes (the pyramid's 8192 -> 4096 .. 512 -> 256, the decoder's
    4096 .. 256, CamLiPWC's 2-D CLFM caches from 144x240 pixels against 4096
-   points down to 9x15 against 256) and the train paths' 10 k=3 call
-   shapes at batch 2 (CamLiRAFT-L's upsample, the PWC family's level
-   upsamples and backwarps: the interpolation's train form), each with its
+   points down to 9x15 against 256), the train paths' 10 k=3 call shapes
+   at batch 2 (CamLiRAFT-L's upsample, the PWC family's level upsamples
+   and backwarps: the interpolation's train form) and KITTI fine-tuning's
+   six 2-D calls at batch 2 (the flagship's CLFM cache at 47x156,
+   CamLiPWC's at 96x320 .. 6x20 of 384x1280), each with its
    plan, device time (profiler) and bound, and their sums a request of the
    flagship,
    CamLiRAFT-L, CamLiPWC-L and CamLiPWC; the interpolation at its three
@@ -110,6 +112,21 @@ and points, all three fusions), in phases:
    only on detached flows, #5-#13 and #12 never), every loss and branch
    gradient norm finite and > 0, a profiled step, a validation pass, and
    one f32 step at 448x256, 2048 points and 2 iterations against the CPU.
+   Then the KITTI fine-tunes of CamLiRAFT and CamLiPWC (`python -m
+   camliflow_torch.train trainset=kitti valset=kitti model=<family>`, each
+   on conf/training/kitti/<family>.yaml at full width: `freeze_bn`, no
+   warm-up, amp, colour jitter, flip and scale on 376x1242 frames, 8192
+   points) on 6 synthetic KITTI training frames at 375x1242 written with
+   the port's writers (KITTI's P_rect_02, 3-70 m of disparity, a forward
+   motion's flow), KITTI's splits cut in the process to 4 training and 2
+   validation frames, batches of 2: a warm-up and a timed epoch of 2 steps
+   (ms a step, frame pairs/s, the loader's share against a profiled step,
+   busy share, peak memory, launches a step held to the counts derived
+   from the code), every BatchNorm's running statistics bit for bit
+   unchanged over both epochs, a validation pass at 376x1242 with the
+   image summary on (tb/ parsed back against metrics.jsonl, the val/flow2d
+   event and images/flow2d_epoch001.png at 376x1242x3), and one f32 step of
+   the KITTI config at 448x256 against the CPU.
 
 Each path's launches (4, 7, 8 and 9) are counted with every counter zeroed
 just before it and read just after. Prints the kernels' JSON line, then the card's name and power limit, then, as
@@ -119,6 +136,7 @@ line, if any phase fails or there is no CUDA card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -551,6 +569,23 @@ def selection_calls(both, order, gen):
         grid = torch.stack([xs, ys], -1).reshape(1, -1, 2).contiguous()
         knn_calls.append((f"CLFM cache level {level} ({map_h}x{map_w})",
                           level_uv.contiguous(), grid, 1, "CC"))
+    # KITTI fine-tuning's 2-D selections (its train steps and validation,
+    # batches of 2): the flagship's CLFM cache on the 1/8 grid of 376 x 1242
+    # padded to 376 x 1248, and CamLiPWC's caches on the levels of 376 x 1242
+    # resized to 384 x 1280
+    def grid_calls(label, map_h, map_w, n):
+        uv = torch.rand(2, n, 2, generator=gen, device=device)
+        uv = uv * torch.tensor([map_w - 1.0, map_h - 1.0], device=device)
+        ys, xs = torch.meshgrid(torch.arange(float(map_h), device=device),
+                                torch.arange(float(map_w), device=device), indexing="ij")
+        grid = torch.stack([xs, ys], -1).reshape(1, -1, 2).expand(2, -1, -1).contiguous()
+        knn_calls.append((f"KITTI {label} ({map_h}x{map_w})", uv.contiguous(), grid, 1, ""))
+
+    kitti_h, kitti_w = -(-KITTI_PAD_H // 64) * 64, -(-KITTI_W // 64) * 64  # CamLiPWC's resize
+    grid_calls("CLFM pixel cache", -(-KITTI_PAD_H // 8), -(-KITTI_W // 8), N_SAMPLES[1])
+    for level in range(1, len(N_SAMPLES) + 1):
+        grid_calls(f"CLFM cache level {level}", kitti_h >> (level + 1), kitti_w >> (level + 1),
+                   N_SAMPLES[level - 1])
     # the train paths' k=3 selections, batches of 2 (each frame a sample):
     # CamLiRAFT-L's upsample 2048 -> 8192, and the interpolation's train form
     # in the PWC family, each level's flow upsampled to the next finer level
@@ -2100,9 +2135,11 @@ SMALL_H, SMALL_W, SMALL_POINTS, SMALL_ITERS = 256, 448, 2048, 2
 SMALL_SAMPLES = [1024, 512, 256, 128, 64]
 
 
-def small_batch(seed: int) -> dict:
+def small_batch(seed: int, kitti: bool = False) -> dict:
     """One frame pair at SMALL_W x SMALL_H with SMALL_POINTS points in its
-    view (its own intrinsics, 5-35 m), targets included."""
+    view (its own intrinsics, 5-35 m), targets included; with `kitti`,
+    KITTI's targets: the 3D flow with a validity channel of ones, no
+    occlusion mask."""
     rng = np.random.RandomState(seed)
     f, cx, cy = INTRINSICS[0] * SMALL_W / IMAGE_W, (SMALL_W - 1) / 2, (SMALL_H - 1) / 2
     depth = rng.uniform(5.0, 35.0, SMALL_POINTS)
@@ -2115,6 +2152,9 @@ def small_batch(seed: int) -> dict:
            "pcs": np.concatenate([pc1, pc2], -1), "flow_3d": pc2 - pc1,
            "intrinsics": np.float32([[f, cx, cy]]),
            "occ_mask_3d": rng.rand(1, SMALL_POINTS) > 0.9}
+    if kitti:
+        out["flow_3d"] = np.concatenate([out["flow_3d"], np.ones((1, SMALL_POINTS, 1))], -1)
+        del out["occ_mask_3d"]
     return {k: np.asarray(v, dtype=np.float32) for k, v in out.items()}
 
 
@@ -2145,54 +2185,14 @@ def adam_step_differences(params_a, params_b, grads_a, grads_b, start, opt):
     return worst, sensitive
 
 
-def family_training_phase(device, wrappers, card, root, family, want, branches) -> dict:
-    """Phase 9 for one of the other five families: `python -m
-    camliflow_torch.train trainset=flyingthings3d_subset
-    valset=flyingthings3d_subset model=<family>`'s Trainer on the card at the
-    family's full width with its own training config (amp, augmentation
-    on), batches of 2 on FAMILY_PAIRS synthetic 960x540 pairs: epoch 0 (the
-    warm-up), epoch 1 timed with every counter zeroed just before it
-    (launches a step held to `want`, every other wrapper's 0), every step's
-    loss and each of the family's branch gradient norms finite and > 0, one
-    profiled step (device busy share), a validation pass with finite
-    metrics; then one f32 step at SMALL_W x SMALL_H, SMALL_POINTS points and
-    SMALL_ITERS iterations (batch 1) on the card against the same step on
-    the CPU. Returns the timed epoch's launches."""
-    import copy
-
+def timed_epochs(trainer, wrappers, want, label, check_steps) -> dict:
+    """Epoch 0 (its first step the warm-up), then epoch 1 timed with every
+    counter zeroed just before it: launches a step held to `want` (every
+    other wrapper's 0), each step's record checked by `check_steps`. Returns
+    steps, the two epochs' seconds, launches (the timed epoch's), launches a
+    step, peak MiB and the step records."""
     import torch
 
-    from camliflow_torch.data.datasets import collate
-    from camliflow_torch.models.factory import model_factory, optimizer_factory, training_functions
-    from camliflow_torch.runtime.trainer import Trainer, device_batch
-    from camliflow_torch.runtime.train_state import train_step
-    from camliflow_torch.utils.config import compose
-
-    cfgs = compose("conf", trainset="flyingthings3d_subset", valset="flyingthings3d_subset",
-                   model=family, base="trainer.yaml", overrides=[
-                       f"trainset.root_dir={root}/data", f"valset.root_dir={root}/data",
-                       "trainset.split=train_small", f"model.batch_size={TRAIN_BATCH}",
-                       "training.epochs=2", f"log.dir={root}/{family}", "log.print_interval=1",
-                       "log.val_interval=100", "trainset.n_workers=4", "valset.n_workers=4"])
-    own = compose("conf", trainset="flyingthings3d_subset", valset="flyingthings3d_subset",
-                  model=family, base="trainer.yaml")
-    if not (cfgs.model.name == family and cfgs.training.to_dict() == {
-            **own.training.to_dict(), "epochs": 2} and cfgs.training.amp
-            and cfgs.trainset.augmentation.enabled and cfgs.trainset.n_points == N_POINTS
-            and cfgs.model.get("n_iters_train") == own.model.get("n_iters_train")
-            and cfgs.model.get("n_samples_list") == own.model.get("n_samples_list")):
-        raise AssertionError(f"the composed config is not {family}'s training config")
-
-    def check_steps(history):
-        for record in history:
-            if not (np.isfinite(record["loss"]) and all(
-                    np.isfinite(record[f"grad_norm_{b}"]) and record[f"grad_norm_{b}"] > 0
-                    for b in branches)):
-                raise AssertionError(f"{family} training step {record}: a loss or gradient "
-                                     "norm is not finite, or a branch's gradient is 0")
-        return history
-
-    trainer = Trainer(cfgs, device)
     steps = len(trainer.train_loader)
     start = time.perf_counter()
     trainer.train_one_epoch(0)
@@ -2201,53 +2201,71 @@ def family_training_phase(device, wrappers, card, root, family, want, branches) 
     records = check_steps(trainer.history)
     for fn in wrappers.values():
         fn.launches = 0
-    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.reset_peak_memory_stats(trainer.device)
     start = time.perf_counter()
     trainer.train_one_epoch(1)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = {key: fn.launches for key, fn in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    peak = torch.cuda.max_memory_allocated(trainer.device) / 2**20
     per_step = {key: count / steps for key, count in launches.items()}
     expected = {**dict.fromkeys(wrappers, 0), **want}
     if per_step != expected:
-        raise AssertionError(f"{family} training launches a step {per_step}, expected "
-                             f"{expected}")
+        raise AssertionError(f"{label} training launches a step {per_step}, expected {expected}")
     records += check_steps(trainer.history)
-    ms = 1e3 * seconds / steps
-    batch = device_batch(collate([trainer.train_set[i] for i in range(TRAIN_BATCH)]), device)
+    return {"steps": steps, "first_epoch": first_epoch, "seconds": seconds,
+            "launches": launches, "per_step": per_step, "peak": peak, "records": records}
+
+
+def report_steps(trainer, label, shape, timed, card) -> None:
+    """One train step under the profiler (its batch already on the card),
+    then the timed epoch's ms a step, frame pairs/s, the profiled step's
+    device busy share and launches, peak memory, launches a step, the step
+    records and the top kernels."""
+    from camliflow_torch.data.datasets import collate
+    from camliflow_torch.runtime.trainer import device_batch
+    from camliflow_torch.runtime.train_state import train_step
+
+    batch = device_batch(collate([trainer.train_set[i] for i in range(TRAIN_BATCH)]),
+                         trainer.device)
     step = lambda: train_step(trainer.model, trainer.optimizer, batch,  # noqa: E731
                               trainer.loss_fn, trainer.cfgs.model, trainer.step,
                               trainer.model_name)
     wall, kernels = profile_kernels(step)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    shape = (f"{cfgs.trainset.augmentation.random_crop.crop_size[0]}x"
-             f"{cfgs.trainset.augmentation.random_crop.crop_size[1]} crops"
-             if cfgs.trainset.augmentation.random_crop.enabled else f"{IMAGE_W}x{IMAGE_H}")
-    print(f"  {family} train steps (epoch 1, {steps} steps of {TRAIN_BATCH}, "
-          f"{shape if cfgs.trainset.with_image else 'no images'}, "
-          f"{f'{N_POINTS} pts' if cfgs.trainset.with_pc else 'no points'}, "
-          f"{cfgs.model.get('n_iters_train', 'no')} iters, amp): {ms:.1f} ms a step, "
-          f"{1e3 * TRAIN_BATCH / ms:.2f} frame pairs/s (epoch 0, the first step warming up: "
-          f"{1e3 * first_epoch / steps:.1f} ms a step); profiled step: wall {wall:.1f} ms, "
-          f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
-          f"{sum(e.count for e in kernels)} kernel launches; peak memory {peak:.0f} MiB "
-          f"| {card}", flush=True)
-    print(f"  {family} launches a step: { {k: v for k, v in per_step.items() if v} } (every "
-          "other wrapper: 0)", flush=True)
-    print(f"  {family} per step:", [{k: round(v, 4) if isinstance(v, float) else v
-                                     for k, v in r.items()} for r in records], flush=True)
+    ms = 1e3 * timed["seconds"] / timed["steps"]
+    print(f"  {label} train steps (epoch 1, {timed['steps']} steps of {TRAIN_BATCH}, {shape}, "
+          f"amp): {ms:.1f} ms a step, {1e3 * TRAIN_BATCH / ms:.2f} frame pairs/s (epoch 0, the "
+          f"first step warming up: {1e3 * timed['first_epoch'] / timed['steps']:.1f} ms a step); "
+          f"profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} kernel launches; the "
+          f"loader's share {100 * max(0.0, 1 - wall / ms):.1f}% (timed step against profiled); "
+          f"peak memory {timed['peak']:.0f} MiB | {card}", flush=True)
+    print(f"  {label} launches a step: "
+          f"{ {k: v for k, v in timed['per_step'].items() if v} } (every other wrapper: 0)",
+          flush=True)
+    print(f"  {label} per step:", [{k: round(v, 4) if isinstance(v, float) else v
+                                    for k, v in r.items()} for r in timed["records"]],
+          flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms {e.count:5d}x  "
               f"{short_name(e.key)[:80]}")
-    summary = trainer.validate(1)
-    if not summary or not all(np.isfinite(v) for v in summary.values()):
-        raise AssertionError(f"{family} validation: {summary}")
-    print(f"  {family} validation: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
-        summary.items())), flush=True)
-    del trainer, batch
 
-    # one f32 train step at the reduced size: the card against the CPU
+
+def f32_step_against_cpu(device, family, cfgs, steps, sample, label) -> None:
+    """One f32 train step of `family` on `cfgs` (its model and training
+    groups) at SMALL_W x SMALL_H, SMALL_POINTS points and SMALL_ITERS
+    iterations (batch 1) on the card against the same step on the CPU: the
+    loss within LOSS_TOL, every gradient within GRAD_TOL (1 + max|g|), every
+    parameter within PARAM_TOL + lr |du| of Adam's step direction."""
+    import copy
+
+    import torch
+
+    from camliflow_torch.models.factory import model_factory, optimizer_factory, training_functions
+    from camliflow_torch.runtime.trainer import device_batch
+    from camliflow_torch.runtime.train_state import train_step
+
     f32_cfgs = {**cfgs.model.to_dict(), "compute_dtype": "float32", "batch_size": 1}
     if "n_iters_train" in f32_cfgs:
         f32_cfgs["n_iters_train"] = SMALL_ITERS
@@ -2257,7 +2275,6 @@ def family_training_phase(device, wrappers, card, root, family, want, branches) 
     cpu_model = model_factory(f32_cfgs)(f32_cfgs).train()
     card_model = copy.deepcopy(cpu_model).to(device).train()
     start_params = {k: p.detach().clone() for k, p in cpu_model.named_parameters()}
-    sample = small_batch(SEED + 80)
     loss_fn, _ = training_functions(family)
     results = {}
     for name, model, dev in (("cuda", card_model, device),
@@ -2284,7 +2301,7 @@ def family_training_phase(device, wrappers, card, root, family, want, branches) 
                                             start_params, opt_cpu)
     lr = max(group["lr"] for group in opt_cpu.param_groups)
     param_err, param_worst = max((d, k) for k, d in agree.items())
-    print(f"  {family} f32 step, batch 1, {SMALL_W}x{SMALL_H}, {SMALL_POINTS} pts, "
+    print(f"  {label} f32 step, batch 1, {SMALL_W}x{SMALL_H}, {SMALL_POINTS} pts, "
           f"{SMALL_ITERS} iters (cut from full width so the CPU side stays short): loss card "
           f"{loss_gpu:.6f}, CPU {loss_cpu:.6f} (relative {loss_rel:.2e}, bound {LOSS_TOL}); "
           f"worst gradient at {grad_ratio:.3f} of its bound ({grad_worst}); parameters after "
@@ -2295,8 +2312,304 @@ def family_training_phase(device, wrappers, card, root, family, want, branches) 
           f"card {s_gpu:.1f} s, CPU {s_cpu:.1f} s", flush=True)
     if not (np.isfinite(loss_cpu) and loss_rel <= LOSS_TOL and grad_ratio <= 1.0
             and over <= 0.0 and sensitive <= 1e-2 * sum(p.numel() for p in params_cpu.values())):
-        raise AssertionError(f"{family}: the f32 train step on the card differs from the CPU's")
-    return launches
+        raise AssertionError(f"{label}: the f32 train step on the card differs from the CPU's")
+
+
+def branch_checker(label, branches):
+    """A check of step records: the loss and each branch's gradient norm
+    finite, the norms > 0."""
+    def check_steps(history):
+        for record in history:
+            if not (np.isfinite(record["loss"]) and all(
+                    np.isfinite(record[f"grad_norm_{b}"]) and record[f"grad_norm_{b}"] > 0
+                    for b in branches)):
+                raise AssertionError(f"{label} training step {record}: a loss or gradient "
+                                     "norm is not finite, or a branch's gradient is 0")
+        return history
+    return check_steps
+
+
+def family_training_phase(device, wrappers, card, root, family, want, branches) -> dict:
+    """Phase 9 for one of the other five families: `python -m
+    camliflow_torch.train trainset=flyingthings3d_subset
+    valset=flyingthings3d_subset model=<family>`'s Trainer on the card at the
+    family's full width with its own training config (amp, augmentation
+    on), batches of 2 on FAMILY_PAIRS synthetic 960x540 pairs: epoch 0 (the
+    warm-up), epoch 1 timed with every counter zeroed just before it
+    (launches a step held to `want`, every other wrapper's 0), every step's
+    loss and each of the family's branch gradient norms finite and > 0, one
+    profiled step (device busy share), a validation pass with finite
+    metrics; then one f32 step at SMALL_W x SMALL_H, SMALL_POINTS points and
+    SMALL_ITERS iterations (batch 1) on the card against the same step on
+    the CPU. Returns the timed epoch's launches."""
+    from camliflow_torch.runtime.trainer import Trainer
+    from camliflow_torch.utils.config import compose
+
+    cfgs = compose("conf", trainset="flyingthings3d_subset", valset="flyingthings3d_subset",
+                   model=family, base="trainer.yaml", overrides=[
+                       f"trainset.root_dir={root}/data", f"valset.root_dir={root}/data",
+                       "trainset.split=train_small", f"model.batch_size={TRAIN_BATCH}",
+                       "training.epochs=2", f"log.dir={root}/{family}", "log.print_interval=1",
+                       "log.val_interval=100", "trainset.n_workers=4", "valset.n_workers=4"])
+    own = compose("conf", trainset="flyingthings3d_subset", valset="flyingthings3d_subset",
+                  model=family, base="trainer.yaml")
+    if not (cfgs.model.name == family and cfgs.training.to_dict() == {
+            **own.training.to_dict(), "epochs": 2} and cfgs.training.amp
+            and cfgs.trainset.augmentation.enabled and cfgs.trainset.n_points == N_POINTS
+            and cfgs.model.get("n_iters_train") == own.model.get("n_iters_train")
+            and cfgs.model.get("n_samples_list") == own.model.get("n_samples_list")):
+        raise AssertionError(f"the composed config is not {family}'s training config")
+
+    trainer = Trainer(cfgs, device)
+    timed = timed_epochs(trainer, wrappers, want, family, branch_checker(family, branches))
+    shape = (f"{cfgs.trainset.augmentation.random_crop.crop_size[0]}x"
+             f"{cfgs.trainset.augmentation.random_crop.crop_size[1]} crops"
+             if cfgs.trainset.augmentation.random_crop.enabled else f"{IMAGE_W}x{IMAGE_H}")
+    report_steps(trainer, family,
+                 f"{shape if cfgs.trainset.with_image else 'no images'}, "
+                 f"{f'{N_POINTS} pts' if cfgs.trainset.with_pc else 'no points'}, "
+                 f"{cfgs.model.get('n_iters_train', 'no')} iters", timed, card)
+    summary = trainer.validate(1)
+    if not summary or not all(np.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"{family} validation: {summary}")
+    print(f"  {family} validation: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        summary.items())), flush=True)
+    del trainer
+
+    # one f32 train step at the reduced size: the card against the CPU
+    f32_step_against_cpu(device, family, cfgs, timed["steps"], small_batch(SEED + 80), family)
+    return timed["launches"]
+
+
+# phase 9's KITTI fine-tunes: (model, launches a train step at full width,
+# the branches the family labels parameters with). The selections do not
+# depend on the image size or freeze_bn, so they are FlyingThings3D's:
+# CamLiRAFT FPS once, KNN 8 (2 encoder levels, the fusion cache, the k=32
+# neighbours, the upsample's k=3, 3 pooling levels), #3 on the detached flow
+# and #4 index-only once an iteration; CamLiPWC FPS once, KNN 43 (10 in the
+# two pyramids, 2 a decoder level, 10 fusion caches, 13 k=3 selections of the
+# interpolation's train form). tests/test_torch_train_kitti.py counts them
+# at a KITTI-config step on the CPU.
+KITTI_FINE_TUNES = (
+    ("camliraft", {"k_nearest_neighbor": 8, "furthest_point_sampling": 1,
+                   "knn_interpolation": TRAIN_ITERS, "correlation3d_knn_index": TRAIN_ITERS},
+     ("2d", "3d")),
+    ("camlipwc", {"k_nearest_neighbor": 43, "furthest_point_sampling": 1}, ("2d", "3d")),
+)
+# KITTI's fixed splits (160 and 40 frames) cut in the process to their first
+# frames: training160's 1-4, training40's 0 and 5
+KITTI_TRAIN_FRAMES, KITTI_VAL_FRAMES = 4, 2
+KITTI_PAD_H = 376  # the reader zero-pads 375 rows to 376 x 1242
+
+
+def write_kitti_training_split(root, frames: int) -> None:
+    """KITTI's training layout for frames 0 .. frames - 1 at 375 x 1242,
+    written with the port's writers: calib_cam_to_cam (KITTI's P_rect_02),
+    image_2 (both frames), flow_occ (a forward motion's flow, expanding from
+    the principal point by 3%: up to 19 px, so most of frame 2's points stay
+    in its image; 70% of the pixels valid), disp_occ_0 and disp_occ_1
+    (`kitti_disparity`: 3-70 m, frame 2 1 m nearer)."""
+    import os
+
+    from camliflow_torch.data import io
+    from camliflow_torch.data.png import write_png
+
+    base = os.path.join(root, "training")
+    for sub in ("calib_cam_to_cam", "image_2", "flow_occ", "disp_occ_0", "disp_occ_1"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    rng = np.random.RandomState(SEED + 90)
+    cols = np.arange(KITTI_W)[None, :, None]
+    ys, xs = np.mgrid[0:KITTI_H, 0:KITTI_W].astype(np.float32)
+    cx, cy = KITTI_P2[2], KITTI_P2[6]
+    for i in range(frames):
+        path = lambda sub, name: os.path.join(base, sub, name % i)  # noqa: E731
+        with open(path("calib_cam_to_cam", "%06d.txt"), "w") as f:
+            f.write("P_rect_02: " + " ".join(f"{v:e}" for v in KITTI_P2) + "\n")
+        for suffix in ("10", "11"):
+            image = rng.randint(0, 60, (KITTI_H, KITTI_W, 3)) + (cols + 40 * i) % 190
+            write_png(path("image_2", f"%06d_{suffix}.png"), image.astype(np.uint8))
+        flow = np.stack([0.03 * (xs - cx), 0.03 * (ys - cy)], -1)
+        flow = (flow + 0.5 * rng.randn(KITTI_H, KITTI_W, 2)).astype(np.float32)
+        io.save_flow_png(path("flow_occ", "%06d_10.png"), flow,
+                         (rng.rand(KITTI_H, KITTI_W) > 0.3).astype(np.float32))
+        io.save_disp_png(path("disp_occ_0", "%06d_10.png"), kitti_disparity(rng, 0.0))
+        io.save_disp_png(path("disp_occ_1", "%06d_10.png"), kitti_disparity(rng, 1.0))
+
+
+@contextlib.contextmanager
+def kitti_splits_cut(train: int, val: int):
+    """Within the block, KITTI readers keep the first `train` frames of
+    training160 and the first `val` of the other splits: the smoke's cut of
+    KITTI's fixed split lists, which no config key shrinks."""
+    from camliflow_torch.data import datasets
+
+    original = datasets.KITTI.__init__
+
+    def cut(reader, cfgs, seed=0):
+        original(reader, cfgs, seed)
+        reader.indices = reader.indices[:train if cfgs.split == "training160" else val]
+
+    datasets.KITTI.__init__ = cut
+    try:
+        yield
+    finally:
+        datasets.KITTI.__init__ = original
+
+
+def event_records(path) -> list[tuple]:
+    """The events of a TensorBoard file after its header, each (tag, step,
+    scalar value or None, (height, width, PNG bytes) or None), its TFRecord
+    framing and masked CRCs checked."""
+    import struct
+
+    from camliflow_torch.utils.tensorboard import masked_crc
+
+    def fields(buf):
+        out, off = {}, 0
+
+        def varint():
+            nonlocal off
+            value, shift = 0, 0
+            while True:
+                b = buf[off]
+                off += 1
+                value |= (b & 0x7F) << shift
+                shift += 7
+                if not b & 0x80:
+                    return value
+
+        while off < len(buf):
+            key = varint()
+            wire = key & 7
+            if wire == 0:
+                value = varint()
+            elif wire == 1:
+                (value,), off = struct.unpack_from("<d", buf, off), off + 8
+            elif wire == 2:
+                n = varint()
+                value, off = buf[off:off + n], off + n
+            elif wire == 5:
+                (value,), off = struct.unpack_from("<f", buf, off), off + 4
+            else:
+                raise AssertionError(f"wire type {wire} in an event")
+            out.setdefault(key >> 3, []).append(value)
+        return out
+
+    data, off, records = open(path, "rb").read(), 0, []
+    while off < len(data):
+        header = data[off:off + 8]
+        (length,) = struct.unpack("<Q", header)
+        payload = data[off + 12:off + 12 + length]
+        if (struct.unpack_from("<I", data, off + 8)[0] != masked_crc(header)
+                or struct.unpack_from("<I", data, off + 12 + length)[0] != masked_crc(payload)):
+            raise AssertionError(f"{path}: a record's CRC does not check")
+        records.append(fields(payload))
+        off += 16 + length
+    if records[0].get(3) != [b"brain.Event:2"]:
+        raise AssertionError(f"{path}: no brain.Event:2 header")
+    out = []
+    for event in records[1:]:
+        value = fields(fields(event[5][0])[1][0])
+        image = fields(value[4][0]) if 4 in value else None
+        out.append((value[1][0].decode(), event[2][0], value[2][0] if 2 in value else None,
+                    (image[1][0], image[2][0], image[4][0]) if image else None))
+    return out
+
+
+def kitti_training_phase(device, wrappers, card, root, family, want, branches) -> dict:
+    """Phase 9's KITTI fine-tune of `family`: `python -m camliflow_torch.train
+    trainset=kitti valset=kitti model=<family>`'s Trainer on the card with
+    conf/training/kitti/<family>.yaml at full width (`freeze_bn`, no
+    warm-up, amp, colour jitter, flip and scale on 376 x 1242 frames, 8192
+    points), batches of 2 on KITTI_TRAIN_FRAMES synthetic frames (KITTI's
+    splits cut in the process): epoch 0 (the warm-up), epoch 1 timed with
+    every counter zeroed just before it (launches a step held to `want`),
+    every loss and branch gradient norm finite and > 0, every BatchNorm's
+    running statistics bit for bit unchanged over both epochs, one profiled
+    step, then a validation pass at 376 x 1242 through the Evaluator with
+    `log.save_image_summary`: tb/ parsed back (the epochs' scalars as
+    metrics.jsonl has them, the val/flow2d image) and
+    images/flow2d_epoch001.png decoded to 376 x 1242 x 3; and one f32 step
+    of the KITTI config at SMALL_W x SMALL_H against the CPU. Returns the
+    timed epoch's launches."""
+    import json
+    import os
+
+    import torch
+
+    from camliflow_torch.data.datasets import KITTI
+    from camliflow_torch.data.png import decode, read_png
+    from camliflow_torch.nn.layers import BatchNorm
+    from camliflow_torch.runtime.trainer import Trainer
+    from camliflow_torch.utils.config import compose
+
+    log_dir = os.path.join(root, family)
+    cfgs = compose("conf", trainset="kitti", valset="kitti", model=family, base="trainer.yaml",
+                   overrides=[f"trainset.root_dir={root}/data", f"valset.root_dir={root}/data",
+                              f"model.batch_size={TRAIN_BATCH}", "training.epochs=2",
+                              f"log.dir={log_dir}", "log.print_interval=1",
+                              "log.val_interval=100", "log.save_image_summary=true",
+                              "trainset.n_workers=4", "valset.n_workers=4"])
+    own = compose("conf", trainset="kitti", valset="kitti", model=family, base="trainer.yaml")
+    if not (cfgs.model.name == family and cfgs.model.freeze_bn
+            and cfgs.training.to_dict() == {**own.training.to_dict(), "epochs": 2}
+            and cfgs.training.warmup_epochs == 0 and cfgs.training.amp
+            and cfgs.trainset.augmentation.enabled and cfgs.trainset.split == "training160"
+            and cfgs.valset.split == "training40" and not cfgs.valset.augmentation.enabled
+            and cfgs.trainset.n_points == cfgs.valset.n_points == N_POINTS
+            and cfgs.model.to_dict() == {**own.model.to_dict(), "batch_size": TRAIN_BATCH}):
+        raise AssertionError(f"the composed config is not {family}'s KITTI fine-tune")
+    with kitti_splits_cut(KITTI_TRAIN_FRAMES, KITTI_VAL_FRAMES):
+        trainer = Trainer(cfgs, device)
+    if not (isinstance(trainer.train_set, KITTI) and len(trainer.train_set) == KITTI_TRAIN_FRAMES
+            and len(trainer.val_set) == KITTI_VAL_FRAMES):
+        raise AssertionError("the KITTI splits were not cut")
+    norms = {name for name, m in trainer.model.named_modules() if isinstance(m, BatchNorm)}
+    start = {name: value.clone() for name, value in trainer.model.named_buffers()
+             if name.rsplit(".", 1)[0] in norms}
+    if not start:
+        raise AssertionError(f"{family} has no BatchNorm statistics to hold")
+
+    timed = timed_epochs(trainer, wrappers, want, f"KITTI {family}",
+                         branch_checker(f"KITTI {family}", branches))
+    moved = [name for name, value in trainer.model.named_buffers()
+             if name in start and not torch.equal(value, start[name])]
+    if moved:
+        raise AssertionError(f"freeze_bn: {len(moved)} BatchNorm buffers moved, {moved[:4]}")
+    report_steps(trainer, f"KITTI {family}",
+                 f"{KITTI_W}x{KITTI_PAD_H}, {N_POINTS} pts, "
+                 f"{cfgs.model.get('n_iters_train', 'no')} iters, freeze_bn", timed, card)
+    print(f"  KITTI {family}: {len(start)} BatchNorm buffers of {len(norms)} BatchNorms bit for "
+          "bit unchanged over both epochs (freeze_bn)", flush=True)
+
+    summary = trainer.validate(1)
+    trainer.tb.close()
+    if not summary or not all(np.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"KITTI {family} validation: {summary}")
+    image = read_png(os.path.join(log_dir, "images", "flow2d_epoch001.png"))
+    if image.shape != (KITTI_PAD_H, KITTI_W, 3):
+        raise AssertionError(f"the image summary is {image.shape}")
+    lines = [json.loads(x) for x in open(os.path.join(log_dir, "metrics.jsonl"))]
+    want_scalars = [(f"{x['tag']}/{k}", x["epoch"], float(np.float32(v))) for x in lines
+                    for k, v in x.items() if k not in ("tag", "epoch")]
+    events = event_records(trainer.tb.path)
+    scalars = [(tag, step, value) for tag, step, value, _ in events if value is not None]
+    images = [(tag, step, im) for tag, step, _, im in events if im is not None]
+    if scalars != want_scalars:
+        raise AssertionError(f"tb/ scalars {scalars} against metrics.jsonl's {want_scalars}")
+    if (len(images) != 1 or images[0][:2] != ("val/flow2d", 1)
+            or images[0][2][:2] != (KITTI_PAD_H, KITTI_W)
+            or not np.array_equal(decode(images[0][2][2]), image)):
+        raise AssertionError("tb/ holds no val/flow2d event equal to the summary image")
+    print(f"  KITTI {family} validation ({KITTI_VAL_FRAMES} frames at {KITTI_W}x{KITTI_PAD_H}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(summary.items()))
+          + f"; tb/ {len(scalars)} scalars as metrics.jsonl has them and val/flow2d at step 1; "
+          f"images/flow2d_epoch001.png {image.shape}", flush=True)
+    del trainer
+
+    f32_step_against_cpu(device, family, cfgs, timed["steps"], small_batch(SEED + 81, kitti=True),
+                         f"KITTI {family}")
+    return timed["launches"]
 
 
 def main() -> int:
@@ -2547,6 +2860,33 @@ def main() -> int:
         except Exception:
             traceback.print_exc()
             failures.append(f"training {family}")
+    kitti_root = os.path.join(WORK, "kitti_train")
+    try:
+        import shutil
+
+        shutil.rmtree(kitti_root, ignore_errors=True)
+        start = time.perf_counter()
+        write_kitti_training_split(os.path.join(kitti_root, "data"), 6)
+        print(f"  wrote 6 KITTI training frames at {KITTI_W}x{KITTI_H} in "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    except Exception:
+        traceback.print_exc()
+        failures.append("KITTI training data")
+    for family, want, branches in KITTI_FINE_TUNES:
+        print(f"[9/9] KITTI fine-tune {family}: its Trainer on conf/training/kitti/{family}.yaml "
+              f"at full width (freeze_bn, amp, augmentation), batches of {TRAIN_BATCH}, "
+              f"{KITTI_TRAIN_FRAMES} training and {KITTI_VAL_FRAMES} validation frames; an f32 "
+              "step against the CPU", flush=True)
+        try:
+            start = time.perf_counter()
+            launches = kitti_training_phase(device, wrappers, card, kitti_root, family, want,
+                                            branches)
+            for key, count in launches.items():
+                total[key] += count
+            print(f"  KITTI fine-tune {family}: {time.perf_counter() - start:.1f} s", flush=True)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"KITTI fine-tune {family}")
 
     # each kernel's launches over the paths' measured requests
     for entry in kernels:

@@ -223,10 +223,14 @@ def test_kitti_matches_jax(tmp_path, split):
 
 
 def test_kitti_rejects_augmentation_and_unknown_splits(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.KITTI(kitti_cfgs(tmp_path, "training40", augmentation={"enabled": True}))
-    with pytest.raises(ValueError, match="split"):
-        td.KITTI(kitti_cfgs(tmp_path, "training7"))
+    """An unknown split is rejected, with augmentation or without; the
+    training half (augmentation) is ported (tests/test_torch_train_kitti.py)
+    and builds on a known split."""
+    for augmentation in ({"enabled": False}, {"enabled": True}):
+        with pytest.raises(ValueError, match="split"):
+            td.KITTI(kitti_cfgs(tmp_path, "training7", augmentation=augmentation))
+    assert len(td.KITTI(kitti_cfgs(tmp_path, "training160",
+                                   augmentation={"enabled": True}))) == 160
 
 
 @pytest.mark.parametrize("padding", [None, {"target_h": 128, "target_w": 192}])

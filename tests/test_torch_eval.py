@@ -134,14 +134,14 @@ def test_eval_cli_raft_matches_jax_evaluator(synthetic):
 
 
 def test_eval_cli_rejects_what_is_not_ported(synthetic):
-    """Every eval protocol and model is ported; an unknown protocol and
-    KITTI's training augmentation (FlyingThings3D's is ported, for
-    training) are not."""
+    """Every eval protocol and model is ported; an unknown protocol and the
+    TPU fast path's storage (`model.fast_inference=on`) are not."""
     with pytest.raises(SystemExit, match="unknown protocol"):
         torch_eval.main(["protocol=kitti_submission", "model=camliraft_l"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_eval.main(["protocol=things", "testset=kitti", "model=camliraft_l",
-                         "device=cpu", "testset.augmentation.enabled=true"] + synthetic)
+        torch_eval.main(["protocol=things", "testset=flyingthings3d_subset",
+                         "model=camliraft_l", "device=cpu"]
+                        + synthetic + ['model.fast_inference="on"'])
 
 
 @pytest.mark.parametrize("model", ["pwc", "camlipwc_l", "camlipwc"])

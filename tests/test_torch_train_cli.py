@@ -8,6 +8,7 @@ and save their checkpoints the same way.
 """
 
 import json
+import logging
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +21,21 @@ from camliflow_torch import eval as torch_eval
 from camliflow_torch import train as torch_train
 
 REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def root_logger_restored():
+    """The Trainer sets up the root logger (`logging.basicConfig`: INFO, a
+    stream handler and one on its train.log); undo that after each test, so
+    that later tests in the process log as they would alone."""
+    root = logging.getLogger()
+    level, before = root.level, root.handlers[:]
+    yield
+    for handler in root.handlers[:]:
+        if type(handler) in (logging.StreamHandler, logging.FileHandler) and handler not in before:
+            root.removeHandler(handler)
+            handler.close()
+    root.setLevel(level)
 
 SMALL = ["trainset.n_points=512", "valset.n_points=512", "testset.n_points=512",
          "'model.n_samples_list=[256,128,64,32,16]'", "model.batch_size=2",
@@ -104,10 +120,10 @@ def test_train_cli_needs_a_card_unless_told_cpu(synthetic, tmp_path):
         torch_train.main(args)
     with pytest.raises(SystemExit, match="model"):
         torch_train.main(args[:2])
-    # KITTI's training split (augmentation on) is not ported yet
-    with pytest.raises(NotImplementedError, match="KITTI augmentation"):
-        torch_train.main(["trainset=kitti", "valset=kitti", "model=camlipwc", "device=cpu",
-                          f"log.dir={tmp_path}", "trainset.root_dir=."])
+    # KITTI fine-tuning, as any run, wants the card unless told the CPU
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        torch_train.main(["trainset=kitti", "valset=kitti", "model=camlipwc",
+                          f"log.dir={tmp_path}", "trainset.root_dir=.", "valset.root_dir=."])
 
 
 @pytest.fixture(scope="module")

@@ -158,13 +158,6 @@ def test_flyingthings3d_training_draws_by_seed_epoch_and_index(ft3d):
     assert not np.array_equal(port_set[1]["pcs"], first["pcs"])
 
 
-def test_kitti_training_is_not_ported(ft3d):
-    cfgs = Config({"name": "kitti", "root_dir": str(ft3d), "split": "training160",
-                   "n_points": 512, "augmentation": {"enabled": True}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.dataset_factory(cfgs)
-
-
 class Numbers:
     """A dataset of n samples, each its index."""
 

@@ -20,7 +20,8 @@ rule's (`check_loss_under_the_jax_selection_rule`).
 
 The checks: the loss to 1e-5 relative, every gradient (after the clip, the
 same factor on both sides) within 1e-3 * (1 + max|g_jax|), the BatchNorm
-running statistics after the step to 1e-6, the parameters after the
+running statistics after the step to 1e-6 (under `freeze_bn` unchanged on
+both sides, bit for bit), the parameters after the
 clipped Adam/AdamW step to 1e-5 (2 lr where the two gradients round to
 opposite signs), the branch gradient norms to 1e-4 relative, and, with
 bf16 compute, each side's loss within 5e-2 relative of its f32 loss.
@@ -188,8 +189,18 @@ class Steps:
     def check_batchnorm_statistics(self):
         """The running statistics after the step: each train-mode
         BatchNorm's biased-variance update, per call; the others' (the
-        ResNet backbone's) untouched."""
+        ResNet backbone's) untouched. Under `freeze_bn` no statistic moves
+        on either side, bit for bit."""
         buffers = dict(self.port.named_buffers())
+        if self.cfgs.get("freeze_bn", False):
+            start = {k: v for k, v in self.flat.items() if k.startswith("batch_stats/")}
+            assert start
+            for path, value in start.items():
+                key, want = self.port_view(path, value)
+                np.testing.assert_array_equal(buffers[key].numpy(), want, err_msg=key)
+            for path, value in self.ref["stats"].items():
+                np.testing.assert_array_equal(value, start[path], err_msg=path)
+            return
         assert self.ref["stats"]
         for path, value in self.ref["stats"].items():
             key, want = self.port_view(path, value)
@@ -204,7 +215,9 @@ class Steps:
         sign and |g| >> eps the bound is 1e-5; where they round to opposite
         signs it is about 2 lr; between, where |g| is near eps (1e-7 for
         PWC), the gradients' rounding difference, held above, moves the
-        element by up to lr |du|. Such elements (du > 0.1) are at most 1%."""
+        element by up to lr |du|. Such elements (du > 0.1) are at most 1%.
+        lr is the element's group's rate at the first step: warmup_lr with a
+        warm-up, lr_2d or lr_3d without."""
         params = dict(self.port.named_parameters())
         start = dict(self.bridged(self.cfgs).named_parameters())
         norm = np.sqrt(sum(float(np.sum(np.square(g.astype(np.float64))))
@@ -214,7 +227,9 @@ class Steps:
         l2 = self.training["opt"] == "adam"  # torch Adam / optax add_decayed_weights
         decay = {id(p): group["weight_decay"] for group in self.optimizer.param_groups
                  for p in group["params"]}
-        lr, sensitive = float(self.training["warmup_lr"]), 0
+        rates = {id(p): group["lr"] for group in self.optimizer.param_groups
+                 for p in group["params"]}
+        sensitive = 0
         for path, value in self.ref["params"].items():
             key, want = self.port_view("params/" + path, value)
             _, grad = self.port_view("params/" + path, self.ref["grads"][path])
@@ -225,7 +240,7 @@ class Steps:
                 step_dirs.append(g / (np.abs(g) + eps))
             du = np.abs(step_dirs[0] - step_dirs[1])
             diff = np.abs(params[key].detach().numpy() - want)
-            bound = 1e-5 + lr * du * (1 + 1e-3)
+            bound = 1e-5 + rates[id(params[key])] * du * (1 + 1e-3)
             assert (diff <= bound).all(), (key, diff.max(), (diff - bound).max())
             sensitive += int((du > 0.1).sum())
         assert sensitive <= 1e-2 * sum(p.numel() for p in params.values()), sensitive
