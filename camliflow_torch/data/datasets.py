@@ -418,8 +418,15 @@ def collate(samples: list[dict]) -> dict:
     return out
 
 
-def batches(dataset, batch_size: int):
-    """Consecutive batches in dataset order, the last one possibly short."""
-    for start in range(0, len(dataset), batch_size):
-        stop = min(start + batch_size, len(dataset))
+def batches(dataset, batch_size: int, shard_index: int = 0, num_shards: int = 1):
+    """Consecutive batches in dataset order, the last one possibly short.
+    With `num_shards` ranks, `batch_size` is the global batch and this rank
+    takes its contiguous slice of each (`loader.DataLoader`'s split); an
+    empty slice of the last batch is skipped."""
+    if batch_size % num_shards:
+        raise ValueError(f"the global batch of {batch_size} does not split over "
+                         f"{num_shards} ranks")
+    local = batch_size // num_shards
+    for start in range(shard_index * local, len(dataset), batch_size):
+        stop = min(start + local, len(dataset))
         yield collate([dataset[i] for i in range(start, stop)])

@@ -1,12 +1,19 @@
 """Batched data loading on worker threads: the port's copy of
-camliflow_tpu/data/loader.py for one process (DDP's per-rank sharding is
-not ported; see ROADMAP.md).
+camliflow_tpu/data/loader.py.
 
 Each epoch's order is a shuffle seeded by (seed + epoch), so a resumed run
 reads the batches an uninterrupted one reads; `drop_last` drops the
 trailing partial batch (a training step wants full batches). Samples are
 read by a pool of threads, a batch ahead of the consumer, and stacked by
 `datasets.collate`.
+
+With N ranks (`shard_index` of `num_shards`, `parallel/dist.py`),
+`batch_size` is the global batch, which N must divide: every rank walks the
+same order of global batches and takes its contiguous slice of each, B/N
+samples, so the ranks together read each global batch once. A remainder
+batch (`drop_last=False`, evaluation) can leave the later ranks a short or
+empty slice; an empty one is skipped. Training drops the remainder, so
+every rank takes the same number of steps.
 """
 
 from __future__ import annotations
@@ -26,9 +33,16 @@ class DataLoader:
     calling thread)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, num_workers: int = 4,
-                 drop_last: bool = True, seed: int = 0):
+                 drop_last: bool = True, seed: int = 0, shard_index: int = 0,
+                 num_shards: int = 1):
+        if batch_size % num_shards:
+            raise ValueError(f"the global batch of {batch_size} does not split over "
+                             f"{num_shards} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.local_batch = batch_size // num_shards
+        self.shard_index = shard_index
+        self.num_shards = num_shards
         self.shuffle = shuffle
         self.num_workers = num_workers
         self.drop_last = drop_last
@@ -43,6 +57,8 @@ class DataLoader:
             self.dataset.set_epoch(epoch)
 
     def __len__(self):
+        """The number of global batches (a rank whose last slice is empty
+        reads one fewer)."""
         n = len(self.dataset) // self.batch_size
         if not self.drop_last and len(self.dataset) % self.batch_size:
             n += 1
@@ -56,8 +72,10 @@ class DataLoader:
 
     def __iter__(self):
         indices = self._epoch_indices()
+        start = self.shard_index * self.local_batch
         batches = [indices[b * self.batch_size:(b + 1) * self.batch_size]
-                   for b in range(len(self))]
+                   [start:start + self.local_batch] for b in range(len(self))]
+        batches = [batch for batch in batches if len(batch)]
         if self.num_workers <= 0:
             for batch in batches:
                 yield collate([self.dataset[int(i)] for i in batch])

@@ -24,6 +24,14 @@ unless `device=cpu` is given (there the kernels' plain versions run);
 without a card and without `device=cpu` it raises. Ported models: all six
 families, `model=camliraft`, `camliraft_l`, `raft`, `camlipwc`, `camlipwc_l`
 and `pwc`.
+
+With more than one visible card (and no torchrun environment) it starts
+one rank a card on this host; under torchrun each process joins torchrun's
+group (`device=cpu`: on the CPU over gloo). Each rank evaluates its
+contiguous slice of every batch of 8 and the protocols' sums are added
+over the ranks (`camliflow_torch/parallel/dist.py`), so the totals are one
+process's; rank 0 logs them, and `save_results` writes each rank's own
+samples. With one card, or `device=cpu` outside torchrun, one process runs.
 """
 
 from __future__ import annotations
@@ -80,7 +88,8 @@ def resolve_device(name: str) -> torch.device:
     return torch.device("cuda")
 
 
-def main(argv: list[str] | None = None) -> dict:
+def main(argv: list[str] | None = None) -> dict | None:
+    """The protocol's results (None where it started one rank a card)."""
     argv = sys.argv[1:] if argv is None else argv
     groups = {"testset": None, "model": None, "protocol": "things", "device": "cuda"}
     overrides = []
@@ -95,10 +104,15 @@ def main(argv: list[str] | None = None) -> dict:
     protocol = groups["protocol"]
     if protocol not in PROTOCOLS:
         raise SystemExit(f"unknown protocol: {protocol}")
-    device = resolve_device(groups["device"])
+    from .parallel.dist import in_ranks
 
+    return in_ranks(groups["device"], __spec__.name, argv, evaluate, groups, overrides)
+
+
+def evaluate(device: torch.device, groups: dict, overrides: list[str]) -> dict:
     from .data.datasets import batches
     from .models.factory import model_factory
+    from .parallel import dist
     from .runtime.checkpoint import load_weights
     from .runtime.evaluator import Evaluator
     from .utils.config import compose
@@ -115,7 +129,8 @@ def main(argv: list[str] | None = None) -> dict:
         raise SystemExit("missing ckpt.path=<JAX variables .npz or trainer checkpoint .pt>")
     load_weights(model, cfgs.ckpt.path, cfgs.model.name)
     evaluator = Evaluator(model, device)
-    loader = batches(protocol_dataset(protocol, cfgs), BATCH_SIZE)
+    protocol = groups["protocol"]
+    loader = batches(protocol_dataset(protocol, cfgs), BATCH_SIZE, dist.rank(), dist.world_size())
     if protocol == "things":
         return evaluator.run_things(loader, save_results=bool(cfgs.get("save_results", False)))
     if protocol == "sintel":

@@ -4,20 +4,57 @@ per-iteration predictions; pyramid losses keep the per-level list (the
 levels differ in shape). Everything is computed in f32.
 
 Layout: 2D flow [B, H, W, 2(+1 validity)], 3D flow [B, N, 3(+1 validity)].
+
+Under `global_means` (the train step with a group of more than one rank)
+each masked mean divides by the mask's count over the global batch, as the
+JAX package's does over its mesh: the count is all-reduced (no gradient)
+and the rank's sum is scaled by the world size, so each rank's loss is its
+share of the global loss times the world size. DDP averages the ranks'
+gradients, which makes them the global loss's, and the mean of the ranks'
+losses is the global loss.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed
+
+from ..parallel import dist
 
 from ..ops.geometry import gather_points
 from ..ops.image import resize_flow2d
 
 
+_global = [False]  # inside global_means
+
+
+@contextlib.contextmanager
+def global_means(enabled: bool = True):
+    """Masked means over every rank's batch while inside (see above)."""
+    saved = _global[0]
+    _global[0] = enabled
+    try:
+        yield
+    finally:
+        _global[0] = saved
+
+
+def _count(mask_sum: torch.Tensor) -> torch.Tensor:
+    """A masked mean's denominator: the mask's count, at least 1; under
+    `global_means` the global count over the world size."""
+    if not _global[0]:
+        return torch.clamp(mask_sum, min=1.0)
+    total = mask_sum.detach().clone()
+    torch.distributed.all_reduce(total)
+    return torch.clamp(total, min=1.0) / dist.world_size()
+
+
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean over the elements where mask is true."""
     mask = mask.to(values.dtype)
-    return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(values * mask) / _count(torch.sum(mask))
 
 
 def _flow_error(diff: torch.Tensor, order: str) -> torch.Tensor:
@@ -48,7 +85,7 @@ def calc_sequence_loss(flow_preds: torch.Tensor, target: torch.Tensor, gamma: fl
     per_iter = _flow_error(flow_preds.float() - target_flow[None], order)
     mask = mask.to(per_iter.dtype)
     dims = tuple(range(1, per_iter.dim()))
-    per_iter = torch.sum(per_iter * mask, dim=dims) / torch.clamp(torch.sum(mask), min=1.0)
+    per_iter = torch.sum(per_iter * mask, dim=dims) / _count(torch.sum(mask))
     weights = gamma ** torch.arange(n_preds - 1, -1, -1, dtype=torch.float32,
                                     device=per_iter.device)
     return torch.sum(weights * per_iter)

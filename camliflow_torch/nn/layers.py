@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist
+
 
 def apply_act(x: torch.Tensor, act: str | None) -> torch.Tensor:
     if act is None:
@@ -54,7 +56,16 @@ class BatchNorm(nn.Module):
     running statistics, eps 1e-5. Train normalises with the batch
     statistics and updates the running ones as Flax does: with the biased
     batch variance (torch's own update takes the unbiased one), momentum
-    0.1 (Flax's 0.9)."""
+    0.1 (Flax's 0.9). With a group of more than one rank
+    (`parallel/dist.py`), train mode takes the statistics of the global
+    batch, as BatchNorm does over the JAX package's mesh, in two passes
+    as one process takes them: the mean from the ranks' counts and sums
+    (f32), then the biased variance from their sums of squared deviations
+    from it, each all-reduced by a differentiable sum, so the backward sums
+    the statistics' gradients over the ranks. (One pass, E[x^2] - E[x]^2
+    as Flax computes it, lost ~3e-6 of the variance where the 3D encoder's
+    features sit about five standard deviations from 0.) Every rank updates
+    the running statistics alike. Eval mode issues no collective."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1,
                  channel_dim: int = -1):
@@ -74,6 +85,8 @@ class BatchNorm(nn.Module):
             out = F.batch_norm(flat, self.running_mean, self.running_var, self.weight,
                                self.bias, False, 0.0, self.eps)
             return out.reshape(x.shape)
+        if dist.spread():
+            return self._global_batch_norm(flat).reshape(x.shape)
         with torch.no_grad():
             stats = flat.to(self.running_mean.dtype)
             dims = [d for d in range(stats.dim()) if d != 1]
@@ -84,6 +97,24 @@ class BatchNorm(nn.Module):
             self.running_var.lerp_(var, self.momentum)
         out = F.batch_norm(flat, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return out.reshape(x.shape)
+
+    def _global_batch_norm(self, flat: torch.Tensor) -> torch.Tensor:
+        """Train mode over every rank's batch; `flat` has its channels at dim 1."""
+        x = flat.float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        channels = x.shape[1]
+        shape = [-1 if d == 1 else 1 for d in range(x.dim())]
+        count = x.new_full((1,), x.numel() // channels)
+        sums = dist.sum_over_ranks(torch.cat([x.sum(dims), count]))
+        mean = sums[:channels] / sums[-1]
+        centered = x - mean.reshape(shape)
+        var = dist.sum_over_ranks(centered.square().sum(dims)) / sums[-1]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        out = centered * torch.rsqrt(var + self.eps).reshape(shape)
+        out = out * self.weight.float().reshape(shape) + self.bias.float().reshape(shape)
+        return out.to(flat.dtype)
 
 
 def Norm(norm: str | None, channels: int, channel_dim: int = -1) -> nn.Module:

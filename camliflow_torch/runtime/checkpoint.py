@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.dist import unwrap
 from .names import our_path_to_torch
 
 
@@ -111,11 +112,12 @@ def save_train_checkpoint(path: str | Path, model: nn.Module, optimizer: torch.o
     """The model's state, the optimizer's state (the JAX trainer keeps it
     too; the reference drops it), the last finished epoch and the update
     count, in one `torch.save` file, written under a temporary name first,
-    so a reader sees a whole file or none."""
+    so a reader sees a whole file or none. A DDP wrapper's module is saved,
+    so the names carry no `module.`: a run of any number of ranks reads it."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(path.suffix + ".tmp")
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+    torch.save({"model": unwrap(model).state_dict(), "optimizer": optimizer.state_dict(),
                 "last_epoch": int(last_epoch), "step": int(step)}, tmp)
     tmp.replace(path)
 
@@ -128,6 +130,7 @@ def load_train_checkpoint(path: str | Path) -> dict:
 def load_weights(model: nn.Module, path: str | Path, model_name: str) -> None:
     """Fill `model` from `path`: the JAX package's flat `.npz` through the
     weight bridge, or a trainer checkpoint of the port (strict both)."""
+    model = unwrap(model)
     if Path(path).suffix == ".npz":
         load_jax_variables(model, load_npz(path), model_name)
     else:

@@ -18,6 +18,16 @@ Batches come from any iterable of dicts in the readers' sample format
 runs one batch ahead: batch i + 1's forward is on the card's stream before
 batch i's outputs are handed out, so the host's metric sums, and the file
 writing of `run_things(save_results=True)`, overlap the card's work.
+
+Across ranks (`parallel/dist.py`), each rank evaluates its contiguous
+slice of every batch (`data.datasets.batches` or `data.loader.DataLoader`
+with `shard_index`/`num_shards`), the port's form of both the JAX
+Evaluator's split over a host's devices and its split over processes. Each
+protocol sums its accumulators over the ranks, over a fixed tuple of keys,
+before it takes the ratios, so every rank returns the global totals (a
+rank whose last slice is empty still joins the sum); only rank 0 logs
+them. Sintel's per-scene lines are each rank's own. `save_results` writes
+each rank's own samples.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import dist
 from ..utils.torch_setup import setup_torch
 
 logger = logging.getLogger("camliflow_torch")
@@ -43,10 +54,17 @@ def _epe_map(pred: np.ndarray, target: np.ndarray) -> np.ndarray:
     return np.sqrt(np.sum((pred - target[..., : pred.shape[-1]]) ** 2, axis=-1))
 
 
-def _in_f64(sums: dict) -> dict:
-    """The sums as float64 before the ratios are taken, as the JAX Evaluator
-    takes them (a ratio of float32 sums rounds in the 8th digit)."""
-    return defaultdict(float, {key: np.float64(value) for key, value in sums.items()})
+# each protocol's accumulators, summed over the ranks in float64 before the
+# ratios are taken, as the JAX Evaluator sums them (a ratio of float32 sums
+# rounds in the 8th digit)
+_THINGS_KEYS = ("counts", "EPE2d", "1px", "Fl")
+_THINGS_3D_KEYS = ("counts", "EPE3d", "5cm", "10cm")
+_SF_KEYS = ("counts", "EPE3d", "AccS", "AccR", "Outlier")
+
+
+def _log(*args) -> None:
+    if dist.is_main():
+        logger.info(*args)
 
 
 @dataclass
@@ -182,29 +200,30 @@ class Evaluator:
                 if save_results:
                     save_flow3d(save_dir, batch["index"][b], pred)
 
-        m2d, m3d, m3d_noc = (_in_f64(m) for m in (m2d, m3d, m3d_noc))
+        m2d = dist.all_reduce_sums(m2d, _THINGS_KEYS)
+        m3d, m3d_noc = (dist.all_reduce_sums(m, _THINGS_3D_KEYS) for m in (m3d, m3d_noc))
         results = {}
         if m2d["counts"] > 0:
             for key in ("EPE2d", "1px", "Fl"):
                 results[key] = m2d[key] / m2d["counts"]
-            logger.info("#### 2D Metrics ####")
-            logger.info("EPE: %.3f", results["EPE2d"])
-            logger.info("1px: %.2f%%", results["1px"] * 100)
-            logger.info("Fl:  %.2f%%", results["Fl"] * 100)
+            _log("#### 2D Metrics ####")
+            _log("EPE: %.3f", results["EPE2d"])
+            _log("1px: %.2f%%", results["1px"] * 100)
+            _log("Fl:  %.2f%%", results["Fl"] * 100)
         if m3d["counts"] > 0:
             results["EPE3d"] = m3d["EPE3d"] / m3d["counts"]
             results["5cm"] = m3d["5cm"] / m3d["counts"]
             results["10cm"] = m3d["10cm"] / m3d["counts"]
-            logger.info("#### 3D Metrics ####")
-            logger.info("EPE: %.3f", results["EPE3d"])
-            logger.info("5cm: %.2f%%", results["5cm"] * 100)
-            logger.info("10cm: %.2f%%", results["10cm"] * 100)
+            _log("#### 3D Metrics ####")
+            _log("EPE: %.3f", results["EPE3d"])
+            _log("5cm: %.2f%%", results["5cm"] * 100)
+            _log("10cm: %.2f%%", results["10cm"] * 100)
         if m3d_noc["counts"] > 0:
             results["EPE3d_noc"] = m3d_noc["EPE3d"] / m3d_noc["counts"]
             results["5cm_noc"] = m3d_noc["5cm"] / m3d_noc["counts"]
             results["10cm_noc"] = m3d_noc["10cm"] / m3d_noc["counts"]
-            logger.info("#### 3D Metrics (Non-occluded) ####")
-            logger.info("EPE: %.3f", results["EPE3d_noc"])
+            _log("#### 3D Metrics (Non-occluded) ####")
+            _log("EPE: %.3f", results["EPE3d_noc"])
         return results
 
     def run_sintel(self, batches) -> dict[str, float]:
@@ -225,9 +244,10 @@ class Evaluator:
             total_epe += m["EPE2d"]
             total_count += m["counts"]
             logger.info("%s:\t%.3f", scene, m["EPE2d"] / m["counts"])
-        totals = _in_f64({"EPE2d": total_epe, "counts": total_count})
+        totals = dist.all_reduce_sums({"EPE2d": total_epe, "counts": total_count},
+                                      ("EPE2d", "counts"))
         result = float(totals["EPE2d"] / max(totals["counts"], 1))
-        logger.info("Total:\t%.3f", result)
+        _log("Total:\t%.3f", result)
         return {"AEPE": result}
 
     def run_sf_protocol(self, batches, per_sample_average: bool,
@@ -265,13 +285,13 @@ class Evaluator:
                 m["AccR"] += np.count_nonzero(acc_r) / n
                 m["Outlier"] += np.count_nonzero(outlier) / n
 
-        m = _in_f64(m)
+        m = dist.all_reduce_sums(m, _SF_KEYS)
         results = {key: float(m[key] / m["counts"]) for key in ("EPE3d", "AccS", "AccR", "Outlier")}
-        logger.info("#### 3D Metrics ####")
-        logger.info("EPE: %.3f", results["EPE3d"])
-        logger.info("AccS: %.2f%%", results["AccS"] * 100)
-        logger.info("AccR: %.2f%%", results["AccR"] * 100)
-        logger.info("Outlier: %.2f%%", results["Outlier"] * 100)
+        _log("#### 3D Metrics ####")
+        _log("EPE: %.3f", results["EPE3d"])
+        _log("AccS: %.2f%%", results["AccS"] * 100)
+        _log("AccR: %.2f%%", results["AccR"] * 100)
+        _log("Outlier: %.2f%%", results["Outlier"] * 100)
         return results
 
 

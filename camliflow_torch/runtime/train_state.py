@@ -5,7 +5,13 @@ forward computes under its own `compute_dtype` (bf16 autocast with amp).
 bf16 has f32's exponent range, so no loss scaling is needed. A model
 class with `CONV_BENCHMARK` set (the PWC family) takes the whole step,
 backward included, under `autotuned_convolutions`: cuDNN's heuristics
-alone pick pathological algorithms for some of its convolutions."""
+alone pick pathological algorithms for some of its convolutions.
+
+`model` may be the Trainer's DistributedDataParallel wrapper: names and
+class attributes are read from the module inside it, and with more than
+one rank the losses' masked means are the global batch's
+(`models/losses.py::global_means`) and the loss returned is the global
+loss, the mean over the ranks."""
 
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import torch
 from torch import nn
 
 from ..models.factory import param_group_label, set_learning_rates
+from ..models.losses import global_means
+from ..parallel import dist
 from ..utils.torch_setup import autotuned_convolutions
 
 
@@ -22,7 +30,7 @@ def branch_grad_norms(model: nn.Module, model_name: str) -> dict[str, torch.Tens
     """The gradient's norm over the 2D and over the 3D branch's parameters
     (the optimizer's partition), before clipping; on the device."""
     squares = {"2d": [], "3d": []}
-    for name, param in model.named_parameters():
+    for name, param in dist.unwrap(model).named_parameters():
         if param.grad is not None:
             branch = param_group_label(name, param, model_name)[:2]
             squares[branch].append(param.grad.float().square().sum())
@@ -34,11 +42,13 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
                cfgs, step: int, model_name: str = "camliraft"):
     """One update of `model` (in train mode) on `batch` (tensors on the
     model's device). `step` is the update's number, from 0, which sets the
-    learning rates. Returns (loss, (sum, count) metrics, telemetry), every
-    value a tensor on the device, so the caller chooses when to wait."""
+    learning rates. Returns (loss, this rank's (sum, count) metrics,
+    telemetry), every value a tensor on the device, so the caller chooses
+    when to wait."""
     optimizer.zero_grad(set_to_none=True)
-    tuned = getattr(model, "CONV_BENCHMARK", False)
-    with autotuned_convolutions() if tuned else contextlib.nullcontext():
+    tuned = getattr(dist.unwrap(model), "CONV_BENCHMARK", False)
+    with (autotuned_convolutions() if tuned else contextlib.nullcontext(),
+          global_means(dist.spread())):
         outputs = model(batch)
         loss, metrics = loss_fn(outputs, batch, cfgs)
         loss.backward()
@@ -50,4 +60,4 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: dict, 
     set_learning_rates(optimizer, step)
     optimizer.step()
     metrics = {key: (s.detach(), c.detach()) for key, (s, c) in metrics.items()}
-    return loss.detach(), metrics, telemetry
+    return dist.mean_over_ranks(loss.detach()), metrics, telemetry

@@ -1,6 +1,5 @@
 """Training runtime: the port's counterpart of camliflow_tpu/runtime/
-trainer.py, for one process on one device (DDP and SyncBatchNorm are not
-ported; see ROADMAP.md).
+trainer.py.
 
 `Trainer(cfgs, device)` builds the datasets and loaders, the model (random
 weights from `cfgs.seed`, the ImageNet backbone where
@@ -20,6 +19,25 @@ batch's first sample, also a "val/flow2d" event; models without a 2D flow
 write none), best_metrics.json, ckpts/<epoch>.pt (the newest
 `ckpt.max_to_keep`) and ckpts_best/<epoch>.pt (the best one).
 `ckpt.resume=true` continues from the newest of ckpts/.
+
+Data parallel (`parallel/dist.py`): when the process has joined a group of
+N ranks, `model.batch_size` is the global batch. Each rank's loaders take
+its contiguous slice of every global batch (B/N samples), the model runs
+inside DistributedDataParallel (`self.ddp`; `self.model` is the module
+inside, whose names and checkpoints carry no `module.`), BatchNorm's
+statistics and the losses' masked means are the global batch's, and the
+optimizer steps on the ranks' averaged gradients, so N ranks take the step
+one process takes at B. The logged loss, which `BadLossChecker` reads, is
+the global one, so a diverging loss stops every rank at the same step. At
+an epoch's end the (sum, count) metrics are summed over the ranks, so every
+rank reaches the same `is_better`. Validation runs each rank's slice on the
+module itself (no collective in the forward; ranks may hold different
+numbers of batches). Only rank 0 writes train.log, metrics.jsonl, tb/,
+images/, best_metrics.json and the checkpoints; every rank resumes from
+them. A checkpoint of N ranks is one process's and the reverse. The
+validation loss summed over the ranks is the mean of their slices' losses,
+where one process takes each whole batch's; the metrics `is_better` reads
+are sums and agree.
 """
 
 from __future__ import annotations
@@ -37,6 +55,7 @@ from ..data.loader import DataLoader
 from ..data.png import write_png
 from ..models.factory import model_factory, optimizer_factory, training_functions
 from ..models.metrics import finalize_metrics, merge_metrics
+from ..parallel import dist
 from ..utils.profiling import BadLossChecker
 from ..utils.tensorboard import EventWriter
 from ..utils.torch_setup import setup_torch
@@ -80,19 +99,24 @@ class Trainer:
         self.log_dir = Path(cfgs.log.dir)
         self.ckpt_dir = self.log_dir / "ckpts"
         self.best_dir = self.log_dir / "ckpts_best"
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
-        init_logging(self.log_dir / "train.log")
+        self.is_main = dist.is_main()
+        if self.is_main:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        init_logging(self.log_dir / "train.log" if self.is_main else None)
+        if not self.is_main:
+            logging.getLogger().setLevel(logging.WARNING)
         seed = int(cfgs.get("seed", 0))
         batch_size = int(cfgs.model.batch_size)
 
         self.train_set = dataset_factory(cfgs.trainset, seed)
         self.val_set = dataset_factory(cfgs.valset, seed)
+        shard = {"shard_index": dist.rank(), "num_shards": dist.world_size()}
         self.train_loader = DataLoader(self.train_set, batch_size, shuffle=True,
                                        num_workers=int(cfgs.trainset.get("n_workers", 4)),
-                                       drop_last=True, seed=seed)
+                                       drop_last=True, seed=seed, **shard)
         self.val_loader = DataLoader(self.val_set, batch_size, shuffle=False,
                                      num_workers=int(cfgs.valset.get("n_workers", 4)),
-                                     drop_last=False, seed=seed)
+                                     drop_last=False, seed=seed, **shard)
         if len(self.train_loader) == 0:
             raise ValueError(f"the training set's {len(self.train_set)} samples make no "
                              f"batch of {batch_size}")
@@ -116,6 +140,7 @@ class Trainer:
         if hasattr(self.model, "with_pyramid"):
             self.model.with_pyramid = True
         self.model.to(self.device).train()
+        self.ddp = dist.wrap(self.model, self.device)  # what the train steps run
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("#parameters: %.2fM on %s", n_params / 1e6, self.device)
 
@@ -127,7 +152,8 @@ class Trainer:
         # the last epoch's per-step telemetry: dicts of epoch, step, loss,
         # grad_norm_2d, grad_norm_3d
         self.history: list[dict] = []
-        self.tb = EventWriter(self.log_dir / "tb") if cfgs.log.get("tensorboard", True) else None
+        self.tb = (EventWriter(self.log_dir / "tb")
+                   if self.is_main and cfgs.log.get("tensorboard", True) else None)
         if cfgs.ckpt.get("resume", False) and self.latest_ckpt() is not None:
             self.load_ckpt(self.latest_ckpt())
 
@@ -157,7 +183,7 @@ class Trainer:
         logger.info("epoch %d begins", epoch + 1)
         self.history = []
         self.train_loader.set_epoch(epoch)
-        self.model.train()
+        self.ddp.train()
         epoch_metrics: dict = {}
         bad_loss = BadLossChecker()
         print_interval = int(self.cfgs.log.get("print_interval", 50))
@@ -181,7 +207,7 @@ class Trainer:
 
         pending = None
         for index, batch in enumerate(self.train_loader):
-            outputs = train_step(self.model, self.optimizer, device_batch(batch, self.device),
+            outputs = train_step(self.ddp, self.optimizer, device_batch(batch, self.device),
                                  self.loss_fn, self.cfgs.model, self.step, self.model_name)
             self.step += 1
             if pending is not None:
@@ -189,7 +215,7 @@ class Trainer:
             pending = (index, *outputs)
         if pending is not None:
             consume(*pending)
-        summary = finalize_metrics(epoch_metrics)
+        summary = finalize_metrics(dist.reduce_metrics(epoch_metrics))
         logger.info("train epoch %d: %s", epoch + 1, _fmt(summary))
         self._dump_scalars("train", epoch, summary)
         return summary
@@ -211,10 +237,10 @@ class Trainer:
                        else torch.from_numpy(v) for k, v in outputs.items()}
             _, metrics = self.loss_fn(outputs, inputs, self.cfgs.model)
             agg = merge_metrics(agg, metrics)
-        summary = finalize_metrics(agg)
+        summary = finalize_metrics(dist.reduce_metrics(agg))
         logger.info("val epoch %d: %s", epoch + 1, _fmt(summary))
         self._dump_scalars("val", epoch, summary)
-        if self.cfgs.log.get("save_image_summary", False):
+        if self.is_main and self.cfgs.log.get("save_image_summary", False):
             self._save_image_summary(epoch, first_batch)
         self.model.train()
         return summary
@@ -242,6 +268,8 @@ class Trainer:
             logger.warning("image summary failed: %s", exc)
 
     def _dump_scalars(self, tag: str, epoch: int, summary: dict) -> None:
+        if not self.is_main:
+            return
         with open(self.log_dir / "metrics.jsonl", "a") as f:
             f.write(json.dumps({"tag": tag, "epoch": epoch, **summary}) + "\n")
         if self.tb is not None:
@@ -251,10 +279,13 @@ class Trainer:
 
     def save_ckpt(self, epoch: int, best: bool = False) -> Path:
         """ckpts/<epoch>.pt (the newest `ckpt.max_to_keep` are kept), or
-        ckpts_best/<epoch>.pt (one kept); best_metrics.json beside them."""
+        ckpts_best/<epoch>.pt (one kept); best_metrics.json beside them.
+        Rank 0 writes; every rank returns the path."""
         folder, keep = ((self.best_dir, 1) if best
                         else (self.ckpt_dir, int(self.cfgs.ckpt.get("max_to_keep", 3))))
         path = folder / f"{epoch}.pt"
+        if not self.is_main:
+            return path
         save_train_checkpoint(path, self.model, self.optimizer, epoch, self.step)
         for old in sorted(folder.glob("*.pt"), key=lambda p: int(p.stem))[:-keep]:
             old.unlink()

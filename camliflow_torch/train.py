@@ -20,6 +20,19 @@ also fine-tune on KITTI's training160 split, validated on training40
 (conf/training/kitti/<model>.yaml: `freeze_bn`, no warm-up, colour jitter,
 horizontal flip and random scale). A checkpoint it writes is read back by
 `python -m camliflow_torch.eval ... ckpt.path=<log.dir>/ckpts/<epoch>.pt`.
+
+Data parallel, one rank a card (`camliflow_torch/parallel/dist.py`):
+`model.batch_size` is the global batch, split over the ranks, and N ranks
+take the step one process takes at that batch (global BatchNorm
+statistics and masked means). With more than one visible card and no
+torchrun environment it starts one rank a card on this host itself; under
+torchrun (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) each
+process joins torchrun's group, on its card or, with `device=cpu`, on the
+CPU over gloo:
+
+    torchrun --nproc_per_node=2 -m camliflow_torch.train ... [device=cpu]
+
+With one card, or `device=cpu` outside torchrun, one process trains.
 """
 
 from __future__ import annotations
@@ -43,15 +56,21 @@ def parse_cli(argv: list[str]) -> tuple[dict, list[str]]:
 
 
 def main(argv: list[str] | None = None):
-    groups, overrides = parse_cli(sys.argv[1:] if argv is None else argv)
+    """Train; returns the Trainer (None where it started one rank a card)."""
+    argv = sys.argv[1:] if argv is None else argv
+    groups, overrides = parse_cli(argv)
     for key in ("trainset", "valset", "model"):
         if groups[key] is None:
             raise SystemExit(f"missing required group: {key}=<name>")
-    from .eval import resolve_device
+    from .parallel.dist import in_ranks
+
+    return in_ranks(groups["device"], __spec__.name, argv, train, groups, overrides)
+
+
+def train(device, groups: dict, overrides: list[str]):
     from .runtime.trainer import Trainer
     from .utils.config import compose
 
-    device = resolve_device(groups["device"])
     cfgs = compose(CONF_DIR, trainset=groups["trainset"], valset=groups["valset"],
                    model=groups["model"], base="trainer.yaml", overrides=overrides)
     accum = int(cfgs.training.get("accum_iter", 1))

@@ -126,10 +126,30 @@ and points, all three fusions), in phases:
    unchanged over both epochs, a validation pass at 376x1242 with the
    image summary on (tb/ parsed back against metrics.jsonl, the val/flow2d
    event and images/flow2d_epoch001.png at 376x1242x3), and one f32 step of
-   the KITTI config at 448x256 against the CPU.
+   the KITTI config at 448x256 against the CPU;
+10. data-parallel: the flagship's Trainer at full width in f32 (its
+   training config, amp off), global batch 2, on phase 9's 4-pair split:
+   one process's first step (run twice, to see whether the card repeats it
+   bit for bit; where not, the operations of PyTorch's nondeterministic
+   list that the step runs are named, and two first steps under
+   `use_deterministic_algorithms` are held to each other) and 10 timed
+   steps after 2 more, in a process of its own as each rank is, and again
+   after the ranks (the spread of its time); (a) one rank
+   over NCCL, the Trainer's model in DistributedDataParallel, against it:
+   loss, parameters and BatchNorm statistics bit for bit where one process
+   repeats itself, else within (b)'s bounds; (b) two ranks over gloo, both
+   on the one card, batch 1 each: the loss within 1e-5 relative, the
+   parameters within 1e-5 where the two gradients agree in sign (2 lr where
+   not), BatchNorm statistics within 1e-6 (1 + |b|), both ranks bit for bit
+   alike; each rank's launches a step held (#1 8, #2 1, #3 10, #4
+   index-only 10) and ms a step for (a), (b) and one process; (c) the two
+   ranks' `run_things` over 5 frames in global batches of 2 (rank 1's last
+   slice empty) against one process's totals. The ranks are processes of
+   their own (`camliflow_torch.parallel.dist.spawn`), waited for with a
+   timeout.
 
-Each path's launches (4, 7, 8 and 9) are counted with every counter zeroed
-just before it and read just after. Prints the kernels' JSON line, then the card's name and power limit, then, as
+Each path's launches (4, 7, 8, 9 and 10) are counted with every counter
+zeroed just before it and read just after. Prints the kernels' JSON line, then the card's name and power limit, then, as
 the last line, the device JSON with "ok": true. Exits non-zero, without that
 line, if any phase fails or there is no CUDA card.
 """
@@ -1873,6 +1893,29 @@ class IndexOnly:
         self.wrapper.index_launches = value
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by name, each with its `launches`
+    counter (a process's own: phase 10's ranks build theirs)."""
+    from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
+
+    return {"k_nearest_neighbor": knn.k_nearest_neighbor,
+            "furthest_point_sampling": fps.furthest_point_sampling,
+            "knn_interpolation": interp.knn_interpolation,
+            "correlation3d_knn": corr3d.correlation3d_knn,
+            "motion_encoder_2d": update2d.motion_encoder_2d,
+            "gru_flowhead_2d": update2d.gru_flowhead_2d,
+            "gru_2d": update2d.gru_2d,
+            "flow_head_2d": update2d.flow_head_2d,
+            "update_2d": update2d.update_2d,
+            "motion_encoder_3d": update3d.motion_encoder_3d,
+            "gru_flowhead_3d": update3d.gru_flowhead_3d,
+            "corr3d_tail": corr3d.corr3d_tail,
+            "clfm_fused": clfm.clfm_fused,
+            "gather_points_kmajor": gather.gather_points_kmajor,
+            "dw_max": update3d.dw_max,
+            "correlation3d_knn_index": IndexOnly(corr3d.correlation3d_knn)}
+
+
 TRAIN_PAIRS = 8  # frame pairs of the synthetic training split
 TRAIN_POINTS = 10000  # points a cloud (the reader samples 8192 of them)
 TRAIN_BATCH = 2
@@ -2612,6 +2655,365 @@ def kitti_training_phase(device, wrappers, card, root, family, want, branches) -
     return timed["launches"]
 
 
+# phase 10: data parallelism
+DP_WARM = 2  # steps after the compared first one before the timed ones (DDP rebuilds
+# its gradient buckets at its second step)
+DP_TIMED = 10
+DP_TIMEOUT = 600  # seconds a group of ranks may take, start-up included
+DP_FRAMES = 5  # (c)'s frames: global batches of 2 leave rank 1's last slice empty
+BUFFER_TOL = 1e-6  # BatchNorm statistics, |d| <= BUFFER_TOL (1 + |b|) (tests/torch_train_parity.py)
+# aten operations whose CUDA kernels PyTorch documents as nondeterministic
+# (atomic adds), or deterministic only under `use_deterministic_algorithms`
+NONDETERMINISTIC_OPS = ("aten::index_add_", "aten::index_put_", "aten::_index_put_impl_",
+                        "aten::scatter_add_", "aten::scatter_reduce_", "aten::put_",
+                        "aten::embedding_dense_backward", "aten::grid_sampler_2d_backward",
+                        "aten::upsample_bilinear2d_backward", "aten::convolution_backward",
+                        "aten::max_pool2d_with_indices_backward",
+                        "aten::adaptive_avg_pool2d_backward", "aten::avg_pool2d_backward")
+# relative, (c)'s totals: the Evaluator adds each sample's float32 sums into
+# float32 accumulators (NumPy's scalar promotion), so the order of the
+# samples rounds in the 7th digit
+SUM_TOL = 1e-6
+
+
+def dp_cfgs(root: str, label: str):
+    """The flagship's training config (conf/training/flyingthings3d_subset/
+    camliraft.yaml) at full width in f32 (amp off), global batch 2, on the
+    train_small split, its log directory <root>/dp/<label>."""
+    from camliflow_torch.utils.config import compose
+
+    return compose("conf", trainset="flyingthings3d_subset", valset="flyingthings3d_subset",
+                   model="camliraft", base="trainer.yaml", overrides=[
+                       f"trainset.root_dir={root}/data", f"valset.root_dir={root}/data",
+                       "trainset.split=train_small", f"model.batch_size={TRAIN_BATCH}",
+                       "training.amp=false", f"log.dir={root}/dp/{label}",
+                       "trainset.n_workers=0", "valset.n_workers=0"])
+
+
+def dp_steps(trainer, wrappers, path: str, timed: int = DP_TIMED) -> dict:
+    """The Trainer's first step on its (rank's slice of the) first global
+    batch of epoch 0, through `trainer.ddp` as `train_one_epoch` takes it,
+    every counter zeroed just before; the loss, every parameter, gradient
+    and buffer after it into `path`; then, with `timed`, DP_WARM more steps
+    on the same batch and `timed` timed ones for ms a step. Returns the
+    loss, launches, lr and ms."""
+    import torch
+
+    from camliflow_torch.runtime.train_state import train_step
+    from camliflow_torch.runtime.trainer import device_batch
+
+    trainer.train_loader.set_epoch(0)
+    batch = device_batch(next(iter(trainer.train_loader)), trainer.device)
+
+    def step(index):
+        return train_step(trainer.ddp, trainer.optimizer, batch, trainer.loss_fn,
+                          trainer.cfgs.model, index, trainer.model_name)[0]
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    loss = float(step(0))
+    torch.cuda.synchronize()
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    arrays = {"loss": np.float32(loss)}
+    for key, param in trainer.model.named_parameters():
+        arrays[f"param/{key}"] = param.detach().cpu().numpy()
+        arrays[f"grad/{key}"] = param.grad.cpu().numpy()
+    arrays.update({f"buffer/{k}": v.cpu().numpy() for k, v in trainer.model.named_buffers()})
+    np.savez(path, **arrays)
+    lr = max(group["lr"] for group in trainer.optimizer.param_groups)
+    ms = None
+    if timed:
+        for index in range(1, 1 + DP_WARM):
+            step(index)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for index in range(1 + DP_WARM, 1 + DP_WARM + timed):
+            step(index)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - start) / timed
+    return {"loss": loss, "launches": launches, "lr": lr, "ms": ms, "batch": len(batch["pcs"])}
+
+
+class Frames:
+    """(c)'s frames as a dataset: `frame_pair`'s samples with images."""
+
+    def __init__(self, n: int):
+        self.samples = []
+        for i in range(n):
+            pair = frame_pair(SEED + 1 + i, i, images=True)
+            self.samples.append({k: v[0] if k != "index" else i for k, v in pair.items()})
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
+def dp_eval(device, batch_size: int) -> dict:
+    """The flagship (random weights from SEED) through `Evaluator.run_things`
+    over DP_FRAMES frames in global batches of `batch_size`, each rank its
+    slice."""
+    from camliflow_torch.data.datasets import batches
+    from camliflow_torch.models.camliraft import CamLiRAFT
+    from camliflow_torch.parallel import dist
+    from camliflow_torch.runtime.checkpoint import random_weights
+    from camliflow_torch.runtime.evaluator import Evaluator
+
+    model = CamLiRAFT(FLAGSHIP_CFGS)
+    random_weights(model, SEED)
+    evaluator = Evaluator(model, device)
+    return evaluator.run_things(batches(Frames(DP_FRAMES), batch_size, dist.rank(),
+                                        dist.world_size()))
+
+
+def dp_rank(device, root: str, label: str, evaluate: bool) -> None:
+    """One rank of phase 10 (in a process `dist.spawn` started, in its
+    group): `dp_steps` on the DDP Trainer, then, with `evaluate`,
+    `dp_eval` in global batches of 2; its results into
+    <root>/dp/<label>.rank<r>.json and .npz."""
+    import gc
+
+    import torch
+
+    from camliflow_torch.parallel import dist
+    from camliflow_torch.runtime.trainer import Trainer
+
+    path = f"{root}/dp/{label}.rank{dist.rank()}"
+    trainer = Trainer(dp_cfgs(root, label), device)
+    result = dp_steps(trainer, kernel_wrappers(), path + ".npz")
+    result.update(rank=dist.rank(), world=dist.world_size(), device=str(device),
+                  backend=torch.distributed.get_backend(),
+                  wrapped=type(trainer.ddp).__name__)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if evaluate:
+        result["things"] = {k: float(v) for k, v in dp_eval(device, TRAIN_BATCH).items()}
+    with open(path + ".json", "w") as f:
+        json.dump(result, f)
+
+
+def dp_differences(want: dict, got: dict) -> dict:
+    """Two first steps' saved arrays: bit for bit or not; the loss's
+    relative difference; the parameters by `step_differences`; the largest
+    BatchNorm-statistic difference against BUFFER_TOL (1 + |b|)."""
+    import torch
+
+    params = [{k[6:]: torch.from_numpy(v[k]) for k in v if k.startswith("param/")}
+              for v in (got, want)]
+    grads = [{k[5:]: torch.from_numpy(v[k]) for k in v if k.startswith("grad/")}
+             for v in (got, want)]
+    agree, flipped = step_differences(*params, *grads)
+    buffers = [k for k in want if k.startswith("buffer/")]
+    ratio, worst = max(
+        (float(np.max(np.abs(got[k] - want[k]) / (BUFFER_TOL * (1 + np.abs(want[k]))))), k)
+        for k in buffers)
+    return {"identical": all(np.array_equal(got[k], want[k]) for k in want if k[:5] != "grad/"),
+            "loss_rel": abs(float(got["loss"]) - float(want["loss"])) / abs(float(want["loss"])),
+            "param_err": max(agree.values()), "param_worst": max(agree, key=agree.get),
+            "flipped": sum(n for _, n, _ in flipped.values()),
+            "flip_err": max((d for d, _, _ in flipped.values()), default=0.0),
+            "buffer_ratio": ratio, "buffer_worst": worst,
+            "buffer_max": max(float(np.max(np.abs(got[k] - want[k]))) for k in buffers)}
+
+
+def one_process_step(device, root: str, label: str, wrappers, timed: int = 0) -> dict:
+    """`dp_steps` on a Trainer of its own, outside any group, freed after."""
+    import gc
+
+    import torch
+
+    from camliflow_torch.runtime.trainer import Trainer
+
+    trainer = Trainer(dp_cfgs(root, label), device)
+    result = dp_steps(trainer, wrappers, f"{root}/dp/{label}.npz", timed)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def one_process(index: int, root: str, device: str, label: str) -> None:
+    """Phase 10's one process, in a new interpreter as the ranks are (the
+    step times of the chip_smoke process, after nine phases, are not a new
+    process's): the timed first step; for the reference ("alone"), the same
+    first step again under the profiler (the aten operations it runs); the
+    results into <root>/dp/<label>.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    wrappers = kernel_wrappers()
+    result = one_process_step(device, root, label, wrappers, DP_TIMED)
+    if label == "alone":
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            one_process_step(device, root, "alone_again", wrappers)
+        result["ops"] = sorted({e.key for e in prof.key_averages()
+                                if e.key in NONDETERMINISTIC_OPS})
+    with open(f"{root}/dp/{label}.json", "w") as f:
+        json.dump(result, f)
+
+
+def fresh_process(fn, *args) -> None:
+    """fn(0, *args) in a new interpreter; raises if it fails or runs past
+    DP_TIMEOUT."""
+    import torch.multiprocessing as mp
+
+    context = mp.start_processes(fn, args=args, nprocs=1, join=False, start_method="spawn")
+    if not context.join(timeout=DP_TIMEOUT):
+        for process in context.processes:
+            process.kill()
+        raise TimeoutError(f"{fn.__name__} still ran after {DP_TIMEOUT} s")
+
+
+def data_parallel_phase(device, wrappers, card) -> dict:
+    """Phase 10: the flagship's Trainer at full width in f32 (dp_cfgs),
+    global batch 2: one process's first step (twice, to see whether the card
+    repeats it bit for bit) and DP_TIMED timed steps after DP_WARM more, in
+    a new process as each rank is, and again after the ranks (the spread
+    of its time); (a) one rank over NCCL
+    (DistributedDataParallel) against it, bit for bit where one process
+    repeats itself, else within (b)'s bounds with the nondeterministic
+    operations named; (b) two ranks over gloo sharing cuda:0, batch 1 each,
+    against it: loss within LOSS_TOL / 10, parameters within PARAM_TOL where
+    the gradients agree in sign (2 lr where they differ), BatchNorm
+    statistics within BUFFER_TOL (1 + |b|), both ranks bit for bit alike;
+    launches a step held per rank (#1 8, #2 1, #3 10, #4 index-only 10, the
+    rest 0); (c) the two ranks' `run_things` over DP_FRAMES frames in global
+    batches of 2 against one process's at batch 1 (rank 1's last slice
+    empty), within SUM_TOL. Each group of ranks is waited for at most
+    DP_TIMEOUT s. Returns the launches of the one-process step and the
+    ranks' first steps."""
+    import os
+
+    import torch
+
+    from camliflow_torch.parallel import dist
+
+    root = os.path.join(WORK, "train")
+    for split, pairs, seed in (("train_small", FAMILY_PAIRS, SEED + 72), ("val", 4, SEED + 71)):
+        if not os.path.isdir(os.path.join(root, "data", split)):  # phase 9's, unless it failed
+            write_things_split(os.path.join(root, "data"), split, pairs, seed)
+    os.makedirs(os.path.join(root, "dp"), exist_ok=True)
+    want = {**dict.fromkeys(wrappers, 0), "k_nearest_neighbor": 8,
+            "furthest_point_sampling": 1, "knn_interpolation": TRAIN_ITERS,
+            "correlation3d_knn_index": TRAIN_ITERS}
+    total = dict.fromkeys(wrappers, 0)
+
+    def held(label, launches):
+        if launches != want:
+            raise AssertionError(f"{label}: launches of the first step {launches}, "
+                                 f"expected {want}")
+        for key, count in launches.items():
+            total[key] += count
+
+    fresh_process(one_process, root, str(device), "alone")
+    with open(f"{root}/dp/alone.json") as f:
+        alone = json.load(f)
+    held("one process", alone["launches"])
+    arrays = {label: dict(np.load(f"{root}/dp/{label}.npz")) for label in ("alone", "alone_again")}
+    again = dp_differences(arrays["alone"], arrays["alone_again"])
+    lr = alone["lr"]
+    print(f"  one process, batch {alone['batch']}: loss {alone['loss']:.6f}, {alone['ms']:.1f} ms "
+          f"a step ({DP_TIMED} steps after {1 + DP_WARM}, f32) | {card}", flush=True)
+    why = ""
+    if not again["identical"]:  # the operations that may add in any order, and a check
+        ops = alone["ops"]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            pair = [one_process_step(device, root, label, wrappers)
+                    for label in ("deterministic", "deterministic_again")]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        repeats = dp_differences(*(dict(np.load(f"{root}/dp/{label}.npz"))
+                                   for label in ("deterministic", "deterministic_again")))
+        why = (f"; the step runs {ops} (PyTorch's nondeterministic CUDA operations); under "
+               f"use_deterministic_algorithms two first steps are bit for bit alike: "
+               f"{repeats['identical']} (losses {pair[0]['loss']:.6f}, {pair[1]['loss']:.6f})")
+    print(f"  one process again from the same weights and batch: bit for bit "
+          f"{again['identical']} (loss relative {again['loss_rel']:.2e}; parameters max|d| "
+          f"{again['param_err']:.3e} where the gradients agree in sign, {again['flipped']} "
+          f"elements where not, max|d| {again['flip_err']:.3e}; BatchNorm statistics max|d| "
+          f"{again['buffer_max']:.3e}){why}", flush=True)
+
+    def check_bounds(label, d):
+        if not (d["loss_rel"] <= LOSS_TOL / 10 and d["param_err"] <= PARAM_TOL
+                and d["flip_err"] <= 2 * lr * (1 + 1e-3) and d["buffer_ratio"] <= 1.0):
+            raise AssertionError(f"{label} differs from one process beyond the bounds: {d}")
+
+    def ranks(label, world, evaluate):
+        start = time.perf_counter()
+        dist.spawn(dp_rank, world, (root, label, evaluate), device_type="cuda",
+                   timeout=DP_TIMEOUT)
+        results = [json.load(open(f"{root}/dp/{label}.rank{r}.json")) for r in range(world)]
+        saved = [dict(np.load(f"{root}/dp/{label}.rank{r}.npz")) for r in range(world)]
+        for result in results:
+            held(f"{label} rank {result['rank']}", result["launches"])
+        return results, saved, time.perf_counter() - start
+
+    # (a) one rank over NCCL
+    (a,), (a_arrays,), seconds = ranks("nccl1", 1, False)
+    if (a["backend"], a["wrapped"], a["world"]) != ("nccl", "DistributedDataParallel", 1):
+        raise AssertionError(f"(a) ran as {a}")
+    d = dp_differences(arrays["alone"], a_arrays)
+    print(f"  (a) 1 rank over {a['backend']} on {a['device']}, batch {a['batch']}, "
+          f"DistributedDataParallel: loss {a['loss']:.6f} (relative {d['loss_rel']:.2e}); "
+          f"bit for bit the one-process step (loss, parameters, BatchNorm statistics): "
+          f"{d['identical']}; parameters max|d| {d['param_err']:.3e} ({d['param_worst']}) where "
+          f"the gradients agree in sign, {d['flipped']} elements where not (max|d| "
+          f"{d['flip_err']:.3e}, bound 2 lr = {2 * lr:g}); BatchNorm statistics max|d| "
+          f"{d['buffer_max']:.3e} ({d['buffer_ratio']:.3f} of the bound); {a['ms']:.1f} ms a "
+          f"step against one process's {alone['ms']:.1f}; the group {seconds:.1f} s, "
+          f"start-up included | {card}", flush=True)
+    if again["identical"] and not d["identical"]:
+        raise AssertionError("(a) one rank differs from one process, which repeats itself")
+    check_bounds("(a)", d)
+
+    # (b) two ranks over gloo on one card, then (c) their evaluation
+    results, saved, seconds = ranks("gloo2", 2, True)
+    for key in saved[0]:
+        if not np.array_equal(saved[0][key], saved[1][key]) and not key.startswith("grad/"):
+            raise AssertionError(f"(b) the ranks hold different {key}")
+    d = dp_differences(arrays["alone"], saved[0])
+    b = results[0]
+    print(f"  (b) 2 ranks over {b['backend']}, both on {b['device']}, batch {b['batch']} each "
+          f"of the global {TRAIN_BATCH}: loss {b['loss']:.6f} (relative {d['loss_rel']:.2e}, "
+          f"bound {LOSS_TOL / 10:g}); parameters max|d| {d['param_err']:.3e} "
+          f"({d['param_worst']}; bound {PARAM_TOL}) where the gradients agree in sign, "
+          f"{d['flipped']} elements where not (max|d| {d['flip_err']:.3e}, bound 2 lr); "
+          f"BatchNorm statistics max|d| {d['buffer_max']:.3e} ({d['buffer_ratio']:.3f} of "
+          f"{BUFFER_TOL} (1 + |b|), {d['buffer_worst']}); the ranks bit for bit alike; ms a "
+          f"step rank 0 {results[0]['ms']:.1f}, rank 1 {results[1]['ms']:.1f} against one "
+          f"process's {alone['ms']:.1f}; launches a step each rank "
+          f"{ {k: v for k, v in results[0]['launches'].items() if v} }; the group "
+          f"{seconds:.1f} s, start-up included | {card}", flush=True)
+    check_bounds("(b)", d)
+
+    single = {k: float(v) for k, v in dp_eval(device, 1).items()}
+    worst = max(abs(r["things"][k] - v) / max(abs(v), 1e-30) for r in results
+                for k, v in single.items())
+    print(f"  (c) 2 ranks, run_things over {DP_FRAMES} frames in global batches of "
+          f"{TRAIN_BATCH} (rank 1's last slice empty): totals {results[0]['things']}, one "
+          f"process at batch 1 {single}; max relative difference {worst:.2e} (bound "
+          f"{SUM_TOL}: the same samples' sums added in another order)", flush=True)
+    if not (results[0]["things"] == results[1]["things"] and set(single) == set(
+            results[0]["things"]) and worst <= SUM_TOL):
+        raise AssertionError("(c) the ranks' totals are not one process's")
+
+    fresh_process(one_process, root, str(device), "alone_after")
+    with open(f"{root}/dp/alone_after.json") as f:
+        after = json.load(f)
+    held("one process, after the ranks", after["launches"])
+    print(f"  ms a step ({DP_TIMED} steps after {1 + DP_WARM}, each in a process of its own): "
+          f"one process {alone['ms']:.1f} before the ranks and {after['ms']:.1f} after; (a) "
+          f"one rank over NCCL {a['ms']:.1f}; (b) two ranks over gloo on the one card "
+          f"{results[0]['ms']:.1f}, {results[1]['ms']:.1f} | {card}", flush=True)
+    return total
+
+
 def main() -> int:
     import argparse
 
@@ -2635,7 +3037,6 @@ def main() -> int:
         from camliflow_torch.models.camlipwc_l import CamLiPWCL
         from camliflow_torch.models.pwc import PWC
         from camliflow_torch.models.raft import RAFT
-        from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
         from camliflow_torch.runtime.checkpoint import random_weights
         from camliflow_torch.runtime.evaluator import Evaluator
         from camliflow_torch.utils.torch_setup import setup_torch
@@ -2652,13 +3053,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False, timeout=60,
     ).stdout.strip().splitlines()
-    print("[1/9] device:", torch.cuda.get_device_name(0), "| torch",
+    print("[1/10] device:", torch.cuda.get_device_name(0), "| torch",
           torch.__version__, "| CUDA", torch.version.cuda, flush=True)
     card = smi[0] if smi else "nvidia-smi gave no output"
     print(card, flush=True)
 
     # 2. build
-    print("[2/9] build", flush=True)
+    print("[2/10] build", flush=True)
     try:
         path, seconds, log = kbuild.build()
         kbuild.library()
@@ -2670,7 +3071,7 @@ def main() -> int:
         return 1
 
     # 3. per-kernel parity
-    print("[3/9] kernels vs plain versions at main-path shapes (a plain version "
+    print("[3/10] kernels vs plain versions at main-path shapes (a plain version "
           "repeats its kernel's arithmetic in PyTorch ops, cuDNN convolutions for "
           "the 2D chain, and is no yardstick of speed)", flush=True)
     kernels = []
@@ -2681,22 +3082,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("kernels")
 
-    wrappers = {"k_nearest_neighbor": knn.k_nearest_neighbor,
-                "furthest_point_sampling": fps.furthest_point_sampling,
-                "knn_interpolation": interp.knn_interpolation,
-                "correlation3d_knn": corr3d.correlation3d_knn,
-                "motion_encoder_2d": update2d.motion_encoder_2d,
-                "gru_flowhead_2d": update2d.gru_flowhead_2d,
-                "gru_2d": update2d.gru_2d,
-                "flow_head_2d": update2d.flow_head_2d,
-                "update_2d": update2d.update_2d,
-                "motion_encoder_3d": update3d.motion_encoder_3d,
-                "gru_flowhead_3d": update3d.gru_flowhead_3d,
-                "corr3d_tail": corr3d.corr3d_tail,
-                "clfm_fused": clfm.clfm_fused,
-                "gather_points_kmajor": gather.gather_points_kmajor,
-                "dw_max": update3d.dw_max,
-                "correlation3d_knn_index": IndexOnly(corr3d.correlation3d_knn)}
+    wrappers = kernel_wrappers()
     # per path, each kernel's launches per request (0: never on this path).
     # The encoders' PointConvs gather twice each (xyz, [xyz, features]):
     # CamLiRAFT-L runs 3 encoder passes of 2 PointConvs, the flagship 2 (both
@@ -2741,7 +3127,7 @@ def main() -> int:
         has_points = cls not in (RAFT, PWC)
         iterative = cls in (CamLiRAFTL, CamLiRAFT, RAFT)
         points = f"{N_POINTS} pts, " if has_points else ""
-        print(f"[4/9] {label} eval: {points}"
+        print(f"[4/10] {label} eval: {points}"
               f"{f'{IMAGE_W}x{IMAGE_H} images, ' if images else ''}"
               f"{f'{N_ITERS} iters, ' if iterative else ''}bs=1"
               f"{', IDS on' if has_points else ''}", flush=True)
@@ -2777,7 +3163,7 @@ def main() -> int:
             failures.append(f"{label} bs={BATCH}")
 
         # 5. CUDA vs CPU
-        print(f"[5/9] {label}: same weights and input on the CPU (plain versions)",
+        print(f"[5/10] {label}: same weights and input on the CPU (plain versions)",
               flush=True)
         try:
             if out is None:
@@ -2803,14 +3189,14 @@ def main() -> int:
     # 6-8. this slice's paths: the lookahead, the KITTI submission, the demo
     flagship_request = next(per_request for label, _, _, _, per_request in paths
                             if label == "CamLiRAFT")
-    print("[6/9] the Evaluator's one-batch lookahead against a synchronous loop: the "
+    print("[6/10] the Evaluator's one-batch lookahead against a synchronous loop: the "
           f"flagship, 4 batches of {BATCH} frame pairs", flush=True)
     try:
         lookahead_phase(device, card)
     except Exception:
         traceback.print_exc()
         failures.append("lookahead")
-    print(f"[7/9] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
+    print(f"[7/10] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
           f"the flagship, bs={BATCH}, {N_POINTS} pts, densified by #3", flush=True)
     try:
         launches = submission_phase(device, wrappers, flagship_request, card, kernels)
@@ -2819,7 +3205,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("submission")
-    print(f"[8/9] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
+    print(f"[8/10] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
           "flagship, on the card and on the CPU", flush=True)
     try:
         launches = demo_phase(device, wrappers, flagship_request, card)
@@ -2828,7 +3214,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("demo")
-    print(f"[9/9] training: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
+    print(f"[9/10] training: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
           f"{N_POINTS} pts, {TRAIN_ITERS} iters, amp, augmentation), batches of {TRAIN_BATCH}, "
           f"{TRAIN_PAIRS} synthetic pairs; resume; an f32 step against the CPU", flush=True)
     try:
@@ -2849,7 +3235,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("training data")
     for family, want, branches in TRAIN_FAMILIES:
-        print(f"[9/9] training {family}: its Trainer at full width (its own training config, "
+        print(f"[9/10] training {family}: its Trainer at full width (its own training config, "
               f"amp, augmentation), batches of {TRAIN_BATCH}, {FAMILY_PAIRS} synthetic pairs; "
               "an f32 step against the CPU", flush=True)
         try:
@@ -2873,7 +3259,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("KITTI training data")
     for family, want, branches in KITTI_FINE_TUNES:
-        print(f"[9/9] KITTI fine-tune {family}: its Trainer on conf/training/kitti/{family}.yaml "
+        print(f"[9/10] KITTI fine-tune {family}: its Trainer on conf/training/kitti/{family}.yaml "
               f"at full width (freeze_bn, amp, augmentation), batches of {TRAIN_BATCH}, "
               f"{KITTI_TRAIN_FRAMES} training and {KITTI_VAL_FRAMES} validation frames; an f32 "
               "step against the CPU", flush=True)
@@ -2887,6 +3273,20 @@ def main() -> int:
         except Exception:
             traceback.print_exc()
             failures.append(f"KITTI fine-tune {family}")
+
+    print(f"[10/10] data-parallel: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
+          f"{N_POINTS} pts, {TRAIN_ITERS} iters, f32), global batch {TRAIN_BATCH}: one process; "
+          "(a) 1 rank over NCCL; (b) 2 ranks over gloo on the one card; (c) their run_things "
+          f"over {DP_FRAMES} frames", flush=True)
+    try:
+        start = time.perf_counter()
+        launches = data_parallel_phase(device, wrappers, card)
+        for key, count in launches.items():
+            total[key] += count
+        print(f"  data-parallel: {time.perf_counter() - start:.1f} s", flush=True)
+    except Exception:
+        traceback.print_exc()
+        failures.append("data-parallel")
 
     # each kernel's launches over the paths' measured requests
     for entry in kernels:
