@@ -39,17 +39,17 @@ SIGNATURES = {
     "camli_knn": [_P, _P, _P] + [_I] * 7 + [_P],
     "camli_fps": [_P, _P, _I, _I, _I, _P],
     "camli_interp": [_P] * 4 + [_I] * 8 + [_P],
-    "camli_corr3d": [_P] * 5 + [_I] * 5 + [_P, _I, _P, _I, _I, _P],
-    "camli_motion_encoder_2d": [_P] * 8 + [_I] * 9 + [_P],
-    "camli_gru_2d": [_P] * 8 + [_I] * 6 + [_P],
-    "camli_flow_head_2d": [_P] * 4 + [_I] * 5 + [_P],
-    "camli_gru_flowhead_2d": [_P] * 10 + [_I] * 7 + [_P],
-    "camli_update_2d": [_P] * 9 + [_I] * 12 + [_P],
-    "camli_motion_encoder_3d": [_P] * 14 + [_I] * 16 + [_P],
-    "camli_gru_flowhead_3d": [_P] * 18 + [_I] * 16 + [_P],
-    "camli_dw_max": [_P] * 4 + [_I] * 6 + [_P],
+    "camli_corr3d": [_P] * 5 + [_I] * 6 + [_P, _I, _P, _I, _I, _P],
+    "camli_motion_encoder_2d": [_P] * 8 + [_I] * 10 + [_P],
+    "camli_gru_2d": [_P] * 8 + [_I] * 7 + [_P],
+    "camli_flow_head_2d": [_P] * 4 + [_I] * 6 + [_P],
+    "camli_gru_flowhead_2d": [_P] * 10 + [_I] * 8 + [_P],
+    "camli_update_2d": [_P] * 9 + [_I] * 13 + [_P],
+    "camli_motion_encoder_3d": [_P] * 14 + [_I] * 17 + [_P],
+    "camli_gru_flowhead_3d": [_P] * 18 + [_I] * 17 + [_P],
+    "camli_dw_max": [_P] * 4 + [_I] * 7 + [_P],
     "camli_gather_kmajor": [_P] * 3 + [_I] * 7 + [_P],
-    "camli_corr3d_tail": [_P] * 11 + [_I] * 7 + [_P],
+    "camli_corr3d_tail": [_P] * 12 + [_I] * 7 + [_P],
     "camli_clfm": [_P] * 14 + [_I] * 7 + [_P],
 }
 

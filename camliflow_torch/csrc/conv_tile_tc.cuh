@@ -20,6 +20,17 @@
 // The weights arrive split once per request (ops/update2d.py::pack_convs,
 // planes [N_pad][K_pad], K-major); the kernel splits the activations.
 //
+// The bf16 mode (template argument BF; the 2D chain's fast path): the
+// weights arrive rounded to bf16 once per request, in the hi plane (the lo
+// plane is neither passed nor read); each activation is rounded to bf16
+// (nearest, ties to even: cvt.rn.bf16x2) as it is taken from the stage; a
+// chunk of 16 reduction values is one mma.sync m16n8k16 bf16 pass with f32
+// accumulation, in place of 3xTF32's six m16n8k8 passes. The products are
+// exact in f32, so only the sum's order differs from an f32 sum of the
+// rounded operands. The GRU epilogues read the hidden state rounded to bf16
+// and round h' to bf16 after nan_to_num, as the JAX package's bf16 kernels
+// (camliflow_tpu/ops/pallas_update2d.py) do.
+//
 // Design, for an operation bound (the chain is ~10^3 operations per byte):
 // mma.sync.aligned.m16n8k8 tf32 from registers, fed from shared memory.
 // - Copies: cp.async 16-byte copies (4 channels; every input's channel
@@ -138,6 +149,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// round to bf16 (nearest, ties to even), as an f32 value; NaN stays NaN
+__device__ __forceinline__ float round_bf16(float v) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(v));
+  return __uint_as_float((uint32_t)h << 16);
+}
+
+// two f32 values as bf16x2 (nearest, ties to even): lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a * b, bf16 operands, f32 accumulation: a 16x16 (a0 rows g, k 2t
+// and 2t+1; a1 rows g+8; a2 rows g, k 2t+8 and 2t+9; a3 rows g+8), b 16x8
+// (b0 k 2t and 2t+1, b1 k 2t+8 and 2t+9; col g), d as in mma_tf32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // round to tf32 (nearest, ties away from zero), as an f32 bit pattern
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -178,8 +215,8 @@ struct TcShape {
   static constexpr int kMinBlocks = KSPLIT > 1 ? 1 : (BN == 64 ? 4 : 2);
 };
 
-// The epilogue of one output element.
-template <int EPI>
+// The epilogue of one output element (BF: the bf16 mode's roundings).
+template <int EPI, bool BF = false>
 __device__ __forceinline__ void store(const Conv& a, int p, int co, float acc) {
   if (p >= a.pixels || co >= a.cout) return;
   float v = acc + a.bias[co];
@@ -193,15 +230,16 @@ __device__ __forceinline__ void store(const Conv& a, int p, int co, float acc) {
       a.out[(size_t)p * a.half + co] = v;
     } else {
       const size_t at = (size_t)p * a.half + (co - a.half);
-      a.out2[at] = v * a.h[at];
+      a.out2[at] = v * (BF ? round_bf16(a.h[at]) : a.h[at]);
     }
     return;
   } else if (EPI == EPI_GATE) {
     const size_t at = (size_t)p * a.cout + co;
     const float zv = a.z[at];
-    v = (1.f - zv) * a.h[at] + zv * tanhf(v);
+    v = (1.f - zv) * (BF ? round_bf16(a.h[at]) : a.h[at]) + zv * tanhf(v);
   }
   if (a.nan_fix) v = nan_to_num(v);
+  if (BF && EPI == EPI_GATE) v = round_bf16(v);
   a.out[(size_t)p * a.out_stride + co] = v;
 }
 
@@ -212,9 +250,9 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
 }
 
 // One block's tile: BM pixels x BN output channels at (p0, n0) of one
-// convolution. `hi` and `lo` are the weight planes [>= n0 + BN][k_pad];
-// a.k_total <= k_pad.
-template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI>
+// convolution. `hi` and `lo` are the weight planes [>= n0 + BN][k_pad]
+// (BF: `hi` the bf16-rounded weights, `lo` unread); a.k_total <= k_pad.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI, bool BF = false>
 __device__ __forceinline__ void conv_tc_tile(const Conv& a, const float* __restrict__ hi,
                                              const float* __restrict__ lo, int k_pad, int p0,
                                              int n0) {
@@ -283,8 +321,9 @@ __device__ __forceinline__ void conv_tc_tile(const Conv& a, const float* __restr
         if (++cur_tx[s] == a.kw) cur_tx[s] = 0, ++cur_ty[s];
       }
     }
-    // the weights: [plane][slice][BN][16] from the planes' rows n0 + n
-    constexpr int kBCopies = 2 * KSPLIT * BN * 4;
+    // the weights: [plane][slice][BN][16] from the planes' rows n0 + n (BF:
+    // the hi plane alone)
+    constexpr int kBCopies = (BF ? 1 : 2) * KSPLIT * BN * 4;
 #pragma unroll
     for (int i = 0; i < (kBCopies + S::kThreads - 1) / S::kThreads; ++i) {
       const int idx = i * S::kThreads + tid;
@@ -341,30 +380,51 @@ __device__ __forceinline__ void conv_tc_tile(const Conv& a, const float* __restr
 #pragma unroll
     for (int ni = 0; ni < S::kNt; ++ni) {
       bh[ni] = *reinterpret_cast<const float4*>(Bh + (ni * 8 + g) * kTcBk + 4 * t);
-      bl[ni] = *reinterpret_cast<const float4*>(Bl + (ni * 8 + g) * kTcBk + 4 * t);
+      if (!BF) bl[ni] = *reinterpret_cast<const float4*>(Bl + (ni * 8 + g) * kTcBk + 4 * t);
     }
-#pragma unroll
-    for (int step = 0; step < 2; ++step) {
-      uint32_t a_hi[S::kMt][4], a_lo[S::kMt][4];
+    if constexpr (BF) {
+      // one m16n8k16 pass: thread (g, t) holds columns 4t..4t+3 of its rows;
+      // the pass takes columns 4t, 4t+1 as k 2t, 2t+1 and 4t+2, 4t+3 as
+      // k 2t+8, 2t+9, for A and B alike, so the sum is the convolution's
+      uint32_t a16[S::kMt][4];
 #pragma unroll
       for (int mi = 0; mi < S::kMt; ++mi) {
-        // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-        const float x[4] = {step ? av[mi][0].z : av[mi][0].x, step ? av[mi][1].z : av[mi][1].x,
-                            step ? av[mi][0].w : av[mi][0].y, step ? av[mi][1].w : av[mi][1].y};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) split(x[r], a_hi[mi][r], a_lo[mi][r]);
+        a16[mi][0] = pack_bf16x2(av[mi][0].x, av[mi][0].y);
+        a16[mi][1] = pack_bf16x2(av[mi][1].x, av[mi][1].y);
+        a16[mi][2] = pack_bf16x2(av[mi][0].z, av[mi][0].w);
+        a16[mi][3] = pack_bf16x2(av[mi][1].z, av[mi][1].w);
       }
 #pragma unroll
       for (int ni = 0; ni < S::kNt; ++ni) {
-        const uint32_t b_hi[2] = {__float_as_uint(step ? bh[ni].z : bh[ni].x),
-                                  __float_as_uint(step ? bh[ni].w : bh[ni].y)};
-        const uint32_t b_lo[2] = {__float_as_uint(step ? bl[ni].z : bl[ni].x),
-                                  __float_as_uint(step ? bl[ni].w : bl[ni].y)};
+        const uint32_t b16[2] = {pack_bf16x2(bh[ni].x, bh[ni].y),
+                                 pack_bf16x2(bh[ni].z, bh[ni].w)};
+#pragma unroll
+        for (int mi = 0; mi < S::kMt; ++mi) mma_bf16(acc[mi][ni], a16[mi], b16);
+      }
+    } else {
+#pragma unroll
+      for (int step = 0; step < 2; ++step) {
+        uint32_t a_hi[S::kMt][4], a_lo[S::kMt][4];
 #pragma unroll
         for (int mi = 0; mi < S::kMt; ++mi) {
-          mma_tf32(acc[mi][ni], a_lo[mi], b_hi);
-          mma_tf32(acc[mi][ni], a_hi[mi], b_lo);
-          mma_tf32(acc[mi][ni], a_hi[mi], b_hi);
+          // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+          const float x[4] = {step ? av[mi][0].z : av[mi][0].x, step ? av[mi][1].z : av[mi][1].x,
+                              step ? av[mi][0].w : av[mi][0].y, step ? av[mi][1].w : av[mi][1].y};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) split(x[r], a_hi[mi][r], a_lo[mi][r]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < S::kNt; ++ni) {
+          const uint32_t b_hi[2] = {__float_as_uint(step ? bh[ni].z : bh[ni].x),
+                                    __float_as_uint(step ? bh[ni].w : bh[ni].y)};
+          const uint32_t b_lo[2] = {__float_as_uint(step ? bl[ni].z : bl[ni].x),
+                                    __float_as_uint(step ? bl[ni].w : bl[ni].y)};
+#pragma unroll
+          for (int mi = 0; mi < S::kMt; ++mi) {
+            mma_tf32(acc[mi][ni], a_lo[mi], b_hi);
+            mma_tf32(acc[mi][ni], a_hi[mi], b_lo);
+            mma_tf32(acc[mi][ni], a_hi[mi], b_hi);
+          }
         }
       }
     }
@@ -411,7 +471,7 @@ __device__ __forceinline__ void conv_tc_tile(const Conv& a, const float* __restr
       for (int c = 0; c < 4; ++c) {
         const int row = wm * (BM / WARPS_M) + mi * 16 + g + (c / 2) * 8;
         const int col = wn * (BN / WARPS_N) + ni * 8 + 2 * t + c % 2;
-        store<EPI>(a, p0 + row, n0 + col, acc[mi][ni][c]);
+        store<EPI, BF>(a, p0 + row, n0 + col, acc[mi][ni][c]);
       }
   if (a.tail_c > 0 && n0 == 0) {
     constexpr int kStorers = 32 * WARPS_M * WARPS_N;  // slice 0's threads
@@ -426,13 +486,13 @@ __device__ __forceinline__ void conv_tc_tile(const Conv& a, const float* __restr
 }
 
 // One convolution: block (x, y) computes the tile at (x * BM, y * BN).
-template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI>
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI, bool BF>
 __global__ void __launch_bounds__(TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>::kThreads,
                                   TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>::kMinBlocks)
     conv_tc_kernel(const Conv a, const float* __restrict__ hi, const float* __restrict__ lo,
                    int k_pad) {
-  conv_tc_tile<BM, BN, WARPS_M, WARPS_N, KSPLIT, EPI>(a, hi, lo, k_pad, blockIdx.x * BM,
-                                                      blockIdx.y * BN);
+  conv_tc_tile<BM, BN, WARPS_M, WARPS_N, KSPLIT, EPI, BF>(a, hi, lo, k_pad, blockIdx.x * BM,
+                                                          blockIdx.y * BN);
 }
 
 // A convolution with its weight planes, as one member of a grouped launch.
@@ -468,11 +528,11 @@ __global__ void __launch_bounds__(TcShape<BM, BN, WARPS_M, WARPS_N, 1>::kThreads
                                                  (t % l.n_tiles) * BN);
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI>
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI, bool BF = false>
 int launch_tc(const Conv& a, const float* hi, const float* lo, int k_pad, int n_tiles,
               cudaStream_t stream) {
   using S = TcShape<BM, BN, WARPS_M, WARPS_N, KSPLIT>;
-  const auto kernel = conv_tc_kernel<BM, BN, WARPS_M, WARPS_N, KSPLIT, EPI>;
+  const auto kernel = conv_tc_kernel<BM, BN, WARPS_M, WARPS_N, KSPLIT, EPI, BF>;
   if (S::kSmemBytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);

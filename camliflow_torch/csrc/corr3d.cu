@@ -7,6 +7,11 @@
 // 256), k=16, pyramid [1,2048,3840]. Training runs the index-only form
 // (pyramid and cost_out null): the same selection, bit for bit, without
 // reading the pyramid; the differentiable cost gather follows in PyTorch.
+// The fast path (fast_inference=on) reads an int8 pyramid, each query row
+// quantised with its own scale: the same selection, bit for bit, and the
+// selected int8 values written to cost_out as f32, which is exact (the
+// scale is applied by the tail, corr3d_tail.cu). Its pyramid reads are a
+// quarter of the f32 form's bytes.
 //
 // Semantics: for each level l, the k nearest of the first m_l warped points
 // (the frame-2 levels are row-prefixes of one FPS order), ascending distance
@@ -50,12 +55,16 @@ struct Plan {
   int queries;  // per block
 };
 
-template <int KL, bool kCost>
+enum CostForm { kNoCost = 0, kCostF32 = 1, kCostInt8 = 2 };
+
+// kForm: no cost (index-only), or the costs read from an f32 or int8 pyramid
+template <int KL, int kForm>
 __global__ void __launch_bounds__(kMaxThreads) corr3d_kernel(
     const float* __restrict__ xyz1, const float* __restrict__ xyz2,
-    const float* __restrict__ pyramid, int32_t* __restrict__ idx_out,
+    const void* __restrict__ pyramid, int32_t* __restrict__ idx_out,
     float* __restrict__ cost_out, int n, int m_rows, int m_total, int k,
     const __grid_constant__ Plan plan) {
+  constexpr bool kCost = kForm != kNoCost;
   extern __shared__ float4 pts[];  // [m_0], then the lists, then the selection
   const int m0 = plan.start[plan.n_slices];
   const int stride = plan.n_slices * KL + 1;  // one query's lists (+1: no bank conflicts)
@@ -118,9 +127,11 @@ __global__ void __launch_bounds__(kMaxThreads) corr3d_kernel(
     }
     if (!kCost) continue;
     __syncwarp();
-    const float* costs = pyramid + row * m_total;
     for (int e = lane; e < lk; e += 32) {
-      cost_out[row * lk + e] = costs[plan.offset[e / k] + sel[e]];
+      const size_t at = row * m_total + plan.offset[e / k] + sel[e];
+      cost_out[row * lk + e] = kForm == kCostInt8
+                                   ? (float)static_cast<const int8_t*>(pyramid)[at]
+                                   : static_cast<const float*>(pyramid)[at];
     }
   }
 }
@@ -130,10 +141,12 @@ __global__ void __launch_bounds__(kMaxThreads) corr3d_kernel(
 // level_sizes: descending prefix lengths; slice_starts [n_slices + 1]: from
 // 0, ascending, ending at level_sizes[0], every level size among them;
 // queries per block, at most kMaxThreads / n_slices. pyramid and cost_out
-// both null: the index-only form (m_total is then not read).
-extern "C" int camli_corr3d(const float* xyz1, const float* xyz2, const float* pyramid,
-                            int32_t* idx_out, float* cost_out, int batch, int n, int m_rows,
-                            int m_total, int n_levels, const int* level_sizes, int n_slices,
+// both null: the index-only form (m_total is then not read). pyramid_int8:
+// the pyramid is int8 (the fast path), else f32.
+extern "C" int camli_corr3d(const float* xyz1, const float* xyz2, const void* pyramid,
+                            int32_t* idx_out, float* cost_out, int pyramid_int8, int batch,
+                            int n, int m_rows, int m_total, int n_levels,
+                            const int* level_sizes, int n_slices,
                             const int* slice_starts, int queries, int k, cudaStream_t stream) {
   const bool with_cost = pyramid != nullptr;
   if (n_levels < 1 || n_levels > kMaxLevels || n_slices < 1 || n_slices > kMaxSlices ||
@@ -167,7 +180,9 @@ extern "C" int camli_corr3d(const float* xyz1, const float* xyz2, const float* p
         (size_t)level_sizes[0] * sizeof(float4) +
         sizeof(float) * queries *
             (2 * ((size_t)n_slices * KL + 1) + (with_cost ? n_levels * k : 0));
-    auto kernel = with_cost ? corr3d_kernel<KL, true> : corr3d_kernel<KL, false>;
+    auto kernel = !with_cost     ? corr3d_kernel<KL, kNoCost>
+                  : pyramid_int8 ? corr3d_kernel<KL, kCostInt8>
+                                 : corr3d_kernel<KL, kCostF32>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

@@ -2,11 +2,13 @@
 // per-level sums and the merge layer.
 //
 // camli_corr3d_tail replaces
-//   camliflow_tpu/ops/pallas_corr3d.py::corr3d_tail_pallas on its exact path
-//   (f32 costs, no dequantisation scale). Per query q, for each of the L*k
-//   neighbours t that kernel #4 (corr3d.cu) selected, level by level:
+//   camliflow_tpu/ops/pallas_corr3d.py::corr3d_tail_pallas, with or without
+//   its dequantisation scale. Per query q, for each of the L*k neighbours t
+//   that kernel #4 (corr3d.cu) selected, level by level:
 //     rel = xyz2[idx[q, t]] - xyz1[q]
-//     h   = relu(W1 [rel, cost[q, t]] + b1)                      4 -> C1
+//     c   = cost[q, t], times scale[q] on the fast path (the int8 pyramid's
+//           row scale; one rounded multiply, as the JAX dequantisation)
+//     h   = relu(W1 [rel, c] + b1)                                4 -> C1
 //     h2  = relu(W2 h + b2)                                     C1 -> C1
 //     acc_l = the sum of h2 over level l's k neighbours
 //     out[q] = leaky_relu_0.1(Wm [acc_0, ..., acc_{L-1}] + bm)  L*C1 -> Cout
@@ -82,7 +84,7 @@ size_t smem_bytes(int n_levels, int c1, int c_out) {
 __global__ void __launch_bounds__(kThreads, 2) corr3d_tail_kernel(
     const float* __restrict__ xyz1, const float* __restrict__ xyz2,
     const int32_t* __restrict__ idx, const float* __restrict__ cost,
-    const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ scale, const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ wm, const float* __restrict__ bm,
     float* __restrict__ out, int queries, int n, int m_rows, int n_levels, int k,
@@ -150,7 +152,7 @@ __global__ void __launch_bounds__(kThreads, 2) corr3d_tail_kernel(
         const float rx = __fsub_rn(s[0], xyz1[(size_t)q * 3]);
         const float ry = __fsub_rn(s[1], xyz1[(size_t)q * 3 + 1]);
         const float rz = __fsub_rn(s[2], xyz1[(size_t)q * 3 + 2]);
-        const float cv = cost[at];
+        const float cv = scale != nullptr ? __fmul_rn(cost[at], scale[q]) : cost[at];
         float h[kHidden];
 #pragma unroll
         for (int i = 0; i < kHidden / 4; ++i) {
@@ -243,9 +245,11 @@ __global__ void __launch_bounds__(kThreads, 2) corr3d_tail_kernel(
 
 }  // namespace
 
-// w1 [4, c1], w2 [c1, c1], wm [n_levels * c1, c_out], each [in, out] f32.
+// w1 [4, c1], w2 [c1, c1], wm [n_levels * c1, c_out], each [in, out] f32;
+// scale [batch * n] (one a query) or null.
 extern "C" int camli_corr3d_tail(const float* xyz1, const float* xyz2, const int32_t* idx,
-                                 const float* cost, const float* w1, const float* b1,
+                                 const float* cost, const float* scale, const float* w1,
+                                 const float* b1,
                                  const float* w2, const float* b2, const float* wm,
                                  const float* bm, float* out, int batch, int n, int m_rows,
                                  int n_levels, int k, int c1, int c_out, cudaStream_t stream) {
@@ -274,8 +278,8 @@ extern "C" int camli_corr3d_tail(const float* xyz1, const float* xyz2, const int
   const int group = group_queries(n_levels * k);
   int blocks = (queries + group - 1) / group;
   if (per_sm > 0 && blocks > per_sm * sms) blocks = per_sm * sms;
-  corr3d_tail_kernel<<<blocks, kThreads, smem, stream>>>(xyz1, xyz2, idx, cost, w1, b1, w2, b2,
-                                                         wm, bm, out, queries, n, m_rows,
+  corr3d_tail_kernel<<<blocks, kThreads, smem, stream>>>(xyz1, xyz2, idx, cost, scale, w1, b1,
+                                                         w2, b2, wm, bm, out, queries, n, m_rows,
                                                          n_levels, k, c1, c_out);
   return (int)cudaGetLastError();
 }

@@ -30,8 +30,14 @@
 //   the barriers cost 0.027 ms, but every stage ran 33-73% slower inside it
 //   than as its own launch, so it was deleted.
 //
-// All three compute the port's exact path; the TPU kernels' bf16 operands
-// belong to its fast path, not ported yet.
+// All three compute the port's exact path on the 3xTF32 tile, and with
+// bf16 != 0 the fast path's (fast_inference=on): the tile's bf16 mode
+// (conv_tile_tc.cuh), one m16n8k16 bf16 pass a chunk with f32 accumulation,
+// on weights rounded to bf16 once per request, with the TPU kernels'
+// rounding points (camliflow_tpu/ops/pallas_update2d.py): every conv's
+// input rounded to bf16, r*h and the flow head's mid taken from bf16, and
+// the GRU's new hidden state nan_to_num-ed and rounded to bf16 after each
+// direction, h' written as the f32 of that bf16 value.
 //
 // Bound on the card, at the flagship shape (1 x 68 x 120 = 8160 pixels):
 // the motion encoder is 14.5 GFLOP per call (c1 1.35, c2 7.22, f2 1.20,
@@ -50,21 +56,20 @@ namespace {
 // with N_pad = round_up(cout, 64) and K_pad = round_up(kh*kw*cin, 16), zero
 // past (cout, kh*kw*cin). A conv of at most 8 output channels and no
 // epilogue (the flow head's last) takes the narrow split-reduction variant;
-// one of 256 channels or more the 64 x 128 tile.
-int run_conv_tc(Conv a, const float* hi, const float* lo, int epi, int kh, int kw, int cout,
-                cudaStream_t stream) {
-  a = shaped(a, kh, kw, cout);
-  const int k_pad = round_up(a.k_total, kTcBk);
-  if (cout <= 8 && epi == EPI_NONE) {
-    return launch_tc<32, 8, 1, 1, 4, EPI_NONE>(a, hi, lo, k_pad, 1, stream);
+// one of 256 channels or more the 64 x 128 tile. BF: the tile's bf16 mode.
+template <bool BF>
+int run_conv_mode(const Conv& a, const float* hi, const float* lo, int epi, int k_pad,
+                  cudaStream_t stream) {
+  if (a.cout <= 8 && epi == EPI_NONE) {
+    return launch_tc<32, 8, 1, 1, 4, EPI_NONE, BF>(a, hi, lo, k_pad, 1, stream);
   }
-  if (cout >= 256 && a.n_pad % 128 == 0) {
+  if (a.cout >= 256 && a.n_pad % 128 == 0) {
     const int n_tiles = a.n_pad / 128;
     switch (epi) {
       case EPI_RELU:
-        return launch_tc<64, 128, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, n_tiles, stream);
+        return launch_tc<64, 128, 2, 2, 1, EPI_RELU, BF>(a, hi, lo, k_pad, n_tiles, stream);
       case EPI_ZR:
-        return launch_tc<64, 128, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, n_tiles, stream);
+        return launch_tc<64, 128, 2, 2, 1, EPI_ZR, BF>(a, hi, lo, k_pad, n_tiles, stream);
       default:
         break;  // the other epilogues take the 64 x 64 tile
     }
@@ -72,14 +77,22 @@ int run_conv_tc(Conv a, const float* hi, const float* lo, int epi, int kh, int k
   const int n_tiles = a.n_pad / 64;
   switch (epi) {
     case EPI_RELU:
-      return launch_tc<64, 64, 2, 2, 1, EPI_RELU>(a, hi, lo, k_pad, n_tiles, stream);
+      return launch_tc<64, 64, 2, 2, 1, EPI_RELU, BF>(a, hi, lo, k_pad, n_tiles, stream);
     case EPI_NONE:
-      return launch_tc<64, 64, 2, 2, 1, EPI_NONE>(a, hi, lo, k_pad, n_tiles, stream);
+      return launch_tc<64, 64, 2, 2, 1, EPI_NONE, BF>(a, hi, lo, k_pad, n_tiles, stream);
     case EPI_ZR:
-      return launch_tc<64, 64, 2, 2, 1, EPI_ZR>(a, hi, lo, k_pad, n_tiles, stream);
+      return launch_tc<64, 64, 2, 2, 1, EPI_ZR, BF>(a, hi, lo, k_pad, n_tiles, stream);
     default:
-      return launch_tc<64, 64, 2, 2, 1, EPI_GATE>(a, hi, lo, k_pad, n_tiles, stream);
+      return launch_tc<64, 64, 2, 2, 1, EPI_GATE, BF>(a, hi, lo, k_pad, n_tiles, stream);
   }
+}
+
+int run_conv_tc(Conv a, const float* hi, const float* lo, int epi, int kh, int kw, int cout,
+                int bf16, cudaStream_t stream) {
+  a = shaped(a, kh, kw, cout);
+  const int k_pad = round_up(a.k_total, kTcBk);
+  return bf16 ? run_conv_mode<true>(a, hi, lo, epi, k_pad, stream)
+              : run_conv_mode<false>(a, hi, lo, epi, k_pad, stream);
 }
 
 }  // namespace
@@ -90,34 +103,36 @@ int run_conv_tc(Conv a, const float* hi, const float* lo, int epi, int kh, int k
     if (err_ != 0) return err_; \
   } while (0)
 
-// convs: (hi, lo, bias) of conv_c1, conv_c2, conv_f2, the merge conv;
-// cf1, cf, ff: [pixels, c_c1 | c_c2 | c_f2] scratch
+// convs: (hi, lo, bias) of conv_c1, conv_c2, conv_f2, the merge conv (bf16:
+// hi the bf16-rounded weights, lo unread); cf1, cf, ff: [pixels, c_c1 |
+// c_c2 | c_f2] scratch
 extern "C" int camli_motion_encoder_2d(const float* flow, const float* ff1, const float* corr,
                                        const float* const* convs, float* cf1, float* cf,
-                                       float* ff, float* out, int batch, int height, int width,
+                                       float* ff, float* out, int bf16, int batch, int height,
+                                       int width,
                                        int c_corr, int c_c1, int c_c2, int c_f1, int c_f2,
                                        int c_m, cudaStream_t stream) {
   const int pixels = batch * height * width;
   Conv a = input(pixels, height, width, corr, c_corr);
   a.bias = convs[2], a.out = cf1;
-  CAMLI_TRY(run_conv_tc(a, convs[0], convs[1], EPI_RELU, 1, 1, c_c1, stream));
+  CAMLI_TRY(run_conv_tc(a, convs[0], convs[1], EPI_RELU, 1, 1, c_c1, bf16, stream));
   a = input(pixels, height, width, cf1, c_c1);
   a.bias = convs[5], a.out = cf;
-  CAMLI_TRY(run_conv_tc(a, convs[3], convs[4], EPI_RELU, 3, 3, c_c2, stream));
+  CAMLI_TRY(run_conv_tc(a, convs[3], convs[4], EPI_RELU, 3, 3, c_c2, bf16, stream));
   a = input(pixels, height, width, ff1, c_f1);
   a.bias = convs[8], a.out = ff;
-  CAMLI_TRY(run_conv_tc(a, convs[6], convs[7], EPI_RELU, 3, 3, c_f2, stream));
+  CAMLI_TRY(run_conv_tc(a, convs[6], convs[7], EPI_RELU, 3, 3, c_f2, bf16, stream));
   a = input(pixels, height, width, cf, c_c2, ff, c_f2);
   a.bias = convs[11], a.out = out, a.out_stride = c_m + 2;
   a.tail = flow, a.tail_c = 2, a.nan_fix = 1;
-  return run_conv_tc(a, convs[9], convs[10], EPI_RELU, 3, 3, c_m, stream);
+  return run_conv_tc(a, convs[9], convs[10], EPI_RELU, 3, 3, c_m, bf16, stream);
 }
 
 // convs: (hi, lo, bias) of zr1, q1, zr2, q2; z, rh: [pixels, c_h] scratch
 extern "C" int camli_gru_2d(const float* h, const float* x2d, const float* motion,
                             const float* const* convs, float* z, float* rh, float* h1,
-                            float* h_out, int batch, int height, int width, int c_h, int c_x,
-                            int c_m, cudaStream_t stream) {
+                            float* h_out, int bf16, int batch, int height, int width, int c_h,
+                            int c_x, int c_m, cudaStream_t stream) {
   const int pixels = batch * height * width;
   const float* state = h;
   float* next[2] = {h1, h_out};
@@ -129,11 +144,13 @@ extern "C" int camli_gru_2d(const float* h, const float* x2d, const float* motio
     Conv a = input(pixels, height, width, state, c_h, x2d, c_x, motion, c_m);
     a.bias = zr[2], a.out = z, a.out2 = rh, a.h = state;
     a.half = c_h;
-    CAMLI_TRY(run_conv_tc(a, zr[0], zr[1], EPI_ZR, kh, kw, 2 * c_h, stream));
+    CAMLI_TRY(run_conv_tc(a, zr[0], zr[1], EPI_ZR, kh, kw, 2 * c_h, bf16, stream));
     a = input(pixels, height, width, rh, c_h, x2d, c_x, motion, c_m);
     a.bias = q[2], a.out = next[d], a.h = state, a.z = z;
-    a.nan_fix = d == 1;  // nan_to_num once, after both directions
-    CAMLI_TRY(run_conv_tc(a, q[0], q[1], EPI_GATE, kh, kw, c_h, stream));
+    // nan_to_num once, after both directions (bf16: after each, where h'
+    // is rounded to bf16)
+    a.nan_fix = bf16 || d == 1;
+    CAMLI_TRY(run_conv_tc(a, q[0], q[1], EPI_GATE, kh, kw, c_h, bf16, stream));
     state = next[d];
   }
   return 0;
@@ -141,36 +158,37 @@ extern "C" int camli_gru_2d(const float* h, const float* x2d, const float* motio
 
 // convs: (hi, lo, bias) of head1, head2; mid: [pixels, c_mid] scratch
 extern "C" int camli_flow_head_2d(const float* h, const float* const* convs, float* mid,
-                                  float* delta, int batch, int height, int width, int c_h,
-                                  int c_mid, cudaStream_t stream) {
+                                  float* delta, int bf16, int batch, int height, int width,
+                                  int c_h, int c_mid, cudaStream_t stream) {
   const int pixels = batch * height * width;
   Conv a = input(pixels, height, width, h, c_h);
   a.bias = convs[2], a.out = mid;
-  CAMLI_TRY(run_conv_tc(a, convs[0], convs[1], EPI_RELU, 3, 3, c_mid, stream));
+  CAMLI_TRY(run_conv_tc(a, convs[0], convs[1], EPI_RELU, 3, 3, c_mid, bf16, stream));
   a = input(pixels, height, width, mid, c_mid);
   a.bias = convs[5], a.out = delta, a.nan_fix = 1;
-  return run_conv_tc(a, convs[3], convs[4], EPI_NONE, 3, 3, 2, stream);
+  return run_conv_tc(a, convs[3], convs[4], EPI_NONE, 3, 3, 2, bf16, stream);
 }
 
 // convs: (hi, lo, bias) of zr1, q1, zr2, q2, head1, head2
 extern "C" int camli_gru_flowhead_2d(const float* h, const float* x2d, const float* motion,
                                      const float* const* convs, float* z, float* rh, float* h1,
-                                     float* mid, float* h_out, float* delta, int batch,
-                                     int height, int width, int c_h, int c_x, int c_m,
-                                     int c_mid, cudaStream_t stream) {
-  CAMLI_TRY(camli_gru_2d(h, x2d, motion, convs, z, rh, h1, h_out, batch, height, width, c_h,
-                         c_x, c_m, stream));
-  return camli_flow_head_2d(h_out, convs + 12, mid, delta, batch, height, width, c_h, c_mid,
-                            stream);
+                                     float* mid, float* h_out, float* delta, int bf16,
+                                     int batch, int height, int width, int c_h, int c_x,
+                                     int c_m, int c_mid, cudaStream_t stream) {
+  CAMLI_TRY(camli_gru_2d(h, x2d, motion, convs, z, rh, h1, h_out, bf16, batch, height, width,
+                         c_h, c_x, c_m, stream));
+  return camli_flow_head_2d(h_out, convs + 12, mid, delta, bf16, batch, height, width, c_h,
+                            c_mid, stream);
 }
 
 // convs: (hi, lo, bias) of conv_c1, conv_c2, conv_f2, the merge conv, zr1,
 // q1, zr2, q2, head1, head2
 extern "C" int camli_update_2d(const float* h, const float* x2d, const float* flow,
                                const float* ff1, const float* corr, const float* const* convs,
-                               float* scratch, float* h_out, float* delta, int batch, int height,
-                               int width, int c_corr, int c_c1, int c_c2, int c_f1, int c_f2,
-                               int c_m, int c_h, int c_x, int c_mid, cudaStream_t stream) {
+                               float* scratch, float* h_out, float* delta, int bf16, int batch,
+                               int height, int width, int c_corr, int c_c1, int c_c2, int c_f1,
+                               int c_f2, int c_m, int c_h, int c_x, int c_mid,
+                               cudaStream_t stream) {
   // scratch, channels per pixel: [max(c_c1, c_mid) | c_c2 | c_f2 | c_m + 2 |
   // 3 x c_h]; the first region holds cf1, then the flow head's mid
   const size_t p = (size_t)batch * height * width;
@@ -181,8 +199,8 @@ extern "C" int camli_update_2d(const float* h, const float* x2d, const float* fl
   float* z = motion + p * (c_m + 2);
   float* rh = z + p * c_h;
   float* h1 = rh + p * c_h;
-  CAMLI_TRY(camli_motion_encoder_2d(flow, ff1, corr, convs, wide, cf, ff, motion, batch, height,
-                                    width, c_corr, c_c1, c_c2, c_f1, c_f2, c_m, stream));
-  return camli_gru_flowhead_2d(h, x2d, motion, convs + 12, z, rh, h1, wide, h_out, delta, batch,
-                               height, width, c_h, c_x, c_m + 2, c_mid, stream);
+  CAMLI_TRY(camli_motion_encoder_2d(flow, ff1, corr, convs, wide, cf, ff, motion, bf16, batch,
+                                    height, width, c_corr, c_c1, c_c2, c_f1, c_f2, c_m, stream));
+  return camli_gru_flowhead_2d(h, x2d, motion, convs + 12, z, rh, h1, wide, h_out, delta, bf16,
+                               batch, height, width, c_h, c_x, c_m + 2, c_mid, stream);
 }

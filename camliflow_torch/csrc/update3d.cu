@@ -29,6 +29,20 @@
 // layers sum in another order than the plain versions' matmuls (on the
 // tensor cores by the 3xTF32 split, conv_tile_tc.cuh, or in f32 FMA).
 //
+// The fast form (bf16 != 0; fast_inference=on) reads bf16 hoisted weights
+// and computes the JAX package's PointConvDW with fast=True
+// (camliflow_tpu/nn/point_conv.py): the table value, after its activation,
+// rounded to bf16 as a row is read (the MLP output cast to bf16 before the
+// gather), its product with the weight rounded to bf16 (nearest, ties to
+// even: the product of two bf16 values is exact in f32, so one rounding, as
+// a bf16 multiply), the max over k in neighbour order, the result as f32.
+// So a fast tail equals dw_max_plain on bf16 weights bit for bit. The
+// dense layers and the post ops stay f32. The weight stream, these
+// kernels' dominant traffic, halves. The roundings are cvt.rn.bf16x2 and
+// mul.rn.bf16x2 instructions, two values each (rounding by integer
+// arithmetic took about 15 more operations a product, and made the tails
+// slower than the f32 form on an H100, PERF.md).
+//
 // All three kernels are chains of two kinds of step, one launch a step:
 // - a dense step runs conv_tile_tc.cuh's 3xTF32 tile over the points (a 1x1
 //   conv, EPI_NONE: the table before its activation), as a kernel of its
@@ -90,7 +104,7 @@ struct Tail {
   const float* table;   // [B * n_table, ld], the dense layer's output before its activation
   const float* table2;  // GATE: added to the table (q's x3d/motion part), [B * n_table, ld2]
   int ld, ld2;
-  const float* dw;      // [points, k, dw_ld], the first c channels of a row
+  const void* dw;       // [points, k, dw_ld] f32 (bf16 in the fast form), the first c of a row
   int dw_ld, k, c, leaky;  // leaky: the table's leaky ReLU, applied as a row is read
   float* out;           // ZR: z [points, half]; GATE: h'; PLAIN: g [points, out_ld] (or none)
   int out_ld;
@@ -146,6 +160,44 @@ __device__ __forceinline__ Vec<W> load(const float* p) {
     r.x[0] = CACHE == LD_CG ? __ldcg(p) : CACHE == LD_CS ? __ldcs(p) : __ldg(p);
   }
   return r;
+}
+
+// The fast form's products: bf16(t) * w, each rounded to bf16 (w is a bf16
+// value, so the f32 product is exact and one rounding makes it the bf16
+// product), as f32. Two at a time: t0, t1 rounded by one cvt, w0, w1
+// repacked (their high halves), one mul.rn.bf16x2 (sm_90), the two products
+// unpacked.
+__device__ __forceinline__ float bf16_product(float t, float w) {
+  return round_bf16(__fmul_rn(round_bf16(t), w));
+}
+
+__device__ __forceinline__ void bf16_products(float t0, float t1, float w0, float w1,
+                                              float& x0, float& x1) {
+  uint32_t t2, p2;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(t2) : "f"(t1), "f"(t0));
+  const uint32_t w2 = __byte_perm(__float_as_uint(w0), __float_as_uint(w1), 0x7632);
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(p2) : "r"(t2), "r"(w2));
+  x0 = __uint_as_float(p2 << 16);
+  x1 = __uint_as_float(p2 & 0xffff0000u);
+}
+
+// W consecutive hoisted weights, f32 or (BF) bf16, streamed once (__ldcs)
+template <int W, bool BF>
+__device__ __forceinline__ Vec<W> load_w(const void* base, size_t at) {
+  if constexpr (BF) {
+    const unsigned short* p = static_cast<const unsigned short*>(base) + at;
+    Vec<W> r;
+    if constexpr (W == 4) {  // one 8-byte load; element 0 in the low half
+      const uint2 v = __ldcs(reinterpret_cast<const uint2*>(p));
+      r.x[0] = __uint_as_float(v.x << 16), r.x[1] = __uint_as_float(v.x & 0xffff0000u);
+      r.x[2] = __uint_as_float(v.y << 16), r.x[3] = __uint_as_float(v.y & 0xffff0000u);
+    } else {
+      r.x[0] = __uint_as_float((uint32_t)__ldcs(p) << 16);
+    }
+    return r;
+  } else {
+    return load<W, LD_CS>(static_cast<const float*>(base) + at);
+  }
 }
 
 template <int W>
@@ -253,8 +305,8 @@ __device__ __forceinline__ void fma_dense(const float* x, int cin, const float* 
 // the max in neighbour order, bit for bit as dw_max_plain does. FUSE: the
 // post op's result also goes to the block's rows in shared memory, and the
 // next dense layer runs over them (the block's warps walk the points
-// together).
-template <int LANES, int VEC, int W, int KMAX, int POST, bool FUSE = false>
+// together). BF: the fast form (bf16 weights, bf16 products).
+template <int LANES, int VEC, int W, int KMAX, int POST, bool FUSE, bool BF>
 __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
   constexpr int kPer = 32 / LANES;
   constexpr int kRowsB = kGfWarps * kPer;  // points a block takes at once
@@ -276,7 +328,7 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
     const int b = live ? p / g.n : 0;
     const float* tb = g.table + (size_t)b * g.n_table * g.ld;
     const float* tb2 = POST == GP_GATE ? g.table2 + (size_t)b * g.n_table * g.ld2 : nullptr;
-    const float* wp = g.dw + (size_t)(live ? p : 0) * g.k * g.dw_ld;
+    const size_t wp = (size_t)(live ? p : 0) * g.k * g.dw_ld;  // the point's first weight
     const int* ip = g.idx + (size_t)(live ? p : 0) * g.idx_stride;
     float acc[POST == GP_FC ? kMaxFc : 1];
 #pragma unroll
@@ -316,7 +368,7 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
                 }
 #pragma unroll
                 for (int e = 0; e < W; ++e) tv[jj][v * W + e] = t.x[e];
-                const Vec<W> w = load<W, LD_CS>(wp + (size_t)j * g.dw_ld + c);
+                const Vec<W> w = load_w<W, BF>(g.dw, wp + (size_t)j * g.dw_ld + c);
 #pragma unroll
                 for (int e = 0; e < W; ++e) wv[jj][v * W + e] = w.x[e];
               }
@@ -325,15 +377,29 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
 #pragma unroll
           for (int jj = 0; jj < kGroup; ++jj) {
             const int j = jb + j0 + jj;
+            float x[kE];
 #pragma unroll
             for (int e = 0; e < kE; ++e) {
               float t = tv[jj][e];
               if (g.leaky) t = leaky(t);
-              const float x = __fmul_rn(t, wv[jj][e]);
+              tv[jj][e] = t;
+            }
+            if constexpr (BF) {  // the bf16 products, two at a time where the lane holds two
+#pragma unroll
+              for (int e = 0; e + 1 < kE; e += 2) {
+                bf16_products(tv[jj][e], tv[jj][e + 1], wv[jj][e], wv[jj][e + 1], x[e], x[e + 1]);
+              }
+              if constexpr (kE % 2) x[kE - 1] = bf16_product(tv[jj][kE - 1], wv[jj][kE - 1]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < kE; ++e) x[e] = __fmul_rn(tv[jj][e], wv[jj][e]);
+            }
+#pragma unroll
+            for (int e = 0; e < kE; ++e) {
               if (j == 0) {
-                m[e] = x;
+                m[e] = x[e];
               } else if (j < g.k) {
-                m[e] = take_max(m[e], x);
+                m[e] = take_max(m[e], x[e]);
               }
             }
           }
@@ -437,7 +503,7 @@ GfLayer gf_layer(Conv a, const float* const* planes, int cout) {
 }
 
 Tail gather_of(int points, int n, const int* idx, int idx_stride, const float* table, int ld,
-               const float* dw, int k, int c) {
+               const void* dw, int k, int c) {
   Tail g = {};
   g.points = points, g.n = n, g.n_table = n, g.idx = idx, g.idx_stride = idx_stride;
   g.table = table, g.ld = ld, g.dw = dw, g.dw_ld = c, g.k = k, g.c = c;
@@ -511,17 +577,18 @@ struct Gru3D {
   Tail tail[4];  // z|r, q, conv1, conv2
 };
 
+template <bool BF>
 __global__ void __launch_bounds__(kGfThreads, 4)
     gru_flowhead_3d_tail(const __grid_constant__ Gru3D u, int t) {
   const int rank = blockIdx.x, blocks = gridDim.x;
   if (t == 0) {
-    tail<32, 2, 4, kGruK, GP_ZR>(u.tail[0], rank, blocks);
+    tail<32, 2, 4, kGruK, GP_ZR, false, BF>(u.tail[0], rank, blocks);
   } else if (t == 1) {
-    tail<32, 1, 4, kGruK, GP_GATE, true>(u.tail[1], rank, blocks);
+    tail<32, 1, 4, kGruK, GP_GATE, true, BF>(u.tail[1], rank, blocks);
   } else if (t == 2) {
-    tail<32, 1, 4, kHeadK, GP_PLAIN, true>(u.tail[2], rank, blocks);
+    tail<32, 1, 4, kHeadK, GP_PLAIN, true, BF>(u.tail[2], rank, blocks);
   } else {
-    tail<16, 1, 4, kHeadK, GP_FC>(u.tail[3], rank, blocks);
+    tail<16, 1, 4, kHeadK, GP_FC, false, BF>(u.tail[3], rank, blocks);
   }
 }
 
@@ -545,30 +612,35 @@ struct Me3D {
   int c1_blocks;  // the launch of f2's and c1's tails: c1's first
 };
 
+template <bool BF>
 __global__ void __launch_bounds__(kGfThreads, 4)
     motion_encoder_3d_tail(const __grid_constant__ Me3D u, int t) {
   if (t == 1) {
-    tail<32, 1, 1, kHeadK, GP_PLAIN, true>(u.tail[1], blockIdx.x, gridDim.x);
+    tail<32, 1, 1, kHeadK, GP_PLAIN, true, BF>(u.tail[1], blockIdx.x, gridDim.x);
   } else if (t == 2 && (int)blockIdx.x < u.c1_blocks) {
-    tail<32, 1, 4, kHeadK, GP_PLAIN>(u.tail[0], blockIdx.x, u.c1_blocks);
+    tail<32, 1, 4, kHeadK, GP_PLAIN, false, BF>(u.tail[0], blockIdx.x, u.c1_blocks);
   } else if (t == 2) {
-    tail<32, 1, 1, kHeadK, GP_PLAIN>(u.tail[2], blockIdx.x - u.c1_blocks,
-                                     gridDim.x - u.c1_blocks);
+    tail<32, 1, 1, kHeadK, GP_PLAIN, false, BF>(u.tail[2], blockIdx.x - u.c1_blocks,
+                                                gridDim.x - u.c1_blocks);
   } else {
-    tail<32, 1, 4, kHeadK, GP_PLAIN>(u.tail[3], blockIdx.x, gridDim.x);
+    tail<32, 1, 4, kHeadK, GP_PLAIN, false, BF>(u.tail[3], blockIdx.x, gridDim.x);
   }
 }
 
 // --- #13: one tail on its own ---------------------------------------------------
 
-template <int LANES, int VEC, int W>
+template <int LANES, int VEC, int W, bool BF>
 __global__ void __launch_bounds__(kGfThreads) dw_max_tail(const __grid_constant__ Tail g) {
-  tail<LANES, VEC, W, kHeadK, GP_PLAIN>(g, blockIdx.x, gridDim.x);
+  tail<LANES, VEC, W, kHeadK, GP_PLAIN, false, BF>(g, blockIdx.x, gridDim.x);
 }
 
 template <int LANES, int VEC, int W>
-int launch_dw_max(const Tail& g, cudaStream_t stream) {
-  dw_max_tail<LANES, VEC, W><<<tail_blocks(g, LANES), kGfThreads, 0, stream>>>(g);
+int launch_dw_max(const Tail& g, bool bf16, cudaStream_t stream) {
+  if (bf16) {
+    dw_max_tail<LANES, VEC, W, true><<<tail_blocks(g, LANES), kGfThreads, 0, stream>>>(g);
+  } else {
+    dw_max_tail<LANES, VEC, W, false><<<tail_blocks(g, LANES), kGfThreads, 0, stream>>>(g);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -584,16 +656,17 @@ bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % kTailAlign
 
 // planes: (hi, lo, bias) of c1 and of the merge (tf32 planes [N_pad][K_pad]);
 // w_f1, b_f1, w_f2, b_f2: f1's and f2's f32 weights [K_pad, npad] and
-// biases. dw_m's rows hold round_up(c_m, 4) floats (the first c_m read);
-// the other hoisted weights' rows c floats. scratch holds per_point floats
-// a point.
+// biases. dw_m's rows hold round_up(c_m, 4) values (the first c_m read);
+// the other hoisted weights' rows c values. The hoisted weights are f32, or
+// bf16 with bf16 != 0 (the fast form). scratch holds per_point floats a
+// point.
 extern "C" int camli_motion_encoder_3d(
-    const float* flow, const float* corr, const int* idx, const float* dw_c1,
-    const float* dw_f1, const float* dw_f2, const float* dw_m, const float* const* planes,
+    const float* flow, const float* corr, const int* idx, const void* dw_c1,
+    const void* dw_f1, const void* dw_f2, const void* dw_m, const float* const* planes,
     const float* w_f1, const float* b_f1, const float* w_f2, const float* b_f2,
-    float* scratch, float* out, int batch, int n, int idx_stride, int c_flow, int c_corr,
-    int c_c1, int c_f1, int c_f2, int c_m, int k_c1, int k_f1, int k_f2, int k_m, int npad_f1,
-    int npad_f2, int per_point, cudaStream_t stream) {
+    float* scratch, float* out, int bf16, int batch, int n, int idx_stride, int c_flow,
+    int c_corr, int c_c1, int c_f1, int c_f2, int c_m, int k_c1, int k_f1, int k_f2, int k_m,
+    int npad_f1, int npad_f2, int per_point, cudaStream_t stream) {
   // scratch, channels per point: [c1 table (c_c1) | f1 table (c_f1) |
   // corr_feat (c_c1) | f2 table (c_f2) | flow_feat (c_f2) | merge table
   // (ld_m)]; every part starts 16-byte aligned
@@ -639,26 +712,28 @@ extern "C" int camli_motion_encoder_3d(
   mg.leaky = 1, mg.out = out, mg.out_ld = c_m + c_flow, mg.copy = flow, mg.copy_c = c_flow;
   u.c1_blocks = tail_blocks(c1, 32);
 
+  const auto tails = bf16 ? motion_encoder_3d_tail<true> : motion_encoder_3d_tail<false>;
   CAMLI_TRY(launch_dense(true, c1_f1, stream));
-  motion_encoder_3d_tail<<<tail_blocks(f1, 32), kGfThreads, 0, stream>>>(u, 1);
+  tails<<<tail_blocks(f1, 32), kGfThreads, 0, stream>>>(u, 1);
   CAMLI_TRY((int)cudaGetLastError());
-  motion_encoder_3d_tail<<<u.c1_blocks + tail_blocks(f2, 32), kGfThreads, 0, stream>>>(u, 2);
+  tails<<<u.c1_blocks + tail_blocks(f2, 32), kGfThreads, 0, stream>>>(u, 2);
   CAMLI_TRY((int)cudaGetLastError());
   CAMLI_TRY(launch_dense(true, merge, stream));
-  motion_encoder_3d_tail<<<tail_blocks(mg, 32), kGfThreads, 0, stream>>>(u, 3);
+  tails<<<tail_blocks(mg, 32), kGfThreads, 0, stream>>>(u, 3);
   return (int)cudaGetLastError();
 }
 
 // planes: (hi, lo, bias) of [z|r | q_xm] and q_h (tf32 planes [N_pad][K_pad]);
 // w_1, b_1, w_2, b_2: conv1's and conv2's f32 weights [K_pad, npad] and
-// biases; w_fc [>= c_2, fc_npad].
+// biases; w_fc [>= c_2, fc_npad]. The hoisted weights are f32, or bf16
+// with bf16 != 0 (the fast form).
 extern "C" int camli_gru_flowhead_3d(
     const float* h, const float* x3d, const float* motion, const int* idx,
-    const float* dw_zr, const float* dw_q, const float* dw_1, const float* dw_2,
+    const void* dw_zr, const void* dw_q, const void* dw_1, const void* dw_2,
     const float* const* planes, const float* w_1, const float* b_1, const float* w_2,
     const float* b_2, const float* w_fc, const float* b_fc, float* scratch, float* h_out,
-    float* delta, int batch, int n, int idx_stride, int c_h, int c_x, int c_m, int c_1,
-    int c_2, int c_out, int k_zr, int k_q, int k_1, int k_2, int npad_1, int npad_2,
+    float* delta, int bf16, int batch, int n, int idx_stride, int c_h, int c_x, int c_m,
+    int c_1, int c_2, int c_out, int k_zr, int k_q, int k_1, int k_2, int npad_1, int npad_2,
     int fc_npad, cudaStream_t stream) {
   // scratch, channels per point: [[z|r | q_xm] table (3 c_h) | z (c_h) |
   // r*h (c_h) | q_h table (c_h) | conv1 table (c_1) | conv2 table (c_2)]
@@ -698,11 +773,11 @@ extern "C" int camli_gru_flowhead_3d(
   c2.out = delta, c2.fc_w = w_fc, c2.fc_b = b_fc, c2.fc_out = c_out, c2.fc_npad = fc_npad;
 
   // dense z|r | q_xm, tail z|r, dense q_h, tails q, conv1, conv2: 6 launches
+  const auto tails = bf16 ? gru_flowhead_3d_tail<true> : gru_flowhead_3d_tail<false>;
   CAMLI_TRY(launch_dense(false, zrq, stream));
   for (int t = 0; t < 4; ++t) {
     if (t == 1) CAMLI_TRY(launch_dense(false, qh, stream));
-    gru_flowhead_3d_tail<<<tail_blocks(u.tail[t], t == 3 ? 16 : 32), kGfThreads, 0, stream>>>(
-        u, t);
+    tails<<<tail_blocks(u.tail[t], t == 3 ? 16 : 32), kGfThreads, 0, stream>>>(u, t);
     CAMLI_TRY((int)cudaGetLastError());
   }
   return 0;
@@ -721,16 +796,19 @@ extern "C" int camli_gru_flowhead_3d(
 // channels), else 4-byte loads in rounds of 64 channels. On an H100 (PERF.md)
 // 4-byte loads on 32 lanes beat 16-byte loads on 4-16 lanes at 16-64
 // channels and k >= 16 (more points in flight), and lost to 16-byte loads at
-// 125-128 channels.
-extern "C" int camli_dw_max(const float* table, const float* dw, const int* idx, float* out,
-                            int batch, int n_table, int m, int idx_stride, int k, int c,
-                            cudaStream_t stream) {
+// 125-128 channels. The fast form (bf16 != 0): dw bf16, the table f32
+// rounded to bf16 as it is read (see the note at the top).
+extern "C" int camli_dw_max(const float* table, const void* dw, const int* idx, float* out,
+                            int bf16, int batch, int n_table, int m, int idx_stride, int k,
+                            int c, cudaStream_t stream) {
   if (k < 1 || c < 1) return (int)cudaErrorInvalidValue;
   Tail g = gather_of(batch * m, m, idx, idx_stride, table, c, dw, k, c);
   g.n_table = n_table, g.out = out, g.out_ld = c;
-  if (c <= 32) return launch_dw_max<32, 1, 1>(g, stream);
+  const bool bf = bf16 != 0;
+  if (c <= 32) return launch_dw_max<32, 1, 1>(g, bf, stream);
   if (c > 64 && c % 4 == 0 && aligned(table) && aligned(dw) && aligned(out)) {
-    return c <= 128 ? launch_dw_max<32, 1, 4>(g, stream) : launch_dw_max<32, 2, 4>(g, stream);
+    return c <= 128 ? launch_dw_max<32, 1, 4>(g, bf, stream)
+                    : launch_dw_max<32, 2, 4>(g, bf, stream);
   }
-  return launch_dw_max<32, 2, 1>(g, stream);
+  return launch_dw_max<32, 2, 1>(g, bf, stream);
 }

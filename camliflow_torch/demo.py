@@ -11,7 +11,8 @@ the working directory, and writes <out_dir>/flow_2d.png (image 1 over
 image 2 over the flow's colour wheel) and <out_dir>/flow_3d.npz (pc1, pc2,
 flow_3d). Without --weights the weights are random, from a seeded
 torch.Generator. It runs on the CUDA card unless --device cpu is given, and
-raises without a card otherwise.
+raises without a card otherwise. --fast_inference and --lookup_storage
+override the model config's keys (`--fast_inference on`: the fast path).
 """
 
 from __future__ import annotations
@@ -51,6 +52,9 @@ def main(args) -> dict[str, np.ndarray]:
     pc1, pc2 = pc1[idx1], pc2[idx2]
 
     cfgs = load_yaml(os.path.join("conf", "model", f"{args.model}.yaml"))["model"]
+    for key in ("fast_inference", "lookup_storage"):
+        if getattr(args, key) is not None:
+            cfgs[key] = getattr(args, key)
     model = model_factory(cfgs)(cfgs.to_dict())
     if args.weights:
         load_jax_variables(model, load_npz(args.weights), cfgs["name"])
@@ -117,6 +121,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--cy", type=float, default=269.5)
     parser.add_argument("--show", action="store_true", help="interactive open3d view")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--fast_inference", default=None, help="auto|on|off (default: the "
+                        "model config's)")
+    parser.add_argument("--lookup_storage", default=None, help="auto|split|bf16|int8 (default: "
+                        "the model config's)")
     return parser.parse_args(argv)
 
 

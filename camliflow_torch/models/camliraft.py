@@ -1,10 +1,18 @@
 """CamLiRAFT: joint 2D optical flow + 3D scene flow with bidirectional
 camera-LiDAR fusion (eval and training).
 
-PyTorch counterpart of camliflow_tpu/models/camliraft.py on its exact path:
-f32 all-pairs 2D volume, f32 3D cost pyramid, no bf16 casts. The refinement
+PyTorch counterpart of camliflow_tpu/models/camliraft.py. The refinement
 `nn.scan` is a Python loop and eval is final-only: only the last
-iteration's flows are upsampled. The 3D branch reuses the CamLiRAFT-L
+iteration's flows are upsampled. The exact path keeps the 2D volume and the
+3D cost pyramid f32, with no bf16 casts. With `fast_inference: on` eval
+takes the JAX package's fast path: the 2D volume in `lookup_storage`
+(`auto`: int8, `ops.correlation.correlation_pyramid`), the 3D pyramid int8
+with its row scales (#4's int8 form, #5 with the scale), the hoisted
+PointConvDW weights bf16 (#6, #7 and #13 in their fast forms), and #9 and,
+without `fuse_hidden`, #8 on the tile's bf16 mode. With `fuse_hidden` the
+JAX fast path runs GRU2D and FlowHead2D exact, and so does the port (#8's
+halves on exact packings). CLFM (#11), the selections, the gathers (#12)
+and the upsamples keep their exact math. The 3D branch reuses the CamLiRAFT-L
 classes; the 2D branch is the ResNet encoder, the all-pairs pyramid and the
 RAFT update modules; CLFM fuses the two at fnet, cnet, corr and motion
 (hidden off by default).
@@ -50,6 +58,7 @@ from ..ops import clfm, corr3d, update2d, update3d
 from ..ops.correlation import (
     all_pairs_correlation_pyramid,
     corr_lookup_2d,
+    correlation_pyramid,
     resolve_lookup_storage,
 )
 from ..ops.gather import gather_points_fast, knn_weighted_sum
@@ -58,6 +67,8 @@ from ..ops.geometry import (
     build_pc_pyramid,
     interpolation_weights,
     k_nearest_neighbor,
+    quantize_rows_int8,
+    resolve_fast_inference,
     weighted_sum,
 )
 from ..ops.ids import make_parallel_camera_info, paral2persp, persp2paral, project_pc2image
@@ -71,7 +82,6 @@ from .camliraft_l import (
     MotionEncoder3D,
     build_cost_volume_pyramid_3d,
     encoder_knn_indices,
-    resolve_fast_inference,
 )
 from .losses import calc_sequence_loss
 from .metrics import compute_2d_metrics, compute_3d_metrics, merge_metrics, scalar_metric
@@ -154,9 +164,11 @@ class CamLiRAFTCore(nn.Module):
             featc_2d, featc_3d = self.clfm_cnet(uv1, featc_2d, featc_3d, cache1)
         return uv1, cache1, (feat1_2d, feat2_2d, featc_2d, feat1_3d, feat2_3d, featc_3d)
 
-    def encode(self, image1, image2, pc1, pc2, camera_info):
+    def encode(self, image1, image2, pc1, pc2, camera_info, fast: bool = False,
+               storage: str = "split"):
         """Everything before the loop: features, fusion, volumes, caches and
-        the weights the loop reads (hoisted once)."""
+        the weights the loop reads (hoisted once); `fast`: the fast path's
+        storages and packings, `storage`: the 2D volume's."""
         b2d, b3d = self.branch_2d, self.branch_3d
         xyzs1, xyzs2, _, _ = build_pc_pyramid(pc1, pc2, list(self.n_samples_list))
         batch = image1.shape[0]
@@ -185,6 +197,7 @@ class CamLiRAFTCore(nn.Module):
         h_3d, x_3d = torch.chunk(b3d.cnet_aligner(featc_3d), 2, dim=-1)
         aligner = b2d.correlation.fnet_aligner
         knn_indices = k_nearest_neighbor(xyz1, xyz1, 32)
+        store = update3d.to_bf16 if fast else (lambda dw: dw)
         state = {"h_2d": torch.tanh(h_2d).contiguous(), "h_3d": torch.tanh(h_3d),
                  "flow_2d": feat1_2d.new_zeros(batch, feat_h, feat_w, 2),
                  "flow_3d": torch.zeros_like(xyz1)}
@@ -192,15 +205,17 @@ class CamLiRAFTCore(nn.Module):
             "xyz1": xyz1, "xyzs2": xyzs2, "cache1": cache1,
             "grid": mesh_grid(batch, feat_h, feat_w, device=pc1.device),
             "x_2d": torch.relu(x_2d).contiguous(), "x_3d": torch.relu(x_3d),
-            "pyramid_2d": all_pairs_correlation_pyramid(
-                aligner(feat1_2d), aligner(feat2_2d), CORR_LEVELS),
+            "pyramid_2d": correlation_pyramid(aligner(feat1_2d), aligner(feat2_2d),
+                                              CORR_LEVELS, storage),
             "pyramid_3d": torch.cat(build_cost_volume_pyramid_3d(feat1_3d, feat2_3d, xyzs2),
                                     dim=-1),
             "knn_indices": knn_indices,
-            "dw": {name: getattr(b3d, name).precompute_weights(xyz1, knn_indices)
+            # after the volumes: the peak of their build holds no hoisted
+            # weights; bf16 on the fast path, a module's at a time
+            "dw": {name: store(getattr(b3d, name).precompute_weights(xyz1, knn_indices))
                    for name in ("motion_encoder", "gru", "flow_head")},
             "tail_params": corr3d.prepare_corr3d_tail_params(b3d.correlation),
-            "me_params": update2d.prepare_motion_encoder_params(b2d.motion_encoder),
+            "me_params": update2d.prepare_motion_encoder_params(b2d.motion_encoder, bf16=fast),
             "me3d_params": update3d.prepare_motion_encoder_3d_params(b3d.motion_encoder),
             # each in-loop fusion's score gate and packed weights, and the
             # bilinear taps at uv1 they share
@@ -210,13 +225,18 @@ class CamLiRAFTCore(nn.Module):
                      for point in IN_LOOP if self.fuse[point]},
             "taps": clfm.grid_sample_cache(uv1, feat_h, feat_w),
         }
+        if fast:  # int8, a scale a query row
+            consts["pyramid_3d"], consts["pyramid_3d_scale"] = quantize_rows_int8(
+                consts["pyramid_3d"])
         if self.fuse["hidden"]:
+            # the JAX fast path runs GRU2D and FlowHead2D exact here
             consts["gru2d_params"] = update2d.prepare_gru_params(b2d.gru)
             consts["head2d_params"] = update2d.prepare_flow_head_params(b2d.flow_head)
             consts["gru3d_params"] = update3d.prepare_gru_3d_params(b3d.gru)
             consts["head3d_params"] = update3d.prepare_flow_head_3d_params(b3d.flow_head)
         else:
-            consts["gf_params"] = update2d.prepare_gru_flowhead_params(b2d.gru, b2d.flow_head)
+            consts["gf_params"] = update2d.prepare_gru_flowhead_params(b2d.gru, b2d.flow_head,
+                                                                        bf16=fast)
             consts["gf3d_params"] = update3d.prepare_gru_flowhead_3d_params(b3d.gru,
                                                                            b3d.flow_head)
             consts["gf3d_dw"] = {**consts["dw"]["gru"], **consts["dw"]["flow_head"]}
@@ -240,7 +260,8 @@ class CamLiRAFTCore(nn.Module):
         corr_2d = corr_lookup_2d(consts["pyramid_2d"], consts["grid"] + flow_2d,
                                  radius=CORR_RADIUS)
         corr_3d = b3d.correlation(xyz1, xyz2_warp_full, tuple(x.shape[1] for x in xyzs2),
-                                  consts["pyramid_3d"], consts["tail_params"])
+                                  consts["pyramid_3d"], consts["tail_params"],
+                                  consts.get("pyramid_3d_scale"))
         if self.fuse["corr"]:
             corr_2d, corr_3d = fuse("corr", corr_2d, corr_3d)
 
@@ -267,10 +288,12 @@ class CamLiRAFTCore(nn.Module):
         return {"h_2d": h_2d, "h_3d": h_3d, "flow_2d": flow_2d + delta_2d,
                 "flow_3d": flow_3d + delta_3d}
 
-    def forward(self, image1, image2, pc1, pc2, camera_info):
+    def forward(self, image1, image2, pc1, pc2, camera_info, fast: bool = False,
+                storage: str = "split"):
         """Padded, normalised images [B, H, W, 3] and IDS clouds [B, N, 3] ->
-        (flow_2d [B, H, W, 2], flow_3d [B, N, 3]) after the last iteration."""
-        state, consts = self.encode(image1, image2, pc1, pc2, camera_info)
+        (flow_2d [B, H, W, 2], flow_3d [B, N, 3]) after the last iteration;
+        `fast` and `storage` as `encode` takes them."""
+        state, consts = self.encode(image1, image2, pc1, pc2, camera_info, fast, storage)
         for _ in range(self.n_iters):
             state = self.iterate(state, consts)
         flow_2d = self.branch_2d.convex_upsampler(state["h_2d"], state["flow_2d"])
@@ -367,13 +390,15 @@ class CamLiRAFT(nn.Module):
     """Model wrapper: ImageNet normalisation, padding, IDS and the core. In
     train mode it runs `CamLiRAFTCore.forward_train` for `n_iters_train`
     iterations under `compute_dtype` (bf16 autocast or f32); eval stays
-    f32. `freeze_bn` keeps every BatchNorm on its running statistics in
-    train mode."""
+    f32, or takes the fast path with `fast_inference: on`. `freeze_bn`
+    keeps every BatchNorm on its running statistics in train mode."""
 
     def __init__(self, cfgs: dict):
         super().__init__()
-        resolve_fast_inference(str(cfgs.get("fast_inference", "auto")))
-        resolve_lookup_storage(str(cfgs.get("lookup_storage", "auto")))
+        self.fast_inference = str(cfgs.get("fast_inference", "auto"))
+        self.lookup_storage = str(cfgs.get("lookup_storage", "auto"))
+        resolve_fast_inference(self.fast_inference, False)  # raise on unknown modes
+        resolve_lookup_storage(self.lookup_storage)
         for key in ("loss_in_scan", "remat_scan"):
             if cfgs.get(key, False):
                 raise NotImplementedError(
@@ -436,7 +461,9 @@ class CamLiRAFT(nn.Module):
             seq_3d = paral2persp(pc1 + seq_3d.float(), persp_cam, paral_cam) - base
             return {"flow_2d": seq_2d[-1], "flow_3d": seq_3d[-1],
                     "flow_2d_seq": seq_2d, "flow_3d_seq": seq_3d}
-        flow_2d, flow_3d = self.core(image1, image2, pc1, pc2, paral_cam)
+        fast = resolve_fast_inference(self.fast_inference, True)
+        flow_2d, flow_3d = self.core(image1, image2, pc1, pc2, paral_cam, fast,
+                                     resolve_lookup_storage(self.lookup_storage, fast))
         flow_2d = padder.unpad(flow_2d)
         flow_3d = paral2persp(pc1 + flow_3d, persp_cam, paral_cam) - base
         return {"flow_2d": flow_2d, "flow_3d": flow_3d,

@@ -1,10 +1,15 @@
 """CamLiRAFT-L: LiDAR-only iterative scene flow (point-space RAFT), eval
 and training.
 
-PyTorch counterpart of camliflow_tpu/models/camliraft_l.py on its exact path
-(f32 cost pyramid, f32 hoisted PointConvDW weights, no bf16 casts). The
+PyTorch counterpart of camliflow_tpu/models/camliraft_l.py. The
 refinement `nn.scan` is a Python loop, and eval is final-only: only the last
-iteration's flow is upsampled to the full cloud.
+iteration's flow is upsampled to the full cloud. The exact path keeps the
+cost pyramid and the hoisted PointConvDW weights f32. With
+`fast_inference: on` eval takes the JAX package's fast path
+(`ops.geometry.resolve_fast_inference`): the cost pyramid stored int8 with
+a scale per query row (#4 reads it, #5 dequantises the selected costs
+before the cost MLP) and the hoisted weights stored bf16 (#6 and #7 take
+their fast forms: bf16 gathers and products, f32 dense layers).
 
 Module names follow the reference PyTorch state_dict (`core.fnet`,
 `core.correlation`, ...), so the weight bridge (runtime/checkpoint.py) names
@@ -39,7 +44,7 @@ import torch
 from torch import nn
 
 from ..nn.layers import MLP, DenseNormAct, compute_precision, full_precision
-from ..nn.point_conv import PointConv, PointConvDW
+from ..nn.point_conv import PointConv, PointConvDW, paired_dw_conv
 from ..ops import corr3d, update3d
 from ..ops.geometry import (
     backwarp_3d,
@@ -48,6 +53,8 @@ from ..ops.geometry import (
     interpolation_weights,
     k_nearest_neighbor,
     knn_interpolation,
+    quantize_rows_int8,
+    resolve_fast_inference,
     weighted_sum,
 )
 from ..ops.ids import make_parallel_camera_info, paral2persp, persp2paral
@@ -55,18 +62,6 @@ from .losses import calc_sequence_loss
 from .metrics import compute_3d_metrics, merge_metrics, scalar_metric
 
 DEFAULT_N_SAMPLES = (4096, 2048, 1024, 512, 256)
-
-
-def resolve_fast_inference(mode: str) -> None:
-    """The `fast_inference` config key. `auto` means fast only on a TPU, so
-    here it is the exact path, like `off`; the port has no fast path yet."""
-    if mode not in ("auto", "on", "off"):
-        raise ValueError(f"fast_inference must be auto|on|off, got {mode!r}")
-    if mode == "on":
-        raise NotImplementedError(
-            "fast_inference=on (int8/bf16 storage of the TPU fast path) is not "
-            "ported; see ROADMAP.md Queue 1, 'fast_inference storage'"
-        )
 
 
 class Encoder3D(nn.Module):
@@ -149,9 +144,11 @@ class Correlation3D(nn.Module):
         levels = cost.reshape(batch, n, len(level_sizes), self.k, -1).sum(dim=3)
         return self.merge(levels.reshape(batch, n, -1))
 
-    def forward(self, xyz1, xyz2_warp_full, level_sizes, pyramid_cat, params=None):
+    def forward(self, xyz1, xyz2_warp_full, level_sizes, pyramid_cat, params=None,
+                scale=None):
         """The eval path (kernels #4 and #5). pyramid_cat: [B, N,
-        sum(level_sizes)], concatenated once outside the refinement loop;
+        sum(level_sizes)], concatenated once outside the refinement loop,
+        f32 or (the fast path) int8 with its row scales `scale` [B, N, 1];
         params: `corr3d.prepare_corr3d_tail_params` of this module (packed
         here when not given)."""
         idx, knn_cost = corr3d.correlation3d_knn(
@@ -160,7 +157,7 @@ class Correlation3D(nn.Module):
         if params is None:
             params = corr3d.prepare_corr3d_tail_params(self)
         return corr3d.corr3d_tail(xyz1, xyz2_warp_full, idx, knn_cost, params,
-                                  len(level_sizes), self.k)
+                                  len(level_sizes), self.k, scale)
 
 
 class MotionEncoder3D(nn.Module):
@@ -218,11 +215,9 @@ class GRU3D(nn.Module):
     def forward(self, xyz, h, x, knn_indices, dw):
         """The differentiable GRU on the hoisted weights `dw` (z's and r's
         stacked in conv_zr)."""
-        hidden = h.shape[-1]
         hx = torch.cat([h, x], dim=-1)
-        wz, wr = dw["conv_zr"][..., :hidden], dw["conv_zr"][..., hidden:]
-        z = torch.sigmoid(self.conv_z(xyz, hx, knn_indices=knn_indices, weights=wz))
-        r = torch.sigmoid(self.conv_r(xyz, hx, knn_indices=knn_indices, weights=wr))
+        z, r = paired_dw_conv(self.conv_z, self.conv_r, xyz, hx, knn_indices, dw["conv_zr"])
+        z, r = torch.sigmoid(z), torch.sigmoid(r)
         q = torch.tanh(self.conv_q(xyz, torch.cat([r * h, x], dim=-1), knn_indices=knn_indices,
                                    weights=dw["conv_q"]))
         return (1.0 - z) * h + z * q
@@ -267,12 +262,12 @@ class UpdateBlock3D(nn.Module):
         self.gru = GRU3D(hidden_dim=128, input_dim=256)
         self.flow_head = FlowHead3D()
 
-    def precompute(self, xyz1, knn_indices):
-        return {
-            "motion_encoder": self.motion_encoder.precompute_weights(xyz1, knn_indices),
-            "gru": self.gru.precompute_weights(xyz1, knn_indices),
-            "flow_head": self.flow_head.precompute_weights(xyz1, knn_indices),
-        }
+    def precompute(self, xyz1, knn_indices, fast: bool = False):
+        """The hoisted weights, stored bf16 on the fast path (a module's at a
+        time, so that its f32 copy is the largest temporary)."""
+        store = update3d.to_bf16 if fast else (lambda dw: dw)
+        return {name: store(getattr(self, name).precompute_weights(xyz1, knn_indices))
+                for name in ("motion_encoder", "gru", "flow_head")}
 
     def pack(self):
         return {"tail": corr3d.prepare_corr3d_tail_params(self.correlation),
@@ -288,7 +283,7 @@ class UpdateBlock3D(nn.Module):
         level_sizes = tuple(x.shape[1] for x in xyzs2)
         packed = consts["packed"]
         corr = self.correlation(xyz1, xyz2_warp_full, level_sizes, consts["pyramid"],
-                                packed["tail"])
+                                packed["tail"], consts.get("pyramid_scale"))
         motion = update3d.motion_encoder_3d(flow, corr, knn_indices, dw["motion_encoder"],
                                             packed["me"])
         h, delta = update3d.gru_flowhead_3d(h, consts["x"], motion, knn_indices,
@@ -336,8 +331,8 @@ class CamLiRAFTLCore(nn.Module):
         featc = self.cnet_aligner(self.cnet(xyzs1[:3], knn_indices=knn_f1)[2])
         return xyzs1[2], xyzs2[2:], feat1, feat2, featc
 
-    def forward(self, pc1, pc2):
-        """pc1/pc2 [B, N, 3] -> final flow [B, N, 3]."""
+    def forward(self, pc1, pc2, fast: bool = False):
+        """pc1/pc2 [B, N, 3] -> final flow [B, N, 3]; `fast`: the fast path."""
         xyz1, xyzs2, feat1, feat2, featc = self.encode(pc1, pc2)
         pyramid = build_cost_volume_pyramid_3d(feat1, feat2, xyzs2)
         h, x = torch.chunk(featc, 2, dim=-1)
@@ -349,9 +344,11 @@ class CamLiRAFTLCore(nn.Module):
             "knn_indices": knn_indices,
             "x": x,
             "pyramid": torch.cat(pyramid, dim=-1),  # once, outside the loop
-            "dw": self.update.precompute(xyz1, knn_indices),
+            "dw": self.update.precompute(xyz1, knn_indices, fast),
             "packed": self.update.pack(),
         }
+        if fast:  # int8, a scale a query row
+            consts["pyramid"], consts["pyramid_scale"] = quantize_rows_int8(consts["pyramid"])
         flow = torch.zeros_like(xyz1)
         for _ in range(self.n_iters):
             h, flow = self.update(h, flow, consts)
@@ -390,11 +387,13 @@ class CamLiRAFTLCore(nn.Module):
 class CamLiRAFTL(nn.Module):
     """Model wrapper: IDS, domain alignment and the core. In train mode it
     runs `CamLiRAFTLCore.forward_train` for `n_iters_train` iterations
-    under `compute_dtype` (bf16 autocast or f32); eval stays f32."""
+    under `compute_dtype` (bf16 autocast or f32); eval stays f32, or takes
+    the fast path with `fast_inference: on`."""
 
     def __init__(self, cfgs: dict):
         super().__init__()
-        resolve_fast_inference(str(cfgs.get("fast_inference", "auto")))
+        self.fast_inference = str(cfgs.get("fast_inference", "auto"))
+        resolve_fast_inference(self.fast_inference, False)  # raises on an unknown mode
         self.ids_enabled = bool(cfgs["ids"]["enabled"])
         self.n_iters_train = int(cfgs.get("n_iters_train", cfgs["n_iters_eval"]))
         self.compute_dtype = cfgs.get("compute_dtype")
@@ -435,7 +434,7 @@ class CamLiRAFTL(nn.Module):
             with compute_precision(self.compute_dtype, pc1.device.type):
                 flow = self.core.forward_train(pc1, pc2, self.n_iters_train)
         else:
-            flow = self.core(pc1, pc2)
+            flow = self.core(pc1, pc2, resolve_fast_inference(self.fast_inference, True))
 
         if has_da:
             pcw = pc1 + flow

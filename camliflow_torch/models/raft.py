@@ -1,9 +1,14 @@
 """RAFT: 2D optical flow with all-pairs correlation and a ConvGRU (eval and
 training), and its 2D update modules, which the flagship's 2D branch shares.
 
-PyTorch counterpart of camliflow_tpu/models/raft.py on its exact path: the
-all-pairs volume stays f32, the refinement `nn.scan` is a Python loop and
-eval is final-only (one convex upsample of the last flow). Each conv is a
+PyTorch counterpart of camliflow_tpu/models/raft.py: the refinement
+`nn.scan` is a Python loop and eval is final-only (one convex upsample of
+the last flow). The exact path keeps the all-pairs volume f32. With
+`fast_inference: on` eval takes the JAX package's fast path: the volume
+stored per `lookup_storage` (`auto`: int8 with a scale a row, each level
+built against pooled frame-2 features, `ops.correlation.correlation_pyramid`)
+and kernel #10 in its bf16 form (weights packed to bf16). `lookup_storage:
+bf16|int8` also applies to the exact path, storage alone. Each conv is a
 `Conv2d` with bias and symmetric padding, named as in the reference
 state_dict (`core.fnet`, `core.correlation.fnet_aligner`, `core.gru`, ...).
 A module's `forward` is its differentiable chain of `Conv2d`s, NHWC in and
@@ -30,10 +35,11 @@ from ..ops import update2d
 from ..ops.correlation import (
     all_pairs_correlation_pyramid,
     corr_lookup_2d,
+    correlation_pyramid,
     resolve_lookup_storage,
 )
+from ..ops.geometry import resolve_fast_inference
 from ..ops.image import InputPadder, convex_upsample, mesh_grid
-from .camliraft_l import resolve_fast_inference
 from .losses import calc_sequence_loss
 from .metrics import compute_2d_metrics, merge_metrics, scalar_metric
 
@@ -126,7 +132,8 @@ class Correlation2D(nn.Module):
 
 class UpdateBlock2D(nn.Module):
     """One RAFT iteration: the windowed lookup, then kernel #10. `pack`
-    repacks the three modules' weights for it, once per request."""
+    repacks the three modules' weights for it, once per request (in bf16
+    on the fast path)."""
 
     def __init__(self, corr_radius: int = CORR_RADIUS, corr_levels: int = CORR_LEVELS):
         super().__init__()
@@ -136,8 +143,9 @@ class UpdateBlock2D(nn.Module):
         self.flow_head = FlowHead2D()
         self.convex_upsampler = ConvexUpsampler2D()
 
-    def pack(self):
-        return update2d.prepare_update_2d_params(self.motion_encoder, self.gru, self.flow_head)
+    def pack(self, fast: bool = False):
+        return update2d.prepare_update_2d_params(self.motion_encoder, self.gru, self.flow_head,
+                                                 bf16=fast)
 
     def forward(self, h, flow, consts):
         corr = corr_lookup_2d(consts["pyramid"], consts["grid"] + flow, radius=self.corr_radius)
@@ -167,19 +175,20 @@ class RAFTCore(nn.Module):
         self.convex_upsampler = update.convex_upsampler
         self.__dict__["update"] = update
 
-    def forward(self, image1, image2):
-        """Padded, normalised images [B, H, W, 3] -> final flow [B, H, W, 2]."""
+    def forward(self, image1, image2, fast: bool = False, storage: str = "split"):
+        """Padded, normalised images [B, H, W, 3] -> final flow [B, H, W, 2];
+        `fast`: the fast path, `storage`: the volume's."""
         batch = image1.shape[0]
         # both frames share one fnet call (its BatchNorms use running stats)
         fmaps = self.fnet(torch.cat([image1, image2], dim=0))
         aligner = self.correlation.fnet_aligner
-        pyramid = all_pairs_correlation_pyramid(aligner(fmaps[:batch]), aligner(fmaps[batch:]),
-                                                CORR_LEVELS)
+        pyramid = correlation_pyramid(aligner(fmaps[:batch]), aligner(fmaps[batch:]),
+                                      CORR_LEVELS, storage)
         h, x = torch.chunk(self.cnet_aligner(self.cnet(image1)), 2, dim=-1)
         feat_h, feat_w = fmaps.shape[1:3]
         consts = {"pyramid": pyramid, "x": torch.relu(x),
                   "grid": mesh_grid(batch, feat_h, feat_w, device=image1.device),
-                  "packed": self.update.pack()}
+                  "packed": self.update.pack(fast)}
         h = torch.tanh(h)
         flow = image1.new_zeros(batch, feat_h, feat_w, 2)
         for _ in range(self.n_iters):
@@ -218,12 +227,14 @@ class RAFT(nn.Module):
     """Model wrapper: [-1, 1] normalisation, padding to a multiple of 8, the
     core, unpadding. In train mode it runs `RAFTCore.forward_train` for
     `n_iters_train` iterations under `compute_dtype` (bf16 autocast or
-    f32); eval stays f32."""
+    f32); eval stays f32, or takes the fast path with `fast_inference: on`."""
 
     def __init__(self, cfgs: dict):
         super().__init__()
-        resolve_fast_inference(str(cfgs.get("fast_inference", "auto")))
-        resolve_lookup_storage(str(cfgs.get("lookup_storage", "auto")))
+        self.fast_inference = str(cfgs.get("fast_inference", "auto"))
+        self.lookup_storage = str(cfgs.get("lookup_storage", "auto"))
+        resolve_fast_inference(self.fast_inference, False)  # raise on unknown modes
+        resolve_lookup_storage(self.lookup_storage)
         if "backbone" in cfgs:
             depth = cfgs["backbone"]["depth"]
         elif cfgs.get("pretrain", {}).get("enabled", False):
@@ -245,7 +256,9 @@ class RAFT(nn.Module):
                 seq = self.core.forward_train(image1, image2, self.n_iters_train)
             seq = padder.unpad(seq.flatten(0, 1)).unflatten(0, seq.shape[:2])
             return {"flow_2d": seq[-1], "flow_2d_seq": seq}
-        flow = padder.unpad(self.core(image1, image2))
+        fast = resolve_fast_inference(self.fast_inference, True)
+        flow = padder.unpad(self.core(image1, image2, fast,
+                                      resolve_lookup_storage(self.lookup_storage, fast)))
         return {"flow_2d": flow, "flow_2d_seq": flow[None]}
 
 

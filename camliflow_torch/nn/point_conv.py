@@ -1,6 +1,6 @@
 """Continuous point convolutions on channel-last data.
 
-PyTorch counterpart of camliflow_tpu/nn/point_conv.py (exact path).
+PyTorch counterpart of camliflow_tpu/nn/point_conv.py.
 
 PointConv: KNN gather -> relative-xyz weight net MLP(3->[8,16]) ->
 weights^T @ neighbour features -> linear -> norm -> act. Both gathers are
@@ -12,7 +12,10 @@ PointConvDW: depthwise variant, feature MLP * weight_net(dxyz), max over k,
 as differentiable torch ops (the eval loops run the tail as kernel #13 or
 inside #6/#7 on weights packed once per request, ops/update3d.py); its
 geometric weights depend only on the points, so `compute_weights` lets a
-caller hoist them out of a refinement loop.
+caller hoist them out of a refinement loop. With `fast` (inference) it is
+the JAX package's fast form: the MLP output and the weights in bf16, their
+products rounded to bf16, the max over k returned as f32. `paired_dw_conv`
+runs two PointConvDWs over the same input and neighbours with one gather.
 """
 
 from __future__ import annotations
@@ -86,11 +89,34 @@ class PointConvDW(nn.Module):
         return self.weight_net(rel_xyz)
 
     def forward(self, xyz, features, sampled_xyz=None, knn_indices=None,
-                weights=None):
+                weights=None, fast: bool = False):
         if sampled_xyz is None:
             sampled_xyz = xyz
         knn_indices = _resolve_knn(xyz, sampled_xyz, knn_indices, self.k).contiguous()
         if weights is None:
             weights = self.compute_weights(xyz, sampled_xyz, knn_indices)
+        if fast:
+            weights = weights.to(torch.bfloat16)
         return update3d.dw_max_plain(self.mlp(features), knn_indices, weights)
+
+
+def paired_dw_conv(conv_a: PointConvDW, conv_b: PointConvDW, xyz, features, knn_indices=None,
+                   weights=None, fast: bool = False):
+    """Two PointConvDWs over the same input and neighbours (a point GRU's z
+    and r) with one gather: the channel concat of both MLP outputs is
+    gathered once and multiplied by `weights`, the two convs' weights
+    concatenated on the last axis, then the max over k is split. Each
+    half equals its conv's own output bit for bit (the products and the
+    max are per channel). `fast` as PointConvDW takes it."""
+    if conv_a.k != conv_b.k:
+        raise ValueError(f"paired_dw_conv: the convs take {conv_a.k} and {conv_b.k} neighbours")
+    idx = _resolve_knn(xyz, xyz, knn_indices, conv_a.k).contiguous()
+    if weights is None:
+        weights = torch.cat([conv.compute_weights(xyz, knn_indices=idx)
+                             for conv in (conv_a, conv_b)], dim=-1)
+    if fast:
+        weights = weights.to(torch.bfloat16)
+    fa, fb = conv_a.mlp(features), conv_b.mlp(features)
+    out = update3d.dw_max_plain(torch.cat([fa, fb], dim=-1), idx, weights)
+    return out[..., : fa.shape[-1]], out[..., fa.shape[-1]:]
 

@@ -39,6 +39,15 @@ def forward_only_modules(name: str, *modules: torch.nn.Module) -> None:
             "train through the modules' own forwards (the model in train mode)")
 
 
+def count(wrapper, fast: bool) -> None:
+    """One launch of `wrapper`'s kernel: on its `fast_launches` for the fast
+    path's form (int8, scaled or bf16 operands), else on its `launches`."""
+    if fast:
+        wrapper.fast_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the plain version applies)."""
     return all(t.device.type == "cpu" for t in tensors)

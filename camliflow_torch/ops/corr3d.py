@@ -15,8 +15,14 @@ the source for the design note.
 `corr3d_tail` replaces ::corr3d_tail_pallas with `csrc/corr3d_tail.cu`: the
 rel-xyz gather, the 2-layer cost MLP on [rel_xyz, cost], the sum over each
 level's k neighbours and the merge layer, on weights packed once per request
-by `prepare_corr3d_tail_params`. The exact path only: the int8 cost pyramid
-and its scale belong to the fast path, which is not ported.
+by `prepare_corr3d_tail_params`.
+
+On the fast path (`fast_inference=on`) the concatenated pyramid is stored
+int8 with a scale per query row (`geometry.quantize_rows_int8`): #4 selects
+exactly as on f32 (the selection reads only coordinates) and returns the
+selected int8 costs as f32, which is exact; #5 multiplies each selected
+cost by its row's scale before the cost MLP, as the TPU kernel's `scale`
+argument does.
 """
 
 from __future__ import annotations
@@ -84,7 +90,7 @@ def correlation3d_knn_plain(
     with_cost: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One distance matrix over the widest prefix; each level selects from
-    its column-prefix; the cost is read at offset_l + idx (not with
+    its column-prefix; the cost is read at offset_l + idx, as f32 (not with
     `with_cost=False`, which returns (indices, None))."""
     dists = squared_distance(xyz1, xyz2_warp[:, : level_sizes[0]])
     idx = torch.cat(
@@ -93,7 +99,7 @@ def correlation3d_knn_plain(
     if not with_cost:
         return idx, None
     columns = idx.long() + level_offsets(level_sizes, k, idx.device)
-    return idx, torch.gather(pyramid_cat, 2, columns)
+    return idx, torch.gather(pyramid_cat, 2, columns).float()
 
 
 def correlation3d_knn(
@@ -107,13 +113,15 @@ def correlation3d_knn(
     """Per-level prefix KNN plus cost extraction.
 
     xyz1 [B, N, 3] queries; xyz2_warp [B, M, 3] warped frame 2 (levels are
-    row-prefixes); pyramid_cat [B, N, sum(level_sizes)]; level_sizes
-    descending. Returns (indices [B, N, L*k] int32 grouped by level, costs
-    [B, N, L*k] f32). With `with_cost=False` (training: indices only; the
+    row-prefixes); pyramid_cat [B, N, sum(level_sizes)], f32 or (the fast
+    path) int8; level_sizes descending. Returns (indices [B, N, L*k] int32
+    grouped by level, costs [B, N, L*k] f32: an int8 pyramid's values,
+    exact). With `with_cost=False` (training: indices only; the
     caller gathers the costs differentiably) the pyramid is not read and
     may be None, and the costs are None. CPU tensors take the plain
     version; CUDA tensors the kernel. The index-only launches count on
-    `correlation3d_knn.index_launches`, the others on `.launches`."""
+    `correlation3d_knn.index_launches`, the int8 form's on
+    `.fast_launches`, the others on `.launches`."""
     level_sizes = tuple(int(m) for m in level_sizes)
     if not with_cost:
         pyramid_cat = None
@@ -121,8 +129,13 @@ def correlation3d_knn(
         return correlation3d_knn_plain(xyz1, xyz2_warp, pyramid_cat, level_sizes, k,
                                        with_cost)
     name = "correlation3d_knn"
-    _cuda.check(name, torch.float32, xyz1=xyz1, xyz2_warp=xyz2_warp,
-                **({"pyramid_cat": pyramid_cat} if with_cost else {}))
+    _cuda.check(name, torch.float32, xyz1=xyz1, xyz2_warp=xyz2_warp)
+    int8 = with_cost and pyramid_cat.dtype == torch.int8
+    if with_cost:
+        _cuda.check(name, torch.int8 if int8 else torch.float32, pyramid_cat=pyramid_cat)
+        if pyramid_cat.device != xyz1.device:
+            raise ValueError(f"{name}: all inputs must lie on one CUDA device, got "
+                             f"{xyz1.device} and {pyramid_cat.device}")
     batch, n = xyz1.shape[:2]
     m_rows = xyz2_warp.shape[1]
     m_total = sum(level_sizes)
@@ -146,10 +159,10 @@ def correlation3d_knn(
 
     launch("camli_corr3d", xyz1.data_ptr(), xyz2_warp.data_ptr(),
            None if cost is None else pyramid_cat.data_ptr(), idx.data_ptr(),
-           None if cost is None else cost.data_ptr(), batch, n, m_rows, m_total, n_levels,
-           ctypes.addressof(sizes), n_slices, ctypes.addressof(starts), queries, k)
+           None if cost is None else cost.data_ptr(), int(int8), batch, n, m_rows, m_total,
+           n_levels, ctypes.addressof(sizes), n_slices, ctypes.addressof(starts), queries, k)
     if with_cost:
-        correlation3d_knn.launches += 1
+        _cuda.count(correlation3d_knn, int8)
     else:
         correlation3d_knn.index_launches += 1
     return idx, cost
@@ -157,6 +170,7 @@ def correlation3d_knn(
 
 correlation3d_knn.launches = 0
 correlation3d_knn.index_launches = 0
+correlation3d_knn.fast_launches = 0  # the fast path's int8-pyramid form
 
 
 # --- the tail (kernel #5) --------------------------------------------------
@@ -188,8 +202,12 @@ def prepare_corr3d_tail_params(correlation: nn.Module) -> TailParams:
     return TailParams(*pair(first), *pair(second), *pair(merge))
 
 
-def corr3d_tail_plain(xyz1, xyz2_warp, idx, cost, params: TailParams, n_levels: int, k: int):
-    """The tail as torch ops: gather, cost MLP, per-level sum, merge."""
+def corr3d_tail_plain(xyz1, xyz2_warp, idx, cost, params: TailParams, n_levels: int, k: int,
+                      scale=None):
+    """The tail as torch ops: gather, (dequantisation,) cost MLP, per-level
+    sum, merge."""
+    if scale is not None:
+        cost = cost * scale
     rel = gather_points(xyz2_warp, idx) - xyz1[:, :, None, :]  # [B, N, L*k, 3]
     payload = torch.cat([rel, cost[..., None]], dim=-1)
     hidden = F.relu(F.linear(payload, params.w1.t(), params.b1))
@@ -201,15 +219,20 @@ def corr3d_tail_plain(xyz1, xyz2_warp, idx, cost, params: TailParams, n_levels: 
 
 
 def corr3d_tail(xyz1: torch.Tensor, xyz2_warp: torch.Tensor, idx: torch.Tensor,
-                cost: torch.Tensor, params: TailParams, n_levels: int, k: int) -> torch.Tensor:
+                cost: torch.Tensor, params: TailParams, n_levels: int, k: int,
+                scale: torch.Tensor | None = None) -> torch.Tensor:
     """xyz1 [B, N, 3], xyz2_warp [B, M, 3], idx [B, N, L*k] int32 and cost
-    [B, N, L*k] (from `correlation3d_knn`) -> [B, N, Cout]. CPU tensors take
-    the plain version; CUDA tensors the kernel."""
+    [B, N, L*k] (from `correlation3d_knn`) -> [B, N, Cout]. On the fast
+    path `scale` [B, N, 1], the int8 pyramid's row scales, multiplies each
+    selected cost first; without it the kernel is the exact path's, bit for
+    bit. CPU tensors take the plain version; CUDA tensors the kernel. The
+    scaled form's launches count on `.fast_launches`."""
     _cuda.forward_only("corr3d_tail", xyz1, xyz2_warp, cost)
     if _cuda.on_cpu(xyz1, xyz2_warp, idx, cost):
-        return corr3d_tail_plain(xyz1, xyz2_warp, idx, cost, params, n_levels, k)
+        return corr3d_tail_plain(xyz1, xyz2_warp, idx, cost, params, n_levels, k, scale)
     name = "corr3d_tail"
-    _cuda.check(name, torch.float32, xyz1=xyz1, xyz2_warp=xyz2_warp, cost=cost, **params._asdict())
+    _cuda.check(name, torch.float32, xyz1=xyz1, xyz2_warp=xyz2_warp, cost=cost,
+                **params._asdict(), **({} if scale is None else {"scale": scale}))
     _cuda.check(name, torch.int32, idx=idx)
     batch, n = xyz1.shape[:2]
     taps = n_levels * k
@@ -217,6 +240,8 @@ def corr3d_tail(xyz1: torch.Tensor, xyz2_warp: torch.Tensor, idx: torch.Tensor,
     _cuda.check_shape(name, "xyz2_warp", xyz2_warp, (batch, None, 3))
     _cuda.check_shape(name, "idx", idx, (batch, n, taps))
     _cuda.check_shape(name, "cost", cost, (batch, n, taps))
+    if scale is not None:
+        _cuda.check_shape(name, "scale", scale, (batch, n, 1))
     if idx.device != xyz1.device:
         raise ValueError(f"{name}: all inputs must lie on one CUDA device, got "
                          f"{xyz1.device} and {idx.device}")
@@ -235,10 +260,12 @@ def corr3d_tail(xyz1: torch.Tensor, xyz2_warp: torch.Tensor, idx: torch.Tensor,
     from ..csrc.build import launch
 
     launch("camli_corr3d_tail", xyz1.data_ptr(), xyz2_warp.data_ptr(), idx.data_ptr(),
-           cost.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), batch, n,
+           cost.data_ptr(), None if scale is None else scale.data_ptr(),
+           *(t.data_ptr() for t in params), out.data_ptr(), batch, n,
            xyz2_warp.shape[1], n_levels, k, c1, c_out)
-    corr3d_tail.launches += 1
+    _cuda.count(corr3d_tail, scale is not None)
     return out
 
 
 corr3d_tail.launches = 0
+corr3d_tail.fast_launches = 0  # the fast path's form, with the row scales

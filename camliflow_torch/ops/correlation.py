@@ -2,16 +2,26 @@
 correlation pyramid with its windowed bilinear lookup.
 
 PyTorch counterpart of camliflow_tpu/ops/correlation.py (`correlation2d`,
-`all_pairs_correlation_pyramid`, `corr_lookup_2d`) on the exact path: the
-volume stays f32 (the TPU's bf16 hi/lo split storage, which rebuilds f32 to
-~2^-18, is a workaround of its matrix unit and is not ported). Plain
-PyTorch; the JAX functions are not Pallas kernels either. NHWC.
+`all_pairs_correlation_pyramid`, `padded_pyramid_from_features`,
+`corr_lookup_2d`). The exact path keeps the volume f32 (the TPU's bf16
+hi/lo split storage, which rebuilds f32 to ~2^-18, is a workaround of its
+matrix unit and is not ported: `split` names the f32 volume here). The fast
+path's storages are ported: `bf16` (each value rounded to bf16) and `int8`
+(each level row quantised with its own scale, `quantize_rows_int8`); the
+lookup dequantises after the bilinear blend. Plain PyTorch; the JAX
+functions are not Pallas kernels either. NHWC.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .geometry import quantize_rows_int8
+
+STORAGES = ("split", "bf16", "int8")
+ROW_CHUNK = 2048  # frame-1 pixels a stored level is built for at a time
 
 
 def correlation2d(input1: torch.Tensor, input2: torch.Tensor,
@@ -37,17 +47,15 @@ def correlation2d(input1: torch.Tensor, input2: torch.Tensor,
     return torch.cat(costs, dim=-1) / channels
 
 
-def resolve_lookup_storage(mode: str) -> None:
-    """The `lookup_storage` config key: `auto` and `split` both mean the
-    exact f32 volume here; the TPU fast path's bf16/int8 storage is not
-    ported."""
-    if mode in ("bf16", "int8"):
-        raise NotImplementedError(
-            f"lookup_storage={mode} (the TPU fast path's volume storage) is not "
-            "ported; see ROADMAP.md Queue 1, 'fast_inference storage'"
-        )
-    if mode not in ("auto", "split"):
+def resolve_lookup_storage(mode: str, fast: bool = False) -> str:
+    """The `lookup_storage` config key: `auto` stores the volume int8 on the
+    fast path and f32 (`split`) otherwise; `split`, `bf16` and `int8` name
+    a storage whatever the path."""
+    if mode not in ("auto", *STORAGES):
         raise ValueError(f"lookup_storage must be auto|split|bf16|int8, got {mode!r}")
+    if mode != "auto":
+        return mode
+    return "int8" if fast else "split"
 
 
 def all_pairs_correlation_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -72,9 +80,56 @@ def all_pairs_correlation_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
     return pyramid
 
 
+def correlation_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4,
+                        storage: str = "split") -> list:
+    """The lookup pyramid in a storage (`resolve_lookup_storage`).
+
+    `split`: `all_pairs_correlation_pyramid`, f32. `bf16` and `int8` (the
+    JAX package's `padded_pyramid_from_features`): each level is one matmul
+    of frame 1's features against frame 2's, 2x2 average-pooled per level
+    (pooling the volume over frame-2 pixels is pooling frame 2's features,
+    the product being bilinear; the two differ by rounding), times
+    1/sqrt(C), then stored: a bf16 level [B*H*W, h, w, 1], or an int8 level
+    with its per-row scale, ([B*H*W, h, w, 1] int8, [B*H*W] f32). ROW_CHUNK
+    frame-1 pixels at a time, so that their f32 rows of one level are the
+    largest temporary, not the f32 volume the storage saves."""
+    if storage == "split":
+        return all_pairs_correlation_pyramid(fmap1, fmap2, num_levels)
+    if storage not in STORAGES:
+        raise ValueError(f"unknown lookup storage {storage!r}")
+    batch, height, width, dim = fmap1.shape
+    f1 = fmap1.reshape(batch, height * width, dim).float()
+    f2 = fmap2.float()
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dim)))  # f32, as the JAX einsum's
+    out = []
+    for i in range(num_levels):
+        if i:  # floor semantics: an odd trailing row or column is dropped
+            b2, lh, lw, c = f2.shape
+            f2 = f2[:, : lh // 2 * 2, : lw // 2 * 2].reshape(b2, lh // 2, 2, lw // 2, 2, c)
+            f2 = f2.mean(dim=(2, 4))
+        lh, lw = f2.shape[1:3]
+        table = f2.reshape(batch, lh * lw, dim)
+        items = []
+        for b in range(batch):
+            for r0 in range(0, height * width, ROW_CHUNK):
+                vol = torch.matmul(f1[b, r0:r0 + ROW_CHUNK], table[b].t()).mul_(scale)
+                items.append(vol.to(torch.bfloat16) if storage == "bf16"
+                             else quantize_rows_int8(vol))
+        shape = (batch * height * width, lh, lw, 1)
+        if storage == "bf16":
+            out.append(torch.cat(items).reshape(shape))
+        else:
+            out.append((torch.cat([q for q, _ in items]).reshape(shape),
+                        torch.cat([s for _, s in items])[:, 0]))
+    return out
+
+
 def corr_lookup_2d(pyramid: list[torch.Tensor], coords: torch.Tensor,
                    radius: int = 4) -> torch.Tensor:
-    """Bilinear (2r+1)^2 window lookup into every level.
+    """Bilinear (2r+1)^2 window lookup into every level, in any storage of
+    `correlation_pyramid`: the taps are read in the level's type and
+    blended in f32, and an int8 level's blend is then multiplied by its
+    row's scale (dequantised after the blend, as the JAX lookup does).
 
     coords [B, H, W, 2] are frame-2 pixel coordinates (grid + flow), halved
     per level. Window tap (i, j) samples (x - r + i, y - r + j) and lands in
@@ -91,6 +146,9 @@ def corr_lookup_2d(pyramid: list[torch.Tensor], coords: torch.Tensor,
     offsets = torch.arange(patch, device=coords.device)
     out = []
     for i, level in enumerate(pyramid):
+        scale = None
+        if isinstance(level, tuple):  # int8 and its rows' scales
+            level, scale = level
         level_h, level_w = level.shape[1:3]
         c = flat_coords / (2.0**i)
         cx = torch.clamp(c[:, 0], -(r + 1.0), level_w + r)
@@ -104,12 +162,14 @@ def corr_lookup_2d(pyramid: list[torch.Tensor], coords: torch.Tensor,
         index = ys.clamp(0, level_h - 1)[:, None, :] * level_w + xs.clamp(0, level_w - 1)[:, :, None]
         patches = torch.gather(level.reshape(rows, level_h * level_w), 1,
                                index.reshape(rows, patch * patch))
-        patches = patches.reshape(rows, patch, patch) * valid  # [rows, x, y]
+        patches = patches.float().reshape(rows, patch, patch) * valid  # [rows, x, y]
         blended = (
             (1.0 - fx) * (1.0 - fy) * patches[:, :-1, :-1]
             + (1.0 - fx) * fy * patches[:, :-1, 1:]
             + fx * (1.0 - fy) * patches[:, 1:, :-1]
             + fx * fy * patches[:, 1:, 1:]
         )
+        if scale is not None:
+            blended = blended * scale[:, None, None]
         out.append(blended.reshape(batch, height, width, span * span))
     return torch.cat(out, dim=-1)

@@ -21,7 +21,54 @@ weights and the weighted sum as differentiable torch ops.
 
 from __future__ import annotations
 
+import logging
+
 import torch
+
+
+def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantisation along the last axis, as the JAX
+    package's fast path stores its loop-constant cost volumes: (q int8,
+    scale f32 with a trailing 1-axis), x ~ q * scale, scale = max|row| / 127
+    (at least 1e-12 / 127), q rounded half to even and clipped to +-127.
+    The int8 values are exact in any float type, so a selection from them
+    stays exact; only the dequantised magnitude rounds (at most
+    max|row| / 254). A tensor of more than two dimensions is taken one slice
+    of its first axis at a time, so its f32 temporaries are one slice's."""
+    if x.dim() > 2:
+        parts = [quantize_rows_int8(item) for item in x]
+        return torch.stack([q for q, _ in parts]), torch.stack([s for _, s in parts])
+    x = x.float()
+    # max |row| without a full-size temporary; the quotient rounded and
+    # clipped in place: one f32 temporary the size of x
+    amax = torch.maximum(x.amax(dim=-1, keepdim=True), -x.amin(dim=-1, keepdim=True))
+    scale = torch.clamp(amax, min=1e-12) * (1.0 / 127.0)
+    q = torch.div(x, scale).round_().clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+_FAST_LOGGED = False
+
+
+def resolve_fast_inference(mode: str, final_only: bool) -> bool:
+    """The `model.fast_inference` config key: whether a forward takes the
+    fast path (bf16 operands, int8 and bf16 cost-volume storage).
+
+    "on" takes it whenever the model evaluates (final-only); "off" never;
+    "auto" means fast only on a TPU, so on a CUDA card or the CPU it is the
+    exact path. Training (final_only False) is always exact: the fast path
+    is forward-only. Logs once when the fast path first engages."""
+    global _FAST_LOGGED
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"fast_inference must be auto|on|off, got {mode!r}")
+    fast = mode == "on" and final_only
+    if fast and not _FAST_LOGGED:
+        logging.getLogger("camliflow_torch").info(
+            "fast_inference engaged (mode=%s): int8 cost volumes, bf16 point-conv "
+            "gathers and bf16 operands of the 2D update chain; set "
+            "model.fast_inference=off for the exact eval path", mode)
+        _FAST_LOGGED = True
+    return fast
 
 
 def squared_distance(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,15 @@ every public function. The tensor-core tile copies 4 channels (16 bytes)
 at a time, so its wrappers take inputs whose channel counts are multiples
 of 4 and whose addresses are 16-byte aligned, and raise on others.
 
+The fast path (`fast_inference=on`) packs with `bf16=True`: the weights
+rounded to bf16 once per request (the biases stay f32), and the kernels run
+the tile's bf16 mode, one bf16 tensor-core pass a chunk with f32
+accumulation, at the rounding points of camliflow_tpu/ops/pallas_update2d.py:
+every conv's input rounded to bf16, and the GRU's hidden state rounded to
+bf16 (after nan_to_num) at the end of each direction and wherever it is
+read. The plain versions round at the same points. The fast forms' launches
+count on each wrapper's `.fast_launches`.
+
     motion_encoder_2d(flow, corr, me)          -> motion [B, H, W, 126 + 2]
     gru_2d(h, x2d, motion, gru)                -> h' [B, H, W, 128]
     flow_head_2d(h, head)                      -> delta [B, H, W, 2]
@@ -52,8 +61,9 @@ class PackedConv(NamedTuple):
     kw: int
     cin: int
     cout: int
-    hi: torch.Tensor | None = None  # [N_pad, K_pad]: tf32(weight.T)
-    lo: torch.Tensor | None = None  # [N_pad, K_pad]: tf32(weight.T - hi)
+    hi: torch.Tensor | None = None  # [N_pad, K_pad]: tf32(weight.T) (bf16: weight.T)
+    lo: torch.Tensor | None = None  # [N_pad, K_pad]: tf32(weight.T - hi) (bf16: none)
+    bf16: bool = False  # the fast path's packing: weight holds bf16 values
 
     def oihw(self) -> torch.Tensor:
         k = self.kh * self.kw * self.cin
@@ -73,6 +83,11 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 value (ties to even), as f32."""
+    return x.to(torch.bfloat16).float()
+
+
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The 3xTF32 split: hi = tf32(x), lo = tf32(x - hi); hi + lo is x to
     about 2^-22 relative."""
@@ -80,10 +95,12 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(x - hi)
 
 
-def pack_convs(*convs: nn.Conv2d) -> PackedConv:
+def pack_convs(*convs: nn.Conv2d, bf16: bool = False) -> PackedConv:
     """One packed conv from Conv2d modules sharing their input: their output
     channels are stacked in order (the GRU's z and r). Also the tf32 planes
-    of the tensor-core tile, zero in the padding."""
+    of the tensor-core tile, zero in the padding; with `bf16` (the fast
+    path) the weights rounded to bf16 and, as the tile's one plane, their
+    transpose."""
     weight = torch.cat([c.weight for c in convs], dim=0).detach().float()
     bias = torch.cat([c.bias for c in convs], dim=0).detach().float()
     cout, cin, kh, kw = weight.shape
@@ -93,8 +110,18 @@ def pack_convs(*convs: nn.Conv2d) -> PackedConv:
     packed[:k, :cout] = flat
     padded_bias = bias.new_zeros(packed.shape[1])
     padded_bias[:cout] = bias
+    if bf16:
+        packed = bf16_round(packed)
+        return PackedConv(packed, padded_bias, kh, kw, cin, cout, packed.t().contiguous(),
+                          None, True)
     hi, lo = split_tf32(packed.t().contiguous())
     return PackedConv(packed, padded_bias, kh, kw, cin, cout, hi, lo)
+
+
+def _rounding(conv: PackedConv):
+    """What a plain version does to a conv's input: round it to bf16 for a
+    bf16 packing, nothing otherwise."""
+    return bf16_round if conv.bf16 else (lambda x: x)
 
 
 def conv_plain(x: torch.Tensor, conv: PackedConv) -> torch.Tensor:
@@ -107,30 +134,36 @@ def conv_plain(x: torch.Tensor, conv: PackedConv) -> torch.Tensor:
 # --- MotionEncoder2D (kernel #9) -----------------------------------------
 
 
-def prepare_motion_encoder_params(encoder: nn.Module) -> dict:
+def prepare_motion_encoder_params(encoder: nn.Module, bf16: bool = False) -> dict:
     """Packed convs of a `models.raft.MotionEncoder2D`; conv_f1 stays a
-    plain (weight, bias) pair: it runs outside the kernel."""
+    plain (weight, bias) pair: it runs outside the kernel (with `bf16`, its
+    weight rounded to bf16)."""
     _cuda.forward_only_modules("prepare_motion_encoder_params", encoder)
-    params = {name: pack_convs(getattr(encoder, name))
+    params = {name: pack_convs(getattr(encoder, name), bf16=bf16)
               for name in ("conv_c1", "conv_c2", "conv_f2", "conv")}
-    params["conv_f1"] = (encoder.conv_f1.weight.detach().float(),
+    weight = encoder.conv_f1.weight.detach().float()
+    params["conv_f1"] = (bf16_round(weight) if bf16 else weight,
                          encoder.conv_f1.bias.detach().float())
     return params
 
 
 def _conv_f1(flow: torch.Tensor, params: dict) -> torch.Tensor:
-    """conv_f1 (7x7, bias, ReLU) as one F.conv2d -> NHWC contiguous."""
+    """conv_f1 (7x7, bias, ReLU) as one F.conv2d -> NHWC contiguous; on a
+    bf16 packing over the flow rounded to bf16 (the products of bf16 values
+    are exact in f32, as the JAX package's bf16 XLA conv takes them)."""
     weight, bias = params["conv_f1"]
+    flow = _rounding(params["conv"])(flow)
     out = F.relu(F.conv2d(flow.permute(0, 3, 1, 2), weight, bias, padding=3))
     return out.permute(0, 2, 3, 1).contiguous()
 
 
 def motion_encoder_2d_plain(flow: torch.Tensor, corr: torch.Tensor, params: dict):
+    r = _rounding(params["conv"])
     ff = _conv_f1(flow, params)
-    cf = F.relu(conv_plain(corr, params["conv_c1"]))
-    cf = F.relu(conv_plain(cf, params["conv_c2"]))
-    ff = F.relu(conv_plain(ff, params["conv_f2"]))
-    out = torch.nan_to_num(F.relu(conv_plain(torch.cat([cf, ff], dim=-1), params["conv"])))
+    cf = F.relu(conv_plain(r(corr), params["conv_c1"]))
+    cf = F.relu(conv_plain(r(cf), params["conv_c2"]))
+    ff = F.relu(conv_plain(r(ff), params["conv_f2"]))
+    out = torch.nan_to_num(F.relu(conv_plain(r(torch.cat([cf, ff], dim=-1)), params["conv"])))
     return torch.cat([out, flow], dim=-1)
 
 
@@ -146,16 +179,19 @@ def _check_params(name: str, params: dict, device: torch.device) -> None:
 def _check_tc(name: str, params: dict, keys, **tensors: torch.Tensor) -> None:
     """What the tensor-core tile assumes: each input's channel count a
     multiple of 4 and its address 16-byte aligned (16-byte copies of 4
-    channels), and each packed conv's tf32 planes beside its weights."""
+    channels), and each packed conv's tf32 planes (bf16: its one plane)
+    beside its weights, all in one mode."""
     for key, t in tensors.items():
         if t.shape[-1] % 4:
             raise ValueError(f"{name}: {key} has {t.shape[-1]} channels, not a multiple of 4 "
                              "(the kernel copies 4 channels at a time)")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must start at a 16-byte aligned address")
+    if len({params[key].bf16 for key in keys}) > 1:
+        raise ValueError(f"{name}: params{list(keys)} mix bf16 and f32 packings")
     for key in keys:
         conv = params[key]
-        for plane in (conv.hi, conv.lo):
+        for plane in (conv.hi,) if conv.bf16 else (conv.hi, conv.lo):
             if (plane is None or plane.device != conv.weight.device
                     or plane.shape != conv.weight.shape[::-1] or not plane.is_contiguous()
                     or plane.data_ptr() % 16):
@@ -168,8 +204,8 @@ def _check_tc(name: str, params: dict, keys, **tensors: torch.Tensor) -> None:
 
 def _planes(params: dict, keys) -> ctypes.Array:
     """The (hi, lo, bias) pointers of the packed convs `keys`, in order, as
-    the C array the entry points take."""
-    ptrs = [t.data_ptr() for key in keys
+    the C array the entry points take (a bf16 packing's lo: null)."""
+    ptrs = [None if t is None else t.data_ptr() for key in keys
             for t in (params[key].hi, params[key].lo, params[key].bias)]
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
@@ -203,52 +239,65 @@ def motion_encoder_2d(flow: torch.Tensor, corr: torch.Tensor, params: dict):
 
     launch("camli_motion_encoder_2d", flow.data_ptr(), ff1.data_ptr(), corr.data_ptr(),
            _planes(params, ME_CONVS), cf1.data_ptr(), cf.data_ptr(), ff.data_ptr(),
-           out.data_ptr(), batch, height, width, c1.cin, c1.cout, c2.cout, ff1.shape[-1],
-           f2.cout, merge.cout)
-    motion_encoder_2d.launches += 1
+           out.data_ptr(), int(merge.bf16), batch, height, width, c1.cin, c1.cout, c2.cout,
+           ff1.shape[-1], f2.cout, merge.cout)
+    _cuda.count(motion_encoder_2d, merge.bf16)
     return out
 
 
 motion_encoder_2d.launches = 0
+motion_encoder_2d.fast_launches = 0
 
 
 # --- GRU2D + FlowHead2D (kernel #8) --------------------------------------
 
 
-def prepare_gru_params(gru: nn.Module) -> dict:
+def prepare_gru_params(gru: nn.Module, bf16: bool = False) -> dict:
     """Packed convs of a `models.raft.GRU2D`: per direction, z|r stacked
     into one conv, and q."""
     _cuda.forward_only_modules("prepare_gru_params", gru)
     return {
-        "zr1": pack_convs(gru.convz1, gru.convr1), "q1": pack_convs(gru.convq1),
-        "zr2": pack_convs(gru.convz2, gru.convr2), "q2": pack_convs(gru.convq2),
+        "zr1": pack_convs(gru.convz1, gru.convr1, bf16=bf16),
+        "q1": pack_convs(gru.convq1, bf16=bf16),
+        "zr2": pack_convs(gru.convz2, gru.convr2, bf16=bf16),
+        "q2": pack_convs(gru.convq2, bf16=bf16),
     }
 
 
-def prepare_flow_head_params(head: nn.Module) -> dict:
+def prepare_flow_head_params(head: nn.Module, bf16: bool = False) -> dict:
     """Packed convs of a `models.raft.FlowHead2D`."""
     _cuda.forward_only_modules("prepare_flow_head_params", head)
-    return {"head1": pack_convs(head.conv1), "head2": pack_convs(head.conv2)}
+    return {"head1": pack_convs(head.conv1, bf16=bf16),
+            "head2": pack_convs(head.conv2, bf16=bf16)}
 
 
-def prepare_gru_flowhead_params(gru: nn.Module, head: nn.Module) -> dict:
-    return {**prepare_gru_params(gru), **prepare_flow_head_params(head)}
+def prepare_gru_flowhead_params(gru: nn.Module, head: nn.Module, bf16: bool = False) -> dict:
+    return {**prepare_gru_params(gru, bf16), **prepare_flow_head_params(head, bf16)}
 
 
 def gru_2d_plain(h: torch.Tensor, x: torch.Tensor, params: dict) -> torch.Tensor:
-    """Separable ConvGRU (1x5 then 5x1); nan_to_num once at the end."""
+    """Separable ConvGRU (1x5 then 5x1); nan_to_num once at the end. On a
+    bf16 packing the JAX bf16 kernel's roundings: x and, in each direction,
+    h and r*h rounded to bf16, and the new h nan_to_num-ed and rounded."""
     hidden = h.shape[-1]
+    fast = params["zr1"].bf16
+    r16 = _rounding(params["zr1"])
+    x = r16(x)
     for zr, q in (("zr1", "q1"), ("zr2", "q2")):
+        h = r16(h)
         gates = torch.sigmoid(conv_plain(torch.cat([h, x], dim=-1), params[zr]))
         z, r = gates[..., :hidden], gates[..., hidden:]
-        q_new = torch.tanh(conv_plain(torch.cat([r * h, x], dim=-1), params[q]))
+        q_new = torch.tanh(conv_plain(torch.cat([r16(r * h), x], dim=-1), params[q]))
         h = (1.0 - z) * h + z * q_new
-    return torch.nan_to_num(h)
+        if fast:
+            h = r16(torch.nan_to_num(h))
+    return h if fast else torch.nan_to_num(h)
 
 
 def flow_head_2d_plain(h: torch.Tensor, params: dict) -> torch.Tensor:
-    mid = F.relu(conv_plain(h, params["head1"]))
-    return torch.nan_to_num(conv_plain(mid, params["head2"]))
+    r = _rounding(params["head1"])
+    mid = F.relu(conv_plain(r(h), params["head1"]))
+    return torch.nan_to_num(conv_plain(r(mid), params["head2"]))
 
 
 def gru_flowhead_2d_plain(h, x2d, motion, params):
@@ -303,14 +352,16 @@ def gru_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
     z, rh, h1, h_out = (h.new_empty(batch, height, width, ch) for _ in range(4))
     from ..csrc.build import launch
 
+    bf16 = params["zr1"].bf16
     launch("camli_gru_2d", h.data_ptr(), x2d.data_ptr(), motion.data_ptr(),
            _planes(params, GRU_CONVS), z.data_ptr(), rh.data_ptr(), h1.data_ptr(),
-           h_out.data_ptr(), batch, height, width, ch, cx, cm)
-    gru_2d.launches += 1
+           h_out.data_ptr(), int(bf16), batch, height, width, ch, cx, cm)
+    _cuda.count(gru_2d, bf16)
     return h_out
 
 
 gru_2d.launches = 0
+gru_2d.fast_launches = 0
 
 
 def flow_head_2d(h: torch.Tensor, params: dict) -> torch.Tensor:
@@ -330,13 +381,15 @@ def flow_head_2d(h: torch.Tensor, params: dict) -> torch.Tensor:
     delta = h.new_empty(batch, height, width, 2)
     from ..csrc.build import launch
 
+    bf16 = params["head1"].bf16
     launch("camli_flow_head_2d", h.data_ptr(), _planes(params, HEAD_CONVS), mid.data_ptr(),
-           delta.data_ptr(), batch, height, width, ch, mid.shape[-1])
-    flow_head_2d.launches += 1
+           delta.data_ptr(), int(bf16), batch, height, width, ch, mid.shape[-1])
+    _cuda.count(flow_head_2d, bf16)
     return delta
 
 
 flow_head_2d.launches = 0
+flow_head_2d.fast_launches = 0
 
 
 def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
@@ -352,8 +405,7 @@ def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
     batch, height, width, ch, cx, cm = _check_gru_inputs(name, h, x2d, motion)
     _check_params(name, params, h.device)
     _check_gru_flowhead(name, params, ch, cx, cm)
-    _check_tc(name, params, GRU_CONVS, h=h, x2d=x2d, motion=motion)
-    _check_tc(name, params, HEAD_CONVS)
+    _check_tc(name, params, GRU_CONVS + HEAD_CONVS, h=h, x2d=x2d, motion=motion)
     head1 = params["head1"]
     new = lambda c: h.new_empty(batch, height, width, c)  # noqa: E731
     z, rh, h1, mid, h_out, delta = new(ch), new(ch), new(ch), new(head1.cout), new(ch), new(2)
@@ -361,21 +413,24 @@ def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
 
     launch("camli_gru_flowhead_2d", h.data_ptr(), x2d.data_ptr(), motion.data_ptr(),
            _planes(params, GRU_CONVS + HEAD_CONVS), z.data_ptr(), rh.data_ptr(), h1.data_ptr(),
-           mid.data_ptr(), h_out.data_ptr(), delta.data_ptr(), batch, height, width, ch, cx,
-           cm, head1.cout)
-    gru_flowhead_2d.launches += 1
+           mid.data_ptr(), h_out.data_ptr(), delta.data_ptr(), int(head1.bf16), batch, height,
+           width, ch, cx, cm, head1.cout)
+    _cuda.count(gru_flowhead_2d, head1.bf16)
     return h_out, delta
 
 
 gru_flowhead_2d.launches = 0
+gru_flowhead_2d.fast_launches = 0
 
 
 # --- the whole RAFT iteration (kernel #10) --------------------------------
 
 
-def prepare_update_2d_params(encoder: nn.Module, gru: nn.Module, head: nn.Module):
+def prepare_update_2d_params(encoder: nn.Module, gru: nn.Module, head: nn.Module,
+                             bf16: bool = False):
     """(me, gf): the motion encoder's and the GRU + flow head's packings."""
-    return prepare_motion_encoder_params(encoder), prepare_gru_flowhead_params(gru, head)
+    return (prepare_motion_encoder_params(encoder, bf16),
+            prepare_gru_flowhead_params(gru, head, bf16))
 
 
 def update_2d_plain(h, x2d, flow, corr, me: dict, gf: dict):
@@ -411,8 +466,10 @@ def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torc
     if f2.cin != ff1.shape[-1]:
         raise ValueError(f"{name}: conv_f1 does not feed conv_f2")
     _check_tc(name, me, ME_CONVS, corr=corr, ff1=ff1)
-    _check_tc(name, gf, GRU_CONVS, h=h, x2d=x2d)
-    _check_tc(name, gf, HEAD_CONVS)
+    _check_tc(name, gf, GRU_CONVS + HEAD_CONVS, h=h, x2d=x2d)
+    bf16 = merge.bf16
+    if head1.bf16 != bf16:
+        raise ValueError(f"{name}: the motion encoder's and the GRU's packings differ in mode")
     if cm % 4:
         raise ValueError(f"{name}: the motion features have {cm} channels, not a multiple of 4 "
                          "(the kernel copies 4 channels at a time)")
@@ -425,10 +482,12 @@ def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torc
 
     launch("camli_update_2d", h.data_ptr(), x2d.data_ptr(), flow.data_ptr(), ff1.data_ptr(),
            corr.data_ptr(), _planes({**me, **gf}, ME_CONVS + GRU_CONVS + HEAD_CONVS),
-           scratch.data_ptr(), h_out.data_ptr(), delta.data_ptr(), batch, height, width,
-           c1.cin, c1.cout, c2.cout, ff1.shape[-1], f2.cout, merge.cout, ch, cx, head1.cout)
-    update_2d.launches += 1
+           scratch.data_ptr(), h_out.data_ptr(), delta.data_ptr(), int(bf16), batch, height,
+           width, c1.cin, c1.cout, c2.cout, ff1.shape[-1], f2.cout, merge.cout, ch, cx,
+           head1.cout)
+    _cuda.count(update_2d, bf16)
     return h_out, delta
 
 
 update_2d.launches = 0
+update_2d.fast_launches = 0

@@ -2,9 +2,15 @@
 
 Replaces camliflow_tpu/ops/pallas_update3d.py::motion_encoder_3d_pallas and
 ::gru_flowhead_3d_pallas with `csrc/update3d.cu` (see the source's note for
-the design and the bound). Both compute the exact path in f32: the hoisted
-PointConvDW weights stay f32 in their [B, N, k, C] layout (the TPU fast
-path's bf16/int8 storage and k-major relayout are not ported).
+the design and the bound). The hoisted PointConvDW weights keep their
+[B, N, k, C] layout (the TPU's k-major relayout is not ported). In f32 they
+give the exact path. In bf16 (`fast_inference=on`, `to_bf16`) each wrapper
+takes its fast form, the JAX package's PointConvDW with `fast=True`: each
+conv's MLP output rounded to bf16 before the neighbour gather, each product
+of two bf16 values rounded to bf16 (nearest, ties to even), the max over k,
+the result as f32; the dense layers stay f32. The int8 hoisted weights of
+the TPU's `quantize_dw_int8`, which only `CAMLIFLOW_UPDATE3D=1` engages
+there, are not ported.
 
 Each PointConvDW's MLP (one Linear) is packed once per request by
 `prepare_motion_encoder_3d_params` / `prepare_gru_flowhead_3d_params` into a
@@ -104,24 +110,53 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
 
 
 def dw_max_plain(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
-    """max_j table[idx[:, :, j]] * weights[:, :, j] over the weights' k."""
+    """max_j table[idx[:, :, j]] * weights[:, :, j] over the weights' k. On
+    bf16 weights (the fast path) the table is rounded to bf16 first, each
+    product is a bf16 product and the max is returned as f32."""
     k = weights.shape[2]
+    if weights.dtype == torch.bfloat16:
+        gathered = gather_points(table.to(torch.bfloat16), knn_idx[:, :, :k])
+        return torch.amax(gathered * weights, dim=2).float()
     return torch.amax(gather_points(table, knn_idx[:, :, :k]) * weights, dim=2)
+
+
+def to_bf16(dw: dict) -> dict:
+    """The hoisted weights (a dict of tensors, or of such dicts) in bf16, the
+    fast path's storage, each keeping its layout (the merge conv's rows 128
+    values apart, `padded_rows`)."""
+    out = {}
+    for key, w in dw.items():
+        if isinstance(w, dict):
+            out[key] = to_bf16(w)
+        elif w.stride(-2) != w.shape[-1]:  # padded rows: convert the buffer
+            buffer = w.as_strided(w.shape[:-1] + (w.stride(-2),), w.stride())
+            out[key] = buffer.to(torch.bfloat16)[..., : w.shape[-1]]
+        else:
+            out[key] = w.to(torch.bfloat16)
+    return out
+
+
+def _dw_dtype(name: str, dw: dict, keys) -> torch.dtype:
+    """The hoisted weights' one dtype: f32 (the exact path) or bf16 (the
+    fast path)."""
+    dtypes = {dw[key].dtype for key in keys}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise TypeError(f"{name}: the hoisted weights must be all {torch.float32} or all "
+                        f"{torch.bfloat16}, got {sorted(map(str, dtypes))}")
+    return dtypes.pop()
 
 
 def _check_dw(name: str, dw: dict, keys, batch: int, n: int, device,
               padded=()) -> list[int]:
-    """The hoisted weights [B, N, k, C], contiguous, or for the `padded`
-    keys with rows round_up(C, 4) floats apart (`padded_rows`); returns
-    their k."""
+    """The hoisted weights [B, N, k, C], all f32 or all bf16, contiguous, or
+    for the `padded` keys with rows round_up(C, 4) values apart
+    (`padded_rows`); returns their k."""
+    dtype = _dw_dtype(name, dw, keys)
     ks = []
     for key in keys:
         w = dw[key]
-        if key in padded:
-            if w.dtype != torch.float32:
-                raise TypeError(f"{name}: dw[{key!r}] must be {torch.float32}, got {w.dtype}")
-        else:
-            _cuda.check(name, torch.float32, **{key: w})
+        if key not in padded:
+            _cuda.check(name, dtype, **{key: w})
         if w.device != device:
             raise ValueError(f"{name}: dw[{key!r}] lies on {w.device}, not {device}")
         _cuda.check_shape(name, f"dw[{key!r}]", w, (batch, n, None, None))
@@ -222,7 +257,8 @@ def _me_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
     # the scratch a point: c1's table, f1's, corr_feat, f2's table, flow_feat
     # and the merge table, its rows padded to 4 channels
     per_point = 2 * c1.cout + f1.cout + 2 * f2.cout + _round_up(merge.cout, 4)
-    return (tuple(dw[k].data_ptr() for k in ME_CONVS), _planes(packed, ME_DENSE),
+    bf16 = int(dw["conv"].dtype == torch.bfloat16)
+    return (tuple(dw[k].data_ptr() for k in ME_CONVS), bf16, _planes(packed, ME_DENSE),
             tuple(t.data_ptr() for c in (f1, f2) for t in (c.weight, c.bias)),
             (c1.cout, f1.cout, f2.cout, merge.cout), tuple(ks),
             (f1.weight.shape[1], f2.weight.shape[1]), per_point)
@@ -232,9 +268,10 @@ def motion_encoder_3d(flow: torch.Tensor, corr: torch.Tensor, knn_idx: torch.Ten
                       dw: dict, params: dict):
     """flow [B, N, 3], corr [B, N, C], knn_idx [B, N, >=32] int32, `dw` the
     hoisted weights as MotionEncoder3D.precompute_weights gives them (the
-    merge conv's rows 128 floats apart, `padded_rows`) -> [B, N, 125 + 3]
-    (the merge conv's output, then the flow). CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    merge conv's rows 128 floats apart, `padded_rows`), f32 or, for the
+    fast form, bf16 (`to_bf16`) -> [B, N, 125 + 3] (the merge conv's
+    output, then the flow). CPU tensors take the plain version; CUDA
+    tensors the kernel. The fast form's launches count on `.fast_launches`."""
     _cuda.forward_only("motion_encoder_3d", flow, corr, *dw.values())
     if _cuda.on_cpu(flow, corr, knn_idx):
         return motion_encoder_3d_plain(flow, corr, knn_idx, dw, params)
@@ -247,7 +284,7 @@ def motion_encoder_3d(flow: torch.Tensor, corr: torch.Tensor, knn_idx: torch.Ten
     c_corr = corr.shape[-1]
     if c_corr % 4 or corr.data_ptr() % 16:  # corr feeds the tensor-core tile
         _check_tc(name, {}, (), corr=corr)
-    dws, planes, weights, (c1, f1, f2, c_m), ks, npads, per_point = _me_checked(
+    dws, bf16, planes, weights, (c1, f1, f2, c_m), ks, npads, per_point = _me_checked(
         name, params, dw, (batch, n, c_flow, c_corr), flow.device)
     if (knn_idx.dtype != torch.int32 or knn_idx.device != flow.device or knn_idx.dim() != 3
             or knn_idx.shape[:2] != (batch, n) or knn_idx.shape[2] < max(ks)
@@ -258,13 +295,14 @@ def motion_encoder_3d(flow: torch.Tensor, corr: torch.Tensor, knn_idx: torch.Ten
     from ..csrc.build import launch
 
     launch("camli_motion_encoder_3d", flow.data_ptr(), corr.data_ptr(), knn_idx.data_ptr(),
-           *dws, planes, *weights, scratch.data_ptr(), out.data_ptr(), batch, n,
+           *dws, planes, *weights, scratch.data_ptr(), out.data_ptr(), bf16, batch, n,
            knn_idx.shape[2], c_flow, c_corr, c1, f1, f2, c_m, *ks, *npads, per_point)
-    motion_encoder_3d.launches += 1
+    _cuda.count(motion_encoder_3d, bf16)
     return out
 
 
 motion_encoder_3d.launches = 0
+motion_encoder_3d.fast_launches = 0
 
 
 # --- GRU3D + FlowHead3D (kernel #7) ---------------------------------------
@@ -359,7 +397,8 @@ def _gf_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
         raise ValueError(f"{name}: dw{misaligned} must be 16-byte aligned")
     _check_tc(name, packed, GF_DENSE)
     per_point = 6 * ch + conv1.cout + conv2.cout  # the kernel's scratch
-    args = (tuple(dw[k].data_ptr() for k in GF_DW), _planes(packed, GF_DENSE),
+    bf16 = int(dw["conv_q"].dtype == torch.bfloat16)
+    args = (tuple(dw[k].data_ptr() for k in GF_DW), bf16, _planes(packed, GF_DENSE),
             tuple(t.data_ptr() for c in (conv1, conv2, fc) for t in (c.weight, c.bias)),
             (conv1.cout, conv2.cout, fc.cout), tuple(ks),
             tuple(w.weight.shape[1] for w in (conv1, conv2, fc)), per_point)
@@ -369,8 +408,9 @@ def _gf_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
 def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
                     knn_idx: torch.Tensor, dw: dict, params: dict):
     """h [B, N, Ch], x3d [B, N, Cx], motion [B, N, Cm], knn_idx [B, N, >=32]
-    int32 -> (h' [B, N, Ch], delta [B, N, 3]). CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    int32, `dw` f32 or, for the fast form, bf16 -> (h' [B, N, Ch], delta
+    [B, N, 3]). CPU tensors take the plain version; CUDA tensors the
+    kernel. The fast form's launches count on `.fast_launches`."""
     _cuda.forward_only("gru_flowhead_3d", h, x3d, motion, *dw.values())
     if _cuda.on_cpu(h, x3d, motion, knn_idx):
         return gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw, params)
@@ -384,7 +424,7 @@ def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
         _cuda.check_shape(name, "motion", motion, (batch, n, None))
     if (ch | cx | cm) % 4 or (h.data_ptr() | x3d.data_ptr() | motion.data_ptr()) % 16:
         _check_tc(name, {}, (), h=h, x3d=x3d, motion=motion)
-    dws, planes, weights, (c1, c2, c_out), ks, npads, per_point = _gf_checked(
+    dws, bf16, planes, weights, (c1, c2, c_out), ks, npads, per_point = _gf_checked(
         name, params, dw, (batch, n, ch, cx, cm), h.device)
     if (knn_idx.dtype != torch.int32 or knn_idx.device != h.device or knn_idx.dim() != 3
             or knn_idx.shape[:2] != (batch, n) or knn_idx.shape[2] < max(ks)
@@ -396,13 +436,14 @@ def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
 
     launch("camli_gru_flowhead_3d", h.data_ptr(), x3d.data_ptr(), motion.data_ptr(),
            knn_idx.data_ptr(), *dws, planes, *weights, scratch.data_ptr(), h_out.data_ptr(),
-           delta.data_ptr(), batch, n, knn_idx.shape[2], ch, cx, cm, c1, c2, c_out, *ks,
+           delta.data_ptr(), bf16, batch, n, knn_idx.shape[2], ch, cx, cm, c1, c2, c_out, *ks,
            *npads)
-    gru_flowhead_3d.launches += 1
+    _cuda.count(gru_flowhead_3d, bf16)
     return h_out, delta
 
 
 gru_flowhead_3d.launches = 0
+gru_flowhead_3d.fast_launches = 0
 
 
 # --- the PointConvDW tail alone (kernel #13) -------------------------------
@@ -410,7 +451,12 @@ gru_flowhead_3d.launches = 0
 
 def _dw_max_check(name: str, table, knn_idx, weights) -> None:
     """Every argument check of `dw_max`, each raising with its reason."""
-    _cuda.check(name, torch.float32, table=table, weights=weights)
+    _cuda.check(name, torch.float32, table=table)
+    _cuda.check(name, weights.dtype if weights.dtype == torch.bfloat16 else torch.float32,
+                weights=weights)
+    if weights.device != table.device:
+        raise ValueError(f"{name}: all inputs must lie on one CUDA device, got "
+                         f"{table.device} and {weights.device}")
     _cuda.check_shape(name, "table", table, (None, None, None))
     batch, _, channels = table.shape
     _cuda.check_shape(name, "weights", weights, (batch, None, None, channels))
@@ -423,8 +469,10 @@ def _dw_max_check(name: str, table, knn_idx, weights) -> None:
 def dw_max(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
     """table [B, N, C], knn_idx [B, M, >=k] int32, weights [B, M, k, C] ->
     [B, M, C]: max_j table[idx[:, :, j]] * weights[:, :, j], bit-identical
-    to `dw_max_plain`, for any k >= 1 and C. CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    to `dw_max_plain`, for any k >= 1 and C; on bf16 weights the fast form
+    (the table rounded to bf16, bf16 products). CPU tensors take the plain
+    version; CUDA tensors the kernel. The fast form's launches count on
+    `.fast_launches`."""
     _cuda.forward_only("dw_max", table, weights)
     if _cuda.on_cpu(table, knn_idx, weights):
         return dw_max_plain(table, knn_idx, weights)
@@ -432,7 +480,8 @@ def dw_max(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
     # cheap conditions first (80 calls a fuse_hidden request), every check
     # with its reason only when one fails
     device = table.device
-    if (table.dtype != torch.float32 or weights.dtype != torch.float32
+    if (table.dtype != torch.float32
+            or weights.dtype not in (torch.float32, torch.bfloat16)
             or knn_idx.dtype != torch.int32 or table.dim() != 3 or weights.dim() != 4
             or knn_idx.dim() != 3 or device.type != "cuda" or weights.device != device
             or knn_idx.device != device or device.index != torch.cuda.current_device()
@@ -446,13 +495,15 @@ def dw_max(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
     out = table.new_empty(batch, m, channels)
     from ..csrc.build import launch
 
+    bf16 = weights.dtype == torch.bfloat16
     launch("camli_dw_max", table.data_ptr(), weights.data_ptr(), knn_idx.data_ptr(),
-           out.data_ptr(), batch, n_table, m, knn_idx.shape[2], k, channels)
-    dw_max.launches += 1
+           out.data_ptr(), int(bf16), batch, n_table, m, knn_idx.shape[2], k, channels)
+    _cuda.count(dw_max, bf16)
     return out
 
 
 dw_max.launches = 0
+dw_max.fast_launches = 0
 
 
 def gru_3d(h: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor, dw: dict, params: dict):

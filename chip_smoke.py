@@ -20,9 +20,9 @@ and points, all three fusions), in phases:
 2. build: compiles the CUDA kernels from camliflow_torch/csrc with nvcc,
    and prints each kernel's registers, static shared memory and spills
    (ptxas);
-3. kernels: each of the thirteen kernels against its plain PyTorch version
-   on the card, at the shapes the main paths give it (and #8's two halves,
-   which the fuse_hidden path launches, and the k-major gather on
+3. kernels: each of the thirteen kernels, and each fast form, against its
+   plain PyTorch version on the card, at the shapes the main paths give it
+   (and #8's two halves, which the fuse_hidden path launches, and the k-major gather on
    tools/probe_gather_matrix.py's cases, timed by CUDA events and by the
    profiler's device time), with times for both and the least time the
    card could take (bound; for the tensor-core kernels, the 2D chain's and
@@ -146,9 +146,20 @@ and points, all three fusions), in phases:
    ranks' `run_things` over 5 frames in global batches of 2 (rank 1's last
    slice empty) against one process's totals. The ranks are processes of
    their own (`camliflow_torch.parallel.dist.spawn`), waited for with a
-   timeout.
+   timeout;
+11. the fast path (fast_inference=on): CamLiRAFT-L, the flagship with
+   fuse_hidden off and on, and RAFT at full width with phase 4's weights,
+   at bs=1 (3 requests through run_things, launches held to the fast
+   forms: #4's int8 form, #5 with the scale, #6, #7, #13 on bf16 weights,
+   #8-#10 on the tile's bf16 mode) and at bs=8, each against the exact
+   path on the same inputs (on the weights the fast path multiplies by,
+   within 1e-2 px and 5e-3 m; on the f32 weights, within the JAX
+   package's fast-vs-exact test bound), with request times and peak
+   memory of both paths, then against the CPU's plain fast versions; and
+   the eval CLI once with 'model.fast_inference="on"'. Phase 3 holds each
+   fast form to its plain version too, timed beside its exact form.
 
-Each path's launches (4, 7, 8, 9 and 10) are counted with every counter
+Each path's launches (4, 7, 8, 9, 10 and 11) are counted with every counter
 zeroed just before it and read just after. Prints the kernels' JSON line, then the card's name and power limit, then, as
 the last line, the device JSON with "ok": true. Exits non-zero, without that
 line, if any phase fails or there is no CUDA card.
@@ -176,7 +187,38 @@ FLOW_3D_TOL = 5e-3  # m, max |CUDA - CPU| on flow_3d
 FLOW_2D_TOL = 1e-2  # px, max |CUDA - CPU| on flow_2d
 PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores, op/s
 PEAK_TF32 = 495e12  # H100 SXM TF32 on the tensor cores, dense, op/s
+PEAK_BF16 = 989e12  # H100 SXM bf16 on the tensor cores, dense, op/s
 TC_MMA = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, 3xTF32"  # conv_tile_tc.cuh
+BF16_MMA = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"  # the tile's bf16 mode
+# the fast path (fast_inference=on): each fast form against its plain version,
+# max|kernel - plain| <= FAST_TOL * (1 + max|plain|) (bf16 roundings after
+# sums in another order can flip: about two bf16 steps of the largest value).
+# Fast against exact on the same inputs, two ways (phase 11):
+# - against the exact path on the weights the fast path multiplies by (the
+#   convs it packs to bf16, rounded: bf16_packed_convs), within the JAX
+#   package's on-hardware gate (tools/measure_model.py numerics). Its exact
+#   reference ran on the TPU, whose f32 convolutions take bf16 operands by
+#   default (DEFAULT precision), so it shared those rounded weights;
+# - against the f32 exact path within the JAX package's fast-vs-exact test
+#   bound, whose exact reference is f32 (its CPU tests): max(floor, 2% of the
+#   flow's largest magnitude). The rounded weights alone move the flagship's
+#   2D flow by ~8e-3 px over 20 iterations (a fixed perturbation of the
+#   model, each iteration's delta alike).
+FAST_TOL = 2.0**-6
+FAST_2D_TOL = 1e-2  # px
+FAST_3D_TOL = 5e-3  # m
+FAST_2D_FLOOR, FAST_3D_FLOOR, FAST_SHARE = 0.15, 0.02, 0.02  # px, m, of the scale
+# each kernel with a fast form: its exact wrapper's name -> the fast form's
+# (#8's halves keep their exact forms on the main paths: with fuse_hidden the
+# fast path runs GRU2D and FlowHead2D exact, as the JAX package's does)
+FAST_FORMS = {"correlation3d_knn": "correlation3d_knn_int8",
+              "corr3d_tail": "corr3d_tail_scaled",
+              "motion_encoder_3d": "motion_encoder_3d_bf16",
+              "gru_flowhead_3d": "gru_flowhead_3d_bf16",
+              "dw_max": "dw_max_bf16",
+              "motion_encoder_2d": "motion_encoder_2d_bf16",
+              "gru_flowhead_2d": "gru_flowhead_2d_bf16",
+              "update_2d": "update_2d_bf16"}
 TC_STAGES = 3  # conv_tile_tc.cuh's kStages
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, B/s
 L_CFGS = {  # conf/model/camliraft_l.yaml
@@ -293,6 +335,20 @@ def bound(ops: float, nbytes: float, peak: float = PEAK_F32) -> tuple[float, str
     over the peak rate for their type and the bytes over the memory rate."""
     t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fast_close(name: str, got, ref) -> float:
+    """A fast form against its plain version: max |got - ref| within
+    FAST_TOL * (1 + max |ref|); prints it and the share of values equal bit
+    for bit. Returns the max."""
+    err = float((got - ref).abs().max())
+    limit = FAST_TOL * (1.0 + float(ref.abs().max()))
+    same = float((got == ref).float().mean())
+    print(f"  {name}: max |kernel - plain| {err:.3e} (bound {limit:.3e}), "
+          f"{100 * same:.2f}% of values bit for bit")
+    if not err <= limit:
+        raise AssertionError(f"{name}: max |d| {err} > {limit}")
+    return err
 
 
 PROFILE_TRIES = 6  # the profiler on the H100 drops all or part of a run's events, now and then
@@ -648,6 +704,7 @@ def kernel_parity(device, other=None) -> list[dict]:
     from camliflow_torch.models.raft import FlowHead2D, GRU2D, MotionEncoder2D
     from camliflow_torch.nn.clfm import CLFM, fusion_interp_cache
     from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
+    from camliflow_torch.ops.geometry import quantize_rows_int8
     from camliflow_torch.runtime.checkpoint import random_weights
 
     both = main_path_clouds(device)  # [2, 8192, 3]
@@ -655,18 +712,23 @@ def kernel_parity(device, other=None) -> list[dict]:
     results = []
 
     def record(name, source, replaces, err, ms, plain_ms, ops, nbytes, label=None,
-               entry=True, wrapper=None, library_ms=None, tensor_cores=False, **extra):
+               entry=True, wrapper=None, library_ms=None, tensor_cores=False,
+               bf16_cores=False, **extra):
         """Print one measurement (as `label`); `entry` adds it to the kernels
         JSON line, whose launches are those of `wrapper` (default `name`).
         `library_ms`: one PyTorch call that computes the same function.
         `tensor_cores`: f32 work done on the tensor cores by the 3xTF32
         split, whose least time is 3 TF32 operations per f32 operation at
         the TF32 peak (bound_ms; the f32 bound outside the tensor cores
-        beside it). `extra`: more keys of the entry."""
+        beside it). `bf16_cores`: bf16 operands on the tensor cores, one
+        pass, at the bf16 peak. `extra`: more keys of the entry."""
         bound_ms, bound_by = bound(ops, nbytes)
         if tensor_cores:
             extra = {"bound_f32_ms": bound_ms, "mma": TC_MMA, **extra}
             bound_ms, bound_by = bound(3 * ops, nbytes, PEAK_TF32)
+        if bf16_cores:
+            extra = {"bound_f32_ms": bound_ms, "mma": BF16_MMA, **extra}
+            bound_ms, bound_by = bound(ops, nbytes, PEAK_BF16)
         if entry:
             results.append({"name": name, "route": "cuda", "source": source,
                             "replaces": replaces, "launches": 0, "max_abs_err": err,
@@ -674,7 +736,7 @@ def kernel_parity(device, other=None) -> list[dict]:
                             "bound_by": bound_by, "library_ms": library_ms,
                             "wrapper": wrapper or name, **extra})
         library = "" if library_ms is None else f"  library {library_ms:.4f} ms"
-        f32 = f", f32 {extra['bound_f32_ms']:.4f} ms" if tensor_cores else ""
+        f32 = f", f32 {extra['bound_f32_ms']:.4f} ms" if tensor_cores or bf16_cores else ""
         print(f"  {label or name}: max_abs_err {err:.3g}  kernel {ms:.4f} ms  plain "
               f"{plain_ms:.4f} ms{library}  bound {bound_ms:.4f} ms ({bound_by}{f32})",
               flush=True)
@@ -887,6 +949,33 @@ def kernel_parity(device, other=None) -> list[dict]:
            wrapper="correlation3d_knn_index", device_ms=only_dev, full_form_device_ms=full_dev,
            batch=2)
 
+    # its int8 form (the fast path's pyramid, a scale a query row), on the
+    # random and the tied clouds: the f32 form's indices and the plain
+    # version's, bit for bit, the selected int8 values as f32 exactly
+    q8, q_scale = quantize_rows_int8(pyramid)
+    for query, support in ((xyz1, xyz2_warp), (tied_1, tied_2)):
+        got = corr3d.correlation3d_knn(query, support, q8, sizes, 16)
+        ref = corr3d.correlation3d_knn_plain(query, support, q8, sizes, 16)
+        full = corr3d.correlation3d_knn(query, support, pyramid, sizes, 16)[0]
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[0], full)
+                and torch.equal(got[1], ref[1])):
+            raise AssertionError("corr3d int8: indices or costs differ from the plain version "
+                                 "or the f32 form's")
+    cost8 = corr3d.correlation3d_knn(xyz1, xyz2_warp, q8, sizes, 16)[1]
+    select8 = lambda: corr3d.correlation3d_knn(xyz1, xyz2_warp, q8, sizes, 16)  # noqa: E731
+    dev8 = device_ms(select8, 20, only="corr3d_kernel")
+    dev32 = device_ms(select, 20, only="corr3d_kernel")
+    print(f"  corr3d int8: device {dev8:.4f} ms a call, the f32 form {dev32:.4f} ms", flush=True)
+    record("correlation3d_knn (int8)", "camliflow_torch/csrc/corr3d.cu",
+           "camliflow_tpu/ops/pallas_corr3d.py:440", 0.0, time_ms(select8, 50),
+           time_ms(lambda: corr3d.correlation3d_knn_plain(
+               xyz1, xyz2_warp, q8, sizes, 16), 20),
+           m * m * 9,
+           # the points, the selected int8 entries, indices and f32 costs out
+           4 * 2 * m * 3 + n_sel * (1 + 4 + 4),
+           wrapper="correlation3d_knn_int8", device_ms=dev8, f32_form_device_ms=dev32,
+           f32_form_ms=time_ms(select, 50))
+
     # the 2D update chain at the flagship's 1/8 map
     blocks = nn.ModuleList([MotionEncoder2D(), GRU2D(), FlowHead2D()])
     random_weights(blocks, SEED + 7)
@@ -999,6 +1088,63 @@ def kernel_parity(device, other=None) -> list[dict]:
                library="the port's own wrappers motion_encoder_2d + gru_flowhead_2d in "
                        "sequence (the same 10 launches), not a library call",
                library_device_ms=chain_dev, steps_ms=[ms for _, ms in steps])
+
+        # the fast path's forms: the tile's bf16 mode on weights packed to
+        # bf16, each against its plain bf16 version (FAST_TOL), timed beside
+        # its exact form; #10 bit for bit #9 then #8, as on the exact path
+        me16, gf16 = update2d.prepare_update_2d_params(encoder, gru, head, bf16=True)
+        me_fast = lambda: update2d.motion_encoder_2d(flow2d, corr, me16)  # noqa: E731
+        motion16 = me_fast()
+        err = fast_close("motion_encoder_2d (bf16)", motion16,
+                         update2d.motion_encoder_2d_plain(flow2d, corr, me16))
+        weights = sum(size(p) for k, p in me16.items() if k != "conv_f1")
+        macs = 324 * 256 + 9 * 256 * 192 + 9 * 128 * 64 + 9 * 256 * 126
+        record("motion_encoder_2d (bf16)", "camliflow_torch/csrc/update2d.cu",
+               "camliflow_tpu/ops/pallas_update2d.py:461", err, time_ms(me_fast, 20),
+               time_ms(lambda: update2d.motion_encoder_2d_plain(flow2d, corr, me16), 20),
+               2 * pixels * macs, 4 * (pixels * (2 + 128 + 324 + 128) + weights),
+               bf16_cores=True, wrapper="motion_encoder_2d_bf16",
+               exact_form_ms=time_ms(lambda: update2d.motion_encoder_2d(flow2d, corr, me), 20))
+        gf_fast = lambda: update2d.gru_flowhead_2d(h, x2d, motion, gf16)  # noqa: E731
+        h_k, d_k = gf_fast()
+        h_p, d_p = update2d.gru_flowhead_2d_plain(h, x2d, motion, gf16)
+        err = max(fast_close("gru_flowhead_2d (bf16) h'", h_k, h_p),
+                  fast_close("gru_flowhead_2d (bf16) delta", d_k, d_p))
+        if not torch.equal(h_k, h_k.bfloat16().float()):
+            raise AssertionError("gru_flowhead_2d (bf16): h' is not bf16-valued")
+        weights = sum(size(p) for p in gf16.values())
+        macs = 2 * 5 * 384 * (256 + 128) + 9 * 128 * 256 + 9 * 256 * 2
+        record("gru_flowhead_2d (bf16)", "camliflow_torch/csrc/update2d.cu",
+               "camliflow_tpu/ops/pallas_update2d.py:235", err, time_ms(gf_fast, 20),
+               time_ms(lambda: update2d.gru_flowhead_2d_plain(h, x2d, motion, gf16), 20),
+               2 * pixels * macs, 4 * (pixels * (3 * 128 + 128 + 2) + weights),
+               bf16_cores=True, wrapper="gru_flowhead_2d_bf16",
+               exact_form_ms=time_ms(lambda: update2d.gru_flowhead_2d(h, x2d, motion, gf), 20))
+        fused16 = lambda: update2d.update_2d(h, x2d, flow2d, corr, me16, gf16)  # noqa: E731
+        h_k, d_k = fused16()
+        h_c, d_c = update2d.gru_flowhead_2d(h, x2d, motion16, gf16)
+        if not (torch.equal(h_k, h_c) and torch.equal(d_k, d_c)):
+            raise AssertionError("update_2d (bf16): not bit for bit the chain motion_encoder_2d "
+                                 "+ gru_flowhead_2d")
+        h_p, d_p = update2d.update_2d_plain(h, x2d, flow2d, corr, me16, gf16)
+        err = max(fast_close("update_2d (bf16) h'", h_k, h_p),
+                  fast_close("update_2d (bf16) delta", d_k, d_p))
+        weights = sum(size(p) for k, p in me16.items() if k != "conv_f1")
+        weights += sum(size(p) for p in gf16.values())
+        macs = (324 * 256 + 9 * 256 * 192 + 9 * 128 * 64 + 9 * 256 * 126
+                + 2 * 5 * 384 * (256 + 128) + 9 * 128 * 256 + 9 * 256 * 2)
+        fast_steps = stage_ms(fused16, 10)
+        fast_dev = device_ms(fused16, 10)
+        print("  update_2d (bf16) device time by launch (profiler): " +
+              ", ".join(f"{short_name(k)} {ms:.4f}" for k, ms in fast_steps) +
+              f"; {fast_dev:.4f} ms device, the exact form {update_dev:.4f} ms", flush=True)
+        record("update_2d (bf16)", "camliflow_torch/csrc/update2d.cu",
+               "camliflow_tpu/ops/pallas_update2d.py:514", err, time_ms(fused16, 20),
+               time_ms(lambda: update2d.update_2d_plain(h, x2d, flow2d, corr, me16, gf16), 20),
+               2 * pixels * macs, 4 * (pixels * (2 * 128 + 2 + 324 + 128 + 2) + weights),
+               bf16_cores=True, wrapper="update_2d_bf16", device_ms=fast_dev,
+               exact_form_ms=time_ms(fused, 20), exact_form_device_ms=update_dev,
+               steps_ms=[ms for _, ms in fast_steps])
 
     # the 3D update chain at the loop's 2048 points, k=32 neighbours
     blocks = nn.ModuleList([MotionEncoder3D(), GRU3D(), FlowHead3D()])
@@ -1127,6 +1273,53 @@ def kernel_parity(device, other=None) -> list[dict]:
                4 * (n * (3 * 128 + 32 + 128 + 3) + n * dw_floats(dw_gf) + weights),
                steps_ms=steps_ms, host_ms=gf_host, bs8=bs8)
 
+        # the fast path's forms of #6 and #7: the hoisted weights in bf16
+        # (their dominant bytes halve), each against its plain version
+        # (FAST_TOL), rerun bit for bit, timed beside its exact form
+        dw16_me, dw16_gf = update3d.to_bf16(dw_me), update3d.to_bf16(dw_gf)
+        me16_call = lambda: update3d.motion_encoder_3d(  # noqa: E731
+            flow3d, corr3, idx, dw16_me, me3)
+        motion16 = me16_call()
+        err = fast_close("motion_encoder_3d (bf16)", motion16,
+                         update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw16_me, me3))
+        if not (torch.equal(me16_call(), motion16) and torch.equal(motion16[..., -3:], flow3d)):
+            raise AssertionError("motion_encoder_3d (bf16): two runs differ, or the flow columns")
+        me16_dev = device_ms(me16_call, 20, only="motion_encoder_3d")
+        print(f"  motion_encoder_3d (bf16): device {me16_dev:.4f} ms a call, the exact form "
+              f"{me_dev:.4f} ms", flush=True)
+        record("motion_encoder_3d (bf16)", "camliflow_torch/csrc/update3d.cu",
+               "camliflow_tpu/ops/pallas_update3d.py:248", err, time_ms(me16_call, 50),
+               time_ms(lambda: update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw16_me,
+                                                                me3), 20),
+               2 * n * (linear_macs({k: me3[k] for k in update3d.ME_CONVS}) + me_floats),
+               # as the exact form's, the hoisted weights at 2 bytes
+               4 * (n * (3 + 128 + 32 + 128) + sum(size(me3[k]) for k in update3d.ME_CONVS))
+               + 2 * n * me_floats,
+               wrapper="motion_encoder_3d_bf16", device_ms=me16_dev,
+               exact_form_ms=time_ms(me_calls["this"], 50), exact_form_device_ms=me_dev)
+        gf16_call = lambda: update3d.gru_flowhead_3d(  # noqa: E731
+            h3, x3, motion3, idx, dw16_gf, gf3)
+        h_k, d_k = gf16_call()
+        h_p, d_p = update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, dw16_gf, gf3)
+        err = max(fast_close("gru_flowhead_3d (bf16) h'", h_k, h_p),
+                  fast_close("gru_flowhead_3d (bf16) delta", d_k, d_p))
+        again = gf16_call()
+        if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
+            raise AssertionError("gru_flowhead_3d (bf16): two runs give different bits")
+        gf16_dev = device_ms(gf16_call, 20, only="gru_flowhead_3d")
+        gf_dev = mean(gf_times["this"])
+        print(f"  gru_flowhead_3d (bf16): device {gf16_dev:.4f} ms a call, the exact form "
+              f"{gf_dev:.4f} ms", flush=True)
+        record("gru_flowhead_3d (bf16)", "camliflow_torch/csrc/update3d.cu",
+               "camliflow_tpu/ops/pallas_update3d.py:372", err, time_ms(gf16_call, 50),
+               time_ms(lambda: update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, dw16_gf,
+                                                              gf3), 20),
+               2 * n * (sum(gf3[k].cin * gf3[k].cout for k in keys) + dw_floats(dw_gf)),
+               4 * (n * (3 * 128 + 32 + 128 + 3) + sum(size(gf3[k]) for k in keys))
+               + 2 * n * dw_floats(dw_gf),
+               wrapper="gru_flowhead_3d_bf16", device_ms=gf16_dev,
+               exact_form_ms=time_ms(default, 50), exact_form_device_ms=gf_dev)
+
         # the PointConvDW tail alone, at the fuse_hidden path's four shapes:
         # GRU3D's z|r and q (k=4), FlowHead3D's conv1 and conv2 (k=32); with
         # another tree, its tail too, bit for bit both, timed in turns
@@ -1167,6 +1360,33 @@ def kernel_parity(device, other=None) -> list[dict]:
                    bound_ms_by_shape=tail_bound,
                    **({"other_device_ms_by_shape": tail_other} if other else {}))
 
+        # its fast form (the fuse_hidden fast path's): bf16 weights, the
+        # table rounded to bf16, bf16 products; bit for bit the plain version
+        fast_dev, fast_bound = {}, {}
+        for key, channels in (("conv_zr", 256), ("conv_q", 128), ("conv1", 128),
+                              ("conv2", 64)):
+            table, w = rand3(channels), dw16_gf[key]
+            ref = update3d.dw_max_plain(table, idx, w)
+            for _ in range(2):
+                if not torch.equal(update3d.dw_max(table, idx, w), ref):
+                    raise AssertionError(f"dw_max (bf16) {key}: not bit-identical to the plain "
+                                         "version")
+            call = lambda: update3d.dw_max(table, idx, w)  # noqa: E731
+            k = w.shape[2]
+            fast_dev[key] = device_ms(call, 20, only="dw_max_tail")
+            nbytes = 4 * (2 * n * channels + n * 32) + 2 * n * k * channels
+            fast_bound[key] = bound(2 * n * k * channels, nbytes)[0]
+            print(f"  dw_max (bf16) {key} (k={k}, C={channels}): device {fast_dev[key]:.4f} ms, "
+                  f"the exact form {tail_dev[key]:.4f} ms", flush=True)
+            record("dw_max (bf16)", "camliflow_torch/csrc/update3d.cu",
+                   "camliflow_tpu/ops/pallas_ohg.py:177", 0.0, time_ms(call, 50),
+                   time_ms(lambda: update3d.dw_max_plain(table, idx, w), 20),
+                   2 * n * k * channels, nbytes,
+                   label=f"dw_max (bf16) {key} (k={k}, C={channels}, by events)",
+                   entry=key == "conv1", wrapper="dw_max_bf16", device_ms=fast_dev[key],
+                   device_ms_by_shape=fast_dev, bound_ms_by_shape=fast_bound,
+                   exact_form_device_ms_by_shape=tail_dev)
+
     # the Correlation3D tail on the selection above (L=4, k=16, 2048 queries)
     tail_block = Correlation3D(n_levels=len(sizes), out_channels=128, k=16)
     random_weights(tail_block, SEED + 9)
@@ -1189,6 +1409,23 @@ def kernel_parity(device, other=None) -> list[dict]:
                2 * m * (n_sel // m * (4 * c1 + c1 * c1) + len(sizes) * c1 * 128),
                4 * (2 * m * 3 + 2 * n_sel + sum(t.numel() for t in tail) + m * 128),
                device_ms=tail_dev, host_ms=tail_host)
+        # its fast form: the int8 costs of the selection above times their
+        # rows' scales before the cost MLP (f32 both sides)
+        args8 = (xyz1, xyz2_warp, idx_sel, cost8, tail, len(sizes), 16, q_scale)
+        got = corr3d.corr3d_tail(*args8)
+        err = check("corr3d_tail (scaled)", got, corr3d.corr3d_tail_plain(*args8))
+        if not torch.equal(corr3d.corr3d_tail(*args8), got):
+            raise AssertionError("corr3d_tail (scaled): two runs give different bits")
+        scaled_dev = device_ms(lambda: corr3d.corr3d_tail(*args8), 20)
+        print(f"  corr3d_tail (scaled): device {scaled_dev:.4f} ms, the exact form "
+              f"{tail_dev:.4f} ms a call", flush=True)
+        record("corr3d_tail (scaled)", "camliflow_torch/csrc/corr3d_tail.cu",
+               "camliflow_tpu/ops/pallas_corr3d.py:729", err,
+               time_ms(lambda: corr3d.corr3d_tail(*args8), 50),
+               time_ms(lambda: corr3d.corr3d_tail_plain(*args8), 20),
+               2 * m * (n_sel // m * (4 * c1 + c1 * c1) + len(sizes) * c1 * 128) + n_sel,
+               4 * (2 * m * 3 + 2 * n_sel + sum(t.numel() for t in tail) + m * 128 + m),
+               wrapper="corr3d_tail_scaled", device_ms=scaled_dev, exact_form_device_ms=tail_dev)
 
     # CLFM at the flagship's corr (324, 128) and motion (128, 128) widths:
     # the 1/8 map against the loop's 2048 projected points
@@ -1893,27 +2130,48 @@ class IndexOnly:
         self.wrapper.index_launches = value
 
 
+class FastForm:
+    """A wrapper's fast-form launches (its `fast_launches`: the int8, scaled
+    or bf16 form), under the `launches` name every other counter has."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self) -> int:
+        return self.wrapper.fast_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.wrapper.fast_launches = value
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name, each with its `launches`
-    counter (a process's own: phase 10's ranks build theirs)."""
+    counter (a process's own: phase 10's ranks build theirs), and each fast
+    form's counter under FAST_FORMS' names (#8's halves' as *_bf16)."""
     from camliflow_torch.ops import clfm, corr3d, fps, gather, interp, knn, update2d, update3d
 
-    return {"k_nearest_neighbor": knn.k_nearest_neighbor,
-            "furthest_point_sampling": fps.furthest_point_sampling,
-            "knn_interpolation": interp.knn_interpolation,
-            "correlation3d_knn": corr3d.correlation3d_knn,
-            "motion_encoder_2d": update2d.motion_encoder_2d,
-            "gru_flowhead_2d": update2d.gru_flowhead_2d,
-            "gru_2d": update2d.gru_2d,
-            "flow_head_2d": update2d.flow_head_2d,
-            "update_2d": update2d.update_2d,
-            "motion_encoder_3d": update3d.motion_encoder_3d,
-            "gru_flowhead_3d": update3d.gru_flowhead_3d,
-            "corr3d_tail": corr3d.corr3d_tail,
-            "clfm_fused": clfm.clfm_fused,
-            "gather_points_kmajor": gather.gather_points_kmajor,
-            "dw_max": update3d.dw_max,
-            "correlation3d_knn_index": IndexOnly(corr3d.correlation3d_knn)}
+    wrappers = {"k_nearest_neighbor": knn.k_nearest_neighbor,
+                "furthest_point_sampling": fps.furthest_point_sampling,
+                "knn_interpolation": interp.knn_interpolation,
+                "correlation3d_knn": corr3d.correlation3d_knn,
+                "motion_encoder_2d": update2d.motion_encoder_2d,
+                "gru_flowhead_2d": update2d.gru_flowhead_2d,
+                "gru_2d": update2d.gru_2d,
+                "flow_head_2d": update2d.flow_head_2d,
+                "update_2d": update2d.update_2d,
+                "motion_encoder_3d": update3d.motion_encoder_3d,
+                "gru_flowhead_3d": update3d.gru_flowhead_3d,
+                "corr3d_tail": corr3d.corr3d_tail,
+                "clfm_fused": clfm.clfm_fused,
+                "gather_points_kmajor": gather.gather_points_kmajor,
+                "dw_max": update3d.dw_max,
+                "correlation3d_knn_index": IndexOnly(corr3d.correlation3d_knn)}
+    for exact, fast in (*FAST_FORMS.items(), ("gru_2d", "gru_2d_bf16"),
+                        ("flow_head_2d", "flow_head_2d_bf16")):
+        wrappers[fast] = FastForm(wrappers[exact])
+    return wrappers
 
 
 TRAIN_PAIRS = 8  # frame pairs of the synthetic training split
@@ -3014,6 +3272,231 @@ def data_parallel_phase(device, wrappers, card) -> dict:
     return total
 
 
+# phase 11: the fast path
+FAST_PATHS = ("CamLiRAFT-L", "CamLiRAFT", "CamLiRAFT fuse_hidden", "RAFT")
+
+
+def fast_per_request(exact: dict) -> dict:
+    """A path's launches a request with fast_inference=on, derived from its
+    exact path's: each kernel with a fast form launches that form instead
+    (the 3D pyramid int8, the hoisted weights and the 2D chain's packings
+    bf16); #8's halves stay exact (fuse_hidden runs GRU2D and FlowHead2D
+    exact, as the JAX fast path does)."""
+    fast = dict(exact)
+    for key, form in FAST_FORMS.items():
+        fast[form] = exact.get(key, 0)
+        fast[key] = 0
+    return fast
+
+
+def bf16_packed_convs(model) -> list:
+    """The Conv2d modules whose weights the fast path packs to bf16: the 2D
+    update chain's, #9's and, unless fuse_hidden runs GRU2D and FlowHead2D
+    exact, #8's (RAFT: #10's). CamLiRAFT-L packs none (its dense layers stay
+    f32; its hoisted point-conv weights are activations)."""
+    from torch import nn
+
+    core = getattr(model, "core", None)
+    branch = getattr(core, "branch_2d", core)
+    if not hasattr(branch, "motion_encoder") or not hasattr(branch, "flow_head") or not \
+            isinstance(getattr(branch.motion_encoder, "conv_c1", None), nn.Conv2d):
+        return []
+    blocks = [branch.motion_encoder]
+    if not getattr(core, "fuse", {}).get("hidden", False):
+        blocks += [branch.gru, branch.flow_head]
+    return [m for block in blocks for m in block.modules() if isinstance(m, nn.Conv2d)]
+
+
+@contextlib.contextmanager
+def bf16_weights(convs):
+    """The convs' weights rounded to bf16 (the values the fast path
+    multiplies by) inside the block, restored after it."""
+    import torch
+
+    saved = [conv.weight.detach().clone() for conv in convs]
+    try:
+        with torch.no_grad():
+            for conv in convs:
+                conv.weight.copy_(conv.weight.to(torch.bfloat16).float())
+        yield
+    finally:
+        with torch.no_grad():
+            for conv, weight in zip(convs, saved):
+                conv.weight.copy_(weight)
+
+
+def compare_flows(label: str, got: dict, ref: dict, tols: dict) -> dict:
+    """max |got - ref| on each flow both have, each within its tolerance
+    ({key: (tol, unit)}); prints them beside the flows' scale."""
+    deltas = {}
+    for key, (tol, unit) in tols.items():
+        if key not in ref:
+            continue
+        deltas[key] = float(np.abs(got[key] - ref[key]).max())
+        print(f"  {label}: max |d{key}| {deltas[key]:.3e} {unit} (bound {tol}), |{key}| up to "
+              f"{np.abs(ref[key]).max():.3f} {unit}", flush=True)
+        if not deltas[key] <= tol:
+            raise AssertionError(f"{label}: max |d{key}| {deltas[key]} > {tol}")
+    return deltas
+
+
+def fast_phase(device, wrappers, card, paths) -> dict:
+    """Phase 11: each RAFT-family path at full width with
+    fast_inference=on, phase 4's weights (seed SEED) and inputs: 1 warm-up
+    and 3 requests through run_things (launches held to fast_per_request),
+    each request alone; the same weights and input on the exact path
+    (fast_inference off, the model's attribute switched): on the weights
+    the fast path multiplies by within the JAX package's gate (FAST_2D_TOL,
+    FAST_3D_TOL), on the f32 weights within its fast-vs-exact test bound
+    (see FAST_TOL's note); a batch of 8 on both paths (request time, peak
+    memory, the fast request's launches and device busy share, fast
+    against exact both ways); the CPU's plain fast versions on the same
+    input within phase 5's envelope. Then the eval CLI once with
+    'model.fast_inference="on"'. Returns the launches of the held runs."""
+    import torch
+
+    from camliflow_torch.runtime.checkpoint import random_weights
+    from camliflow_torch.runtime.evaluator import Evaluator
+
+    gate = {"flow_3d": (FAST_3D_TOL, "m"), "flow_2d": (FAST_2D_TOL, "px")}
+    envelope = {"flow_3d": (FLOW_3D_TOL, "m"), "flow_2d": (FLOW_2D_TOL, "px")}
+
+    def f32_bound(exact):  # the JAX package's fast-vs-exact test bound on this output
+        return {key: (max(floor, FAST_SHARE * float(np.abs(exact[key]).max())), unit)
+                for key, floor, unit in (("flow_3d", FAST_3D_FLOOR, "m"),
+                                         ("flow_2d", FAST_2D_FLOOR, "px")) if key in exact}
+
+    total = dict.fromkeys(wrappers, 0)
+    flagship_fast = None
+    for label, cls, cfgs, images, exact_request in paths:
+        if label not in FAST_PATHS:
+            continue
+        want = fast_per_request(exact_request)
+        if label == "CamLiRAFT":
+            flagship_fast = want
+        print(f"  {label}, fast_inference=on:", flush=True)
+        fast_cfgs = {**cfgs, "fast_inference": "on"}
+        model = cls(fast_cfgs)
+        random_weights(model, SEED)
+        cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
+        evaluator = Evaluator(model, device)
+        batches = [frame_pair(SEED + 1 + i, i, images) for i in range(4)]
+        launches = drive(f"{label} fast", evaluator, batches, wrappers, card)
+        for key, count in launches.items():
+            total[key] += count
+        got = {k: launches[k] / 3 for k in want}
+        if got != want:
+            raise AssertionError(f"{label} fast: launches per request {got}, expected {want}")
+        convs = bf16_packed_convs(model)
+        fast = evaluator.forward(batches[0])
+        model.fast_inference = "off"
+        exact = evaluator.forward(batches[0])
+        with bf16_weights(convs):
+            exact16 = evaluator.forward(batches[0])
+        model.fast_inference = "on"
+        for key in ("flow_3d", "flow_2d"):
+            if key in exact:
+                check_output(fast, key, exact[key].shape)
+        print(f"  {label}: {len(convs)} convs packed to bf16", flush=True)
+        compare_flows(f"{label} fast vs exact on the bf16 weights, bs=1", fast, exact16, gate)
+        compare_flows(f"{label} fast vs exact, bs=1", fast, exact, f32_bound(exact))
+
+        # the eval CLI's batch of 8 on both paths, the fast one first
+        batch = stack([frame_pair(SEED + 20 + i, i, images) for i in range(BATCH)])
+        outs, line = {}, []
+        for mode in ("on", "off"):
+            model.fast_inference = mode
+            evaluator.forward(batch)  # warm-up at this batch's shapes
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 2**20  # what earlier phases left alive
+            for fn in wrappers.values():
+                fn.launches = 0
+            start = time.perf_counter()
+            outs[mode] = evaluator.forward(batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - start)
+            launches = {key: fn.launches for key, fn in wrappers.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            line.append(f"{'fast' if mode == 'on' else 'exact'} {ms:.3f} ms "
+                        f"({ms / BATCH:.3f} a frame pair), peak {peak:.1f} MiB "
+                        f"({peak - base:.1f} above the {base:.1f} allocated before it)")
+            if mode == "on":
+                got = {k: launches[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"{label} fast bs={BATCH}: launches {got}, expected "
+                                         f"{want}")
+                for key, count in launches.items():
+                    total[key] += count
+                wall, busy, count = profile_request(evaluator, batch, top=5)
+                line.append(f"fast profiled {wall:.3f} ms wall, device busy {busy:.3f} ms "
+                            f"({100 * busy / wall:.1f}%), {count} kernel launches")
+        with bf16_weights(convs):
+            exact16 = evaluator.forward(batch)
+        model.fast_inference = "on"
+        print(f"  {label} bs={BATCH}: " + "; ".join(line) + f" | {card}", flush=True)
+        compare_flows(f"{label} fast vs exact on the bf16 weights, bs={BATCH}", outs["on"],
+                      exact16, gate)
+        compare_flows(f"{label} fast vs exact, bs={BATCH}", outs["on"], outs["off"],
+                      f32_bound(outs["off"]))
+        del outs, batch, exact16
+
+        # the CPU's plain fast versions on the same weights and input
+        cpu_model = cls(fast_cfgs)
+        cpu_model.load_state_dict(cpu_state)
+        start = time.perf_counter()
+        ref = Evaluator(cpu_model, "cpu").forward(batches[0])
+        print(f"  {label} fast on the CPU: {time.perf_counter() - start:.1f} s", flush=True)
+        compare_flows(f"{label} fast, CUDA vs CPU", fast, ref, envelope)
+        del evaluator, model, cpu_model
+        torch.cuda.empty_cache()
+    fast_eval_cli(device, wrappers, card, flagship_fast, total)
+    return total
+
+
+def fast_eval_cli(device, wrappers, card, want: dict, total: dict) -> None:
+    """`python -m camliflow_torch.eval protocol=things
+    testset=flyingthings3d_subset model=camliraft 'model.fast_inference="on"'`
+    in this process, on phase 9's synthetic validation split (4 pairs at
+    960x540: one batch) with random weights saved as a trainer checkpoint;
+    finite metrics, and the launches held to one fast flagship request."""
+    import os
+
+    import torch
+
+    from camliflow_torch import eval as eval_cli
+    from camliflow_torch.models.factory import model_factory
+    from camliflow_torch.runtime.checkpoint import random_weights
+    from camliflow_torch.utils.config import compose
+
+    root = os.path.join(WORK, "train", "data")
+    if not os.path.isdir(os.path.join(root, "val")):
+        write_things_split(root, "val", 4, SEED + 71)
+    cfgs = compose(eval_cli.CONF_DIR, model="camliraft", testset="flyingthings3d_subset",
+                   overrides=[])
+    model = model_factory(cfgs.model)(cfgs.model.to_dict())
+    random_weights(model, SEED)
+    ckpt = os.path.join(WORK, "fast_cli.pt")
+    torch.save({"model": model.state_dict()}, ckpt)
+    for fn in wrappers.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    metrics = eval_cli.main(["protocol=things", "testset=flyingthings3d_subset",
+                             "model=camliraft", f"ckpt.path={ckpt}",
+                             f"testset.root_dir={root}", 'model.fast_inference="on"'])
+    seconds = time.perf_counter() - start
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    for key, count in launches.items():
+        total[key] += count
+    shown = {k: round(float(v), 6) for k, v in metrics.items() if k.startswith("EPE")}
+    print(f"  eval CLI, fast_inference=on: {shown} in {seconds:.1f} s | {card}", flush=True)
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"eval CLI fast: metrics not finite: {metrics}")
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"eval CLI fast: launches {got}, expected one fast request's {want}")
+
+
 def main() -> int:
     import argparse
 
@@ -3053,13 +3536,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False, timeout=60,
     ).stdout.strip().splitlines()
-    print("[1/10] device:", torch.cuda.get_device_name(0), "| torch",
+    print("[1/11] device:", torch.cuda.get_device_name(0), "| torch",
           torch.__version__, "| CUDA", torch.version.cuda, flush=True)
     card = smi[0] if smi else "nvidia-smi gave no output"
     print(card, flush=True)
 
     # 2. build
-    print("[2/10] build", flush=True)
+    print("[2/11] build", flush=True)
     try:
         path, seconds, log = kbuild.build()
         kbuild.library()
@@ -3071,7 +3554,7 @@ def main() -> int:
         return 1
 
     # 3. per-kernel parity
-    print("[3/10] kernels vs plain versions at main-path shapes (a plain version "
+    print("[3/11] kernels vs plain versions at main-path shapes (a plain version "
           "repeats its kernel's arithmetic in PyTorch ops, cuDNN convolutions for "
           "the 2D chain, and is no yardstick of speed)", flush=True)
     kernels = []
@@ -3088,7 +3571,10 @@ def main() -> int:
     # CamLiRAFT-L runs 3 encoder passes of 2 PointConvs, the flagship 2 (both
     # frames share fnet's) and 2 gathers in the final upsample.
     point = {"furthest_point_sampling": 1, "correlation3d_knn": N_ITERS,
-             "corr3d_tail": N_ITERS, "correlation3d_knn_index": 0}
+             "corr3d_tail": N_ITERS, "correlation3d_knn_index": 0,
+             # the exact path (fast_inference auto) launches no fast form
+             **dict.fromkeys(FAST_FORMS.values(), 0), "gru_2d_bf16": 0,
+             "flow_head_2d_bf16": 0}
     flagship = {**point, "k_nearest_neighbor": 8, "knn_interpolation": N_ITERS,
                 "gather_points_kmajor": 10, "motion_encoder_2d": N_ITERS,
                 "motion_encoder_3d": N_ITERS, "update_2d": 0}
@@ -3127,7 +3613,7 @@ def main() -> int:
         has_points = cls not in (RAFT, PWC)
         iterative = cls in (CamLiRAFTL, CamLiRAFT, RAFT)
         points = f"{N_POINTS} pts, " if has_points else ""
-        print(f"[4/10] {label} eval: {points}"
+        print(f"[4/11] {label} eval: {points}"
               f"{f'{IMAGE_W}x{IMAGE_H} images, ' if images else ''}"
               f"{f'{N_ITERS} iters, ' if iterative else ''}bs=1"
               f"{', IDS on' if has_points else ''}", flush=True)
@@ -3163,7 +3649,7 @@ def main() -> int:
             failures.append(f"{label} bs={BATCH}")
 
         # 5. CUDA vs CPU
-        print(f"[5/10] {label}: same weights and input on the CPU (plain versions)",
+        print(f"[5/11] {label}: same weights and input on the CPU (plain versions)",
               flush=True)
         try:
             if out is None:
@@ -3189,14 +3675,14 @@ def main() -> int:
     # 6-8. this slice's paths: the lookahead, the KITTI submission, the demo
     flagship_request = next(per_request for label, _, _, _, per_request in paths
                             if label == "CamLiRAFT")
-    print("[6/10] the Evaluator's one-batch lookahead against a synchronous loop: the "
+    print("[6/11] the Evaluator's one-batch lookahead against a synchronous loop: the "
           f"flagship, 4 batches of {BATCH} frame pairs", flush=True)
     try:
         lookahead_phase(device, card)
     except Exception:
         traceback.print_exc()
         failures.append("lookahead")
-    print(f"[7/10] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
+    print(f"[7/11] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
           f"the flagship, bs={BATCH}, {N_POINTS} pts, densified by #3", flush=True)
     try:
         launches = submission_phase(device, wrappers, flagship_request, card, kernels)
@@ -3205,7 +3691,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("submission")
-    print(f"[8/10] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
+    print(f"[8/11] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
           "flagship, on the card and on the CPU", flush=True)
     try:
         launches = demo_phase(device, wrappers, flagship_request, card)
@@ -3214,7 +3700,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("demo")
-    print(f"[9/10] training: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
+    print(f"[9/11] training: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
           f"{N_POINTS} pts, {TRAIN_ITERS} iters, amp, augmentation), batches of {TRAIN_BATCH}, "
           f"{TRAIN_PAIRS} synthetic pairs; resume; an f32 step against the CPU", flush=True)
     try:
@@ -3235,7 +3721,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("training data")
     for family, want, branches in TRAIN_FAMILIES:
-        print(f"[9/10] training {family}: its Trainer at full width (its own training config, "
+        print(f"[9/11] training {family}: its Trainer at full width (its own training config, "
               f"amp, augmentation), batches of {TRAIN_BATCH}, {FAMILY_PAIRS} synthetic pairs; "
               "an f32 step against the CPU", flush=True)
         try:
@@ -3259,7 +3745,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("KITTI training data")
     for family, want, branches in KITTI_FINE_TUNES:
-        print(f"[9/10] KITTI fine-tune {family}: its Trainer on conf/training/kitti/{family}.yaml "
+        print(f"[9/11] KITTI fine-tune {family}: its Trainer on conf/training/kitti/{family}.yaml "
               f"at full width (freeze_bn, amp, augmentation), batches of {TRAIN_BATCH}, "
               f"{KITTI_TRAIN_FRAMES} training and {KITTI_VAL_FRAMES} validation frames; an f32 "
               "step against the CPU", flush=True)
@@ -3274,7 +3760,7 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"KITTI fine-tune {family}")
 
-    print(f"[10/10] data-parallel: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
+    print(f"[10/11] data-parallel: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
           f"{N_POINTS} pts, {TRAIN_ITERS} iters, f32), global batch {TRAIN_BATCH}: one process; "
           "(a) 1 rank over NCCL; (b) 2 ranks over gloo on the one card; (c) their run_things "
           f"over {DP_FRAMES} frames", flush=True)
@@ -3287,6 +3773,19 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("data-parallel")
+
+    print("[11/11] the fast path (fast_inference=on) at full width: CamLiRAFT-L, the flagship, "
+          f"fuse_hidden and RAFT at bs=1 and bs={BATCH} against the exact path and the CPU; "
+          "the eval CLI", flush=True)
+    try:
+        start = time.perf_counter()
+        launches = fast_phase(device, wrappers, card, paths)
+        for key, count in launches.items():
+            total[key] += count
+        print(f"  fast path: {time.perf_counter() - start:.1f} s", flush=True)
+    except Exception:
+        traceback.print_exc()
+        failures.append("fast path")
 
     # each kernel's launches over the paths' measured requests
     for entry in kernels:

@@ -383,10 +383,8 @@ def test_domain_alignment_matches_jax(bridged):
 
 
 def test_fast_inference_key():
-    for mode in ("auto", "off"):
+    for mode in ("auto", "off", "on"):  # "on": the fast path, ported
         tm.CamLiRAFTL({**small_cfgs(False), "fast_inference": mode})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.CamLiRAFTL({**small_cfgs(False), "fast_inference": "on"})
     with pytest.raises(ValueError):
         tm.CamLiRAFTL({**small_cfgs(False), "fast_inference": "fast"})
     with pytest.raises(NotImplementedError, match="flownet3d"):  # no such model

@@ -112,6 +112,21 @@ def test_demo_without_weights_and_its_devices(demo_dir, monkeypatch, capsys):
     assert not (demo_dir / "x").exists()
 
 
+def test_demo_takes_the_fast_path(demo_dir, monkeypatch):
+    """--fast_inference on runs the demo's model on the fast path (int8
+    volumes, bf16 gathers and update chain): its flows differ from the exact
+    run's on the same random weights, within the JAX package's
+    fast-vs-exact bounds (0.15 px, 0.02 m)."""
+    monkeypatch.chdir(demo_dir)
+    outs = {mode: demo.main(demo.parse_args(demo_args(
+        demo_dir, demo_dir / f"mode_{mode}", "--device", "cpu", "--fast_inference", mode)))
+        for mode in ("on", "off")}
+    for key, bound in (("flow_3d", 0.02), ("flow_2d", 0.15)):
+        fast, exact = outs["on"][key], outs["off"][key]
+        assert np.isfinite(fast).all() and not np.array_equal(fast, exact)
+        assert np.abs(fast - exact).max() <= bound
+
+
 def all_codes_flow():
     """A [255, 256, 2] flow whose pixel (h, s) has hue code h and saturation
     code s in viz_optical_flow's 8-bit HSV (hue code 255 would need a hue of

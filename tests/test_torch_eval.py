@@ -134,14 +134,21 @@ def test_eval_cli_raft_matches_jax_evaluator(synthetic):
 
 
 def test_eval_cli_rejects_what_is_not_ported(synthetic):
-    """Every eval protocol and model is ported; an unknown protocol and the
-    TPU fast path's storage (`model.fast_inference=on`) are not."""
+    """Every eval protocol and model is ported, and so is the fast path:
+    the CLI rejects an unknown protocol and a fast_inference value that is
+    no mode (a bare `on` is YAML's true), and runs `model.fast_inference=
+    "on"`, its metrics finite and its EPE within the JAX package's
+    fast-vs-exact bound (0.02 m) of the exact run's."""
     with pytest.raises(SystemExit, match="unknown protocol"):
         torch_eval.main(["protocol=kitti_submission", "model=camliraft_l"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_eval.main(["protocol=things", "testset=flyingthings3d_subset",
-                         "model=camliraft_l", "device=cpu"]
-                        + synthetic + ['model.fast_inference="on"'])
+    args = ["protocol=things", "testset=flyingthings3d_subset", "model=camliraft_l",
+            "device=cpu"] + synthetic
+    with pytest.raises(ValueError, match="auto|on|off"):
+        torch_eval.main(args + ["model.fast_inference=on"])
+    fast = torch_eval.main(args + ['model.fast_inference="on"'])
+    exact = torch_eval.main(args)
+    assert set(fast) == set(exact) and all(np.isfinite(v) for v in fast.values())
+    assert fast != exact and abs(fast["EPE3d"] - exact["EPE3d"]) <= 0.02
 
 
 @pytest.mark.parametrize("model", ["pwc", "camlipwc_l", "camlipwc"])

@@ -1129,3 +1129,175 @@ def test_dw_max_kernel_takes_misaligned_rows(cuda, channels):
     for t, w in ((shifted(table), weights), (table, shifted(weights)),
                  (shifted(table), shifted(weights))):
         assert torch.equal(update3d.dw_max(t, idx, w), ref)
+
+
+# --- the fast path's forms (fast_inference=on) ---------------------------------------
+
+FAST_TOL = 2.0**-6  # max|kernel - plain| <= FAST_TOL * (1 + max|plain|)
+
+
+def assert_fast_close(got, ref):
+    """The fast forms round activations and products to bf16. Their dense
+    sums run in another order than the plain versions' (the tensor-core
+    tile's f32 accumulation; #6 and #7's 3xTF32 dense steps), so a value
+    lying near a bf16 rounding boundary can round the other way: a step of
+    2^-8 to 2^-7 of its size, which the layers after it carry on. The bound
+    allows about two such steps of the largest value."""
+    err = float((got - ref).abs().max())
+    assert err <= FAST_TOL * (1 + float(ref.abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,k,ties", [
+    ((2048, 1024, 512, 256), 16, False),  # the main paths' shape
+    ((2048, 1024, 512, 256), 16, True),
+    ((256, 128, 64, 32), 32, True),
+    ((300, 50), 1, True),
+])
+def test_corr3d_int8_kernel_matches_plain(cuda, sizes, k, ties):
+    """#4 on the int8 pyramid (a scale a query row): the f32 form's indices
+    bit for bit, ties included, and the selected int8 values as f32, exact;
+    counted on `fast_launches`."""
+    from camliflow_torch.ops.geometry import quantize_rows_int8
+
+    n = 2048 if sizes[0] == 2048 else 256
+    xyz2 = ids_clouds(27, cuda, 1, max(320, sizes[0]))
+    xyz1 = ids_clouds(28, cuda, 1, n)
+    if ties:
+        m = xyz2[:, 1::7].shape[1]
+        xyz2[:, 1::7] = xyz2[:, : 7 * m : 7].clone()
+        xyz1[:, ::3] = xyz2[:, 5 : 5 + xyz1[:, ::3].shape[1]]
+    pyramid = torch.randn(1, n, sum(sizes), device=cuda)
+    q, _ = quantize_rows_int8(pyramid)
+    before = (corr3d.correlation3d_knn.launches, corr3d.correlation3d_knn.fast_launches)
+    idx, cost = corr3d.correlation3d_knn(xyz1, xyz2, q, sizes, k)
+    assert (corr3d.correlation3d_knn.launches,
+            corr3d.correlation3d_knn.fast_launches) == (before[0], before[1] + 1)
+    ref, ref_cost = corr3d.correlation3d_knn_plain(xyz1, xyz2, q, sizes, k)
+    full, _ = corr3d.correlation3d_knn(xyz1, xyz2, pyramid, sizes, k)
+    assert cost.dtype == torch.float32
+    assert torch.equal(idx, ref) and torch.equal(idx, full)
+    assert torch.equal(cost, ref_cost)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,level_sizes,k,out_channels", [
+    (1, 2048, (2048, 1024, 512, 256), 16, 128),  # the main path
+    (2, 77, (96, 48, 24), 8, 64),
+])
+def test_corr3d_tail_scaled_kernel_matches_plain(cuda, batch, n, level_sizes, k, out_channels):
+    """#5 with the int8 pyramid's row scales: each selected cost times its
+    query's scale before the cost MLP (f32 on both sides); counted on
+    `fast_launches`. Without a scale it is the exact form."""
+    with torch.inference_mode():
+        params, xyz1, xyz2, idx, cost = tail_case(cuda, 46, batch, n, level_sizes, k,
+                                                  out_channels)
+        scale = 0.01 + torch.rand(batch, n, 1, device=cuda)
+        before = (corr3d.corr3d_tail.launches, corr3d.corr3d_tail.fast_launches)
+        got = corr3d.corr3d_tail(xyz1, xyz2, idx, cost, params, len(level_sizes), k, scale)
+        torch.cuda.synchronize()
+        assert (corr3d.corr3d_tail.launches,
+                corr3d.corr3d_tail.fast_launches) == (before[0], before[1] + 1)
+        ref = corr3d.corr3d_tail_plain(xyz1, xyz2, idx, cost, params, len(level_sizes), k,
+                                       scale)
+        assert_conv_close(got, ref)
+        scaled_cost = corr3d.corr3d_tail(xyz1, xyz2, idx, cost * scale, params,
+                                         len(level_sizes), k)
+        assert torch.equal(got, scaled_cost)  # one rounded multiply, as the plain version's
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,m,n_table,k,channels", [
+    (1, 2048, 2048, 4, 256), (1, 2048, 2048, 4, 128),  # z|r, q
+    (1, 2048, 2048, 32, 128), (1, 2048, 2048, 32, 64),  # conv1, conv2
+    (2, 70, 100, 40, 125), (2, 33, 33, 1, 3), (1, 20, 30, 40, 20),
+])
+def test_dw_max_fast_kernel_is_plain_bit_for_bit(cuda, batch, m, n_table, k, channels):
+    """#13 on bf16 weights: the table rounded to bf16 as it is read, bf16
+    products, the max over k: bit for bit the plain version's, for each of
+    the kernel's load forms; counted on `fast_launches`."""
+    gen = torch.Generator(device=cuda).manual_seed(52)
+    table = torch.randn(batch, n_table, channels, generator=gen, device=cuda)
+    idx = torch.randint(0, n_table, (batch, m, 32 + 9), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    weights = torch.randn(batch, m, k, channels, generator=gen, device=cuda).bfloat16()
+    before = (update3d.dw_max.launches, update3d.dw_max.fast_launches)
+    got = update3d.dw_max(table, idx, weights)
+    assert (update3d.dw_max.launches, update3d.dw_max.fast_launches) == (before[0],
+                                                                         before[1] + 1)
+    ref = update3d.dw_max_plain(table, idx, weights)
+    assert got.dtype == torch.float32 and torch.equal(got, ref)
+    assert torch.equal(got, got.bfloat16().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 100), (8, 2048)])
+def test_motion_encoder_3d_fast_kernel_matches_plain(cuda, batch, n):
+    """#6 on bf16 hoisted weights (the merge conv's rows still 128 apart)."""
+    with torch.inference_mode():
+        (flow, corr, idx), dw, params = motion_encoder_3d_case(cuda, 47, batch, n)
+        dw16 = update3d.to_bf16(dw)
+        assert dw16["conv"].stride()[2:] == (128, 1)
+        before = (update3d.motion_encoder_3d.launches, update3d.motion_encoder_3d.fast_launches)
+        got = update3d.motion_encoder_3d(flow, corr, idx, dw16, params)
+        assert (update3d.motion_encoder_3d.launches,
+                update3d.motion_encoder_3d.fast_launches) == (before[0], before[1] + 1)
+        ref = update3d.motion_encoder_3d_plain(flow, corr, idx, dw16, params)
+        assert torch.equal(update3d.motion_encoder_3d(flow, corr, idx, dw16, params), got)
+    assert torch.equal(got[..., -3:], flow)
+    assert_fast_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 2048), (8, 2048), (2, 100)])
+def test_gru_flowhead_3d_fast_kernel_matches_plain(cuda, batch, n):
+    """#7 on bf16 hoisted weights."""
+    with torch.inference_mode():
+        inputs, dw, params = gru_flowhead_3d_case(cuda, 48, batch, n)
+        dw16 = update3d.to_bf16(dw)
+        before = (update3d.gru_flowhead_3d.launches, update3d.gru_flowhead_3d.fast_launches)
+        h_got, d_got = update3d.gru_flowhead_3d(*inputs, dw16, params)
+        assert (update3d.gru_flowhead_3d.launches,
+                update3d.gru_flowhead_3d.fast_launches) == (before[0], before[1] + 1)
+        h_ref, d_ref = update3d.gru_flowhead_3d_plain(*inputs, dw16, params)
+        again = update3d.gru_flowhead_3d(*inputs, dw16, params)
+    assert torch.equal(again[0], h_got) and torch.equal(again[1], d_got)
+    assert_fast_close(h_got, h_ref)
+    assert_fast_close(d_got, d_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 68, 120), (2, 7, 9), (1, 5, 13)])
+def test_update2d_fast_kernels_match_plain(cuda, shape):
+    """#9, #8 (and its halves) and #10 on the tile's bf16 mode, each against
+    its plain bf16 version; h' is bf16-valued, #10 is #9 then #8 bit for
+    bit, and each counts on its `fast_launches`."""
+    encoder, gru, head = update_blocks(cuda, 49)
+    gen = torch.Generator(device=cuda).manual_seed(49)
+    flow = 2 * torch.randn(*shape, 2, generator=gen, device=cuda)
+    corr = torch.randn(*shape, 36, generator=gen, device=cuda)
+    h = torch.tanh(torch.randn(*shape, 128, generator=gen, device=cuda))
+    x2d = torch.relu(torch.randn(*shape, 128, generator=gen, device=cuda))
+    with torch.inference_mode():
+        me, gf = update2d.prepare_update_2d_params(encoder, gru, head, bf16=True)
+        wrappers = (update2d.motion_encoder_2d, update2d.gru_flowhead_2d, update2d.gru_2d,
+                    update2d.flow_head_2d, update2d.update_2d)
+        before = [(w.launches, w.fast_launches) for w in wrappers]
+        motion = update2d.motion_encoder_2d(flow, corr, me)
+        assert_fast_close(motion, update2d.motion_encoder_2d_plain(flow, corr, me))
+        assert torch.equal(motion[..., -2:], flow)
+        h_got, d_got = update2d.gru_flowhead_2d(h, x2d, motion, gf)
+        h_ref, d_ref = update2d.gru_flowhead_2d_plain(h, x2d, motion, gf)
+        assert torch.equal(h_got, h_got.bfloat16().float())
+        assert_fast_close(h_got, h_ref)
+        assert_fast_close(d_got, d_ref)
+        h_half = update2d.gru_2d(h, x2d, motion, {k: gf[k] for k in update2d.GRU_CONVS})
+        d_half = update2d.flow_head_2d(h_half, {k: gf[k] for k in update2d.HEAD_CONVS})
+        assert torch.equal(h_half, h_got) and torch.equal(d_half, d_got)
+        h10, d10 = update2d.update_2d(h, x2d, flow, corr, me, gf)
+        assert torch.equal(h10, h_got) and torch.equal(d10, d_got)
+        h10_ref, d10_ref = update2d.update_2d_plain(h, x2d, flow, corr, me, gf)
+        assert_fast_close(h10, h10_ref)
+        assert_fast_close(d10, d10_ref)
+        assert [(w.launches, w.fast_launches) for w in wrappers] == [
+            (launches, fast + 1) for launches, fast in before]

@@ -192,11 +192,12 @@ def test_config_keys():
         traft.RAFT(small_cfgs(fast_inference=mode, backbone={"depth": 18}))
     for storage in ("auto", "split"):
         traft.RAFT(small_cfgs(lookup_storage=storage, backbone={"depth": 18}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        traft.RAFT(small_cfgs(fast_inference="on"))
+    # the fast path and the fast storages build a model (the port runs them)
+    traft.RAFT(small_cfgs(fast_inference="on", backbone={"depth": 18}))
     for storage in ("bf16", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            traft.RAFT(small_cfgs(lookup_storage=storage))
+        traft.RAFT(small_cfgs(lookup_storage=storage, backbone={"depth": 18}))
+    with pytest.raises(ValueError):
+        traft.RAFT(small_cfgs(fast_inference="fast"))
     # the backbone depth as the JAX wrapper reads it
     no_backbone = {k: v for k, v in small_cfgs().items() if k != "backbone"}
     assert len(traft.RAFT(no_backbone).core.fnet.layer1) == 3  # ResNet-50

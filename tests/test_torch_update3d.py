@@ -350,7 +350,7 @@ def test_motion_encoder_3d_hands_the_kernel_fitting_scratch(fake_card, batch, n,
     flow, corr, knn_idx, dw, params = me_inputs(batch, n, idx_width)
     out = update3d.motion_encoder_3d(flow, corr, knn_idx, dw, params)
     (name, args), = launches
-    assert name == "camli_motion_encoder_3d" and len(args) == 30
+    assert name == "camli_motion_encoder_3d" and len(args) == 31
     assert args[:7] == (flow.data_ptr(), corr.data_ptr(), knn_idx.data_ptr(),
                         *(dw[key].data_ptr() for key in update3d.ME_CONVS))
     planes = [params[key][i] for key in update3d.ME_DENSE for i in (6, 7, 1)]  # hi, lo, bias
@@ -359,7 +359,8 @@ def test_motion_encoder_3d_hands_the_kernel_fitting_scratch(fake_card, batch, n,
                                for t in params[key][:2])
     scratch = next(t for t in made if t.data_ptr() == args[12])
     assert args[13] == out.data_ptr() and out.shape == (batch, n, 125 + 3)
-    ints = args[14:]
+    assert args[14] == 0  # the exact form: f32 weights
+    ints = args[15:]
     assert ints[:9] == (batch, n, idx_width, 3, 128, 128, 32, 16, 125)
     assert ints[9:13] == (16, 32, 16, 16)  # neighbours: c1, f1, f2, merge
     assert ints[13:15] == (64, 64)  # f1's and f2's packed weights' row length
@@ -460,5 +461,5 @@ def test_dw_max_hands_the_kernel_its_shapes(fake_card, batch, m, n_table, idx_wi
     (name, args), = launches
     assert name == "camli_dw_max"
     assert args == (table.data_ptr(), weights.data_ptr(), knn_idx.data_ptr(), out.data_ptr(),
-                    batch, n_table, m, idx_width, k, channels)
+                    0, batch, n_table, m, idx_width, k, channels)  # 0: the exact form
     assert out.shape == (batch, m, channels)
