@@ -2,7 +2,8 @@
 what they need from camliflow_tpu/data/io.py (the reference's utils.py
 semantics): PFM, Middlebury .flo, KITTI 16-bit flow and disparity PNGs,
 KITTI calibration files, zero padding, disparity -> point cloud lifting and
-numpy camera projection, and the KITTI PNG writers. PNGs go through the
+numpy camera projection, the KITTI PNG writers, and PFM and .flo writers
+(for synthetic raw FlyingThings3D data). PNGs go through the
 port's own codec (`png.py`), which returns a file's channels in their stored
 RGB order; each function here keeps what OpenCV's BGR reads gave the JAX
 package."""
@@ -100,6 +101,28 @@ def load_pfm(path: str | Path) -> np.ndarray:
         data = np.fromfile(f, endian + "f")
     shape = (height, width, 3) if color else (height, width)
     return np.flipud(data.reshape(shape)).copy()  # PFM stores bottom-to-top
+
+
+def save_pfm(path: str | Path, image: np.ndarray, scale: float = 1.0) -> None:
+    """Save an [H, W] or [H, W, 3] array as a little-endian f32 PFM (rows
+    stored bottom to top, as `load_pfm` reads them)."""
+    image = np.flipud(np.asarray(image, dtype="<f4"))
+    color = image.ndim == 3 and image.shape[2] == 3
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if color else b"Pf\n")
+        f.write(b"%d %d\n" % (image.shape[1], image.shape[0]))
+        f.write(b"%f\n" % -scale)  # negative: little-endian
+        image.tofile(f)
+
+
+def save_flow(path: str | Path, flow: np.ndarray) -> None:
+    """Save [H, W, 2] as a Middlebury .flo file."""
+    if flow.ndim != 3 or flow.shape[2] != 2:
+        raise ValueError(f"flow must be [H, W, 2], got {flow.shape}")
+    with open(path, "wb") as f:
+        np.float32(202021.25).tofile(f)
+        np.array(flow.shape[1::-1], np.int32).tofile(f)  # width, height
+        flow.astype(np.float32).tofile(f)
 
 
 def load_flow(path: str | Path) -> np.ndarray:

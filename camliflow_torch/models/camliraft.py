@@ -39,7 +39,12 @@ flows detached at the top of every iteration, both flows upsampled in every
 iteration, the modules' own differentiable forwards. It calls none of the
 fused wrappers (#5-#13); the selections run as kernels #1-#4 (#4 in its
 index-only form) on integer work, without a gradient. `loss_fn` and
-`is_better` are the JAX ones.
+`is_better` are the JAX ones. Two training switches, as in the JAX package:
+`loss_in_scan` (with targets in the inputs) adds each iteration's
+sequence-loss terms to running sums inside the loop and stacks no sequence
+(the outputs carry `loss_2d` and `loss_3d`, which `loss_fn` takes);
+`remat_scan` runs each iteration under `torch.utils.checkpoint`, its
+selections hoisted before the checkpointed region.
 
 Module names follow the reference state_dict (`core.branch_2d.fnet`,
 `core.branch_3d.correlation`, `core.clfm_corr`, ...), so the weight bridge
@@ -48,7 +53,10 @@ names every key with runtime/names.py.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..nn.clfm import CLFM, fusion_interp_cache
@@ -83,7 +91,7 @@ from .camliraft_l import (
     build_cost_volume_pyramid_3d,
     encoder_knn_indices,
 )
-from .losses import calc_sequence_loss
+from .losses import InLoopSequenceLoss, calc_sequence_loss
 from .metrics import compute_2d_metrics, compute_3d_metrics, merge_metrics, scalar_metric
 from .raft import Correlation2D, ConvexUpsampler2D, FlowHead2D, GRU2D, MotionEncoder2D
 
@@ -306,11 +314,30 @@ class CamLiRAFTCore(nn.Module):
         weights = weights / weights.sum(dim=-1, keepdim=True)
         return flow_2d, knn_weighted_sum(state["flow_3d"], up_idx, weights)
 
-    def forward_train(self, image1, image2, pc1, pc2, camera_info, n_iters: int):
+    def in_loop_modules(self) -> list[nn.Module]:
+        """The modules an iteration of `forward_train` runs."""
+        b2d, b3d = self.branch_2d, self.branch_3d
+        return [b2d.motion_encoder, b2d.gru, b2d.flow_head, b2d.convex_upsampler,
+                b3d.correlation, b3d.motion_encoder, b3d.gru, b3d.flow_head,
+                *(getattr(self, f"clfm_{point}") for point in IN_LOOP if self.fuse[point])]
+
+    def forward_train(self, image1, image2, pc1, pc2, camera_info, n_iters: int,
+                      loss=None, remat: bool = False):
         """The training forward: (flow_2d_seq [T, B, H, W, 2], flow_3d_seq
         [T, B, N, 3]), both flows upsampled in every iteration. Under a bf16
         `compute_precision` the cost volumes stay f32 (`full_precision`),
-        as the JAX einsums do, and the selections take f32 inputs."""
+        as the JAX einsums do, and the selections take f32 inputs.
+
+        `loss` (loss_in_scan): a `losses.InLoopSequenceLoss` and the map of
+        an upsampled 3D flow to the target's frame; each iteration adds its
+        terms to the running sums and no sequence is stacked: returns
+        (flow_2d, flow_3d of the last iteration, loss_2d, loss_3d).
+        `remat` (remat_scan): each iteration runs under
+        `torch.utils.checkpoint` (non-reentrant), so the backward recomputes
+        its activations instead of keeping them; losses and gradients are
+        unchanged. The iteration's selections (the backwarp's #3 and #4's
+        index-only form, both on the detached flow) run before the
+        checkpointed region, once: the recompute launches no kernel."""
         b2d, b3d = self.branch_2d, self.branch_3d
         device_type = image1.device.type
         xyzs1, xyzs2, _, _ = build_pc_pyramid(pc1, pc2, list(self.n_samples_list))
@@ -358,15 +385,10 @@ class CamLiRAFTCore(nn.Module):
         dw = {name: getattr(b3d, name).precompute_weights(xyz1, knn_indices)
               for name in ("motion_encoder", "gru", "flow_head")}
 
-        flow_2d = feat1_2d.new_zeros(batch, feat_h, feat_w, 2, dtype=torch.float32)
-        flow_3d = torch.zeros_like(xyz1)
-        seq_2d, seq_3d = [], []
-        for _ in range(n_iters):
-            flow_2d, flow_3d = flow_2d.detach(), flow_3d.detach()
-            xyz2_warp_full = backwarp_3d(xyz1, xyzs2[0], flow_3d)
+        def iteration(h_2d, h_3d, flow_2d, flow_3d, xyz2_warp_full, corr_idx, *accs):
             corr_2d = corr_lookup_2d(pyramid_2d, grid + flow_2d, radius=CORR_RADIUS)
             corr_3d = b3d.correlation.forward_train(xyz1, xyz2_warp_full, level_sizes,
-                                                    pyramid_3d)
+                                                    pyramid_3d, corr_idx)
             if self.fuse["corr"]:
                 corr_2d, corr_3d = self.clfm_corr(uv1, corr_2d, corr_3d, cache1)
             motion_2d = b2d.motion_encoder(flow_2d, corr_2d)
@@ -381,8 +403,34 @@ class CamLiRAFTCore(nn.Module):
                 h_2d, h_3d = self.clfm_hidden(uv1, h_2d, h_3d, cache1)
             flow_2d = flow_2d + b2d.flow_head(h_2d)
             flow_3d = flow_3d + b3d.flow_head(xyz1, h_3d, knn_indices, dw["flow_head"]).float()
-            seq_2d.append(b2d.convex_upsampler(h_2d, flow_2d))
-            seq_3d.append(weighted_sum(flow_3d, up_idx, up_weights))
+            up_2d = b2d.convex_upsampler(h_2d, flow_2d)
+            up_3d = weighted_sum(flow_3d, up_idx, up_weights)
+            if loss is not None:
+                terms, to_target_3d = loss
+                with full_precision(device_type):  # as the stacked loss, outside autocast
+                    accs = terms.accumulate(*accs, up_2d, to_target_3d(up_3d))
+            return (h_2d, h_3d, flow_2d, flow_3d, up_2d, up_3d, *accs)
+
+        if remat:
+            body = functools.partial(torch.utils.checkpoint.checkpoint, iteration,
+                                     use_reentrant=False)
+        else:
+            body = iteration
+        flow_2d = feat1_2d.new_zeros(batch, feat_h, feat_w, 2, dtype=torch.float32)
+        flow_3d = torch.zeros_like(xyz1)
+        accs = (flow_3d.new_zeros(()), flow_3d.new_zeros(())) if loss is not None else ()
+        seq_2d, seq_3d = [], []
+        for _ in range(n_iters):
+            flow_2d, flow_3d = flow_2d.detach(), flow_3d.detach()
+            xyz2_warp_full = backwarp_3d(xyz1, xyzs2[0], flow_3d)
+            corr_idx = b3d.correlation.select_train(xyz1, xyz2_warp_full, level_sizes)
+            h_2d, h_3d, flow_2d, flow_3d, up_2d, up_3d, *accs = body(
+                h_2d, h_3d, flow_2d, flow_3d, xyz2_warp_full, corr_idx, *accs)
+            if loss is None:
+                seq_2d.append(up_2d)
+                seq_3d.append(up_3d)
+        if loss is not None:
+            return up_2d, up_3d, *accs
         return torch.stack(seq_2d), torch.stack(seq_3d)
 
 
@@ -391,7 +439,9 @@ class CamLiRAFT(nn.Module):
     train mode it runs `CamLiRAFTCore.forward_train` for `n_iters_train`
     iterations under `compute_dtype` (bf16 autocast or f32); eval stays
     f32, or takes the fast path with `fast_inference: on`. `freeze_bn`
-    keeps every BatchNorm on its running statistics in train mode."""
+    keeps every BatchNorm on its running statistics in train mode.
+    `loss_in_scan` and `remat_scan` act in train mode only (see
+    `CamLiRAFTCore.forward_train`)."""
 
     def __init__(self, cfgs: dict):
         super().__init__()
@@ -399,11 +449,9 @@ class CamLiRAFT(nn.Module):
         self.lookup_storage = str(cfgs.get("lookup_storage", "auto"))
         resolve_fast_inference(self.fast_inference, False)  # raise on unknown modes
         resolve_lookup_storage(self.lookup_storage)
-        for key in ("loss_in_scan", "remat_scan"):
-            if cfgs.get(key, False):
-                raise NotImplementedError(
-                    f"{key} (in-loop loss accumulation / rematerialised iterations) is not "
-                    "ported; see ROADMAP.md Queue 1, item 9 (training)")
+        self.loss_in_scan = bool(cfgs.get("loss_in_scan", False))
+        self.remat_scan = bool(cfgs.get("remat_scan", False))
+        self.loss_cfgs = (cfgs.get("loss2d"), cfgs.get("loss3d"))
         self.n_iters_train = int(cfgs.get("n_iters_train", cfgs["n_iters_eval"]))
         self.freeze_bn = bool(cfgs.get("freeze_bn", False))
         self.compute_dtype = cfgs.get("compute_dtype")
@@ -418,6 +466,10 @@ class CamLiRAFT(nn.Module):
             fuse_hidden=bool(cfgs["fuse_hidden"]),
             n_samples_list=tuple(cfgs.get("n_samples_list", DEFAULT_N_SAMPLES)),
         )
+        if self.remat_scan and any(isinstance(m, BatchNorm) for module in
+                                   self.core.in_loop_modules() for m in module.modules()):
+            # a recomputed iteration would move the running statistics twice
+            raise ValueError("remat_scan: an iteration's modules hold a BatchNorm")
         # on the model's device with it, so no forward copies them from the
         # host (which would make the host wait for the card); not weights
         self.register_buffer("image_mean", torch.tensor(_IMAGENET_MEAN), persistent=False)
@@ -453,10 +505,29 @@ class CamLiRAFT(nn.Module):
         pc2 = persp2paral(pcs[..., 3:], persp_cam, paral_cam)
 
         base = paral2persp(pc1, persp_cam, paral_cam)
+        if self.training and self.loss_in_scan and "flow_2d" in inputs and "flow_3d" in inputs:
+            # the 2D target zero-padded as the images are (validity 0 there)
+            left, right, top, bottom = padder._pad
+            target_2d = inputs["flow_2d"].float()
+            if target_2d.shape[-1] == 2:
+                target_2d = torch.cat([target_2d, torch.ones_like(target_2d[..., :1])], dim=-1)
+            target_2d = torch.nn.functional.pad(target_2d, (0, 0, left, right, top, bottom))
+            terms = InLoopSequenceLoss(target_2d, inputs["flow_3d"], *self.loss_cfgs)
+
+            def to_target_3d(flow):  # IDS back to the perspective camera
+                return paral2persp(pc1 + flow, persp_cam, paral_cam) - base
+
+            with compute_precision(self.compute_dtype, image1.device.type):
+                flow_2d, flow_3d, loss_2d, loss_3d = self.core.forward_train(
+                    image1, image2, pc1, pc2, paral_cam, self.n_iters_train,
+                    (terms, to_target_3d), self.remat_scan)
+            return {"flow_2d": padder.unpad(flow_2d), "flow_3d": to_target_3d(flow_3d.float()),
+                    "loss_2d": loss_2d, "loss_3d": loss_3d}
         if self.training:
             with compute_precision(self.compute_dtype, image1.device.type):
                 seq_2d, seq_3d = self.core.forward_train(image1, image2, pc1, pc2, paral_cam,
-                                                         self.n_iters_train)
+                                                         self.n_iters_train,
+                                                         remat=self.remat_scan)
             seq_2d = padder.unpad(seq_2d.flatten(0, 1)).unflatten(0, seq_2d.shape[:2])
             seq_3d = paral2persp(pc1 + seq_3d.float(), persp_cam, paral_cam) - base
             return {"flow_2d": seq_2d[-1], "flow_3d": seq_3d[-1],
@@ -474,10 +545,13 @@ def loss_fn(outputs: dict, inputs: dict, cfgs) -> tuple[torch.Tensor, dict]:
     """Joint sequence losses and metrics (the JAX `loss_fn`): (loss, (sum,
     count) metrics)."""
     target_2d, target_3d = inputs["flow_2d"], inputs["flow_3d"]
-    loss_2d = calc_sequence_loss(outputs["flow_2d_seq"], target_2d,
-                                 gamma=cfgs["loss2d"]["gamma"], order=cfgs["loss2d"]["order"])
-    loss_3d = calc_sequence_loss(outputs["flow_3d_seq"], target_3d,
-                                 gamma=cfgs["loss3d"]["gamma"], order=cfgs["loss3d"]["order"])
+    if "loss_2d" in outputs:  # loss_in_scan: accumulated inside the loop
+        loss_2d, loss_3d = outputs["loss_2d"], outputs["loss_3d"]
+    else:
+        loss_2d = calc_sequence_loss(outputs["flow_2d_seq"], target_2d,
+                                     gamma=cfgs["loss2d"]["gamma"], order=cfgs["loss2d"]["order"])
+        loss_3d = calc_sequence_loss(outputs["flow_3d_seq"], target_3d,
+                                     gamma=cfgs["loss3d"]["gamma"], order=cfgs["loss3d"]["order"])
     loss = loss_2d + loss_3d
     metrics = merge_metrics(
         {"loss": scalar_metric(loss), "loss2d": scalar_metric(loss_2d),

@@ -126,16 +126,21 @@ class Correlation3D(nn.Module):
         self.cost_mlp = MLP(4, [out_channels // 4, out_channels // 4], act="relu")
         self.merge = DenseNormAct(n_levels * (out_channels // 4), out_channels)
 
-    def forward_train(self, xyz1, xyz2_warp_full, level_sizes, pyramid_cat):
-        """The training path (camliflow_tpu Correlation3D, exact, with the
-        train selection): the indices from #4's index-only form, without a
-        gradient (they are integers); the costs and the neighbours'
-        coordinates gathered differentiably; the cost MLP, the per-level sum
-        and the merge as torch ops."""
-        level_sizes = tuple(int(m) for m in level_sizes)
+    def select_train(self, xyz1, xyz2_warp_full, level_sizes) -> torch.Tensor:
+        """The training path's selection: #4's index-only form, without a
+        gradient (the indices are integers), [B, N, L*k] int32."""
         with torch.no_grad():
             idx, _ = corr3d.correlation3d_knn(xyz1.float(), xyz2_warp_full.float(), None,
-                                              level_sizes, k=self.k, with_cost=False)
+                                              tuple(int(m) for m in level_sizes), k=self.k,
+                                              with_cost=False)
+        return idx
+
+    def forward_train(self, xyz1, xyz2_warp_full, level_sizes, pyramid_cat, idx):
+        """The training path (camliflow_tpu Correlation3D, exact, with the
+        train selection): on `select_train`'s indices, the costs and the
+        neighbours' coordinates gathered differentiably; the cost MLP, the
+        per-level sum and the merge as torch ops."""
+        level_sizes = tuple(int(m) for m in level_sizes)
         columns = idx.long() + _level_columns(level_sizes, self.k, idx.device)
         knn_cost = torch.gather(pyramid_cat, 2, columns)  # [B, N, L*k]
         rel = gather_points(xyz2_warp_full, idx) - xyz1[:, :, None, :]
@@ -376,7 +381,8 @@ class CamLiRAFTLCore(nn.Module):
         for _ in range(n_iters):
             flow = flow.detach()
             xyz2_warp_full = backwarp_3d(xyz1, xyzs2[0], flow)
-            corr = self.correlation.forward_train(xyz1, xyz2_warp_full, level_sizes, pyramid)
+            idx = self.correlation.select_train(xyz1, xyz2_warp_full, level_sizes)
+            corr = self.correlation.forward_train(xyz1, xyz2_warp_full, level_sizes, pyramid, idx)
             motion = self.motion_encoder(xyz1, flow, corr, knn_indices, dw["motion_encoder"])
             h = self.gru(xyz1, h, torch.cat([x, motion], dim=-1), knn_indices, dw["gru"])
             flow = flow + self.flow_head(xyz1, h, knn_indices, dw["flow_head"]).float()

@@ -51,10 +51,12 @@ def _count(mask_sum: torch.Tensor) -> torch.Tensor:
     return torch.clamp(total, min=1.0) / dist.world_size()
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean over the elements where mask is true."""
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                 count: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean over the elements where mask is true; `count`, where given, is
+    `_count` of the mask's sum, taken once by a caller that reuses the mask."""
     mask = mask.to(values.dtype)
-    return torch.sum(values * mask) / _count(torch.sum(mask))
+    return torch.sum(values * mask) / (_count(torch.sum(mask)) if count is None else count)
 
 
 def _flow_error(diff: torch.Tensor, order: str) -> torch.Tensor:
@@ -89,6 +91,37 @@ def calc_sequence_loss(flow_preds: torch.Tensor, target: torch.Tensor, gamma: fl
     weights = gamma ** torch.arange(n_preds - 1, -1, -1, dtype=torch.float32,
                                     device=per_iter.device)
     return torch.sum(weights * per_iter)
+
+
+class InLoopSequenceLoss:
+    """The sequence loss accumulated inside a refinement loop, one
+    iteration's terms at a time (the JAX `FusedUpdateBlock._iter_losses`
+    with `loss_in_scan`): `accumulate` takes the running sums (acc_2d,
+    acc_3d) and an iteration's predictions and returns acc * gamma + the
+    iteration's masked mean for each branch, which after T iterations is
+    `calc_sequence_loss` of the stacked predictions. The targets, their
+    masks and the masks' counts are taken once here, so under
+    `global_means` the one all-reduce of each count happens before the
+    loop (a recomputed iteration issues none). The 2D target may be
+    zero-padded to the padded prediction: its validity channel pads with 0,
+    so the mean runs over exactly the unpadded pixels."""
+
+    def __init__(self, target_2d: torch.Tensor, target_3d: torch.Tensor, loss2d, loss3d):
+        self.target_2d, self.mask_2d = _split_target(target_2d.float(), 2)
+        self.target_3d, self.mask_3d = _split_target(target_3d.float(), 3)
+        self.count_2d = _count(self.mask_2d.float().sum())
+        self.count_3d = _count(self.mask_3d.float().sum())
+        self.order_2d, self.order_3d = str(loss2d["order"]), str(loss3d["order"])
+        self.gamma_2d, self.gamma_3d = float(loss2d["gamma"]), float(loss3d["gamma"])
+
+    def accumulate(self, acc_2d, acc_3d, pred_2d: torch.Tensor, pred_3d: torch.Tensor):
+        """-> (acc_2d * gamma_2d + l_2d, acc_3d * gamma_3d + l_3d), the
+        predictions [B, H, W, 2] and [B, N, 3] in the targets' frames."""
+        l2d = _masked_mean(_flow_error(pred_2d.float() - self.target_2d, self.order_2d),
+                           self.mask_2d, self.count_2d)
+        l3d = _masked_mean(_flow_error(pred_3d.float() - self.target_3d, self.order_3d),
+                           self.mask_3d, self.count_3d)
+        return acc_2d * self.gamma_2d + l2d, acc_3d * self.gamma_3d + l3d
 
 
 def _level_error(diff: torch.Tensor, order: str) -> torch.Tensor:

@@ -117,12 +117,72 @@ class BatchNorm(nn.Module):
         return out.to(flat.dtype)
 
 
+def _channel_shape(x: torch.Tensor, channel_dim: int) -> list[int]:
+    """A per-channel vector's shape broadcast against x."""
+    shape = [1] * x.dim()
+    shape[channel_dim] = -1
+    return shape
+
+
+class InstanceNorm(nn.Module):
+    """Per-sample normalisation over the spatial axes (every axis but the
+    batch's and the channels'), with the biased variance, eps 1e-5; with
+    `affine` a per-channel weight (1) and bias (0), without it none (torch's
+    InstanceNorm default, as the reference takes it). Channels last
+    (`channel_dim=-1`) or at dim 1 (NCHW)."""
+
+    def __init__(self, channels: int, affine: bool = False, eps: float = 1e-5,
+                 channel_dim: int = -1):
+        super().__init__()
+        self.eps = eps
+        self.channel_dim = channel_dim
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        channel_dim = self.channel_dim % x.dim()
+        axes = [d for d in range(1, x.dim()) if d != channel_dim]
+        var, mean = torch.var_mean(x, dim=axes, correction=0, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            shape = _channel_shape(x, channel_dim)
+            y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """Normalisation over the channel axis alone, eps 1e-6, a per-channel
+    weight and bias (the reference's LayerNormCF). The variance is the
+    two-pass mean of squared deviations (`F.layer_norm`); Flax's LayerNorm,
+    which the JAX package uses, takes E[x^2] - E[x]^2, which differs from
+    it by about 2^-24 (mean^2 + var) / var relative."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, channel_dim: int = -1):
+        super().__init__()
+        self.eps = eps
+        self.channel_dim = channel_dim
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.movedim(self.channel_dim, -1)
+        y = F.layer_norm(y, self.weight.shape, self.weight, self.bias, self.eps)
+        return y.movedim(-1, self.channel_dim)
+
+
 def Norm(norm: str | None, channels: int, channel_dim: int = -1) -> nn.Module:
-    """The reference's norm-name strings; only those the ported models use."""
+    """The reference's norm-name strings."""
     if norm is None:
         return nn.Identity()
     if norm == "batch_norm":
         return BatchNorm(channels, channel_dim=channel_dim)
+    if norm in ("instance_norm", "instance_norm_affine"):
+        return InstanceNorm(channels, affine=norm == "instance_norm_affine",
+                            channel_dim=channel_dim)
+    if norm == "layer_norm":
+        return LayerNorm(channels, channel_dim=channel_dim)
     raise NotImplementedError(f"Unknown normalization function: {norm}")
 
 

@@ -8,6 +8,8 @@ k-major ([B, k, M, C]): in eval through kernel #12 on a card
 (ops/gather.py), as the JAX fast path gathers; in train mode through the
 plain, differentiable gather, as the JAX training path gathers. The
 contraction over k is the same sum either way.
+PointNet2: MLP over [dxyz, neighbour features], max over k (no model uses
+it).
 PointConvDW: depthwise variant, feature MLP * weight_net(dxyz), max over k,
 as differentiable torch ops (the eval loops run the tail as kernel #13 or
 inside #6/#7 on weights packed once per request, ops/update3d.py); its
@@ -67,6 +69,30 @@ class PointConv(nn.Module):
         out = torch.einsum("bkmw,bkmc->bmwc", weights, knn_feats)
         out = self.linear(out.reshape(batch, n_samples, -1))
         return apply_act(self.norm_fn(out), self.act)
+
+
+class PointNet2(nn.Module):
+    """PointNet++ set abstraction: an MLP over [dxyz, neighbour features]
+    for each of k neighbours, then the max over k. No model uses it (nor
+    the reference's); it completes the building blocks. The neighbours are
+    selected by `k_nearest_neighbor` (kernel #1 on a card) unless given;
+    the gathers are the plain, differentiable ones."""
+
+    def __init__(self, in_channels: int, mlp_channels, norm: str | None = None,
+                 act: str | None = "leaky_relu", k: int = 16):
+        super().__init__()
+        self.k = k
+        self.mlp = MLP(3 + in_channels, list(mlp_channels), norm=norm, act=act)
+
+    def forward(self, xyz, features, sampled_xyz=None, knn_indices=None):
+        """xyz [B, N, 3], features [B, N, C] -> [B, M, mlp_channels[-1]] at
+        sampled_xyz [B, M, 3] (default xyz)."""
+        if sampled_xyz is None:
+            sampled_xyz = xyz
+        knn_indices = _resolve_knn(xyz, sampled_xyz, knn_indices, self.k)
+        rel_xyz = (gather_points(xyz, knn_indices) - sampled_xyz[:, :, None, :]).to(features.dtype)
+        knn_feats = gather_points(features, knn_indices)
+        return self.mlp(torch.cat([rel_xyz, knn_feats], dim=-1)).amax(dim=2)
 
 
 class PointConvDW(nn.Module):

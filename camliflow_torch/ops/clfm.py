@@ -88,6 +88,8 @@ def prepare_clfm_params(clfm: nn.Module) -> dict:
     packed once per request: the six 1x1 layers as `PackedConv`s with their
     tf32 planes, and each SK head's fc_mid and fc_out."""
     _cuda.forward_only_modules("prepare_clfm_params", clfm)
+    if clfm.fusion_fn != "sk":
+        raise ValueError(f"prepare_clfm_params: SK fusion heads only, not {clfm.fusion_fn!r}")
     layers = {"out_conv": clfm.interp.out_conv, "align1_2d": clfm.fuse2d.align1,
               "align2_2d": clfm.fuse2d.align2, "mlps3d": clfm.mlps3d,
               "align1_3d": clfm.fuse3d.align1, "align2_3d": clfm.fuse3d.align2}

@@ -41,7 +41,7 @@ def relayout(array: np.ndarray, target_shape: tuple | None = None) -> np.ndarray
     return out
 
 
-def state_dict_from_jax(flat: dict[str, np.ndarray], model_name: str,
+def state_dict_from_jax(flat: dict[str, np.ndarray], model_name: str | None,
                         shapes: dict[str, tuple] | None = None) -> dict:
     """Map every JAX leaf to a state_dict entry; raise if one does not land.
     `shapes` (state_dict key -> shape) lets 2-D kernels land in 1x1 convs."""
@@ -60,9 +60,11 @@ def state_dict_from_jax(flat: dict[str, np.ndarray], model_name: str,
     return out
 
 
-def load_jax_variables(model: nn.Module, flat: dict, model_name: str) -> None:
+def load_jax_variables(model: nn.Module, flat: dict, model_name: str | None) -> None:
     """Fill `model` from flat JAX variables. Strict: every JAX leaf must land
-    and every parameter and buffer of the model must be filled."""
+    and every parameter and buffer of the model must be filled. With
+    `model_name` None, `model` is a building block (a CLFM, a PointNet2,
+    ...) and `flat` its JAX module's own variables."""
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     model.load_state_dict(state_dict_from_jax(flat, model_name, shapes), strict=True)
 

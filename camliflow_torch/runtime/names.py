@@ -5,8 +5,9 @@ The port's modules carry the reference PyTorch state_dict names
 JAX variable path (`core/fnet_2d/layer1_0/conv1/kernel`) into that name: a
 per-model prefix swap (longest match wins), then token rewrites of the rest
 of the path. Same tables and rules as tools/port_checkpoint.py, for the
-models the port has (its InstanceNorm and LayerNorm rules excepted: no
-ported model has those norms).
+models the port has; beside them `mlps_<i>` (FusionAwareInterpCVPR's MLP,
+the reference's `mlps` Sequential). With no model name a path is a bare
+module's own (`interp/score_net_0/Dense_0/kernel`): the rules alone name it.
 """
 
 from __future__ import annotations
@@ -131,6 +132,8 @@ _SUFFIX_RULES = [
     # MLP members
     (r"DenseNormAct_(\d+)/Dense_0/(kernel|bias)", r"convs.\1.conv_fn.{w}"),
     (r"DenseNormAct_(\d+)/Norm_0/BatchNorm_0/(scale|bias|mean|var)", r"convs.\1.norm_fn.{bn}"),
+    (r"DenseNormAct_(\d+)/Norm_0/InstanceNorm_0/(scale|bias)", r"convs.\1.norm_fn.{w}"),
+    (r"DenseNormAct_(\d+)/Norm_0/LayerNorm_0/(scale|bias)", r"convs.\1.norm_fn.{w}"),
     # ConvexUpsampler2D mask head (Sequential 0, 2)
     (r"mask_0/(kernel|bias)", r"mask.0.{w}"),
     (r"mask_1/(kernel|bias)", r"mask.2.{w}"),
@@ -144,6 +147,10 @@ _SUFFIX_RULES = [
     (r"Conv_0/(kernel|bias)", r"conv_fn.{w}"),
     (r"Dense_0/(kernel|bias)", r"conv_fn.{w}"),
     (r"Norm_0/BatchNorm_0/(scale|bias|mean|var)", r"norm_fn.{bn}"),
+    (r"Norm_0/InstanceNorm_0/(scale|bias)", r"norm_fn.{w}"),
+    (r"Norm_0/LayerNorm_0/(scale|bias)", r"norm_fn.{w}"),
+    # FusionAwareInterpCVPR's MLP (a Sequential of Conv2dNormRelu)
+    (r"mlps_(\d+)/", r"mlps.\1"),
     # PointConv / raw leaves
     (r"linear/(kernel|bias)", r"linear.{w}"),
     # ResNet
@@ -197,9 +204,12 @@ def translate_suffix(suffix: str, torch_prefix: str = "") -> str:
     return suffix
 
 
-def our_path_to_torch(path: str, model_name: str) -> str | None:
+def our_path_to_torch(path: str, model_name: str | None) -> str | None:
     """The state_dict name of a JAX variable path (without its collection),
-    or None when no prefix of the model's table matches."""
+    or None when no prefix of the model's table matches; with no model name
+    the path's module is the bridged module itself."""
+    if model_name is None:
+        return translate_suffix(path)
     table = PREFIX_TABLES[model_name]
     for ours, theirs in sorted(table, key=lambda kv: -len(kv[0])):
         if path.startswith(ours):

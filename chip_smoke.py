@@ -159,7 +159,26 @@ and points, all three fusions), in phases:
    the eval CLI once with 'model.fast_inference="on"'. Phase 3 holds each
    fast form to its plain version too, timed beside its exact form.
 
-Each path's launches (4, 7, 8, 9, 10 and 11) are counted with every counter
+12. the last modules: (a) a raw FlyingThings3D subset at 960x540 (9
+   training and 3 validation frames: PFM disparities and disparity changes,
+   .flo flows, occlusion PNGs, images) written with the port's writers and
+   preprocessed by `python -m camliflow_torch.preprocess_flyingthings3d_subset`
+   in both modes, its files checked (n_points, depth < 35 m, no NaN, the
+   copies), seconds a frame pair; (b) the flagship's train step at full width
+   through the Trainer on (a)'s output (augmentation off), stacked,
+   loss_in_scan, remat_scan and both in turns, then stacked again, at
+   batch 2 and 8, f32 and amp, from the same weights on the same batch:
+   each held to stacked (loss within 1e-5 relative, every gradient within
+   1e-3 (1 + max|g|), BatchNorm statistics within 1e-6 (1 + |b|)), each
+   remat setting to its setting without remat bit for bit where the stacked
+   step repeats itself bit for bit, launches a step held (#1 8, #2 1, #3 and
+   #4 index-only 10), ms a step and peak memory; (c) PointNet2 (8192 -> 4096
+   points, k 16), FusionAwareInterpCVPR, FusionAwareInterp (k 3, no cache)
+   and CLFM with the add, concat and gated heads at CamLiPWC's level-1
+   shapes (144x240 pixels, 4096 points), InstanceNorm and LayerNorm at
+   68x120x128: the card against the CPU, #1's launches held.
+
+Each path's launches (4, 7, 8, 9, 10, 11 and 12) are counted with every counter
 zeroed just before it and read just after. Prints the kernels' JSON line, then the card's name and power limit, then, as
 the last line, the device JSON with "ok": true. Exits non-zero, without that
 line, if any phase fails or there is no CUDA card.
@@ -3497,6 +3516,398 @@ def fast_eval_cli(device, wrappers, card, want: dict, total: dict) -> None:
         raise AssertionError(f"eval CLI fast: launches {got}, expected one fast request's {want}")
 
 
+# phase 12: the last modules
+PREP_FRAMES = {"train": 9, "val": 3}  # raw frames a split: 8 and 2 frame pairs
+PREP_DEPTH = (5.0, 40.0)  # m, the raw disparities' depths (35 m is the cut)
+SWITCHES = (("stacked", {}), ("loss_in_scan", {"loss_in_scan": True}),
+            ("remat_scan", {"remat_scan": True}),
+            ("both", {"loss_in_scan": True, "remat_scan": True}))
+SWITCH_BATCHES = (TRAIN_BATCH, 8)  # 8: conf/model/camliraft.yaml's batch_size
+SWITCH_TIMED = 2  # timed steps a setting, after the compared first
+SWITCH_LOSS_TOL = 1e-5  # relative, each setting's loss against the stacked path's
+# (batch, amp) where only the remat settings fit on the card: the stacked f32
+# step at batch 8 ran out of an NVIDIA H100 80GB HBM3's memory (700.00 W;
+# 68.9 GB allocated and 9.4 GB reserved, asking 2 GB more; 19.1 GB at batch
+# 2). There `both` is held to `remat_scan`.
+REMAT_ONLY = {(8, False)}
+BLOCK_POINTS, BLOCK_SAMPLES = 8192, 4096  # PointNet2: 8192 -> 4096 points
+CLFM_H, CLFM_W, CLFM_C = 144, 240, 32  # CamLiPWC's level-1 CLFM (576x960 images / 4)
+NORM_SHAPE = (1, 68, 120, 128)  # the flagship's 1/8 feature map
+
+
+def write_raw_things(root, seed: int) -> None:
+    """A raw FlyingThings3D subset (the layout the preprocessing script
+    reads) at 960 x 540, written with the port's writers: PREP_FRAMES
+    frames a split, disparities of PREP_DEPTH (f 1050, baseline 1) with a
+    few NaNs, disparity changes, .flo flows with a few beyond 500 px,
+    occlusion maps (8-bit grey PNGs) and images."""
+    import os
+
+    from camliflow_torch.data.io import save_flow, save_pfm
+    from camliflow_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    f = INTRINSICS[0]
+    ramp = (np.arange(IMAGE_W)[None, :, None] + np.arange(IMAGE_H)[:, None, None]) % 200
+    for split, frames in PREP_FRAMES.items():
+        dirs = {key: os.path.join(root, split, *sub) for key, sub in (
+            ("disp", ("disparity", "left")),
+            ("change", ("disparity_change", "left", "into_future")),
+            ("flow", ("flow", "left", "into_future")),
+            ("occ", ("flow_occlusions", "left", "into_future")),
+            ("image", ("image_clean", "left")))}
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
+        for i in range(frames):
+            name = "%07d" % i
+            disp = (f / rng.uniform(*PREP_DEPTH, (IMAGE_H, IMAGE_W))).astype(np.float32)
+            disp[rng.rand(IMAGE_H, IMAGE_W) < 1e-3] = np.nan
+            save_pfm(os.path.join(dirs["disp"], name + ".pfm"), -disp)
+            image = rng.randint(0, 55, (IMAGE_H, IMAGE_W, 3)) + (ramp + 5 * i) % 200
+            write_png(os.path.join(dirs["image"], name + ".png"), image.astype(np.uint8))
+            if i == frames - 1:
+                continue  # the last frame begins no pair
+            save_pfm(os.path.join(dirs["change"], name + ".pfm"),
+                     rng.uniform(-1.0, 1.0, (IMAGE_H, IMAGE_W)).astype(np.float32))
+            flow = (3 * rng.randn(IMAGE_H, IMAGE_W, 2)).astype(np.float32)
+            flow[rng.rand(IMAGE_H, IMAGE_W) < 1e-3] = 600.0
+            save_flow(os.path.join(dirs["flow"], name + ".flo"), flow)
+            occ = (rng.rand(IMAGE_H, IMAGE_W) < 0.1).astype(np.uint8) * 255
+            write_png(os.path.join(dirs["occ"], name + ".png"), occ)
+
+
+def check_prep(out: str, remove: bool, n_points: tuple, max_depth: float) -> int:
+    """The `-prep` files of both splits: n_points finite points a cloud
+    nearer than max_depth (f32), a finite flow_3d of the same length, the
+    packed occlusion mask (none with remove_occluded_points), the 16-bit
+    flow PNG at 540x960x3, the images and occlusion maps copied. Returns
+    the frame pairs checked."""
+    import os
+
+    from camliflow_torch.data.png import read_png
+
+    pairs = 0
+    for (split, frames), n in zip(PREP_FRAMES.items(), n_points):
+        names = sorted(os.path.splitext(fn)[0] for fn in os.listdir(os.path.join(out, split,
+                                                                                   "pc")))
+        if names != ["%07d" % i for i in range(frames - 1)]:
+            raise AssertionError(f"{out}/{split}: frames {names}")
+        for sub in ("image_clean", "occ_mask_2d"):
+            if len(os.listdir(os.path.join(out, split, sub))) != (
+                    frames if sub == "image_clean" else frames - 1):
+                raise AssertionError(f"{out}/{split}/{sub} was not copied whole")
+        for name in names:
+            pcs = np.load(os.path.join(out, split, "pc", name + ".npz"))
+            flow_3d = np.load(os.path.join(out, split, "flow_3d", name + ".npy"))
+            occ = np.unpackbits(np.load(os.path.join(out, split, "occ_mask_3d", name + ".npy")),
+                                count=n)
+            flow_2d = read_png(os.path.join(out, split, "flow_2d", name + ".png"))
+            for pc in (pcs["pc1"], pcs["pc2"]):
+                if not (pc.shape == (n, 3) and pc.dtype == np.float32 and np.isfinite(pc).all()
+                        and (pc[:, 2] < max_depth).all() and (pc[:, 2] > 0).all()):
+                    raise AssertionError(f"{out}/{split}/{name}: a cloud {pc.shape} {pc.dtype}")
+            if not (flow_3d.shape == (n, 3) and np.isfinite(flow_3d).all()):
+                raise AssertionError(f"{out}/{split}/{name}: flow_3d {flow_3d.shape}")
+            if remove and occ.any():
+                raise AssertionError(f"{out}/{split}/{name}: occluded points kept")
+            if flow_2d.shape != (IMAGE_H, IMAGE_W, 3) or flow_2d.dtype != np.uint16:
+                raise AssertionError(f"{out}/{split}/{name}: flow_2d {flow_2d.shape}")
+            pairs += 1
+    return pairs
+
+
+def preprocess_step(root: str, card) -> str:
+    """Phase 12 (a): the raw subset, then `python -m
+    camliflow_torch.preprocess_flyingthings3d_subset` in both modes (its
+    defaults: 32768 and 8192 points, 35 m, 8 workers); the default mode's
+    output is (b)'s training set. Returns its directory."""
+    import os
+    import shutil
+
+    from camliflow_torch import preprocess_flyingthings3d_subset as prep
+
+    shutil.rmtree(root, ignore_errors=True)
+    start = time.perf_counter()
+    write_raw_things(os.path.join(root, "raw"), SEED + 120)
+    frames = sum(PREP_FRAMES.values())
+    print(f"  wrote the raw subset ({frames} frames at {IMAGE_W}x{IMAGE_H}) in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for mode, flags in (("default", []), ("remove_occluded_points", ["--remove_occluded_points"])):
+        out = os.path.join(root, mode)
+        args = prep.parse_args(["--input_dir", os.path.join(root, "raw"), "--output_dir", out,
+                                *flags])
+        start = time.perf_counter()
+        prep.main(args)
+        seconds = time.perf_counter() - start
+        pairs = check_prep(out, bool(flags), tuple(args.n_points), args.max_depth)
+        print(f"  preprocessing ({mode}, {args.n_workers} workers): {pairs} frame pairs in "
+              f"{seconds:.2f} s, {seconds / pairs:.3f} s a pair (the host's, on the card's "
+              f"machine); n_points {args.n_points}, depth < {args.max_depth} m, no NaN, "
+              f"files and copies complete", flush=True)
+    return os.path.join(root, "default")
+
+
+def switch_step(cfgs, device, wrappers, state, timed: bool) -> dict:
+    """One setting's first train step through its Trainer (from `state`,
+    the same batch), then, with `timed`, SWITCH_TIMED more steps for ms a
+    step (their mean); every counter zeroed just before and read after.
+    Returns the loss, the gradients, BatchNorm buffers (on the host),
+    launches a step, ms and peak memory."""
+    import gc
+
+    import torch
+
+    from camliflow_torch.data.datasets import collate
+    from camliflow_torch.runtime.train_state import train_step
+    from camliflow_torch.runtime.trainer import Trainer, device_batch
+
+    trainer = Trainer(cfgs, device)
+    trainer.model.load_state_dict(state)
+    batch = device_batch(collate([trainer.train_set[i] for i in range(cfgs.model.batch_size)]),
+                         device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device) / 2**20
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in wrappers.values():
+        fn.launches = 0
+    loss = float(train_step(trainer.model, trainer.optimizer, batch, trainer.loss_fn,
+                            trainer.cfgs.model, 0)[0])
+    # copies: the timed step below updates the buffers in place
+    grads = {k: p.grad.detach().to("cpu", copy=True) for k, p in trainer.model.named_parameters()}
+    buffers = {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.named_buffers()}
+    ms = None
+    steps = 1 + SWITCH_TIMED * timed
+    if timed:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for index in range(1, steps):
+            train_step(trainer.model, trainer.optimizer, batch, trainer.loss_fn,
+                       trainer.cfgs.model, index)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - start) / SWITCH_TIMED
+    launches = {key: fn.launches / steps for key, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grads": grads, "buffers": buffers, "launches": launches, "ms": ms,
+            "peak": peak, "base": base, "steps": steps}
+
+
+def compare_steps(got: dict, want: dict) -> dict:
+    """One step against another from the same weights and batch: loss
+    relative, the worst gradient's share of GRAD_TOL (1 + max|g|), the
+    worst BatchNorm statistic's share of BUFFER_TOL (1 + |b|), and whether
+    all three are bit for bit."""
+    import torch
+
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    grad_ratio = max(float((got["grads"][k] - g).abs().max()) / (GRAD_TOL * (1 + float(
+        g.abs().max()))) for k, g in want["grads"].items())
+    buffer_ratio = max((float(((got["buffers"][k] - b).abs() / (BUFFER_TOL * (1 + b.abs())))
+                              .max()) for k, b in want["buffers"].items()
+                        if b.is_floating_point()), default=0.0)
+    identical = (got["loss"] == want["loss"]
+                 and all(torch.equal(got["grads"][k], g) for k, g in want["grads"].items())
+                 and all(torch.equal(got["buffers"][k], b) for k, b in want["buffers"].items()))
+    return {"loss_rel": loss_rel, "grad_ratio": grad_ratio, "buffer_ratio": buffer_ratio,
+            "identical": identical}
+
+
+def switches_step(device, wrappers, card, data_root: str) -> dict:
+    """Phase 12 (b): the flagship's train step at full width through the
+    Trainer (`python -m camliflow_torch.train trainset=flyingthings3d_subset
+    valset=flyingthings3d_subset model=camliraft`'s config, augmentation
+    off, 8192 of the preprocessed points) on (a)'s training set, at batch 2
+    and 8, in f32 and in amp: the four settings (stacked, loss_in_scan,
+    remat_scan, both) in turns, then stacked again, each from the same
+    weights on the same batch (in REMAT_ONLY remat_scan and both, then
+    remat_scan again). Each held to stacked (to remat_scan in REMAT_ONLY):
+    loss within SWITCH_LOSS_TOL relative, every gradient within GRAD_TOL
+    (1 + max|g|), BatchNorm statistics within BUFFER_TOL (1 + |b|); each
+    remat setting to its setting without remat bit for bit where the card
+    repeats the stacked step, else within the same bounds; launches a step
+    held (#1 8, #2 1, #3 and #4 index-only an iteration, the rest 0).
+    Returns the launches of every step."""
+    from camliflow_torch.models.camliraft import CamLiRAFT
+    from camliflow_torch.runtime.checkpoint import random_weights
+    from camliflow_torch.utils.config import compose
+
+    total = dict.fromkeys(wrappers, 0)
+    want = {**dict.fromkeys(wrappers, 0), "k_nearest_neighbor": 8,
+            "furthest_point_sampling": 1, "knn_interpolation": TRAIN_ITERS,
+            "correlation3d_knn_index": TRAIN_ITERS}
+    model = None
+    for batch_size in SWITCH_BATCHES:
+        for amp in (False, True):
+            def cfgs(label, switches):
+                return compose("conf", trainset="flyingthings3d_subset",
+                               valset="flyingthings3d_subset", model="camliraft",
+                               base="trainer.yaml", overrides=[
+                                   f"trainset.root_dir={data_root}",
+                                   f"valset.root_dir={data_root}",
+                                   f"model.batch_size={batch_size}",
+                                   "trainset.augmentation.enabled=false",
+                                   f"training.amp={str(amp).lower()}",
+                                   "trainset.n_workers=0", "valset.n_workers=0",
+                                   "log.tensorboard=false", f"log.dir={WORK}/switches/{label}",
+                                   *(f"model.{k}={str(v).lower()}" for k, v in switches.items())])
+
+            base = cfgs("stacked", {})
+            if not (base.model.n_iters_train == TRAIN_ITERS and base.trainset.n_points == N_POINTS
+                    and base.model.backbone.depth == 50):
+                raise AssertionError("the composed config is not the flagship's training config")
+            if model is None:  # one set of weights for every setting
+                model = CamLiRAFT(base.model.to_dict())
+                random_weights(model, SEED + 121)
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+            precision = "amp" if amp else "f32"
+            settings = [(label, switches) for label, switches in SWITCHES
+                        if switches.get("remat_scan") or (batch_size, amp) not in REMAT_ONLY]
+            ref = settings[0][0]  # stacked, or where it does not fit remat_scan
+            runs = {}
+            for label, switches in (*settings, (ref + " again", settings[0][1])):
+                run = switch_step(cfgs(label.replace(" ", "_"), switches), device, wrappers,
+                                  state, timed=not label.endswith("again"))
+                if run["launches"] != want:
+                    raise AssertionError(f"{label} at batch {batch_size} ({precision}): launches "
+                                         f"a step {run['launches']}, expected {want}")
+                for key, count in run["launches"].items():
+                    total[key] += count * run["steps"]
+                runs[label] = run
+            repeats = compare_steps(runs.pop(ref + " again"), runs[ref])["identical"]
+            unfit = "" if ref == "stacked" else (" (without remat the step needs more memory "
+                                                 "than the card has)")
+            print(f"  batch {batch_size}, {precision}: the {ref} step repeated bit for bit: "
+                  f"{repeats}{unfit} | {card}", flush=True)
+            for label, run in runs.items():
+                d = compare_steps(run, runs[ref])
+                line = (f"    {label:13s} {run['ms']:8.1f} ms a step (the mean of "
+                        f"{SWITCH_TIMED} after the first), peak {run['peak']:8.0f} MiB "
+                        f"({run['peak'] - run['base']:.0f} above the {run['base']:.0f} alive "
+                        f"before), loss {run['loss']:.6f}")
+                if label != ref:
+                    line += (f", against {ref}: loss relative {d['loss_rel']:.2e}, worst "
+                             f"gradient {d['grad_ratio']:.3f} of its bound, BatchNorm "
+                             f"statistics {d['buffer_ratio']:.3f} of theirs, bit for bit "
+                             f"{d['identical']}")
+                plain = {"remat_scan": "stacked", "both": "loss_in_scan"}.get(label)
+                if plain in runs:
+                    r = compare_steps(run, runs[plain])
+                    line += f"; against no remat bit for bit {r['identical']}"
+                    if repeats and not r["identical"]:
+                        raise AssertionError(f"{label} at batch {batch_size} ({precision}) is "
+                                             "not bit for bit its step without remat, on a "
+                                             "card that repeats a step")
+                    if not (r["loss_rel"] <= SWITCH_LOSS_TOL and r["grad_ratio"] <= 1.0
+                            and r["buffer_ratio"] <= 1.0):
+                        raise AssertionError(f"{label} against no remat: {r}")
+                print(line, flush=True)
+                if not (d["loss_rel"] <= SWITCH_LOSS_TOL and d["grad_ratio"] <= 1.0
+                        and d["buffer_ratio"] <= 1.0):
+                    raise AssertionError(f"{label} at batch {batch_size} ({precision}) against "
+                                         f"{ref}: {d}")
+            print(f"    launches a step, every setting: "
+                  f"{ {k: v for k, v in want.items() if v} } (the fused kernels #5-#13: 0)",
+                  flush=True)
+    return total
+
+
+def blocks_step(device, wrappers, card) -> dict:
+    """Phase 12 (c): the building blocks no model uses, the card (eval
+    mode, #1 selecting) against the CPU (the plain KNN) on the same
+    weights and inputs, within CONV_TOL (1 + max|cpu|): PointNet2 at 8192
+    -> 4096 points, k 16, widths (64, 64, 128); FusionAwareInterpCVPR, a
+    FusionAwareInterp with k 3 and no cache, and CLFM with the add,
+    concat and gated heads (each building its own cache) at CamLiPWC's
+    level-1 shapes (144x240 pixels against 4096 points, 32 channels);
+    InstanceNorm (affine) and LayerNorm at 68x120x128. #1's launches held
+    (one a selecting block). Returns them."""
+    import copy
+
+    import torch
+
+    from camliflow_torch.nn import clfm, layers, point_conv
+    from camliflow_torch.runtime.checkpoint import random_weights
+
+    rng = np.random.RandomState(SEED + 122)
+    xyz = (rng.rand(1, BLOCK_POINTS, 3) * [40, 20, 30] + [-20, -10, 5]).astype(np.float32)
+    feats = rng.randn(1, BLOCK_POINTS, 64).astype(np.float32)
+    uv = (rng.rand(1, BLOCK_SAMPLES, 2) * [CLFM_W + 2, CLFM_H + 2] - 1).astype(np.float32)
+    feat_2d = rng.randn(1, CLFM_H, CLFM_W, CLFM_C).astype(np.float32)
+    feat_3d = rng.randn(1, BLOCK_SAMPLES, CLFM_C).astype(np.float32)
+    norm_x = (2 * rng.randn(*NORM_SHAPE) + 0.5).astype(np.float32)
+    blocks = {
+        "PointNet2": (point_conv.PointNet2(64, (64, 64, 128), k=16),
+                      (xyz, feats, xyz[:, :BLOCK_SAMPLES].copy()), 1),
+        "FusionAwareInterpCVPR": (clfm.FusionAwareInterpCVPR(CLFM_C, CLFM_C),
+                                  (uv, feat_2d, feat_3d), 1),
+        "FusionAwareInterp k=3": (clfm.FusionAwareInterp(CLFM_C, k=3), (uv, feat_2d, feat_3d), 1),
+        **{f"CLFM {fn}": (clfm.CLFM(CLFM_C, CLFM_C, fusion_fn=fn), (uv, feat_2d, feat_3d), 1)
+           for fn in ("add", "concat", "gated")},
+        "InstanceNorm affine": (layers.Norm("instance_norm_affine", 128), (norm_x,), 0),
+        "LayerNorm": (layers.Norm("layer_norm", 128), (norm_x,), 0),
+    }
+    total = dict.fromkeys(wrappers, 0)
+    gen = torch.Generator().manual_seed(SEED + 123)
+    for label, (module, inputs, knn_launches) in blocks.items():
+        with torch.no_grad():
+            if isinstance(module, (layers.InstanceNorm, layers.LayerNorm)):
+                module.weight.copy_(1 + 0.2 * torch.randn(module.weight.shape, generator=gen))
+                module.bias.copy_(0.1 * torch.randn(module.bias.shape, generator=gen))
+            else:
+                random_weights(module, SEED + 123)
+            module.eval()
+            card_module = copy.deepcopy(module).to(device)
+            cpu_inputs = [torch.from_numpy(a) for a in inputs]
+            card_inputs = [a.to(device) for a in cpu_inputs]
+            for fn in wrappers.values():
+                fn.launches = 0
+            out = card_module(*card_inputs)
+            torch.cuda.synchronize()
+            launches = {key: fn.launches for key, fn in wrappers.items()}
+            ms = time_ms(lambda: card_module(*card_inputs), 3)
+            ref = module(*cpu_inputs)
+        out, ref = (x if isinstance(x, tuple) else (x,) for x in (out, ref))
+        expected = {**dict.fromkeys(wrappers, 0), "k_nearest_neighbor": knn_launches}
+        if launches != expected:
+            raise AssertionError(f"{label}: launches {launches}, expected {expected}")
+        for key, count in launches.items():
+            total[key] += count
+        errs = []
+        for got, want in zip(out, ref):
+            if got.shape != want.shape:
+                raise AssertionError(f"{label}: {tuple(got.shape)} against {tuple(want.shape)}")
+            err = float((got.cpu() - want).abs().max())
+            bound = CONV_TOL * (1 + float(want.abs().max()))
+            errs.append(f"{err:.2e} (bound {bound:.2e})")
+            if not err <= bound:
+                raise AssertionError(f"{label}: card against CPU max|d| {err} > {bound}")
+        print(f"  {label}: output {[tuple(o.shape) for o in out]}, card against CPU max|d| "
+              f"{', '.join(errs)}; #1 launches {knn_launches}; {ms:.3f} ms a call (events, "
+              f"after a warm-up) | {card}", flush=True)
+    return total
+
+
+def leftovers_phase(device, wrappers, card) -> dict:
+    """Phase 12: (a) the preprocessing, (b) the training switches, (c) the
+    building blocks. Returns (b)'s and (c)'s launches."""
+    import os
+
+    root = os.path.join(WORK, "prep")
+    start = time.perf_counter()
+    data_root = preprocess_step(root, card)
+    print(f"  (a) {time.perf_counter() - start:.1f} s", flush=True)
+    start = time.perf_counter()
+    total = switches_step(device, wrappers, card, data_root)
+    print(f"  (b) {time.perf_counter() - start:.1f} s", flush=True)
+    start = time.perf_counter()
+    for key, count in blocks_step(device, wrappers, card).items():
+        total[key] += count
+    print(f"  (c) {time.perf_counter() - start:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import argparse
 
@@ -3536,13 +3947,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False, timeout=60,
     ).stdout.strip().splitlines()
-    print("[1/11] device:", torch.cuda.get_device_name(0), "| torch",
+    print("[1/12] device:", torch.cuda.get_device_name(0), "| torch",
           torch.__version__, "| CUDA", torch.version.cuda, flush=True)
     card = smi[0] if smi else "nvidia-smi gave no output"
     print(card, flush=True)
 
     # 2. build
-    print("[2/11] build", flush=True)
+    print("[2/12] build", flush=True)
     try:
         path, seconds, log = kbuild.build()
         kbuild.library()
@@ -3554,7 +3965,7 @@ def main() -> int:
         return 1
 
     # 3. per-kernel parity
-    print("[3/11] kernels vs plain versions at main-path shapes (a plain version "
+    print("[3/12] kernels vs plain versions at main-path shapes (a plain version "
           "repeats its kernel's arithmetic in PyTorch ops, cuDNN convolutions for "
           "the 2D chain, and is no yardstick of speed)", flush=True)
     kernels = []
@@ -3613,7 +4024,7 @@ def main() -> int:
         has_points = cls not in (RAFT, PWC)
         iterative = cls in (CamLiRAFTL, CamLiRAFT, RAFT)
         points = f"{N_POINTS} pts, " if has_points else ""
-        print(f"[4/11] {label} eval: {points}"
+        print(f"[4/12] {label} eval: {points}"
               f"{f'{IMAGE_W}x{IMAGE_H} images, ' if images else ''}"
               f"{f'{N_ITERS} iters, ' if iterative else ''}bs=1"
               f"{', IDS on' if has_points else ''}", flush=True)
@@ -3649,7 +4060,7 @@ def main() -> int:
             failures.append(f"{label} bs={BATCH}")
 
         # 5. CUDA vs CPU
-        print(f"[5/11] {label}: same weights and input on the CPU (plain versions)",
+        print(f"[5/12] {label}: same weights and input on the CPU (plain versions)",
               flush=True)
         try:
             if out is None:
@@ -3675,14 +4086,14 @@ def main() -> int:
     # 6-8. this slice's paths: the lookahead, the KITTI submission, the demo
     flagship_request = next(per_request for label, _, _, _, per_request in paths
                             if label == "CamLiRAFT")
-    print("[6/11] the Evaluator's one-batch lookahead against a synchronous loop: the "
+    print("[6/12] the Evaluator's one-batch lookahead against a synchronous loop: the "
           f"flagship, 4 batches of {BATCH} frame pairs", flush=True)
     try:
         lookahead_phase(device, card)
     except Exception:
         traceback.print_exc()
         failures.append("lookahead")
-    print(f"[7/11] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
+    print(f"[7/12] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
           f"the flagship, bs={BATCH}, {N_POINTS} pts, densified by #3", flush=True)
     try:
         launches = submission_phase(device, wrappers, flagship_request, card, kernels)
@@ -3691,7 +4102,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("submission")
-    print(f"[8/11] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
+    print(f"[8/12] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
           "flagship, on the card and on the CPU", flush=True)
     try:
         launches = demo_phase(device, wrappers, flagship_request, card)
@@ -3700,7 +4111,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("demo")
-    print(f"[9/11] training: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
+    print(f"[9/12] training: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
           f"{N_POINTS} pts, {TRAIN_ITERS} iters, amp, augmentation), batches of {TRAIN_BATCH}, "
           f"{TRAIN_PAIRS} synthetic pairs; resume; an f32 step against the CPU", flush=True)
     try:
@@ -3721,7 +4132,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("training data")
     for family, want, branches in TRAIN_FAMILIES:
-        print(f"[9/11] training {family}: its Trainer at full width (its own training config, "
+        print(f"[9/12] training {family}: its Trainer at full width (its own training config, "
               f"amp, augmentation), batches of {TRAIN_BATCH}, {FAMILY_PAIRS} synthetic pairs; "
               "an f32 step against the CPU", flush=True)
         try:
@@ -3745,7 +4156,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("KITTI training data")
     for family, want, branches in KITTI_FINE_TUNES:
-        print(f"[9/11] KITTI fine-tune {family}: its Trainer on conf/training/kitti/{family}.yaml "
+        print(f"[9/12] KITTI fine-tune {family}: its Trainer on conf/training/kitti/{family}.yaml "
               f"at full width (freeze_bn, amp, augmentation), batches of {TRAIN_BATCH}, "
               f"{KITTI_TRAIN_FRAMES} training and {KITTI_VAL_FRAMES} validation frames; an f32 "
               "step against the CPU", flush=True)
@@ -3760,7 +4171,7 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"KITTI fine-tune {family}")
 
-    print(f"[10/11] data-parallel: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
+    print(f"[10/12] data-parallel: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
           f"{N_POINTS} pts, {TRAIN_ITERS} iters, f32), global batch {TRAIN_BATCH}: one process; "
           "(a) 1 rank over NCCL; (b) 2 ranks over gloo on the one card; (c) their run_things "
           f"over {DP_FRAMES} frames", flush=True)
@@ -3774,7 +4185,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("data-parallel")
 
-    print("[11/11] the fast path (fast_inference=on) at full width: CamLiRAFT-L, the flagship, "
+    print("[11/12] the fast path (fast_inference=on) at full width: CamLiRAFT-L, the flagship, "
           f"fuse_hidden and RAFT at bs=1 and bs={BATCH} against the exact path and the CPU; "
           "the eval CLI", flush=True)
     try:
@@ -3786,6 +4197,21 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("fast path")
+
+    print("[12/12] the last modules: the FlyingThings3D preprocessing (both modes) on a raw "
+          f"synthetic subset at {IMAGE_W}x{IMAGE_H}; the flagship's train step on its output, "
+          f"stacked, loss_in_scan, remat_scan and both, at batch {SWITCH_BATCHES}, f32 and amp; "
+          "PointNet2, the CVPR interpolation, the fusion heads and the norms against the CPU",
+          flush=True)
+    try:
+        start = time.perf_counter()
+        launches = leftovers_phase(device, wrappers, card)
+        for key, count in launches.items():
+            total[key] += count
+        print(f"  last modules: {time.perf_counter() - start:.1f} s", flush=True)
+    except Exception:
+        traceback.print_exc()
+        failures.append("last modules")
 
     # each kernel's launches over the paths' measured requests
     for entry in kernels:

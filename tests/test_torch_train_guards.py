@@ -189,12 +189,6 @@ def test_freeze_bn_keeps_every_batchnorm_on_its_running_statistics():
         assert torch.equal(value, before[key]), key
 
 
-@pytest.mark.parametrize("key", ["loss_in_scan", "remat_scan"])
-def test_in_loop_loss_and_remat_are_not_ported(key):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.CamLiRAFT({**CFGS, key: True})
-
-
 @pytest.mark.parametrize("levels", [(64, 32, 16), (128, 64, 32, 16), (96,)])
 def test_correlation3d_index_only_selects_what_the_full_form_selects(levels):
     """The plain version and the wrapper (on the CPU, the plain version)

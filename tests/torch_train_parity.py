@@ -113,11 +113,11 @@ class Steps:
         def loss_of(params):
             out, updates = model.apply({**tree, "params": params}, jin, mutable=["batch_stats"])
             loss, _ = jax_module.loss_fn(out, jin, JConfig(cfgs))
-            return loss, updates
+            return loss, (updates, {k: out[k] for k in ("flow_2d", "flow_3d") if k in out})
 
         with port_selection_rule():
-            (loss, updates), grads = jax.jit(jax.value_and_grad(loss_of, has_aux=True))(
-                tree["params"])
+            (loss, (updates, flows)), grads = jax.jit(
+                jax.value_and_grad(loss_of, has_aux=True))(tree["params"])
         self.own_rule_loss = float(jax.jit(loss_of)(tree["params"])[0]) if points else None
         tx = jax_optimizer_factory(JConfig(training), tree["params"], steps_per_epoch=4)
 
@@ -131,7 +131,8 @@ class Steps:
             "loss": float(loss), "grads": tree_to_flat(jax.tree.map(np.asarray, grads)),
             "stats": tree_to_flat(jax.tree.map(np.asarray, updates)),
             "params": tree_to_flat(jax.tree.map(np.asarray, params)),
-            "norms": {k: float(v) for k, v in norms.items()}}
+            "norms": {k: float(v) for k, v in norms.items()},
+            "flows": jax.tree.map(np.asarray, flows)}
 
         self.port = self.bridged(cfgs).train()
         self.optimizer = optimizer_factory(training, self.port, steps_per_epoch=4,
