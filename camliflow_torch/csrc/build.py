@@ -50,7 +50,7 @@ SIGNATURES = {
     "camli_dw_max": [_P] * 4 + [_I] * 7 + [_P],
     "camli_gather_kmajor": [_P] * 3 + [_I] * 7 + [_P],
     "camli_corr3d_tail": [_P] * 12 + [_I] * 7 + [_P],
-    "camli_clfm": [_P] * 14 + [_I] * 7 + [_P],
+    "camli_clfm": [_P] * 14 + [_I] * 8 + [_P],
 }
 
 

@@ -49,6 +49,21 @@
 // order, with no float atomics, so two runs give the same bits. Stage
 // launches rather than one cooperative launch: each stage gets the grid it
 // needs, and no grid barrier is needed.
+//
+// The bf16 form (bf16 != 0; fast_inference=on with CAMLIFLOW_CLFM=1, the
+// corr and motion fusions) computes the TPU kernel's own numerics
+// (pallas_clfm.py's _clfm_kernel and _sk_fuse) on the same six launches:
+// the score a bf16 tensor; f2d and f3d rounded to bf16 as they are read
+// (cvt.rn), so g = score * f3d[nn] is a bf16 product (exact in f32, then
+// one rounding) and the sample sums bf16 rows times the f32 tap weights in
+// tap order in f32; the dense layers on the tile's bf16 mode (weights
+// rounded to bf16 once per request, one bf16 plane; activations rounded as
+// they are taken); the SK mean over a + b in f32 as in the exact form,
+// fc_mid and fc_out on bf16 operands (the mean and the ReLU's output
+// rounded, the weights rounded by the wrapper) with f32 sums, and the pair
+// weight w1 = sigmoid(sigmoid(s1) - sigmoid(s2)) of channel c's logits 2c
+// and 2c + 1 in place of the exact form's softmax; the blend a w1 +
+// b (1 - w1) in f32.
 #include "conv_tile_tc.cuh"
 
 namespace {
@@ -61,9 +76,17 @@ struct Sizes {
   int batch, hw, n, c2, c3;
 };
 
+// A feature value as the form reads it: f32, or (BF) rounded to bf16.
+template <bool BF>
+__device__ __forceinline__ float feature(float v) {
+  return BF ? round_bf16(v) : v;
+}
+
+// score: f32, or (BF) bf16 values
+template <bool BF>
 __global__ void __launch_bounds__(kThreads) gather_kernel(
     const float* __restrict__ f2d, const float* __restrict__ f3d,
-    const float* __restrict__ score, const int32_t* __restrict__ nn,
+    const void* __restrict__ score, const int32_t* __restrict__ nn,
     const int32_t* __restrict__ tap, const float* __restrict__ tap_w, float* __restrict__ g,
     float* __restrict__ samp, const Sizes s) {
   const size_t n_g = (size_t)s.batch * s.hw * s.c3;
@@ -73,7 +96,14 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(
     const size_t p = e / s.c3;
     const size_t c = e - p * s.c3;
     const size_t b = p / s.hw;
-    g[e] = __fmul_rn(score[e], f3d[(b * s.n + nn[p]) * s.c3 + c]);
+    const float f = feature<BF>(f3d[(b * s.n + nn[p]) * s.c3 + c]);
+    if constexpr (BF) {  // two bf16 values: the f32 product is exact, one rounding
+      const float sc = __uint_as_float((uint32_t)static_cast<const unsigned short*>(score)[e]
+                                       << 16);
+      g[e] = round_bf16(__fmul_rn(sc, f));
+    } else {
+      g[e] = __fmul_rn(static_cast<const float*>(score)[e], f);
+    }
   } else if (e < n_g + n_s) {
     const size_t u = e - n_g;
     const size_t q = u / s.c2;
@@ -81,8 +111,10 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(
     const float* image = f2d + (q / s.n) * s.hw * s.c2 + c;
     const int32_t* tq = tap + q * 4;
     const float* wq = tap_w + q * 4;
-    float v = __fmul_rn(image[(size_t)tq[0] * s.c2], wq[0]);
-    for (int t = 1; t < 4; ++t) v = __fadd_rn(v, __fmul_rn(image[(size_t)tq[t] * s.c2], wq[t]));
+    float v = __fmul_rn(feature<BF>(image[(size_t)tq[0] * s.c2]), wq[0]);
+    for (int t = 1; t < 4; ++t) {
+      v = __fadd_rn(v, __fmul_rn(feature<BF>(image[(size_t)tq[t] * s.c2]), wq[t]));
+    }
     samp[u] = v;
   }
 }
@@ -195,6 +227,9 @@ __device__ __forceinline__ void rows_dot(const float* __restrict__ w, int len, i
 // Share `part` of the SK head of batch item b: the mean, fc_mid + ReLU (both
 // computed alike by every part), then fc_out + sigmoid and the softmax over
 // each channel's pair, as torch.softmax computes it, for the part's channels.
+// BF: the mean and the ReLU's output rounded to bf16 as fc_mid's and
+// fc_out's operands, and the pair weight sigmoid(s1 - s2) (the TPU kernel's).
+template <bool BF>
 __device__ __forceinline__ void head(const Side& s, int b, int part) {
   __shared__ __align__(16) float mean[kMaxC];
   __shared__ __align__(16) float mid[kMaxC];
@@ -206,18 +241,26 @@ __device__ __forceinline__ void head(const Side& s, int b, int part) {
     float sum = p[0];
 #pragma unroll 8
     for (int i = 1; i < s.chunks; ++i) sum = __fadd_rn(sum, p[(size_t)i * s.c]);
-    mean[c] = __fdiv_rn(sum, (float)s.rows);
+    mean[c] = feature<BF>(__fdiv_rn(sum, (float)s.rows));
   }
   __syncthreads();
   rows_dot<4>(s.mid_t, s.c, 0, s.c_mid, mean, mid);  // c: a multiple of 4
   __syncthreads();
-  for (int j = threadIdx.x; j < s.c_mid; j += kHeadThreads) mid[j] = fmaxf(mid[j], 0.f);
+  for (int j = threadIdx.x; j < s.c_mid; j += kHeadThreads) {
+    mid[j] = feature<BF>(fmaxf(mid[j], 0.f));
+  }
   __syncthreads();
   rows_dot<2>(s.out_t, s.c_mid, 2 * c0, 2 * c1, mid, logit);  // c_mid = c / 2: even
   __syncthreads();
   for (int c = c0 + threadIdx.x; c < c1; c += kHeadThreads) {
     const float s0 = sigmoid(logit[2 * (c - c0)]);
     const float s1 = sigmoid(logit[2 * (c - c0) + 1]);
+    if constexpr (BF) {
+      const float w1 = sigmoid(__fsub_rn(s0, s1));
+      s.weights[((size_t)b * s.c + c) * 2] = w1;
+      s.weights[((size_t)b * s.c + c) * 2 + 1] = __fsub_rn(1.f, w1);
+      continue;
+    }
     const float top = fmaxf(s0, s1);
     const float e0 = expf(__fsub_rn(s0, top));
     const float e1 = expf(__fsub_rn(s1, top));
@@ -228,14 +271,15 @@ __device__ __forceinline__ void head(const Side& s, int b, int part) {
 }
 
 // blocks [0, batch * kHeadParts) the 2D side's heads, then the 3D side's
+template <bool BF>
 __global__ void __launch_bounds__(kHeadThreads) head_kernel(const Side two, const Side three,
                                                             int batch) {
   const int per_side = batch * kHeadParts;
   if ((int)blockIdx.x < per_side) {
-    head(two, blockIdx.x / kHeadParts, blockIdx.x % kHeadParts);
+    head<BF>(two, blockIdx.x / kHeadParts, blockIdx.x % kHeadParts);
   } else {
     const int blk = blockIdx.x - per_side;
-    head(three, blk / kHeadParts, blk % kHeadParts);
+    head<BF>(three, blk / kHeadParts, blk % kHeadParts);
   }
 }
 
@@ -278,14 +322,15 @@ TcLayer dense_layer(int rows, const float* in, int cin, const float* hi, const f
 }
 
 // Up to four dense layers with a leaky ReLU in one launch (a default
-// TcLayer is none).
-int run_dense_group_tc(const TcGroup& g, cudaStream_t stream) {
+// TcLayer is none); bf16: the tile's bf16 mode.
+int run_dense_group_tc(const TcGroup& g, bool bf16, cudaStream_t stream) {
   using S = TcShape<kDenseBM, kDenseBN, 2, 2, 1>;
   static_assert(S::kSmemBytes <= 48 * 1024, "no cudaFuncSetAttribute needed");
   int blocks = 0;
   for (const TcLayer& l : g.layer) blocks += l.m_tiles * l.n_tiles;
-  conv_tc_group_kernel<kDenseBM, kDenseBN, 2, 2, EPI_LEAKY>
-      <<<blocks, S::kThreads, S::kSmemBytes, stream>>>(g);
+  const auto kernel = bf16 ? conv_tc_group_kernel<kDenseBM, kDenseBN, 2, 2, EPI_LEAKY, true>
+                           : conv_tc_group_kernel<kDenseBM, kDenseBN, 2, 2, EPI_LEAKY, false>;
+  kernel<<<blocks, S::kThreads, S::kSmemBytes, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -309,18 +354,21 @@ unsigned blocks_for(size_t elements) { return (unsigned)((elements + kThreads - 
 // dense: (hi, lo, bias) of out_conv, align1_2d, align2_2d, mlps3d,
 // align1_3d, align2_3d in that order, each a packed layer's tf32 weight
 // planes [round_up(cout, 64), round_up(cin, 16)] and its bias
-// (ops/clfm.py::prepare_clfm_params); mid_t [c_mid, c] and out_t [2c, c_mid]
-// the SK heads' fc_mid and fc_out, transposed. scratch holds, in floats:
+// (ops/clfm.py::prepare_clfm_params; bf16 != 0: the weights rounded to
+// bf16, hi the one plane, lo null); mid_t [c_mid, c] and out_t [2c, c_mid]
+// the SK heads' fc_mid and fc_out, transposed; score f32, or bf16 with
+// bf16 != 0 (the bf16 form). scratch holds, in floats:
 //   rows2 = batch * hw and rows3 = batch * n;
 //   g, interp [rows2, c3]; samp, sm [rows3, c2]; a, b [rows2, c2];
 //   b3, a3 [rows3, c3]; partial sums [batch, ceil(hw / 256), c2] and
 //   [batch, ceil(n / 256), c3]; SK weights [batch, c2, 2] and [batch, c3, 2].
-extern "C" int camli_clfm(const float* f2d, const float* f3d, const float* score,
+extern "C" int camli_clfm(const float* f2d, const float* f3d, const void* score,
                           const int32_t* nn_idx, const int32_t* tap_idx, const float* tap_w,
                           const float* const* dense, const float* mid_t_2d,
                           const float* out_t_2d, const float* mid_t_3d, const float* out_t_3d,
-                          float* scratch, float* out_2d, float* out_3d, int batch, int hw, int n,
-                          int c2, int c3, int c2_mid, int c3_mid, cudaStream_t stream) {
+                          float* scratch, float* out_2d, float* out_3d, int bf16, int batch,
+                          int hw, int n, int c2, int c3, int c2_mid, int c3_mid,
+                          cudaStream_t stream) {
   if (c2 > kMaxC || c3 > kMaxC || c2_mid > kMaxC || c3_mid > kMaxC || c2 % 4 || c3 % 4 ||
       c2_mid % 2 || c3_mid % 2) {
     return (int)cudaErrorInvalidValue;
@@ -343,7 +391,9 @@ extern "C" int camli_clfm(const float* f2d, const float* f3d, const float* score
   const Side three = side(a3, b3, mid_t_3d, out_t_3d, partial3, weights3, out_3d, n, c3, c3_mid);
 
   const Sizes sizes = {batch, hw, n, c2, c3};
-  gather_kernel<<<blocks_for(rows2 * c3 + rows3 * c2), kThreads, 0, stream>>>(
+  const bool bf = bf16 != 0;
+  const auto gather = bf ? gather_kernel<true> : gather_kernel<false>;
+  gather<<<blocks_for(rows2 * c3 + rows3 * c2), kThreads, 0, stream>>>(
       f2d, f3d, score, nn_idx, tap_idx, tap_w, g, samp, sizes);
   CAMLI_TRY((int)cudaGetLastError());
 
@@ -354,16 +404,17 @@ extern "C" int camli_clfm(const float* f2d, const float* f3d, const float* score
   };
   const TcGroup first = {{layer(1, rows2, f2d, c2, c2, a), layer(0, rows2, g, c3, c3, interp),
                           layer(3, rows3, samp, c2, c2, sm), layer(5, rows3, f3d, c3, c3, b3)}};
-  CAMLI_TRY(run_dense_group_tc(first, stream));
+  CAMLI_TRY(run_dense_group_tc(first, bf, stream));
   const TcGroup second = {{layer(2, rows2, interp, c3, c2, b), layer(4, rows3, sm, c2, c3, a3)}};
-  CAMLI_TRY(run_dense_group_tc(second, stream));
+  CAMLI_TRY(run_dense_group_tc(second, bf, stream));
 
   const int blocks_two = batch * two.chunks * two.groups;
   partial_kernel<<<blocks_two + batch * three.chunks * three.groups, kThreads, 0, stream>>>(
       two, three, blocks_two);
   CAMLI_TRY((int)cudaGetLastError());
 
-  head_kernel<<<2 * batch * kHeadParts, kHeadThreads, 0, stream>>>(two, three, batch);
+  const auto heads = bf ? head_kernel<true> : head_kernel<false>;
+  heads<<<2 * batch * kHeadParts, kHeadThreads, 0, stream>>>(two, three, batch);
   CAMLI_TRY((int)cudaGetLastError());
 
   blend_kernel<<<blocks_for(rows2 * c2 + rows3 * c3), kThreads, 0, stream>>>(

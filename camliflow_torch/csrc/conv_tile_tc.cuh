@@ -20,7 +20,8 @@
 // The weights arrive split once per request (ops/update2d.py::pack_convs,
 // planes [N_pad][K_pad], K-major); the kernel splits the activations.
 //
-// The bf16 mode (template argument BF; the 2D chain's fast path): the
+// The bf16 mode (template argument BF; the 2D chain's fast path, and the
+// int8 form of update3d.cu's dense steps and the bf16 form of clfm.cu's): the
 // weights arrive rounded to bf16 once per request, in the hi plane (the lo
 // plane is neither passed nor read); each activation is rounded to bf16
 // (nearest, ties to even: cvt.rn.bf16x2) as it is taken from the stage; a
@@ -514,7 +515,7 @@ struct TcGroup {
   TcLayer layer[4];  // a layer of 0 m_tiles is none
 };
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int EPI>
+template <int BM, int BN, int WARPS_M, int WARPS_N, int EPI, bool BF = false>
 __global__ void __launch_bounds__(TcShape<BM, BN, WARPS_M, WARPS_N, 1>::kThreads,
                                   TcShape<BM, BN, WARPS_M, WARPS_N, 1>::kMinBlocks)
     conv_tc_group_kernel(const __grid_constant__ TcGroup g) {
@@ -524,8 +525,8 @@ __global__ void __launch_bounds__(TcShape<BM, BN, WARPS_M, WARPS_N, 1>::kThreads
     ++i;
   }
   const TcLayer& l = g.layer[i];
-  conv_tc_tile<BM, BN, WARPS_M, WARPS_N, 1, EPI>(l.a, l.hi, l.lo, l.k_pad, (t / l.n_tiles) * BM,
-                                                 (t % l.n_tiles) * BN);
+  conv_tc_tile<BM, BN, WARPS_M, WARPS_N, 1, EPI, BF>(l.a, l.hi, l.lo, l.k_pad,
+                                                     (t / l.n_tiles) * BM, (t % l.n_tiles) * BN);
 }
 
 template <int BM, int BN, int WARPS_M, int WARPS_N, int KSPLIT, int EPI, bool BF = false>

@@ -29,7 +29,7 @@
 // layers sum in another order than the plain versions' matmuls (on the
 // tensor cores by the 3xTF32 split, conv_tile_tc.cuh, or in f32 FMA).
 //
-// The fast form (bf16 != 0; fast_inference=on) reads bf16 hoisted weights
+// The bf16 form (dw_kind DW_BF16; fast_inference=on) reads bf16 hoisted weights
 // and computes the JAX package's PointConvDW with fast=True
 // (camliflow_tpu/nn/point_conv.py): the table value, after its activation,
 // rounded to bf16 as a row is read (the MLP output cast to bf16 before the
@@ -42,6 +42,18 @@
 // mul.rn.bf16x2 instructions, two values each (rounding by integer
 // arithmetic took about 15 more operations a product, and made the tails
 // slower than the f32 form on an H100, PERF.md).
+//
+// The int8 form (dw_kind DW_INT8; CAMLIFLOW_UPDATE3D=1 with fast_inference
+// on) computes the TPU kernels' own numerics (pallas_update3d.py's _matmul
+// and _dw_conv): int8 hoisted weights, whose scale a channel the wrapper
+// folded into the conv's MLP, read a byte a value (4 channels in one 4-byte
+// load where a lane takes 4) and widened to f32 exactly (|w| <= 127 is a
+// bf16 value), so the products and the max are the bf16 form's; and every
+// dense layer on bf16 operands with f32 sums: the tile's steps in its bf16
+// mode (conv_tile_tc.cuh, the weights' one bf16 plane), the FMA layers
+// (f1, and the epilogues f2, conv1, conv2 and fc) on weights the wrapper
+// rounded to bf16 and inputs rounded to bf16 as they are taken. The weight
+// stream is a quarter of the f32 form's.
 //
 // All three kernels are chains of two kinds of step, one launch a step:
 // - a dense step runs conv_tile_tc.cuh's 3xTF32 tile over the points (a 1x1
@@ -94,6 +106,7 @@ constexpr int kMaxRow = 128; // a fused layer's input channels, and its outputs
 constexpr int kTailAlign = 16;  // bytes: the 16-byte form's alignment of every row it reads
 
 enum GfPost { GP_ZR = 0, GP_GATE = 1, GP_PLAIN = 2, GP_FC = 3 };
+enum DwKind { DW_F32 = 0, DW_BF16 = 1, DW_INT8 = 2 };  // the hoisted weights' dtype
 
 // One tail: g[p, c] = max_j act(table[idx[p, j], c]) * dw[p, j, c], c < c,
 // then the post op.
@@ -104,7 +117,7 @@ struct Tail {
   const float* table;   // [B * n_table, ld], the dense layer's output before its activation
   const float* table2;  // GATE: added to the table (q's x3d/motion part), [B * n_table, ld2]
   int ld, ld2;
-  const void* dw;       // [points, k, dw_ld] f32 (bf16 in the fast form), the first c of a row
+  const void* dw;       // [points, k, dw_ld] f32, bf16 or int8 (DwKind), the first c of a row
   int dw_ld, k, c, leaky;  // leaky: the table's leaky ReLU, applied as a row is read
   float* out;           // ZR: z [points, half]; GATE: h'; PLAIN: g [points, out_ld] (or none)
   int out_ld;
@@ -181,10 +194,22 @@ __device__ __forceinline__ void bf16_products(float t0, float t1, float w0, floa
   x1 = __uint_as_float(p2 & 0xffff0000u);
 }
 
-// W consecutive hoisted weights, f32 or (BF) bf16, streamed once (__ldcs)
-template <int W, bool BF>
+// W consecutive hoisted weights, f32, bf16 or int8 (DW), streamed once
+// (__ldcs), as f32 values
+template <int W, int DW>
 __device__ __forceinline__ Vec<W> load_w(const void* base, size_t at) {
-  if constexpr (BF) {
+  if constexpr (DW == DW_INT8) {
+    const signed char* p = static_cast<const signed char*>(base) + at;
+    Vec<W> r;
+    if constexpr (W == 4) {  // one 4-byte load; element 0 in the low byte
+      const int v = __ldcs(reinterpret_cast<const int*>(p));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r.x[e] = (float)((int)((uint32_t)v << (24 - 8 * e)) >> 24);
+    } else {
+      r.x[0] = (float)__ldcs(p);
+    }
+    return r;
+  } else if constexpr (DW == DW_BF16) {
     const unsigned short* p = static_cast<const unsigned short*>(base) + at;
     Vec<W> r;
     if constexpr (W == 4) {  // one 8-byte load; element 0 in the low half
@@ -209,13 +234,16 @@ __device__ __forceinline__ void store(float* p, const Vec<W>& r) {
   }
 }
 
-// A dense layer: the block takes tiles rank, rank + blocks, ...
+// A dense layer: the block takes tiles rank, rank + blocks, ... (BF: the
+// tile's bf16 mode, the int8 form's)
+template <bool BF>
 __device__ __forceinline__ void gf_dense(const GfLayer& l, int rank, int blocks) {
   const int m_tiles = (l.a.pixels + kGfBM - 1) / kGfBM;
   const int tiles = m_tiles * (l.a.n_pad / kGfBN);
   for (int t = rank; t < tiles; t += blocks) {
-    conv_tc_tile<kGfBM, kGfBN, 2, 2, 1, EPI_NONE>(l.a, l.hi, l.lo, l.k_pad,
-                                                  (t % m_tiles) * kGfBM, (t / m_tiles) * kGfBN);
+    conv_tc_tile<kGfBM, kGfBN, 2, 2, 1, EPI_NONE, BF>(l.a, l.hi, l.lo, l.k_pad,
+                                                      (t % m_tiles) * kGfBM,
+                                                      (t / m_tiles) * kGfBN);
     __syncthreads();  // the next tile's copies refill the ring
   }
 }
@@ -280,7 +308,9 @@ __device__ __forceinline__ void rows_dense(const Tail& g, const float (*rows)[kM
 }
 
 // A dense layer of few inputs as f32 FMA, a thread an output:
-// out[p, o] = sum_i x[p, i] w[i, o] + bias[o] (#6's f1, 3 -> 32).
+// out[p, o] = sum_i x[p, i] w[i, o] + bias[o] (#6's f1, 3 -> 32). BF: x
+// rounded to bf16 as it is read (the int8 form; w arrives rounded).
+template <bool BF>
 __device__ __forceinline__ void fma_dense(const float* x, int cin, const float* w,
                                           const float* bias, int npad, float* out, int cout,
                                           int points, int rank, int blocks) {
@@ -289,7 +319,9 @@ __device__ __forceinline__ void fma_dense(const float* x, int cin, const float* 
     const int p = e / cout, o = e - (e / cout) * cout;
     float acc = 0.f;
     for (int i = 0; i < cin; ++i) {
-      acc = __fmaf_rn(__ldg(x + (size_t)p * cin + i), __ldg(w + (size_t)i * npad + o), acc);
+      float xv = __ldg(x + (size_t)p * cin + i);
+      if (BF) xv = round_bf16(xv);
+      acc = __fmaf_rn(xv, __ldg(w + (size_t)i * npad + o), acc);
     }
     out[(size_t)p * cout + o] = __fadd_rn(acc, bias[o]);
   }
@@ -305,8 +337,10 @@ __device__ __forceinline__ void fma_dense(const float* x, int cin, const float* 
 // the max in neighbour order, bit for bit as dw_max_plain does. FUSE: the
 // post op's result also goes to the block's rows in shared memory, and the
 // next dense layer runs over them (the block's warps walk the points
-// together). BF: the fast form (bf16 weights, bf16 products).
-template <int LANES, int VEC, int W, int KMAX, int POST, bool FUSE, bool BF>
+// together). DW: the hoisted weights' dtype; bf16 and int8 take the fast
+// forms' bf16 products, and int8 also rounds the fused layers' inputs (the
+// rows, fc's) to bf16.
+template <int LANES, int VEC, int W, int KMAX, int POST, bool FUSE, int DW>
 __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
   constexpr int kPer = 32 / LANES;
   constexpr int kRowsB = kGfWarps * kPer;  // points a block takes at once
@@ -368,7 +402,7 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
                 }
 #pragma unroll
                 for (int e = 0; e < W; ++e) tv[jj][v * W + e] = t.x[e];
-                const Vec<W> w = load_w<W, BF>(g.dw, wp + (size_t)j * g.dw_ld + c);
+                const Vec<W> w = load_w<W, DW>(g.dw, wp + (size_t)j * g.dw_ld + c);
 #pragma unroll
                 for (int e = 0; e < W; ++e) wv[jj][v * W + e] = w.x[e];
               }
@@ -384,7 +418,7 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
               if (g.leaky) t = leaky(t);
               tv[jj][e] = t;
             }
-            if constexpr (BF) {  // the bf16 products, two at a time where the lane holds two
+            if constexpr (DW != DW_F32) {  // the bf16 products, two at a time where the lane holds two
 #pragma unroll
               for (int e = 0; e + 1 < kE; e += 2) {
                 bf16_products(tv[jj][e], tv[jj][e + 1], wv[jj][e], wv[jj][e + 1], x[e], x[e + 1]);
@@ -416,7 +450,8 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
 #pragma unroll
             for (int e = 0; e < W; ++e) {
               if (c + e < g.c && o < g.fc_out) {
-                acc[o] = __fmaf_rn(m[v * W + e], g.fc_w[(size_t)(c + e) * g.fc_npad + o], acc[o]);
+                const float x = DW == DW_INT8 ? round_bf16(m[v * W + e]) : m[v * W + e];
+                acc[o] = __fmaf_rn(x, g.fc_w[(size_t)(c + e) * g.fc_npad + o], acc[o]);
               }
             }
           }
@@ -456,6 +491,10 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
           }
         }
         if constexpr (FUSE) {
+          if constexpr (DW == DW_INT8) {
+#pragma unroll
+            for (int e = 0; e < W; ++e) res.x[e] = round_bf16(res.x[e]);
+          }
           if (c < kMaxRow) store<W>(&rows[r][c], res);
         }
       }
@@ -521,13 +560,14 @@ struct DenseStep {
   int points, cin, cout, npad;
 };
 
+template <bool BF>
 __device__ __forceinline__ void dense_step(const DenseStep& d) {
   const int tiles = (d.layer.a.pixels + kGfBM - 1) / kGfBM * (d.layer.a.n_pad / kGfBN);
   if ((int)blockIdx.x < tiles) {
-    gf_dense(d.layer, blockIdx.x, tiles);
+    gf_dense<BF>(d.layer, blockIdx.x, tiles);
   } else {
-    fma_dense(d.x, d.cin, d.w, d.bias, d.npad, d.out, d.cout, d.points, blockIdx.x - tiles,
-              gridDim.x - tiles);
+    fma_dense<BF>(d.x, d.cin, d.w, d.bias, d.npad, d.out, d.cout, d.points,
+                  blockIdx.x - tiles, gridDim.x - tiles);
   }
 }
 
@@ -538,24 +578,31 @@ int dense_blocks(const DenseStep& d) {
 
 // The dense steps of #7 and of #6 are kernels of their own, apart from the
 // tails: the tile keeps its registers (in one kernel with #6's tails it
-// spilled).
+// spilled). BF: bf16 operands (the int8 form).
+template <bool BF>
 __global__ void __launch_bounds__(kGfThreads, 4)
     gru_flowhead_3d_dense(const __grid_constant__ DenseStep d) {
-  dense_step(d);
+  dense_step<BF>(d);
 }
 
+template <bool BF>
 __global__ void __launch_bounds__(kGfThreads, 4)
     motion_encoder_3d_dense(const __grid_constant__ DenseStep d) {
-  dense_step(d);
+  dense_step<BF>(d);
 }
 
-int launch_dense(bool me, const DenseStep& d, cudaStream_t stream) {
-  if (me) {
-    motion_encoder_3d_dense<<<dense_blocks(d), kGfThreads, GfTile::kSmemBytes, stream>>>(d);
-  } else {
-    gru_flowhead_3d_dense<<<dense_blocks(d), kGfThreads, GfTile::kSmemBytes, stream>>>(d);
-  }
+int launch_dense(bool me, const DenseStep& d, int dw_kind, cudaStream_t stream) {
+  const bool bf = dw_kind == DW_INT8;
+  const auto kernel = me ? (bf ? motion_encoder_3d_dense<true> : motion_encoder_3d_dense<false>)
+                         : (bf ? gru_flowhead_3d_dense<true> : gru_flowhead_3d_dense<false>);
+  kernel<<<dense_blocks(d), kGfThreads, GfTile::kSmemBytes, stream>>>(d);
   return (int)cudaGetLastError();
+}
+
+// a kernel template's instance for the hoisted weights' dtype
+template <typename K>
+K by_kind(int dw_kind, K f32, K bf16, K int8) {
+  return dw_kind == DW_INT8 ? int8 : dw_kind == DW_BF16 ? bf16 : f32;
 }
 
 // --- #7: GRU3D + FlowHead3D ---------------------------------------------------
@@ -577,18 +624,18 @@ struct Gru3D {
   Tail tail[4];  // z|r, q, conv1, conv2
 };
 
-template <bool BF>
+template <int DW>
 __global__ void __launch_bounds__(kGfThreads, 4)
     gru_flowhead_3d_tail(const __grid_constant__ Gru3D u, int t) {
   const int rank = blockIdx.x, blocks = gridDim.x;
   if (t == 0) {
-    tail<32, 2, 4, kGruK, GP_ZR, false, BF>(u.tail[0], rank, blocks);
+    tail<32, 2, 4, kGruK, GP_ZR, false, DW>(u.tail[0], rank, blocks);
   } else if (t == 1) {
-    tail<32, 1, 4, kGruK, GP_GATE, true, BF>(u.tail[1], rank, blocks);
+    tail<32, 1, 4, kGruK, GP_GATE, true, DW>(u.tail[1], rank, blocks);
   } else if (t == 2) {
-    tail<32, 1, 4, kHeadK, GP_PLAIN, true, BF>(u.tail[2], rank, blocks);
+    tail<32, 1, 4, kHeadK, GP_PLAIN, true, DW>(u.tail[2], rank, blocks);
   } else {
-    tail<16, 1, 4, kHeadK, GP_FC, false, BF>(u.tail[3], rank, blocks);
+    tail<16, 1, 4, kHeadK, GP_FC, false, DW>(u.tail[3], rank, blocks);
   }
 }
 
@@ -604,42 +651,43 @@ __global__ void __launch_bounds__(kGfThreads, 4)
 // 32, f2 16) take 32 lanes a point and 4-byte loads, so a step keeps one
 // point a warp in flight; c1's and the merge's 16-byte loads, 32 lanes x 1.
 // The merge conv's hoisted weights arrive with their 125 channels padded
-// to 128 a row (models/camliraft_l.py), so its rows are 16-byte aligned:
-// read 4 bytes at a time they took 190 registers and 1.7x the time.
+// to 128 a row (models/camliraft_l.py; int8: 128 bytes), so its rows are
+// 16-byte aligned: read 4 bytes at a time they took 190 registers and 1.7x
+// the time.
 
 struct Me3D {
   Tail tail[4];  // c1, f1, f2, merge
   int c1_blocks;  // the launch of f2's and c1's tails: c1's first
 };
 
-template <bool BF>
+template <int DW>
 __global__ void __launch_bounds__(kGfThreads, 4)
     motion_encoder_3d_tail(const __grid_constant__ Me3D u, int t) {
   if (t == 1) {
-    tail<32, 1, 1, kHeadK, GP_PLAIN, true, BF>(u.tail[1], blockIdx.x, gridDim.x);
+    tail<32, 1, 1, kHeadK, GP_PLAIN, true, DW>(u.tail[1], blockIdx.x, gridDim.x);
   } else if (t == 2 && (int)blockIdx.x < u.c1_blocks) {
-    tail<32, 1, 4, kHeadK, GP_PLAIN, false, BF>(u.tail[0], blockIdx.x, u.c1_blocks);
+    tail<32, 1, 4, kHeadK, GP_PLAIN, false, DW>(u.tail[0], blockIdx.x, u.c1_blocks);
   } else if (t == 2) {
-    tail<32, 1, 1, kHeadK, GP_PLAIN, false, BF>(u.tail[2], blockIdx.x - u.c1_blocks,
+    tail<32, 1, 1, kHeadK, GP_PLAIN, false, DW>(u.tail[2], blockIdx.x - u.c1_blocks,
                                                 gridDim.x - u.c1_blocks);
   } else {
-    tail<32, 1, 4, kHeadK, GP_PLAIN, false, BF>(u.tail[3], blockIdx.x, gridDim.x);
+    tail<32, 1, 4, kHeadK, GP_PLAIN, false, DW>(u.tail[3], blockIdx.x, gridDim.x);
   }
 }
 
 // --- #13: one tail on its own ---------------------------------------------------
 
-template <int LANES, int VEC, int W, bool BF>
+template <int LANES, int VEC, int W, int DW>
 __global__ void __launch_bounds__(kGfThreads) dw_max_tail(const __grid_constant__ Tail g) {
-  tail<LANES, VEC, W, kHeadK, GP_PLAIN, false, BF>(g, blockIdx.x, gridDim.x);
+  tail<LANES, VEC, W, kHeadK, GP_PLAIN, false, DW>(g, blockIdx.x, gridDim.x);
 }
 
 template <int LANES, int VEC, int W>
 int launch_dw_max(const Tail& g, bool bf16, cudaStream_t stream) {
   if (bf16) {
-    dw_max_tail<LANES, VEC, W, true><<<tail_blocks(g, LANES), kGfThreads, 0, stream>>>(g);
+    dw_max_tail<LANES, VEC, W, DW_BF16><<<tail_blocks(g, LANES), kGfThreads, 0, stream>>>(g);
   } else {
-    dw_max_tail<LANES, VEC, W, false><<<tail_blocks(g, LANES), kGfThreads, 0, stream>>>(g);
+    dw_max_tail<LANES, VEC, W, DW_F32><<<tail_blocks(g, LANES), kGfThreads, 0, stream>>>(g);
   }
   return (int)cudaGetLastError();
 }
@@ -656,15 +704,16 @@ bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % kTailAlign
 
 // planes: (hi, lo, bias) of c1 and of the merge (tf32 planes [N_pad][K_pad]);
 // w_f1, b_f1, w_f2, b_f2: f1's and f2's f32 weights [K_pad, npad] and
-// biases. dw_m's rows hold round_up(c_m, 4) values (the first c_m read);
-// the other hoisted weights' rows c values. The hoisted weights are f32, or
-// bf16 with bf16 != 0 (the fast form). scratch holds per_point floats a
-// point.
+// biases (the int8 form: rounded to bf16, and the planes the one bf16
+// plane). dw_m's rows hold round_up(c_m, 4) values (int8: round_up(c_m,
+// 16); the first c_m read); the other hoisted weights' rows c values. The
+// hoisted weights are f32, bf16 or int8 as dw_kind (DwKind) says. scratch
+// holds per_point floats a point.
 extern "C" int camli_motion_encoder_3d(
     const float* flow, const float* corr, const int* idx, const void* dw_c1,
     const void* dw_f1, const void* dw_f2, const void* dw_m, const float* const* planes,
     const float* w_f1, const float* b_f1, const float* w_f2, const float* b_f2,
-    float* scratch, float* out, int bf16, int batch, int n, int idx_stride, int c_flow,
+    float* scratch, float* out, int dw_kind, int batch, int n, int idx_stride, int c_flow,
     int c_corr, int c_c1, int c_f1, int c_f2, int c_m, int k_c1, int k_f1, int k_f2, int k_m,
     int npad_f1, int npad_f2, int per_point, cudaStream_t stream) {
   // scratch, channels per point: [c1 table (c_c1) | f1 table (c_f1) |
@@ -672,7 +721,7 @@ extern "C" int camli_motion_encoder_3d(
   // (ld_m)]; every part starts 16-byte aligned
   const int ld_m = round_up(c_m, 4);
   if (per_point < 2 * c_c1 + c_f1 + 2 * c_f2 + ld_m || (c_c1 | c_f1 | c_f2 | c_corr) % 4 ||
-      c_f1 > kMaxRow || c_f2 > kGfThreads) {
+      c_f1 > kMaxRow || c_f2 > kGfThreads || dw_kind < DW_F32 || dw_kind > DW_INT8) {
     return (int)cudaErrorInvalidValue;
   }
   const int points = batch * n;
@@ -708,35 +757,38 @@ extern "C" int camli_motion_encoder_3d(
   f2.leaky = 1, f2.out = flow_feat, f2.out_ld = c_f2;
   Tail& mg = u.tail[3];
   mg = gather_of(points, n, idx, idx_stride, t_m, ld_m, dw_m, k_m, c_m);
-  mg.dw_ld = ld_m;
+  mg.dw_ld = dw_kind == DW_INT8 ? round_up(c_m, 16) : ld_m;
   mg.leaky = 1, mg.out = out, mg.out_ld = c_m + c_flow, mg.copy = flow, mg.copy_c = c_flow;
   u.c1_blocks = tail_blocks(c1, 32);
 
-  const auto tails = bf16 ? motion_encoder_3d_tail<true> : motion_encoder_3d_tail<false>;
-  CAMLI_TRY(launch_dense(true, c1_f1, stream));
+  const auto tails = by_kind(dw_kind, motion_encoder_3d_tail<DW_F32>,
+                            motion_encoder_3d_tail<DW_BF16>, motion_encoder_3d_tail<DW_INT8>);
+  CAMLI_TRY(launch_dense(true, c1_f1, dw_kind, stream));
   tails<<<tail_blocks(f1, 32), kGfThreads, 0, stream>>>(u, 1);
   CAMLI_TRY((int)cudaGetLastError());
   tails<<<u.c1_blocks + tail_blocks(f2, 32), kGfThreads, 0, stream>>>(u, 2);
   CAMLI_TRY((int)cudaGetLastError());
-  CAMLI_TRY(launch_dense(true, merge, stream));
+  CAMLI_TRY(launch_dense(true, merge, dw_kind, stream));
   tails<<<tail_blocks(mg, 32), kGfThreads, 0, stream>>>(u, 3);
   return (int)cudaGetLastError();
 }
 
 // planes: (hi, lo, bias) of [z|r | q_xm] and q_h (tf32 planes [N_pad][K_pad]);
 // w_1, b_1, w_2, b_2: conv1's and conv2's f32 weights [K_pad, npad] and
-// biases; w_fc [>= c_2, fc_npad]. The hoisted weights are f32, or bf16
-// with bf16 != 0 (the fast form).
+// biases; w_fc [>= c_2, fc_npad] (the int8 form: the weights rounded to
+// bf16, the planes the one bf16 plane). The hoisted weights are f32, bf16
+// or int8 as dw_kind (DwKind) says.
 extern "C" int camli_gru_flowhead_3d(
     const float* h, const float* x3d, const float* motion, const int* idx,
     const void* dw_zr, const void* dw_q, const void* dw_1, const void* dw_2,
     const float* const* planes, const float* w_1, const float* b_1, const float* w_2,
     const float* b_2, const float* w_fc, const float* b_fc, float* scratch, float* h_out,
-    float* delta, int bf16, int batch, int n, int idx_stride, int c_h, int c_x, int c_m,
+    float* delta, int dw_kind, int batch, int n, int idx_stride, int c_h, int c_x, int c_m,
     int c_1, int c_2, int c_out, int k_zr, int k_q, int k_1, int k_2, int npad_1, int npad_2,
     int fc_npad, cudaStream_t stream) {
   // scratch, channels per point: [[z|r | q_xm] table (3 c_h) | z (c_h) |
   // r*h (c_h) | q_h table (c_h) | conv1 table (c_1) | conv2 table (c_2)]
+  if (dw_kind < DW_F32 || dw_kind > DW_INT8) return (int)cudaErrorInvalidValue;
   const int points = batch * n;
   const size_t p = points;
   float* t_zrq = scratch;
@@ -773,10 +825,11 @@ extern "C" int camli_gru_flowhead_3d(
   c2.out = delta, c2.fc_w = w_fc, c2.fc_b = b_fc, c2.fc_out = c_out, c2.fc_npad = fc_npad;
 
   // dense z|r | q_xm, tail z|r, dense q_h, tails q, conv1, conv2: 6 launches
-  const auto tails = bf16 ? gru_flowhead_3d_tail<true> : gru_flowhead_3d_tail<false>;
-  CAMLI_TRY(launch_dense(false, zrq, stream));
+  const auto tails = by_kind(dw_kind, gru_flowhead_3d_tail<DW_F32>,
+                            gru_flowhead_3d_tail<DW_BF16>, gru_flowhead_3d_tail<DW_INT8>);
+  CAMLI_TRY(launch_dense(false, zrq, dw_kind, stream));
   for (int t = 0; t < 4; ++t) {
-    if (t == 1) CAMLI_TRY(launch_dense(false, qh, stream));
+    if (t == 1) CAMLI_TRY(launch_dense(false, qh, dw_kind, stream));
     tails<<<tail_blocks(u.tail[t], t == 3 ? 16 : 32), kGfThreads, 0, stream>>>(u, t);
     CAMLI_TRY((int)cudaGetLastError());
   }

@@ -8,11 +8,17 @@ iteration's flows are upsampled. The exact path keeps the 2D volume and the
 takes the JAX package's fast path: the 2D volume in `lookup_storage`
 (`auto`: int8, `ops.correlation.correlation_pyramid`), the 3D pyramid int8
 with its row scales (#4's int8 form, #5 with the scale), the hoisted
-PointConvDW weights bf16 (#6, #7 and #13 in their fast forms), and #9 and,
+PointConvDW weights bf16 (#6, #7 and #13 in their bf16 forms), and #9 and,
 without `fuse_hidden`, #8 on the tile's bf16 mode. With `fuse_hidden` the
 JAX fast path runs GRU2D and FlowHead2D exact, and so does the port (#8's
 halves on exact packings). CLFM (#11), the selections, the gathers (#12)
-and the upsamples keep their exact math. The 3D branch reuses the CamLiRAFT-L
+and the upsamples keep their exact math. Two switches of the JAX package,
+read at each fast forward's `encode` and applied where it applies them:
+CAMLIFLOW_UPDATE3D=1, without `fuse_hidden` and with at most 4096 points in
+the loop, makes the hoisted weights int8 (#6's and #7's int8 forms,
+`ops.update3d.prepare_int8`); CAMLIFLOW_CLFM=1 runs the corr and motion
+fusions in #11's bf16 form (a bf16 score gate, `ops.clfm`), the hidden
+fusion staying exact. The 3D branch reuses the CamLiRAFT-L
 classes; the 2D branch is the ResNet encoder, the all-pairs pyramid and the
 RAFT update modules; CLFM fuses the two at fnet, cnet, corr and motion
 (hidden off by default).
@@ -205,6 +211,11 @@ class CamLiRAFTCore(nn.Module):
         h_3d, x_3d = torch.chunk(b3d.cnet_aligner(featc_3d), 2, dim=-1)
         aligner = b2d.correlation.fnet_aligner
         knn_indices = k_nearest_neighbor(xyz1, xyz1, 32)
+        # the JAX package's switches, read per request: its int8 3D chain
+        # (not with fuse_hidden, at most 4096 points) and its bf16 CLFM (the
+        # corr and motion fusions)
+        int8 = update3d.int8_form(fast, xyz1.shape[1], self.fuse["hidden"])
+        clfm16 = fast and clfm.bf16_enabled()
         store = update3d.to_bf16 if fast else (lambda dw: dw)
         state = {"h_2d": torch.tanh(h_2d).contiguous(), "h_3d": torch.tanh(h_3d),
                  "flow_2d": feat1_2d.new_zeros(batch, feat_h, feat_w, 2),
@@ -219,23 +230,30 @@ class CamLiRAFTCore(nn.Module):
                                     dim=-1),
             "knn_indices": knn_indices,
             # after the volumes: the peak of their build holds no hoisted
-            # weights; bf16 on the fast path, a module's at a time
+            # weights; bf16 on the fast path, a module's at a time (int8:
+            # the bf16 weights quantised below, as the JAX package does)
             "dw": {name: store(getattr(b3d, name).precompute_weights(xyz1, knn_indices))
                    for name in ("motion_encoder", "gru", "flow_head")},
             "tail_params": corr3d.prepare_corr3d_tail_params(b3d.correlation),
             "me_params": update2d.prepare_motion_encoder_params(b2d.motion_encoder, bf16=fast),
-            "me3d_params": update3d.prepare_motion_encoder_3d_params(b3d.motion_encoder),
             # each in-loop fusion's score gate and packed weights, and the
             # bilinear taps at uv1 they share
             "clfm": {point: (clfm.hoist_interp_score(getattr(self, f"clfm_{point}").interp,
-                                                     cache1[1]),
-                             clfm.prepare_clfm_params(getattr(self, f"clfm_{point}")))
+                                                     cache1[1], clfm16 and point != "hidden"),
+                             clfm.prepare_clfm_params(getattr(self, f"clfm_{point}"),
+                                                      clfm16 and point != "hidden"))
                      for point in IN_LOOP if self.fuse[point]},
             "taps": clfm.grid_sample_cache(uv1, feat_h, feat_w),
         }
         if fast:  # int8, a scale a query row
             consts["pyramid_3d"], consts["pyramid_3d_scale"] = quantize_rows_int8(
                 consts["pyramid_3d"])
+        if int8:
+            consts["dw"], consts["me3d_params"], consts["gf3d_params"] = (
+                update3d.prepare_int8(consts["dw"], b3d.motion_encoder, b3d.gru,
+                                      b3d.flow_head))
+        else:
+            consts["me3d_params"] = update3d.prepare_motion_encoder_3d_params(b3d.motion_encoder)
         if self.fuse["hidden"]:
             # the JAX fast path runs GRU2D and FlowHead2D exact here
             consts["gru2d_params"] = update2d.prepare_gru_params(b2d.gru)
@@ -245,8 +263,9 @@ class CamLiRAFTCore(nn.Module):
         else:
             consts["gf_params"] = update2d.prepare_gru_flowhead_params(b2d.gru, b2d.flow_head,
                                                                         bf16=fast)
-            consts["gf3d_params"] = update3d.prepare_gru_flowhead_3d_params(b3d.gru,
-                                                                           b3d.flow_head)
+            if not int8:
+                consts["gf3d_params"] = update3d.prepare_gru_flowhead_3d_params(b3d.gru,
+                                                                               b3d.flow_head)
             consts["gf3d_dw"] = {**consts["dw"]["gru"], **consts["dw"]["flow_head"]}
         return state, consts
 

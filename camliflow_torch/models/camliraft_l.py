@@ -9,7 +9,12 @@ cost pyramid and the hoisted PointConvDW weights f32. With
 (`ops.geometry.resolve_fast_inference`): the cost pyramid stored int8 with
 a scale per query row (#4 reads it, #5 dequantises the selected costs
 before the cost MLP) and the hoisted weights stored bf16 (#6 and #7 take
-their fast forms: bf16 gathers and products, f32 dense layers).
+their bf16 forms: bf16 gathers and products, f32 dense layers). With
+CAMLIFLOW_UPDATE3D=1 as well, read at each fast forward, and at most 4096
+points in the loop (the JAX package's own conditions), the hoisted weights
+are int8 with their scales folded into the MLPs and #6 and #7 take their
+int8 forms (bf16 operands in every dense layer too), as the JAX package's
+Pallas chain computes them (`ops.update3d.prepare_int8`).
 
 Module names follow the reference PyTorch state_dict (`core.fnet`,
 `core.correlation`, ...), so the weight bridge (runtime/checkpoint.py) names
@@ -279,6 +284,18 @@ class UpdateBlock3D(nn.Module):
                 "me": update3d.prepare_motion_encoder_3d_params(self.motion_encoder),
                 "gf": update3d.prepare_gru_flowhead_3d_params(self.gru, self.flow_head)}
 
+    def hoist(self, xyz1, knn_indices, fast: bool = False):
+        """The loop's hoisted weights and packings, (dw, packed). On the fast
+        path with CAMLIFLOW_UPDATE3D=1 (read here, at each request) and at
+        most 4096 points, the int8 form's (`update3d.prepare_int8`)."""
+        if not update3d.int8_form(fast, xyz1.shape[1]):
+            return self.precompute(xyz1, knn_indices, fast), self.pack()
+        # quantised from the bf16 weights, as the JAX package's models do
+        dw, me, gf = update3d.prepare_int8(self.precompute(xyz1, knn_indices, fast=True),
+                                           self.motion_encoder, self.gru, self.flow_head)
+        return dw, {"tail": corr3d.prepare_corr3d_tail_params(self.correlation), "me": me,
+                    "gf": gf}
+
     def forward(self, h, flow, consts):
         xyz1, xyzs2 = consts["xyz1"], consts["xyzs2"]
         knn_indices, dw = consts["knn_indices"], consts["dw"]
@@ -349,9 +366,8 @@ class CamLiRAFTLCore(nn.Module):
             "knn_indices": knn_indices,
             "x": x,
             "pyramid": torch.cat(pyramid, dim=-1),  # once, outside the loop
-            "dw": self.update.precompute(xyz1, knn_indices, fast),
-            "packed": self.update.pack(),
         }
+        consts["dw"], consts["packed"] = self.update.hoist(xyz1, knn_indices, fast)
         if fast:  # int8, a scale a query row
             consts["pyramid"], consts["pyramid_scale"] = quantize_rows_int8(consts["pyramid"])
         flow = torch.zeros_like(xyz1)

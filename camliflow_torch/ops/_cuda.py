@@ -39,13 +39,16 @@ def forward_only_modules(name: str, *modules: torch.nn.Module) -> None:
             "train through the modules' own forwards (the model in train mode)")
 
 
-def count(wrapper, fast: bool) -> None:
-    """One launch of `wrapper`'s kernel: on its `fast_launches` for the fast
-    path's form (int8, scaled or bf16 operands), else on its `launches`."""
-    if fast:
-        wrapper.fast_launches += 1
-    else:
-        wrapper.launches += 1
+COUNTERS = ("launches", "fast_launches", "int8_launches")
+
+
+def count(wrapper, form: int) -> None:
+    """One launch of `wrapper`'s kernel, on the counter of its form: 0
+    (False) the exact form's `launches`, 1 (True) the fast path's
+    `fast_launches` (int8, scaled or bf16 operands), 2 the int8 3D chain's
+    `int8_launches` (ops/update3d.py's DwKind)."""
+    name = COUNTERS[int(form)]
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

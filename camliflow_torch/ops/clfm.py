@@ -7,23 +7,33 @@ refinement loop, CLFM fuses the two branches' features at corr and motion
 across iterations is hoisted, once per request, as the JAX package does:
 
 - `hoist_interp_score`: the interp score MLP, whose input is only the
-  pixel -> nearest-point offsets, as a [B, HW, C3] f32 gate (the exact path
-  has no bf16);
+  pixel -> nearest-point offsets, as a [B, HW, C3] f32 gate (the bf16
+  form: rounded to bf16, a bf16 tensor);
 - `grid_sample_cache`: the 4 bilinear taps of the 2D -> 3D sample at uv;
 - `prepare_clfm_params`: the dense layers, packed, with the tf32 weight
-  planes of the tensor-core tile; the SK heads' layers, also transposed.
+  planes of the tensor-core tile (the bf16 form: rounded to bf16, the
+  tile's one bf16 plane); the SK heads' layers, also transposed.
 
     clfm_fused(feat_2d, feat_3d, score, nn_idx, tap_idx, tap_w, params)
         -> (out_2d [B, H, W, C2], out_3d [B, N, C3])
 
-The plain version is the exact f32 chain of `nn/clfm.py::CLFM.forward` on
-the hoisted operands. The fusions at fnet and cnet keep the module: they
-have batch norm and run once per request, and the JAX package never fuses
-them.
+Two forms, by the params' packing. The exact form: the f32 chain of
+`nn/clfm.py::CLFM.forward` on the hoisted operands. The bf16 form
+(`fast_inference=on` with CAMLIFLOW_CLFM=1, `bf16_enabled`; the corr and
+motion fusions, as the JAX package engages its kernel): the TPU kernel's
+numerics, `_clfm_kernel` and `_sk_fuse` of camliflow_tpu/ops/pallas_clfm.py:
+the feature tables rounded to bf16 before every gather, score * g a bf16
+product, the bilinear sample bf16 rows times f32 tap weights summed in tap
+order, every dense layer and SK head layer on bf16 operands with f32 sums,
+the SK mean over a + b in f32, the pair weight sigmoid(s1 - s2) of the
+even/odd logits, the blend a w1 + b (1 - w1) in f32. The fusions at fnet and
+cnet keep the module: they have batch norm and run once per request, and
+the JAX package never fuses them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -33,7 +43,7 @@ from torch import nn
 from . import _cuda
 from .geometry import gather_points
 from .gridsample import bilinear_taps
-from .update2d import PackedConv, _check_params, _check_tc, _planes, split_tf32
+from .update2d import PackedConv, _check_params, _check_tc, _planes, bf16_round, split_tf32
 from .update3d import linear_plain, pack_linears
 
 DENSE = ("out_conv", "align1_2d", "align2_2d", "mlps3d", "align1_3d", "align2_3d")
@@ -42,9 +52,18 @@ CHUNK = 256  # csrc/clfm.cu kChunk: rows per partial column sum
 CHECKED = "_checked"  # the params' entry that remembers their last check
 
 
+def bf16_enabled() -> bool:
+    """The JAX package's switch of its fused CLFM kernel (camliflow_tpu/ops/
+    pallas_clfm.py::clfm_pallas_enabled), read the same way: on unless
+    CAMLIFLOW_CLFM is unset or "0". The flagship reads it at each fast
+    forward's encode."""
+    return os.environ.get("CAMLIFLOW_CLFM", "0") != "0"
+
+
 class SKHead(NamedTuple):
-    """An SK fusion's two bias-free layers, [in, out] f32, and the same
-    transposed, [out, in], as the kernel reads them (a warp per row)."""
+    """An SK fusion's two bias-free layers, [in, out] f32 (the bf16 form:
+    bf16 values), and the same transposed, [out, in], as the kernel reads
+    them (a warp per row)."""
 
     mid: torch.Tensor  # [C, C // 2]
     out: torch.Tensor  # [C // 2, 2C]: columns 2c and 2c + 1 are channel c's pair
@@ -52,12 +71,15 @@ class SKHead(NamedTuple):
     out_t: torch.Tensor  # [2C, C // 2]
 
 
-def hoist_interp_score(interp: nn.Module, knn_offset: torch.Tensor) -> torch.Tensor:
+def hoist_interp_score(interp: nn.Module, knn_offset: torch.Tensor,
+                       bf16: bool = False) -> torch.Tensor:
     """FusionAwareInterp's score gate ([B, HW, 1, 2] offsets -> [B, HW, C3]),
-    computed as the module computes it, once per request."""
+    computed as the module computes it, once per request; with `bf16` (the
+    bf16 form) rounded to a bf16 tensor."""
     norm = torch.linalg.vector_norm(knn_offset, dim=-1, keepdim=True)
     score = interp.score_net(torch.cat([knn_offset, norm], dim=-1).float())
-    return score[:, :, 0, :].contiguous()
+    score = score[:, :, 0, :].contiguous()
+    return score.to(torch.bfloat16) if bf16 else score
 
 
 def grid_sample_cache(uv: torch.Tensor, height: int, width: int):
@@ -69,24 +91,31 @@ def grid_sample_cache(uv: torch.Tensor, height: int, width: int):
     return idx.int().contiguous(), weights.contiguous()
 
 
-def _sk(fusion: nn.Module) -> SKHead:
+def _sk(fusion: nn.Module, bf16: bool = False) -> SKHead:
     mid, out = (layer[0].weight.detach().float() for layer in (fusion.fc_mid, fusion.fc_out))
+    if bf16:
+        mid, out = bf16_round(mid), bf16_round(out)
     return SKHead(mid.t().contiguous(), out.t().contiguous(), mid.contiguous(),
                   out.contiguous())
 
 
-def _pack_dense(linear: nn.Linear) -> PackedConv:
+def _pack_dense(linear: nn.Linear, bf16: bool = False) -> PackedConv:
     """A Linear packed as a 1x1 conv with the tensor-core tile's tf32
-    planes ([N_pad, K_pad], K-major)."""
+    planes ([N_pad, K_pad], K-major); with `bf16`, its weights rounded to
+    bf16 and the tile's one bf16 plane."""
+    if bf16:
+        return pack_linears(linear, planes=True, bf16=True)
     packed = pack_linears(linear)
     hi, lo = split_tf32(packed.weight.t().contiguous())
     return packed._replace(hi=hi, lo=lo)
 
 
-def prepare_clfm_params(clfm: nn.Module) -> dict:
+def prepare_clfm_params(clfm: nn.Module, bf16: bool = False) -> dict:
     """The dense layers of a `nn.clfm.CLFM` without norm (the in-loop ones),
     packed once per request: the six 1x1 layers as `PackedConv`s with their
-    tf32 planes, and each SK head's fc_mid and fc_out."""
+    tf32 planes, and each SK head's fc_mid and fc_out; with `bf16` (the bf16
+    form, camliflow_tpu/ops/pallas_clfm.py::prepare_clfm_params) every
+    weight rounded to bf16, the biases f32."""
     _cuda.forward_only_modules("prepare_clfm_params", clfm)
     if clfm.fusion_fn != "sk":
         raise ValueError(f"prepare_clfm_params: SK fusion heads only, not {clfm.fusion_fn!r}")
@@ -96,8 +125,8 @@ def prepare_clfm_params(clfm: nn.Module) -> dict:
     for name, layer in layers.items():
         if not isinstance(layer.norm_fn, nn.Identity) or layer.act != "leaky_relu":
             raise ValueError(f"prepare_clfm_params: {name} must be a Linear + leaky ReLU")
-    params = {name: _pack_dense(layer.conv_fn) for name, layer in layers.items()}
-    params["sk_2d"], params["sk_3d"] = _sk(clfm.fuse2d), _sk(clfm.fuse3d)
+    params = {name: _pack_dense(layer.conv_fn, bf16) for name, layer in layers.items()}
+    params["sk_2d"], params["sk_3d"] = _sk(clfm.fuse2d, bf16), _sk(clfm.fuse3d, bf16)
     return params
 
 
@@ -105,24 +134,38 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.1)
 
 
-def _sk_fuse(a: torch.Tensor, b: torch.Tensor, head: SKHead) -> torch.Tensor:
-    """SKFusion after its align layers: a, b [B, ..., C]."""
+def _sk_fuse(a: torch.Tensor, b: torch.Tensor, head: SKHead, bf16: bool = False) -> torch.Tensor:
+    """SKFusion after its align layers: a, b [B, ..., C]. The bf16 form:
+    the layers on bf16 operands, the pair weight sigmoid(s1 - s2)."""
     batch, channels = a.shape[0], a.shape[-1]
     spatial = tuple(range(1, a.dim() - 1))
-    weight = torch.sigmoid(F.relu(torch.mean(a + b, dim=spatial) @ head.mid) @ head.out)
-    weight = torch.softmax(weight.reshape(batch, channels, 2), dim=-1)
     shape = (batch,) + (1,) * len(spatial) + (channels,)
+    mean = torch.mean(a + b, dim=spatial)
+    if bf16:
+        mid = F.relu(bf16_round(mean) @ head.mid)
+        logits = (bf16_round(mid) @ head.out).reshape(batch, channels, 2)
+        s = torch.sigmoid(logits)
+        w1 = torch.sigmoid(s[..., 0] - s[..., 1]).reshape(shape)
+        return a * w1 + b * (1.0 - w1)
+    weight = torch.sigmoid(F.relu(mean @ head.mid) @ head.out)
+    weight = torch.softmax(weight.reshape(batch, channels, 2), dim=-1)
     return a * weight[..., 0].reshape(shape) + b * weight[..., 1].reshape(shape)
 
 
 def clfm_fused_plain(feat_2d, feat_3d, score, nn_idx, tap_idx, tap_w, params: dict):
     batch, height, width, c2 = feat_2d.shape
+    bf16 = params["out_conv"].bf16
+    if bf16:  # the feature tables in bf16 before every gather and product
+        feat_2d, feat_3d = bf16_round(feat_2d), bf16_round(feat_3d)
     # 3D -> 2D: the nearest point's features, gated, then out_conv
     gathered = gather_points(feat_3d, nn_idx)[:, :, 0]  # [B, HW, C3]
-    interp = _leaky(linear_plain(score * gathered, params["out_conv"]))
+    gated = score.float() * gathered
+    if bf16:  # a bf16 product
+        gated = bf16_round(gated)
+    interp = _leaky(linear_plain(gated, params["out_conv"]))
     interp = interp.reshape(batch, height, width, -1)
     out_2d = _sk_fuse(_leaky(linear_plain(feat_2d, params["align1_2d"])),
-                      _leaky(linear_plain(interp, params["align2_2d"])), params["sk_2d"])
+                      _leaky(linear_plain(interp, params["align2_2d"])), params["sk_2d"], bf16)
     # 2D -> 3D: the bilinear sample (grid_sample_pixel's sum), then mlps3d
     flat = feat_2d.reshape(batch, height * width, c2)
     sampled = None
@@ -131,7 +174,7 @@ def clfm_fused_plain(feat_2d, feat_3d, score, nn_idx, tap_idx, tap_w, params: di
         sampled = vals if sampled is None else sampled + vals
     sampled = _leaky(linear_plain(sampled, params["mlps3d"]))
     out_3d = _sk_fuse(_leaky(linear_plain(sampled, params["align1_3d"])),
-                      _leaky(linear_plain(feat_3d, params["align2_3d"])), params["sk_3d"])
+                      _leaky(linear_plain(feat_3d, params["align2_3d"])), params["sk_3d"], bf16)
     return out_2d, out_3d
 
 
@@ -161,7 +204,7 @@ def _weights(name: str, params: dict, feat_2d: torch.Tensor, feat_3d: torch.Tens
             "mlps3d": (c2, c2), "align1_3d": (c2, c3), "align2_3d": (c3, c3)}
     if any((dense[k].cin, dense[k].cout) != v for k, v in fits.items()):
         raise ValueError(f"{name}: the packed layers do not fit C2={c2}, C3={c3}")
-    _check_tc(name, dense, DENSE)
+    _check_tc(name, dense, DENSE)  # one packing, f32 or bf16, for all six
     heads = (params["sk_2d"], params["sk_3d"])
     for head, c in zip(heads, (c2, c3)):
         _cuda.check(name, torch.float32, mid_t=head.mid_t, out_t=head.out_t, feat_2d=feat_2d)
@@ -184,14 +227,19 @@ def clfm_fused(feat_2d: torch.Tensor, feat_3d: torch.Tensor, score: torch.Tensor
     """feat_2d [B, H, W, C2], feat_3d [B, N, C3], score [B, HW, C3], nn_idx
     [B, HW, 1] int32 (the pixels' nearest points, `fusion_interp_cache`),
     tap_idx [B, N, 4] int32 and tap_w [B, N, 4] (`grid_sample_cache`) ->
-    (out_2d, out_3d). CPU tensors take the plain version; CUDA tensors the
-    kernel."""
+    (out_2d, out_3d). The params' packing picks the form: f32 (score f32)
+    or bf16 (`prepare_clfm_params(..., bf16=True)`, score a bf16 tensor,
+    `hoist_interp_score(..., bf16=True)`). CPU tensors take the plain
+    version; CUDA tensors the kernel. The bf16 form's launches count on
+    `.fast_launches`."""
     tensors = (feat_2d, feat_3d, score, nn_idx, tap_idx, tap_w)
     _cuda.forward_only("clfm_fused", *tensors)
     if _cuda.on_cpu(*tensors):
         return clfm_fused_plain(*tensors, params)
     name = "clfm_fused"
-    _cuda.check(name, torch.float32, feat_2d=feat_2d, feat_3d=feat_3d, score=score, tap_w=tap_w)
+    bf16 = params["out_conv"].bf16
+    _cuda.check(name, torch.float32, feat_2d=feat_2d, feat_3d=feat_3d, tap_w=tap_w)
+    _cuda.check(name, torch.bfloat16 if bf16 else torch.float32, score=score)
     _cuda.check(name, torch.int32, nn_idx=nn_idx, tap_idx=tap_idx)
     if nn_idx.device != feat_2d.device or tap_idx.device != feat_2d.device:
         raise ValueError(f"{name}: all inputs must lie on one CUDA device")
@@ -211,10 +259,11 @@ def clfm_fused(feat_2d: torch.Tensor, feat_3d: torch.Tensor, score: torch.Tensor
     from ..csrc.build import launch
 
     launch("camli_clfm", *(t.data_ptr() for t in tensors), planes, *heads,
-           scratch.data_ptr(), out_2d.data_ptr(), out_3d.data_ptr(), batch, hw, n, c2, c3,
-           params["sk_2d"].mid_t.shape[0], params["sk_3d"].mid_t.shape[0])
-    clfm_fused.launches += 1
+           scratch.data_ptr(), out_2d.data_ptr(), out_3d.data_ptr(), int(bf16), batch, hw, n,
+           c2, c3, params["sk_2d"].mid_t.shape[0], params["sk_3d"].mid_t.shape[0])
+    _cuda.count(clfm_fused, bf16)
     return out_2d, out_3d
 
 
 clfm_fused.launches = 0
+clfm_fused.fast_launches = 0

@@ -3,22 +3,33 @@
 Replaces camliflow_tpu/ops/pallas_update3d.py::motion_encoder_3d_pallas and
 ::gru_flowhead_3d_pallas with `csrc/update3d.cu` (see the source's note for
 the design and the bound). The hoisted PointConvDW weights keep their
-[B, N, k, C] layout (the TPU's k-major relayout is not ported). In f32 they
-give the exact path. In bf16 (`fast_inference=on`, `to_bf16`) each wrapper
-takes its fast form, the JAX package's PointConvDW with `fast=True`: each
-conv's MLP output rounded to bf16 before the neighbour gather, each product
-of two bf16 values rounded to bf16 (nearest, ties to even), the max over k,
-the result as f32; the dense layers stay f32. The int8 hoisted weights of
-the TPU's `quantize_dw_int8`, which only `CAMLIFLOW_UPDATE3D=1` engages
-there, are not ported.
+[B, N, k, C] layout (the TPU's k-major relayout is not ported). Their dtype
+picks the form each wrapper takes:
+
+- f32: the exact path.
+- bf16 (`fast_inference=on`, `to_bf16`): the JAX package's PointConvDW
+  with `fast=True`: each conv's MLP output rounded to bf16 before the
+  neighbour gather, each product of two bf16 values rounded to bf16
+  (nearest, ties to even), the max over k, the result as f32; the dense
+  layers stay f32.
+- int8 (`fast_inference=on` with CAMLIFLOW_UPDATE3D=1, `int8_form`;
+  `quantize_dw_int8`): the TPU kernels' own numerics. Each conv's weights
+  are int8 with a scale a channel taken over the whole batch, folded into
+  the conv's MLP kernel and bias; the products and the max as in the bf16
+  form (an int8 weight is a bf16 value exactly); and every dense layer takes
+  bf16 operands with f32 sums (its weights rounded to bf16 once per
+  request, `PackedConv.bf16`, its input as it is read). The gates, h' and
+  the sums stay f32.
 
 Each PointConvDW's MLP (one Linear) is packed once per request by
-`prepare_motion_encoder_3d_params` / `prepare_gru_flowhead_3d_params` into a
-`PackedConv` (1x1, weight [K_pad, N_pad]); z and r stack into one
-[384, 256] matmul, as the JAX packing does. The layers that run on the
-tensor-core tile also carry its tf32 planes: #7's first two dense steps,
-and #6's c1 (128 -> 128) and merge (144 -> 125). The plain versions run the
-exact chain of models/camliraft_l.py on the same packed weights.
+`prepare_motion_encoder_3d_params` / `prepare_gru_flowhead_3d_params` (the
+int8 form: `prepare_int8`, from the folded weights) into a `PackedConv`
+(1x1, weight [K_pad, N_pad]); z and r stack into one [384, 256] matmul, as
+the JAX packing does. The layers that run on the tensor-core tile also
+carry its tf32 planes (the int8 form: its one bf16 plane): #7's first two
+dense steps, and #6's c1 (128 -> 128) and merge (144 -> 125). The plain
+versions run the chain of models/camliraft_l.py on the same packed weights,
+rounding where the kernels round.
 
     motion_encoder_3d(flow, corr, knn_idx, dw, me)      -> [B, N, 125 + 3]
     gru_flowhead_3d(h, x3d, motion, knn_idx, dw, gf)    -> (h' [B, N, 128],
@@ -38,6 +49,8 @@ conv for the motion encoder; conv_zr, conv_q (GRU3D) and conv1, conv2
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -52,6 +65,7 @@ from .update2d import (
     _check_tc,
     _planes,
     _round_up,
+    bf16_round,
     split_tf32,
 )
 
@@ -71,29 +85,57 @@ GF_MAX_FC = 4
 MAX_ROW = 128
 MAX_FUSED_OUT = 128
 TAIL_ALIGN = 16
+# csrc/update3d.cu's DwKind: the hoisted weights' dtype, handed to the kernels
+DW_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+INT8_ROW = 16  # an int8 row's channels are a multiple of this (16-byte rows)
+INT8_MAX_POINTS = 4096  # the JAX package engages its int8 chain up to this many points
 
 
-def pack_matrix(weight: torch.Tensor, bias: torch.Tensor, planes: bool = False) -> PackedConv:
+def int8_dw_enabled() -> bool:
+    """The JAX package's switch of its int8 chain (camliflow_tpu/ops/
+    pallas_update3d.py::update3d_enabled), read the same way: on unless
+    CAMLIFLOW_UPDATE3D is unset or "0". The models read it at each fast
+    forward's encode."""
+    return os.environ.get("CAMLIFLOW_UPDATE3D", "0") != "0"
+
+
+def int8_form(fast: bool, n_points: int, fuse_hidden: bool = False) -> bool:
+    """Whether a request's loop takes #6's and #7's int8 form, on the JAX
+    package's conditions (camliflow_tpu/models/camliraft.py and
+    camliraft_l.py): the fast path, CAMLIFLOW_UPDATE3D on (`int8_dw_enabled`,
+    read here, at each request), at most INT8_MAX_POINTS points in the loop,
+    and no CLFM at the hidden state."""
+    return fast and not fuse_hidden and n_points <= INT8_MAX_POINTS and int8_dw_enabled()
+
+
+def pack_matrix(weight: torch.Tensor, bias: torch.Tensor, planes: bool = False,
+                bf16: bool = False) -> PackedConv:
     """A dense layer (weight [cout, cin], bias [cout]) as a packed 1x1 conv,
     weight [K_pad, N_pad] zero-padded; with `planes`, also the tensor-core
-    tile's tf32 planes ([N_pad, K_pad], K-major)."""
+    tile's tf32 planes ([N_pad, K_pad], K-major). With `bf16` (the int8
+    form's dense layers) the weights rounded to bf16 and, as the tile's one
+    plane, their transpose; the bias stays f32."""
     weight, bias = weight.detach().float(), bias.detach().float()
     cout, cin = weight.shape
     packed = weight.new_zeros(_round_up(cin, K_ALIGN), _round_up(cout, N_ALIGN))
     packed[:cin, :cout] = weight.t()
     padded_bias = bias.new_zeros(packed.shape[1])
     padded_bias[:cout] = bias
+    if bf16:
+        packed = bf16_round(packed)
+        hi = packed.t().contiguous() if planes else None
+        return PackedConv(packed, padded_bias, 1, 1, cin, cout, hi, None, True)
     hi = lo = None
     if planes:
         hi, lo = split_tf32(packed.t().contiguous())
     return PackedConv(packed, padded_bias, 1, 1, cin, cout, hi, lo)
 
 
-def pack_linears(*linears: nn.Linear, planes: bool = False) -> PackedConv:
+def pack_linears(*linears: nn.Linear, planes: bool = False, bf16: bool = False) -> PackedConv:
     """One packed 1x1 conv from Linears sharing their input: their output
     channels are stacked in order (z and r)."""
     return pack_matrix(torch.cat([lin.weight for lin in linears], dim=0),
-                       torch.cat([lin.bias for lin in linears], dim=0), planes)
+                       torch.cat([lin.bias for lin in linears], dim=0), planes, bf16)
 
 
 def _mlp(conv: nn.Module) -> nn.Linear:
@@ -102,6 +144,9 @@ def _mlp(conv: nn.Module) -> nn.Linear:
 
 
 def linear_plain(x: torch.Tensor, conv: PackedConv) -> torch.Tensor:
+    """A packed dense layer; a bf16 packing takes its input rounded to bf16
+    (bf16 operands, f32 sums)."""
+    x = bf16_round(x) if conv.bf16 else x
     return F.linear(x, conv.weight[: conv.cin, : conv.cout].t(), conv.bias[: conv.cout])
 
 
@@ -111,9 +156,12 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
 
 def dw_max_plain(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
     """max_j table[idx[:, :, j]] * weights[:, :, j] over the weights' k. On
-    bf16 weights (the fast path) the table is rounded to bf16 first, each
-    product is a bf16 product and the max is returned as f32."""
+    bf16 or int8 weights (the fast path; an int8 value is a bf16 value
+    exactly) the table is rounded to bf16 first, each product is a bf16
+    product and the max is returned as f32."""
     k = weights.shape[2]
+    if weights.dtype == torch.int8:
+        weights = weights.to(torch.bfloat16)
     if weights.dtype == torch.bfloat16:
         gathered = gather_points(table.to(torch.bfloat16), knn_idx[:, :, :k])
         return torch.amax(gathered * weights, dim=2).float()
@@ -137,20 +185,27 @@ def to_bf16(dw: dict) -> dict:
 
 
 def _dw_dtype(name: str, dw: dict, keys) -> torch.dtype:
-    """The hoisted weights' one dtype: f32 (the exact path) or bf16 (the
-    fast path)."""
+    """The hoisted weights' one dtype: f32 (the exact path), bf16 or int8
+    (the fast path's two forms)."""
     dtypes = {dw[key].dtype for key in keys}
-    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
-        raise TypeError(f"{name}: the hoisted weights must be all {torch.float32} or all "
-                        f"{torch.bfloat16}, got {sorted(map(str, dtypes))}")
+    if len(dtypes) != 1 or not dtypes <= set(DW_KINDS):
+        raise TypeError(f"{name}: the hoisted weights must be all {torch.float32}, all "
+                        f"{torch.bfloat16} or all {torch.int8}, got {sorted(map(str, dtypes))}")
     return dtypes.pop()
+
+
+def row_multiple(dtype: torch.dtype) -> int:
+    """The channels a padded row of hoisted weights rounds up to: 4 for f32
+    (16 bytes) and bf16 (`to_bf16` keeps the f32 row's pitch), 16 for int8
+    (16 bytes)."""
+    return INT8_ROW if dtype == torch.int8 else 4
 
 
 def _check_dw(name: str, dw: dict, keys, batch: int, n: int, device,
               padded=()) -> list[int]:
-    """The hoisted weights [B, N, k, C], all f32 or all bf16, contiguous, or
-    for the `padded` keys with rows round_up(C, 4) values apart
-    (`padded_rows`); returns their k."""
+    """The hoisted weights [B, N, k, C], all f32, all bf16 or all int8,
+    contiguous, or for the `padded` keys with rows round_up(C, 4) values
+    apart (int8: round_up(C, 16), `padded_rows`); returns their k."""
     dtype = _dw_dtype(name, dw, keys)
     ks = []
     for key in keys:
@@ -160,9 +215,10 @@ def _check_dw(name: str, dw: dict, keys, batch: int, n: int, device,
         if w.device != device:
             raise ValueError(f"{name}: dw[{key!r}] lies on {w.device}, not {device}")
         _cuda.check_shape(name, f"dw[{key!r}]", w, (batch, n, None, None))
-        ld = _round_up(w.shape[3], 4)
+        ld = _round_up(w.shape[3], row_multiple(dtype))
         if key in padded and w.stride() != (n * w.shape[2] * ld, w.shape[2] * ld, ld, 1):
-            raise ValueError(f"{name}: dw[{key!r}] must hold its rows {ld} floats apart "
+            unit = "floats" if dtype == torch.float32 else f"{dtype} values"
+            raise ValueError(f"{name}: dw[{key!r}] must hold its rows {ld} {unit} apart "
                              "(padded_rows; MotionEncoder3D.precompute_weights hoists them so)")
         ks.append(w.shape[2])
     return ks
@@ -178,6 +234,17 @@ def _check_idx(name: str, knn_idx: torch.Tensor, batch: int, n: int, k: int, dev
                          f"weights want {k}")
 
 
+def _check_form(name: str, packed: dict, dtype: torch.dtype) -> int:
+    """The kernel's DwKind for hoisted weights of `dtype`, once the packings
+    fit it: bf16 packings (bf16 operands) with int8 weights, f32 packings
+    with f32 or bf16 weights."""
+    kind = DW_KINDS[dtype]
+    if any(conv.bf16 != (dtype == torch.int8) for conv in packed.values()):
+        raise ValueError(f"{name}: {dtype} hoisted weights take "
+                         f"{'the bf16 packings of prepare_int8' if kind == 2 else 'f32 packings'}")
+    return kind
+
+
 # --- MotionEncoder3D (kernel #6) ------------------------------------------
 
 
@@ -191,13 +258,13 @@ def prepare_motion_encoder_3d_params(encoder: nn.Module) -> dict:
 
 def padded_rows(weights: torch.Tensor) -> torch.Tensor:
     """Hoisted weights [B, N, k, C] as #6 reads them: the same values, with
-    rows round_up(C, 4) floats apart (16-byte rows: the merge conv's 125
-    channels in rows of 128), as a view of a zero-padded buffer; unchanged
-    where C is a multiple of 4."""
-    channels = weights.shape[-1]
-    if channels % 4 == 0:
+    rows 16 bytes long, round_up(C, 4) floats (int8: round_up(C, 16) values)
+    apart (the merge conv's 125 channels in rows of 128), as a view of a
+    zero-padded buffer; unchanged where C is a multiple of that."""
+    channels, multiple = weights.shape[-1], row_multiple(weights.dtype)
+    if channels % multiple == 0:
         return weights
-    return F.pad(weights, (0, _round_up(channels, 4) - channels))[..., :channels]
+    return F.pad(weights, (0, _round_up(channels, multiple) - channels))[..., :channels]
 
 
 def motion_encoder_3d_plain(flow, corr, knn_idx, dw: dict, params: dict):
@@ -254,11 +321,11 @@ def _me_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
     if misaligned:  # the c1 and merge tails read the weights in 16-byte loads
         raise ValueError(f"{name}: dw{misaligned} must be {TAIL_ALIGN}-byte aligned")
     _check_tc(name, packed, ME_DENSE)
+    kind = _check_form(name, packed, dw["conv"].dtype)
     # the scratch a point: c1's table, f1's, corr_feat, f2's table, flow_feat
     # and the merge table, its rows padded to 4 channels
     per_point = 2 * c1.cout + f1.cout + 2 * f2.cout + _round_up(merge.cout, 4)
-    bf16 = int(dw["conv"].dtype == torch.bfloat16)
-    return (tuple(dw[k].data_ptr() for k in ME_CONVS), bf16, _planes(packed, ME_DENSE),
+    return (tuple(dw[k].data_ptr() for k in ME_CONVS), kind, _planes(packed, ME_DENSE),
             tuple(t.data_ptr() for c in (f1, f2) for t in (c.weight, c.bias)),
             (c1.cout, f1.cout, f2.cout, merge.cout), tuple(ks),
             (f1.weight.shape[1], f2.weight.shape[1]), per_point)
@@ -268,10 +335,12 @@ def motion_encoder_3d(flow: torch.Tensor, corr: torch.Tensor, knn_idx: torch.Ten
                       dw: dict, params: dict):
     """flow [B, N, 3], corr [B, N, C], knn_idx [B, N, >=32] int32, `dw` the
     hoisted weights as MotionEncoder3D.precompute_weights gives them (the
-    merge conv's rows 128 floats apart, `padded_rows`), f32 or, for the
-    fast form, bf16 (`to_bf16`) -> [B, N, 125 + 3] (the merge conv's
-    output, then the flow). CPU tensors take the plain version; CUDA
-    tensors the kernel. The fast form's launches count on `.fast_launches`."""
+    merge conv's rows 16 bytes apart, `padded_rows`), f32 or, for the fast
+    forms, bf16 (`to_bf16`) or int8 (`prepare_int8`, with its packings) ->
+    [B, N, 125 + 3] (the merge conv's output, then the flow). CPU tensors
+    take the plain version; CUDA tensors the kernel. The bf16 form's
+    launches count on `.fast_launches`, the int8 form's on
+    `.int8_launches`."""
     _cuda.forward_only("motion_encoder_3d", flow, corr, *dw.values())
     if _cuda.on_cpu(flow, corr, knn_idx):
         return motion_encoder_3d_plain(flow, corr, knn_idx, dw, params)
@@ -284,7 +353,7 @@ def motion_encoder_3d(flow: torch.Tensor, corr: torch.Tensor, knn_idx: torch.Ten
     c_corr = corr.shape[-1]
     if c_corr % 4 or corr.data_ptr() % 16:  # corr feeds the tensor-core tile
         _check_tc(name, {}, (), corr=corr)
-    dws, bf16, planes, weights, (c1, f1, f2, c_m), ks, npads, per_point = _me_checked(
+    dws, kind, planes, weights, (c1, f1, f2, c_m), ks, npads, per_point = _me_checked(
         name, params, dw, (batch, n, c_flow, c_corr), flow.device)
     if (knn_idx.dtype != torch.int32 or knn_idx.device != flow.device or knn_idx.dim() != 3
             or knn_idx.shape[:2] != (batch, n) or knn_idx.shape[2] < max(ks)
@@ -295,14 +364,15 @@ def motion_encoder_3d(flow: torch.Tensor, corr: torch.Tensor, knn_idx: torch.Ten
     from ..csrc.build import launch
 
     launch("camli_motion_encoder_3d", flow.data_ptr(), corr.data_ptr(), knn_idx.data_ptr(),
-           *dws, planes, *weights, scratch.data_ptr(), out.data_ptr(), bf16, batch, n,
+           *dws, planes, *weights, scratch.data_ptr(), out.data_ptr(), kind, batch, n,
            knn_idx.shape[2], c_flow, c_corr, c1, f1, f2, c_m, *ks, *npads, per_point)
-    _cuda.count(motion_encoder_3d, bf16)
+    _cuda.count(motion_encoder_3d, kind)
     return out
 
 
 motion_encoder_3d.launches = 0
 motion_encoder_3d.fast_launches = 0
+motion_encoder_3d.int8_launches = 0
 
 
 # --- GRU3D + FlowHead3D (kernel #7) ---------------------------------------
@@ -315,14 +385,20 @@ def prepare_gru_3d_params(gru: nn.Module) -> dict:
     rows zero, its bias) over [h, x3d, motion], "q_h" is q's r*h part
     (bias zero); their sum is q's product. Both carry tf32 planes."""
     _cuda.forward_only_modules("prepare_gru_3d_params", gru)
-    z, r, q = _mlp(gru.conv_z), _mlp(gru.conv_r), _mlp(gru.conv_q)
-    hidden = z.weight.shape[0]
-    q_xm = q.weight.detach().clone()
+    weights = gru_flowhead_3d_weights(gru)
+    return _pack_gru(*weights["zr"], *weights["q"])
+
+
+def _pack_gru(zr_w, zr_b, q_w, q_b, bf16: bool = False) -> dict:
+    """GRU3D's packings from its dense weights: z|r ([2 Ch, Cin]) and q."""
+    hidden = q_w.shape[0]
+    q_xm = q_w.detach().clone()
     q_xm[:, :hidden] = 0.0
-    zrq = pack_matrix(torch.cat([z.weight, r.weight, q_xm], dim=0),
-                      torch.cat([z.bias, r.bias, q.bias], dim=0), planes=True)
-    q_h = pack_matrix(q.weight[:, :hidden], torch.zeros_like(q.bias), planes=True)
-    return {"zr": pack_linears(z, r), "q": pack_linears(q), "zrq": zrq, "q_h": q_h}
+    zrq = pack_matrix(torch.cat([zr_w, q_xm], dim=0), torch.cat([zr_b, q_b], dim=0),
+                      planes=True, bf16=bf16)
+    q_h = pack_matrix(q_w[:, :hidden], torch.zeros_like(q_b), planes=True, bf16=bf16)
+    return {"zr": pack_matrix(zr_w, zr_b, bf16=bf16), "q": pack_matrix(q_w, q_b, bf16=bf16),
+            "zrq": zrq, "q_h": q_h}
 
 
 def prepare_flow_head_3d_params(head: nn.Module) -> dict:
@@ -333,6 +409,91 @@ def prepare_flow_head_3d_params(head: nn.Module) -> dict:
 
 def prepare_gru_flowhead_3d_params(gru: nn.Module, head: nn.Module) -> dict:
     return {**prepare_gru_3d_params(gru), **prepare_flow_head_3d_params(head)}
+
+
+# --- the int8 form (CAMLIFLOW_UPDATE3D=1) ----------------------------------
+
+
+def _dense(linear: nn.Linear) -> tuple[torch.Tensor, torch.Tensor]:
+    return linear.weight.detach().float(), linear.bias.detach().float()
+
+
+def motion_encoder_3d_weights(encoder: nn.Module) -> dict:
+    """MotionEncoder3D's dense weights by conv: (weight [cout, cin], bias)."""
+    return {name: _dense(_mlp(getattr(encoder, name))) for name in ME_CONVS}
+
+
+def gru_flowhead_3d_weights(gru: nn.Module, head: nn.Module | None = None) -> dict:
+    """GRU3D's dense weights, z|r stacked ("zr", the JAX packing's one
+    [Cin, 2 Ch] kernel) and q, and FlowHead3D's conv1, conv2 and fc, each
+    (weight [cout, cin], bias)."""
+    z, r, q = (_dense(_mlp(conv)) for conv in (gru.conv_z, gru.conv_r, gru.conv_q))
+    out = {"zr": (torch.cat([z[0], r[0]], dim=0), torch.cat([z[1], r[1]], dim=0)), "q": q}
+    if head is not None:
+        out.update(conv1=_dense(_mlp(head.conv1)), conv2=_dense(_mlp(head.conv2)),
+                   fc=_dense(head.fc))
+    return out
+
+
+def quantize_dw_int8(dw: dict, me: dict, gf: dict) -> tuple[dict, dict, dict]:
+    """camliflow_tpu/ops/pallas_update3d.py::quantize_dw_int8, bit for bit:
+    each conv's hoisted weights [B, N, k, C] as int8 with a scale a channel,
+    s = max(amax, 1e-12) * (1/127), amax over every axis but the channel
+    (the batch too), the values clip(round_half_even(w / s), -127, 127); s
+    folded into column c of the conv's MLP kernel and its bias (f32
+    products), so the conv's output is unchanged up to the int8 rounding
+    (every MLP activation here is positively homogeneous). z|r's one
+    256-channel tensor folds into the stacked z|r kernel.
+
+    dw: {"motion_encoder": {conv_c1, conv_f1, conv_f2, conv}, "gru":
+    {conv_zr, conv_q}, "flow_head": {conv1, conv2}}, f32 or bf16 (the JAX
+    package's models quantise the fast path's bf16 weights); me, gf: the
+    `motion_encoder_3d_weights` and `gru_flowhead_3d_weights` dicts.
+    Returns (dw as int8 in the port's layout, the merge conv's rows 16
+    values apart, `padded_rows`; me and gf folded)."""
+
+
+    def fold(pair, scale):
+        return pair[0] * scale[:, None], pair[1] * scale
+
+    out = {"motion_encoder": {}, "gru": {}, "flow_head": {}}
+    me, gf = dict(me), dict(gf)
+    for name in ME_CONVS:
+        out["motion_encoder"][name], scale = quantize_channels_int8(dw["motion_encoder"][name])
+        me[name] = fold(me[name], scale)
+    for tree, name, key in (("gru", "conv_zr", "zr"), ("gru", "conv_q", "q"),
+                            ("flow_head", "conv1", "conv1"), ("flow_head", "conv2", "conv2")):
+        out[tree][name], scale = quantize_channels_int8(dw[tree][name])
+        gf[key] = fold(gf[key], scale)
+    return out, me, gf
+
+
+def quantize_channels_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One conv's hoisted weights [B, N, k, C] -> (int8 values in the
+    `padded_rows` layout, the f32 scale [C]), as `quantize_dw_int8` takes
+    them."""
+    w = w.float()
+    amax = w.abs().amax(dim=tuple(range(w.dim() - 1)))
+    scale = amax.clamp_min(1e-12) * (1.0 / 127.0)
+    q = torch.round(w / scale).clamp_(-127, 127).to(torch.int8)
+    return padded_rows(q), scale
+
+
+def prepare_int8(dw: dict, encoder: nn.Module, gru: nn.Module, head: nn.Module):
+    """The int8 form's operands for one request: the hoisted weights `dw`
+    (the fast path's bf16 weights, `to_bf16`, as the JAX package's models
+    quantise them) quantised by `quantize_dw_int8`, and
+    #6's and #7's packings from the folded weights, every dense layer's
+    weights rounded to bf16 (the tile's layers with their one bf16 plane).
+    Packed anew per request: the scales follow the request's clouds.
+    Returns (dw, me params, gf params)."""
+    _cuda.forward_only_modules("prepare_int8", encoder, gru, head)
+    dw, me, gf = quantize_dw_int8(dw, motion_encoder_3d_weights(encoder),
+                                  gru_flowhead_3d_weights(gru, head))
+    me = {name: pack_matrix(*me[name], planes=name in ME_DENSE, bf16=True) for name in ME_CONVS}
+    gf = {**_pack_gru(*gf["zr"], *gf["q"], bf16=True),
+          **{name: pack_matrix(*gf[name], bf16=True) for name in ("conv1", "conv2", "fc")}}
+    return dw, me, gf
 
 
 def _gru_3d(h, x, knn_idx, dw: dict, params: dict, tail):
@@ -396,9 +557,9 @@ def _gf_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
     if misaligned:  # the tails read the weights in 16-byte loads
         raise ValueError(f"{name}: dw{misaligned} must be 16-byte aligned")
     _check_tc(name, packed, GF_DENSE)
+    kind = _check_form(name, packed, dw["conv_q"].dtype)
     per_point = 6 * ch + conv1.cout + conv2.cout  # the kernel's scratch
-    bf16 = int(dw["conv_q"].dtype == torch.bfloat16)
-    args = (tuple(dw[k].data_ptr() for k in GF_DW), bf16, _planes(packed, GF_DENSE),
+    args = (tuple(dw[k].data_ptr() for k in GF_DW), kind, _planes(packed, GF_DENSE),
             tuple(t.data_ptr() for c in (conv1, conv2, fc) for t in (c.weight, c.bias)),
             (conv1.cout, conv2.cout, fc.cout), tuple(ks),
             tuple(w.weight.shape[1] for w in (conv1, conv2, fc)), per_point)
@@ -408,9 +569,10 @@ def _gf_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
 def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
                     knn_idx: torch.Tensor, dw: dict, params: dict):
     """h [B, N, Ch], x3d [B, N, Cx], motion [B, N, Cm], knn_idx [B, N, >=32]
-    int32, `dw` f32 or, for the fast form, bf16 -> (h' [B, N, Ch], delta
-    [B, N, 3]). CPU tensors take the plain version; CUDA tensors the
-    kernel. The fast form's launches count on `.fast_launches`."""
+    int32, `dw` f32 or, for the fast forms, bf16 or int8 (with the int8
+    packings) -> (h' [B, N, Ch], delta [B, N, 3]). CPU tensors take the
+    plain version; CUDA tensors the kernel. The bf16 form's launches count
+    on `.fast_launches`, the int8 form's on `.int8_launches`."""
     _cuda.forward_only("gru_flowhead_3d", h, x3d, motion, *dw.values())
     if _cuda.on_cpu(h, x3d, motion, knn_idx):
         return gru_flowhead_3d_plain(h, x3d, motion, knn_idx, dw, params)
@@ -424,7 +586,7 @@ def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
         _cuda.check_shape(name, "motion", motion, (batch, n, None))
     if (ch | cx | cm) % 4 or (h.data_ptr() | x3d.data_ptr() | motion.data_ptr()) % 16:
         _check_tc(name, {}, (), h=h, x3d=x3d, motion=motion)
-    dws, bf16, planes, weights, (c1, c2, c_out), ks, npads, per_point = _gf_checked(
+    dws, kind, planes, weights, (c1, c2, c_out), ks, npads, per_point = _gf_checked(
         name, params, dw, (batch, n, ch, cx, cm), h.device)
     if (knn_idx.dtype != torch.int32 or knn_idx.device != h.device or knn_idx.dim() != 3
             or knn_idx.shape[:2] != (batch, n) or knn_idx.shape[2] < max(ks)
@@ -436,14 +598,15 @@ def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
 
     launch("camli_gru_flowhead_3d", h.data_ptr(), x3d.data_ptr(), motion.data_ptr(),
            knn_idx.data_ptr(), *dws, planes, *weights, scratch.data_ptr(), h_out.data_ptr(),
-           delta.data_ptr(), bf16, batch, n, knn_idx.shape[2], ch, cx, cm, c1, c2, c_out, *ks,
+           delta.data_ptr(), kind, batch, n, knn_idx.shape[2], ch, cx, cm, c1, c2, c_out, *ks,
            *npads)
-    _cuda.count(gru_flowhead_3d, bf16)
+    _cuda.count(gru_flowhead_3d, kind)
     return h_out, delta
 
 
 gru_flowhead_3d.launches = 0
 gru_flowhead_3d.fast_launches = 0
+gru_flowhead_3d.int8_launches = 0
 
 
 # --- the PointConvDW tail alone (kernel #13) -------------------------------

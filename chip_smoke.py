@@ -177,9 +177,26 @@ and points, all three fusions), in phases:
    and CLFM with the add, concat and gated heads at CamLiPWC's level-1
    shapes (144x240 pixels, 4096 points), InstanceNorm and LayerNorm at
    68x120x128: the card against the CPU, #1's launches held.
+13. the JAX package's gated operand forms, each path with its switches set
+   in this process around its runs and restored after them: CamLiRAFT-L
+   with CAMLIFLOW_UPDATE3D=1 (#6 and #7 on int8 hoisted weights), the
+   flagship with CAMLIFLOW_UPDATE3D=1 and CAMLIFLOW_CLFM=1 (and #11's bf16
+   form at corr and motion), the flagship with fuse_hidden and
+   CAMLIFLOW_CLFM=1, fast_inference=on, at full width on phase 4's weights
+   and inputs: launches held (#6 and #7's int8 forms 20 each a request,
+   #11's bf16 form 40, fuse_hidden's exact hidden fusion 20), against the
+   CPU's plain version of the same form at bs=1, and on the two int8 paths
+   at bs=2 too, where the int8 scales are the batch's (phase 5's envelope),
+   against the fast form at bs=1 and 8 (the JAX package's fast-vs-exact
+   test bound), at bs=8 each sample against the same sample alone (phase
+   5's envelope with CAMLIFLOW_CLFM alone; on the int8 paths, whose scales
+   are the batch's, 0.02 m and 5e-3 px), request ms and peak memory beside
+   the fast form's. Phase 3 holds each gated form to its plain version
+   within one bf16 step and times it beside its fast form.
 
-Each path's launches (4, 7, 8, 9, 10, 11 and 12) are counted with every counter
-zeroed just before it and read just after. Prints the kernels' JSON line, then the card's name and power limit, then, as
+Each path's launches (4, 7, 8, 9, 10, 11, 12 and 13) are counted with every counter
+zeroed just before it and read just after. Each phase's header ends with
+the seconds since the start. Prints its total time, the kernels' JSON line, then the card's name and power limit, then, as
 the last line, the device JSON with "ok": true. Exits non-zero, without that
 line, if any phase fails or there is no CUDA card.
 """
@@ -192,6 +209,7 @@ import subprocess
 import sys
 import time
 import traceback
+from typing import NamedTuple
 
 import numpy as np
 
@@ -238,6 +256,12 @@ FAST_FORMS = {"correlation3d_knn": "correlation3d_knn_int8",
               "motion_encoder_2d": "motion_encoder_2d_bf16",
               "gru_flowhead_2d": "gru_flowhead_2d_bf16",
               "update_2d": "update_2d_bf16"}
+# the JAX package's gated operand forms (phase 13), each counted on its
+# wrapper's own counter: name -> (the wrapper's name, the counter)
+GATED_FORMS = {"motion_encoder_3d_int8": ("motion_encoder_3d", "int8_launches"),
+               "gru_flowhead_3d_int8": ("gru_flowhead_3d", "int8_launches"),
+               "clfm_fused_bf16": ("clfm_fused", "fast_launches")}
+GATED_TOL = 2.0**-7  # a gated form against its plain version: one bf16 step of the largest value
 TC_STAGES = 3  # conv_tile_tc.cuh's kStages
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, B/s
 L_CFGS = {  # conf/model/camliraft_l.yaml
@@ -356,6 +380,21 @@ def bound(ops: float, nbytes: float, peak: float = PEAK_F32) -> tuple[float, str
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def gated_close(name: str, got, ref) -> float:
+    """A gated form (CAMLIFLOW_UPDATE3D=1's int8 #6 and #7, CAMLIFLOW_CLFM=1's
+    bf16 #11) against its plain version: max |got - ref| within GATED_TOL *
+    max |ref| (one bf16 step); prints it and the share of values equal bit
+    for bit. Returns the max."""
+    err = float((got - ref).abs().max())
+    limit = GATED_TOL * float(ref.abs().max())
+    same = float((got == ref).float().mean())
+    print(f"  {name}: max |kernel - plain| {err:.3e} (bound {limit:.3e}), "
+          f"{100 * same:.2f}% of values bit for bit")
+    if not err <= limit:
+        raise AssertionError(f"{name}: max |d| {err} > {limit}")
+    return err
+
+
 def fast_close(name: str, got, ref) -> float:
     """A fast form against its plain version: max |got - ref| within
     FAST_TOL * (1 + max |ref|); prints it and the share of values equal bit
@@ -371,6 +410,39 @@ def fast_close(name: str, got, ref) -> float:
 
 
 PROFILE_TRIES = 6  # the profiler on the H100 drops all or part of a run's events, now and then
+
+
+class KernelTime(NamedTuple):
+    """One kernel's entry in a profile, as `key_averages()` gives it: its
+    name, its launches and their device time (µs)."""
+
+    key: str
+    count: int
+    self_device_time_total: float
+
+
+def device_kernels(prof, only: str = "") -> list[KernelTime]:
+    """The device kernels of a finished torch.profiler run whose name holds
+    `only`, grouped by name, with the names, counts and device times that
+    `prof.key_averages()` gives them, read from the profiler's raw events:
+    `key_averages()` first builds an event tree over every host op, which
+    takes tens of seconds for a request of thousands of launches."""
+    import torch
+
+    names, counts, times = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        raw = e.name()
+        if raw not in names:  # key_averages' key: the demangled name
+            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        name = names[raw]
+        if only in name:
+            counts[name] = counts.get(name, 0) + 1
+            times[name] = times.get(name, 0.0) + (e.end_ns() - e.start_ns()) / 1e3
+    return [KernelTime(name, counts[name], times[name]) for name in counts]
 
 
 def profile_kernels(fn, only: str = "", partial: bool = False) -> tuple[float, list]:
@@ -393,8 +465,7 @@ def profile_kernels(fn, only: str = "", partial: bool = False) -> tuple[float, l
             fn()
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - start)
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and only in e.key]
+        kernels = device_kernels(prof, only)
         seen = sum(e.count for e in kernels)
         if seen and (partial or previous and abs(seen - previous) <= previous // 100):
             return wall, kernels
@@ -1339,6 +1410,56 @@ def kernel_parity(device, other=None) -> list[dict]:
                wrapper="gru_flowhead_3d_bf16", device_ms=gf16_dev,
                exact_form_ms=time_ms(default, 50), exact_form_device_ms=gf_dev)
 
+        # the gated int8 forms of #6 and #7 (CAMLIFLOW_UPDATE3D=1): the bf16
+        # hoisted weights quantised to int8 with their scales folded into
+        # the MLPs, every dense layer on bf16 operands (prepare_int8), each
+        # against its plain version within one bf16 step (GATED_TOL), rerun
+        # bit for bit, timed beside the bf16 form; bytes with the hoisted
+        # weights at 1 byte, operations at the bf16 peak
+        dw_all = {"motion_encoder": dw_me,
+                  "gru": {k: dw_gf[k] for k in ("conv_zr", "conv_q")},
+                  "flow_head": {k: dw_gf[k] for k in ("conv1", "conv2")}}
+        dw8, me8, gf8 = update3d.prepare_int8(update3d.to_bf16(dw_all), encoder, gru, head)
+        gf8_dw = {**dw8["gru"], **dw8["flow_head"]}
+        me8_call = lambda: update3d.motion_encoder_3d(  # noqa: E731
+            flow3d, corr3, idx, dw8["motion_encoder"], me8)
+        motion8 = me8_call()
+        err = gated_close("motion_encoder_3d (int8)", motion8, update3d.motion_encoder_3d_plain(
+            flow3d, corr3, idx, dw8["motion_encoder"], me8))
+        if not (torch.equal(me8_call(), motion8) and torch.equal(motion8[..., -3:], flow3d)):
+            raise AssertionError("motion_encoder_3d (int8): two runs differ, or the flow columns")
+        me8_dev = device_ms(me8_call, 20, only="motion_encoder_3d")
+        print(f"  motion_encoder_3d (int8): device {me8_dev:.4f} ms a call, the bf16 form "
+              f"{me16_dev:.4f} ms", flush=True)
+        record("motion_encoder_3d (int8)", "camliflow_torch/csrc/update3d.cu",
+               "camliflow_tpu/ops/pallas_update3d.py:248", err, time_ms(me8_call, 50),
+               time_ms(lambda: update3d.motion_encoder_3d_plain(flow3d, corr3, idx,
+                                                                dw8["motion_encoder"], me8), 20),
+               2 * n * (linear_macs({k: me8[k] for k in update3d.ME_CONVS}) + me_floats),
+               4 * (n * (3 + 128 + 32 + 128) + sum(size(me8[k]) for k in update3d.ME_CONVS))
+               + n * me_floats, bf16_cores=True,
+               wrapper="motion_encoder_3d_int8", device_ms=me8_dev, bf16_form_device_ms=me16_dev)
+        gf8_call = lambda: update3d.gru_flowhead_3d(h3, x3, motion3, idx, gf8_dw, gf8)  # noqa: E731
+        h_k, d_k = gf8_call()
+        h_p, d_p = update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, gf8_dw, gf8)
+        err = max(gated_close("gru_flowhead_3d (int8) h'", h_k, h_p),
+                  gated_close("gru_flowhead_3d (int8) delta", d_k, d_p))
+        again = gf8_call()
+        if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
+            raise AssertionError("gru_flowhead_3d (int8): two runs give different bits")
+        gf8_dev = device_ms(gf8_call, 20, only="gru_flowhead_3d")
+        print(f"  gru_flowhead_3d (int8): device {gf8_dev:.4f} ms a call, the bf16 form "
+              f"{gf16_dev:.4f} ms", flush=True)
+        record("gru_flowhead_3d (int8)", "camliflow_torch/csrc/update3d.cu",
+               "camliflow_tpu/ops/pallas_update3d.py:372", err, time_ms(gf8_call, 50),
+               time_ms(lambda: update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, gf8_dw,
+                                                              gf8), 20),
+               2 * n * (sum(gf8[k].cin * gf8[k].cout for k in keys) + dw_floats(dw_gf)),
+               4 * (n * (3 * 128 + 32 + 128 + 3) + sum(size(gf8[k]) for k in keys))
+               + n * dw_floats(dw_gf), bf16_cores=True,
+               wrapper="gru_flowhead_3d_int8", device_ms=gf8_dev, bf16_form_device_ms=gf16_dev)
+        del dw8, gf8_dw
+
         # the PointConvDW tail alone, at the fuse_hidden path's four shapes:
         # GRU3D's z|r and q (k=4), FlowHead3D's conv1 and conv2 (k=32); with
         # another tree, its tail too, bit for bit both, timed in turns
@@ -1494,6 +1615,35 @@ def kernel_parity(device, other=None) -> list[dict]:
                    4 * (2 * hw * c2 + 2 * m * c3 + hw * c3 + hw + 8 * m + weights),
                    label=f"clfm_fused (C2 {c2}, C3 {c3})", entry=c2 == 324, tensor_cores=True,
                    stages_ms={label: ms for label, (_, ms) in zip(names, stages)})
+            # its gated bf16 form (CAMLIFLOW_CLFM=1): a bf16 score gate and
+            # packings, bf16 tables, products and dense operands, within one
+            # bf16 step of its plain version (GATED_TOL), rerun bit for bit;
+            # bytes with the gate, the dense kernels and the SK heads at 2
+            # bytes and the biases at 4, operations at the bf16 peak
+            biases = sum(params[key].cout for key in clfm.DENSE)
+            inputs16 = (*inputs[:2], clfm.hoist_interp_score(block.interp, cache[1], True),
+                        *inputs[3:])
+            params16 = clfm.prepare_clfm_params(block, bf16=True)
+            got_2d, got_3d = clfm.clfm_fused(*inputs16, params16)
+            ref_2d, ref_3d = clfm.clfm_fused_plain(*inputs16, params16)
+            err = max(gated_close(f"clfm_fused (bf16, C2 {c2}) out_2d", got_2d, ref_2d),
+                      gated_close(f"clfm_fused (bf16, C2 {c2}) out_3d", got_3d, ref_3d))
+            again = clfm.clfm_fused(*inputs16, params16)
+            if not (torch.equal(again[0], got_2d) and torch.equal(again[1], got_3d)):
+                raise AssertionError("clfm_fused (bf16): two runs give different bits")
+            call16 = lambda: clfm.clfm_fused(*inputs16, params16)  # noqa: E731
+            dev16, dev32 = (device_ms(call, 20) for call in
+                            (call16, lambda: clfm.clfm_fused(*inputs, params)))
+            print(f"  clfm_fused (bf16, C2 {c2}, C3 {c3}): device {dev16:.4f} ms a call, the "
+                  f"exact form {dev32:.4f} ms", flush=True)
+            record("clfm_fused (bf16)", "camliflow_torch/csrc/clfm.cu",
+                   "camliflow_tpu/ops/pallas_clfm.py:200", err, time_ms(call16, 20),
+                   time_ms(lambda: clfm.clfm_fused_plain(*inputs16, params16), 20), 2 * macs,
+                   4 * (2 * hw * c2 + 2 * m * c3 + hw + 8 * m + biases)
+                   + 2 * (hw * c3 + weights - biases),
+                   label=f"clfm_fused (bf16, C2 {c2}, C3 {c3})", entry=c2 == 324,
+                   bf16_cores=True, wrapper="clfm_fused_bf16", device_ms=dev16,
+                   exact_form_device_ms=dev32)
 
     # the k-major gather: PointConv's at the encoder's level 0 ([2, 8192] ->
     # [2, 4096], k=16) and level 1 ([2, 4096] -> [2, 2048]), xyz and
@@ -2151,18 +2301,20 @@ class IndexOnly:
 
 class FastForm:
     """A wrapper's fast-form launches (its `fast_launches`: the int8, scaled
-    or bf16 form), under the `launches` name every other counter has."""
+    or bf16 form; or another `counter`, the int8 3D chain's
+    `int8_launches`), under the `launches` name every other counter has."""
 
-    def __init__(self, wrapper):
+    def __init__(self, wrapper, counter: str = "fast_launches"):
         self.wrapper = wrapper
+        self.counter = counter
 
     @property
     def launches(self) -> int:
-        return self.wrapper.fast_launches
+        return getattr(self.wrapper, self.counter)
 
     @launches.setter
     def launches(self, value: int) -> None:
-        self.wrapper.fast_launches = value
+        setattr(self.wrapper, self.counter, value)
 
 
 def kernel_wrappers() -> dict:
@@ -2190,6 +2342,8 @@ def kernel_wrappers() -> dict:
     for exact, fast in (*FAST_FORMS.items(), ("gru_2d", "gru_2d_bf16"),
                         ("flow_head_2d", "flow_head_2d_bf16")):
         wrappers[fast] = FastForm(wrappers[exact])
+    for gated, (exact, counter) in GATED_FORMS.items():
+        wrappers[gated] = FastForm(wrappers[exact], counter)
     return wrappers
 
 
@@ -3128,8 +3282,8 @@ def one_process(index: int, root: str, device: str, label: str) -> None:
     if label == "alone":
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             one_process_step(device, root, "alone_again", wrappers)
-        result["ops"] = sorted({e.key for e in prof.key_averages()
-                                if e.key in NONDETERMINISTIC_OPS})
+        result["ops"] = sorted({e.name() for e in prof.profiler.kineto_results.events()
+                                if e.name() in NONDETERMINISTIC_OPS})
     with open(f"{root}/dp/{label}.json", "w") as f:
         json.dump(result, f)
 
@@ -3514,6 +3668,182 @@ def fast_eval_cli(device, wrappers, card, want: dict, total: dict) -> None:
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"eval CLI fast: launches {got}, expected one fast request's {want}")
+
+
+# phase 13: the JAX package's gated operand forms, each path with the
+# switches it engages (the port reads them at each fast forward's encode)
+GATED_PATHS = {"CamLiRAFT-L": {"CAMLIFLOW_UPDATE3D": "1"},
+               "CamLiRAFT": {"CAMLIFLOW_UPDATE3D": "1", "CAMLIFLOW_CLFM": "1"},
+               "CamLiRAFT fuse_hidden": {"CAMLIFLOW_CLFM": "1"}}
+SWITCHES_ENV = ("CAMLIFLOW_UPDATE3D", "CAMLIFLOW_CLFM")
+GATED_PAIR = 2  # the int8 paths' second comparison with the CPU: a batch whose scales are shared
+# each sample of a bs-8 int8 request against the same sample alone (its own
+# int8 scales): about twice the 9.606e-3 m and four times the 1.277e-3 px
+# measured on an NVIDIA H100 80GB HBM3 (700.00 W)
+GATED_ALONE = {"flow_3d": (0.02, "m"), "flow_2d": (5e-3, "px")}
+
+
+@contextlib.contextmanager
+def gated_switches(values: dict):
+    """The two switches set in this process inside the block ("0" where
+    `values` has none), each restored (or unset) after it."""
+    import os
+
+    saved = {name: os.environ.get(name) for name in SWITCHES_ENV}
+    try:
+        for name in SWITCHES_ENV:
+            os.environ[name] = values.get(name, "0")
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def gated_per_request(fast: dict, values: dict) -> dict:
+    """A path's launches a request with the switches `values`, from its
+    fast path's (fast_per_request): CAMLIFLOW_UPDATE3D=1 moves #6's and #7's
+    bf16 forms to their int8 forms; CAMLIFLOW_CLFM=1 moves the corr and
+    motion fusions (2 a loop iteration) to #11's bf16 form, the hidden
+    fusion staying exact."""
+    want = dict(fast)
+    if values.get("CAMLIFLOW_UPDATE3D") == "1":
+        for key in ("motion_encoder_3d", "gru_flowhead_3d"):
+            want[f"{key}_int8"], want[f"{key}_bf16"] = want[f"{key}_bf16"], 0
+    if values.get("CAMLIFLOW_CLFM") == "1":
+        want["clfm_fused_bf16"] = 2 * N_ITERS
+        want["clfm_fused"] -= 2 * N_ITERS
+    return want
+
+
+def timed_request(evaluator, batch, wrappers) -> tuple[dict, float, float, dict]:
+    """One request after a warm-up at its shapes: (outputs, ms on the host
+    clock to a synchronisation, peak MiB allocated, launches)."""
+    import torch
+
+    evaluator.forward(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    out = evaluator.forward(batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - start)
+    return (out, ms, torch.cuda.max_memory_allocated() / 2**20,
+            {key: fn.launches for key, fn in wrappers.items()})
+
+
+def gated_phase(device, wrappers, card, paths) -> dict:
+    """Phase 13: CamLiRAFT-L with CAMLIFLOW_UPDATE3D=1, the flagship with
+    both switches and the flagship with fuse_hidden and CAMLIFLOW_CLFM=1,
+    fast_inference=on, at full width with phase 4's weights and inputs: 1
+    warm-up and 3 requests through run_things (launches held to
+    gated_per_request), then (a) the CPU's plain version of the same form at
+    bs=1 within phase 5's envelope, and on the int8 paths at bs=GATED_PAIR
+    too, where the batch's int8 scales are shared; (b) the fast form
+    (switches off) on the same input, reported and held to the JAX
+    package's fast-vs-exact test bound, at bs=1 and bs=8; at bs=8 the gated
+    request's launches held, its ms, peak memory and device busy share
+    beside the fast form's, and each sample against the same sample alone:
+    within phase 5's envelope where nothing is quantised over the batch
+    (CAMLIFLOW_CLFM alone), within GATED_ALONE on the int8 paths (alone, a
+    sample's int8 scales are its own, in the batch the batch's). Returns the
+    launches of the held runs."""
+    import torch
+
+    from camliflow_torch.runtime.checkpoint import random_weights
+    from camliflow_torch.runtime.evaluator import Evaluator
+
+    envelope = {"flow_3d": (FLOW_3D_TOL, "m"), "flow_2d": (FLOW_2D_TOL, "px")}
+
+    def f32_bound(ref):  # the JAX package's fast-vs-exact test bound on this output
+        return {key: (max(floor, FAST_SHARE * float(np.abs(ref[key]).max())), unit)
+                for key, floor, unit in (("flow_3d", FAST_3D_FLOOR, "m"),
+                                         ("flow_2d", FAST_2D_FLOOR, "px")) if key in ref}
+
+    total = dict.fromkeys(wrappers, 0)
+    for label, cls, cfgs, images, exact_request in paths:
+        if label not in GATED_PATHS:
+            continue
+        values = GATED_PATHS[label]
+        shown = " ".join(f"{k}={v}" for k, v in values.items())
+        int8 = values.get("CAMLIFLOW_UPDATE3D") == "1"
+        want = gated_per_request(fast_per_request(exact_request), values)
+        fast_cfgs = {**cfgs, "fast_inference": "on"}
+        model = cls(fast_cfgs)
+        random_weights(model, SEED)
+        cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
+        evaluator = Evaluator(model, device)
+        batches = [frame_pair(SEED + 1 + i, i, images) for i in range(4)]
+        with gated_switches(values):
+            launches = drive(f"{label} {shown}", evaluator, batches, wrappers, card)
+            got = {k: launches[k] / 3 for k in want}
+            if got != want:
+                raise AssertionError(f"{label} {shown}: launches per request {got}, expected "
+                                     f"{want}")
+            for key, count in launches.items():
+                total[key] += count
+            gated = evaluator.forward(batches[0])
+        with gated_switches({}):
+            fast = evaluator.forward(batches[0])
+        for key in ("flow_3d", "flow_2d"):
+            if key in fast:
+                check_output(gated, key, fast[key].shape)
+        compare_flows(f"{label} gated vs the fast form, bs=1", gated, fast, f32_bound(fast))
+
+        # the eval CLI's batch of 8: the gated request (launches held, its
+        # device busy share), the fast form's beside it
+        samples = [frame_pair(SEED + 20 + i, i, images) for i in range(BATCH)]
+        batch = stack(samples)
+        with gated_switches(values):
+            alone = stack([evaluator.forward(sample) for sample in samples])
+            pair = stack(samples[:GATED_PAIR])
+            gated_pair = evaluator.forward(pair) if int8 else None
+            outs = {"gated": timed_request(evaluator, batch, wrappers)}
+            got = {k: outs["gated"][3][k] for k in want}
+            if got != want:
+                raise AssertionError(f"{label} {shown} bs={BATCH}: launches {got}, expected "
+                                     f"{want}")
+            for key, count in outs["gated"][3].items():
+                total[key] += count
+            wall, busy, count = profile_request(evaluator, batch, top=5)
+        with gated_switches({}):
+            outs["fast"] = timed_request(evaluator, batch, wrappers)
+        print(f"  {label} bs={BATCH}: " + "; ".join(
+            f"{mode} {ms:.3f} ms ({ms / BATCH:.3f} a frame pair), peak {peak:.1f} MiB"
+            for mode, (_, ms, peak, _) in outs.items()) + f"; gated profiled {wall:.3f} ms "
+            f"wall, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), {count} kernel "
+            f"launches | {card}", flush=True)
+        gated8 = outs["gated"][0]
+        compare_flows(f"{label} gated vs the fast form, bs={BATCH}", gated8, outs["fast"][0],
+                      f32_bound(outs["fast"][0]))
+        # a sample alone is quantised with its own int8 scales, in the batch
+        # with the batch's: two roundings of the chain's weights
+        compare_flows(f"{label} gated bs={BATCH}, each sample vs alone", gated8, alone,
+                      GATED_ALONE if int8 else envelope)
+        del outs, alone
+
+        # the CPU's plain version of the same form at bs=1 and, where the
+        # scales are the batch's, at bs=GATED_PAIR (at bs=8 it takes 95 s
+        # for CamLiRAFT-L alone on the card's host)
+        cpu_model = cls(fast_cfgs)
+        cpu_model.load_state_dict(cpu_state)
+        cpu = Evaluator(cpu_model, "cpu")
+        for size, got, data in ((1, gated, batches[0]), (GATED_PAIR, gated_pair, pair)):
+            if got is None:
+                continue
+            start = time.perf_counter()
+            with gated_switches(values):
+                ref = cpu.forward(data)
+            print(f"  {label} gated bs={size} on the CPU: {time.perf_counter() - start:.1f} s",
+                  flush=True)
+            compare_flows(f"{label} gated bs={size}, CUDA vs CPU", got, ref, envelope)
+        del evaluator, model, cpu_model, cpu, batch, pair, gated_pair
+        torch.cuda.empty_cache()
+    return total
 
 
 # phase 12: the last modules
@@ -3908,6 +4238,60 @@ def leftovers_phase(device, wrappers, card) -> dict:
     return total
 
 
+def main_paths(wrappers) -> tuple:
+    """The main paths, (label, model class, cfgs, takes images, each
+    kernel's launches per request, 0 where it never launches), in the order
+    phase 4 drives them."""
+    from camliflow_torch.models.camliraft import CamLiRAFT
+    from camliflow_torch.models.camliraft_l import CamLiRAFTL
+    from camliflow_torch.models.camlipwc import CamLiPWC
+    from camliflow_torch.models.camlipwc_l import CamLiPWCL
+    from camliflow_torch.models.pwc import PWC
+    from camliflow_torch.models.raft import RAFT
+
+    # per path, each kernel's launches per request (0: never on this path).
+    # The encoders' PointConvs gather twice each (xyz, [xyz, features]):
+    # CamLiRAFT-L runs 3 encoder passes of 2 PointConvs, the flagship 2 (both
+    # frames share fnet's) and 2 gathers in the final upsample.
+    point = {"furthest_point_sampling": 1, "correlation3d_knn": N_ITERS,
+             "corr3d_tail": N_ITERS, "correlation3d_knn_index": 0,
+             # the exact path (fast_inference auto) launches no fast form
+             **dict.fromkeys(FAST_FORMS.values(), 0), "gru_2d_bf16": 0,
+             "flow_head_2d_bf16": 0, **dict.fromkeys(GATED_FORMS, 0)}
+    flagship = {**point, "k_nearest_neighbor": 8, "knn_interpolation": N_ITERS,
+                "gather_points_kmajor": 10, "motion_encoder_2d": N_ITERS,
+                "motion_encoder_3d": N_ITERS, "update_2d": 0}
+    # with fuse_hidden, #8's halves run on their own (CLFM between them)
+    halves = {"gru_2d": N_ITERS, "flow_head_2d": N_ITERS, "gru_flowhead_2d": 0}
+    pwc_point = {**dict.fromkeys(wrappers, 0), "k_nearest_neighbor": 20,
+                 "furthest_point_sampling": 1, "knn_interpolation": 9,
+                 "gather_points_kmajor": 40}
+    return (
+        ("CamLiRAFT-L", CamLiRAFTL, L_CFGS, False,
+         {**point, "k_nearest_neighbor": 6, "knn_interpolation": N_ITERS + 1,
+          "gather_points_kmajor": 12, "motion_encoder_3d": N_ITERS,
+          "gru_flowhead_3d": N_ITERS, "motion_encoder_2d": 0, "gru_flowhead_2d": 0,
+          "gru_2d": 0, "flow_head_2d": 0, "update_2d": 0, "clfm_fused": 0, "dw_max": 0}),
+        ("CamLiRAFT", CamLiRAFT, FLAGSHIP_CFGS, True,
+         {**flagship, "clfm_fused": 2 * N_ITERS, "gru_flowhead_2d": N_ITERS, "gru_2d": 0,
+          "flow_head_2d": 0, "gru_flowhead_3d": N_ITERS, "dw_max": 0}),
+        # GRU3D and FlowHead3D as torch ops around their 4 PointConvDW tails
+        ("CamLiRAFT fuse_hidden", CamLiRAFT, HIDDEN_CFGS, True,
+         {**flagship, **halves, "clfm_fused": 3 * N_ITERS, "gru_flowhead_3d": 0,
+          "dw_max": 4 * N_ITERS}),
+        ("RAFT", RAFT, RAFT_CFGS, True,
+         {**dict.fromkeys(wrappers, 0), "update_2d": N_ITERS}),
+        # the PWC family (no refinement loop): the point side's KNN in each
+        # pyramid PointConv (5 a frame) and twice a decoder level, #3 in the
+        # level upsample and the backwarp (levels 4-1) and the final
+        # upsample, #12 in 20 PointConvs; CamLiPWC adds 2 CLFM caches a level
+        ("PWC", PWC, PWC_CFGS, True, dict.fromkeys(wrappers, 0)),
+        ("CamLiPWC-L", CamLiPWCL, CAMLIPWC_L_CFGS, False, pwc_point),
+        ("CamLiPWC", CamLiPWC, CAMLIPWC_CFGS, True,
+         {**pwc_point, "k_nearest_neighbor": 30}),
+    )
+
+
 def main() -> int:
     import argparse
 
@@ -3917,6 +4301,12 @@ def main() -> int:
                              "ignored directory, say) whose #1, #3, #6, #7, #12 and #13 "
                              "phase 3 times beside this tree's")
     args = parser.parse_args()
+    started = time.perf_counter()
+
+    def header(*text, **kwargs):
+        """A phase's header line, with the seconds since the start."""
+        print(*text, f"(at {time.perf_counter() - started:.1f} s)", **kwargs)
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3947,13 +4337,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False, timeout=60,
     ).stdout.strip().splitlines()
-    print("[1/12] device:", torch.cuda.get_device_name(0), "| torch",
+    header("[1/13] device:", torch.cuda.get_device_name(0), "| torch",
           torch.__version__, "| CUDA", torch.version.cuda, flush=True)
     card = smi[0] if smi else "nvidia-smi gave no output"
     print(card, flush=True)
 
     # 2. build
-    print("[2/12] build", flush=True)
+    header("[2/13] build", flush=True)
     try:
         path, seconds, log = kbuild.build()
         kbuild.library()
@@ -3965,7 +4355,7 @@ def main() -> int:
         return 1
 
     # 3. per-kernel parity
-    print("[3/12] kernels vs plain versions at main-path shapes (a plain version "
+    header("[3/13] kernels vs plain versions at main-path shapes (a plain version "
           "repeats its kernel's arithmetic in PyTorch ops, cuDNN convolutions for "
           "the 2D chain, and is no yardstick of speed)", flush=True)
     kernels = []
@@ -3977,54 +4367,14 @@ def main() -> int:
         failures.append("kernels")
 
     wrappers = kernel_wrappers()
-    # per path, each kernel's launches per request (0: never on this path).
-    # The encoders' PointConvs gather twice each (xyz, [xyz, features]):
-    # CamLiRAFT-L runs 3 encoder passes of 2 PointConvs, the flagship 2 (both
-    # frames share fnet's) and 2 gathers in the final upsample.
-    point = {"furthest_point_sampling": 1, "correlation3d_knn": N_ITERS,
-             "corr3d_tail": N_ITERS, "correlation3d_knn_index": 0,
-             # the exact path (fast_inference auto) launches no fast form
-             **dict.fromkeys(FAST_FORMS.values(), 0), "gru_2d_bf16": 0,
-             "flow_head_2d_bf16": 0}
-    flagship = {**point, "k_nearest_neighbor": 8, "knn_interpolation": N_ITERS,
-                "gather_points_kmajor": 10, "motion_encoder_2d": N_ITERS,
-                "motion_encoder_3d": N_ITERS, "update_2d": 0}
-    # with fuse_hidden, #8's halves run on their own (CLFM between them)
-    halves = {"gru_2d": N_ITERS, "flow_head_2d": N_ITERS, "gru_flowhead_2d": 0}
-    pwc_point = {**dict.fromkeys(wrappers, 0), "k_nearest_neighbor": 20,
-                 "furthest_point_sampling": 1, "knn_interpolation": 9,
-                 "gather_points_kmajor": 40}
-    paths = (
-        ("CamLiRAFT-L", CamLiRAFTL, L_CFGS, False,
-         {**point, "k_nearest_neighbor": 6, "knn_interpolation": N_ITERS + 1,
-          "gather_points_kmajor": 12, "motion_encoder_3d": N_ITERS,
-          "gru_flowhead_3d": N_ITERS, "motion_encoder_2d": 0, "gru_flowhead_2d": 0,
-          "gru_2d": 0, "flow_head_2d": 0, "update_2d": 0, "clfm_fused": 0, "dw_max": 0}),
-        ("CamLiRAFT", CamLiRAFT, FLAGSHIP_CFGS, True,
-         {**flagship, "clfm_fused": 2 * N_ITERS, "gru_flowhead_2d": N_ITERS, "gru_2d": 0,
-          "flow_head_2d": 0, "gru_flowhead_3d": N_ITERS, "dw_max": 0}),
-        # GRU3D and FlowHead3D as torch ops around their 4 PointConvDW tails
-        ("CamLiRAFT fuse_hidden", CamLiRAFT, HIDDEN_CFGS, True,
-         {**flagship, **halves, "clfm_fused": 3 * N_ITERS, "gru_flowhead_3d": 0,
-          "dw_max": 4 * N_ITERS}),
-        ("RAFT", RAFT, RAFT_CFGS, True,
-         {**dict.fromkeys(wrappers, 0), "update_2d": N_ITERS}),
-        # the PWC family (no refinement loop): the point side's KNN in each
-        # pyramid PointConv (5 a frame) and twice a decoder level, #3 in the
-        # level upsample and the backwarp (levels 4-1) and the final
-        # upsample, #12 in 20 PointConvs; CamLiPWC adds 2 CLFM caches a level
-        ("PWC", PWC, PWC_CFGS, True, dict.fromkeys(wrappers, 0)),
-        ("CamLiPWC-L", CamLiPWCL, CAMLIPWC_L_CFGS, False, pwc_point),
-        ("CamLiPWC", CamLiPWC, CAMLIPWC_CFGS, True,
-         {**pwc_point, "k_nearest_neighbor": 30}),
-    )
+    paths = main_paths(wrappers)
     total = dict.fromkeys(wrappers, 0)
     for label, cls, cfgs, images, per_request in paths:
         # 4. end to end
         has_points = cls not in (RAFT, PWC)
         iterative = cls in (CamLiRAFTL, CamLiRAFT, RAFT)
         points = f"{N_POINTS} pts, " if has_points else ""
-        print(f"[4/12] {label} eval: {points}"
+        header(f"[4/13] {label} eval: {points}"
               f"{f'{IMAGE_W}x{IMAGE_H} images, ' if images else ''}"
               f"{f'{N_ITERS} iters, ' if iterative else ''}bs=1"
               f"{', IDS on' if has_points else ''}", flush=True)
@@ -4060,7 +4410,7 @@ def main() -> int:
             failures.append(f"{label} bs={BATCH}")
 
         # 5. CUDA vs CPU
-        print(f"[5/12] {label}: same weights and input on the CPU (plain versions)",
+        header(f"[5/13] {label}: same weights and input on the CPU (plain versions)",
               flush=True)
         try:
             if out is None:
@@ -4086,14 +4436,14 @@ def main() -> int:
     # 6-8. this slice's paths: the lookahead, the KITTI submission, the demo
     flagship_request = next(per_request for label, _, _, _, per_request in paths
                             if label == "CamLiRAFT")
-    print("[6/12] the Evaluator's one-batch lookahead against a synchronous loop: the "
+    header("[6/13] the Evaluator's one-batch lookahead against a synchronous loop: the "
           f"flagship, 4 batches of {BATCH} frame pairs", flush=True)
     try:
         lookahead_phase(device, card)
     except Exception:
         traceback.print_exc()
         failures.append("lookahead")
-    print(f"[7/12] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
+    header(f"[7/13] KITTI submission: {KITTI_FRAMES} synthetic frames at {KITTI_W}x{KITTI_H}, "
           f"the flagship, bs={BATCH}, {N_POINTS} pts, densified by #3", flush=True)
     try:
         launches = submission_phase(device, wrappers, flagship_request, card, kernels)
@@ -4102,7 +4452,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("submission")
-    print(f"[8/12] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
+    header(f"[8/13] demo: a synthetic {IMAGE_W}x{IMAGE_H} pair with PFM disparities, the "
           "flagship, on the card and on the CPU", flush=True)
     try:
         launches = demo_phase(device, wrappers, flagship_request, card)
@@ -4111,7 +4461,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("demo")
-    print(f"[9/12] training: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
+    header(f"[9/13] training: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
           f"{N_POINTS} pts, {TRAIN_ITERS} iters, amp, augmentation), batches of {TRAIN_BATCH}, "
           f"{TRAIN_PAIRS} synthetic pairs; resume; an f32 step against the CPU", flush=True)
     try:
@@ -4132,7 +4482,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("training data")
     for family, want, branches in TRAIN_FAMILIES:
-        print(f"[9/12] training {family}: its Trainer at full width (its own training config, "
+        header(f"[9/13] training {family}: its Trainer at full width (its own training config, "
               f"amp, augmentation), batches of {TRAIN_BATCH}, {FAMILY_PAIRS} synthetic pairs; "
               "an f32 step against the CPU", flush=True)
         try:
@@ -4156,7 +4506,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("KITTI training data")
     for family, want, branches in KITTI_FINE_TUNES:
-        print(f"[9/12] KITTI fine-tune {family}: its Trainer on conf/training/kitti/{family}.yaml "
+        header(f"[9/13] KITTI fine-tune {family}: its Trainer on conf/training/kitti/{family}.yaml "
               f"at full width (freeze_bn, amp, augmentation), batches of {TRAIN_BATCH}, "
               f"{KITTI_TRAIN_FRAMES} training and {KITTI_VAL_FRAMES} validation frames; an f32 "
               "step against the CPU", flush=True)
@@ -4171,7 +4521,7 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"KITTI fine-tune {family}")
 
-    print(f"[10/12] data-parallel: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
+    header(f"[10/13] data-parallel: the flagship's Trainer at full width ({IMAGE_W}x{IMAGE_H}, "
           f"{N_POINTS} pts, {TRAIN_ITERS} iters, f32), global batch {TRAIN_BATCH}: one process; "
           "(a) 1 rank over NCCL; (b) 2 ranks over gloo on the one card; (c) their run_things "
           f"over {DP_FRAMES} frames", flush=True)
@@ -4185,7 +4535,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("data-parallel")
 
-    print("[11/12] the fast path (fast_inference=on) at full width: CamLiRAFT-L, the flagship, "
+    header("[11/13] the fast path (fast_inference=on) at full width: CamLiRAFT-L, the flagship, "
           f"fuse_hidden and RAFT at bs=1 and bs={BATCH} against the exact path and the CPU; "
           "the eval CLI", flush=True)
     try:
@@ -4198,7 +4548,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("fast path")
 
-    print("[12/12] the last modules: the FlyingThings3D preprocessing (both modes) on a raw "
+    header("[12/13] the last modules: the FlyingThings3D preprocessing (both modes) on a raw "
           f"synthetic subset at {IMAGE_W}x{IMAGE_H}; the flagship's train step on its output, "
           f"stacked, loss_in_scan, remat_scan and both, at batch {SWITCH_BATCHES}, f32 and amp; "
           "PointNet2, the CVPR interpolation, the fusion heads and the norms against the CPU",
@@ -4213,9 +4563,24 @@ def main() -> int:
         traceback.print_exc()
         failures.append("last modules")
 
+    header(f"[13/13] the gated forms (fast_inference=on): CamLiRAFT-L with "
+          "CAMLIFLOW_UPDATE3D=1, the flagship with CAMLIFLOW_UPDATE3D=1 and CAMLIFLOW_CLFM=1, "
+          f"the flagship with fuse_hidden and CAMLIFLOW_CLFM=1, at bs=1 and bs={BATCH} against "
+          "the fast form and the CPU", flush=True)
+    try:
+        start = time.perf_counter()
+        launches = gated_phase(device, wrappers, card, paths)
+        for key, count in launches.items():
+            total[key] += count
+        print(f"  gated forms: {time.perf_counter() - start:.1f} s", flush=True)
+    except Exception:
+        traceback.print_exc()
+        failures.append("gated forms")
+
     # each kernel's launches over the paths' measured requests
     for entry in kernels:
         entry["launches"] = total[entry.pop("wrapper")]
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     if failures:

@@ -977,9 +977,10 @@ def test_corr3d_tail_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
             corr3d.corr3d_tail(xyz1, xyz2, idx, cost, params._replace(wm=wm), 3, 4)
 
 
-def clfm_case(device, seed, batch, height, width, n, c2, c3):
+def clfm_case(device, seed, batch, height, width, n, c2, c3, bf16=False):
     """A CLFM with random weights, its hoisted operands and inputs; some
-    points project outside the map, so some taps are weighted 0."""
+    points project outside the map, so some taps are weighted 0. `bf16`:
+    the bf16 form's gate and packings."""
     from camliflow_torch.nn.clfm import CLFM, fusion_interp_cache
 
     torch.manual_seed(seed)
@@ -990,10 +991,11 @@ def clfm_case(device, seed, batch, height, width, n, c2, c3):
     span = torch.tensor([width + 3.0, height + 3.0], device=device)
     uv = torch.rand(batch, n, 2, generator=gen, device=device) * span - 1.5
     cache = fusion_interp_cache(uv, height, width)
-    score = clfm.hoist_interp_score(module.interp, cache[1])
+    score = clfm.hoist_interp_score(module.interp, cache[1], bf16)
     tap_idx, tap_w = clfm.grid_sample_cache(uv, height, width)
     assert (tap_w == 0).any()
-    return (feat_2d, feat_3d, score, cache[0], tap_idx, tap_w), clfm.prepare_clfm_params(module)
+    return ((feat_2d, feat_3d, score, cache[0], tap_idx, tap_w),
+            clfm.prepare_clfm_params(module, bf16))
 
 
 @pytest.mark.cuda
@@ -1301,3 +1303,91 @@ def test_update2d_fast_kernels_match_plain(cuda, shape):
         assert_fast_close(d10, d10_ref)
         assert [(w.launches, w.fast_launches) for w in wrappers] == [
             (launches, fast + 1) for launches, fast in before]
+
+
+# --- the gated forms: #6 and #7 on int8 weights, #11 in bf16 ------------------
+
+BF16_STEP = 2.0**-7  # one bf16 rounding step, relative to the value, at most
+
+
+def assert_within_a_step(got, ref):
+    """The gated forms round every dense layer's operands to bf16; their
+    sums run in another order than the plain versions' (the tile's bf16
+    passes), so a rounding can flip: |kernel - plain| within one bf16 step
+    of the plain output's largest value."""
+    err = float((got - ref).abs().max())
+    assert err <= BF16_STEP * float(ref.abs().max()), err
+
+
+def int8_case(device, seed, batch, n):
+    """The int8 form's operands (`prepare_int8` of the bf16 hoisted
+    weights, as the models make them) and the 3D chain's inputs."""
+    (encoder, gru, head), idx, dw_me, dw_gf = update3d_case(device, seed, batch, n)
+    dw = {"motion_encoder": dw_me, "gru": {k: dw_gf[k] for k in ("conv_zr", "conv_q")},
+          "flow_head": {k: dw_gf[k] for k in ("conv1", "conv2")}}
+    dw, me, gf = update3d.prepare_int8(update3d.to_bf16(dw), encoder, gru, head)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flow = 0.1 * torch.randn(batch, n, 3, generator=gen, device=device)
+    corr = torch.randn(batch, n, 128, generator=gen, device=device)
+    h = torch.tanh(torch.randn(batch, n, 128, generator=gen, device=device))
+    x3d = torch.relu(torch.randn(batch, n, 128, generator=gen, device=device))
+    return (flow, corr, idx), (h, x3d, idx), dw, me, gf
+
+
+def counts(wrapper):
+    return (wrapper.launches, wrapper.fast_launches, wrapper.int8_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 100), (8, 2048)])
+def test_update3d_int8_kernels_match_plain(cuda, batch, n):
+    """#6 and #7 on int8 hoisted weights (the merge conv's rows 128 bytes
+    apart) with bf16 packings: within one bf16 step of the plain int8 form,
+    the flow columns bit for bit, a rerun bit for bit; counted on
+    `int8_launches`."""
+    with torch.inference_mode():
+        (flow, corr, idx), (h, x3d, _), dw, me, gf = int8_case(cuda, 53, batch, n)
+        assert dw["motion_encoder"]["conv"].stride()[2:] == (128, 1)
+        me_before, gf_before = counts(update3d.motion_encoder_3d), counts(update3d.gru_flowhead_3d)
+        motion = update3d.motion_encoder_3d(flow, corr, idx, dw["motion_encoder"], me)
+        gf_dw = {**dw["gru"], **dw["flow_head"]}
+        h_got, d_got = update3d.gru_flowhead_3d(h, x3d, motion, idx, gf_dw, gf)
+        assert counts(update3d.motion_encoder_3d) == (me_before[0], me_before[1],
+                                                      me_before[2] + 1)
+        assert counts(update3d.gru_flowhead_3d) == (gf_before[0], gf_before[1], gf_before[2] + 1)
+        ref = update3d.motion_encoder_3d_plain(flow, corr, idx, dw["motion_encoder"], me)
+        h_ref, d_ref = update3d.gru_flowhead_3d_plain(h, x3d, motion, idx, gf_dw, gf)
+        assert torch.equal(update3d.motion_encoder_3d(flow, corr, idx, dw["motion_encoder"], me),
+                           motion)
+        again = update3d.gru_flowhead_3d(h, x3d, motion, idx, gf_dw, gf)
+    assert torch.equal(motion[..., -3:], flow)
+    assert_within_a_step(motion, ref)
+    assert torch.equal(again[0], h_got) and torch.equal(again[1], d_got)
+    assert_within_a_step(h_got, h_ref)
+    assert_within_a_step(d_got, d_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,height,width,n,c2,c3", [
+    (1, 68, 120, 2048, 324, 128),  # the flagship's corr call
+    (1, 68, 120, 2048, 128, 128),  # its motion call
+    (2, 7, 9, 50, 128, 128),
+])
+def test_clfm_bf16_kernel_matches_plain(cuda, batch, height, width, n, c2, c3):
+    """#11 in its bf16 form (bf16 packings, a bf16 score gate): within one
+    bf16 step of the plain bf16 form, a rerun bit for bit; counted on
+    `fast_launches`."""
+    with torch.inference_mode():
+        inputs, params = clfm_case(cuda, 54, batch, height, width, n, c2, c3, bf16=True)
+        assert inputs[2].dtype == torch.bfloat16
+        before = (clfm.clfm_fused.launches, clfm.clfm_fused.fast_launches)
+        got_2d, got_3d = clfm.clfm_fused(*inputs, params)
+        again_2d, again_3d = clfm.clfm_fused(*inputs, params)
+        assert (clfm.clfm_fused.launches, clfm.clfm_fused.fast_launches) == (before[0],
+                                                                             before[1] + 2)
+        ref_2d, ref_3d = clfm.clfm_fused_plain(*inputs, params)
+        with pytest.raises(TypeError, match="score"):  # the bf16 form takes a bf16 gate
+            clfm.clfm_fused(*inputs[:2], inputs[2].float(), *inputs[3:], params)
+    assert_within_a_step(got_2d, ref_2d)
+    assert_within_a_step(got_3d, ref_3d)
+    assert torch.equal(got_2d, again_2d) and torch.equal(got_3d, again_3d)
