@@ -52,6 +52,10 @@ SIGNATURES = {
     "camli_corr3d_tail": [_P] * 12 + [_I] * 7 + [_P],
     "camli_clfm": [_P] * 14 + [_I] * 8 + [_P],
 }
+# host functions that return a byte count: name -> argtypes
+SIZES = {
+    "camli_update_2d_scratch": [_I] * 8,
+}
 
 
 def sources() -> list[Path]:
@@ -116,6 +120,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in SIZES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_size_t
     lib.camli_error_string.argtypes = [ctypes.c_int]
     lib.camli_error_string.restype = ctypes.c_char_p
     return lib

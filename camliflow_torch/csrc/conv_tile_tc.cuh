@@ -1,7 +1,8 @@
 // The 3xTF32 tensor-core implicit-GEMM convolution tile: update2d.cu's
 // motion encoder (kernel #9), its GRU and flow head (kernel #8), #8's two
-// halves and the fused RAFT iteration (#10), update3d.cu's dense steps
-// (#7) and clfm.cu's six dense layers (kernel #11) run on it.
+// halves and the fused RAFT iteration (#10) on the exact path,
+// update3d.cu's dense steps (#7) and clfm.cu's six dense layers (kernel
+// #11) run on it.
 //
 // The convolution (`Conv`): NHWC inputs read as one virtual channel concat
 // of up to three tensors, the reduction ordered (tap, input channel), zero
@@ -20,8 +21,9 @@
 // The weights arrive split once per request (ops/update2d.py::pack_convs,
 // planes [N_pad][K_pad], K-major); the kernel splits the activations.
 //
-// The bf16 mode (template argument BF; the 2D chain's fast path, and the
-// int8 form of update3d.cu's dense steps and the bf16 form of clfm.cu's): the
+// The bf16 mode (template argument BF; the int8 form of update3d.cu's dense
+// steps and the bf16 form of clfm.cu's; the 2D chain's fast path runs on
+// conv_tile_bf16.cuh's wgmma tile instead): the
 // weights arrive rounded to bf16 once per request, in the hi plane (the lo
 // plane is neither passed nor read); each activation is rounded to bf16
 // (nearest, ties to even: cvt.rn.bf16x2) as it is taken from the stage; a

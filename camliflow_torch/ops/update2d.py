@@ -20,13 +20,17 @@ at a time, so its wrappers take inputs whose channel counts are multiples
 of 4 and whose addresses are 16-byte aligned, and raise on others.
 
 The fast path (`fast_inference=on`) packs with `bf16=True`: the weights
-rounded to bf16 once per request (the biases stay f32), and the kernels run
-the tile's bf16 mode, one bf16 tensor-core pass a chunk with f32
-accumulation, at the rounding points of camliflow_tpu/ops/pallas_update2d.py:
-every conv's input rounded to bf16, and the GRU's hidden state rounded to
-bf16 (after nan_to_num) at the end of each direction and wherever it is
-read. The plain versions round at the same points. The fast forms' launches
-count on each wrapper's `.fast_launches`.
+rounded to bf16 once per request and stored as a `torch.bfloat16` plane
+[N_pad, K_pad], K_pad a multiple of 64 (the biases stay f32), and the kernels
+run on `csrc/conv_tile_bf16.cuh`'s wgmma tile with f32 accumulation, at the
+rounding points of camliflow_tpu/ops/pallas_update2d.py: every conv's input
+rounded to bf16, and the GRU's hidden state rounded to bf16 (after
+nan_to_num) at the end of each direction and wherever it is read. The
+intermediates that every consumer rounds (the ReLU outputs of conv_c1,
+conv_c2, conv_f2 and the flow head's first conv, and r*h) are kept in bf16.
+The plain versions round at the same points, on the same bf16 values as f32
+(`PackedConv.weight`). The fast forms' launches count on each wrapper's
+`.fast_launches`.
 
     motion_encoder_2d(flow, corr, me)          -> motion [B, H, W, 126 + 2]
     gru_2d(h, x2d, motion, gru)                -> h' [B, H, W, 128]
@@ -50,8 +54,9 @@ from torch import nn
 
 from . import _cuda
 
-K_ALIGN = 16  # the kernel's reduction chunk
-N_ALIGN = 64  # the kernel's output-channel tile
+K_ALIGN = 16  # the 3xTF32 tile's reduction chunk
+K_ALIGN_BF16 = 64  # the bf16 tile's reduction stage: one 128-byte row of bf16
+N_ALIGN = 64  # the kernels' output-channel tile
 
 
 class PackedConv(NamedTuple):
@@ -61,7 +66,7 @@ class PackedConv(NamedTuple):
     kw: int
     cin: int
     cout: int
-    hi: torch.Tensor | None = None  # [N_pad, K_pad]: tf32(weight.T) (bf16: weight.T)
+    hi: torch.Tensor | None = None  # [N_pad, K_pad]: tf32(weight.T) (bf16: weight.T in bf16)
     lo: torch.Tensor | None = None  # [N_pad, K_pad]: tf32(weight.T - hi) (bf16: none)
     bf16: bool = False  # the fast path's packing: weight holds bf16 values
 
@@ -98,22 +103,23 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def pack_convs(*convs: nn.Conv2d, bf16: bool = False) -> PackedConv:
     """One packed conv from Conv2d modules sharing their input: their output
     channels are stacked in order (the GRU's z and r). Also the tf32 planes
-    of the tensor-core tile, zero in the padding; with `bf16` (the fast
-    path) the weights rounded to bf16 and, as the tile's one plane, their
-    transpose."""
+    of the 3xTF32 tile, zero in the padding; with `bf16` (the fast path) the
+    weights rounded to bf16, K padded to a multiple of 64, and as the bf16
+    tile's one plane their transpose stored in bf16."""
     weight = torch.cat([c.weight for c in convs], dim=0).detach().float()
     bias = torch.cat([c.bias for c in convs], dim=0).detach().float()
     cout, cin, kh, kw = weight.shape
     k = kh * kw * cin
     flat = weight.permute(2, 3, 1, 0).reshape(k, cout)
-    packed = weight.new_zeros(_round_up(k, K_ALIGN), _round_up(cout, N_ALIGN))
+    packed = weight.new_zeros(_round_up(k, K_ALIGN_BF16 if bf16 else K_ALIGN),
+                              _round_up(cout, N_ALIGN))
     packed[:k, :cout] = flat
     padded_bias = bias.new_zeros(packed.shape[1])
     padded_bias[:cout] = bias
     if bf16:
         packed = bf16_round(packed)
-        return PackedConv(packed, padded_bias, kh, kw, cin, cout, packed.t().contiguous(),
-                          None, True)
+        plane = packed.t().contiguous().to(torch.bfloat16)
+        return PackedConv(packed, padded_bias, kh, kw, cin, cout, plane, None, True)
     hi, lo = split_tf32(packed.t().contiguous())
     return PackedConv(packed, padded_bias, kh, kw, cin, cout, hi, lo)
 
@@ -176,11 +182,15 @@ def _check_params(name: str, params: dict, device: torch.device) -> None:
                                  f"{device}; prepare them on the inputs' device")
 
 
-def _check_tc(name: str, params: dict, keys, **tensors: torch.Tensor) -> None:
-    """What the tensor-core tile assumes: each input's channel count a
-    multiple of 4 and its address 16-byte aligned (16-byte copies of 4
-    channels), and each packed conv's tf32 planes (bf16: its one plane)
-    beside its weights, all in one mode."""
+def _check_tc(name: str, params: dict, keys, bf16_tile: bool = False,
+              **tensors: torch.Tensor) -> None:
+    """What the tensor-core tiles assume: each input's channel count a
+    multiple of 4 and its address 16-byte aligned (copies of 4 channels),
+    and each packed conv's tf32 planes (bf16: its one plane) beside its
+    weights, all in one mode. `bf16_tile`: a bf16 packing feeds the bf16
+    tile (the 2D chain's fast path), whose plane is bf16 with K_pad a
+    multiple of 64 (a TMA box a stage) and whose convs have at most 256
+    outputs (one wgmma width)."""
     for key, t in tensors.items():
         if t.shape[-1] % 4:
             raise ValueError(f"{name}: {key} has {t.shape[-1]} channels, not a multiple of 4 "
@@ -200,6 +210,20 @@ def _check_tc(name: str, params: dict, keys, **tensors: torch.Tensor) -> None:
         if key != keys[-1] and conv.cout % 4:
             raise ValueError(f"{name}: params[{key!r}] feed the next conv {conv.cout} "
                              "channels, not a multiple of 4")
+        if bf16_tile and conv.bf16 and (conv.hi.dtype != torch.bfloat16
+                                        or conv.hi.shape[1] % K_ALIGN_BF16):
+            raise ValueError(f"{name}: params[{key!r}] need their bf16 plane [N_pad, K_pad], "
+                             f"K_pad a multiple of {K_ALIGN_BF16}; pack them with "
+                             "pack_convs(..., bf16=True)")
+        if bf16_tile and conv.bf16 and conv.cout > 256:
+            raise ValueError(f"{name}: params[{key!r}] have {conv.cout} outputs; the bf16 "
+                             "tile takes up to 256")
+
+
+def _scratch_dtype(conv: PackedConv) -> torch.dtype:
+    """The storage of the intermediates that every consumer rounds to bf16
+    (the chain's ReLU outputs, r*h): bf16 on the fast path's packing."""
+    return torch.bfloat16 if conv.bf16 else torch.float32
 
 
 def _planes(params: dict, keys) -> ctypes.Array:
@@ -232,9 +256,13 @@ def motion_encoder_2d(flow: torch.Tensor, corr: torch.Tensor, params: dict):
     ff1 = _conv_f1(flow, params)
     if (c2.cin, f2.cin, merge.cin) != (c1.cout, ff1.shape[-1], c2.cout + f2.cout):
         raise ValueError(f"{name}: the packed convs do not chain")
-    _check_tc(name, params, ME_CONVS, corr=corr, ff1=ff1)
-    new = lambda c: flow.new_empty(batch, height, width, c)  # noqa: E731
-    cf1, cf, ff, out = new(c1.cout), new(c2.cout), new(f2.cout), new(merge.cout + 2)
+    _check_tc(name, params, ME_CONVS, bf16_tile=True, corr=corr, ff1=ff1)
+    mid = _scratch_dtype(merge)  # the ReLU outputs between the convs
+
+    def new(c, dtype=torch.float32):
+        return flow.new_empty(batch, height, width, c, dtype=dtype)
+
+    cf1, cf, ff, out = new(c1.cout, mid), new(c2.cout, mid), new(f2.cout, mid), new(merge.cout + 2)
     from ..csrc.build import launch
 
     launch("camli_motion_encoder_2d", flow.data_ptr(), ff1.data_ptr(), corr.data_ptr(),
@@ -348,8 +376,9 @@ def gru_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
     batch, height, width, ch, cx, cm = _check_gru_inputs(name, h, x2d, motion)
     _check_params(name, params, h.device)
     _check_gru(name, params, ch, cx, cm)
-    _check_tc(name, params, GRU_CONVS, h=h, x2d=x2d, motion=motion)
-    z, rh, h1, h_out = (h.new_empty(batch, height, width, ch) for _ in range(4))
+    _check_tc(name, params, GRU_CONVS, bf16_tile=True, h=h, x2d=x2d, motion=motion)
+    z, h1, h_out = (h.new_empty(batch, height, width, ch) for _ in range(3))
+    rh = h.new_empty(batch, height, width, ch, dtype=_scratch_dtype(params["q1"]))
     from ..csrc.build import launch
 
     bf16 = params["zr1"].bf16
@@ -376,8 +405,9 @@ def flow_head_2d(h: torch.Tensor, params: dict) -> torch.Tensor:
     batch, height, width, ch = h.shape
     _check_params(name, params, h.device)
     _check_flow_head(name, params, ch)
-    _check_tc(name, params, HEAD_CONVS, h=h)
-    mid = h.new_empty(batch, height, width, params["head1"].cout)
+    _check_tc(name, params, HEAD_CONVS, bf16_tile=True, h=h)
+    mid = h.new_empty(batch, height, width, params["head1"].cout,
+                      dtype=_scratch_dtype(params["head1"]))
     delta = h.new_empty(batch, height, width, 2)
     from ..csrc.build import launch
 
@@ -405,10 +435,16 @@ def gru_flowhead_2d(h: torch.Tensor, x2d: torch.Tensor, motion: torch.Tensor,
     batch, height, width, ch, cx, cm = _check_gru_inputs(name, h, x2d, motion)
     _check_params(name, params, h.device)
     _check_gru_flowhead(name, params, ch, cx, cm)
-    _check_tc(name, params, GRU_CONVS + HEAD_CONVS, h=h, x2d=x2d, motion=motion)
+    _check_tc(name, params, GRU_CONVS + HEAD_CONVS, bf16_tile=True, h=h, x2d=x2d,
+              motion=motion)
     head1 = params["head1"]
-    new = lambda c: h.new_empty(batch, height, width, c)  # noqa: E731
-    z, rh, h1, mid, h_out, delta = new(ch), new(ch), new(ch), new(head1.cout), new(ch), new(2)
+    bf = _scratch_dtype(head1)
+
+    def new(c, dtype=torch.float32):
+        return h.new_empty(batch, height, width, c, dtype=dtype)
+
+    z, rh, h1, mid, h_out, delta = new(ch), new(ch, bf), new(ch), new(head1.cout, bf), new(ch), \
+        new(2)
     from ..csrc.build import launch
 
     launch("camli_gru_flowhead_2d", h.data_ptr(), x2d.data_ptr(), motion.data_ptr(),
@@ -465,20 +501,23 @@ def update_2d(h: torch.Tensor, x2d: torch.Tensor, flow: torch.Tensor, corr: torc
     ff1 = _conv_f1(flow, me)
     if f2.cin != ff1.shape[-1]:
         raise ValueError(f"{name}: conv_f1 does not feed conv_f2")
-    _check_tc(name, me, ME_CONVS, corr=corr, ff1=ff1)
-    _check_tc(name, gf, GRU_CONVS + HEAD_CONVS, h=h, x2d=x2d)
+    _check_tc(name, me, ME_CONVS, bf16_tile=True, corr=corr, ff1=ff1)
+    _check_tc(name, gf, GRU_CONVS + HEAD_CONVS, bf16_tile=True, h=h, x2d=x2d)
     bf16 = merge.bf16
     if head1.bf16 != bf16:
         raise ValueError(f"{name}: the motion encoder's and the GRU's packings differ in mode")
     if cm % 4:
         raise ValueError(f"{name}: the motion features have {cm} channels, not a multiple of 4 "
                          "(the kernel copies 4 channels at a time)")
-    pixels = batch * height * width
-    # one scratch buffer: [max(c1, head1) | c2 | f2 | motion | 3 x Ch] per pixel
-    per_pixel = max(c1.cout, head1.cout) + c2.cout + f2.cout + cm + 3 * ch
-    scratch = h.new_empty(pixels * per_pixel)
+    from ..csrc.build import launch, library
+
+    # one scratch buffer, its maps laid out by the kernel: [max(c1, head1) |
+    # c2 | f2] (bf16 on the fast path), [motion | z] f32, [r*h] (bf16 on the
+    # fast path), [h1] f32 a pixel
+    nbytes = library().camli_update_2d_scratch(int(bf16), batch * height * width, c1.cout,
+                                               c2.cout, f2.cout, merge.cout, ch, head1.cout)
+    scratch = h.new_empty(nbytes, dtype=torch.uint8)
     h_out, delta = h.new_empty(batch, height, width, ch), h.new_empty(batch, height, width, 2)
-    from ..csrc.build import launch
 
     launch("camli_update_2d", h.data_ptr(), x2d.data_ptr(), flow.data_ptr(), ff1.data_ptr(),
            corr.data_ptr(), _planes({**me, **gf}, ME_CONVS + GRU_CONVS + HEAD_CONVS),

@@ -41,9 +41,12 @@ and points, all three fusions), in phases:
    shapes (CamLiPWC's level upsample with 67 channels the third) by events
    and device time, its selection the plain KNN's (with --other, another
    tree's KNN, interpolation, 3D motion encoder, 3D GRU + flow head,
-   PointConvDW tail and k-major gather are held to the plain versions too
-   and timed beside this tree's, by device time in turns, the GRU + flow
-   head held to this tree's bit for bit); the k-major gather bit for bit at
+   PointConvDW tail, k-major gather and 2D chain's bf16 forms are held to
+   the plain versions too and timed beside this tree's, by device time in
+   turns, the GRU + flow head held to this tree's bit for bit); the 2D
+   chain's bf16 forms (#9, #8 and its halves, #10, on conv_tile_bf16.cuh)
+   at bs 1 and 8, each twice bit for bit, #10 bit for bit #9 then #8, beside
+   the same convs as a chain of bf16 cuDNN calls the port never makes; the k-major gather bit for bit at
    its six main-path calls and CamLiPWC's widest (FlowEstimator3D at level
    1, [1, 4096, 198] x [1, 4096, 16]), by device, event and host time,
    beside one advanced indexing; Correlation3D's selection bit for bit, ties
@@ -227,6 +230,7 @@ PEAK_TF32 = 495e12  # H100 SXM TF32 on the tensor cores, dense, op/s
 PEAK_BF16 = 989e12  # H100 SXM bf16 on the tensor cores, dense, op/s
 TC_MMA = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, 3xTF32"  # conv_tile_tc.cuh
 BF16_MMA = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"  # the tile's bf16 mode
+WGMMA_BF16 = "wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16"  # conv_tile_bf16.cuh
 # the fast path (fast_inference=on): each fast form against its plain version,
 # max|kernel - plain| <= FAST_TOL * (1 + max|plain|) (bf16 roundings after
 # sums in another order can flip: about two bf16 steps of the largest value).
@@ -263,6 +267,17 @@ GATED_FORMS = {"motion_encoder_3d_int8": ("motion_encoder_3d", "int8_launches"),
                "clfm_fused_bf16": ("clfm_fused", "fast_launches")}
 GATED_TOL = 2.0**-7  # a gated form against its plain version: one bf16 step of the largest value
 TC_STAGES = 3  # conv_tile_tc.cuh's kStages
+
+
+def b16_smem_bytes(bn: int) -> int:
+    """conv_tile_bf16.cuh's B16Shape<BN>::kSmemBytes: its ring of A (8 KB) and
+    B (BN x 128 bytes) stages, 160 KB of them at BN >= 192, else 6 or 8
+    stages; the gather's 64 KB of staging; the barriers; 1 KB to align."""
+    stage = 64 * 128 + bn * 128
+    stages = 160 * 1024 // stage if bn >= 192 else (6 if bn >= 128 else 8)
+    return stages * stage + 64 * 1024 + 2 * stages * 8 + 1024
+
+
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, B/s
 L_CFGS = {  # conf/model/camliraft_l.yaml
     "name": "camliraft_l",
@@ -512,10 +527,10 @@ def in_turns(calls: dict, reps: int, only) -> dict[str, list[float]]:
 
 
 def other_tree(root: str):
-    """Another checkout's wrappers of #1, #3, the 3D chain (#6, #7, #13)
-    and #12: its ops.knn, ops.interp, ops.update3d, models.camliraft_l
-    (whose modules hoist the weights as its wrappers take them) and
-    ops.gather, to time
+    """Another checkout's wrappers of #1, #3, the 3D chain (#6, #7, #13),
+    #12 and the 2D chain (#8-#10): its ops.knn, ops.interp, ops.update3d,
+    models.camliraft_l (whose modules hoist the weights as its wrappers take
+    them), ops.gather and ops.update2d, to time
     beside this tree's: its camliflow_torch imported as
     `other_camliflow_torch`, its kernels built from its own sources into its
     own build/."""
@@ -533,7 +548,7 @@ def other_tree(root: str):
     print(f"  other tree: built {path} in {seconds:.1f} s", flush=True)
     return tuple(importlib.import_module(f"{name}.{module}")
                  for module in ("ops.knn", "ops.interp", "ops.update3d", "models.camliraft_l",
-                                "ops.gather"))
+                                "ops.gather", "ops.update2d"))
 
 
 def stage_ms(fn, reps: int) -> list[tuple[str, float]]:
@@ -616,6 +631,9 @@ def ptxas_summary(log: str) -> list[str]:
                 bm, bn, _, _, *ks, _ = map(int, re.findall(r"\d+", name.split("<", 1)[1]))
                 ks = ks[0] if ks else 1
                 used += f", {TC_STAGES * 4 * 16 * ks * (bm + 2 * bn)} bytes dynamic smem"
+            elif name.startswith("conv_bf16_kernel<"):  # <BN, producer warpgroups, epilogue>
+                bn = int(re.findall(r"\d+", name.split("<", 1)[1])[0])
+                used += f", {b16_smem_bytes(bn)} bytes dynamic smem"
             elif name.startswith(("gru_flowhead_3d_dense", "motion_encoder_3d_dense")):
                 used += f", {TC_STAGES * 4 * 16 * (32 + 2 * 64)} bytes dynamic smem (dense steps)"
             elif name.startswith("corr3d_tail_kernel"):  # at the main path's shape
@@ -778,6 +796,187 @@ def selection_calls(both, order, gen):
                     ("level upsample, 67 channels", xyz1, torch.cat([flow, flow_feat], -1),
                      lv[0][:1])]
     return lv, knn_calls, interp_calls
+
+
+def fast_2d_forms(device, gen, blocks, inputs, exact, other, record) -> None:
+    """Phase 3's 2D chain in bf16 (#9, #8 and its halves, #10) on
+    conv_tile_bf16.cuh's wgmma tile, at the flagship's 1/8 map, bs 1 and
+    BATCH; `inputs` the bs-1 (flow, corr, h, x2d, motion), `exact` the exact
+    packings and #10's exact call, timed beside; `record` kernel_parity's."""
+    import torch
+
+    from camliflow_torch.ops import update2d
+
+    encoder, gru, head = blocks
+    flow2d, corr, h, x2d, motion = inputs
+    me, gf, fused = exact
+    feat_h, feat_w = flow2d.shape[1:3]
+    pixels = feat_h * feat_w
+
+    def mean(times):
+        return sum(times) / len(times)
+
+    def beside(times):  # each reading, where the other tree's stand beside
+        if "other" not in times:
+            return ""
+        this, theirs = (", ".join(f"{t:.4f}" for t in times[key]) for key in ("this", "other"))
+        return f" ({this}); other tree {theirs} ms"
+
+    # the fast path's forms on conv_tile_bf16.cuh's wgmma tile (bf16
+    # weight planes, bf16 intermediates), each against its plain bf16
+    # version (FAST_TOL) at bs 1 and 8; #10 bit for bit #9 then #8 and
+    # two runs bit for bit; device time by profiler beside the other
+    # tree's forms (in turns, other, this, this, other) and beside a
+    # yardstick the port never calls: the same convs alone as cuDNN bf16
+    # channels-last F.conv2d calls
+    me16, gf16 = update2d.prepare_update_2d_params(encoder, gru, head, bf16=True)
+    gp16 = {k: gf16[k] for k in update2d.GRU_CONVS}
+    hp16 = {k: gf16[k] for k in update2d.HEAD_CONVS}
+    if other:
+        me_o, gf_o = other[5].prepare_update_2d_params(encoder, gru, head, bf16=True)
+        gp_o = {k: gf_o[k] for k in update2d.GRU_CONVS}
+        hp_o = {k: gf_o[k] for k in update2d.HEAD_CONVS}
+    convs16 = {key: conv for p in (me16, gf16) for key, conv in p.items() if key != "conv_f1"}
+    me_keys, gru_keys, head_keys = (list(update2d.ME_CONVS), list(update2d.GRU_CONVS),
+                                    list(update2d.HEAD_CONVS))
+    form_convs = {"motion_encoder_2d": me_keys, "gru_flowhead_2d": gru_keys + head_keys,
+                  "gru_2d": gru_keys, "flow_head_2d": head_keys,
+                  "update_2d": me_keys + gru_keys + head_keys}
+
+    def cudnn_chain(keys, batch):
+        """The convs `keys` alone, as bf16 channels-last F.conv2d calls
+        with their biases on inputs of their shapes: a chain of
+        len(keys) cuDNN calls, no epilogue, concat or rounding."""
+        import torch.nn.functional as F
+
+        calls = []
+        for key in keys:
+            conv = convs16[key]
+            weight = conv.oihw().to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            bias = conv.bias[: conv.cout].to(torch.bfloat16)
+            x = torch.randn(batch, conv.cin, feat_h, feat_w, generator=gen, device=device)
+            x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            calls.append((x, weight, bias, ((conv.kh - 1) // 2, (conv.kw - 1) // 2)))
+        return lambda: [F.conv2d(x, w, b, padding=pad) for x, w, b, pad in calls]
+
+    weights16 = {key: 2 * conv.kh * conv.kw * conv.cin * conv.cout + 4 * conv.cout
+                 for key, conv in convs16.items()}  # bf16 weights, f32 biases
+    macs16 = {"motion_encoder_2d": 324 * 256 + 9 * 256 * 192 + 9 * 128 * 64 + 9 * 256 * 126,
+              "gru_2d": 2 * 5 * 384 * (256 + 128), "flow_head_2d": 9 * 128 * 256 + 9 * 256 * 2}
+    macs16["gru_flowhead_2d"] = macs16["gru_2d"] + macs16["flow_head_2d"]
+    macs16["update_2d"] = macs16["motion_encoder_2d"] + macs16["gru_flowhead_2d"]
+    # f32 values read and written a pixel: each input once, each output once
+    floats16 = {"motion_encoder_2d": 2 + 324 + 128 + 128, "gru_2d": 3 * 128 + 128,
+                "flow_head_2d": 128 + 2, "gru_flowhead_2d": 3 * 128 + 128 + 2,
+                "update_2d": 2 * 128 + 2 + 324 + 128 + 128 + 2}
+    fast2d = {}  # form -> {batch: measurements}
+    for batch in (1, BATCH):
+        if batch == 1:
+            fl, co, hb, xb, mb = flow2d, corr, h, x2d, motion
+        else:
+            def rand_b(channels, scale=1.0):
+                return scale * torch.randn(batch, feat_h, feat_w, channels, generator=gen,
+                                           device=device)
+
+            fl, co = rand_b(2, 2.0), rand_b(324)
+            hb, xb, mb = torch.tanh(rand_b(128)), torch.relu(rand_b(128)), rand_b(128)
+        mo = update2d.motion_encoder_2d(fl, co, me16)
+        if not torch.equal(mo[..., -2:], fl):
+            raise AssertionError("motion_encoder_2d (bf16): the flow tail is not the flow")
+        forms = {  # this tree's call, the other tree's, the plain version
+            "motion_encoder_2d": (
+                lambda: update2d.motion_encoder_2d(fl, co, me16),
+                other and (lambda: other[5].motion_encoder_2d(fl, co, me_o)),
+                lambda: update2d.motion_encoder_2d_plain(fl, co, me16)),
+            "gru_flowhead_2d": (
+                lambda: update2d.gru_flowhead_2d(hb, xb, mb, gf16),
+                other and (lambda: other[5].gru_flowhead_2d(hb, xb, mb, gf_o)),
+                lambda: update2d.gru_flowhead_2d_plain(hb, xb, mb, gf16)),
+            "gru_2d": (
+                lambda: update2d.gru_2d(hb, xb, mb, gp16),
+                other and (lambda: other[5].gru_2d(hb, xb, mb, gp_o)),
+                lambda: update2d.gru_2d_plain(hb, torch.cat([xb, mb], dim=-1), gp16)),
+            "flow_head_2d": (
+                lambda: update2d.flow_head_2d(hb, hp16),
+                other and (lambda: other[5].flow_head_2d(hb, hp_o)),
+                lambda: update2d.flow_head_2d_plain(hb, hp16)),
+            "update_2d": (
+                lambda: update2d.update_2d(hb, xb, fl, co, me16, gf16),
+                other and (lambda: other[5].update_2d(hb, xb, fl, co, me_o, gf_o)),
+                lambda: update2d.update_2d_plain(hb, xb, fl, co, me16, gf16)),
+        }
+        h_c, d_c = update2d.gru_flowhead_2d(hb, xb, mo, gf16)
+        h_k, d_k = update2d.update_2d(hb, xb, fl, co, me16, gf16)
+        if not (torch.equal(h_k, h_c) and torch.equal(d_k, d_c)):
+            raise AssertionError(f"update_2d (bf16) bs {batch}: not bit for bit the chain "
+                                 "motion_encoder_2d + gru_flowhead_2d")
+        if not torch.equal(h_k, h_k.bfloat16().float()):
+            raise AssertionError("update_2d (bf16): h' is not bf16-valued")
+        for name, (fn, fn_other, plain) in forms.items():
+            got, ref = fn(), plain()
+            got, ref = (got if isinstance(got, tuple) else (got,)), \
+                (ref if isinstance(ref, tuple) else (ref,))
+            parts = ("h'", "delta") if len(got) > 1 else ("",)
+            err = max(fast_close(f"{name} (bf16) bs {batch}{' ' if part else ''}{part}", g, r)
+                      for part, g, r in zip(parts, got, ref))
+            for _ in range(2):
+                again = fn()
+                again = again if isinstance(again, tuple) else (again,)
+                if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                    raise AssertionError(f"{name} (bf16) bs {batch}: two runs give "
+                                         "different bits")
+            calls = {"this": fn} if not other else {"other": fn_other, "this": fn}
+            times = in_turns(calls, 10, "")
+            keys = form_convs[name]
+            chain = cudnn_chain(keys, batch)
+            px = batch * pixels
+            fast2d.setdefault(name, {})[batch] = m = {
+                "err": err, "ms": time_ms(fn, 20), "device_ms": mean(times["this"]),
+                "device_ms_each": times["this"], "plain_ms": time_ms(plain, 5),
+                "library_ms": time_ms(chain, 20), "library_device_ms": device_ms(chain, 10),
+                "library_calls": len(keys),
+                "other_device_ms_each": times.get("other"),
+                "ops": 2 * px * macs16[name],
+                "bytes": 4 * px * floats16[name] + sum(weights16[k] for k in keys)}
+            m["bound_ms"], m["bound_by"] = bound(m["ops"], m["bytes"], PEAK_BF16)
+            print(f"  {name} (bf16) bs {batch}: device {m['device_ms']:.4f} ms{beside(times)}"
+                  f"; events {m['ms']:.4f}; bound {m['bound_ms']:.4f} ({m['bound_by']}); "
+                  f"cuDNN bf16 channels-last chain of its {len(keys)} convs alone (the port "
+                  f"never calls it) {m['library_ms']:.4f} events, "
+                  f"{m['library_device_ms']:.4f} device", flush=True)
+        steps = stage_ms(forms["update_2d"][0], 10)
+        fast2d["update_2d"][batch]["steps_ms"] = [ms for _, ms in steps]
+        print(f"  update_2d (bf16) bs {batch} device time by launch (profiler): " +
+              ", ".join(f"{short_name(k)} {ms:.4f}" for k, ms in steps), flush=True)
+
+    exact_ms = {"motion_encoder_2d": time_ms(lambda: update2d.motion_encoder_2d(
+                    flow2d, corr, me), 20),
+                "gru_flowhead_2d": time_ms(lambda: update2d.gru_flowhead_2d(
+                    h, x2d, motion, gf), 20),
+                "update_2d": time_ms(fused, 20)}
+    for name, replaces in (("motion_encoder_2d", "camliflow_tpu/ops/pallas_update2d.py:461"),
+                           ("gru_flowhead_2d", "camliflow_tpu/ops/pallas_update2d.py:235"),
+                           ("gru_2d", "camliflow_tpu/ops/pallas_update2d.py:235"),
+                           ("flow_head_2d", "camliflow_tpu/ops/pallas_update2d.py:235"),
+                           ("update_2d", "camliflow_tpu/ops/pallas_update2d.py:514")):
+        one, eight = fast2d[name][1], fast2d[name][BATCH]
+        extra = {f"bs{BATCH}_{key}": value for key, value in eight.items()
+                 if key not in ("err", "ops", "bytes")}
+        if name in exact_ms:
+            extra["exact_form_ms"] = exact_ms[name]
+        record(f"{name} (bf16)", "camliflow_torch/csrc/conv_tile_bf16.cuh", replaces,
+               max(one["err"], eight["err"]), one["ms"], one["plain_ms"], one["ops"],
+               one["bytes"], bf16_cores=True, mma=WGMMA_BF16,
+               entry=name not in ("gru_2d", "flow_head_2d"), wrapper=f"{name}_bf16",
+               library_ms=one["library_ms"],
+               library=f"cuDNN bf16 channels-last: the {one['library_calls']} convs alone "
+                       "as that many F.conv2d calls (no epilogue, concat or rounding); "
+                       "a yardstick the port never calls",
+               device_ms=one["device_ms"], device_ms_each=one["device_ms_each"],
+               library_device_ms=one["library_device_ms"],
+               other_device_ms_each=one["other_device_ms_each"],
+               **({"steps_ms": one["steps_ms"]} if "steps_ms" in one else {}), **extra)
 
 
 def kernel_parity(device, other=None) -> list[dict]:
@@ -1179,62 +1378,8 @@ def kernel_parity(device, other=None) -> list[dict]:
                        "sequence (the same 10 launches), not a library call",
                library_device_ms=chain_dev, steps_ms=[ms for _, ms in steps])
 
-        # the fast path's forms: the tile's bf16 mode on weights packed to
-        # bf16, each against its plain bf16 version (FAST_TOL), timed beside
-        # its exact form; #10 bit for bit #9 then #8, as on the exact path
-        me16, gf16 = update2d.prepare_update_2d_params(encoder, gru, head, bf16=True)
-        me_fast = lambda: update2d.motion_encoder_2d(flow2d, corr, me16)  # noqa: E731
-        motion16 = me_fast()
-        err = fast_close("motion_encoder_2d (bf16)", motion16,
-                         update2d.motion_encoder_2d_plain(flow2d, corr, me16))
-        weights = sum(size(p) for k, p in me16.items() if k != "conv_f1")
-        macs = 324 * 256 + 9 * 256 * 192 + 9 * 128 * 64 + 9 * 256 * 126
-        record("motion_encoder_2d (bf16)", "camliflow_torch/csrc/update2d.cu",
-               "camliflow_tpu/ops/pallas_update2d.py:461", err, time_ms(me_fast, 20),
-               time_ms(lambda: update2d.motion_encoder_2d_plain(flow2d, corr, me16), 20),
-               2 * pixels * macs, 4 * (pixels * (2 + 128 + 324 + 128) + weights),
-               bf16_cores=True, wrapper="motion_encoder_2d_bf16",
-               exact_form_ms=time_ms(lambda: update2d.motion_encoder_2d(flow2d, corr, me), 20))
-        gf_fast = lambda: update2d.gru_flowhead_2d(h, x2d, motion, gf16)  # noqa: E731
-        h_k, d_k = gf_fast()
-        h_p, d_p = update2d.gru_flowhead_2d_plain(h, x2d, motion, gf16)
-        err = max(fast_close("gru_flowhead_2d (bf16) h'", h_k, h_p),
-                  fast_close("gru_flowhead_2d (bf16) delta", d_k, d_p))
-        if not torch.equal(h_k, h_k.bfloat16().float()):
-            raise AssertionError("gru_flowhead_2d (bf16): h' is not bf16-valued")
-        weights = sum(size(p) for p in gf16.values())
-        macs = 2 * 5 * 384 * (256 + 128) + 9 * 128 * 256 + 9 * 256 * 2
-        record("gru_flowhead_2d (bf16)", "camliflow_torch/csrc/update2d.cu",
-               "camliflow_tpu/ops/pallas_update2d.py:235", err, time_ms(gf_fast, 20),
-               time_ms(lambda: update2d.gru_flowhead_2d_plain(h, x2d, motion, gf16), 20),
-               2 * pixels * macs, 4 * (pixels * (3 * 128 + 128 + 2) + weights),
-               bf16_cores=True, wrapper="gru_flowhead_2d_bf16",
-               exact_form_ms=time_ms(lambda: update2d.gru_flowhead_2d(h, x2d, motion, gf), 20))
-        fused16 = lambda: update2d.update_2d(h, x2d, flow2d, corr, me16, gf16)  # noqa: E731
-        h_k, d_k = fused16()
-        h_c, d_c = update2d.gru_flowhead_2d(h, x2d, motion16, gf16)
-        if not (torch.equal(h_k, h_c) and torch.equal(d_k, d_c)):
-            raise AssertionError("update_2d (bf16): not bit for bit the chain motion_encoder_2d "
-                                 "+ gru_flowhead_2d")
-        h_p, d_p = update2d.update_2d_plain(h, x2d, flow2d, corr, me16, gf16)
-        err = max(fast_close("update_2d (bf16) h'", h_k, h_p),
-                  fast_close("update_2d (bf16) delta", d_k, d_p))
-        weights = sum(size(p) for k, p in me16.items() if k != "conv_f1")
-        weights += sum(size(p) for p in gf16.values())
-        macs = (324 * 256 + 9 * 256 * 192 + 9 * 128 * 64 + 9 * 256 * 126
-                + 2 * 5 * 384 * (256 + 128) + 9 * 128 * 256 + 9 * 256 * 2)
-        fast_steps = stage_ms(fused16, 10)
-        fast_dev = device_ms(fused16, 10)
-        print("  update_2d (bf16) device time by launch (profiler): " +
-              ", ".join(f"{short_name(k)} {ms:.4f}" for k, ms in fast_steps) +
-              f"; {fast_dev:.4f} ms device, the exact form {update_dev:.4f} ms", flush=True)
-        record("update_2d (bf16)", "camliflow_torch/csrc/update2d.cu",
-               "camliflow_tpu/ops/pallas_update2d.py:514", err, time_ms(fused16, 20),
-               time_ms(lambda: update2d.update_2d_plain(h, x2d, flow2d, corr, me16, gf16), 20),
-               2 * pixels * macs, 4 * (pixels * (2 * 128 + 2 + 324 + 128 + 2) + weights),
-               bf16_cores=True, wrapper="update_2d_bf16", device_ms=fast_dev,
-               exact_form_ms=time_ms(fused, 20), exact_form_device_ms=update_dev,
-               steps_ms=[ms for _, ms in fast_steps])
+        fast_2d_forms(device, gen, (encoder, gru, head), (flow2d, corr, h, x2d, motion),
+                      (me, gf, fused), other, record)
 
     # the 3D update chain at the loop's 2048 points, k=32 neighbours
     blocks = nn.ModuleList([MotionEncoder3D(), GRU3D(), FlowHead3D()])
@@ -4298,8 +4443,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Proof that the port runs on one CUDA card.")
     parser.add_argument("--other", metavar="TREE",
                         help="another checkout (a parent unpacked by git archive into an "
-                             "ignored directory, say) whose #1, #3, #6, #7, #12 and #13 "
-                             "phase 3 times beside this tree's")
+                             "ignored directory, say) whose #1, #3, #6, #7, #12, #13 and "
+                             "the 2D chain's bf16 forms phase 3 times beside this tree's")
     args = parser.parse_args()
     started = time.perf_counter()
 

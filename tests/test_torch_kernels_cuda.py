@@ -1305,6 +1305,87 @@ def test_update2d_fast_kernels_match_plain(cuda, shape):
             (launches, fast + 1) for launches, fast in before]
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 68, 120), (8, 68, 120), (1, 47, 156), (1, 9, 11)])
+def test_update2d_bf16_tile_matches_plain_at_the_main_widths(cuda, shape):
+    """The wgmma bf16 tile (conv_tile_bf16.cuh) at the chain's own widths
+    (324 correlation channels) on the flagship's 1/8 map at bs 1 and 8,
+    KITTI's, and a map of 99 pixels (not a multiple of the tile's 64): #9,
+    #8, its halves and #10 within FAST_TOL of their plain bf16 versions, #10
+    bit for bit #9 then #8, and each twice bit for bit."""
+    from camliflow_torch.models.raft import FlowHead2D, GRU2D, MotionEncoder2D
+
+    torch.manual_seed(61)
+    encoder, gru, head = (m.to(cuda) for m in (MotionEncoder2D(), GRU2D(), FlowHead2D()))
+    gen = torch.Generator(device=cuda).manual_seed(61)
+
+    def rand(channels, scale=1.0):
+        return scale * torch.randn(*shape, channels, generator=gen, device=cuda)
+
+    flow, corr = rand(2, 2.0), rand(324)
+    h, x2d = torch.tanh(rand(128)), torch.relu(rand(128))
+    with torch.inference_mode():
+        me, gf = update2d.prepare_update_2d_params(encoder, gru, head, bf16=True)
+        assert me["conv"].hi.dtype == gf["zr1"].hi.dtype == torch.bfloat16
+        gp = {k: gf[k] for k in update2d.GRU_CONVS}
+        hp = {k: gf[k] for k in update2d.HEAD_CONVS}
+        motion = update2d.motion_encoder_2d(flow, corr, me)
+        assert_fast_close(motion, update2d.motion_encoder_2d_plain(flow, corr, me))
+        h_got, d_got = update2d.gru_flowhead_2d(h, x2d, motion, gf)
+        h_ref, d_ref = update2d.gru_flowhead_2d_plain(h, x2d, motion, gf)
+        assert_fast_close(h_got, h_ref)
+        assert_fast_close(d_got, d_ref)
+        h_half = update2d.gru_2d(h, x2d, motion, gp)
+        assert_fast_close(h_half, update2d.gru_2d_plain(h, torch.cat([x2d, motion], -1), gp))
+        d_half = update2d.flow_head_2d(h, hp)
+        assert_fast_close(d_half, update2d.flow_head_2d_plain(h, hp))
+        h10, d10 = update2d.update_2d(h, x2d, flow, corr, me, gf)
+        assert torch.equal(h10, h_got) and torch.equal(d10, d_got)
+        assert torch.equal(h10, h10.bfloat16().float())
+        for _ in range(2):
+            assert torch.equal(update2d.motion_encoder_2d(flow, corr, me), motion)
+            again = update2d.update_2d(h, x2d, flow, corr, me, gf)
+            assert torch.equal(again[0], h10) and torch.equal(again[1], d10)
+            assert torch.equal(update2d.gru_2d(h, x2d, motion, gp), h_half)
+            assert torch.equal(update2d.flow_head_2d(h, hp), d_half)
+
+
+@pytest.mark.cuda
+def test_update2d_bf16_wrappers_raise_on_f32_planes(cuda):
+    """A bf16 packing whose plane is not the bf16 tile's (an f32 plane of
+    bf16 values, or K_pad not a multiple of 64) is refused before any
+    launch, by each of the chain's wrappers."""
+    encoder, gru, head = update_blocks(cuda, 62)
+    gen = torch.Generator(device=cuda).manual_seed(62)
+    shape = (1, 6, 8)
+    flow = torch.randn(*shape, 2, generator=gen, device=cuda)
+    corr = torch.randn(*shape, 36, generator=gen, device=cuda)
+    h = torch.randn(*shape, 128, generator=gen, device=cuda)
+    with torch.inference_mode():
+        me, gf = update2d.prepare_update_2d_params(encoder, gru, head, bf16=True)
+        f32_plane = {k: v._replace(hi=v.hi.float()) for k, v in me.items() if k != "conv_f1"}
+        me32 = {**me, **f32_plane}
+        gf32 = {k: v._replace(hi=v.hi.float()) for k, v in gf.items()}
+        narrow = {k: v._replace(weight=v.weight[:-16].contiguous(),
+                                hi=v.hi[:, :-16].contiguous()) for k, v in gf.items()}
+        wrappers = (update2d.motion_encoder_2d, update2d.gru_flowhead_2d, update2d.gru_2d,
+                    update2d.flow_head_2d, update2d.update_2d)
+        before = [(w.launches, w.fast_launches) for w in wrappers]
+        with pytest.raises(ValueError, match="bf16 plane"):
+            update2d.motion_encoder_2d(flow, corr, me32)
+        for params in (gf32, narrow):
+            with pytest.raises(ValueError, match="bf16 plane"):
+                update2d.gru_flowhead_2d(h, h, h, params)
+            with pytest.raises(ValueError, match="bf16 plane"):
+                update2d.gru_2d(h, h, h, {k: params[k] for k in update2d.GRU_CONVS})
+            with pytest.raises(ValueError, match="bf16 plane"):
+                update2d.flow_head_2d(h, {k: params[k] for k in update2d.HEAD_CONVS})
+        with pytest.raises(ValueError, match="bf16 plane"):
+            update2d.update_2d(h, h, flow, corr, me32, gf)
+        assert [(w.launches, w.fast_launches) for w in wrappers] == before
+
+
 # --- the gated forms: #6 and #7 on int8 weights, #11 in bf16 ------------------
 
 BF16_STEP = 2.0**-7  # one bf16 rounding step, relative to the value, at most
