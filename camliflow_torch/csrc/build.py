@@ -46,7 +46,7 @@ SIGNATURES = {
     "camli_gru_flowhead_2d": [_P] * 10 + [_I] * 8 + [_P],
     "camli_update_2d": [_P] * 9 + [_I] * 13 + [_P],
     "camli_motion_encoder_3d": [_P] * 14 + [_I] * 17 + [_P],
-    "camli_gru_flowhead_3d": [_P] * 18 + [_I] * 17 + [_P],
+    "camli_gru_flowhead_3d": [_P] * 18 + [_I] * 18 + [_P],
     "camli_dw_max": [_P] * 4 + [_I] * 7 + [_P],
     "camli_gather_kmajor": [_P] * 3 + [_I] * 7 + [_P],
     "camli_corr3d_tail": [_P] * 12 + [_I] * 7 + [_P],

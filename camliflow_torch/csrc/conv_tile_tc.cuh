@@ -14,6 +14,13 @@
 // (height = rows, width = 1) is a dense layer; `conv_tc_group_kernel` deals
 // the tiles of up to four independent ones to one grid.
 //
+// A PointConvDW's table for update3d.cu's bf16 tails (EPI_TABLE): the f32
+// value of the other epilogues, leaky ReLU where `leaky`, after adding
+// `add` where given, rounded to bf16 (nearest, ties to even) and stored as
+// bf16, two columns a 4-byte store; the columns past `table_c` are stored
+// as f32 to `out`, unrounded (#7's first dense step: z|r's table, then q's
+// x3d/motion part).
+//
 // Numerics: f32 in, f32 out, on the tensor cores by the 3xTF32 split. Every
 // operand x becomes hi = tf32(x) (cvt.rna, 10 mantissa bits) and
 // lo = tf32(x - hi); a product is lo_a*hi_b + hi_a*lo_b + hi_a*hi_b, the
@@ -72,7 +79,8 @@ constexpr int kNPad = 64;    // output channels: the packed planes' rows, padded
 constexpr int kTcBk = 16;    // reduction floats per warp slice and stage
 constexpr int kStages = 3;   // cp.async ring depth
 
-enum Epilogue { EPI_RELU = 0, EPI_NONE = 1, EPI_ZR = 2, EPI_GATE = 3, EPI_LEAKY = 4 };
+enum Epilogue { EPI_RELU = 0, EPI_NONE = 1, EPI_ZR = 2, EPI_GATE = 3, EPI_LEAKY = 4,
+                EPI_TABLE = 5 };
 
 struct Conv {
   const float* in0;  // virtual concat of up to three NHWC inputs
@@ -91,6 +99,11 @@ struct Conv {
   const float* tail;  // copied to out[p, cout + j] for j < tail_c
   int tail_c;
   int nan_fix;  // nan_to_num on the stored value
+  unsigned short* table;  // TABLE: bf16 [pixels, table_ld], columns < table_c
+  int table_ld, table_c;
+  int leaky;         // TABLE: leaky ReLU before the rounding
+  const float* add;  // TABLE: added first, [pixels, add_ld] (or none)
+  int add_ld;
 };
 
 __device__ __forceinline__ float nan_to_num(float v) {
@@ -157,6 +170,13 @@ __device__ __forceinline__ float round_bf16(float v) {
   unsigned short h;
   asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(v));
   return __uint_as_float((uint32_t)h << 16);
+}
+
+// an f32 value as bf16 bits (nearest, ties to even)
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(v));
+  return h;
 }
 
 // two f32 values as bf16x2 (nearest, ties to even): lo in the low half
@@ -244,6 +264,75 @@ __device__ __forceinline__ void store(const Conv& a, int p, int co, float acc) {
   if (a.nan_fix) v = nan_to_num(v);
   if (BF && EPI == EPI_GATE) v = round_bf16(v);
   a.out[(size_t)p * a.out_stride + co] = v;
+}
+
+// EPI_TABLE: `add`'s value at one element (zero where there is none)
+__device__ __forceinline__ float table_add(const Conv& a, int p, int co) {
+  return a.add != nullptr && p < a.pixels && co < a.table_c && co < a.cout
+             ? __ldg(a.add + (size_t)p * a.add_ld + co)
+             : 0.f;
+}
+
+// EPI_TABLE: columns co and co + 1 (co even) of one pixel, and add's values
+// there (table_add).
+__device__ __forceinline__ void store_table(const Conv& a, int p, int co, float acc0,
+                                            float acc1, float add0, float add1) {
+  if (p >= a.pixels || co >= a.cout) return;
+  const float acc[2] = {acc0, acc1}, add[2] = {add0, add1};
+  float v[2];
+  bool in_table[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    v[e] = acc[e] + a.bias[co + e];  // bias: [n_pad], n_pad even
+    in_table[e] = co + e < a.table_c;
+    if (in_table[e]) {
+      if (a.add != nullptr) v[e] = __fadd_rn(v[e], add[e]);
+      if (a.leaky) v[e] = v[e] > 0.f ? v[e] : __fmul_rn(0.1f, v[e]);
+    }
+  }
+  unsigned short* row = a.table + (size_t)p * a.table_ld;
+  if (in_table[1] && co + 1 < a.cout) {  // table_ld even: a 4-byte word
+    *reinterpret_cast<uint32_t*>(row + co) = pack_bf16x2(v[0], v[1]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (co + e >= a.cout) break;
+    if (in_table[e]) {
+      row[co + e] = bf16_bits(v[e]);
+    } else {
+      a.out[(size_t)p * a.out_stride + co + e - a.table_c] = v[e];
+    }
+  }
+}
+
+// EPI_TABLE: a thread's sums of the tile, its pairs of columns a 4-byte
+// store each; add's values loaded before any store, so that the loads
+// overlap.
+template <typename S, int BM, int BN, int WARPS_M, int WARPS_N>
+__device__ __forceinline__ void store_tables(const Conv& a, const float (&acc)[S::kMt][S::kNt][4],
+                                             int p0, int n0, int wm, int wn, int g, int t) {
+  float add[S::kMt][S::kNt][4];
+#pragma unroll
+  for (int mi = 0; mi < S::kMt; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < S::kNt; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        add[mi][ni][c] = table_add(a, p0 + wm * (BM / WARPS_M) + mi * 16 + g + (c / 2) * 8,
+                                   n0 + wn * (BN / WARPS_N) + ni * 8 + 2 * t + c % 2);
+      }
+#pragma unroll
+  for (int mi = 0; mi < S::kMt; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < S::kNt; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; c += 2) {  // c and c + 1: one row, columns col and col + 1
+        const int row = wm * (BM / WARPS_M) + mi * 16 + g + (c / 2) * 8;
+        const int col = wn * (BN / WARPS_N) + ni * 8 + 2 * t;
+        store_table(a, p0 + row, n0 + col, acc[mi][ni][c], acc[mi][ni][c + 1], add[mi][ni][c],
+                    add[mi][ni][c + 1]);
+      }
 }
 
 // The 3xTF32 split of one activation value.
@@ -466,16 +555,20 @@ __device__ __forceinline__ void conv_tc_tile(const Conv& a, const float* __restr
                     lane];
   }
 
+  if constexpr (EPI == EPI_TABLE) {
+    store_tables<S, BM, BN, WARPS_M, WARPS_N>(a, acc, p0, n0, wm, wn, g, t);
+  } else {
 #pragma unroll
-  for (int mi = 0; mi < S::kMt; ++mi)
+    for (int mi = 0; mi < S::kMt; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < S::kNt; ++ni)
+      for (int ni = 0; ni < S::kNt; ++ni)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = wm * (BM / WARPS_M) + mi * 16 + g + (c / 2) * 8;
-        const int col = wn * (BN / WARPS_N) + ni * 8 + 2 * t + c % 2;
-        store<EPI, BF>(a, p0 + row, n0 + col, acc[mi][ni][c]);
-      }
+        for (int c = 0; c < 4; ++c) {
+          const int row = wm * (BM / WARPS_M) + mi * 16 + g + (c / 2) * 8;
+          const int col = wn * (BN / WARPS_N) + ni * 8 + 2 * t + c % 2;
+          store<EPI, BF>(a, p0 + row, n0 + col, acc[mi][ni][c]);
+        }
+  }
   if (a.tail_c > 0 && n0 == 0) {
     constexpr int kStorers = 32 * WARPS_M * WARPS_N;  // slice 0's threads
     for (int i = tid; i < BM * a.tail_c; i += kStorers) {

@@ -11,7 +11,10 @@ picks the form each wrapper takes:
   with `fast=True`: each conv's MLP output rounded to bf16 before the
   neighbour gather, each product of two bf16 values rounded to bf16
   (nearest, ties to even), the max over k, the result as f32; the dense
-  layers stay f32.
+  layers stay f32. The kernels keep these tables in bf16 (their scratch,
+  `scratch_floats`), so this form takes table widths that are multiples
+  of 8 (16-byte rows) and the merge conv's weights in rows round_up(C, 8)
+  values apart.
 - int8 (`fast_inference=on` with CAMLIFLOW_UPDATE3D=1, `int8_form`;
   `quantize_dw_int8`): the TPU kernels' own numerics. Each conv's weights
   are int8 with a scale a channel taken over the whole batch, folded into
@@ -88,6 +91,7 @@ TAIL_ALIGN = 16
 # csrc/update3d.cu's DwKind: the hoisted weights' dtype, handed to the kernels
 DW_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 INT8_ROW = 16  # an int8 row's channels are a multiple of this (16-byte rows)
+BF16_ROW = 8  # the bf16 form's tables and padded weight rows: 16-byte rows
 INT8_MAX_POINTS = 4096  # the JAX package engages its int8 chain up to this many points
 
 
@@ -170,17 +174,20 @@ def dw_max_plain(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tens
 
 def to_bf16(dw: dict) -> dict:
     """The hoisted weights (a dict of tensors, or of such dicts) in bf16, the
-    fast path's storage, each keeping its layout (the merge conv's rows 128
-    values apart, `padded_rows`)."""
+    fast path's storage, each keeping its layout: contiguous ones stay
+    contiguous, padded rows (the merge conv's, `padded_rows`) stay padded,
+    round_up(C, 8) values apart (128 for its 125 channels, as in f32)."""
     out = {}
     for key, w in dw.items():
         if isinstance(w, dict):
             out[key] = to_bf16(w)
-        elif w.stride(-2) != w.shape[-1]:  # padded rows: convert the buffer
+        elif w.stride(-2) == w.shape[-1]:
+            out[key] = w.to(torch.bfloat16)
+        elif w.stride(-2) % BF16_ROW == 0:  # padded rows: convert the buffer
             buffer = w.as_strided(w.shape[:-1] + (w.stride(-2),), w.stride())
             out[key] = buffer.to(torch.bfloat16)[..., : w.shape[-1]]
-        else:
-            out[key] = w.to(torch.bfloat16)
+        else:  # rows padded for f32 only: pad them again
+            out[key] = padded_rows(w.to(torch.bfloat16))
     return out
 
 
@@ -195,17 +202,17 @@ def _dw_dtype(name: str, dw: dict, keys) -> torch.dtype:
 
 
 def row_multiple(dtype: torch.dtype) -> int:
-    """The channels a padded row of hoisted weights rounds up to: 4 for f32
-    (16 bytes) and bf16 (`to_bf16` keeps the f32 row's pitch), 16 for int8
-    (16 bytes)."""
-    return INT8_ROW if dtype == torch.int8 else 4
+    """The channels a padded row of hoisted weights rounds up to, 16 bytes:
+    4 for f32, 8 for bf16 (the bf16 form's 16-byte loads), 16 for int8."""
+    return {torch.int8: INT8_ROW, torch.bfloat16: BF16_ROW}.get(dtype, 4)
 
 
 def _check_dw(name: str, dw: dict, keys, batch: int, n: int, device,
               padded=()) -> list[int]:
     """The hoisted weights [B, N, k, C], all f32, all bf16 or all int8,
     contiguous, or for the `padded` keys with rows round_up(C, 4) values
-    apart (int8: round_up(C, 16), `padded_rows`); returns their k."""
+    apart (bf16: round_up(C, 8); int8: round_up(C, 16); `padded_rows`);
+    returns their k."""
     dtype = _dw_dtype(name, dw, keys)
     ks = []
     for key in keys:
@@ -258,13 +265,23 @@ def prepare_motion_encoder_3d_params(encoder: nn.Module) -> dict:
 
 def padded_rows(weights: torch.Tensor) -> torch.Tensor:
     """Hoisted weights [B, N, k, C] as #6 reads them: the same values, with
-    rows 16 bytes long, round_up(C, 4) floats (int8: round_up(C, 16) values)
-    apart (the merge conv's 125 channels in rows of 128), as a view of a
-    zero-padded buffer; unchanged where C is a multiple of that."""
+    rows a multiple of 16 bytes long, round_up(C, 4) floats (bf16:
+    round_up(C, 8); int8: round_up(C, 16) values) apart (the merge conv's 125
+    channels in rows of 128), as a view of a zero-padded buffer; unchanged
+    where C is a multiple of that."""
     channels, multiple = weights.shape[-1], row_multiple(weights.dtype)
     if channels % multiple == 0:
         return weights
     return F.pad(weights, (0, _round_up(channels, multiple) - channels))[..., :channels]
+
+
+def scratch_floats(kind: int, tables: tuple[int, ...], rest: tuple[int, ...]) -> int:
+    """The floats a point of #6's or #7's scratch takes: its `tables`
+    (channels of each gathered table) and its other f32 parts (`rest`); the
+    bf16 form (kind 1) keeps the tables in bf16, two channels a float."""
+    if kind == DW_KINDS[torch.bfloat16]:
+        return sum(rest) + sum(tables) // 2
+    return sum(rest) + sum(tables)
 
 
 def motion_encoder_3d_plain(flow, corr, knn_idx, dw: dict, params: dict):
@@ -312,19 +329,25 @@ def _me_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
             or [dw[k].shape[3] for k in ME_CONVS] != [p.cout for p in (c1, f1, f2, merge)]):
         raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
     widths = (c1.cout, f1.cout, f2.cout)
-    if (any(w % 4 for w in widths) or f1.cout > MAX_ROW or f2.cout > MAX_FUSED_OUT
+    dtype = dw["conv"].dtype
+    multiple = BF16_ROW if dtype == torch.bfloat16 else 4  # bf16 tables: 16-byte rows
+    if (any(w % multiple for w in widths) or f1.cout > MAX_ROW or f2.cout > MAX_FUSED_OUT
             or min(ks) < 1):
         raise ValueError(f"{name}: the kernel takes c1, f1 and f2 widths that are multiples "
-                         f"of 4, f1 up to {MAX_ROW} and f2 up to {MAX_FUSED_OUT} channels, "
-                         f"and at least one neighbour, got {widths}, {tuple(ks)}")
+                         f"of {multiple}, f1 up to {MAX_ROW} and f2 up to {MAX_FUSED_OUT} "
+                         f"channels, and at least one neighbour, got {widths}, {tuple(ks)}")
     misaligned = [k for k in ("conv_c1", "conv") if dw[k].data_ptr() % TAIL_ALIGN]
     if misaligned:  # the c1 and merge tails read the weights in 16-byte loads
         raise ValueError(f"{name}: dw{misaligned} must be {TAIL_ALIGN}-byte aligned")
+    misaligned = [k for k in ("conv_f1", "conv_f2") if dw[k].data_ptr() % 4]
+    if misaligned and dtype == torch.bfloat16:  # the f1 and f2 tails: 2 channels a load
+        raise ValueError(f"{name}: dw{misaligned} must be 4-byte aligned")
     _check_tc(name, packed, ME_DENSE)
-    kind = _check_form(name, packed, dw["conv"].dtype)
-    # the scratch a point: c1's table, f1's, corr_feat, f2's table, flow_feat
-    # and the merge table, its rows padded to 4 channels
-    per_point = 2 * c1.cout + f1.cout + 2 * f2.cout + _round_up(merge.cout, 4)
+    kind = _check_form(name, packed, dtype)
+    # the scratch a point: the tables of c1, f1, f2 and the merge (its rows
+    # 16 bytes apart), corr_feat and flow_feat
+    per_point = scratch_floats(kind, (c1.cout, f1.cout, f2.cout,
+                                      _round_up(merge.cout, multiple)), (c1.cout, f2.cout))
     return (tuple(dw[k].data_ptr() for k in ME_CONVS), kind, _planes(packed, ME_DENSE),
             tuple(t.data_ptr() for c in (f1, f2) for t in (c.weight, c.bias)),
             (c1.cout, f1.cout, f2.cout, merge.cout), tuple(ks),
@@ -547,18 +570,22 @@ def _gf_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
             or [dw[k].shape[3] for k in GF_DW] != [2 * ch, ch, conv1.cout, conv2.cout]):
         raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
     widths = (2 * ch, ch, conv1.cout, conv2.cout)
+    dtype = dw["conv_q"].dtype
+    multiple = BF16_ROW if dtype == torch.bfloat16 else 4  # bf16 tables: 16-byte rows
     if (any(w > most for w, most in zip(widths, GF_WIDTHS)) or fc.cout > GF_MAX_FC
-            or conv1.cout % 4 or conv2.cout % 4
+            or any(w % multiple for w in widths)
             or any(k > most or k < 1 for k, most in zip(ks, GF_KS))):
         raise ValueError(f"{name}: the kernel takes tails of up to {GF_WIDTHS} channels, "
-                         f"multiples of 4, {GF_KS} neighbours and up to {GF_MAX_FC} fc "
-                         f"outputs, got {widths}, {tuple(ks)}, {fc.cout}")
+                         f"multiples of {multiple}, {GF_KS} neighbours and up to {GF_MAX_FC} "
+                         f"fc outputs, got {widths}, {tuple(ks)}, {fc.cout}")
     misaligned = [k for k in GF_DW if dw[k].data_ptr() % 16]
     if misaligned:  # the tails read the weights in 16-byte loads
         raise ValueError(f"{name}: dw{misaligned} must be 16-byte aligned")
     _check_tc(name, packed, GF_DENSE)
-    kind = _check_form(name, packed, dw["conv_q"].dtype)
-    per_point = 6 * ch + conv1.cout + conv2.cout  # the kernel's scratch
+    kind = _check_form(name, packed, dtype)
+    # the kernel's scratch a point: the tables of z|r, q, conv1 and conv2;
+    # z, r*h and q's x3d/motion part
+    per_point = scratch_floats(kind, (2 * ch, ch, conv1.cout, conv2.cout), (ch, ch, ch))
     args = (tuple(dw[k].data_ptr() for k in GF_DW), kind, _planes(packed, GF_DENSE),
             tuple(t.data_ptr() for c in (conv1, conv2, fc) for t in (c.weight, c.bias)),
             (conv1.cout, conv2.cout, fc.cout), tuple(ks),
@@ -599,7 +626,7 @@ def gru_flowhead_3d(h: torch.Tensor, x3d: torch.Tensor, motion: torch.Tensor,
     launch("camli_gru_flowhead_3d", h.data_ptr(), x3d.data_ptr(), motion.data_ptr(),
            knn_idx.data_ptr(), *dws, planes, *weights, scratch.data_ptr(), h_out.data_ptr(),
            delta.data_ptr(), kind, batch, n, knn_idx.shape[2], ch, cx, cm, c1, c2, c_out, *ks,
-           *npads)
+           *npads, per_point)
     _cuda.count(gru_flowhead_3d, kind)
     return h_out, delta
 

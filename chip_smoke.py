@@ -331,6 +331,7 @@ CAMLIPWC_CFGS = {  # conf/model/camlipwc.yaml: all three fusions
 PWC_H = -(-IMAGE_H // 64) * 64  # the PWC family resizes 540 up to 576
 INTRINSICS = (1050.0, 479.5, 269.5)
 BATCH = 8  # the eval CLI's batch (camliflow_torch/eval.py)
+BATCH_TURNS = 5  # phase 11's bs-8 requests on each path
 
 
 def clouds(rng):
@@ -1381,15 +1382,23 @@ def kernel_parity(device, other=None) -> list[dict]:
         fast_2d_forms(device, gen, (encoder, gru, head), (flow2d, corr, h, x2d, motion),
                       (me, gf, fused), other, record)
 
-    # the 3D update chain at the loop's 2048 points, k=32 neighbours
+    # the 3D update chain at the loop's 2048 points, k=32 neighbours, and at
+    # the eval CLI's batch of 8 frame pairs (16,384 points): each form of #6
+    # and #7 (f32, the fast path's bf16, the gated int8) held to its plain
+    # version, to itself on a rerun and, with another tree, to that tree's
+    # same form bit for bit; profiler device time in turns with it (other,
+    # this, this, other) and by launch
     blocks = nn.ModuleList([MotionEncoder3D(), GRU3D(), FlowHead3D()])
     random_weights(blocks, SEED + 8)
     encoder, gru, head = blocks.to(device)
+    if other:  # its own module hoists #6's weights in its own layout
+        other_encoder = other[3].MotionEncoder3D().to(device)
+        other_encoder.load_state_dict(encoder.state_dict())
     n = N_SAMPLES[1]
     with torch.inference_mode():
         idx = knn.k_nearest_neighbor(xyz1, xyz1, 32)
-        dw_me = encoder.precompute_weights(xyz1, idx)
-        dw_gf = {**gru.precompute_weights(xyz1, idx), **head.precompute_weights(xyz1, idx)}
+        xyz8 = xyz1.repeat(8, 1, 1).contiguous()
+        idx8 = knn.k_nearest_neighbor(xyz8, xyz8, 32)
 
         def rand3(channels, scale=1.0):
             return scale * torch.randn(1, n, channels, generator=gen, device=device)
@@ -1400,277 +1409,242 @@ def kernel_parity(device, other=None) -> list[dict]:
         def dw_floats(dw):
             return sum(w[0, 0].numel() for w in dw.values())
 
-        # #6, and with another tree its #6 too, held to the plain version
-        # (the flow columns bit for bit) and to itself on a second run; timed
-        # by events, by profiler device time (in turns with the other tree's,
-        # each tree's own kernels), by launch, and by host time a call
-        flow3d, corr3 = rand3(3, 0.05), rand3(128)
-        me3 = update3d.prepare_motion_encoder_3d_params(encoder)
-        me_plain = update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw_me, me3)
-        me_calls = {"this": lambda: update3d.motion_encoder_3d(flow3d, corr3, idx, dw_me, me3)}
-        me_only = {"this": "motion_encoder_3d"}
-        if other:  # its own module hoists the weights in its own layout
-            other_encoder = other[3].MotionEncoder3D().to(device)
-            other_encoder.load_state_dict(encoder.state_dict())
-            dw_other = other_encoder.precompute_weights(xyz1, idx)
-            me_other = other[2].prepare_motion_encoder_3d_params(other_encoder)
-            me_calls = {"other": lambda: other[2].motion_encoder_3d(flow3d, corr3, idx, dw_other,
-                                                                    me_other), **me_calls}
-            me_only["other"] = ""  # whatever kernels the other tree's #6 launches
-        for tree, call in me_calls.items():
-            motion3 = call()
-            err = check(f"{tree} tree's motion_encoder_3d", motion3, me_plain)
-            if not torch.equal(motion3[..., -3:], flow3d):
-                raise AssertionError(f"{tree} tree's motion_encoder_3d: the flow columns differ")
-            if not torch.equal(call(), motion3):
-                raise AssertionError(f"{tree} tree's motion_encoder_3d: two runs give "
-                                     "different bits")
-        me_times = in_turns(me_calls, 20, me_only)
-        me_dev = mean(me_times["this"])
-        me_steps = stage_ms(me_calls["this"], 20)
-        me_host = {tree: host_ms(call, 20) for tree, call in me_calls.items()}
-        print("  motion_encoder_3d steps, device time (profiler): " + ", ".join(
-            f"{ms:.4f}" for _, ms in me_steps) + f"; device {me_dev:.4f} ms a call"
-            f"{beside(me_times)}; host " + ", ".join(
-                f"{tree} {ms:.4f}" for tree, ms in me_host.items()) + " ms a call", flush=True)
-        weights = sum(size(me3[k]) for k in update3d.ME_CONVS)
-        me_floats = sum(dw_me[k].shape[2] * me3[k].cout for k in update3d.ME_CONVS)  # 5,328
-        record("motion_encoder_3d", "camliflow_torch/csrc/update3d.cu",
-               "camliflow_tpu/ops/pallas_update3d.py:248", err,
-               time_ms(me_calls["this"], 50),
-               time_ms(lambda: update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw_me, me3),
-                       20),
-               # the MLPs' multiply-adds, a multiply and a max per gathered value
-               2 * n * (linear_macs({k: me3[k] for k in update3d.ME_CONVS}) + me_floats),
-               # points, neighbours (int32), the hoisted weights (unpadded), output
-               4 * (n * (3 + 128 + 32 + 128) + n * me_floats + weights),
-               device_ms=me_dev, host_ms=me_host["this"],
-               steps_ms=[ms for _, ms in me_steps],
-               **({"other_device_ms": mean(me_times["other"]),
-                   "other_host_ms": me_host["other"]} if other else {}))
+        def hoisted(xyz, knn_idx):
+            """The hoisted weights, each tree's #6's in its own layout: (this
+            tree's #6's, #7's, the other tree's #6's or None)."""
+            return (encoder.precompute_weights(xyz, knn_idx),
+                    {**gru.precompute_weights(xyz, knn_idx),
+                     **head.precompute_weights(xyz, knn_idx)},
+                    other_encoder.precompute_weights(xyz, knn_idx) if other else None)
 
-        # #7 held to the plain version and to itself on a second run, at the
-        # loop's 2048 points and at the eval CLI's batch of 8; its steps by
-        # profiler device time
+        def outputs(out):
+            return out if isinstance(out, tuple) else (out,)
+
+        def differ(a, b):
+            """Which outputs of two calls differ in their bits, each with the
+            share of values that do."""
+            return ", ".join(
+                f"output {i}: {100 * float((x.view(torch.int32) != y.view(torch.int32)).float().mean()):.3f}%"
+                for i, (x, y) in enumerate(zip(outputs(a), outputs(b)))
+                if not torch.equal(x.view(torch.int32), y.view(torch.int32)))
+
+        def drive(label, calls, plain, close, only, reps, split=True, flow=None):
+            """One form at one size: this tree's output held to the plain
+            version by `close`, to itself on a rerun and to the other tree's
+            bit for bit, and (#6's) its last three columns to `flow` bit for
+            bit; device time in turns and (`split`) by launch.
+            Returns (max error, {tree: device ms each turn}, [(kernel, ms)])."""
+            got = calls["this"]()
+            if flow is not None and not torch.equal(got[..., -3:], flow):
+                raise AssertionError(f"{label}: the flow columns differ")
+            err = max(close(f"{label}{' ' + part if len(outputs(got)) > 1 else ''}", g, r)
+                      for part, g, r in zip(("h'", "delta"), outputs(got), outputs(plain)))
+            wrong = differ(calls["this"](), got)
+            if wrong:
+                raise AssertionError(f"{label}: two runs give different bits ({wrong})")
+            wrong = differ(calls["other"](), got) if "other" in calls else ""
+            if wrong:
+                raise AssertionError(f"{label}: not the other tree's bits ({wrong})")
+            times = in_turns(calls, reps, only)
+            steps = stage_ms(calls["this"], reps) if split else []
+            print(f"  {label}: device {mean(times['this']):.4f} ms a call{beside(times)}"
+                  f"{'; the other tree bit for bit' if 'other' in calls else ''}"
+                  + ("; by launch " if steps else "")
+                  + ", ".join(f"{short_name(k)} {ms:.4f}" for k, ms in steps), flush=True)
+            return err, times, steps
+
+        def trees(this, theirs):
+            return {"other": theirs, "this": this} if other else {"this": this}
+
+        def measured(times, steps, bs):
+            return {f"device_ms_bs{bs}": mean(times["this"]),
+                    f"steps_ms_bs{bs}": [ms for _, ms in steps],
+                    **({f"other_device_ms_bs{bs}": mean(times["other"])} if other else {})}
+
+        flow3d, corr3 = rand3(3, 0.05), rand3(128)
         h3, x3 = torch.tanh(rand3(128)), torch.relu(rand3(128))
+        me3 = update3d.prepare_motion_encoder_3d_params(encoder)
         gf3 = update3d.prepare_gru_flowhead_3d_params(gru, head)
-        h_p, d_p = update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, dw_gf, gf3)
-        default = lambda: update3d.gru_flowhead_3d(h3, x3, motion3, idx, dw_gf, gf3)  # noqa: E731
-        h_k, d_k = default()
-        err = max(check("gru_flowhead_3d h'", h_k, h_p), check("gru_flowhead_3d delta", d_k, d_p))
-        again = default()
-        if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
-            raise AssertionError("gru_flowhead_3d: two runs give different bits")
-        gf_calls = {"this": default}
-        if other:  # the other tree's #7: the same bits, and its device time in turns
-            gf_other = other[2].prepare_gru_flowhead_3d_params(gru, head)
-            gf_calls = {"other": lambda: other[2].gru_flowhead_3d(h3, x3, motion3, idx, dw_gf,
-                                                                  gf_other), **gf_calls}
-            theirs = gf_calls["other"]()
-            if not (torch.equal(theirs[0], h_k) and torch.equal(theirs[1], d_k)):
-                raise AssertionError("gru_flowhead_3d: not the other tree's bits")
-        gf_times = in_turns(gf_calls, 20, "gru_flowhead_3d")
-        print(f"  gru_flowhead_3d: device {mean(gf_times['this']):.4f} ms a call"
-              f"{beside(gf_times)}{'; the other tree bit for bit' if other else ''}", flush=True)
-        rep = (8, 1, 1)
-        xyz8 = xyz1.repeat(rep).contiguous()
-        idx8 = knn.k_nearest_neighbor(xyz8, xyz8, 32)
-        dw8 = {**gru.precompute_weights(xyz8, idx8), **head.precompute_weights(xyz8, idx8)}
-        args8 = (h3.repeat(rep), x3.repeat(rep), motion3.repeat(rep), idx8, dw8, gf3)
-        ref8 = update3d.gru_flowhead_3d_plain(*args8)
-        got8 = update3d.gru_flowhead_3d(*args8)
-        err = max(err, check("gru_flowhead_3d bs=8 h'", got8[0], ref8[0]),
-                  check("gru_flowhead_3d bs=8 delta", got8[1], ref8[1]))
-        bs8 = {"ms": time_ms(lambda: update3d.gru_flowhead_3d(*args8), 20),
-               "device_ms": device_ms(lambda: update3d.gru_flowhead_3d(*args8), 10)}
-        del dw8, args8, ref8, got8
-        print(f"  gru_flowhead_3d at bs=8 (16,384 points): {bs8['ms']:.4f} ms by events, "
-              f"{bs8['device_ms']:.4f} ms device")
-        steps = stage_ms(default, 20)
-        names = ("dense z|r + q_xm", "tail z|r", "dense q_h", "tail q + conv1 (FMA)",
-                 "tail conv1 + conv2 (FMA)", "tail conv2 + fc")
-        steps_ms = {name: ms for name, (_, ms) in zip(names, steps)}
-        if len(steps) == len(names):
-            print("  gru_flowhead_3d steps, device time (profiler): " + ", ".join(
-                f"{name} {ms:.4f} ms" for name, ms in steps_ms.items()) +
-                f"; total {sum(steps_ms.values()):.4f} ms")
-        else:
-            print(f"  gru_flowhead_3d: the profiler saw {len(steps)} kernels a call")
-        gf_host = host_ms(default, 20)
-        print(f"  gru_flowhead_3d: host {gf_host:.4f} ms a call")
-        keys = ("zr", "q", "conv1", "conv2", "fc")  # the function's own layers
-        weights = sum(size(gf3[k]) for k in keys)
+        me_other = other[2].prepare_motion_encoder_3d_params(other_encoder) if other else None
+        gf_other = other[2].prepare_gru_flowhead_3d_params(gru, head) if other else None
+        me_weights = sum(size(me3[k]) for k in update3d.ME_CONVS)
+        keys = ("zr", "q", "conv1", "conv2", "fc")  # #7's own layers
+        gf_weights = sum(size(gf3[k]) for k in keys)
+        dw_me, dw_gf, dw_me_other = hoisted(xyz1, idx)
+        me_floats = sum(dw_me[k].shape[2] * me3[k].cout for k in update3d.ME_CONVS)  # 5,328
+        gf_floats = dw_floats(dw_gf)  # 7,680
+        me_ops = 2 * n * (linear_macs({k: me3[k] for k in update3d.ME_CONVS}) + me_floats)
+        gf_ops = 2 * n * (sum(gf3[k].cin * gf3[k].cout for k in keys) + gf_floats)
+        # bytes: points (inputs, neighbours as int32, outputs) and the MLPs
+        # in f32, the hoisted weights (unpadded) at their dtype's size
+        me_io, gf_io = 4 * n * (3 + 128 + 32 + 128), 4 * n * (3 * 128 + 32 + 128 + 3)
+
+        # the exact forms (f32), at bs 1 and 8
+        me_in = {1: (flow3d, corr3, idx), 8: (flow3d.repeat(8, 1, 1), corr3.repeat(8, 1, 1), idx8)}
+        motion3 = update3d.motion_encoder_3d(*me_in[1], dw_me, me3)
+        if not torch.equal(motion3[..., -3:], flow3d):
+            raise AssertionError("motion_encoder_3d: the flow columns differ")
+        gf_in = {1: (h3, x3, motion3, idx),
+                 8: (h3.repeat(8, 1, 1), x3.repeat(8, 1, 1), motion3.repeat(8, 1, 1), idx8)}
+        dws = {1: (dw_me, dw_gf, dw_me_other), 8: hoisted(xyz8, idx8)}
+        forms = {}  # (form, bs) -> (err, times, steps)
+
+        def run_forms(form, convert, me_p, gf_p, me_o, gf_o, close, sizes):
+            """#6's and #7's `form` at each of `sizes`, its hoisted weights
+            made by `convert(tree)` of the f32 ones."""
+            for bs in sizes:
+                d_me, d_gf, d_other = dws[bs]
+                d_me, d_gf = convert(update3d)(d_me), convert(update3d)(d_gf)
+                d_other = convert(other[2])(d_other) if other else None
+                me_calls = trees(lambda: update3d.motion_encoder_3d(*me_in[bs], d_me, me_p),
+                                 lambda: other[2].motion_encoder_3d(*me_in[bs], d_other, me_o))
+                forms[("me", form, bs)] = drive(
+                    f"motion_encoder_3d{form} bs={bs}", me_calls,
+                    update3d.motion_encoder_3d_plain(*me_in[bs], d_me, me_p), close,
+                    "motion_encoder_3d", 20 if bs == 1 else 10, flow=me_in[bs][0])
+                gf_calls = trees(lambda: update3d.gru_flowhead_3d(*gf_in[bs], d_gf, gf_p),
+                                 lambda: other[2].gru_flowhead_3d(*gf_in[bs], d_gf, gf_o))
+                forms[("gf", form, bs)] = drive(
+                    f"gru_flowhead_3d{form} bs={bs}", gf_calls,
+                    update3d.gru_flowhead_3d_plain(*gf_in[bs], d_gf, gf_p), close,
+                    "gru_flowhead_3d", 20 if bs == 1 else 10)
+            return me_calls, gf_calls  # the last size's
+
+        me_call, gf_call = (c["this"] for c in run_forms(
+            "", lambda tree: lambda d: d, me3, gf3, me_other, gf_other, check, (8, 1)))
+        me_host = host_ms(me_call, 20)
+        gf_host = host_ms(gf_call, 20)
+        print(f"  host: motion_encoder_3d {me_host:.4f}, gru_flowhead_3d {gf_host:.4f} ms a call")
+        err, times, steps = forms[("me", "", 1)]
+        record("motion_encoder_3d", "camliflow_torch/csrc/update3d.cu",
+               "camliflow_tpu/ops/pallas_update3d.py:248", err, time_ms(me_call, 50),
+               time_ms(lambda: update3d.motion_encoder_3d_plain(*me_in[1], dw_me, me3), 20),
+               # the MLPs' multiply-adds, a multiply and a max per gathered value
+               me_ops, me_io + 4 * (n * me_floats + me_weights),
+               host_ms=me_host, **measured(times, steps, 1),
+               **measured(*forms[("me", "", 8)][1:], 8))
+        err, times, steps = forms[("gf", "", 1)]
         record("gru_flowhead_3d", "camliflow_torch/csrc/update3d.cu",
-               "camliflow_tpu/ops/pallas_update3d.py:372", err, time_ms(default, 50),
-               time_ms(lambda: update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, dw_gf, gf3),
-                       20),
-               2 * n * (sum(gf3[k].cin * gf3[k].cout for k in keys) + dw_floats(dw_gf)),
-               4 * (n * (3 * 128 + 32 + 128 + 3) + n * dw_floats(dw_gf) + weights),
-               steps_ms=steps_ms, host_ms=gf_host, bs8=bs8)
+               "camliflow_tpu/ops/pallas_update3d.py:372", err, time_ms(gf_call, 50),
+               time_ms(lambda: update3d.gru_flowhead_3d_plain(*gf_in[1], dw_gf, gf3), 20),
+               gf_ops, gf_io + 4 * (n * gf_floats + gf_weights), host_ms=gf_host,
+               **measured(times, steps, 1), **measured(*forms[("gf", "", 8)][1:], 8))
 
         # the fast path's forms of #6 and #7: the hoisted weights in bf16
-        # (their dominant bytes halve), each against its plain version
-        # (FAST_TOL), rerun bit for bit, timed beside its exact form
+        # (`to_bf16`), the tables bf16 (FAST_TOL against the plain version);
+        # beside the exact forms at bs 1 and 8
+        me16_call, gf16_call = (c["this"] for c in run_forms(
+            " (bf16)", lambda tree: tree.to_bf16, me3, gf3, me_other, gf_other, fast_close,
+            (8, 1)))
         dw16_me, dw16_gf = update3d.to_bf16(dw_me), update3d.to_bf16(dw_gf)
-        me16_call = lambda: update3d.motion_encoder_3d(  # noqa: E731
-            flow3d, corr3, idx, dw16_me, me3)
-        motion16 = me16_call()
-        err = fast_close("motion_encoder_3d (bf16)", motion16,
-                         update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw16_me, me3))
-        if not (torch.equal(me16_call(), motion16) and torch.equal(motion16[..., -3:], flow3d)):
-            raise AssertionError("motion_encoder_3d (bf16): two runs differ, or the flow columns")
-        me16_dev = device_ms(me16_call, 20, only="motion_encoder_3d")
-        print(f"  motion_encoder_3d (bf16): device {me16_dev:.4f} ms a call, the exact form "
-              f"{me_dev:.4f} ms", flush=True)
-        record("motion_encoder_3d (bf16)", "camliflow_torch/csrc/update3d.cu",
-               "camliflow_tpu/ops/pallas_update3d.py:248", err, time_ms(me16_call, 50),
-               time_ms(lambda: update3d.motion_encoder_3d_plain(flow3d, corr3, idx, dw16_me,
-                                                                me3), 20),
-               2 * n * (linear_macs({k: me3[k] for k in update3d.ME_CONVS}) + me_floats),
-               # as the exact form's, the hoisted weights at 2 bytes
-               4 * (n * (3 + 128 + 32 + 128) + sum(size(me3[k]) for k in update3d.ME_CONVS))
-               + 2 * n * me_floats,
-               wrapper="motion_encoder_3d_bf16", device_ms=me16_dev,
-               exact_form_ms=time_ms(me_calls["this"], 50), exact_form_device_ms=me_dev)
-        gf16_call = lambda: update3d.gru_flowhead_3d(  # noqa: E731
-            h3, x3, motion3, idx, dw16_gf, gf3)
-        h_k, d_k = gf16_call()
-        h_p, d_p = update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, dw16_gf, gf3)
-        err = max(fast_close("gru_flowhead_3d (bf16) h'", h_k, h_p),
-                  fast_close("gru_flowhead_3d (bf16) delta", d_k, d_p))
-        again = gf16_call()
-        if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
-            raise AssertionError("gru_flowhead_3d (bf16): two runs give different bits")
-        gf16_dev = device_ms(gf16_call, 20, only="gru_flowhead_3d")
-        gf_dev = mean(gf_times["this"])
-        print(f"  gru_flowhead_3d (bf16): device {gf16_dev:.4f} ms a call, the exact form "
-              f"{gf_dev:.4f} ms", flush=True)
-        record("gru_flowhead_3d (bf16)", "camliflow_torch/csrc/update3d.cu",
-               "camliflow_tpu/ops/pallas_update3d.py:372", err, time_ms(gf16_call, 50),
-               time_ms(lambda: update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, dw16_gf,
-                                                              gf3), 20),
-               2 * n * (sum(gf3[k].cin * gf3[k].cout for k in keys) + dw_floats(dw_gf)),
-               4 * (n * (3 * 128 + 32 + 128 + 3) + sum(size(gf3[k]) for k in keys))
-               + 2 * n * dw_floats(dw_gf),
-               wrapper="gru_flowhead_3d_bf16", device_ms=gf16_dev,
-               exact_form_ms=time_ms(default, 50), exact_form_device_ms=gf_dev)
+        # bytes a batch item (points, bf16 hoisted weights) and once a call
+        # (the MLPs, read once whatever the batch)
+        for key, name, call, plain, ops, item_bytes, call_bytes, replaces in (
+                ("me", "motion_encoder_3d", me16_call,
+                 lambda: update3d.motion_encoder_3d_plain(*me_in[1], dw16_me, me3), me_ops,
+                 me_io + 2 * n * me_floats, 4 * me_weights, 248),
+                ("gf", "gru_flowhead_3d", gf16_call,
+                 lambda: update3d.gru_flowhead_3d_plain(*gf_in[1], dw16_gf, gf3), gf_ops,
+                 gf_io + 2 * n * gf_floats, 4 * gf_weights, 372)):
+            err, times, steps = forms[(key, " (bf16)", 1)]
+            exact = {f"exact_form_device_ms_bs{bs}": mean(forms[(key, "", bs)][1]["this"])
+                     for bs in (1, 8)}
+            bs8 = forms[(key, " (bf16)", 8)]
+            print(f"  {name} (bf16): device {mean(times['this']):.4f} ms bs 1, "
+                  f"{mean(bs8[1]['this']):.4f} ms bs 8; the exact form "
+                  f"{exact['exact_form_device_ms_bs1']:.4f}, "
+                  f"{exact['exact_form_device_ms_bs8']:.4f} ms", flush=True)
+            record(f"{name} (bf16)", "camliflow_torch/csrc/update3d.cu",
+                   f"camliflow_tpu/ops/pallas_update3d.py:{replaces}", err, time_ms(call, 50),
+                   time_ms(plain, 20), ops, item_bytes + call_bytes, wrapper=f"{name}_bf16",
+                   device_ms=mean(times["this"]), **measured(times, steps, 1),
+                   **measured(*bs8[1:], 8),
+                   bound_ms_bs8=bound(8 * ops, 8 * item_bytes + call_bytes)[0],
+                   **exact)
 
-        # the gated int8 forms of #6 and #7 (CAMLIFLOW_UPDATE3D=1): the bf16
-        # hoisted weights quantised to int8 with their scales folded into
-        # the MLPs, every dense layer on bf16 operands (prepare_int8), each
-        # against its plain version within one bf16 step (GATED_TOL), rerun
-        # bit for bit, timed beside the bf16 form; bytes with the hoisted
-        # weights at 1 byte, operations at the bf16 peak
-        dw_all = {"motion_encoder": dw_me,
-                  "gru": {k: dw_gf[k] for k in ("conv_zr", "conv_q")},
-                  "flow_head": {k: dw_gf[k] for k in ("conv1", "conv2")}}
-        dw8, me8, gf8 = update3d.prepare_int8(update3d.to_bf16(dw_all), encoder, gru, head)
+        # the gated int8 forms of #6 and #7 (CAMLIFLOW_UPDATE3D=1, at most
+        # 4096 loop points: bs 1): the bf16 hoisted weights quantised to int8
+        # with their scales folded into the MLPs, every dense layer on bf16
+        # operands (prepare_int8), each against its plain version within one
+        # bf16 step (GATED_TOL); bytes with the hoisted weights at 1 byte,
+        # operations at the bf16 peak
+        def int8_operands(tree, enc, d_me):
+            return tree.prepare_int8(tree.to_bf16({
+                "motion_encoder": d_me, "gru": {k: dw_gf[k] for k in ("conv_zr", "conv_q")},
+                "flow_head": {k: dw_gf[k] for k in ("conv1", "conv2")}}), enc, gru, head)
+
+        dw8, me8, gf8 = int8_operands(update3d, encoder, dw_me)
         gf8_dw = {**dw8["gru"], **dw8["flow_head"]}
-        me8_call = lambda: update3d.motion_encoder_3d(  # noqa: E731
-            flow3d, corr3, idx, dw8["motion_encoder"], me8)
-        motion8 = me8_call()
-        err = gated_close("motion_encoder_3d (int8)", motion8, update3d.motion_encoder_3d_plain(
-            flow3d, corr3, idx, dw8["motion_encoder"], me8))
-        if not (torch.equal(me8_call(), motion8) and torch.equal(motion8[..., -3:], flow3d)):
-            raise AssertionError("motion_encoder_3d (int8): two runs differ, or the flow columns")
-        me8_dev = device_ms(me8_call, 20, only="motion_encoder_3d")
-        print(f"  motion_encoder_3d (int8): device {me8_dev:.4f} ms a call, the bf16 form "
-              f"{me16_dev:.4f} ms", flush=True)
-        record("motion_encoder_3d (int8)", "camliflow_torch/csrc/update3d.cu",
-               "camliflow_tpu/ops/pallas_update3d.py:248", err, time_ms(me8_call, 50),
-               time_ms(lambda: update3d.motion_encoder_3d_plain(flow3d, corr3, idx,
-                                                                dw8["motion_encoder"], me8), 20),
-               2 * n * (linear_macs({k: me8[k] for k in update3d.ME_CONVS}) + me_floats),
-               4 * (n * (3 + 128 + 32 + 128) + sum(size(me8[k]) for k in update3d.ME_CONVS))
-               + n * me_floats, bf16_cores=True,
-               wrapper="motion_encoder_3d_int8", device_ms=me8_dev, bf16_form_device_ms=me16_dev)
-        gf8_call = lambda: update3d.gru_flowhead_3d(h3, x3, motion3, idx, gf8_dw, gf8)  # noqa: E731
-        h_k, d_k = gf8_call()
-        h_p, d_p = update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, gf8_dw, gf8)
-        err = max(gated_close("gru_flowhead_3d (int8) h'", h_k, h_p),
-                  gated_close("gru_flowhead_3d (int8) delta", d_k, d_p))
-        again = gf8_call()
-        if not (torch.equal(again[0], h_k) and torch.equal(again[1], d_k)):
-            raise AssertionError("gru_flowhead_3d (int8): two runs give different bits")
-        gf8_dev = device_ms(gf8_call, 20, only="gru_flowhead_3d")
-        print(f"  gru_flowhead_3d (int8): device {gf8_dev:.4f} ms a call, the bf16 form "
-              f"{gf16_dev:.4f} ms", flush=True)
-        record("gru_flowhead_3d (int8)", "camliflow_torch/csrc/update3d.cu",
-               "camliflow_tpu/ops/pallas_update3d.py:372", err, time_ms(gf8_call, 50),
-               time_ms(lambda: update3d.gru_flowhead_3d_plain(h3, x3, motion3, idx, gf8_dw,
-                                                              gf8), 20),
-               2 * n * (sum(gf8[k].cin * gf8[k].cout for k in keys) + dw_floats(dw_gf)),
-               4 * (n * (3 * 128 + 32 + 128 + 3) + sum(size(gf8[k]) for k in keys))
-               + n * dw_floats(dw_gf), bf16_cores=True,
-               wrapper="gru_flowhead_3d_int8", device_ms=gf8_dev, bf16_form_device_ms=gf16_dev)
-        del dw8, gf8_dw
+        if other:
+            dw8_o, me8_o, gf8_o = int8_operands(other[2], other_encoder, dw_me_other)
+            gf8_dw_o = {**dw8_o["gru"], **dw8_o["flow_head"]}
+        for key, name, calls, plain, ops, nbytes, p8, replaces in (
+                ("me", "motion_encoder_3d", trees(
+                    lambda: update3d.motion_encoder_3d(*me_in[1], dw8["motion_encoder"], me8),
+                    lambda: other[2].motion_encoder_3d(*me_in[1], dw8_o["motion_encoder"],
+                                                       me8_o)),
+                 lambda: update3d.motion_encoder_3d_plain(*me_in[1], dw8["motion_encoder"], me8),
+                 2 * n * (linear_macs({k: me8[k] for k in update3d.ME_CONVS}) + me_floats),
+                 me_io + 4 * sum(size(me8[k]) for k in update3d.ME_CONVS) + n * me_floats, me8,
+                 248),
+                ("gf", "gru_flowhead_3d", trees(
+                    lambda: update3d.gru_flowhead_3d(*gf_in[1], gf8_dw, gf8),
+                    lambda: other[2].gru_flowhead_3d(*gf_in[1], gf8_dw_o, gf8_o)),
+                 lambda: update3d.gru_flowhead_3d_plain(*gf_in[1], gf8_dw, gf8),
+                 2 * n * (sum(gf8[k].cin * gf8[k].cout for k in keys) + gf_floats),
+                 gf_io + 4 * sum(size(gf8[k]) for k in keys) + n * gf_floats, gf8, 372)):
+            err, times, steps = drive(f"{name} (int8) bs=1", calls, plain(), gated_close, name,
+                                      20, split=False, flow=flow3d if key == "me" else None)
+            record(f"{name} (int8)", "camliflow_torch/csrc/update3d.cu",
+                   f"camliflow_tpu/ops/pallas_update3d.py:{replaces}", err,
+                   time_ms(calls["this"], 50), time_ms(plain, 20), ops, nbytes, bf16_cores=True,
+                   wrapper=f"{name}_int8", device_ms=mean(times["this"]),
+                   **measured(times, steps, 1),
+                   bf16_form_device_ms=mean(forms[(key, " (bf16)", 1)][1]["this"]))
+        del dw8, gf8_dw, dws, me_in[8], gf_in[8]
 
-        # the PointConvDW tail alone, at the fuse_hidden path's four shapes:
-        # GRU3D's z|r and q (k=4), FlowHead3D's conv1 and conv2 (k=32); with
-        # another tree, its tail too, bit for bit both, timed in turns
-        tail_dev, tail_other, tail_bound = {}, {}, {}  # by shape, filled as they run
-        for key, channels in (("conv_zr", 256), ("conv_q", 128), ("conv1", 128),
-                              ("conv2", 64)):
-            table, w = rand3(channels), dw_gf[key]
-            ref = update3d.dw_max_plain(table, idx, w)
-            tails = {"this": update3d.dw_max}
-            if other:
-                tails = {"other": other[2].dw_max, **tails}
-            for tree, wrapper in tails.items():
-                for _ in range(2):
-                    if not torch.equal(wrapper(table, idx, w), ref):
-                        raise AssertionError(f"{tree} tree's dw_max {key}: not bit-identical to "
-                                             "the plain version")
-            calls = {tree: lambda fn=wrapper: fn(table, idx, w) for tree, wrapper in tails.items()}
-            times = in_turns(calls, 20, {"this": "dw_max_tail", "other": ""})
-            hosts = {tree: host_ms(call, 20) for tree, call in calls.items()}
-            k = w.shape[2]
-            tail_dev[key] = mean(times["this"])
-            if other:
-                tail_other[key] = mean(times["other"])
-            tail_bound[key] = bound(2 * n * k * channels,
-                                    4 * (2 * n * channels + n * 32 + n * k * channels))[0]
-            print(f"  dw_max {key} (k={k}, C={channels}): device {tail_dev[key]:.4f} ms"
-                  f"{beside(times)}; host " + ", ".join(
-                      f"{tree} {ms:.4f}" for tree, ms in hosts.items()) + " ms a call",
-                  flush=True)
-            record("dw_max", "camliflow_torch/csrc/update3d.cu",
-                   "camliflow_tpu/ops/pallas_ohg.py:177", 0.0,
-                   time_ms(calls["this"], 50),
-                   time_ms(lambda: update3d.dw_max_plain(table, idx, w), 20),
-                   2 * n * k * channels,  # a multiply and a max per gathered value
-                   4 * (2 * n * channels + n * 32 + n * k * channels),
-                   label=f"dw_max {key} (k={k}, C={channels}, by events)", entry=key == "conv1",
-                   device_ms=tail_dev[key], host_ms=hosts["this"], device_ms_by_shape=tail_dev,
-                   bound_ms_by_shape=tail_bound,
-                   **({"other_device_ms_by_shape": tail_other} if other else {}))
-
-        # its fast form (the fuse_hidden fast path's): bf16 weights, the
-        # table rounded to bf16, bf16 products; bit for bit the plain version
-        fast_dev, fast_bound = {}, {}
-        for key, channels in (("conv_zr", 256), ("conv_q", 128), ("conv1", 128),
-                              ("conv2", 64)):
-            table, w = rand3(channels), dw16_gf[key]
-            ref = update3d.dw_max_plain(table, idx, w)
-            for _ in range(2):
-                if not torch.equal(update3d.dw_max(table, idx, w), ref):
-                    raise AssertionError(f"dw_max (bf16) {key}: not bit-identical to the plain "
-                                         "version")
-            call = lambda: update3d.dw_max(table, idx, w)  # noqa: E731
-            k = w.shape[2]
-            fast_dev[key] = device_ms(call, 20, only="dw_max_tail")
-            nbytes = 4 * (2 * n * channels + n * 32) + 2 * n * k * channels
-            fast_bound[key] = bound(2 * n * k * channels, nbytes)[0]
-            print(f"  dw_max (bf16) {key} (k={k}, C={channels}): device {fast_dev[key]:.4f} ms, "
-                  f"the exact form {tail_dev[key]:.4f} ms", flush=True)
-            record("dw_max (bf16)", "camliflow_torch/csrc/update3d.cu",
-                   "camliflow_tpu/ops/pallas_ohg.py:177", 0.0, time_ms(call, 50),
-                   time_ms(lambda: update3d.dw_max_plain(table, idx, w), 20),
-                   2 * n * k * channels, nbytes,
-                   label=f"dw_max (bf16) {key} (k={k}, C={channels}, by events)",
-                   entry=key == "conv1", wrapper="dw_max_bf16", device_ms=fast_dev[key],
-                   device_ms_by_shape=fast_dev, bound_ms_by_shape=fast_bound,
-                   exact_form_device_ms_by_shape=tail_dev)
+        # the PointConvDW tail alone (#13), at the fuse_hidden path's four
+        # shapes: GRU3D's z|r and q (k=4), FlowHead3D's conv1 and conv2
+        # (k=32); f32 and the fast path's bf16 (bf16 weights, the table
+        # rounded to bf16 as it is read, bf16 products); bit for bit the
+        # plain version and, with another tree, its tail; in turns with it
+        exact_dev = {}
+        for form, dws_13 in (("", dw_gf), (" (bf16)", dw16_gf)):
+            tail_dev, tail_other, tail_bound = {}, {}, {}  # by shape, filled as they run
+            for key, channels in (("conv_zr", 256), ("conv_q", 128), ("conv1", 128),
+                                  ("conv2", 64)):
+                table, w = rand3(channels), dws_13[key]
+                ref = update3d.dw_max_plain(table, idx, w)
+                tails = trees(update3d.dw_max, other[2].dw_max if other else None)
+                for tree, wrapper in tails.items():
+                    for _ in range(2):
+                        if not torch.equal(wrapper(table, idx, w), ref):
+                            raise AssertionError(f"{tree} tree's dw_max{form} {key}: not "
+                                                 "bit-identical to the plain version")
+                calls = {tree: lambda fn=wrapper: fn(table, idx, w)
+                         for tree, wrapper in tails.items()}
+                times = in_turns(calls, 20, "dw_max_tail")
+                host = host_ms(calls["this"], 20)
+                k = w.shape[2]
+                tail_dev[key] = mean(times["this"])
+                if other:
+                    tail_other[key] = mean(times["other"])
+                nbytes = 4 * (2 * n * channels + n * 32) + w.element_size() * n * k * channels
+                tail_bound[key] = bound(2 * n * k * channels, nbytes)[0]
+                print(f"  dw_max{form} {key} (k={k}, C={channels}): device "
+                      f"{tail_dev[key]:.4f} ms{beside(times)}; host {host:.4f} ms a call",
+                      flush=True)
+                record(f"dw_max{form}", "camliflow_torch/csrc/update3d.cu",
+                       "camliflow_tpu/ops/pallas_ohg.py:177", 0.0, time_ms(calls["this"], 50),
+                       time_ms(lambda: update3d.dw_max_plain(table, idx, w), 20),
+                       2 * n * k * channels,  # a multiply and a max per gathered value
+                       nbytes, label=f"dw_max{form} {key} (k={k}, C={channels}, by events)",
+                       entry=key == "conv1", wrapper="dw_max_bf16" if form else "dw_max",
+                       device_ms=tail_dev[key], host_ms=host, device_ms_by_shape=tail_dev,
+                       bound_ms_by_shape=tail_bound,
+                       **({"other_device_ms_by_shape": tail_other} if other else {}),
+                       **({"exact_form_device_ms_by_shape": exact_dev} if form else {}))
+            exact_dev = tail_dev
 
     # the Correlation3D tail on the selection above (L=4, k=16, 2048 queries)
     tail_block = Correlation3D(n_levels=len(sizes), out_channels=128, k=16)
@@ -3666,9 +3640,9 @@ def fast_phase(device, wrappers, card, paths) -> dict:
     (fast_inference off, the model's attribute switched): on the weights
     the fast path multiplies by within the JAX package's gate (FAST_2D_TOL,
     FAST_3D_TOL), on the f32 weights within its fast-vs-exact test bound
-    (see FAST_TOL's note); a batch of 8 on both paths (request time, peak
-    memory, the fast request's launches and device busy share, fast
-    against exact both ways); the CPU's plain fast versions on the same
+    (see FAST_TOL's note); a batch of 8 on both paths (request time, over
+    BATCH_TURNS requests each in turns too, peak memory, the fast request's
+    launches and device busy share, fast against exact both ways); the CPU's plain fast versions on the same
     input within phase 5's envelope. Then the eval CLI once with
     'model.fast_inference="on"'. Returns the launches of the held runs."""
     import torch
@@ -3719,9 +3693,20 @@ def fast_phase(device, wrappers, card, paths) -> dict:
         compare_flows(f"{label} fast vs exact on the bf16 weights, bs=1", fast, exact16, gate)
         compare_flows(f"{label} fast vs exact, bs=1", fast, exact, f32_bound(exact))
 
-        # the eval CLI's batch of 8 on both paths, the fast one first
+        # the eval CLI's batch of 8 on both paths, the fast one first; then
+        # BATCH_TURNS - 1 more requests each in turns (exact, fast), for the
+        # two paths' spread within this process
         batch = stack([frame_pair(SEED + 20 + i, i, images) for i in range(BATCH)])
-        outs, line = {}, []
+        outs, line, request_ms = {}, [], {"on": [], "off": []}
+
+        def timed(mode):
+            model.fast_inference = mode
+            start = time.perf_counter()
+            out = evaluator.forward(batch)
+            torch.cuda.synchronize()
+            request_ms[mode].append(1e3 * (time.perf_counter() - start))
+            return out
+
         for mode in ("on", "off"):
             model.fast_inference = mode
             evaluator.forward(batch)  # warm-up at this batch's shapes
@@ -3730,10 +3715,8 @@ def fast_phase(device, wrappers, card, paths) -> dict:
             base = torch.cuda.memory_allocated() / 2**20  # what earlier phases left alive
             for fn in wrappers.values():
                 fn.launches = 0
-            start = time.perf_counter()
-            outs[mode] = evaluator.forward(batch)
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - start)
+            outs[mode] = timed(mode)
+            ms = request_ms[mode][0]
             launches = {key: fn.launches for key, fn in wrappers.items()}
             peak = torch.cuda.max_memory_allocated() / 2**20
             line.append(f"{'fast' if mode == 'on' else 'exact'} {ms:.3f} ms "
@@ -3749,6 +3732,15 @@ def fast_phase(device, wrappers, card, paths) -> dict:
                 wall, busy, count = profile_request(evaluator, batch, top=5)
                 line.append(f"fast profiled {wall:.3f} ms wall, device busy {busy:.3f} ms "
                             f"({100 * busy / wall:.1f}%), {count} kernel launches")
+        for _ in range(BATCH_TURNS - 1):
+            for mode in ("off", "on"):
+                timed(mode)
+        line.append(f"{BATCH_TURNS} requests each in turns, ms: " + "; ".join(
+            f"{'fast' if mode == 'on' else 'exact'} mean {sum(request_ms[mode]) / BATCH_TURNS:.3f} "
+            f"({min(request_ms[mode]):.3f}-{max(request_ms[mode]):.3f}: "
+            + ", ".join(f"{ms:.3f}" for ms in request_ms[mode]) + ")"
+            for mode in ("on", "off")))
+        model.fast_inference = "off"  # the turns end on the fast path
         with bf16_weights(convs):
             exact16 = evaluator.forward(batch)
         model.fast_inference = "on"

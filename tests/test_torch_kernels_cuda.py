@@ -1386,6 +1386,124 @@ def test_update2d_bf16_wrappers_raise_on_f32_planes(cuda):
         assert [(w.launches, w.fast_launches) for w in wrappers] == before
 
 
+
+def bits_equal(got, ref):
+    """Equal values, NaN where the other has NaN (their payloads aside)."""
+    return (torch.equal(got.isnan(), ref.isnan())
+            and torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref)))
+
+
+def signed_zero_runs(w, nan=False):
+    """Hoisted weights with runs of +0 and -0 over every neighbour of some
+    points' channels (all-zero products: a zero maximum, its sign the tie
+    rule's), with `nan` a NaN at some points, and the rest as they are."""
+    w = w.clone()
+    w[:, 3::11, :, 1::5] = 0.0
+    w[:, 3::11, ::2, 1::5] = -0.0
+    if nan:
+        w[:, 5::13, 1, 2] = float("nan")
+    return w
+
+
+def selection(linear, gen):
+    """A dense layer that passes one input a channel through, times +-1, 1/2
+    or 2, with a bias of bf16 values: on inputs of bf16 values the 3xTF32
+    tile, the FMA layers and the plain matmul all sum exactly."""
+    cout, cin = linear.weight.shape
+    weight = torch.zeros(cout, cin, device=linear.weight.device)
+    pick = torch.randperm(cout * cin, generator=gen, device="cpu")[:cout] % cin
+    scale = torch.tensor([1.0, -1.0, 0.5, 2.0])[torch.randint(0, 4, (cout,), generator=gen)]
+    weight[torch.arange(cout), pick.to(weight.device)] = scale.to(weight.device)
+    linear.weight.data.copy_(weight)
+    linear.bias.data.copy_((0.1 * torch.randn(cout, generator=gen)).bfloat16().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 77), (1, 2049), (3, 2048), (8, 2048)])
+def test_motion_encoder_3d_bf16_tails_bit_for_bit_on_exact_dense_layers(cuda, batch, n):
+    """#6·bf16 with every dense layer a selection (`selection`) and inputs of
+    bf16 values: the dense sums are exact in the kernel and in the plain
+    version, so the chain is its four tails on bf16 tables, and is bit for
+    bit the plain version, with NaN and +-0 in the tables (a NaN input row, a
+    zero one) and in the weights (`signed_zero_runs`); a rerun bit for bit;
+    counted on `fast_launches`. Up to bs 2 the launches fit in a wave and
+    take the 8-byte shapes, at bs 8 the 16-byte ones; at bs 3 (6144 points)
+    each tail takes the shape its own wave allows."""
+    gen = torch.Generator().manual_seed(54)
+    with torch.inference_mode():
+        (encoder, _, _), idx, dw, _ = update3d_case(cuda, 54, batch, n)
+        for name in update3d.ME_CONVS:
+            selection(update3d._mlp(getattr(encoder, name)), gen)
+        # NaN in the merge's weights alone: a dense layer spreads a NaN over its row
+        dw16 = update3d.to_bf16({k: signed_zero_runs(w, nan=k == "conv") for k, w in dw.items()})
+        dw16["conv"] = update3d.padded_rows(dw16["conv"])  # the clone's rows are contiguous
+        flow = (0.1 * torch.randn(batch, n, 3, generator=gen)).bfloat16().float().to(cuda)
+        corr = torch.randn(batch, n, 128, generator=gen).bfloat16().float().to(cuda)
+        if n > 1000:  # a NaN row reaches the points two neighbourhoods away
+            corr[:, 4] = float("nan")
+        corr[:, 6] = 0.0
+        params = update3d.prepare_motion_encoder_3d_params(encoder)
+        before = (update3d.motion_encoder_3d.launches, update3d.motion_encoder_3d.fast_launches)
+        got = update3d.motion_encoder_3d(flow, corr, idx, dw16, params)
+        assert (update3d.motion_encoder_3d.launches,
+                update3d.motion_encoder_3d.fast_launches) == (before[0], before[1] + 1)
+        again = update3d.motion_encoder_3d(flow, corr, idx, dw16, params)
+        ref = update3d.motion_encoder_3d_plain(flow, corr, idx, dw16, params)
+    assert (got == 0).any() and got.isnan().any()
+    assert bits_equal(got, ref)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(2, 2048), (1, 77), (2, 333), (1, 3000)])
+def test_gru_flowhead_3d_bf16_propagates_nan_and_signed_zeros_as_plain(cuda, batch, n):
+    """#7·bf16 with +-0 runs in all four hoisted weights, NaN in q's and
+    conv2's, and a zero input row (each tail in the 8-byte shape while its
+    launch fits in its own wave, else the 16-byte one: at 666 points all
+    8-byte, at 3000 and 4096 a mix): NaN where the plain version has it, the
+    rest within FAST_TOL
+    (its dense layers sum in another order), a rerun bit for bit."""
+    with torch.inference_mode():
+        (h, x3d, motion, idx), dw, params = gru_flowhead_3d_case(cuda, 55, batch, n)
+        h[:, 7], x3d[:, 7], motion[:, 7] = 0.0, 0.0, 0.0
+        dw16 = update3d.to_bf16({k: signed_zero_runs(w, nan=k in ("conv_q", "conv2"))
+                                 for k, w in dw.items()})
+        h_got, d_got = update3d.gru_flowhead_3d(h, x3d, motion, idx, dw16, params)
+        again = update3d.gru_flowhead_3d(h, x3d, motion, idx, dw16, params)
+        h_ref, d_ref = update3d.gru_flowhead_3d_plain(h, x3d, motion, idx, dw16, params)
+    for got, ref, rerun in ((h_got, h_ref, again[0]), (d_got, d_ref, again[1])):
+        assert ref.isnan().any() and torch.equal(got.isnan(), ref.isnan())
+        assert_fast_close(torch.nan_to_num(got), torch.nan_to_num(ref))
+        assert torch.equal(rerun.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [128, 64, 12])
+def test_dw_max_fast_kernel_takes_misaligned_rows(cuda, channels):
+    """#13 on bf16 weights 2 bytes past a 16-byte boundary, a table 4 bytes
+    past one, or both, with NaN and +-0 in both: bit for bit the plain
+    version, as on aligned rows."""
+    gen = torch.Generator(device=cuda).manual_seed(56)
+    table = torch.randn(2, 90, channels, generator=gen, device=cuda)
+    table[:, 5, :2] = float("nan")
+    table[:, 8] = 0.0
+    table[:, 9] = -0.0
+    idx = torch.randint(0, 90, (2, 80, 32), generator=gen, device=cuda, dtype=torch.int32)
+    weights = signed_zero_runs(
+        torch.randn(2, 80, 32, channels, generator=gen, device=cuda), nan=True).bfloat16()
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape).copy_(t)
+
+    ref = update3d.dw_max_plain(table, idx, weights)
+    assert ref.isnan().any() and (ref == 0).any()
+    aligned = update3d.dw_max(table, idx, weights)
+    assert bits_equal(aligned, ref)
+    for t, w in ((shifted(table), weights), (table, shifted(weights)),
+                 (shifted(table), shifted(weights))):
+        assert bits_equal(update3d.dw_max(t, idx, w), ref)
+
+
 # --- the gated forms: #6 and #7 on int8 weights, #11 in bf16 ------------------
 
 BF16_STEP = 2.0**-7  # one bf16 rounding step, relative to the value, at most

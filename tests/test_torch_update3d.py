@@ -299,12 +299,17 @@ def test_wrapper_limits_are_the_kernels_constants():
     assert SOURCE.count("__device__ __forceinline__ void tail(") == 1
 
 
-def kernel_layout_floats(c_c1, c_f1, c_f2, c_m):
+def kernel_layout_floats(c_c1, c_f1, c_f2, c_m, bf16=False):
     """The floats a point of #6's scratch must hold, by the entry point's
-    own check in csrc/update3d.cu (`per_point < ...`)."""
-    expr = re.search(r"if \(per_point < ([^|]+) \|\|", SOURCE).group(1)
-    ld_m = -(-c_m // 4) * 4
-    return eval(expr, {"__builtins__": {}}, dict(c_c1=c_c1, c_f1=c_f1, c_f2=c_f2, ld_m=ld_m))
+    own check in csrc/update3d.cu (`per_point < need`, `need` by form: f32
+    tables, or the bf16 form's bf16 tables)."""
+    entry = SOURCE[SOURCE.index('extern "C" int camli_motion_encoder_3d('):]
+    assert re.search(r"if \(per_point < need \|\|", entry)
+    tables, floats = re.search(r"const int need = tb \? ([^:]+):([^;]+);", entry).groups()
+    multiple = 8 if bf16 else 4  # the merge table's rows: 16 bytes
+    ld_m = -(-c_m // multiple) * multiple
+    return eval((tables if bf16 else floats).strip().replace("/", "//"), {"__builtins__": {}},
+                dict(c_c1=c_c1, c_f1=c_f1, c_f2=c_f2, ld_m=ld_m))
 
 
 @pytest.fixture
