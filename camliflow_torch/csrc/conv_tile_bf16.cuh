@@ -2,9 +2,10 @@
 // path's 2D update chain (update2d.cu with bf16 != 0: the motion encoder,
 // kernel #9; the GRU and flow head, #8, and its halves; the RAFT iteration,
 // #10) runs every conv on it. It replaces conv_tile_tc.cuh's bf16 mode for
-// these kernels (that mode stays for #6/#7's int8 forms and #11's bf16
-// form), and like it takes the place of camliflow_tpu/ops/pallas_update2d.py's
-// bf16 MXU dots.
+// these kernels (that mode stays for #6/#7's int8 dense steps; #11's bf16
+// form runs a chain of its own in clfm.cu on the primitives below), and
+// like it takes the place of camliflow_tpu/ops/pallas_update2d.py's bf16 MXU
+// dots.
 //
 // The convolution (`ConvB`) is conv_tile_tc.cuh's `Conv` with dtypes: NHWC
 // inputs read as one virtual channel concat of up to three tensors, each f32
@@ -748,6 +749,9 @@ int launch_bf16(const ConvB& a, const CUtensorMap& map, int n_chunks, cudaStream
   return (int)cudaGetLastError();
 }
 
+// (A source that takes only the primitives above, clfm.cu, defines
+// CAMLI_BF16_PRIMITIVES_ONLY: it then builds none of the tile's kernels.)
+#ifndef CAMLI_BF16_PRIMITIVES_ONLY
 // One convolution of the chain on the bf16 tile: `plane` the bf16 weights
 // [round_up(cout, 64)][round_up(kh * kw * cin, 64)], `bias` f32. The tile's
 // width is cout rounded up to 8, 64, 128, 192 or 256 (the epilogues built:
@@ -780,5 +784,6 @@ int run_conv_bf16(ConvB a, const void* plane, const float* bias, int epi, int kh
     default: return (int)cudaErrorInvalidValue;  // a width this tile was not built for
   }
 }
+#endif  // CAMLI_BF16_PRIMITIVES_ONLY
 
 }  // namespace

@@ -29,8 +29,9 @@
 // planes [N_pad][K_pad], K-major); the kernel splits the activations.
 //
 // The bf16 mode (template argument BF; the int8 form of update3d.cu's dense
-// steps and the bf16 form of clfm.cu's; the 2D chain's fast path runs on
-// conv_tile_bf16.cuh's wgmma tile instead): the
+// steps; the 2D chain's fast path runs on conv_tile_bf16.cuh's wgmma tile
+// instead, and clfm.cu's bf16 form on a chain of its own on that file's
+// primitives): the
 // weights arrive rounded to bf16 once per request, in the hi plane (the lo
 // plane is neither passed nor read); each activation is rounded to bf16
 // (nearest, ties to even: cvt.rn.bf16x2) as it is taken from the stage; a

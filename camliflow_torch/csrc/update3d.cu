@@ -62,7 +62,14 @@
 // mode (conv_tile_tc.cuh, the weights' one bf16 plane), the FMA layers
 // (f1, and the epilogues f2, conv1, conv2 and fc) on weights the wrapper
 // rounded to bf16 and inputs rounded to bf16 as they are taken. The weight
-// stream is a quarter of the f32 form's.
+// stream is a quarter of the f32 form's. #7's int8 form works as the bf16
+// form does: bf16 tables written once by their producers (the tile's dense
+// steps in its bf16 mode through EPI_TABLE, the FMA epilogues), a lane's 8
+// channels of table in one 16-byte load and of int8 weights in one 8-byte
+// load (or 4 channels in 8 and 4 bytes, SH_LANES), the weights widened to
+// bf16 words exactly (int8_pair_bf16), then mul.rn.bf16x2: the same table
+// rounding and products as the f32 tables it had before, so the same bits.
+// #6's int8 form keeps f32 tables.
 //
 // All three kernels are chains of two kinds of step, one launch a step:
 // - a dense step runs conv_tile_tc.cuh's 3xTF32 tile over the points (a 1x1
@@ -132,12 +139,15 @@ enum DwKind { DW_F32 = 0, DW_BF16 = 1, DW_INT8 = 2 };  // the hoisted weights' d
 // A tail's shape: `lanes` lanes a point, `vec` loads a lane and row, of `w`
 // values each (f32 tables: floats, 16 or 4 bytes; bf16 tables: bf16 values,
 // 8 in 16 bytes, 4 in 8 or 2 in 4). By shape row and step. Rows: SH_F32
-// (f32 tables: the exact and int8 forms); the bf16 form's SH_WIDE (16-byte
-// loads) and SH_LANES (8-byte loads on the 64- and 128-channel tails, twice
-// the lanes a point), which a launch takes while its grid fits in one wave
-// of resident blocks (`one_wave`): there each lane's chain of loads bounds
-// it, and more lanes cut the chain; past a wave, SH_WIDE's fewer, wider
-// loads were faster on an H100 (PERF.md).
+// (f32 tables: the exact form, and #6's int8 form); the bf16 form's SH_WIDE
+// (16-byte loads) and SH_LANES (8-byte loads on the 64- and 128-channel
+// tails, twice the lanes a point), which a launch takes while its grid fits
+// in one wave of resident blocks (`one_wave`): there each lane's chain of
+// loads bounds it, and more lanes cut the chain; past a wave, SH_WIDE's
+// fewer, wider loads were faster on an H100 (PERF.md). #7's int8 form takes
+// the same two rows by the same rule (bf16 tables; the int8 weights of a
+// lane's channels in one load of half the table's bytes: 8 bytes in
+// SH_WIDE, 4 in SH_LANES).
 struct TailShape {
   int lanes, vec, w;
 };
@@ -293,6 +303,43 @@ __device__ __forceinline__ void bf16_products(float t0, float t1, float w0, floa
   asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(p2) : "r"(t2), "r"(w2));
   x0 = __uint_as_float(p2 << 16);
   x1 = __uint_as_float(p2 & 0xffff0000u);
+}
+
+// Two int8 values, bytes 2 half and 2 half + 1 of `word`, as a bf16x2
+// word (the first in the low half), exactly: |w| <= 127 is a bf16 value.
+// Each byte biased by 128 becomes the low byte of 2^23 + (w + 128) in f32;
+// subtracting 2^23 + 128 leaves w exactly, and its high half is its bf16.
+__device__ __forceinline__ uint32_t int8_pair_bf16(uint32_t word, int half) {
+  const uint32_t u = word ^ 0x80808080u;
+  const float lo = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7540 + 2 * half)),
+                             8388736.f);
+  const float hi = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7541 + 2 * half)),
+                             8388736.f);
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// W consecutive hoisted weights as bf16 words (W / 2, element 2i in word
+// i's low half), streamed once (__ldcs): bf16 as loaded; int8 in one W-byte
+// load, each pair widened by int8_pair_bf16
+template <int W, int DW>
+__device__ __forceinline__ Words<W> load_dw_words(const void* base, size_t at) {
+  if constexpr (DW == DW_INT8) {
+    static_assert(W == 8 || W == 4, "8- or 4-byte loads");
+    const signed char* p = static_cast<const signed char*>(base) + at;
+    uint32_t raw[W / 4];
+    if constexpr (W == 8) {
+      const uint2 v = __ldcs(reinterpret_cast<const uint2*>(p));
+      raw[0] = v.x, raw[1] = v.y;
+    } else {
+      raw[0] = __ldcs(reinterpret_cast<const unsigned int*>(p));
+    }
+    Words<W> r;
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) r.x[i] = int8_pair_bf16(raw[i / 2], i % 2);
+    return r;
+  } else {
+    return load_words<W, LD_CS>(static_cast<const unsigned short*>(base) + at);
+  }
 }
 
 // W consecutive hoisted weights, f32, bf16 or int8 (DW), streamed once
@@ -458,11 +505,12 @@ __device__ __forceinline__ void fma_dense(const float* x, int cin, const float* 
 // next dense layer runs over them (the block's warps walk the points
 // together). DW: the hoisted weights' dtype; bf16 and int8 take the fast
 // forms' bf16 products, and int8 also rounds the fused layers' inputs (the
-// rows, fc's) to bf16. TB (bf16 weights): the table is bf16, its activation
-// applied by its producer, and the fused layer writes the next one so.
+// rows, fc's) to bf16. TB (bf16 or int8 weights): the table is bf16, its
+// activation applied by its producer, and the fused layer writes the next
+// one so; the weights arrive as bf16 words (load_dw_words).
 template <int LANES, int VEC, int W, int KMAX, int POST, bool FUSE, int DW, bool TB = false>
 __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
-  static_assert(!TB || DW == DW_BF16, "bf16 tables take bf16 weights");
+  static_assert(!TB || DW != DW_F32, "bf16 tables take bf16 or int8 weights");
   constexpr int kPer = 32 / LANES;
   constexpr int kRowsB = kGfWarps * kPer;  // points a block takes at once
   constexpr int kNb = (KMAX + LANES - 1) / LANES;
@@ -525,8 +573,7 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
                 if (ok && c < g.c) {
                   t = load_words<W, LD_CG>(static_cast<const unsigned short*>(g.table) + tb +
                                            (size_t)row * g.ld + c);
-                  w = load_words<W, LD_CS>(static_cast<const unsigned short*>(g.dw) + wp +
-                                           (size_t)j * g.dw_ld + c);
+                  w = load_dw_words<W, DW>(g.dw, wp + (size_t)j * g.dw_ld + c);
                 }
 #pragma unroll
                 for (int e = 0; e < W / 2; ++e) {
@@ -773,11 +820,12 @@ __global__ void __launch_bounds__(kGfThreads, 4)
   dense_step<BF, TB>(d);
 }
 
+// (bf16 tables: #6's bf16 form, #7's bf16 and int8 forms)
 template <int DW>
 int launch_dense(bool me, const DenseStep& d, cudaStream_t stream) {
-  constexpr bool kBf = DW == DW_INT8, kTb = DW == DW_BF16;
-  const auto kernel =
-      me ? motion_encoder_3d_dense<kBf, kTb> : gru_flowhead_3d_dense<kBf, kTb>;
+  constexpr bool kBf = DW == DW_INT8;
+  const auto kernel = me ? motion_encoder_3d_dense<kBf, DW == DW_BF16>
+                         : gru_flowhead_3d_dense<kBf, DW != DW_F32>;
   kernel<<<dense_blocks(d), kGfThreads, GfTile::kSmemBytes, stream>>>(d);
   return (int)cudaGetLastError();
 }
@@ -795,19 +843,21 @@ int launch_dense(bool me, const DenseStep& d, cudaStream_t stream) {
 //   tail conv1 (leaky ReLU on read), then conv2 over it
 //   tail conv2 (leaky ReLU on read) -> fc 64->3 -> delta
 // conv1's and conv2's dense layers run as the FMA epilogue of the tail
-// before them. The bf16 form's tables are bf16: the first dense step writes
-// z|r's (q_xm stays f32, [points, c_h]), q_h's adds q_xm and writes q's,
-// and the epilogues write conv1's and conv2's with the leaky ReLU applied.
+// before them. The bf16 and int8 forms' tables are bf16: the first dense
+// step writes z|r's (q_xm stays f32, [points, c_h]), q_h's adds q_xm and
+// writes q's, and the epilogues write conv1's and conv2's with the leaky
+// ReLU applied; the int8 form's dense steps on bf16 operands.
 
 struct Gru3D {
   Tail tail[4];  // z|r, q, conv1, conv2
 };
 
-// step T of the chain's tails, for hoisted weights of dtype DW, in shape SH
+// step T of the chain's tails, for hoisted weights of dtype DW (bf16 and
+// int8: on bf16 tables), in shape SH
 template <int DW, int T, int SH>
 __global__ void __launch_bounds__(kGfThreads, 4)
     gru_flowhead_3d_tail(const __grid_constant__ Gru3D u) {
-  constexpr bool kTb = DW == DW_BF16;
+  constexpr bool kTb = DW != DW_F32;
   constexpr TailShape s = kGfShape[SH][T];
   const int rank = blockIdx.x, blocks = gridDim.x;
   if constexpr (T == 0) {
@@ -828,10 +878,11 @@ int launch_gf_tail(const Gru3D& u, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// step T in its form's shape: the bf16 form's SH_LANES while it fits in a wave
+// step T in its form's shape: on bf16 tables (the bf16 and int8 forms)
+// SH_LANES while it fits in a wave, else SH_WIDE
 template <int DW, int T>
 int launch_gf_tail(const Gru3D& u, cudaStream_t stream) {
-  if constexpr (DW == DW_BF16) {
+  if constexpr (DW != DW_F32) {
     static const int wave = one_wave(gru_flowhead_3d_tail<DW, T, SH_LANES>);
     if (tail_blocks(u.tail[T], kGfShape[SH_LANES][T].lanes) <= wave) {
       return launch_gf_tail<DW, T, SH_LANES>(u, stream);
@@ -1058,7 +1109,8 @@ extern "C" int camli_motion_encoder_3d(
 // w_1, b_1, w_2, b_2: conv1's and conv2's f32 weights [K_pad, npad] and
 // biases; w_fc [>= c_2, fc_npad] (the int8 form: the weights rounded to
 // bf16, the planes the one bf16 plane). The hoisted weights are f32, bf16
-// or int8 as dw_kind (DwKind) says. scratch holds per_point floats a point.
+// or int8 as dw_kind (DwKind) says (bf16 and int8: bf16 tables). scratch
+// holds per_point floats a point.
 extern "C" int camli_gru_flowhead_3d(
     const float* h, const float* x3d, const float* motion, const int* idx,
     const void* dw_zr, const void* dw_q, const void* dw_1, const void* dw_2,
@@ -1071,8 +1123,8 @@ extern "C" int camli_gru_flowhead_3d(
   // (c_h) | r*h (c_h) | q_h table (c_h) | conv1 table (c_1) | conv2 table
   // (c_2)]; bf16 tables [q_xm (c_h) | z (c_h) | r*h (c_h)] in f32, then [z|r
   // table (2 c_h) | q table (c_h) | conv1 table (c_1) | conv2 table (c_2)] in
-  // bf16; every part starts 16-byte aligned
-  const bool tb = dw_kind == DW_BF16;
+  // bf16 (the bf16 and int8 forms); every part starts 16-byte aligned
+  const bool tb = dw_kind != DW_F32;
   const int need = tb ? 3 * c_h + (3 * c_h + c_1 + c_2) / 2 : 6 * c_h + c_1 + c_2;
   if (per_point < need || (c_h | c_1 | c_2) % (tb ? 8 : 4) || dw_kind < DW_F32 ||
       dw_kind > DW_INT8) {

@@ -6,8 +6,8 @@
 Builds `update3d.cu` as shipped and with forms made from its text, each into
 its own library under build/camliflow_torch/forms3d/:
   shipped       as built by build.py
-  no_table      the bf16 tails load no table row (zero words)
-  no_weights    the bf16 tails load no hoisted weights (zero words)
+  no_table      the tails on bf16 tables load no table row (zero words)
+  no_weights    the tails on bf16 tables load no hoisted weights (zero words)
   no_loads      neither
   no_products   the words' products are an xor, not mul.rn.bf16x2
   rows16        kGfRows 16: twice the bytes of neighbour rows a lane keeps
@@ -40,8 +40,7 @@ from .bf16_tile_forms import using
 SOURCE = "update3d.cu"
 TABLE_LOAD = """                  t = load_words<W, LD_CG>(static_cast<const unsigned short*>(g.table) + tb +
                                            (size_t)row * g.ld + c);"""
-WEIGHT_LOAD = """                  w = load_words<W, LD_CS>(static_cast<const unsigned short*>(g.dw) + wp +
-                                           (size_t)j * g.dw_ld + c);"""
+WEIGHT_LOAD = """                  w = load_dw_words<W, DW>(g.dw, wp + (size_t)j * g.dw_ld + c);"""
 FORMS = {
     "shipped": [],
     "no_table": [(TABLE_LOAD, "")],

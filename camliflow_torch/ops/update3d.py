@@ -22,7 +22,8 @@ picks the form each wrapper takes:
   form (an int8 weight is a bf16 value exactly); and every dense layer takes
   bf16 operands with f32 sums (its weights rounded to bf16 once per
   request, `PackedConv.bf16`, its input as it is read). The gates, h' and
-  the sums stay f32.
+  the sums stay f32. #7's kernel keeps its tables in bf16 here too (the
+  table is rounded once either way), so its widths are multiples of 8.
 
 Each PointConvDW's MLP (one Linear) is packed once per request by
 `prepare_motion_encoder_3d_params` / `prepare_gru_flowhead_3d_params` (the
@@ -275,11 +276,12 @@ def padded_rows(weights: torch.Tensor) -> torch.Tensor:
     return F.pad(weights, (0, _round_up(channels, multiple) - channels))[..., :channels]
 
 
-def scratch_floats(kind: int, tables: tuple[int, ...], rest: tuple[int, ...]) -> int:
+def scratch_floats(bf16_tables: bool, tables: tuple[int, ...], rest: tuple[int, ...]) -> int:
     """The floats a point of #6's or #7's scratch takes: its `tables`
-    (channels of each gathered table) and its other f32 parts (`rest`); the
-    bf16 form (kind 1) keeps the tables in bf16, two channels a float."""
-    if kind == DW_KINDS[torch.bfloat16]:
+    (channels of each gathered table) and its other f32 parts (`rest`);
+    bf16 tables (#6's and #7's bf16 forms, #7's int8 form) two channels a
+    float."""
+    if bf16_tables:
         return sum(rest) + sum(tables) // 2
     return sum(rest) + sum(tables)
 
@@ -346,8 +348,9 @@ def _me_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
     kind = _check_form(name, packed, dtype)
     # the scratch a point: the tables of c1, f1, f2 and the merge (its rows
     # 16 bytes apart), corr_feat and flow_feat
-    per_point = scratch_floats(kind, (c1.cout, f1.cout, f2.cout,
-                                      _round_up(merge.cout, multiple)), (c1.cout, f2.cout))
+    per_point = scratch_floats(dtype == torch.bfloat16, (c1.cout, f1.cout, f2.cout,
+                                                          _round_up(merge.cout, multiple)),
+                               (c1.cout, f2.cout))
     return (tuple(dw[k].data_ptr() for k in ME_CONVS), kind, _planes(packed, ME_DENSE),
             tuple(t.data_ptr() for c in (f1, f2) for t in (c.weight, c.bias)),
             (c1.cout, f1.cout, f2.cout, merge.cout), tuple(ks),
@@ -571,7 +574,8 @@ def _gf_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
         raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
     widths = (2 * ch, ch, conv1.cout, conv2.cout)
     dtype = dw["conv_q"].dtype
-    multiple = BF16_ROW if dtype == torch.bfloat16 else 4  # bf16 tables: 16-byte rows
+    tables16 = dtype != torch.float32  # the bf16 and int8 forms' bf16 tables: 16-byte rows
+    multiple = BF16_ROW if tables16 else 4
     if (any(w > most for w, most in zip(widths, GF_WIDTHS)) or fc.cout > GF_MAX_FC
             or any(w % multiple for w in widths)
             or any(k > most or k < 1 for k, most in zip(ks, GF_KS))):
@@ -585,7 +589,7 @@ def _gf_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
     kind = _check_form(name, packed, dtype)
     # the kernel's scratch a point: the tables of z|r, q, conv1 and conv2;
     # z, r*h and q's x3d/motion part
-    per_point = scratch_floats(kind, (2 * ch, ch, conv1.cout, conv2.cout), (ch, ch, ch))
+    per_point = scratch_floats(tables16, (2 * ch, ch, conv1.cout, conv2.cout), (ch, ch, ch))
     args = (tuple(dw[k].data_ptr() for k in GF_DW), kind, _planes(packed, GF_DENSE),
             tuple(t.data_ptr() for c in (conv1, conv2, fc) for t in (c.weight, c.bias)),
             (conv1.cout, conv2.cout, fc.cout), tuple(ks),

@@ -266,6 +266,8 @@ GATED_FORMS = {"motion_encoder_3d_int8": ("motion_encoder_3d", "int8_launches"),
                "gru_flowhead_3d_int8": ("gru_flowhead_3d", "int8_launches"),
                "clfm_fused_bf16": ("clfm_fused", "fast_launches")}
 GATED_TOL = 2.0**-7  # a gated form against its plain version: one bf16 step of the largest value
+SK_MEAN_TOL = 2.0**-14  # #11's SK mean against its plain version, of its largest value
+SK_WEIGHT_TOL = 2.0**-12  # #11's SK pair weights (values near 1/2) against their plain ones
 TC_STAGES = 3  # conv_tile_tc.cuh's kStages
 
 
@@ -394,6 +396,33 @@ def bound(ops: float, nbytes: float, peak: float = PEAK_F32) -> tuple[float, str
     over the peak rate for their type and the bytes over the memory rate."""
     t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def sk_close(name: str, got, ref) -> None:
+    """#11's SK state (`ops.clfm.sk_state`: each side's mean of a + b over its
+    rows, from the column sums the kernel wrote by tile, and the pair
+    weights its heads wrote) against the plain version's: the means within
+    SK_MEAN_TOL * max |mean|, the weights within SK_WEIGHT_TOL. A tile's sums
+    missing at 68 x 120 (one of 128) move the mean by ~1/128 of its size and
+    another batch item's sums by far more; one bf16 step of a rounded mean
+    moves a weight by up to ~7e-5."""
+    for side, (mean, weights), (mean_ref, weights_ref) in zip(("2D", "3D"), got, ref):
+        d_mean = float((mean - mean_ref).abs().max())
+        limit = SK_MEAN_TOL * float(mean_ref.abs().max())
+        d_w = float((weights - weights_ref).abs().max())
+        print(f"  {name} SK {side}: max |mean - plain| {d_mean:.3e} (bound {limit:.3e}), "
+              f"max |weight - plain| {d_w:.3e} (bound {SK_WEIGHT_TOL:.3e})")
+        if not (d_mean <= limit and d_w <= SK_WEIGHT_TOL):
+            raise AssertionError(f"{name}: the SK {side} side's mean or weights stray")
+
+
+def distinct_items(x):
+    """x [B, ...] with batch item k scaled by 1 + k / 4 and shifted by k / 4,
+    so that no two items share an SK mean."""
+    import torch
+
+    k = torch.arange(x.shape[0], dtype=x.dtype, device=x.device).view(-1, *(1,) * (x.dim() - 1))
+    return x * (1 + 0.25 * k) + 0.25 * k
 
 
 def gated_close(name: str, got, ref) -> float:
@@ -529,9 +558,9 @@ def in_turns(calls: dict, reps: int, only) -> dict[str, list[float]]:
 
 def other_tree(root: str):
     """Another checkout's wrappers of #1, #3, the 3D chain (#6, #7, #13),
-    #12 and the 2D chain (#8-#10): its ops.knn, ops.interp, ops.update3d,
-    models.camliraft_l (whose modules hoist the weights as its wrappers take
-    them), ops.gather and ops.update2d, to time
+    #12, the 2D chain (#8-#10) and CLFM (#11): its ops.knn, ops.interp,
+    ops.update3d, models.camliraft_l (whose modules hoist the weights as its
+    wrappers take them), ops.gather, ops.update2d and ops.clfm, to time
     beside this tree's: its camliflow_torch imported as
     `other_camliflow_torch`, its kernels built from its own sources into its
     own build/."""
@@ -549,7 +578,7 @@ def other_tree(root: str):
     print(f"  other tree: built {path} in {seconds:.1f} s", flush=True)
     return tuple(importlib.import_module(f"{name}.{module}")
                  for module in ("ops.knn", "ops.interp", "ops.update3d", "models.camliraft_l",
-                                "ops.gather", "ops.update2d"))
+                                "ops.gather", "ops.update2d", "ops.clfm"))
 
 
 def stage_ms(fn, reps: int) -> list[tuple[str, float]]:
@@ -1563,45 +1592,69 @@ def kernel_parity(device, other=None) -> list[dict]:
                    **exact)
 
         # the gated int8 forms of #6 and #7 (CAMLIFLOW_UPDATE3D=1, at most
-        # 4096 loop points: bs 1): the bf16 hoisted weights quantised to int8
+        # 4096 loop points; at the eval CLI's batch of 8 too, where the
+        # scales are the batch's): the bf16 hoisted weights quantised to int8
         # with their scales folded into the MLPs, every dense layer on bf16
         # operands (prepare_int8), each against its plain version within one
-        # bf16 step (GATED_TOL); bytes with the hoisted weights at 1 byte,
-        # operations at the bf16 peak
-        def int8_operands(tree, enc, d_me):
+        # bf16 step (GATED_TOL), with another tree bit for bit its same form,
+        # timed in turns with it and by launch; bytes with the hoisted
+        # weights at 1 byte, operations at the bf16 peak
+        def int8_operands(tree, enc, d_me, d_gf):
             return tree.prepare_int8(tree.to_bf16({
-                "motion_encoder": d_me, "gru": {k: dw_gf[k] for k in ("conv_zr", "conv_q")},
-                "flow_head": {k: dw_gf[k] for k in ("conv1", "conv2")}}), enc, gru, head)
+                "motion_encoder": d_me, "gru": {k: d_gf[k] for k in ("conv_zr", "conv_q")},
+                "flow_head": {k: d_gf[k] for k in ("conv1", "conv2")}}), enc, gru, head)
 
-        dw8, me8, gf8 = int8_operands(update3d, encoder, dw_me)
-        gf8_dw = {**dw8["gru"], **dw8["flow_head"]}
-        if other:
-            dw8_o, me8_o, gf8_o = int8_operands(other[2], other_encoder, dw_me_other)
-            gf8_dw_o = {**dw8_o["gru"], **dw8_o["flow_head"]}
-        for key, name, calls, plain, ops, nbytes, p8, replaces in (
-                ("me", "motion_encoder_3d", trees(
-                    lambda: update3d.motion_encoder_3d(*me_in[1], dw8["motion_encoder"], me8),
-                    lambda: other[2].motion_encoder_3d(*me_in[1], dw8_o["motion_encoder"],
-                                                       me8_o)),
-                 lambda: update3d.motion_encoder_3d_plain(*me_in[1], dw8["motion_encoder"], me8),
+        int8 = {}  # bs -> #6's and #7's calls, their plain versions, their packings
+        for bs in (8, 1):
+            d_me, d_gf, d_other = dws[bs]
+            dw8, me8, gf8 = int8_operands(update3d, encoder, d_me, d_gf)
+            gf8_dw = {**dw8["gru"], **dw8["flow_head"]}
+            if other:
+                dw8_o, me8_o, gf8_o = int8_operands(other[2], other_encoder, d_other, d_gf)
+                gf8_dw_o = {**dw8_o["gru"], **dw8_o["flow_head"]}
+            me_calls = trees(
+                lambda: update3d.motion_encoder_3d(*me_in[bs], dw8["motion_encoder"], me8),
+                lambda: other[2].motion_encoder_3d(*me_in[bs], dw8_o["motion_encoder"], me8_o))
+            gf_calls = trees(lambda: update3d.gru_flowhead_3d(*gf_in[bs], gf8_dw, gf8),
+                             lambda: other[2].gru_flowhead_3d(*gf_in[bs], gf8_dw_o, gf8_o))
+            me_plain = (lambda: update3d.motion_encoder_3d_plain(  # noqa: E731
+                *me_in[bs], dw8["motion_encoder"], me8))
+            gf_plain = lambda: update3d.gru_flowhead_3d_plain(  # noqa: E731
+                *gf_in[bs], gf8_dw, gf8)
+            reps = 20 if bs == 1 else 10
+            forms[("me", " (int8)", bs)] = drive(
+                f"motion_encoder_3d (int8) bs={bs}", me_calls, me_plain(), gated_close,
+                "motion_encoder_3d", reps, flow=me_in[bs][0])
+            forms[("gf", " (int8)", bs)] = drive(
+                f"gru_flowhead_3d (int8) bs={bs}", gf_calls, gf_plain(), gated_close,
+                "gru_flowhead_3d", reps)
+            int8[bs] = (me_calls["this"], gf_calls["this"], me_plain, gf_plain, me8, gf8)
+        me8_call, gf8_call, me8_plain, gf8_plain, me8, gf8 = int8[1]
+        # bytes a batch item (points, int8 hoisted weights) and once a call
+        # (the MLPs)
+        for key, name, call, plain, ops, item_bytes, call_bytes, replaces in (
+                ("me", "motion_encoder_3d", me8_call, me8_plain,
                  2 * n * (linear_macs({k: me8[k] for k in update3d.ME_CONVS}) + me_floats),
-                 me_io + 4 * sum(size(me8[k]) for k in update3d.ME_CONVS) + n * me_floats, me8,
-                 248),
-                ("gf", "gru_flowhead_3d", trees(
-                    lambda: update3d.gru_flowhead_3d(*gf_in[1], gf8_dw, gf8),
-                    lambda: other[2].gru_flowhead_3d(*gf_in[1], gf8_dw_o, gf8_o)),
-                 lambda: update3d.gru_flowhead_3d_plain(*gf_in[1], gf8_dw, gf8),
+                 me_io + n * me_floats, 4 * sum(size(me8[k]) for k in update3d.ME_CONVS), 248),
+                ("gf", "gru_flowhead_3d", gf8_call, gf8_plain,
                  2 * n * (sum(gf8[k].cin * gf8[k].cout for k in keys) + gf_floats),
-                 gf_io + 4 * sum(size(gf8[k]) for k in keys) + n * gf_floats, gf8, 372)):
-            err, times, steps = drive(f"{name} (int8) bs=1", calls, plain(), gated_close, name,
-                                      20, split=False, flow=flow3d if key == "me" else None)
+                 gf_io + n * gf_floats, 4 * sum(size(gf8[k]) for k in keys), 372)):
+            err, times, steps = forms[(key, " (int8)", 1)]
+            bs8 = forms[(key, " (int8)", 8)]
+            bf16 = {f"bf16_form_device_ms_bs{bs}": mean(forms[(key, " (bf16)", bs)][1]["this"])
+                    for bs in (1, 8)}
+            print(f"  {name} (int8): device {mean(times['this']):.4f} ms bs 1, "
+                  f"{mean(bs8[1]['this']):.4f} ms bs 8; the bf16 form "
+                  f"{bf16['bf16_form_device_ms_bs1']:.4f}, "
+                  f"{bf16['bf16_form_device_ms_bs8']:.4f} ms", flush=True)
             record(f"{name} (int8)", "camliflow_torch/csrc/update3d.cu",
                    f"camliflow_tpu/ops/pallas_update3d.py:{replaces}", err,
-                   time_ms(calls["this"], 50), time_ms(plain, 20), ops, nbytes, bf16_cores=True,
-                   wrapper=f"{name}_int8", device_ms=mean(times["this"]),
-                   **measured(times, steps, 1),
-                   bf16_form_device_ms=mean(forms[(key, " (bf16)", 1)][1]["this"]))
-        del dw8, gf8_dw, dws, me_in[8], gf_in[8]
+                   time_ms(call, 50), time_ms(plain, 20), ops, item_bytes + call_bytes,
+                   bf16_cores=True, wrapper=f"{name}_int8", device_ms=mean(times["this"]),
+                   **measured(times, steps, 1), **measured(*bs8[1:], 8),
+                   bound_ms_bs8=bound(8 * ops, 8 * item_bytes + call_bytes, PEAK_BF16)[0],
+                   bf16_form_device_ms=bf16["bf16_form_device_ms_bs1"], **bf16)
+        del int8, dws, me_in[8], gf_in[8]
 
         # the PointConvDW tail alone (#13), at the fuse_hidden path's four
         # shapes: GRU3D's z|r and q (k=4), FlowHead3D's conv1 and conv2
@@ -1703,6 +1756,8 @@ def kernel_parity(device, other=None) -> list[dict]:
             got_2d, got_3d = clfm.clfm_fused(*inputs, params)
             ref_2d, ref_3d = clfm.clfm_fused_plain(*inputs, params)
             err = max(check("clfm out_2d", got_2d, ref_2d), check("clfm out_3d", got_3d, ref_3d))
+            sk_close(f"clfm_fused (C2 {c2}, C3 {c3})", clfm.sk_state(*inputs, params),
+                     clfm.sk_state_plain(*inputs, params))
             for _ in range(2):  # the SK means and heads sum in a fixed order
                 again = clfm.clfm_fused(*inputs, params)
                 if not (torch.equal(again[0], got_2d) and torch.equal(again[1], got_3d)):
@@ -1734,35 +1789,79 @@ def kernel_parity(device, other=None) -> list[dict]:
                    4 * (2 * hw * c2 + 2 * m * c3 + hw * c3 + hw + 8 * m + weights),
                    label=f"clfm_fused (C2 {c2}, C3 {c3})", entry=c2 == 324, tensor_cores=True,
                    stages_ms={label: ms for label, (_, ms) in zip(names, stages)})
+            if other:  # the other tree's exact form: the same bits, timed in turns
+                other32 = other[6].prepare_clfm_params(block)
+                theirs = other[6].clfm_fused(*inputs, other32)
+                if not (torch.equal(theirs[0], got_2d) and torch.equal(theirs[1], got_3d)):
+                    raise AssertionError("clfm_fused: not the other tree's bits")
+                times = in_turns(trees(lambda: clfm.clfm_fused(*inputs, params),
+                                       lambda: other[6].clfm_fused(*inputs, other32)), 20, "")
+                print(f"  clfm_fused (C2 {c2}, C3 {c3}): device {mean(times['this']):.4f} ms a "
+                      f"call{beside(times)}; the other tree bit for bit", flush=True)
             # its gated bf16 form (CAMLIFLOW_CLFM=1): a bf16 score gate and
             # packings, bf16 tables, products and dense operands, within one
-            # bf16 step of its plain version (GATED_TOL), rerun bit for bit;
-            # bytes with the gate, the dense kernels and the SK heads at 2
-            # bytes and the biases at 4, operations at the bf16 peak
+            # bf16 step of its plain version (GATED_TOL), rerun bit for bit,
+            # at bs 1 and at the eval CLI's batch of 8; timed in turns with
+            # the other tree's bf16 form and by launch (both trees); bytes
+            # with the gate, the dense kernels and the SK heads at 2 bytes
+            # and the biases at 4, operations at the bf16 peak
             biases = sum(params[key].cout for key in clfm.DENSE)
+            params16 = clfm.prepare_clfm_params(block, bf16=True)
+            other16 = other[6].prepare_clfm_params(block, bf16=True) if other else None
             inputs16 = (*inputs[:2], clfm.hoist_interp_score(block.interp, cache[1], True),
                         *inputs[3:])
-            params16 = clfm.prepare_clfm_params(block, bf16=True)
-            got_2d, got_3d = clfm.clfm_fused(*inputs16, params16)
-            ref_2d, ref_3d = clfm.clfm_fused_plain(*inputs16, params16)
-            err = max(gated_close(f"clfm_fused (bf16, C2 {c2}) out_2d", got_2d, ref_2d),
-                      gated_close(f"clfm_fused (bf16, C2 {c2}) out_3d", got_3d, ref_3d))
-            again = clfm.clfm_fused(*inputs16, params16)
-            if not (torch.equal(again[0], got_2d) and torch.equal(again[1], got_3d)):
-                raise AssertionError("clfm_fused (bf16): two runs give different bits")
+            cases16 = {1: inputs16, 8: (
+                distinct_items(torch.randn(8, feat_h, feat_w, c2, generator=gen, device=device)),
+                distinct_items(torch.randn(8, m, c3, generator=gen, device=device)),
+                *(x.repeat(8, 1, 1).contiguous() for x in inputs16[2:]))}
+            by_bs = {}
+            for bs in (8, 1):
+                args16 = cases16[bs]
+                label16 = f"clfm_fused (bf16, C2 {c2}, C3 {c3}) bs={bs}"
+                got_2d, got_3d = clfm.clfm_fused(*args16, params16)
+                ref_2d, ref_3d = clfm.clfm_fused_plain(*args16, params16)
+                err = max(gated_close(f"{label16} out_2d", got_2d, ref_2d),
+                          gated_close(f"{label16} out_3d", got_3d, ref_3d))
+                again = clfm.clfm_fused(*args16, params16)
+                if not (torch.equal(again[0], got_2d) and torch.equal(again[1], got_3d)):
+                    raise AssertionError(f"{label16}: two runs give different bits")
+                sk_close(label16, clfm.sk_state(*args16, params16),
+                         clfm.sk_state_plain(*args16, params16))
+                calls = trees(lambda a=args16: clfm.clfm_fused(*a, params16),
+                              lambda a=args16: other[6].clfm_fused(*a, other16))
+                reps = 20 if bs == 1 else 10
+                times = in_turns(calls, reps, "")
+                splits = {tree: stage_ms(call, reps) for tree, call in calls.items()}
+                print(f"  {label16}: device {mean(times['this']):.4f} ms a call"
+                      f"{beside(times)}; by launch " + "; ".join(
+                          f"{tree} " + ", ".join(f"{short_name(k)} {ms:.4f}" for k, ms in steps)
+                          for tree, steps in splits.items()), flush=True)
+                by_bs[bs] = (err, times, splits)
+            err, times, splits = by_bs[1]
             call16 = lambda: clfm.clfm_fused(*inputs16, params16)  # noqa: E731
-            dev16, dev32 = (device_ms(call, 20) for call in
-                            (call16, lambda: clfm.clfm_fused(*inputs, params)))
-            print(f"  clfm_fused (bf16, C2 {c2}, C3 {c3}): device {dev16:.4f} ms a call, the "
-                  f"exact form {dev32:.4f} ms", flush=True)
+            dev16, dev32 = mean(times["this"]), device_ms(lambda: clfm.clfm_fused(*inputs, params),
+                                                          20)
+            print(f"  clfm_fused (bf16, C2 {c2}, C3 {c3}): device {dev16:.4f} ms a call bs 1, "
+                  f"{mean(by_bs[8][1]['this']):.4f} ms bs 8, the exact form {dev32:.4f} ms bs 1",
+                  flush=True)
+            item_bytes = 4 * (2 * hw * c2 + 2 * m * c3 + hw + 8 * m) + 2 * hw * c3
+            call_bytes = 4 * biases + 2 * (weights - biases)
             record("clfm_fused (bf16)", "camliflow_torch/csrc/clfm.cu",
-                   "camliflow_tpu/ops/pallas_clfm.py:200", err, time_ms(call16, 20),
+                   "camliflow_tpu/ops/pallas_clfm.py:200", max(by_bs[bs][0] for bs in by_bs),
+                   time_ms(call16, 20),
                    time_ms(lambda: clfm.clfm_fused_plain(*inputs16, params16), 20), 2 * macs,
-                   4 * (2 * hw * c2 + 2 * m * c3 + hw + 8 * m + biases)
-                   + 2 * (hw * c3 + weights - biases),
+                   item_bytes + call_bytes,
                    label=f"clfm_fused (bf16, C2 {c2}, C3 {c3})", entry=c2 == 324,
                    bf16_cores=True, wrapper="clfm_fused_bf16", device_ms=dev16,
-                   exact_form_device_ms=dev32)
+                   exact_form_device_ms=dev32,
+                   **{f"{key}_bs{bs}": value for bs, (_, t, sp) in by_bs.items()
+                      for key, value in (
+                          ("device_ms", mean(t["this"])),
+                          ("steps_ms", [ms for _, ms in sp["this"]]),
+                          *((("other_device_ms", mean(t["other"])),
+                             ("other_steps_ms", [ms for _, ms in sp["other"]])) if other
+                            else ()))},
+                   bound_ms_bs8=bound(8 * 2 * macs, 8 * item_bytes + call_bytes, PEAK_BF16)[0])
 
     # the k-major gather: PointConv's at the encoder's level 0 ([2, 8192] ->
     # [2, 4096], k=16) and level 1 ([2, 4096] -> [2, 2048]), xyz and
@@ -4435,8 +4534,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Proof that the port runs on one CUDA card.")
     parser.add_argument("--other", metavar="TREE",
                         help="another checkout (a parent unpacked by git archive into an "
-                             "ignored directory, say) whose #1, #3, #6, #7, #12, #13 and "
-                             "the 2D chain's bf16 forms phase 3 times beside this tree's")
+                             "ignored directory, say) whose #1, #3, #6, #7, #11, #12, #13 "
+                             "and the 2D chain's bf16 forms phase 3 times beside this tree's")
     args = parser.parse_args()
     started = time.perf_counter()
 
@@ -4502,7 +4601,6 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("kernels")
-
     wrappers = kernel_wrappers()
     paths = main_paths(wrappers)
     total = dict.fromkeys(wrappers, 0)

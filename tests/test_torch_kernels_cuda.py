@@ -1518,6 +1518,35 @@ def assert_within_a_step(got, ref):
     assert err <= BF16_STEP * float(ref.abs().max()), err
 
 
+SK_MEAN_TOL = 2.0**-14  # #11's SK mean against the plain one's, of its largest value
+SK_WEIGHT_TOL = 2.0**-12  # #11's SK pair weights (values near 1/2) (chip_smoke.py's)
+
+
+def distinct_items(inputs):
+    """#11's inputs with batch item k's maps and clouds scaled by 1 + k / 4
+    and shifted by k / 4, so that no two items share an SK mean."""
+    def item(x):
+        k = torch.arange(x.shape[0], dtype=x.dtype, device=x.device)
+        return x * (1 + 0.25 * k.view(-1, *(1,) * (x.dim() - 1))) + 0.25 * k.view(
+            -1, *(1,) * (x.dim() - 1))
+
+    return (item(inputs[0]), item(inputs[1]), *inputs[2:])
+
+
+def assert_sk_state_close(got, ref):
+    """`clfm.sk_state` against `sk_state_plain`: each side's mean of a + b
+    (from the column sums the kernel wrote by tile) within SK_MEAN_TOL of its
+    largest value, the pair weights the heads wrote within SK_WEIGHT_TOL.
+    A tile's sums missing, or another batch item's taken, moves a mean far
+    past its bound."""
+    for (mean, weights), (mean_ref, weights_ref) in zip(got, ref):
+        assert mean.shape == mean_ref.shape and weights.shape == weights_ref.shape
+        err = float((mean - mean_ref).abs().max())
+        assert err <= SK_MEAN_TOL * float(mean_ref.abs().max()), err
+        err = float((weights - weights_ref).abs().max())
+        assert err <= SK_WEIGHT_TOL, err
+
+
 def int8_case(device, seed, batch, n):
     """The int8 form's operands (`prepare_int8` of the bf16 hoisted
     weights, as the models make them) and the 3D chain's inputs."""
@@ -1590,3 +1619,116 @@ def test_clfm_bf16_kernel_matches_plain(cuda, batch, height, width, n, c2, c3):
     assert_within_a_step(got_2d, ref_2d)
     assert_within_a_step(got_3d, ref_3d)
     assert torch.equal(got_2d, again_2d) and torch.equal(got_3d, again_3d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,height,width,n,c2,c3", [
+    (2, 68, 120, 2048, 324, 128),
+    (8, 68, 120, 2048, 324, 128),  # the eval CLI's batch of 8
+    (2, 68, 120, 2048, 128, 128),
+    (8, 68, 120, 2048, 128, 128),
+    (2, 9, 11, 77, 324, 128),  # ragged: each batch item's second tile partial
+    (1, 9, 11, 77, 128, 128),
+])
+def test_clfm_bf16_chain_at_every_batch_and_ragged_sizes(cuda, batch, height, width, n, c2, c3):
+    """#11·bf16's chain (a block a 64-row tile of one batch item, the SK mean
+    by tiles in a fixed order), on batch items of distinct scales and
+    offsets: within one bf16 step of the plain bf16 form at bs 2 and 8 and
+    on maps and clouds no multiple of 64, its SK means and weights close to
+    the plain ones, a rerun bit for bit."""
+    with torch.inference_mode():
+        inputs, params = clfm_case(cuda, 56, batch, height, width, n, c2, c3, bf16=True)
+        inputs = distinct_items(inputs)
+        got_2d, got_3d = clfm.clfm_fused(*inputs, params)
+        again_2d, again_3d = clfm.clfm_fused(*inputs, params)
+        ref_2d, ref_3d = clfm.clfm_fused_plain(*inputs, params)
+        assert_sk_state_close(clfm.sk_state(*inputs, params),
+                              clfm.sk_state_plain(*inputs, params))
+    assert_within_a_step(got_2d, ref_2d)
+    assert_within_a_step(got_3d, ref_3d)
+    assert torch.equal(got_2d, again_2d) and torch.equal(got_3d, again_3d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,height,width,n,c2,c3", [
+    (8, 68, 120, 2048, 324, 128),
+    (2, 9, 11, 77, 128, 128),  # ragged: each batch item's second chunk partial
+])
+def test_clfm_exact_form_sk_state_is_the_plain_one(cuda, batch, height, width, n, c2, c3):
+    """#11's exact form (256-row chunks, one blend with the bf16 form's), on
+    batch items of distinct scales and offsets: its SK means and weights
+    close to the plain ones, its outputs within the tile's tolerance."""
+    with torch.inference_mode():
+        inputs, params = clfm_case(cuda, 60, batch, height, width, n, c2, c3)
+        inputs = distinct_items(inputs)
+        got_2d, got_3d = clfm.clfm_fused(*inputs, params)
+        ref_2d, ref_3d = clfm.clfm_fused_plain(*inputs, params)
+        assert_sk_state_close(clfm.sk_state(*inputs, params),
+                              clfm.sk_state_plain(*inputs, params))
+    assert_conv_close(got_2d, ref_2d)
+    assert_conv_close(got_3d, ref_3d)
+
+
+@pytest.mark.cuda
+def test_clfm_bf16_form_is_three_launches(cuda):
+    """One bf16 call at the flagship's corr widths: the chain of both sides,
+    the SK heads and the blend (at most four, down from six); no launch of
+    the exact form's tile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        inputs, params = clfm_case(cuda, 57, 1, 68, 120, 2048, 324, 128, bf16=True)
+        clfm.clfm_fused(*inputs, params)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            clfm.clfm_fused(*inputs, params)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(names) <= 4, names
+    assert sum("clfm_chain_kernel" in name for name in names) == 1, names
+    assert not any("conv_tc_group_kernel" in name for name in names), names
+
+
+@pytest.mark.cuda
+def test_clfm_bf16_wrapper_raises_on_misaligned_operands(cuda):
+    """The chain reads the score 4 values and the taps a point at a time."""
+    with torch.inference_mode():
+        inputs, params = clfm_case(cuda, 58, 1, 6, 8, 30, 128, 128, bf16=True)
+        before = clfm.clfm_fused.fast_launches
+        for i, elements in ((2, 2), (4, 1), (5, 2)):
+            bad = list(inputs)
+            base = torch.zeros(inputs[i].numel() + elements, dtype=inputs[i].dtype, device=cuda)
+            bad[i] = base[elements:].view(inputs[i].shape).copy_(inputs[i])
+            with pytest.raises(ValueError, match="aligned"):
+                clfm.clfm_fused(*bad, params)
+        assert clfm.clfm_fused.fast_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 77), (1, 2048), (2, 2048), (1, 3000), (8, 2048)])
+def test_gru_flowhead_3d_int8_on_bf16_tables_propagates_nan_and_signed_zeros(cuda, batch, n):
+    """#7·int8 on bf16 tables (the 8-byte shapes while a tail's launch fits in
+    a wave, else the 16-byte ones): runs of zero int8 weights over every
+    neighbour (zero maxima, their sign the tie rule's), a zero input row and
+    a NaN one: NaN where the plain int8 form has it, the rest within one
+    bf16 step (its dense layers sum in another order; bit for bit its
+    f32-table predecessor: chip_smoke.py phase 3 with --other), a rerun bit
+    for bit, counted on `int8_launches`."""
+    with torch.inference_mode():
+        _, (h, x3d, idx), dw, _, gf = int8_case(cuda, 59, batch, n)
+        gf_dw = {**dw["gru"], **dw["flow_head"]}
+        for key in gf_dw:  # zero weights over every neighbour of some channels
+            gf_dw[key] = gf_dw[key].clone()
+            gf_dw[key][:, 3::11, :, 1::5] = 0
+        motion = torch.randn(batch, n, 128, device=cuda)
+        h[:, 7], x3d[:, 7], motion[:, 7] = 0.0, 0.0, 0.0
+        motion[:, 9] = float("nan")
+        before = counts(update3d.gru_flowhead_3d)
+        h_got, d_got = update3d.gru_flowhead_3d(h, x3d, motion, idx, gf_dw, gf)
+        assert counts(update3d.gru_flowhead_3d) == (before[0], before[1], before[2] + 1)
+        again = update3d.gru_flowhead_3d(h, x3d, motion, idx, gf_dw, gf)
+        h_ref, d_ref = update3d.gru_flowhead_3d_plain(h, x3d, motion, idx, gf_dw, gf)
+    for got, ref, rerun in ((h_got, h_ref, again[0]), (d_got, d_ref, again[1])):
+        assert ref.isnan().any() and torch.equal(got.isnan(), ref.isnan())
+        assert_within_a_step(torch.nan_to_num(got), torch.nan_to_num(ref))
+        assert torch.equal(rerun.view(torch.int32), got.view(torch.int32))

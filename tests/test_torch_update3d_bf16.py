@@ -70,15 +70,15 @@ def take_max(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def emulated_tail(pre: torch.Tensor, leaky: bool, knn_idx: torch.Tensor, dw: torch.Tensor,
-                  group: int, kmax: int = 32) -> torch.Tensor:
+                  group: int, kmax: int = 32, words=bf16_words) -> torch.Tensor:
     """The bf16 form's division of work: the producer applies the activation
     to the f32 table `pre` and rounds it to bf16; the tail takes the point's
     neighbours in rounds of `kmax`, each in groups of `group` rows (the rows
     a lane keeps in flight), multiplies the words and keeps the max in
     neighbour order. pre [B, N, C], knn_idx [B, M, >= k], dw [B, M, k, C]
-    bf16 -> [B, M, C] f32."""
+    bf16 (or int8, with `words` the int8 form's widening) -> [B, M, C] f32."""
     table = bf16_words((F.leaky_relu(pre, 0.1) if leaky else pre).bfloat16())
-    weights = bf16_words(dw)
+    weights = words(dw)
     k = dw.shape[2]
     m = None
     for jb in range(0, k, kmax):
