@@ -49,27 +49,35 @@
 // whose neighbour order and NaN rule (take_max) packed bf16 max
 // instructions do not give. A lane keeps as many bytes of neighbour rows in
 // flight as the f32 form, so twice the rows at the same channels (kGfRows).
-// #13's fast form (dw_max) reads an f32 table, rounded to bf16 as a row is
-// read (cvt.rn.bf16x2), and widened bf16 weights.
+// #13's fast form (dw_max) reads an f32 table, rounded into bf16 words as a
+// row is read (cvt.rn.bf16x2), and its bf16 weights as packed words: where
+// C is a multiple of 8 and the rows are 16-byte aligned, a lane takes 8
+// channels, the table in two 16-byte loads and the weights in one, and the
+// words go to mul.rn.bf16x2 as loaded (dw_max_words: C / 8 lanes across a
+// point's channels, 16 at 128, 8 at 64, in rounds of 256 past that, and
+// where k is more than a lane keeps in flight the warp's other lanes split
+// the neighbours); elsewhere the f32 form's shapes, each weight widened to
+// f32 and repacked with its table value (bf16_products).
 //
 // The int8 form (dw_kind DW_INT8; CAMLIFLOW_UPDATE3D=1 with fast_inference
 // on) computes the TPU kernels' own numerics (pallas_update3d.py's _matmul
 // and _dw_conv): int8 hoisted weights, whose scale a channel the wrapper
-// folded into the conv's MLP, read a byte a value (4 channels in one 4-byte
-// load where a lane takes 4) and widened to f32 exactly (|w| <= 127 is a
-// bf16 value), so the products and the max are the bf16 form's; and every
-// dense layer on bf16 operands with f32 sums: the tile's steps in its bf16
-// mode (conv_tile_tc.cuh, the weights' one bf16 plane), the FMA layers
-// (f1, and the epilogues f2, conv1, conv2 and fc) on weights the wrapper
-// rounded to bf16 and inputs rounded to bf16 as they are taken. The weight
-// stream is a quarter of the f32 form's. #7's int8 form works as the bf16
-// form does: bf16 tables written once by their producers (the tile's dense
-// steps in its bf16 mode through EPI_TABLE, the FMA epilogues), a lane's 8
-// channels of table in one 16-byte load and of int8 weights in one 8-byte
-// load (or 4 channels in 8 and 4 bytes, SH_LANES), the weights widened to
-// bf16 words exactly (int8_pair_bf16), then mul.rn.bf16x2: the same table
-// rounding and products as the f32 tables it had before, so the same bits.
-// #6's int8 form keeps f32 tables.
+// folded into the conv's MLP (|w| <= 127 is a bf16 value exactly), so the
+// products and the max are the bf16 form's; and every dense layer on bf16
+// operands with f32 sums: the tile's steps in its bf16 mode
+// (conv_tile_tc.cuh, the weights' one bf16 plane), the FMA layers (f1, and
+// the epilogues f2, conv1, conv2 and fc) on weights the wrapper rounded to
+// bf16 and inputs rounded to bf16 as they are taken. The weight stream is a
+// quarter of the f32 form's. #6's and #7's int8 forms work as the bf16 form
+// does: bf16 tables written once by their producers (the tile's dense steps
+// in its bf16 mode through EPI_TABLE, f1's FMA blocks, the FMA epilogues), a
+// lane's 8 channels of table in one 16-byte load and of int8 weights in one
+// 8-byte load (or 4 channels in 8 and 4 bytes: SH_LANES, and #6's own rows
+// SH_I8_WIDE / SH_I8_LANES, whose f1 and f2 tails take 8 or 4 channels a
+// lane), each pair of int8 weights widened exactly into a bf16 word after
+// the group's loads (word_products), then mul.rn.bf16x2: the same table
+// rounding and products as the f32 tables they had before, so the same
+// bits.
 //
 // All three kernels are chains of two kinds of step, one launch a step:
 // - a dense step runs conv_tile_tc.cuh's 3xTF32 tile over the points (a 1x1
@@ -77,9 +85,9 @@
 //   own;
 // - a tail (`tail` below) gathers for its points, built for bytes: a warp,
 //   or LANES lanes of it, a point; the point's neighbour indices read once
-//   and handed to the other lanes by shuffles; narrow rows (#6's f1 and
-//   f2, #13 up to 64 channels) a lane a channel, or two (4-byte loads, a
-//   point a warp, so that a step keeps enough points in flight); wider
+//   and handed to the other lanes by shuffles; narrow f32 rows (#6's f1
+//   and f2, #13 up to 64 channels) a lane a channel, or two (4-byte loads,
+//   a point a warp, so that a step keeps enough points in flight); wider
 //   rows 16-byte loads (4 channels a load) where the channel count is a
 //   multiple of 4 and the rows are aligned, else 4-byte loads of channel
 //   lane + 32 v (a warp still reads 128 contiguous bytes a row); kGfRows
@@ -139,27 +147,32 @@ enum DwKind { DW_F32 = 0, DW_BF16 = 1, DW_INT8 = 2 };  // the hoisted weights' d
 // A tail's shape: `lanes` lanes a point, `vec` loads a lane and row, of `w`
 // values each (f32 tables: floats, 16 or 4 bytes; bf16 tables: bf16 values,
 // 8 in 16 bytes, 4 in 8 or 2 in 4). By shape row and step. Rows: SH_F32
-// (f32 tables: the exact form, and #6's int8 form); the bf16 form's SH_WIDE
-// (16-byte loads) and SH_LANES (8-byte loads on the 64- and 128-channel
-// tails, twice the lanes a point), which a launch takes while its grid fits
-// in one wave of resident blocks (`one_wave`): there each lane's chain of
-// loads bounds it, and more lanes cut the chain; past a wave, SH_WIDE's
-// fewer, wider loads were faster on an H100 (PERF.md). #7's int8 form takes
-// the same two rows by the same rule (bf16 tables; the int8 weights of a
-// lane's channels in one load of half the table's bytes: 8 bytes in
-// SH_WIDE, 4 in SH_LANES).
+// (f32 tables: the exact form); the bf16 form's SH_WIDE (16-byte loads) and
+// SH_LANES (8-byte loads on the 64- and 128-channel tails, twice the lanes
+// a point), which a launch takes while its grid fits in one wave of
+// resident blocks (`one_wave`): there each lane's chain of loads bounds it,
+// and more lanes cut the chain; past a wave, SH_WIDE's fewer, wider loads
+// were faster on an H100 (PERF.md). #7's int8 form takes the same two rows
+// by the same rule (bf16 tables; the int8 weights of a lane's channels in
+// one load of half the table's bytes: 8 bytes in SH_WIDE, 4 in SH_LANES).
+// #6's int8 form takes rows of its own by that rule, SH_I8_WIDE and
+// SH_I8_LANES: c1 and the merge as the bf16 form's, f1 and f2 8 channels a
+// lane (8-byte int8 loads) or 4 (4-byte), so that no int8 load is narrower
+// than 4 bytes.
 struct TailShape {
   int lanes, vec, w;
 };
-enum ShapeRow { SH_F32 = 0, SH_WIDE = 1, SH_LANES = 2 };
+enum ShapeRow { SH_F32 = 0, SH_WIDE = 1, SH_LANES = 2, SH_I8_WIDE = 3, SH_I8_LANES = 4 };
 // #7: z|r (256 channels), q (128), conv1 (128), conv2 (64)
 constexpr TailShape kGfShape[3][4] = {{{32, 2, 4}, {32, 1, 4}, {32, 1, 4}, {16, 1, 4}},
                                       {{32, 1, 8}, {16, 1, 8}, {16, 1, 8}, {8, 1, 8}},
                                       {{32, 1, 8}, {32, 1, 4}, {32, 1, 4}, {16, 1, 4}}};
 // #6: c1 (128), f1 (32), f2 (16), merge (125, rows of 128)
-constexpr TailShape kMeShape[3][4] = {{{32, 1, 4}, {32, 1, 1}, {32, 1, 1}, {32, 1, 4}},
+constexpr TailShape kMeShape[5][4] = {{{32, 1, 4}, {32, 1, 1}, {32, 1, 1}, {32, 1, 4}},
                                       {{16, 1, 8}, {16, 1, 2}, {8, 1, 2}, {16, 1, 8}},
-                                      {{32, 1, 4}, {16, 1, 2}, {8, 1, 2}, {32, 1, 4}}};
+                                      {{32, 1, 4}, {16, 1, 2}, {8, 1, 2}, {32, 1, 4}},
+                                      {{16, 1, 8}, {4, 1, 8}, {2, 1, 8}, {16, 1, 8}},
+                                      {{32, 1, 4}, {8, 1, 4}, {4, 1, 4}, {32, 1, 4}}};
 
 // One tail: g[p, c] = max_j act(table[idx[p, j], c]) * dw[p, j, c], c < c,
 // then the post op.
@@ -305,22 +318,15 @@ __device__ __forceinline__ void bf16_products(float t0, float t1, float w0, floa
   x1 = __uint_as_float(p2 & 0xffff0000u);
 }
 
-// Two int8 values, bytes 2 half and 2 half + 1 of `word`, as a bf16x2
-// word (the first in the low half), exactly: |w| <= 127 is a bf16 value.
-// Each byte biased by 128 becomes the low byte of 2^23 + (w + 128) in f32;
-// subtracting 2^23 + 128 leaves w exactly, and its high half is its bf16.
-__device__ __forceinline__ uint32_t int8_pair_bf16(uint32_t word, int half) {
-  const uint32_t u = word ^ 0x80808080u;
-  const float lo = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7540 + 2 * half)),
-                             8388736.f);
-  const float hi = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7541 + 2 * half)),
-                             8388736.f);
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+// int8 value e (0-3) of a word xor 0x80808080 (`biased`) as f32, exactly:
+// the biased byte as the low byte of 2^23 + (w + 128), less 2^23 + 128
+__device__ __forceinline__ float int8_f32(uint32_t biased, int e) {
+  return __fsub_rn(__uint_as_float(__byte_perm(biased, 0x4b000000u, 0x7540 + e)), 8388736.f);
 }
 
-// W consecutive hoisted weights as bf16 words (W / 2, element 2i in word
-// i's low half), streamed once (__ldcs): bf16 as loaded; int8 in one W-byte
-// load, each pair widened by int8_pair_bf16
+// W consecutive hoisted weights as words, streamed once (__ldcs), as
+// loaded: bf16 W / 2 words, element 2i in word i's low half; int8 in one
+// W-byte load, W / 4 words, element 4i + e in byte e of word i
 template <int W, int DW>
 __device__ __forceinline__ Words<W> load_dw_words(const void* base, size_t at) {
   if constexpr (DW == DW_INT8) {
@@ -333,31 +339,57 @@ __device__ __forceinline__ Words<W> load_dw_words(const void* base, size_t at) {
     } else {
       raw[0] = __ldcs(reinterpret_cast<const unsigned int*>(p));
     }
-    Words<W> r;
+    Words<W> r = {};
 #pragma unroll
-    for (int i = 0; i < W / 2; ++i) r.x[i] = int8_pair_bf16(raw[i / 2], i % 2);
+    for (int i = 0; i < W / 4; ++i) r.x[i] = raw[i];
     return r;
   } else {
     return load_words<W, LD_CS>(static_cast<const unsigned short*>(base) + at);
   }
 }
 
-// W consecutive hoisted weights, f32, bf16 or int8 (DW), streamed once
-// (__ldcs), as f32 values
+// One neighbour row's products x[e] of the lane's E channels, from its
+// table words and weight words as loaded, for take_max: mul.rn.bf16x2 on
+// bf16 words, each product rounded to bf16, widened to f32 (a shift, a
+// mask). int8 weights become bf16 words here, after the group's loads: each
+// pair exactly (int8_f32, |w| <= 127 is a bf16 value) into one word by a
+// byte permute. Widening them at each load instead (as the loads arrive)
+// took #7's int8 form 1.24-1.43x as long on an H100; each bf16 table value
+// times its int8 weight in f32 (exact) with the max rounded to bf16 once,
+// the same bits, ran within 1.5% of this (PERF.md; update3d_forms'
+// int8_f32).
+template <int E, int DW>
+__device__ __forceinline__ void word_products(const uint32_t (&tw)[E / 2],
+                                              const uint32_t (&ww)[E / 2], float (&x)[E]) {
+  uint32_t w2[E / 2];
+  if constexpr (DW == DW_INT8) {
+#pragma unroll
+    for (int i = 0; i < E / 4; ++i) {
+      const uint32_t biased = ww[i] ^ 0x80808080u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        w2[2 * i + h] = __byte_perm(__float_as_uint(int8_f32(biased, 2 * h)),
+                                    __float_as_uint(int8_f32(biased, 2 * h + 1)), 0x7632);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E / 2; ++e) w2[e] = ww[e];
+  }
+#pragma unroll
+  for (int e = 0; e < E / 2; ++e) {
+    const uint32_t prod = mul_bf16x2(tw[e], w2[e]);
+    x[2 * e] = __uint_as_float(prod << 16);
+    x[2 * e + 1] = __uint_as_float(prod & 0xffff0000u);
+  }
+}
+
+// W consecutive hoisted weights, f32 or bf16 (DW), streamed once (__ldcs),
+// as f32 values (the f32-table tails; int8 weights take bf16 tables)
 template <int W, int DW>
 __device__ __forceinline__ Vec<W> load_w(const void* base, size_t at) {
-  if constexpr (DW == DW_INT8) {
-    const signed char* p = static_cast<const signed char*>(base) + at;
-    Vec<W> r;
-    if constexpr (W == 4) {  // one 4-byte load; element 0 in the low byte
-      const int v = __ldcs(reinterpret_cast<const int*>(p));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) r.x[e] = (float)((int)((uint32_t)v << (24 - 8 * e)) >> 24);
-    } else {
-      r.x[0] = (float)__ldcs(p);
-    }
-    return r;
-  } else if constexpr (DW == DW_BF16) {
+  static_assert(DW != DW_INT8, "int8 weights: load_dw_words");
+  if constexpr (DW == DW_BF16) {
     const unsigned short* p = static_cast<const unsigned short*>(base) + at;
     Vec<W> r;
     if constexpr (W == 4) {  // one 8-byte load; element 0 in the low half
@@ -507,10 +539,13 @@ __device__ __forceinline__ void fma_dense(const float* x, int cin, const float* 
 // forms' bf16 products, and int8 also rounds the fused layers' inputs (the
 // rows, fc's) to bf16. TB (bf16 or int8 weights): the table is bf16, its
 // activation applied by its producer, and the fused layer writes the next
-// one so; the weights arrive as bf16 words (load_dw_words).
+// one so; the table and the weights arrive as words (load_words,
+// load_dw_words) for word_products.
 template <int LANES, int VEC, int W, int KMAX, int POST, bool FUSE, int DW, bool TB = false>
 __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
   static_assert(!TB || DW != DW_F32, "bf16 tables take bf16 or int8 weights");
+  static_assert(TB || DW != DW_INT8, "int8 weights take bf16 tables");
+  static_assert(DW != DW_INT8 || VEC == 1, "a lane's int8 words: one load a row");
   constexpr int kPer = 32 / LANES;
   constexpr int kRowsB = kGfWarps * kPer;  // points a block takes at once
   constexpr int kNb = (KMAX + LANES - 1) / LANES;
@@ -533,7 +568,8 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
     const bool live = p < g.points;
     const int b = live ? p / g.n : 0;
     const size_t tb = (size_t)b * g.n_table * g.ld;  // the batch item's first table value
-    const float* tb2 = POST == GP_GATE && !TB ? g.table2 + (size_t)b * g.n_table * g.ld2 : nullptr;
+    const float* tb2 =
+        POST == GP_GATE && !TB ? g.table2 + (size_t)b * g.n_table * g.ld2 : nullptr;
     const size_t wp = (size_t)(live ? p : 0) * g.k * g.dw_ld;  // the point's first weight
     const int* ip = g.idx + (size_t)(live ? p : 0) * g.idx_stride;
     // FC: a lane's sums over each 4 channels it holds, as a lane of 4-byte
@@ -559,7 +595,7 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
 #pragma unroll
         for (int j0 = 0; j0 < KMAX; j0 += kGroup) {
           if (jb + j0 >= g.k) break;  // warp-uniform
-          if constexpr (TB) {  // bf16 words, as loaded, into the products
+          if constexpr (TB) {  // words, as loaded, into the products
             uint32_t tw[kGroup][kE / 2], ww[kGroup][kE / 2];
 #pragma unroll
             for (int jj = 0; jj < kGroup; ++jj) {
@@ -585,12 +621,7 @@ __device__ __forceinline__ void tail(const Tail& g, int rank, int blocks) {
             for (int jj = 0; jj < kGroup; ++jj) {
               const int j = jb + j0 + jj;
               float x[kE];
-#pragma unroll
-              for (int e = 0; e < kE / 2; ++e) {
-                const uint32_t prod = mul_bf16x2(tw[jj][e], ww[jj][e]);
-                x[2 * e] = __uint_as_float(prod << 16);
-                x[2 * e + 1] = __uint_as_float(prod & 0xffff0000u);
-              }
+              word_products<kE, DW>(tw[jj], ww[jj], x);
               max_step<kE>(m, x, j, g.k);
             }
           } else {
@@ -820,12 +851,11 @@ __global__ void __launch_bounds__(kGfThreads, 4)
   dense_step<BF, TB>(d);
 }
 
-// (bf16 tables: #6's bf16 form, #7's bf16 and int8 forms)
+// (bf16 tables: the bf16 and int8 forms)
 template <int DW>
 int launch_dense(bool me, const DenseStep& d, cudaStream_t stream) {
-  constexpr bool kBf = DW == DW_INT8;
-  const auto kernel = me ? motion_encoder_3d_dense<kBf, DW == DW_BF16>
-                         : gru_flowhead_3d_dense<kBf, DW != DW_F32>;
+  constexpr bool kBf = DW == DW_INT8, kTb = DW != DW_F32;
+  const auto kernel = me ? motion_encoder_3d_dense<kBf, kTb> : gru_flowhead_3d_dense<kBf, kTb>;
   kernel<<<dense_blocks(d), kGfThreads, GfTile::kSmemBytes, stream>>>(d);
   return (int)cudaGetLastError();
 }
@@ -912,9 +942,10 @@ int gf_chain(const DenseStep& zrq, const DenseStep& qh, const Gru3D& u, cudaStre
 //   dense merge over [corr_feat, flow_feat] (the tile)
 //   tail merge (leaky on read) -> out[:, :c_m], the flow copied to out[:, c_m:]
 // c1's tail and f2's share a launch (c1's ready since the first step; beside
-// f1's it ran slower on an H100, PERF.md). Tails of at most 32 channels (f1
-// 32, f2 16) take 32 lanes a point and 4-byte loads, so a step keeps one
-// point a warp in flight; c1's and the merge's 16-byte loads, 32 lanes x 1.
+// f1's it ran slower on an H100, PERF.md). In the f32 form tails of at most
+// 32 channels (f1 32, f2 16) take 32 lanes a point and 4-byte loads, so a
+// step keeps one point a warp in flight; c1's and the merge's 16-byte
+// loads, 32 lanes x 1.
 // The merge conv's hoisted weights arrive with their 125 channels padded
 // to 128 a row (models/camliraft_l.py; int8: 128 bytes), so its rows are
 // 16-byte aligned: read 4 bytes at a time they took 190 registers and 1.7x
@@ -923,7 +954,11 @@ int gf_chain(const DenseStep& zrq, const DenseStep& qh, const Gru3D& u, cudaStre
 // f2's FMA epilogue), the merge's rows round_up(c_m, 8) values apart (its
 // weights' too); its f1 and f2 tails take 2 channels a lane (4-byte loads;
 // 16 and 8 lanes a point), c1 and the merge 8 (16 bytes; 16 lanes), or 4 (8
-// bytes; 32 lanes) in a launch that fits in a wave.
+// bytes; 32 lanes) in a launch that fits in a wave. The int8 form's tables
+// are the bf16 form's, written by the same producers on bf16 operands; its
+// tails take c1 and the merge as the bf16 form does, f1 and f2 8 channels a
+// lane (16 bytes of table, 8 of int8 weights; 4 and 2 lanes a point), or 4
+// (8 and 4 bytes; 8 and 4 lanes) in a launch that fits in a wave.
 
 struct Me3D {
   Tail tail[4];  // c1, f1, f2, merge
@@ -934,7 +969,7 @@ struct Me3D {
 template <int DW, int T, int SH>
 __global__ void __launch_bounds__(kGfThreads, 4)
     motion_encoder_3d_tail(const __grid_constant__ Me3D u) {
-  constexpr bool kTb = DW == DW_BF16;
+  constexpr bool kTb = DW != DW_F32;
   constexpr TailShape c1 = kMeShape[SH][0], f1 = kMeShape[SH][1], f2 = kMeShape[SH][2],
                       mg = kMeShape[SH][3];
   if constexpr (T == 1) {
@@ -964,18 +999,21 @@ int me_blocks(Me3D& u) {
   return tail_blocks(u.tail[T], kMeShape[SH][T].lanes);
 }
 
-// tail launch T in its form's shape: the bf16 form's SH_LANES while the
-// launch fits in a wave
+// tail launch T in its form's shape: on bf16 tables (the bf16 and int8
+// forms, each in rows of its own) the narrower loads while the launch fits
+// in a wave
 template <int DW, int T>
 int launch_me_tail(Me3D u, cudaStream_t stream) {
-  if constexpr (DW == DW_BF16) {
-    static const int wave = one_wave(motion_encoder_3d_tail<DW, T, SH_LANES>);
-    int blocks = me_blocks<T, SH_LANES>(u);
+  if constexpr (DW != DW_F32) {
+    constexpr int kLanes = DW == DW_INT8 ? SH_I8_LANES : SH_LANES;
+    constexpr int kWide = DW == DW_INT8 ? SH_I8_WIDE : SH_WIDE;
+    static const int wave = one_wave(motion_encoder_3d_tail<DW, T, kLanes>);
+    int blocks = me_blocks<T, kLanes>(u);
     if (blocks <= wave) {
-      motion_encoder_3d_tail<DW, T, SH_LANES><<<blocks, kGfThreads, 0, stream>>>(u);
+      motion_encoder_3d_tail<DW, T, kLanes><<<blocks, kGfThreads, 0, stream>>>(u);
     } else {
-      blocks = me_blocks<T, SH_WIDE>(u);
-      motion_encoder_3d_tail<DW, T, SH_WIDE><<<blocks, kGfThreads, 0, stream>>>(u);
+      blocks = me_blocks<T, kWide>(u);
+      motion_encoder_3d_tail<DW, T, kWide><<<blocks, kGfThreads, 0, stream>>>(u);
     }
   } else {
     const int blocks = me_blocks<T, SH_F32>(u);
@@ -1012,6 +1050,113 @@ int launch_dw_max(const Tail& g, bool bf16, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// #13's bf16 form on packed words: CL lanes across a point's channels (8 a
+// lane) times S lanes across its neighbours, 32 / (CL S) points a warp.
+// Lane (s, cl) takes channels c0 + 8 cl .. + 7 of rounds of 8 CL channels
+// and the neighbours of split s, a contiguous run of ceil(k / S),
+// kWordRows rows in flight: each row's index (one load the split's lanes
+// share), its 8 table values in two 16-byte loads through L1 (a neighbour's
+// row serves the points near it) rounded into bf16 words (cvt.rn.bf16x2)
+// and its 8 weights in one 16-byte load, as words into mul.rn.bf16x2,
+// widened for take_max in neighbour order. The splits' maxima then meet by
+// a butterfly, each pair taken in neighbour order (the earlier run first),
+// which is the max over all k in neighbour order bit for bit: take_max
+// keeps the earlier of equal values and the later NaN. Where a lane cannot
+// keep a point's neighbours in flight at once (k > kWordRows) the split
+// takes the whole warp (S = 32 / CL: conv1 2, conv2 4), else S = 1 (z|r
+// and q, k = 4). On an H100 (PERF.md; update3d_forms' word_* forms) 4 rows
+// in flight beat 8 at bs 8 and lost to it at bs 1; the split over the warp
+// won at bs 1 (fewer rows a lane, more lanes a point) and lost ≈ 8% at bs
+// 8 at k = 32; the table through L1 beat L2 alone (ld.global.cg) at both.
+constexpr int kWordRows = 4;
+
+template <int CL, int S>
+__global__ void __launch_bounds__(kGfThreads) dw_max_words(const __grid_constant__ Tail g) {
+  constexpr int kLanes = CL * S, kPer = 32 / kLanes;  // lanes a point, points a warp
+  static_assert(kLanes <= 32 && 32 % kLanes == 0, "whole points a warp");
+  const int lane = threadIdx.x % 32;
+  const int sub = lane / kLanes, cl = lane % CL, s = lane % kLanes / CL;
+  const int per = (g.k + S - 1) / S;  // a split's neighbours
+  const int lo = min(g.k, s * per), hi = min(g.k, lo + per);
+  const int stride = gridDim.x * kGfWarps * kPer;
+  for (int p0 = (blockIdx.x * kGfWarps + (int)threadIdx.x / 32) * kPer; p0 < g.points;
+       p0 += stride) {  // warp-uniform
+    const int p = p0 + sub;
+    const bool live = p < g.points;
+    const float* table = static_cast<const float*>(g.table) +
+                         (size_t)(live ? p / g.n : 0) * g.n_table * g.ld;
+    const unsigned short* dw =
+        static_cast<const unsigned short*>(g.dw) + (size_t)(live ? p : 0) * g.k * g.dw_ld;
+    const int* ip = g.idx + (size_t)(live ? p : 0) * g.idx_stride;
+    for (int c0 = 0; c0 < g.c; c0 += 8 * CL) {
+      const int c = c0 + 8 * cl;
+      const bool on = live && c < g.c;
+      float m[8] = {};
+      for (int j0 = lo; j0 < hi; j0 += kWordRows) {
+        uint32_t tw[kWordRows][4], ww[kWordRows][4];
+#pragma unroll
+        for (int jj = 0; jj < kWordRows; ++jj) {
+          const int j = j0 + jj;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tw[jj][e] = ww[jj][e] = 0u;
+          if (on && j < hi) {
+            const float4* t =
+                reinterpret_cast<const float4*>(table + (size_t)__ldg(ip + j) * g.ld + c);
+            const float4 t0 = __ldg(t), t1 = __ldg(t + 1);
+            tw[jj][0] = pack_bf16x2(t0.x, t0.y), tw[jj][1] = pack_bf16x2(t0.z, t0.w);
+            tw[jj][2] = pack_bf16x2(t1.x, t1.y), tw[jj][3] = pack_bf16x2(t1.z, t1.w);
+            const uint4 w = __ldcs(reinterpret_cast<const uint4*>(dw + (size_t)j * g.dw_ld + c));
+            ww[jj][0] = w.x, ww[jj][1] = w.y, ww[jj][2] = w.z, ww[jj][3] = w.w;
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < kWordRows; ++jj) {
+          float x[8];
+          word_products<8, DW_BF16>(tw[jj], ww[jj], x);
+          max_step<8>(m, x, j0 + jj - lo, hi - lo);
+        }
+      }
+      // the splits' maxima, the earlier run's first (an empty split, k < S,
+      // gives way)
+      int empty = lo >= hi;
+#pragma unroll
+      for (int off = CL; off < kLanes; off <<= 1) {
+        const bool later = s & (off / CL);
+        const int other_empty = __shfl_xor_sync(0xffffffffu, empty, off);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float other = __shfl_xor_sync(0xffffffffu, m[e], off);
+          if (empty) {
+            m[e] = other;
+          } else if (!other_empty) {
+            m[e] = later ? take_max(other, m[e]) : take_max(m[e], other);
+          }
+        }
+        empty = empty && other_empty;
+      }
+      if (on && s == 0) {
+        float* o = g.out + (size_t)p * g.out_ld + c;
+        reinterpret_cast<float4*>(o)[0] = make_float4(m[0], m[1], m[2], m[3]);
+        reinterpret_cast<float4*>(o)[1] = make_float4(m[4], m[5], m[6], m[7]);
+      }
+    }
+  }
+}
+
+template <int CL, int S>
+int launch_dw_max_words(const Tail& g, cudaStream_t stream) {
+  constexpr int kPoints = kGfWarps * 32 / (CL * S);  // a block's
+  dw_max_words<CL, S><<<(g.points + kPoints - 1) / kPoints, kGfThreads, 0, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// the neighbours split over the warp where a lane cannot keep them in flight
+template <int CL>
+int launch_dw_max_words(const Tail& g, cudaStream_t stream) {
+  return g.k > kWordRows ? launch_dw_max_words<CL, 32 / CL>(g, stream)
+                         : launch_dw_max_words<CL, 1>(g, stream);
+}
+
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % kTailAlign == 0; }
 
 }  // namespace
@@ -1033,9 +1178,9 @@ extern "C" int camli_motion_encoder_3d(
   // scratch, channels per point: f32 tables [c1 table (c_c1) | f1 table
   // (c_f1) | corr_feat (c_c1) | f2 table (c_f2) | flow_feat (c_f2) | merge
   // table (ld_m)]; bf16 tables [corr_feat (c_c1) | flow_feat (c_f2)] in f32,
-  // then [c1 table | f1 table | f2 table | merge table (ld_m)] in bf16; every
-  // part starts 16-byte aligned
-  const bool tb = dw_kind == DW_BF16;
+  // then [c1 table | f1 table | f2 table | merge table (ld_m)] in bf16 (the
+  // bf16 and int8 forms); every part starts 16-byte aligned
+  const bool tb = dw_kind != DW_F32;
   const int ld_m = round_up(c_m, tb ? 8 : 4);
   const int need = tb ? c_c1 + c_f2 + (c_c1 + c_f1 + c_f2 + ld_m) / 2
                       : 2 * c_c1 + c_f1 + 2 * c_f2 + ld_m;
@@ -1193,15 +1338,18 @@ extern "C" int camli_gru_flowhead_3d(
 // (whose one-hot selection is a TPU device; here the gather is a load), on
 // the flagship's fuse_hidden path: GRU3D's z|r (c 256) and q (128),
 // FlowHead3D's conv1 (128) and conv2 (64), with their MLPs outside, as
-// dw_conv_ohg leaves them. A warp a point; loads a lane follow c: up to 64
-// channels, 4-byte loads of channel lane + 32 v (1 or 2 a lane); past that,
-// 16-byte loads where c is a multiple of 4 and table, dw and out are
-// 16-byte aligned (128: 1 float4 a lane; wider: 2, in rounds of 256
-// channels), else 4-byte loads in rounds of 64 channels. On an H100 (PERF.md)
-// 4-byte loads on 32 lanes beat 16-byte loads on 4-16 lanes at 16-64
-// channels and k >= 16 (more points in flight), and lost to 16-byte loads at
-// 125-128 channels. The fast form (bf16 != 0): dw bf16, the table f32
-// rounded to bf16 as it is read (see the note at the top).
+// dw_conv_ohg leaves them. The exact form (f32 dw): a warp a point; loads a
+// lane follow c: up to 64 channels, 4-byte loads of channel lane + 32 v (1
+// or 2 a lane); past that, 16-byte loads where c is a multiple of 4 and
+// table, dw and out are 16-byte aligned (128: 1 float4 a lane; wider: 2, in
+// rounds of 256 channels), else 4-byte loads in rounds of 64 channels. On an
+// H100 (PERF.md) 4-byte loads on 32 lanes beat 16-byte loads on 4-16 lanes at
+// 16-64 channels and k >= 16 (more points in flight), and lost to 16-byte
+// loads at 125-128 channels. The fast form (bf16 != 0): dw bf16, the table
+// f32 rounded to bf16 as it is read; on packed words (dw_max_words: 8
+// channels a lane, the neighbours split over the warp where k >
+// kWordRows) where c is a multiple of 8 and the three are 16-byte aligned,
+// else in the exact form's shapes (see the note at the top).
 extern "C" int camli_dw_max(const float* table, const void* dw, const int* idx, float* out,
                             int bf16, int batch, int n_table, int m, int idx_stride, int k,
                             int c, cudaStream_t stream) {
@@ -1209,6 +1357,14 @@ extern "C" int camli_dw_max(const float* table, const void* dw, const int* idx, 
   Tail g = gather_of(batch * m, m, idx, idx_stride, table, c, dw, k, c);
   g.n_table = n_table, g.out = out, g.out_ld = c;
   const bool bf = bf16 != 0;
+  if (bf && c % 8 == 0 && aligned(table) && aligned(dw) && aligned(out)) {
+    return c <= 8     ? launch_dw_max_words<1>(g, stream)
+           : c <= 16  ? launch_dw_max_words<2>(g, stream)
+           : c <= 32  ? launch_dw_max_words<4>(g, stream)
+           : c <= 64  ? launch_dw_max_words<8>(g, stream)
+           : c <= 128 ? launch_dw_max_words<16>(g, stream)
+                      : launch_dw_max_words<32>(g, stream);
+  }
   if (c <= 32) return launch_dw_max<32, 1, 1>(g, bf, stream);
   if (c > 64 && c % 4 == 0 && aligned(table) && aligned(dw) && aligned(out)) {
     return c <= 128 ? launch_dw_max<32, 1, 4>(g, bf, stream)

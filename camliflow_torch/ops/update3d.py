@@ -22,8 +22,10 @@ picks the form each wrapper takes:
   form (an int8 weight is a bf16 value exactly); and every dense layer takes
   bf16 operands with f32 sums (its weights rounded to bf16 once per
   request, `PackedConv.bf16`, its input as it is read). The gates, h' and
-  the sums stay f32. #7's kernel keeps its tables in bf16 here too (the
-  table is rounded once either way), so its widths are multiples of 8.
+  the sums stay f32. #6's and #7's kernels keep their tables in bf16 here
+  too (the table is rounded once either way), so their widths are
+  multiples of 8, their scratch the bf16 form's, and #6's f1 and f2 tails
+  read up to 8 int8 weights in one 8-byte load (8-byte aligned).
 
 Each PointConvDW's MLP (one Linear) is packed once per request by
 `prepare_motion_encoder_3d_params` / `prepare_gru_flowhead_3d_params` (the
@@ -94,6 +96,9 @@ DW_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 INT8_ROW = 16  # an int8 row's channels are a multiple of this (16-byte rows)
 BF16_ROW = 8  # the bf16 form's tables and padded weight rows: 16-byte rows
 INT8_MAX_POINTS = 4096  # the JAX package engages its int8 chain up to this many points
+# csrc/update3d.cu's #6 f1 and f2 tails: the widest weight load a lane makes
+# (kMeShape), the alignment it needs, by the weights' dtype
+ME_NARROW_ALIGN = {torch.bfloat16: 4, torch.int8: 8}
 
 
 def int8_dw_enabled() -> bool:
@@ -332,7 +337,8 @@ def _me_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
         raise ValueError(f"{name}: the packed MLPs and weights do not fit the inputs")
     widths = (c1.cout, f1.cout, f2.cout)
     dtype = dw["conv"].dtype
-    multiple = BF16_ROW if dtype == torch.bfloat16 else 4  # bf16 tables: 16-byte rows
+    tables16 = dtype != torch.float32  # the bf16 and int8 forms' bf16 tables: 16-byte rows
+    multiple = BF16_ROW if tables16 else 4
     if (any(w % multiple for w in widths) or f1.cout > MAX_ROW or f2.cout > MAX_FUSED_OUT
             or min(ks) < 1):
         raise ValueError(f"{name}: the kernel takes c1, f1 and f2 widths that are multiples "
@@ -341,15 +347,18 @@ def _me_check(name: str, params: dict, dw: dict, shape: tuple, device) -> tuple:
     misaligned = [k for k in ("conv_c1", "conv") if dw[k].data_ptr() % TAIL_ALIGN]
     if misaligned:  # the c1 and merge tails read the weights in 16-byte loads
         raise ValueError(f"{name}: dw{misaligned} must be {TAIL_ALIGN}-byte aligned")
-    misaligned = [k for k in ("conv_f1", "conv_f2") if dw[k].data_ptr() % 4]
-    if misaligned and dtype == torch.bfloat16:  # the f1 and f2 tails: 2 channels a load
-        raise ValueError(f"{name}: dw{misaligned} must be 4-byte aligned")
+    # the f1 and f2 tails' weight loads: bf16 2 channels (4 bytes), int8 up
+    # to 8 channels (8 bytes)
+    align = ME_NARROW_ALIGN.get(dtype, 1)
+    misaligned = [k for k in ("conv_f1", "conv_f2") if dw[k].data_ptr() % align]
+    if misaligned:
+        raise ValueError(f"{name}: dw{misaligned} must be {align}-byte aligned")
     _check_tc(name, packed, ME_DENSE)
     kind = _check_form(name, packed, dtype)
     # the scratch a point: the tables of c1, f1, f2 and the merge (its rows
     # 16 bytes apart), corr_feat and flow_feat
-    per_point = scratch_floats(dtype == torch.bfloat16, (c1.cout, f1.cout, f2.cout,
-                                                          _round_up(merge.cout, multiple)),
+    per_point = scratch_floats(tables16, (c1.cout, f1.cout, f2.cout,
+                                          _round_up(merge.cout, multiple)),
                                (c1.cout, f2.cout))
     return (tuple(dw[k].data_ptr() for k in ME_CONVS), kind, _planes(packed, ME_DENSE),
             tuple(t.data_ptr() for c in (f1, f2) for t in (c.weight, c.bias)),
@@ -664,7 +673,9 @@ def dw_max(table: torch.Tensor, knn_idx: torch.Tensor, weights: torch.Tensor):
     """table [B, N, C], knn_idx [B, M, >=k] int32, weights [B, M, k, C] ->
     [B, M, C]: max_j table[idx[:, :, j]] * weights[:, :, j], bit-identical
     to `dw_max_plain`, for any k >= 1 and C; on bf16 weights the fast form
-    (the table rounded to bf16, bf16 products). CPU tensors take the plain
+    (the table rounded to bf16, bf16 products; on packed words, 8 channels
+    a lane, where C is a multiple of 8 and the three tensors are 16-byte
+    aligned). CPU tensors take the plain
     version; CUDA tensors the kernel. The fast form's launches count on
     `.fast_launches`."""
     _cuda.forward_only("dw_max", table, weights)

@@ -59,8 +59,10 @@ and points, all three fusions), in phases:
    host time a call; the 3D GRU + flow head also at the eval CLI's batch of
    8, each timed, its steps by profiler device time; the PointConvDW tail
    bit for bit at its four fuse_hidden shapes, by events, device and host
-   time; the RAFT iteration (#10) bit for bit the motion encoder then the
-   GRU + flow head, by events, device time by launch and host time, beside
+   time, and at the eval CLI's batch of 8 by device time beside its bound
+   (f32 and bf16 weights; with --other in turns); the RAFT iteration (#10)
+   bit for bit the motion encoder then the GRU + flow head, by events,
+   device time by launch and host time, beside
    those two wrappers in sequence; the Correlation3D tail by events, device
    and host time, rerun bit for bit;
 4. end to end, for each path: random weights from a seeded
@@ -490,20 +492,31 @@ def device_kernels(prof, only: str = "") -> list[KernelTime]:
     return [KernelTime(name, counts[name], times[name]) for name in counts]
 
 
+def profile_whole(seen: int, earlier: list[int], partial: bool = False) -> bool:
+    """Whether a profile that recorded `seen` launches is taken as whole
+    (profile_kernels), after profiles of the same run that recorded
+    `earlier`: it kept a launch, and with `partial` that is all; else some
+    earlier profile that kept a launch agrees with it within 1%."""
+    return bool(seen) and (partial or any(abs(seen - e) <= e // 100 for e in earlier if e))
+
+
 def profile_kernels(fn, only: str = "", partial: bool = False) -> tuple[float, list]:
     """fn() under torch.profiler: (wall ms, the device kernels it launched
     whose name holds `only`). A profile is taken as whole when it holds as
-    many launches as the profile before it, within 1%: over thousands of
-    launches the profiles of one run differ by a few, while one that lost
-    part of its events lost far more. With `partial`, any profile that kept
-    a launch will do (the caller averages over the launches it kept).
-    Another profile is taken until one does, up to PROFILE_TRIES; then it
-    raises, so no device time is ever reported that was not measured."""
+    many launches as an earlier profile of fn(), within 1%: over thousands
+    of launches the profiles of one run differ by a few, while one that
+    lost part of its events lost far more, and two losses seldom agree.
+    Any earlier profile, not only the one before: where the profiler loses
+    part of every other profile, the whole ones agree with each other. With
+    `partial`, any profile that kept a launch will do (the caller averages
+    over the launches it kept). Another profile is taken until one does, up
+    to PROFILE_TRIES; then it raises, so no device time is ever reported
+    that was not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     named = f" named {only}" if only else ""
-    previous = None
+    earlier = []
     for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start = time.perf_counter()
@@ -512,13 +525,13 @@ def profile_kernels(fn, only: str = "", partial: bool = False) -> tuple[float, l
             wall = 1e3 * (time.perf_counter() - start)
         kernels = device_kernels(prof, only)
         seen = sum(e.count for e in kernels)
-        if seen and (partial or previous and abs(seen - previous) <= previous // 100):
+        if profile_whole(seen, earlier, partial):
             return wall, kernels
-        if previous is not None or not seen:
-            against = f", the one before {previous}" if previous is not None else ""
+        if earlier or not seen:
+            against = f", the ones before {earlier}" if earlier else ""
             print(f"  (profile {attempt + 1} of {PROFILE_TRIES} recorded {seen} kernel launches"
                   f"{named}{against})", flush=True)
-        previous = seen
+        earlier.append(seen)
     raise AssertionError(f"{PROFILE_TRIES} profiles lost kernel launches{named}: device time "
                          "not measured")
 
@@ -1654,50 +1667,69 @@ def kernel_parity(device, other=None) -> list[dict]:
                    **measured(times, steps, 1), **measured(*bs8[1:], 8),
                    bound_ms_bs8=bound(8 * ops, 8 * item_bytes + call_bytes, PEAK_BF16)[0],
                    bf16_form_device_ms=bf16["bf16_form_device_ms_bs1"], **bf16)
+        dw_gf8 = dws[8][1]  # #13's bs-8 weights, below
         del int8, dws, me_in[8], gf_in[8]
 
         # the PointConvDW tail alone (#13), at the fuse_hidden path's four
         # shapes: GRU3D's z|r and q (k=4), FlowHead3D's conv1 and conv2
         # (k=32); f32 and the fast path's bf16 (bf16 weights, the table
-        # rounded to bf16 as it is read, bf16 products); bit for bit the
-        # plain version and, with another tree, its tail; in turns with it
-        exact_dev = {}
-        for form, dws_13 in (("", dw_gf), (" (bf16)", dw16_gf)):
-            tail_dev, tail_other, tail_bound = {}, {}, {}  # by shape, filled as they run
+        # rounded to bf16 as it is read, bf16 products: on packed words, 8
+        # channels a lane, where the rows allow); bit for bit the plain
+        # version and, with another tree, its tail; in turns with it; at bs 1
+        # and at the eval CLI's batch of 8 (16,384 points)
+        exact_dev = exact_dev8 = {}
+        for form, dws_13, dws_13_8 in (("", dw_gf, dw_gf8),
+                                       (" (bf16)", dw16_gf, update3d.to_bf16(dw_gf8))):
+            # by shape, filled as they run
+            tail_dev, tail_other, tail_bound = {}, {}, {}
+            tail_dev8, tail_other8, tail_bound8 = {}, {}, {}
             for key, channels in (("conv_zr", 256), ("conv_q", 128), ("conv1", 128),
                                   ("conv2", 64)):
-                table, w = rand3(channels), dws_13[key]
-                ref = update3d.dw_max_plain(table, idx, w)
-                tails = trees(update3d.dw_max, other[2].dw_max if other else None)
-                for tree, wrapper in tails.items():
-                    for _ in range(2):
-                        if not torch.equal(wrapper(table, idx, w), ref):
-                            raise AssertionError(f"{tree} tree's dw_max{form} {key}: not "
-                                                 "bit-identical to the plain version")
-                calls = {tree: lambda fn=wrapper: fn(table, idx, w)
-                         for tree, wrapper in tails.items()}
-                times = in_turns(calls, 20, "dw_max_tail")
-                host = host_ms(calls["this"], 20)
-                k = w.shape[2]
-                tail_dev[key] = mean(times["this"])
-                if other:
-                    tail_other[key] = mean(times["other"])
-                nbytes = 4 * (2 * n * channels + n * 32) + w.element_size() * n * k * channels
-                tail_bound[key] = bound(2 * n * k * channels, nbytes)[0]
-                print(f"  dw_max{form} {key} (k={k}, C={channels}): device "
-                      f"{tail_dev[key]:.4f} ms{beside(times)}; host {host:.4f} ms a call",
-                      flush=True)
-                record(f"dw_max{form}", "camliflow_torch/csrc/update3d.cu",
-                       "camliflow_tpu/ops/pallas_ohg.py:177", 0.0, time_ms(calls["this"], 50),
-                       time_ms(lambda: update3d.dw_max_plain(table, idx, w), 20),
-                       2 * n * k * channels,  # a multiply and a max per gathered value
-                       nbytes, label=f"dw_max{form} {key} (k={k}, C={channels}, by events)",
-                       entry=key == "conv1", wrapper="dw_max_bf16" if form else "dw_max",
-                       device_ms=tail_dev[key], host_ms=host, device_ms_by_shape=tail_dev,
-                       bound_ms_by_shape=tail_bound,
-                       **({"other_device_ms_by_shape": tail_other} if other else {}),
-                       **({"exact_form_device_ms_by_shape": exact_dev} if form else {}))
-            exact_dev = tail_dev
+                for bs, knn_idx, w, dev, dev_other, bounds in (
+                        (1, idx, dws_13[key], tail_dev, tail_other, tail_bound),
+                        (8, idx8, dws_13_8[key], tail_dev8, tail_other8, tail_bound8)):
+                    table = torch.randn(bs, n, channels, generator=gen, device=device)
+                    ref = update3d.dw_max_plain(table, knn_idx, w)
+                    tails = trees(update3d.dw_max, other[2].dw_max if other else None)
+                    k = w.shape[2]  # the kernel reads the first k of idx's 32 columns
+                    for tree, wrapper in tails.items():
+                        for _ in range(2):
+                            if not torch.equal(wrapper(table, knn_idx, w), ref):
+                                raise AssertionError(f"{tree} tree's dw_max{form} {key} bs={bs}: "
+                                                     "not bit-identical to the plain version")
+                    calls = {tree: lambda fn=wrapper: fn(table, knn_idx, w)
+                             for tree, wrapper in tails.items()}
+                    times = in_turns(calls, 20, "dw_max_")  # dw_max_tail, dw_max_words
+                    dev[key] = mean(times["this"])
+                    if other:
+                        dev_other[key] = mean(times["other"])
+                    nbytes = (4 * bs * (2 * n * channels + n * k)
+                              + w.element_size() * bs * n * k * channels)
+                    ops = 2 * bs * n * k * channels  # a multiply and a max per gathered value
+                    bounds[key] = bound(ops, nbytes)[0]
+                    if bs == 8:
+                        print(f"  dw_max{form} {key} bs=8 (k={k}, C={channels}): device "
+                              f"{dev[key]:.4f} ms{beside(times)}; bound {bounds[key]:.4f} ms",
+                              flush=True)
+                        continue
+                    host = host_ms(calls["this"], 20)
+                    print(f"  dw_max{form} {key} (k={k}, C={channels}): device "
+                          f"{dev[key]:.4f} ms{beside(times)}; host {host:.4f} ms a call",
+                          flush=True)
+                    record(f"dw_max{form}", "camliflow_torch/csrc/update3d.cu",
+                           "camliflow_tpu/ops/pallas_ohg.py:177", 0.0, time_ms(calls["this"], 50),
+                           time_ms(lambda: update3d.dw_max_plain(table, knn_idx, w), 20), ops,
+                           nbytes, label=f"dw_max{form} {key} (k={k}, C={channels}, by events)",
+                           entry=key == "conv1", wrapper="dw_max_bf16" if form else "dw_max",
+                           device_ms=dev[key], host_ms=host, device_ms_by_shape=tail_dev,
+                           bound_ms_by_shape=tail_bound, device_ms_bs8_by_shape=tail_dev8,
+                           bound_ms_bs8_by_shape=tail_bound8,
+                           **({"other_device_ms_by_shape": tail_other,
+                               "other_device_ms_bs8_by_shape": tail_other8} if other else {}),
+                           **({"exact_form_device_ms_by_shape": exact_dev,
+                               "exact_form_device_ms_bs8_by_shape": exact_dev8} if form else {}))
+            exact_dev, exact_dev8 = tail_dev, tail_dev8
+        del dw_gf8
 
     # the Correlation3D tail on the selection above (L=4, k=16, 2048 queries)
     tail_block = Correlation3D(n_levels=len(sizes), out_channels=128, k=16)

@@ -1212,12 +1212,20 @@ def test_corr3d_tail_scaled_kernel_matches_plain(cuda, batch, n, level_sizes, k,
 @pytest.mark.parametrize("batch,m,n_table,k,channels", [
     (1, 2048, 2048, 4, 256), (1, 2048, 2048, 4, 128),  # z|r, q
     (1, 2048, 2048, 32, 128), (1, 2048, 2048, 32, 64),  # conv1, conv2
+    (8, 2048, 2048, 4, 256), (8, 2048, 2048, 32, 128),  # bs 8: 16,384 points
+    (8, 2048, 2048, 32, 64),
     (2, 70, 100, 40, 125), (2, 33, 33, 1, 3), (1, 20, 30, 40, 20),
+    (2, 70, 100, 40, 8), (1, 90, 90, 13, 24), (1, 90, 90, 33, 40),  # packed words: 4, 8 lanes
+    (2, 50, 60, 7, 136), (1, 40, 50, 5, 264),  # 32 lanes, two rounds of channels
+    (2, 70, 100, 3, 16), (1, 50, 60, 4, 8),  # k <= 4: no split, 16 and 32 points a warp
 ])
 def test_dw_max_fast_kernel_is_plain_bit_for_bit(cuda, batch, m, n_table, k, channels):
     """#13 on bf16 weights: the table rounded to bf16 as it is read, bf16
     products, the max over k: bit for bit the plain version's, for each of
-    the kernel's load forms; counted on `fast_launches`."""
+    the kernel's load forms (on packed words, 8 channels a lane, where C is
+    a multiple of 8, the neighbours split over the warp where k > 4, empty
+    splits where k is less than the splits; else the f32-table forms);
+    counted on `fast_launches`."""
     gen = torch.Generator(device=cuda).manual_seed(52)
     table = torch.randn(batch, n_table, channels, generator=gen, device=cuda)
     idx = torch.randint(0, n_table, (batch, m, 32 + 9), generator=gen, device=cuda,
@@ -1478,11 +1486,12 @@ def test_gru_flowhead_3d_bf16_propagates_nan_and_signed_zeros_as_plain(cuda, bat
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [128, 64, 12])
+@pytest.mark.parametrize("channels", [128, 64, 12, 256, 24, 8])
 def test_dw_max_fast_kernel_takes_misaligned_rows(cuda, channels):
     """#13 on bf16 weights 2 bytes past a 16-byte boundary, a table 4 bytes
     past one, or both, with NaN and +-0 in both: bit for bit the plain
-    version, as on aligned rows."""
+    version, as on aligned rows (packed words where C is a multiple of 8,
+    the f32-table forms off 16-byte boundaries)."""
     gen = torch.Generator(device=cuda).manual_seed(56)
     table = torch.randn(2, 90, channels, generator=gen, device=cuda)
     table[:, 5, :2] = float("nan")
@@ -1567,7 +1576,8 @@ def counts(wrapper):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 100), (8, 2048)])
+@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 100), (8, 2048), (1, 77), (3, 2048),
+                                     (4, 4096)])
 def test_update3d_int8_kernels_match_plain(cuda, batch, n):
     """#6 and #7 on int8 hoisted weights (the merge conv's rows 128 bytes
     apart) with bf16 packings: within one bf16 step of the plain int8 form,
@@ -1593,6 +1603,45 @@ def test_update3d_int8_kernels_match_plain(cuda, batch, n):
     assert torch.equal(again[0], h_got) and torch.equal(again[1], d_got)
     assert_within_a_step(h_got, h_ref)
     assert_within_a_step(d_got, d_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 2048), (2, 77), (1, 2049), (3, 2048), (8, 2048)])
+def test_motion_encoder_3d_int8_tails_bit_for_bit_on_exact_dense_layers(cuda, batch, n):
+    """#6·int8 on bf16 tables with every dense layer a selection
+    (`selection`, then scaled by `prepare_int8`'s fold) on inputs of bf16
+    values: each dense sum has one nonzero term, exact in the kernel and in
+    the plain version, so the chain is its four tails (each pair of int8
+    weights widened into a bf16 word for `mul.rn.bf16x2`, each product
+    rounded to bf16, the max taken in neighbour order) and is bit for bit
+    the plain int8 form, with NaN and zero input rows and runs of zero weights
+    over every neighbour; a rerun bit for bit; counted on `int8_launches`.
+    Up to bs 2 the tails fit in a wave and take SH_I8_LANES, at bs 8
+    SH_I8_WIDE; at bs 3 each tail takes the shape its own wave allows."""
+    gen = torch.Generator().manual_seed(57)
+    with torch.inference_mode():
+        (encoder, gru, head), idx, dw_me, dw_gf = update3d_case(cuda, 57, batch, n)
+        for name in update3d.ME_CONVS:
+            selection(update3d._mlp(getattr(encoder, name)), gen)
+        dw = {"motion_encoder": {k: signed_zero_runs(w) for k, w in dw_me.items()},
+              "gru": {k: dw_gf[k] for k in ("conv_zr", "conv_q")},
+              "flow_head": {k: dw_gf[k] for k in ("conv1", "conv2")}}
+        dw, me, _ = update3d.prepare_int8(update3d.to_bf16(dw), encoder, gru, head)
+        dw8 = dw["motion_encoder"]
+        assert all(w.dtype == torch.int8 for w in dw8.values())
+        flow = (0.1 * torch.randn(batch, n, 3, generator=gen)).bfloat16().float().to(cuda)
+        corr = torch.randn(batch, n, 128, generator=gen).bfloat16().float().to(cuda)
+        if n > 1000:  # a NaN row reaches the points two neighbourhoods away
+            corr[:, 4] = float("nan")
+        corr[:, 6] = 0.0
+        before = counts(update3d.motion_encoder_3d)
+        got = update3d.motion_encoder_3d(flow, corr, idx, dw8, me)
+        assert counts(update3d.motion_encoder_3d) == (before[0], before[1], before[2] + 1)
+        again = update3d.motion_encoder_3d(flow, corr, idx, dw8, me)
+        ref = update3d.motion_encoder_3d_plain(flow, corr, idx, dw8, me)
+    assert (got == 0).any() and (got.isnan().any() or n < 1000)
+    assert bits_equal(got, ref)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
 
 
 @pytest.mark.cuda

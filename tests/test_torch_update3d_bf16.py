@@ -31,7 +31,13 @@ from camliflow_tpu.ops.pallas_update3d import _dw_conv
 from camliflow_torch.csrc import update3d_forms
 from camliflow_torch.models import camliraft_l as tm
 from camliflow_torch.ops import update3d
-from test_torch_update3d import SOURCE, fake_card, kernel_layout_floats, me_inputs  # noqa: F401
+from test_torch_update3d import (  # noqa: F401
+    SOURCE,
+    fake_card,
+    kernel_layout_floats,
+    me_inputs,
+    source_constants,
+)
 
 torch.set_num_threads(2)
 
@@ -301,3 +307,109 @@ def test_update3d_forms_patch_the_shipped_source(form):
     launch bounds) and not another."""
     for old, _ in update3d_forms.FORMS[form]:
         assert SOURCE.count(old) == 1, (form, old[:60])
+
+
+def dw_max_word_lanes(channels: int) -> int:
+    """The lanes across the channels (8 channels a lane) csrc/update3d.cu's
+    `camli_dw_max` gives its bf16 form on packed words at `channels`, by its
+    own dispatch; the warp's 32 / lanes lane groups split the neighbours."""
+    entry = SOURCE[SOURCE.index('extern "C" int camli_dw_max('):]
+    start = entry.index("c % 8 == 0")  # the rule: one return statement
+    rule = entry[start:entry.index(";", start)]
+    for most, lanes in re.findall(r"c <= (\d+)\s*\?\s*launch_dw_max_words<(\d+)>", rule):
+        if channels <= int(most):
+            return int(lanes)
+    return int(re.findall(r"launch_dw_max_words<(\d+)>", rule)[-1])
+
+
+def emulated_word_tail(table: torch.Tensor, knn_idx: torch.Tensor, dw: torch.Tensor,
+                       lanes: int, splits: int, rows: int = 8) -> torch.Tensor:
+    """#13's bf16 form on packed words: rounds of lanes * 8 channels, each
+    lane's 8 channels of the f32 table read as two rows of 4 and rounded
+    into bf16 words a pair at a time, its 8 weights as 4 words; `splits`
+    lane groups across the neighbours, each a contiguous run of ceil(k /
+    splits) taken in groups of `rows` by `mul_bf16x2` and the max in
+    neighbour order; then a butterfly over the splits, each pair's maxima
+    taken earlier run first (an empty split gives way). table [B, N, C]
+    f32, dw [B, M, k, C] bf16."""
+    channels, k = table.shape[-1], dw.shape[2]
+    per = -(-k // splits)
+    out = torch.empty(dw.shape[0], dw.shape[1], channels)
+    for c0 in range(0, channels, lanes * 8):
+        for c in range(c0, min(c0 + lanes * 8, channels), 8):
+            words = bf16_words(table[..., c:c + 8].bfloat16())  # cvt.rn.bf16x2 a pair
+            maxima = []
+            for s in range(splits):
+                lo, hi = min(k, s * per), min(k, s * per + per)
+                m = None
+                for j0 in range(lo, hi, rows):
+                    for j in range(j0, min(j0 + rows, hi)):
+                        t = torch.stack([words[b, knn_idx[b, :, j].long()]
+                                         for b in range(words.shape[0])])
+                        lo_p, hi_p = mul_bf16x2(t, bf16_words(dw[:, :, j, c:c + 8]))
+                        x = torch.stack([lo_p, hi_p], dim=-1).flatten(-2)
+                        m = x if m is None else take_max(m, x)
+                maxima.append(m)
+            off = 1
+            while off < splits:
+                maxima = [maxima[s ^ off] if maxima[min(s, s ^ off)] is None
+                          else maxima[min(s, s ^ off)] if maxima[max(s, s ^ off)] is None
+                          else take_max(maxima[min(s, s ^ off)], maxima[max(s, s ^ off)])
+                          for s in range(splits)]
+                off *= 2
+            out[..., c:c + 8] = maxima[0]
+    return out
+
+
+@pytest.mark.parametrize("channels,k", [(256, 4), (128, 4), (128, 32), (64, 32), (24, 13),
+                                        (136, 40)])
+def test_dw_max_bf16_word_form_is_plain_bit_for_bit(channels, k):
+    """#13's bf16 form on packed words, at the fuse_hidden path's four
+    shapes (z|r, q, conv1, conv2: 32, 16, 16 and 8 lanes across the
+    channels, the kernel's dispatch) and at ragged ones (k no multiple of
+    the splits, two rounds of channels), its neighbours split as shipped
+    (over the warp where k > kWordRows) and, the same bits, not at all, in
+    two runs and over the whole warp:
+    bit for bit `dw_max_plain` on the bf16 weights, with a NaN
+    table row, zero rows of both signs, runs of +-0 weights over every
+    neighbour (zero maxima), a NaN weight and repeated neighbours. A zero
+    maximum's sign is the earlier zero's (`take_max`, the kernel's rule);
+    torch.amax on the CPU keeps the earlier of tied zeros on narrow rows
+    and the later on wide ones (its vectorised path), so there the two are
+    held equal in value."""
+    assert [dw_max_word_lanes(c) for c in (256, 128, 64, 32, 16, 8, 136)] == [
+        32, 16, 8, 4, 2, 1, 32]
+    gen = torch.Generator().manual_seed(channels + k)
+    n = 48
+    table = torch.randn(1, n, channels, generator=gen)
+    table[0, 3] = float("nan")
+    table[0, 8], table[0, 9] = 0.0, -0.0
+    rows = torch.tensor([r for r in range(n) if r not in (3, 8, 9)])
+    knn_idx = rows[torch.argsort(torch.rand(1, n, len(rows), generator=gen), dim=-1)[..., :k]]
+    knn_idx = knn_idx.int()
+    knn_idx[:, ::5, k - 1] = knn_idx[:, ::5, 0]
+    knn_idx[:, ::6, k // 2] = 3  # the NaN row
+    knn_idx[:, 1::4, : min(k, 4)] = 9  # -0 rows first
+    knn_idx[:, 3::8, k - 1] = 8
+    w = torch.randn(1, n, k, channels, generator=gen)
+    w[0, 2::7, :, 1::4] = 0.0
+    w[0, 2::7, ::2, 1::4] = -0.0
+    w[0, 11, k // 2, 5] = float("nan")
+    w16 = w.bfloat16()
+    lanes = dw_max_word_lanes(channels)
+    rows = source_constants()["kWordRows"]
+    shipped = 32 // lanes if k > rows else 1  # the kernel's rule: split where k > rows
+    got = emulated_word_tail(table, knn_idx, w16, lanes, shipped, rows)
+    for splits in {1, 2, 32 // lanes} - {shipped}:  # every split gives the same bits
+        other = emulated_word_tail(table, knn_idx, w16, lanes, splits, rows)
+        assert torch.equal(other.view(torch.int32), got.view(torch.int32)), splits
+    plain = update3d.dw_max_plain(table, knn_idx, w16)
+    nan = torch.isnan(plain)
+    assert nan.any() and torch.equal(torch.isnan(got), nan)
+    zero = plain == 0
+    assert torch.equal(got[~nan & ~zero].view(torch.int32), plain[~nan & ~zero].view(torch.int32))
+    assert torch.equal(got[zero], plain[zero])
+    assert (zero & torch.signbit(got)).any() and (zero & ~torch.signbit(got)).any()
+    # the earlier zero's sign: the first neighbours are the -0 row (-0 * w)
+    first = torch.signbit(w16[0, 1::4, 0].float()) != torch.signbit(torch.tensor(-0.0))
+    assert torch.equal(torch.signbit(got[0, 1::4])[zero[0, 1::4]], first[zero[0, 1::4]])
